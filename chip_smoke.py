@@ -6,9 +6,12 @@
 Needs one CUDA card; exits non-zero without one. It
   1. prints the card (nvidia-smi name and power limit) and builds the CUDA
      kernels from `cpg_tpu_torch/csrc` (one nvcc per source, in parallel);
-  2. holds each kernel against its plain PyTorch version on the card at the
-     shapes VGG16-BN (width 1.0) gives it at batch 256, and times kernel,
-     plain version and a library yardstick with CUDA events (TF32 off);
+  2. holds each of the six kernels against its plain PyTorch version on the
+     card at the shapes VGG16-BN (width 1.0) gives it at batch 256, and
+     times kernel, plain version and a library yardstick with CUDA events
+     (TF32 off): the masked conv forward (K1) and its backward (K2 dx, K3
+     gated dw/dpm), the fused BN+ReLU+conv3x3 forward (K4) and its backward
+     (K5 dx/da/db, K6 dW);
   3. serve phase: builds a seeded two-task VGG16-BN state at full width
      (init_state -> start_task -> one_shot_prune 0.5 -> start_task, task 2's
      piggymask perturbed so some entries fall below the threshold), runs a
@@ -17,8 +20,15 @@ Needs one CUDA card; exits non-zero without one. It
      compares every answer with the unfused server;
   4. masked eval phase: the eval step with the masked-conv and fused-chain
      kernels against the default effective-params step, on task 2;
-  5. prints the kernels' JSON line (launch counts from the serve and eval
-     phases, errors, times, bounds), the card line, and last the result line.
+  5. train phase: the bf16 train step of task 2 with all six kernels
+     (`use_pallas_conv`, `use_fused_chain`) against the default step
+     (effective weights, cuDNN, autograd) from copies of one state with the
+     same batches and augmentation draws: the update of every tensor after
+     one step, the losses over three, the no-forgetting invariants, each
+     kernel's launches in one step, and ms/step at batch 256 and 1024;
+  6. prints the kernels' JSON line (launch counts from the serve, eval and
+     train phases, errors, times, bounds), the card line, and last the
+     result line.
 Each phase raises on failure. Per-shape results also go to
 chiprun_out/chip_smoke.json.
 """
@@ -41,6 +51,13 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor cores
               "float32": 67e12}    # f32 outside the tensor cores
 BF16_TOL = 2e-2                    # max|diff| <= BF16_TOL * max|ref|
 F32_TOL = 1e-4                     # rtol and atol
+SUM_TOL = 1e-4                     # f32 results of long f32 sums (dW, dpm):
+                                   # max|diff| <= SUM_TOL * max|ref|, the
+                                   # kernel and the plain version differing
+                                   # only in summation order
+AFFINE_SUM_TOL = 1e-3              # da, db: sums of dact * x with
+                                   # cancellation, relative to max|ref|
+THR = 5e-3                         # the piggymask threshold
 
 # (layer, H=W, Cin, Cout) of VGG16-BN at width 1.0, CIFAR 32x32 input
 MASKED_CONV_SHAPES = [("conv0", 32, 3, 64), ("conv2", 16, 64, 128),
@@ -81,7 +98,7 @@ def bound(nbytes: float, flops: float, dtype_name: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(got, want, dtype_name: str, what: str) -> float:
+def compare(got, want, dtype_name: str, what: str, rel=None) -> float:
     import torch
 
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -91,7 +108,9 @@ def compare(got, want, dtype_name: str, what: str) -> float:
     if not bool(torch.isfinite(g).all()):
         raise AssertionError(f"{what}: non-finite output")
     err = (g - w).abs().max().item()
-    if dtype_name == "float32":
+    if rel is not None:
+        ok = err <= rel * w.abs().max().item() + 1e-6
+    elif dtype_name == "float32":
         ok = bool(((g - w).abs() <= F32_TOL + F32_TOL * w.abs()).all())
     else:
         ok = err <= BF16_TOL * w.abs().max().item()
@@ -155,6 +174,122 @@ def fused_chain_phase(torch, dev, name, hw, cin, cout, dtype_name):
                 shape=[BATCH, hw, hw, cin, cout], max_abs_err=err,
                 ms=time_ms(kern), plain_ms=time_ms(plain),
                 library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def _conv_inputs(torch, dev, hw, cin, cout, dt, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((BATCH, hw, hw, cin), generator=g).to(dev, dt)
+    w = (torch.randn((3, 3, cin, cout), generator=g)
+         * (2.0 / (9 * cout)) ** 0.5).to(dev)
+    gy = (torch.randn((BATCH, hw, hw, cout), generator=g) * 0.1).to(dev, dt)
+    return g, x, w, gy
+
+
+def masked_conv_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name, mode,
+                           with_dx=True):
+    """K2 (when the layer's input needs a gradient) and K3 at one shape."""
+    from cpg_tpu_torch.ops import masked_conv as mc
+    from cpg_tpu_torch.ops.masked import effective_kernel
+
+    dt = getattr(torch, dtype_name)
+    gen, x, w, gy = _conv_inputs(torch, dev, hw, cin, cout, dt, SEED + 4)
+    own = torch.randint(0, 4, w.shape, generator=gen, dtype=torch.int8).to(dev)
+    pm = (torch.randn(w.shape, generator=gen) * 1e-2).to(dev)
+    elt, n_w = x.element_size(), w.numel()
+    flops = 2.0 * BATCH * hw * hw * 9 * cin * cout
+    gt, xt = gy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
+    common = dict(layer=name, dtype=dtype_name, mode=mode,
+                  shape=[BATCH, hw, hw, cin, cout])
+    rows = []
+    if with_dx:
+        kern = lambda: mc.masked_conv2d_bwd_dx(gy, x, w, own, pm, 2,
+                                               mask_mode=mode)
+        plain = lambda: mc.masked_conv2d_bwd_dx_plain(gy, x, w, own, pm, 2,
+                                                      mask_mode=mode)
+        library = lambda: torch.nn.grad.conv2d_input(
+            xt.shape, effective_kernel(w, own, pm, 2, mask_mode=mode)
+            .to(dt).permute(3, 2, 0, 1), gt, 1, 1)
+        err = compare(kern(), plain(), dtype_name, f"masked_conv_bwd_dx {name}")
+        b_ms, b_by = bound(gy.numel() * elt + 9 * n_w + x.numel() * elt,
+                           flops, dtype_name)
+        rows.append(dict(kernel="masked_conv_bwd_dx", **common,
+                         max_abs_err=err, ms=time_ms(kern),
+                         plain_ms=time_ms(plain), library_ms=time_ms(library),
+                         bound_ms=b_ms, bound_by=b_by))
+
+    kern = lambda: mc.masked_conv2d_bwd_dw(gy, x, w, own, 2)
+    plain = lambda: mc.masked_conv2d_bwd_dw_plain(gy, x, w, own, 2)
+
+    def library():
+        G = torch.nn.grad.conv2d_weight(xt, (cout, cin, 3, 3), gt, 1, 1)
+        G = G.permute(2, 3, 1, 0).float()
+        return (torch.where(own == 2, G, 0.0),
+                torch.where((own > 0) & (own < 2), G * w, 0.0))
+
+    got, want = kern(), plain()
+    err = max(compare(got[0], want[0], "float32", f"masked_conv_bwd_dw dw {name}",
+                      rel=SUM_TOL),
+              compare(got[1], want[1], "float32", f"masked_conv_bwd_dw dpm {name}",
+                      rel=SUM_TOL))
+    b_ms, b_by = bound(x.numel() * elt + gy.numel() * elt + 5 * n_w + 8 * n_w,
+                       flops, dtype_name)
+    rows.append(dict(kernel="masked_conv_bwd_dw", **common, max_abs_err=err,
+                     ms=time_ms(kern), plain_ms=time_ms(plain),
+                     library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name):
+    """K5 and K6 at one shape."""
+    from cpg_tpu_torch.ops import fused_chain as fc
+
+    dt = getattr(torch, dtype_name)
+    gen, x, w, gy = _conv_inputs(torch, dev, hw, cin, cout, dt, SEED + 5)
+    a = (torch.rand((cin,), generator=gen) + 0.5).to(dev)
+    b = (torch.randn((cin,), generator=gen) * 0.3).to(dev)
+    wd = w.to(dt)
+    elt = x.element_size()
+    flops = 2.0 * BATCH * hw * hw * 9 * cin * cout
+    gt, xt = gy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
+    common = dict(layer=name, dtype=dtype_name, shape=[BATCH, hw, hw, cin, cout])
+
+    kern = lambda: fc.fused_bwd_dx(x, a, b, wd, gy, dt)
+    plain = lambda: fc.fused_bwd_dx_plain(x, a, b, wd, gy, dt)
+
+    def library():
+        dact = torch.nn.grad.conv2d_input(xt.shape, wd.permute(3, 2, 0, 1),
+                                          gt, 1, 1).permute(0, 2, 3, 1)
+        xf = x.float()
+        dm = torch.where(xf * a + b > 0, dact.float(), 0.0)
+        return (dm * a).to(dt), (dm * xf).sum((0, 1, 2)), dm.sum((0, 1, 2))
+
+    got, want = kern(), plain()
+    err = max(compare(got[0], want[0], dtype_name, f"fused_chain_bwd_dx dx {name}"),
+              compare(got[1], want[1], "float32", f"fused_chain_bwd_dx da {name}",
+                      rel=AFFINE_SUM_TOL),
+              compare(got[2], want[2], "float32", f"fused_chain_bwd_dx db {name}",
+                      rel=AFFINE_SUM_TOL))
+    b_ms, b_by = bound((x.numel() + gy.numel() + wd.numel() + x.numel()) * elt,
+                       flops, dtype_name)
+    rows = [dict(kernel="fused_chain_bwd_dx", **common, max_abs_err=err,
+                 ms=time_ms(kern), plain_ms=time_ms(plain),
+                 library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)]
+
+    kern = lambda: fc.fused_bwd_dw(x, a, b, gy, dt)
+    plain = lambda: fc.fused_bwd_dw_plain(x, a, b, gy, dt)
+
+    def library():
+        act = torch.relu(x.float() * a + b).to(dt).permute(0, 3, 1, 2)
+        return torch.nn.grad.conv2d_weight(act, (cout, cin, 3, 3), gt, 1, 1)
+
+    err = compare(kern(), plain(), "float32", f"fused_chain_bwd_dw {name}",
+                  rel=SUM_TOL)
+    b_ms, b_by = bound((x.numel() + gy.numel()) * elt + 4 * w.numel(), flops,
+                       dtype_name)
+    rows.append(dict(kernel="fused_chain_bwd_dw", **common, max_abs_err=err,
+                     ms=time_ms(kern), plain_ms=time_ms(plain),
+                     library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by))
+    return rows
 
 
 def build_state(torch, dev):
@@ -240,21 +375,193 @@ def eval_phase(torch, dev, state, counts):
     return compare(got, ref, "bfloat16", "masked eval step"), launched
 
 
+# launches of each kernel in one train step of VGG16-BN task 2 with
+# use_pallas_conv and use_fused_chain: five masked convs (conv0's input is
+# the image, so no dx) and eight fused seams
+TRAIN_LAUNCHES = {"masked_conv_fwd": 5, "masked_conv_bwd_dx": 4,
+                  "masked_conv_bwd_dw": 5, "fused_chain_fwd": 8,
+                  "fused_chain_bwd_dx": 8, "fused_chain_bwd_dw": 8}
+TRAIN_STEPS = 3
+TRAIN_TIMING_BATCHES = (BATCH, 1024)  # bench.py's batch is 1024
+# Tolerances of the kernel step (bf16) against the default step (bf16). The
+# two round at different points: the default step's cuDNN convolutions
+# round every output, dgrad and wgrad to bf16; the kernel step keeps dact,
+# dW and dpm in f32 until the end. At a random init the gradients are
+# dominated by cancelling terms, so bf16 moves the update a long way (the
+# default bf16 step's BatchNorm-parameter updates differ by 60-77% from the
+# same step in f32 on the CPU at width 0.125). The yardstick is therefore
+# the default step in f32 (TF32 off): per group of tensors (shared,
+# private, piggymask), the kernel step's update may be at most
+# UPDATE_RATIO times as far from the f32 update as the default bf16
+# step's is; the losses agree within LOSS_RTOL.
+LOSS_RTOL = 2e-2
+UPDATE_RATIO = 2.0
+
+
+def _train_tensors(st, fn):
+    """Task 2's trained tensors of a state, keyed 'group/name'."""
+    t2 = st.tasks[2]
+    out = {f"shared/{k}": fn(v) for k, v in st.shared.items()}
+    out.update({f"piggymask/{k}": fn(v) for k, v in t2.piggymask.items()})
+    out.update({f"private/{k}": fn(v) for k, v in t2.private.items()})
+    return out
+
+
+def train_phase(torch, dev, state, counts):
+    """Task 2's bf16 train step with the six kernels against the default
+    step. Returns the comparison, the per-step launches and the timings."""
+    from cpg_tpu_torch.data.augment import cifar_train_augment, crop_flip_draws
+    from cpg_tpu_torch.models import get_model
+    from cpg_tpu_torch.train.step import TrainConfig, make_train_step
+
+    model_fn, _ = get_model("vgg16_bn_cifar")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    base = state.map_arrays(lambda t: t.clone())
+    # release 2% of task 2's entries so the free-entry invariant has entries
+    for k, own in base.ownership.items():
+        sel = (own == 2) & (torch.rand(own.shape, generator=gen) < 0.02).to(dev)
+        base.ownership[k] = own.masked_fill(sel, 0)
+        base.shared[k] = base.shared[k].masked_fill(sel, 0.0)
+    n_free = sum(int((o == 0).sum()) for o in base.ownership.values())
+
+    def batch(n):
+        x = torch.randint(0, 256, (n, 32, 32, 3), generator=gen,
+                          dtype=torch.uint8).to(dev)
+        y = torch.randint(0, 5, (n,), generator=gen).to(dev)
+        return x, y, crop_flip_draws(n, gen, 4)
+
+    batches = [batch(TRAIN_TIMING_BATCHES[0]) for _ in range(TRAIN_STEPS)]
+
+    def stepper(kernels, dtype=torch.bfloat16):
+        st = base.map_arrays(lambda t: t.clone())
+        task = st.tasks[2]
+        cfg = TrainConfig(use_pallas_conv=kernels, use_fused_chain=kernels,
+                          compute_dtype=dtype)
+        step, (opt_w, opt_pm) = make_train_step(
+            model_fn, num_classes=5, mult=base.width_mult, has_piggymask=True,
+            cfg=cfg, augment_fn=cifar_train_augment, device=dev)
+        carry = [st.shared, task.piggymask, task.private, task.bn_state,
+                 opt_w.init({"shared": st.shared, "private": task.private}),
+                 opt_pm.init(task.piggymask)]
+
+        def run(x, y, draws, it):
+            out = step(*carry[:6], st.ownership, 2, x, y, draws, it)
+            carry[:6] = out[:6]
+            return out[6]
+        return st, run
+
+    runs = {}
+    launched = None
+    for label, kernels, dtype in (("f32", False, torch.float32),
+                                  ("default", False, torch.bfloat16),
+                                  ("kernels", True, torch.bfloat16)):
+        st, run = stepper(kernels, dtype)
+        losses, first = [], None
+        for i, (x, y, draws) in enumerate(batches):
+            if kernels and i == 0:
+                torch.cuda.synchronize()
+                counts.reset()
+            m = run(x, y, draws, i)
+            losses.append(float(m["loss"]))
+            if kernels and i == 0:
+                torch.cuda.synchronize()
+                launched = counts.read()
+            if i == 0:
+                first = _train_tensors(st, lambda t: t.clone())
+        runs[label] = (st, losses, first)
+
+    init = _train_tensors(base, lambda t: t)
+    dist = {}  # label -> group -> ||update - f32 update||
+    ref_norm = {}
+    for group in ("shared", "private", "piggymask"):
+        keys = [k for k in init if k.startswith(group + "/")]
+        u32 = torch.cat([(runs["f32"][2][k] - init[k]).ravel() for k in keys])
+        ref_norm[group] = u32.norm().item()
+        for label in ("default", "kernels"):
+            u = torch.cat([(runs[label][2][k] - init[k]).ravel() for k in keys])
+            if not torch.isfinite(u).all():
+                raise AssertionError(f"train {label}: non-finite {group} update")
+            dist.setdefault(label, {})[group] = (u - u32).norm().item()
+    ld, lk, l32 = (runs[k][1] for k in ("default", "kernels", "f32"))
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(ld, lk))
+    stats = dict(losses_f32=l32, losses_default=ld, losses_kernels=lk,
+                 loss_max_rel=loss_rel, update_dist_to_f32=dist,
+                 f32_update_norm=ref_norm, free_entries=n_free)
+    print(f"train: {json.dumps(stats)}", flush=True)
+    if not all(np.isfinite(ld + lk + l32)):
+        raise AssertionError(f"train: non-finite losses {ld} {lk} {l32}")
+    if loss_rel > LOSS_RTOL:
+        raise AssertionError(f"train: losses {lk} vs default {ld}")
+    for group, d in dist["kernels"].items():
+        if d > UPDATE_RATIO * dist["default"][group] + 1e-6 * ref_norm[group]:
+            raise AssertionError(
+                f"train: the kernel step's {group} update is {d} from the f32 "
+                f"step's, the default step's {dist['default'][group]}")
+    # no forgetting: prior-task entries bit-unchanged, free entries zero,
+    # piggymask entries outside the prior domain unchanged
+    t0 = base.tasks[2]
+    for label, (st, _, _) in runs.items():
+        for k, own in base.ownership.items():
+            w, w0 = st.shared[k], base.shared[k]
+            if not torch.equal(w[own == 1], w0[own == 1]):
+                raise AssertionError(f"train {label}: task-1 entries of {k} moved")
+            if (w[own == 0] != 0).any():
+                raise AssertionError(f"train {label}: free entries of {k} nonzero")
+            pm, pm0 = st.tasks[2].piggymask[k], t0.piggymask[k]
+            if not torch.equal(pm[own != 1], pm0[own != 1]):
+                raise AssertionError(f"train {label}: piggymask of {k} moved "
+                                     "outside the prior-task entries")
+    for k, want in TRAIN_LAUNCHES.items():
+        if launched[k] != want:
+            raise AssertionError(f"train: {k} launched {launched[k]} times in "
+                                 f"one step, expected {want}")
+
+    # ms/step by host clock around steps that end in a synchronize; the two
+    # steps in turns (default, kernels, kernels, default), 10 steps a round
+    timing = {}
+    for n in TRAIN_TIMING_BATCHES:
+        x, y, draws = batch(n)
+        steppers = {"default": stepper(False)[1], "kernels": stepper(True)[1]}
+        rounds = {"default": [], "kernels": []}
+        for label in ("default", "kernels", "kernels", "default"):
+            run = steppers[label]
+            for i in range(2):
+                run(x, y, draws, i)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i in range(10):
+                run(x, y, draws, i)
+            torch.cuda.synchronize()
+            rounds[label].append((time.perf_counter() - t) / 10 * 1e3)
+        for label, ms in rounds.items():
+            mean = sum(ms) / len(ms)
+            timing[f"{label}_b{n}"] = {"ms_per_step": mean,
+                                       "img_per_s": n / mean * 1e3,
+                                       "rounds_ms": ms}
+    return dict(stats, timing=timing), launched
+
+
 class Counts:
     """The kernel wrappers' launch counters."""
 
     def __init__(self):
         from cpg_tpu_torch.ops import fused_chain, masked_conv
 
-        self.mods = {"masked_conv_fwd": masked_conv,
-                     "fused_chain_fwd": fused_chain}
+        self.where = {
+            "masked_conv_fwd": (masked_conv, "LAUNCHES"),
+            "masked_conv_bwd_dx": (masked_conv, "LAUNCHES_BWD_DX"),
+            "masked_conv_bwd_dw": (masked_conv, "LAUNCHES_BWD_DW"),
+            "fused_chain_fwd": (fused_chain, "LAUNCHES"),
+            "fused_chain_bwd_dx": (fused_chain, "LAUNCHES_BWD_DX"),
+            "fused_chain_bwd_dw": (fused_chain, "LAUNCHES_BWD_DW"),
+        }
 
     def reset(self):
-        for m in self.mods.values():
-            m.LAUNCHES = 0
+        for mod, attr in self.where.values():
+            setattr(mod, attr, 0)
 
     def read(self):
-        return {k: m.LAUNCHES for k, m in self.mods.items()}
+        return {k: getattr(mod, attr) for k, (mod, attr) in self.where.items()}
 
 
 def main() -> int:
@@ -273,21 +580,34 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
+    t_start = time.perf_counter()
     rows = []
     for name, hw, cin, cout in MASKED_CONV_SHAPES:
         rows.append(masked_conv_phase(torch, dev, name, hw, cin, cout,
                                       "bfloat16", "binary"))
+        rows += masked_conv_bwd_phases(torch, dev, name, hw, cin, cout,
+                                       "bfloat16", "binary",
+                                       with_dx=name != "conv0")
     rows.append(masked_conv_phase(torch, dev, "conv4", 8, 128, 256,
                                   "bfloat16", "ternary"))
+    rows += masked_conv_bwd_phases(torch, dev, "conv4", 8, 128, 256,
+                                   "bfloat16", "ternary")
     rows.append(masked_conv_phase(torch, dev, "conv7", 4, 256, 512,
                                   "float32", "binary"))
+    rows += masked_conv_bwd_phases(torch, dev, "conv7", 4, 256, 512,
+                                   "float32", "binary")
     for name, hw, cin, cout in CHAIN_SHAPES:
         rows.append(fused_chain_phase(torch, dev, name, hw, cin, cout,
                                       "bfloat16"))
+        rows += fused_chain_bwd_phases(torch, dev, name, hw, cin, cout,
+                                       "bfloat16")
     rows.append(fused_chain_phase(torch, dev, "conv3", 16, 128, 128,
                                   "float32"))
+    rows += fused_chain_bwd_phases(torch, dev, "conv3", 16, 128, 128,
+                                   "float32")
     for r in rows:
         print("phase " + json.dumps(r), flush=True)
+    t_kernels = time.perf_counter() - t_start
 
     state = build_state(torch, dev)
     counts = Counts()
@@ -299,45 +619,62 @@ def main() -> int:
           f"{json.dumps(lat)} on {card}", flush=True)
     eval_err, eval_counts = eval_phase(torch, dev, state, counts)
     print(f"eval: max|diff| vs effective-params step {eval_err}", flush=True)
-    print(f"launches: serve {serve_counts}, eval {eval_counts}", flush=True)
     if serve_counts["fused_chain_fwd"] == 0:
         raise AssertionError("serve phase launched no fused_chain_fwd kernel")
-    for k, v in eval_counts.items():
-        if v == 0:
+    for k in ("masked_conv_fwd", "fused_chain_fwd"):
+        if eval_counts[k] == 0:
             raise AssertionError(f"eval phase launched no {k} kernel")
+    train, train_counts = train_phase(torch, dev, state, counts)
+    print(f"train: {json.dumps(train)} on {card}", flush=True)
+    print(f"launches: serve {serve_counts}, eval {eval_counts}, "
+          f"train (one step) {train_counts}", flush=True)
 
     meta = {
         "masked_conv_fwd": ("cpg_tpu_torch/csrc/masked_conv_fwd.cu",
                             "cpg_tpu/ops/pallas/masked_matmul.py:97"),
+        "masked_conv_bwd_dx": ("cpg_tpu_torch/csrc/masked_conv_bwd_dx.cu",
+                               "cpg_tpu/ops/pallas/masked_matmul.py:173"),
+        "masked_conv_bwd_dw": ("cpg_tpu_torch/csrc/masked_conv_bwd_dw.cu",
+                               "cpg_tpu/ops/pallas/masked_matmul.py:244"),
         "fused_chain_fwd": ("cpg_tpu_torch/csrc/fused_chain_fwd.cu",
                             "cpg_tpu/ops/pallas/fused_chain.py:134"),
+        "fused_chain_bwd_dx": ("cpg_tpu_torch/csrc/fused_chain_bwd_dx.cu",
+                               "cpg_tpu/ops/pallas/fused_chain.py:233"),
+        "fused_chain_bwd_dw": ("cpg_tpu_torch/csrc/fused_chain_bwd_dw.cu",
+                               "cpg_tpu/ops/pallas/fused_chain.py:276"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == name]
-        fwd = [r for r in mine if r["dtype"] == "bfloat16"
-               and r.get("mode", "binary") == "binary"]  # one VGG forward
+        # the layers of one VGG16-BN train step, bf16 binary
+        step = [r for r in mine if r["dtype"] == "bfloat16"
+                and r.get("mode", "binary") == "binary"]
         by = {}
-        for r in fwd:
+        for r in step:
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": serve_counts[name] + eval_counts[name],
+            "launches": (serve_counts[name] + eval_counts[name]
+                         + train_counts[name]),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": sum(r["ms"] for r in fwd),
-            "plain_ms": sum(r["plain_ms"] for r in fwd),
-            "bound_ms": sum(r["bound_ms"] for r in fwd),
+            "ms": sum(r["ms"] for r in step),
+            "plain_ms": sum(r["plain_ms"] for r in step),
+            "bound_ms": sum(r["bound_ms"] for r in step),
             "bound_by": max(by, key=by.get),
-            "library_ms": sum(r["library_ms"] for r in fwd),
+            "library_ms": sum(r["library_ms"] for r in step),
         })
+    wall = time.perf_counter() - t_start
+    print(f"wall: {wall:.1f} s after the build ({t_kernels:.1f} s kernel "
+          f"phases)", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "phases": rows, "serve_latency": lat,
                    "serve_max_abs_err": serve_err,
-                   "eval_max_abs_err": eval_err,
-                   "launches": {"serve": serve_counts, "eval": eval_counts},
-                   "kernels": kernels}, f, indent=1)
+                   "eval_max_abs_err": eval_err, "train": train,
+                   "launches": {"serve": serve_counts, "eval": eval_counts,
+                                "train_one_step": train_counts},
+                   "kernels": kernels, "wall_s": wall}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,10 @@ imports `torch` only. The hot kernels are hand-written CUDA C++ for sm_90a
 under `csrc/`, built with nvcc at first use (`ops/_build.py`).
 
 Entry points (`serve.TaskServer`, `inference.predict`,
-`train.step.make_eval_step`, `python -m cpg_tpu_torch serve`) run on the card
-by default and raise when CUDA is missing; pass `device="cpu"` to run on the
-CPU, where every kernel wrapper uses its plain PyTorch version.
+`train.step.make_train_step`, `train.step.make_eval_step`,
+`python -m cpg_tpu_torch serve`) run on the card by default and raise when
+CUDA is missing; pass `device="cpu"` to run on the CPU, where every kernel
+wrapper uses its plain PyTorch version.
 """
 
 from .core.state import CPGState, TaskEntry

@@ -51,3 +51,8 @@ def task_ratio(ownership, task_id) -> torch.Tensor:
 
 def used_ratio(ownership) -> torch.Tensor:
     return _frac([m > FREE for m in ownership.values()])
+
+
+def prior_mask(own: torch.Tensor, task_id) -> torch.Tensor:
+    """Entries owned by strictly earlier tasks (the piggymask domain)."""
+    return (own > FREE) & (own < int(task_id))

@@ -52,3 +52,18 @@ def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int,
 
 def out_size(size: int, k: int, stride: int, lo: int, hi: int) -> int:
     return (size + lo + hi - k) // stride + 1
+
+
+# The wgrad kernels (csrc/conv_bwd.cuh) split their reduction over output
+# pixels across blocks: aim for this many blocks in flight, each split
+# reducing at least _MIN_ROWS pixels; _BKO x _BNO is their output tile.
+_TARGET_BLOCKS, _MIN_ROWS = 264, 256
+_BKO, _BNO = 128, 64
+
+
+def wgrad_splits(m_rows: int, k: int, cout: int) -> int:
+    """Number of split-K partials for a weight gradient of shape (k, cout)
+    reduced over m_rows output pixels."""
+    tiles = -(-k // _BKO) * -(-cout // _BNO)
+    want = max(1, -(-_TARGET_BLOCKS // tiles))
+    return max(1, min(want, m_rows // _MIN_ROWS))

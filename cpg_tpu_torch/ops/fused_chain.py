@@ -1,17 +1,26 @@
-"""Fused BN-affine + ReLU + 3x3 conv forward — the cross-layer chain.
+"""Fused BN-affine + ReLU + 3x3 conv — the cross-layer chain, forward and
+backward.
 
     y = conv3x3_same(relu(a * x + b), w)
 
 with (a, b) the folded BatchNorm affine. `fused_affine_relu_conv` is the
-counterpart of `cpg_tpu.ops.pallas.fused_chain.fused_affine_relu_conv`
-(forward). On a CUDA tensor it launches the hand-written kernel
-`csrc/fused_chain_fwd.cu`, where the normalised activation lives only in
-shared memory; on a CPU tensor it runs the plain version `fused_oracle`.
+counterpart of `cpg_tpu.ops.pallas.fused_chain.fused_affine_relu_conv` and
+its `custom_vjp`: a `torch.autograd.Function` that saves x, a, b and w (not
+the activation) and returns dx in x's dtype and da, db, dW in f32.
 
-The kernel's shape predicate (`supported`) is its own, derived from its
-shared-memory tiles; it covers every VGG16-BN seam at width mult <= 2,
-including the 2x2 seams that the TPU kernel left to XLA. A CUDA call outside
-it raises.
+On CUDA tensors it launches hand-written kernels, in which the normalised
+activation never reaches device memory: `csrc/fused_chain_fwd.cu` (K4, the
+activation staged in shared memory), `csrc/fused_chain_bwd_dx.cu` (K5: dx,
+and da, db from per-block partials; the ReLU mask recomputed from x in the
+epilogue) and `csrc/fused_chain_bwd_dw.cu` (K6: dW with relu(a*x+b)
+recomputed in the operand load). On CPU tensors the plain versions
+`fused_oracle` and `fused_bwd_plain` run.
+
+The forward kernel's shape predicate (`supported`) is its own, derived from
+its shared-memory tiles; it covers every VGG16-BN seam at width mult <= 2,
+including the 2x2 seams that the TPU kernels left to XLA, and the backward
+kernels take every shape it admits, so no seam switches implementation. A
+CUDA call outside a predicate raises.
 """
 
 from __future__ import annotations
@@ -21,15 +30,18 @@ import ctypes
 import torch
 
 from . import _build
-from .conv import conv2d_nhwc
+from .conv import conv2d_nhwc, wgrad_splits
 
-LAUNCHES = 0
+# kernel launches since the last reset (set to 0 to start counting)
+LAUNCHES = 0          # K4, forward
+LAUNCHES_BWD_DX = 0   # K5
+LAUNCHES_BWD_DW = 0   # K6
 
 # tile constants of csrc/fused_chain_fwd.cu (BM, BN, BKC) and the card's
 # per-block shared-memory limit (H100: 227 KB)
 _BM, _BN, _BKC = 128, 64, 32
 _SMEM_LIMIT = 232448
-_FN = {torch.bfloat16: "fused_chain_fwd_bf16", torch.float32: "fused_chain_fwd_f32"}
+_DOT_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def fused_oracle(x, a, b, w, dot_dtype=torch.float32):
@@ -57,59 +69,220 @@ def supported(x, w, dot_dtype) -> bool:
     cout = w.shape[3]
     if dot_dtype == torch.bfloat16 and (c % 8 or cout % 8):
         return False
-    return (dot_dtype in _FN and x.dtype == dot_dtype and 1 <= wd <= _BM
+    return (dot_dtype in _DOT_DTYPES and x.dtype == dot_dtype and 1 <= wd <= _BM
             and min(n, h, c, cout) >= 1
             and _smem_bytes(wd, dot_dtype) <= _SMEM_LIMIT)
 
 
+def fused_bwd_dx_plain(x, a, b, w, g, dot_dtype=torch.float32):
+    """Plain version of K5, as `cpg_tpu`'s `_fused_bwd_xla`: pre = a*x + b
+    in f32; dact = conv_transpose(g, w) with g and w in the dot dtype and
+    f32 sums; dmasked = dact * 1[pre > 0]; returns dx = dmasked * a in x's
+    dtype, da = sum dmasked * x and db = sum dmasked in f32."""
+    n, h, wd, cin = x.shape
+    xf = x.float()
+    mask = xf * a + b > 0
+    gt = g.to(dot_dtype).float().permute(0, 3, 1, 2)
+    wt = w.to(dot_dtype).float().permute(3, 2, 0, 1)
+    dact = torch.nn.grad.conv2d_input((n, cin, h, wd), wt, gt, 1, 1)
+    dmasked = torch.where(mask, dact.permute(0, 2, 3, 1), 0.0)
+    return ((dmasked * a).to(x.dtype), (dmasked * xf).sum((0, 1, 2)),
+            dmasked.sum((0, 1, 2)))
+
+
+def fused_bwd_dw_plain(x, a, b, g, dot_dtype=torch.float32):
+    """Plain version of K6: dW (f32, HWIO) = the weight gradient of
+    act = relu(a*x + b) (f32, cast to the dot dtype) against g."""
+    cout = g.shape[3]
+    pre = x.float() * a + b
+    act = torch.where(pre > 0, pre, 0.0).to(dot_dtype).float()
+    gt = g.to(dot_dtype).float().permute(0, 3, 1, 2)
+    dw = torch.nn.grad.conv2d_weight(act.permute(0, 3, 1, 2),
+                                     (cout, x.shape[3], 3, 3), gt, 1, 1)
+    return dw.permute(2, 3, 1, 0).contiguous()
+
+
+def fused_bwd_plain(x, a, b, w, g, dot_dtype=torch.float32):
+    """Plain backward, as `cpg_tpu`'s `_fused_bwd_xla`: (dx, da, db, dw)."""
+    return (*fused_bwd_dx_plain(x, a, b, w, g, dot_dtype),
+            fused_bwd_dw_plain(x, a, b, g, dot_dtype))
+
+
+class _FusedAffineReluConv(torch.autograd.Function):
+    """y = conv3x3_same(relu(a*x + b), w); residuals x, a, b, w (as the JAX
+    custom_vjp), never the activation."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, w, dot_dtype):
+        ctx.save_for_backward(x, a, b, w)
+        ctx.dot_dtype = dot_dtype
+        if x.device.type == "cpu":
+            return fused_oracle(x, a, b, w, dot_dtype)
+        return _launch_fwd(x, a, b, w, dot_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a, b, w = ctx.saved_tensors
+        dot = ctx.dot_dtype
+        need = ctx.needs_input_grad
+        g = g.to(dot).contiguous()
+        dx = da = db = dw = None
+        if any(need[:3]):
+            dx, da, db = fused_bwd_dx(x, a, b, w, g, dot)
+        if need[3]:
+            dw = fused_bwd_dw(x, a, b, g, dot).to(w.dtype)
+        return dx, da, db, dw, None
+
+
 def fused_affine_relu_conv(x, a, b, w, dot_dtype=torch.bfloat16):
-    """y = conv3x3_same(relu(a*x + b), w). x: (N,H,W,Cin) in the dot dtype;
+    """y = conv3x3_same(relu(a*x + b), w): K4 on CUDA tensors, the plain
+    version on CPU tensors. x: (N,H,W,Cin) in the dot dtype;
     a, b: (Cin,) f32 folded-BN affine; w: (3,3,Cin,Cout) effective weight,
-    cast to the dot dtype. Output in the dot dtype."""
+    cast to the dot dtype. Output in the dot dtype. Differentiable in x, a,
+    b and w: dx in x's dtype, da, db and dw in f32 (`fused_bwd_plain`); BN
+    train-mode statistics get their gradients through a(x), b(x) at the
+    call site."""
+    return _FusedAffineReluConv.apply(x, a, b, w, dot_dtype)
+
+
+def fused_bwd_dx(x, a, b, w, g, dot_dtype=torch.bfloat16):
+    """(dx, da, db) for output gradient g: K5 on CUDA tensors, the plain
+    version on CPU tensors."""
     if x.device.type == "cpu":
-        return fused_oracle(x, a, b, w, dot_dtype)
-    return _launch(x, a, b, w, dot_dtype)
+        return fused_bwd_dx_plain(x, a, b, w, g, dot_dtype)
+    return _launch_bwd_dx(x, a, b, w, g, dot_dtype)
 
 
-def _lib():
-    lib = _build.load("fused_chain_fwd")
-    for name in _FN.values():
-        f = getattr(lib, name)
-        if f.argtypes is None:
-            f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-            f.restype = ctypes.c_int
-    return lib
+def fused_bwd_dw(x, a, b, g, dot_dtype=torch.bfloat16):
+    """dW (f32) for output gradient g: K6 on CUDA tensors, the plain version
+    on CPU tensors."""
+    if x.device.type == "cpu":
+        return fused_bwd_dw_plain(x, a, b, g, dot_dtype)
+    return _launch_bwd_dw(x, a, b, g, dot_dtype)
 
 
-def _launch(x, a, b, w, dot_dtype):
-    global LAUNCHES
+# ------------------------------------------------------------- kernels ----
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# C signatures: the pointers, the ints, the stream
+_ARGTYPES = {
+    "fused_chain_fwd": [_P] * 5 + [_I] * 5 + [_P],
+    "fused_chain_bwd_dx": [_P] * 10 + [_I] * 5 + [_P],
+    "fused_chain_bwd_dw": [_P] * 6 + [_I] * 6 + [_P],
+}
+_BM_BWD = 128  # output pixels per block of the dx kernel (da/db partials)
+
+
+def _fn(lib_name, dtype):
+    f = getattr(_build.load(lib_name), f"{lib_name}_{_SUFFIX[dtype]}")
+    if f.argtypes is None:
+        f.argtypes = _ARGTYPES[lib_name]
+        f.restype = ctypes.c_int
+    return f
+
+
+def _bwd_supported(x, cout, dot_dtype) -> bool:
+    """Shapes the backward kernels take: a superset of `supported` (any
+    width; in bf16 channel counts in multiples of 8, for 16-byte loads)."""
+    return (dot_dtype in _DOT_DTYPES and x.dtype == dot_dtype and x.dim() == 4
+            and min(*x.shape, cout) >= 1
+            and not (dot_dtype == torch.bfloat16
+                     and (x.shape[3] % 8 or cout % 8)))
+
+
+def _checked(x, a, b, w_shape, dot_dtype, fwd: bool, tensors):
+    """Device, dtype, shape and alignment checks of a launch."""
     if not x.is_cuda:
         raise ValueError(f"fused_chain kernel: x must be a CUDA tensor, got {x.device}")
-    if not supported(x, w, dot_dtype):
+    w_meta = torch.empty(w_shape, device="meta")
+    ok = (tuple(w_shape[:3]) == (3, 3, x.shape[-1]) and
+          (supported(x, w_meta, dot_dtype) if fwd
+           else _bwd_supported(x, w_shape[3], dot_dtype)))
+    if not ok:
         raise ValueError(
             f"fused_chain kernel: unsupported x {tuple(x.shape)} {x.dtype}, "
-            f"w {tuple(w.shape)}, dot dtype {dot_dtype} (needs x in the dot "
-            f"dtype, bf16 or f32, a 3x3 kernel, W <= {_BM} and, in bf16, "
-            f"channels in multiples of 8)")
-    w = w.to(dot_dtype).contiguous()
-    n, h, wd, cin = x.shape
-    cout = w.shape[3]
+            f"w {tuple(w_shape)}, dot dtype {dot_dtype} (needs x in the dot "
+            f"dtype, bf16 or f32, a 3x3 kernel, in bf16 channels in "
+            f"multiples of 8" + (f", and W <= {_BM}" if fwd else "") + ")")
+    cin = x.shape[3]
     for name, t in (("a", a), ("b", b)):
-        if t.dtype != torch.float32 or t.shape != (cin,) or not t.is_contiguous():
-            raise ValueError(f"fused_chain kernel: {name} must be contiguous f32 ({cin},)")
-    for name, t in (("x", x), ("a", a), ("b", b), ("w", w)):
+        if t.dtype != torch.float32 or t.shape != (cin,):
+            raise ValueError(f"fused_chain kernel: {name} must be f32 ({cin},)")
+    for name, t in (("x", x), ("a", a), ("b", b), *tensors.items()):
         if t.device != x.device:
             raise ValueError(f"fused_chain kernel: {name} on {t.device}, x on {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("fused_chain kernel: x must be contiguous NHWC")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("fused_chain kernel: x and w must be 16-byte aligned")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_chain kernel: {name} must be contiguous")
+    for name, t in (("x", x), *tensors.items()):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_chain kernel: {name} must be 16-byte aligned")
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_fwd(x, a, b, w, dot_dtype):
+    global LAUNCHES
+    w = w.to(dot_dtype).contiguous()
+    _checked(x, a, b, w.shape, dot_dtype, True, {"w": w})
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
     y = torch.empty((n, h, wd, cout), dtype=dot_dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(_lib(), _FN[dot_dtype])(
+    err = _fn("fused_chain_fwd", dot_dtype)(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(), y.data_ptr(),
-        n, h, wd, cin, cout, stream)
+        n, h, wd, cin, cout, _stream(x))
     if err:
         raise RuntimeError(f"fused_chain_fwd launch failed: CUDA error {err}")
     LAUNCHES += 1
     return y
+
+
+def _launch_bwd_dx(x, a, b, w, g, dot_dtype):
+    """K5: dx, da, db; da and db from per-block partials summed in a fixed
+    order."""
+    global LAUNCHES_BWD_DX
+    w = w.to(dot_dtype).contiguous()
+    _checked(x, a, b, w.shape, dot_dtype, False, {"w": w, "g": g})
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    if g.shape != (n, h, wd, cout) or g.dtype != dot_dtype:
+        raise ValueError(f"fused_chain kernel: g must be {(n, h, wd, cout)} "
+                         f"in {dot_dtype}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    tiles = -(-n * h * wd // _BM_BWD)
+    ws = torch.empty((2, tiles, cin), **f32)
+    dx = torch.empty_like(x)
+    da = torch.empty((cin,), **f32)
+    db = torch.empty((cin,), **f32)
+    err = _fn("fused_chain_bwd_dx", dot_dtype)(
+        x.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
+        dx.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(), da.data_ptr(),
+        db.data_ptr(), n, h, wd, cin, cout, _stream(x))
+    if err:
+        raise RuntimeError(f"fused_chain_bwd_dx launch failed: CUDA error {err}")
+    LAUNCHES_BWD_DX += 1
+    return dx, da, db
+
+
+def _launch_bwd_dw(x, a, b, g, dot_dtype):
+    """K6: dW = act^T shift(g) in f32, act = relu(a*x+b) recomputed in the
+    operand load; split-K partials summed in a fixed order."""
+    global LAUNCHES_BWD_DW
+    n, h, wd, cin = x.shape
+    cout = g.shape[3]
+    _checked(x, a, b, (3, 3, cin, cout), dot_dtype, False, {"g": g})
+    if g.shape != (n, h, wd, cout) or g.dtype != dot_dtype:
+        raise ValueError(f"fused_chain kernel: g must be {(n, h, wd, cout)} "
+                         f"in {dot_dtype}")
+    s = wgrad_splits(n * h * wd, 9 * cin, cout)
+    ws = torch.empty((s, 9 * cin, cout), dtype=torch.float32, device=x.device)
+    dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    err = _fn("fused_chain_bwd_dw", dot_dtype)(
+        x.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(), ws.data_ptr(),
+        dw.data_ptr(), n, h, wd, cin, cout, s, _stream(x))
+    if err:
+        raise RuntimeError(f"fused_chain_bwd_dw launch failed: CUDA error {err}")
+    LAUNCHES_BWD_DW += 1
+    return dw

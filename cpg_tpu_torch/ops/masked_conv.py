@@ -1,11 +1,26 @@
-"""Masked conv forward: the CPG SharableConv2d with the ownership/piggymask
-select inside the GEMM's weight-tile load.
+"""Masked conv: the CPG SharableConv2d with the ownership/piggymask select
+inside the GEMM's weight-tile load, forward and backward.
 
 `masked_conv2d` is the counterpart of `cpg_tpu.ops.pallas.masked_conv.
-masked_conv2d` (forward). On a CUDA tensor it launches the hand-written
-implicit-GEMM kernel `csrc/masked_conv_fwd.cu`, which never builds an im2col
-tensor nor the effective weight; on a CPU tensor it runs the plain version
-`masked_conv2d_plain` (effective kernel in f32, then an f32 convolution).
+masked_conv2d` and its `custom_vjp` (`masked_matmul.py`): a
+`torch.autograd.Function` that saves `x, w, own, pm` (never the effective
+weight) and returns
+
+    dx  = conv_transpose(g, w_eff)                       in x's dtype
+    dw  = G       where own == task_id, else 0           f32, HWIO
+    dpm = G * w   where 0 < own < task_id, else 0        f32, HWIO
+
+with G the weight gradient of the convolution. `dpm` is the same formula in
+the binary and the ternary mode (straight-through estimator); `own`, the
+task id, the threshold and the mode get no gradient, and `dx` is computed
+only when x needs it (conv0's input is the image).
+
+On CUDA tensors the three products are hand-written implicit-GEMM kernels:
+`csrc/masked_conv_fwd.cu` (K1), `csrc/masked_conv_bwd_dx.cu` (K2, the
+select in the transposed weight-tile load) and `csrc/masked_conv_bwd_dw.cu`
+(K3, split-K f32 partials summed in a fixed order by a second pass that
+applies the gating). On CPU tensors the plain versions `masked_conv2d_plain` and
+`masked_conv2d_bwd_plain` run. Every kernel keeps its own launch counter.
 """
 
 from __future__ import annotations
@@ -13,17 +28,20 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .binarize import DEFAULT_THRESHOLD
-from .conv import conv2d_nhwc, out_size, resolve_padding
+from .conv import conv2d_nhwc, out_size, resolve_padding, wgrad_splits
 from .masked import effective_kernel
 
 # kernel launches since the last reset (set to 0 to start counting)
-LAUNCHES = 0
+LAUNCHES = 0          # K1, forward
+LAUNCHES_BWD_DX = 0   # K2
+LAUNCHES_BWD_DW = 0   # K3
 
 _MODES = ("binary", "ternary")
-_FN = {torch.bfloat16: "masked_conv_fwd_bf16", torch.float32: "masked_conv_fwd_f32"}
+_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def masked_conv2d_plain(x, w, own, pm, task_id, stride: int = 1,
@@ -36,32 +54,145 @@ def masked_conv2d_plain(x, w, own, pm, task_id, stride: int = 1,
     return conv2d_nhwc(x.float(), weff, stride, pads).to(x.dtype)
 
 
+def masked_conv2d_bwd_dx_plain(g, x, w, own, pm, task_id, stride: int = 1,
+                               padding="SAME",
+                               threshold: float = DEFAULT_THRESHOLD,
+                               mask_mode: str = "binary"):
+    """Plain version of K2: dx = conv_transpose(g, w_eff), with g and the
+    effective kernel in x's dtype, f32 sums, dx cast to x's dtype last."""
+    kh, kw, cin, _ = w.shape
+    n, h, wd, _ = x.shape
+    pt, pb, pl, pr = resolve_padding(padding, h, wd, kh, kw, stride)
+    gt = g.to(x.dtype).float().permute(0, 3, 1, 2)
+    weff = effective_kernel(w.float(), own, pm, task_id, threshold,
+                            mask_mode).to(x.dtype).float()
+    dxp = torch.nn.grad.conv2d_input((n, cin, h + pt + pb, wd + pl + pr),
+                                     weff.permute(3, 2, 0, 1), gt, stride)
+    dx = dxp[:, :, pt:pt + h, pl:pl + wd].permute(0, 2, 3, 1)
+    return dx.to(x.dtype).contiguous()
+
+
+def masked_conv2d_bwd_dw_plain(g, x, w, own, task_id, stride: int = 1,
+                               padding="SAME"):
+    """Plain version of K3: G = the conv's weight gradient (x and g in x's
+    dtype, f32 sums), then dw = G on own == task, dpm = G * w on
+    0 < own < task, both f32 HWIO."""
+    kh, kw, cin, cout = w.shape
+    pt, pb, pl, pr = resolve_padding(padding, x.shape[1], x.shape[2], kh, kw,
+                                     stride)
+    gt = g.to(x.dtype).float().permute(0, 3, 1, 2)
+    xp = F.pad(x.float().permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    G = torch.nn.grad.conv2d_weight(xp, (cout, cin, kh, kw), gt, stride)
+    G = G.permute(2, 3, 1, 0)  # OIHW -> HWIO
+    tid = int(task_id)
+    zero = torch.zeros((), dtype=torch.float32, device=G.device)
+    dw = torch.where(own == tid, G, zero).contiguous()
+    dpm = torch.where((own > 0) & (own < tid), G * w.float(), zero).contiguous()
+    return dw, dpm
+
+
+def masked_conv2d_bwd_plain(g, x, w, own, pm, task_id, stride: int = 1,
+                            padding="SAME",
+                            threshold: float = DEFAULT_THRESHOLD,
+                            mask_mode: str = "binary", need_dx: bool = True):
+    """Plain backward: (dx or None, dw, dpm) for output gradient g (NHWC),
+    with the kernels' rounding points (see the two parts)."""
+    dx = (masked_conv2d_bwd_dx_plain(g, x, w, own, pm, task_id, stride,
+                                     padding, threshold, mask_mode)
+          if need_dx else None)
+    return (dx, *masked_conv2d_bwd_dw_plain(g, x, w, own, task_id, stride,
+                                            padding))
+
+
+class _MaskedConv2d(torch.autograd.Function):
+    """y = conv(x, w_eff); residuals x, w, own, pm (as the JAX custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, x, w, own, pm, task_id, stride, padding, threshold,
+                mask_mode):
+        ctx.save_for_backward(x, w, own, pm)
+        ctx.conf = (task_id, stride, padding, threshold, mask_mode)
+        if x.device.type == "cpu":
+            return masked_conv2d_plain(x, w, own, pm, task_id, stride,
+                                       padding, threshold, mask_mode)
+        return _launch_fwd(x, w, own, pm, task_id, stride, padding,
+                           threshold, mask_mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, own, pm = ctx.saved_tensors
+        task_id, stride, padding, threshold, mask_mode = ctx.conf
+        g = g.to(x.dtype).contiguous()
+        dx = (masked_conv2d_bwd_dx(g, x, w, own, pm, task_id, stride, padding,
+                                   threshold, mask_mode)
+              if ctx.needs_input_grad[0] else None)
+        dw, dpm = masked_conv2d_bwd_dw(g, x, w, own, task_id, stride, padding)
+        return dx, dw, None, dpm, None, None, None, None, None
+
+
 def masked_conv2d(x, w, own, pm, task_id, stride: int = 1, padding="SAME",
                   threshold: float = DEFAULT_THRESHOLD,
                   mask_mode: str = "binary"):
     """NHWC conv with HWIO weight; ownership (int8) and piggymask (f32)
-    shaped like w. Output in x's dtype, f32 accumulation.
+    shaped like w. Output in x's dtype, f32 accumulation. Differentiable in
+    x, w and pm (see the module docstring).
 
     y[n,i,j,o] = sum_{dh,dw,c} x_pad[n, i*s+dh, j*s+dw, c] * w_eff[dh,dw,c,o]
     """
     if mask_mode not in _MODES:
         raise ValueError(f"masked_conv2d: mask_mode {mask_mode!r} not in {_MODES}")
+    return _MaskedConv2d.apply(x, w, own, pm, int(task_id), stride, padding,
+                               float(threshold), mask_mode)
+
+
+def masked_conv2d_bwd_dx(g, x, w, own, pm, task_id, stride: int = 1,
+                         padding="SAME", threshold: float = DEFAULT_THRESHOLD,
+                         mask_mode: str = "binary"):
+    """dx for output gradient g: K2 on CUDA tensors, the plain version on
+    CPU tensors."""
     if x.device.type == "cpu":
-        return masked_conv2d_plain(x, w, own, pm, task_id, stride, padding,
-                                   threshold, mask_mode)
-    return _launch(x, w, own, pm, int(task_id), stride, padding, threshold,
-                   mask_mode)
+        return masked_conv2d_bwd_dx_plain(g, x, w, own, pm, task_id, stride,
+                                          padding, threshold, mask_mode)
+    return _launch_bwd_dx(g, x, w, own, pm, int(task_id), stride, padding,
+                          threshold, mask_mode)
 
 
-def _lib():
-    lib = _build.load("masked_conv_fwd")
-    for name in _FN.values():
-        f = getattr(lib, name)
-        if f.argtypes is None:
-            f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
-                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-            f.restype = ctypes.c_int
-    return lib
+def masked_conv2d_bwd_dw(g, x, w, own, task_id, stride: int = 1,
+                         padding="SAME"):
+    """(dw, dpm) for output gradient g: K3 on CUDA tensors, the plain
+    version on CPU tensors."""
+    if x.device.type == "cpu":
+        return masked_conv2d_bwd_dw_plain(g, x, w, own, task_id, stride,
+                                          padding)
+    return _launch_bwd_dw(g, x, w, own, int(task_id), stride, padding)
+
+
+# ------------------------------------------------------------- kernels ----
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of the libraries' entry points: pointers, the 12 geometry
+# ints and the task id, the rest, the stream
+_ARGTYPES = {
+    "masked_conv_fwd": [_P] * 5 + [_I] * 13 + [_F, _I, _P],
+    "masked_conv_bwd_dx": [_P] * 5 + [_I] * 13 + [_F, _I, _P],
+    "masked_conv_bwd_dw": [_P] * 7 + [_I] * 13 + [_I, _P],
+}
+
+
+def _fn(lib_name, dtype):
+    f = getattr(_build.load(lib_name), f"{lib_name}_{_DTYPES[dtype]}")
+    if f.argtypes is None:
+        f.argtypes = _ARGTYPES[lib_name]
+        f.restype = ctypes.c_int
+    return f
+
+
+def supported(x, w) -> bool:
+    """The channel predicate of the three kernels: any Cin and Cout in f32;
+    in bf16 a Cout in multiples of 4 (8-byte loads of g and 16-byte loads of
+    four weight entries). Every VGG16-BN width multiple of 0.125 meets it."""
+    return x.dtype == torch.float32 or (x.dtype == torch.bfloat16
+                                        and w.shape[-1] % 4 == 0)
 
 
 def _check(cond, msg):
@@ -69,41 +200,104 @@ def _check(cond, msg):
         raise ValueError(f"masked_conv2d kernel: {msg}")
 
 
-def _launch(x, w, own, pm, task_id, stride, padding, threshold, mask_mode):
-    global LAUNCHES
+def _geometry(x, w, own, stride, padding, tensors):
+    """Checks shared by the three kernels; returns the conv geometry
+    (n, h, w, cin, ho, wo, cout, kh, kw, stride, pad_top, pad_left)."""
     _check(x.is_cuda, f"x must be a CUDA tensor, got {x.device}")
-    _check(x.dtype in _FN, f"x dtype {x.dtype} not in {list(_FN)}")
+    _check(x.dtype in _DTYPES, f"x dtype {x.dtype} not in {list(_DTYPES)}")
     _check(x.dim() == 4 and w.dim() == 4, "x must be NHWC and w HWIO")
     kh, kw, cin, cout = w.shape
     n, h, wd, c = x.shape
     _check(c == cin, f"x has {c} channels, w expects {cin}")
-    _check(w.dtype == torch.float32 and pm.dtype == torch.float32,
-           "w and pm must be float32")
-    _check(own.dtype == torch.int8, "own must be int8")
-    _check(own.shape == w.shape and pm.shape == w.shape,
-           "own and pm must have w's shape")
-    for name, t in (("x", x), ("w", w), ("own", own), ("pm", pm)):
+    _check(w.dtype == torch.float32, "w must be float32")
+    _check(own.dtype == torch.int8 and own.shape == w.shape,
+           "own must be int8 with w's shape")
+    for name, t in tensors.items():
         _check(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
         _check(t.is_contiguous(), f"{name} must be contiguous")
     _check(stride >= 1, f"stride {stride}")
-    if x.dtype == torch.bfloat16:  # the bf16 kernel's vector loads
-        _check(cout % 4 == 0, f"bf16 needs Cout % 4 == 0, got {cout}")
-        _check(w.data_ptr() % 16 == 0 and pm.data_ptr() % 16 == 0
-               and own.data_ptr() % 4 == 0
-               and (cin % 8 or x.data_ptr() % 16 == 0),
-               "bf16 needs 16-byte aligned x, w and pm (4-byte own)")
+    if x.dtype == torch.bfloat16:  # the bf16 kernels' vector loads
+        _check(supported(x, w), f"bf16 needs Cout % 4 == 0, got {cout}")
+        _check(all(t.data_ptr() % 16 == 0 for t in tensors.values()
+                   if t.dtype != torch.int8)
+               and own.data_ptr() % 4 == 0,
+               "bf16 needs 16-byte aligned tensors (4-byte own)")
     pt, pb, pl, pr = resolve_padding(padding, h, wd, kh, kw, stride)
     ho, wo = out_size(h, kh, stride, pt, pb), out_size(wd, kw, stride, pl, pr)
     _check(ho > 0 and wo > 0, f"empty output {ho}x{wo}")
+    return (n, h, wd, cin, ho, wo, cout, kh, kw, stride, pt, pl)
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _raise_on(err, name):
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _launch_fwd(x, w, own, pm, task_id, stride, padding, threshold,
+                mask_mode):
+    global LAUNCHES
+    _check(pm.dtype == torch.float32 and pm.shape == w.shape,
+           "pm must be float32 with w's shape")
+    geo = _geometry(x, w, own, stride, padding,
+                    {"x": x, "w": w, "own": own, "pm": pm})
+    n, _, _, _, ho, wo, cout = geo[:7]
     y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(_lib(), _FN[x.dtype])(
+    err = _fn("masked_conv_fwd", x.dtype)(
         x.data_ptr(), w.data_ptr(), own.data_ptr(), pm.data_ptr(),
-        y.data_ptr(), n, h, wd, cin, ho, wo, cout, kh, kw, stride, pt, pl,
-        task_id, float(threshold), int(mask_mode == "ternary"), stream)
-    if err:
-        raise RuntimeError(f"masked_conv_fwd launch failed: CUDA error {err}")
+        y.data_ptr(), *geo, task_id, float(threshold),
+        int(mask_mode == "ternary"), _stream(x))
+    _raise_on(err, "masked_conv_fwd")
     LAUNCHES += 1
     return y
+
+
+def _launch_bwd_dx(g, x, w, own, pm, task_id, stride, padding, threshold,
+                   mask_mode):
+    """K2: dx = conv_transpose(g, w_eff), the select in the weight tile."""
+    global LAUNCHES_BWD_DX
+    _check(pm.dtype == torch.float32 and pm.shape == w.shape,
+           "pm must be float32 with w's shape")
+    geo = _geometry(x, w, own, stride, padding,
+                    {"g": g, "x": x, "w": w, "own": own, "pm": pm})
+    n, _, _, _, ho, wo, cout = geo[:7]
+    _check(g.shape == (n, ho, wo, cout) and g.dtype == x.dtype,
+           f"g must be {(n, ho, wo, cout)} in x's dtype")
+    dx = torch.empty_like(x)
+    if dx.numel() == 0:
+        return dx
+    err = _fn("masked_conv_bwd_dx", x.dtype)(
+        g.data_ptr(), w.data_ptr(), own.data_ptr(), pm.data_ptr(),
+        dx.data_ptr(), *geo, task_id, float(threshold),
+        int(mask_mode == "ternary"), _stream(x))
+    _raise_on(err, "masked_conv_bwd_dx")
+    LAUNCHES_BWD_DX += 1
+    return dx
+
+
+def _launch_bwd_dw(g, x, w, own, task_id, stride, padding):
+    """K3: G = x_patches^T g in f32 (split-K partials summed in a fixed
+    order), then dw = G on own == task, dpm = G * w on prior entries."""
+    global LAUNCHES_BWD_DW
+    geo = _geometry(x, w, own, stride, padding,
+                    {"g": g, "x": x, "w": w, "own": own})
+    n, _, _, cin, ho, wo, cout, kh, kw = geo[:9]
+    _check(g.shape == (n, ho, wo, cout) and g.dtype == x.dtype,
+           f"g must be {(n, ho, wo, cout)} in x's dtype")
+    s = wgrad_splits(n * ho * wo, kh * kw * cin, cout)
+    ws = torch.empty((s, kh * kw * cin, cout), dtype=torch.float32,
+                     device=x.device)
+    dw = torch.empty(w.shape, dtype=torch.float32, device=x.device)
+    dpm = torch.empty_like(dw)
+    err = _fn("masked_conv_bwd_dw", x.dtype)(
+        x.data_ptr(), g.data_ptr(), w.data_ptr(), own.data_ptr(),
+        ws.data_ptr(), dw.data_ptr(), dpm.data_ptr(), *geo, task_id, s,
+        _stream(x))
+    _raise_on(err, "masked_conv_bwd_dw")
+    LAUNCHES_BWD_DW += 1
+    return dw, dpm

@@ -1,6 +1,6 @@
 """Building a CPG state: `init_state` and `start_task` (same semantics as
 `cpg_tpu.train.sequence`). The rest of the cycle (run_task, compaction,
-growth) comes with the training slice.
+growth) comes in a later slice.
 
 Random inits draw from an explicit `torch.Generator` on the CPU, so a state
 is the same for a seed whatever device it then lives on.

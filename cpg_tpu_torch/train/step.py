@@ -1,12 +1,21 @@
-"""Task-conditioned evaluation step (the training step comes in a later
-slice).
+"""The CPG train step and the task-conditioned evaluation step.
 
-Semantics as `cpg_tpu.train.step.build_eval_step`: only weights with
-0 < ownership <= task_id are visible, prior entries gated by the task's
-binarized piggymask; task-private BN stats and head. With
-`use_pallas_conv` the sharable convs of a task >= 2 select their weights
-inside the masked-conv kernel; with `use_fused_chain` the BN+ReLU+conv3x3
-seams run the fused kernel.
+Semantics as `cpg_tpu.train.step` (`build_train_step`, `build_eval_step`).
+One train step: augment -> masked forward (batch-statistics BatchNorm) ->
+loss -> backward -> ownership gating + selective weight decay on the shared
+gradients -> SGD with momentum on {shared, private} -> Adam on the gated
+piggymask gradients -> free entries re-zeroed.
+
+With `use_pallas_conv` the sharable convs of a task >= 2 select their
+weights inside the masked-conv kernels (forward K1, backward K2/K3, whose
+dW and dPM arrive gated); with `use_fused_chain` the BN+ReLU+conv3x3 seams
+run the fused kernels (forward K4, backward K5/K6). Otherwise the effective
+weights are materialised and the convs go to cuDNN through autograd.
+
+PyTorch runs eagerly and has no buffer donation: the step updates the
+parameter tensors and the optimizer states IN PLACE and returns the same
+objects, in the JAX step's return order. The state tensors must live on the
+step's device; x, y and injected augmentation draws are moved there.
 """
 
 from __future__ import annotations
@@ -16,22 +25,188 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..core.gating import gate_and_decay, gate_piggymask_grads
+from ..core.ownership import FREE
 from ..core.state import resolve_device
 from ..models import framework as fw
 from ..ops.binarize import DEFAULT_THRESHOLD
 from ..ops.masked import effective_params
-from .losses import class_logits, cross_entropy
+from .losses import (accuracy, call_loss, class_logits, cross_entropy,
+                     make_cross_entropy)
 
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The fields of `cpg_tpu.train.step.TrainConfig` that the eval step
-    reads."""
+    """The fields of `cpg_tpu.train.step.TrainConfig` that the port's steps
+    read (the TPU/XLA-only ones are left out)."""
 
+    lr: float = 0.01                # SGD lr for weights
+    lr_mask: float = 1e-4           # Adam lr for piggymasks
+    momentum: float = 0.9
+    optimizer: str = "sgd"          # weights: 'sgd' (momentum) | 'adam';
+                                    # decay is the selective L2 added to the
+                                    # gradient (core/gating.py) either way
+    weight_decay: float = 4e-5      # applied only to current-task weights
     threshold: float = DEFAULT_THRESHOLD
     compute_dtype: torch.dtype = torch.bfloat16
-    use_pallas_conv: bool = False  # masked-conv kernel (ops/masked_conv.py)
-    use_fused_chain: bool = False  # fused BN+ReLU+conv3x3 (ops/fused_chain.py)
+    label_smoothing: float = 0.0
+    train_piggymask: bool = True    # False: PackNet mode, masks frozen
+    grad_clip_norm: Optional[float] = None  # global norm, weights side
+    use_pallas_conv: bool = False   # masked-conv kernels (ops/masked_conv.py)
+    use_fused_chain: bool = False   # fused BN+ReLU+conv3x3 (ops/fused_chain.py)
+
+
+class Optimizer:
+    """A torch.optim optimizer factory with optax's init/state split:
+    `init(tree)` binds a fresh optimizer to the tensors of a (nested) dict
+    and returns it as the optimizer state."""
+
+    def __init__(self, make: Callable, lr: float):
+        self.make, self.lr = make, lr
+
+    def init(self, tree) -> torch.optim.Optimizer:
+        return self.make(list(_leaves(tree)), self.lr)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def make_optimizers(cfg: TrainConfig):
+    """(opt_w, opt_pm): SGD+momentum (torch.optim.SGD, dampening 0, no
+    Nesterov, weight_decay 0: optax.sgd's trace) or Adam for the weights and
+    private params, Adam (eps 1e-8) for the piggymasks. (The train step
+    clips the weight side by `grad_clip_norm` before stepping.)"""
+    if cfg.optimizer == "sgd":
+        opt_w = Optimizer(lambda p, lr: torch.optim.SGD(
+            p, lr=lr, momentum=cfg.momentum, dampening=0, nesterov=False,
+            weight_decay=0), cfg.lr)
+    elif cfg.optimizer == "adam":
+        opt_w = Optimizer(lambda p, lr: torch.optim.Adam(p, lr=lr, eps=1e-8),
+                          cfg.lr)
+    else:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r} "
+                         "(expected 'sgd' | 'adam')")
+    opt_pm = Optimizer(lambda p, lr: torch.optim.Adam(p, lr=lr, eps=1e-8),
+                       cfg.lr_mask)
+    return opt_w, opt_pm
+
+
+def set_lr(opt_state: torch.optim.Optimizer, lr):
+    for group in opt_state.param_groups:
+        group["lr"] = float(lr)
+    return opt_state
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float):
+    """optax.clip_by_global_norm, in place: scale every gradient by
+    max_norm / norm when the global norm is at least max_norm."""
+    norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    for g in grads:
+        g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
+
+
+def build_train_step(model_fn: Callable, *, num_classes: int, mult: float,
+                     has_piggymask: bool, cfg: TrainConfig,
+                     augment_fn: Optional[Callable] = None,
+                     loss_fn: Callable = cross_entropy,
+                     model_kwargs: Optional[Dict] = None,
+                     mask_mode: str = "binary", device="cuda"):
+    """The train step plus its optimizers:
+
+    step(shared, piggymask, private, bn_state, opt_w_state, opt_pm_state,
+         ownership, task_id, x, y, rng, it=0)
+      -> (shared, piggymask, private, new_bn_state, opt_w_state,
+          opt_pm_state, {"loss", "acc"})
+
+    `rng` goes to `augment_fn(x, rng)` (a torch.Generator, or injected
+    draws; see data/augment.py). opt states come from
+    `opt_w.init({"shared": shared, "private": private})` and
+    `opt_pm.init(piggymask)`."""
+    dev = resolve_device(device)
+    opt_w, opt_pm = make_optimizers(cfg)
+    model_kwargs = model_kwargs or {}
+    if cfg.label_smoothing and loss_fn is cross_entropy:
+        loss_fn = make_cross_entropy(cfg.label_smoothing)
+    if cfg.use_pallas_conv and mask_mode == "packnet":
+        raise ValueError(
+            "PackNet mode (mask_mode='packnet') has no piggymasks to fuse — "
+            "use the default path (use_pallas_conv=False)")
+
+    def step(shared, piggymask, private, bn_state, opt_w_state, opt_pm_state,
+             ownership, task_id, x, y, rng, it=0):
+        x = torch.as_tensor(x).to(dev)
+        y = torch.as_tensor(y).to(dev)
+        if augment_fn is not None:
+            x = augment_fn(x, rng)
+        pm = piggymask if has_piggymask else None
+        params = [*shared.values(), *private.values(),
+                  *(pm.values() if pm is not None else ())]
+        for p in params:
+            p.grad = None
+            p.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                if cfg.use_pallas_conv:
+                    masking = fw.Masking(
+                        ownership=ownership, piggymask=pm,
+                        task_id=int(task_id), threshold=cfg.threshold,
+                        mask_mode=mask_mode, pallas_conv=True)
+                    eff = shared
+                else:
+                    masking = None
+                    eff = effective_params(shared, ownership, pm, task_id,
+                                           cfg.threshold,
+                                           compute_dtype=cfg.compute_dtype,
+                                           mask_mode=mask_mode)
+                logits, new_bn = fw.apply(
+                    model_fn, eff, private, bn_state, x, train=True,
+                    compute_dtype=cfg.compute_dtype, masking=masking,
+                    fused_chain=cfg.use_fused_chain, num_classes=num_classes,
+                    mult=mult, **model_kwargs)
+                loss = call_loss(loss_fn, logits, y, it)
+                loss.backward()
+        finally:
+            for p in params:
+                p.requires_grad_(False)
+        with torch.no_grad():
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            g_shared = gate_and_decay({k: w.grad for k, w in shared.items()},
+                                      shared, ownership, task_id,
+                                      cfg.weight_decay)
+            if cfg.grad_clip_norm:
+                clip_by_global_norm(
+                    [*g_shared.values(), *(p.grad for p in private.values())],
+                    cfg.grad_clip_norm)
+            opt_w_state.step()
+            if pm is not None and cfg.train_piggymask:
+                gate_piggymask_grads({k: m.grad for k, m in pm.items()},
+                                     ownership, task_id)
+                opt_pm_state.step()
+            # released/free weights stay exactly zero (momentum could
+            # otherwise drift them)
+            for k, w in shared.items():
+                w.masked_fill_(ownership[k] == FREE, 0)
+            for p in params:
+                p.grad = None
+            metrics = {"loss": loss.detach(),
+                       "acc": accuracy(class_logits(logits).detach(), y)}
+        new_bn = {k: v.detach() for k, v in new_bn.items()}
+        return (shared, piggymask, private, new_bn, opt_w_state, opt_pm_state,
+                metrics)
+
+    return step, (opt_w, opt_pm)
+
+
+# the JAX package's name for its jitted step; PyTorch runs the step eagerly
+make_train_step = build_train_step
 
 
 def build_eval_step(model_fn: Callable, *, num_classes: int, mult: float,
@@ -40,8 +215,10 @@ def build_eval_step(model_fn: Callable, *, num_classes: int, mult: float,
                     model_kwargs: Optional[Dict] = None,
                     mask_mode: str = "binary", device="cuda"):
     """step(shared, piggymask, private, bn_state, ownership, task_id, x, y)
-    -> (logits, {"acc_sum", "loss"}). The state tensors must live on
-    `device`; x and y are moved there."""
+    -> (logits, {"acc_sum", "loss"}). Only weights with 0 < ownership <=
+    task_id are visible, prior entries gated by the task's binarized
+    piggymask; task-private BN stats and head. The state tensors must live
+    on `device`; x and y are moved there."""
     dev = resolve_device(device)
     model_kwargs = model_kwargs or {}
 

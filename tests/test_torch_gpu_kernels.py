@@ -125,3 +125,121 @@ def test_fused_chain_kernel_refuses_unsupported(cuda):
     w = torch.zeros((3, 3, 8, 12), device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
         fc.fused_affine_relu_conv(x, a, a, w, torch.bfloat16)
+
+
+# ------------------------------------------------------------ backward ----
+
+def _check_sum(got, want, rel=1e-4):
+    """f32 outputs of long f32 sums (weight gradients, da/db): the kernel
+    and the plain version differ only in summation order."""
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape
+    got, want = got.cpu(), want.cpu()
+    assert torch.isfinite(got).all()
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    assert err <= rel * scale + 1e-6, (err, scale)
+
+
+@pytest.mark.parametrize("case", [
+    # (n, h, w, cin, cout, k, stride, dtype, mode)
+    (4, 32, 32, 3, 64, 3, 1, "bfloat16", "binary"),     # VGG conv0, K=27
+    (4, 16, 16, 64, 128, 3, 1, "bfloat16", "binary"),   # VGG conv2
+    (4, 2, 2, 512, 512, 3, 1, "bfloat16", "binary"),    # VGG conv10
+    (4, 8, 8, 128, 256, 3, 1, "bfloat16", "ternary"),   # VGG conv4
+    (4, 4, 4, 256, 512, 3, 1, "float32", "binary"),     # VGG conv7
+    (2, 7, 5, 5, 70, 3, 2, "float32", "ternary"),       # ragged, stride 2
+    (2, 7, 5, 5, 72, 3, 2, "bfloat16", "ternary"),      # ragged, odd Cin
+    (1, 16, 16, 8, 16, 3, 2, "bfloat16", "binary"),     # asymmetric SAME pad
+    (3, 9, 9, 16, 24, 1, 1, "bfloat16", "binary"),      # 1x1
+])
+def test_masked_conv_backward_kernels_match_plain(cuda, case):
+    n, h, w, cin, cout, k, s, dname, mode = case
+    dtype = getattr(torch, dname)
+    x, wt, own, pm = _conv_case(n, h, w, cin, cout, k, cuda, dtype, seed=3)
+    ho, wo = -(-h // s), -(-w // s)
+    g = torch.randn((n, ho, wo, cout), generator=torch.Generator().manual_seed(4))
+    g = g.to(cuda, dtype)
+    before = (mc.LAUNCHES_BWD_DX, mc.LAUNCHES_BWD_DW)
+    dx = mc.masked_conv2d_bwd_dx(g, x, wt, own, pm, 2, s, "SAME", 5e-3, mode)
+    dw, dpm = mc.masked_conv2d_bwd_dw(g, x, wt, own, 2, s, "SAME")
+    torch.cuda.synchronize()
+    assert (mc.LAUNCHES_BWD_DX, mc.LAUNCHES_BWD_DW) == (before[0] + 1, before[1] + 1)
+    want = mc.masked_conv2d_bwd_plain(g, x, wt, own, pm, 2, s, "SAME", 5e-3, mode)
+    _check(dx, want[0], dtype)
+    _check_sum(dw, want[1])
+    _check_sum(dpm, want[2])
+    assert not dw[own != 2].any() and not dpm[(own == 0) | (own >= 2)].any()
+    # two launches give the same bits (split-K partials summed in order)
+    dx2 = mc.masked_conv2d_bwd_dx(g, x, wt, own, pm, 2, s, "SAME", 5e-3, mode)
+    dw2, dpm2 = mc.masked_conv2d_bwd_dw(g, x, wt, own, 2, s, "SAME")
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2) and torch.equal(dpm, dpm2)
+
+
+@pytest.mark.parametrize("case", [
+    # (n, h, w, cin, cout, dtype)
+    (4, 32, 32, 64, 64, "bfloat16"),     # VGG conv1
+    (4, 8, 8, 256, 256, "bfloat16"),     # VGG conv5/6
+    (4, 2, 2, 512, 512, "bfloat16"),     # VGG conv11/12 (H < 3)
+    (4, 16, 16, 128, 128, "float32"),    # VGG conv3
+    (3, 5, 7, 24, 70, "float32"),        # ragged channels, odd spatial
+    (2, 3, 3, 40, 8, "bfloat16"),        # several images per tile
+    (3, 5, 7, 24, 72, "bfloat16"),       # partial channel tile
+    (2, 2, 2, 8, 16, "float32"),         # 2x2, f32
+])
+def test_fused_chain_backward_kernels_match_plain(cuda, case):
+    n, h, w, cin, cout, dname = case
+    dtype = getattr(torch, dname)
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(n, h, w, cin).astype(np.float32)).to(cuda, dtype)
+    a = torch.from_numpy(rng.uniform(0.5, 1.5, cin).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.randn(cin).astype(np.float32) * 0.3).to(cuda)
+    wt = torch.from_numpy((rng.randn(3, 3, cin, cout)
+                           * np.sqrt(2.0 / (9 * cout))).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.randn(n, h, w, cout).astype(np.float32)).to(cuda, dtype)
+    before = (fc.LAUNCHES_BWD_DX, fc.LAUNCHES_BWD_DW)
+    dx, da, db = fc.fused_bwd_dx(x, a, b, wt, g, dtype)
+    dw = fc.fused_bwd_dw(x, a, b, g, dtype)
+    torch.cuda.synchronize()
+    assert (fc.LAUNCHES_BWD_DX, fc.LAUNCHES_BWD_DW) == (before[0] + 1, before[1] + 1)
+    want = fc.fused_bwd_plain(x, a, b, wt, g, dtype)
+    _check(dx, want[0], dtype)
+    _check_sum(da, want[1], 1e-3)
+    _check_sum(db, want[2], 1e-3)
+    _check_sum(dw, want[3])
+    again = fc.fused_bwd_dx(x, a, b, wt, g, dtype) + (
+        fc.fused_bwd_dw(x, a, b, g, dtype),)
+    for first, second in zip((dx, da, db, dw), again):
+        assert torch.equal(first, second)
+
+
+def test_autograd_reaches_every_input_through_the_kernels(cuda):
+    """loss.backward() through both Functions on the card gives x, w, pm,
+    a and b their gradients, equal to the plain path's on the CPU."""
+    rng = np.random.RandomState(7)
+    x0 = rng.randn(2, 8, 8, 16).astype(np.float32)
+    w1 = (rng.randn(3, 3, 16, 32) * 0.2).astype(np.float32)
+    own = rng.choice([0, 1, 2], size=w1.shape).astype(np.int8)
+    pm = (rng.randn(*w1.shape) * 0.01 + 0.005).astype(np.float32)
+    a = rng.uniform(0.5, 1.5, 32).astype(np.float32)
+    b = (rng.randn(32) * 0.3).astype(np.float32)
+    w2 = (rng.randn(3, 3, 32, 24) * 0.2).astype(np.float32)
+    gout = rng.randn(2, 8, 8, 24).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [torch.tensor(v, device=dev, requires_grad=True)
+                  for v in (x0, w1, pm, a, b, w2)]
+        tx, tw1, tpm, ta, tb, tw2 = leaves
+        mc_before, fc_before = mc.LAUNCHES_BWD_DW, fc.LAUNCHES_BWD_DW
+        y1 = mc.masked_conv2d(tx, tw1, torch.from_numpy(own).to(dev), tpm, 2)
+        y2 = fc.fused_affine_relu_conv(y1, ta, tb, tw2, torch.float32)
+        assert y1.grad_fn is not None and y2.grad_fn is not None
+        (y2 * torch.from_numpy(gout).to(dev)).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert mc.LAUNCHES_BWD_DW == mc_before + 1
+            assert fc.LAUNCHES_BWD_DW == fc_before + 1
+        grads[str(dev)] = [t.grad.detach().cpu() for t in leaves]
+    for name, got, want in zip("x w pm a b w2".split(), grads["cuda"], grads["cpu"]):
+        assert got.abs().max() > 0, name
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)

@@ -195,6 +195,27 @@ def test_fused_chain_predicate_covers_vgg_seams():
     assert not t_fc.supported(xb, torch.empty((3, 3, 8, 12)), torch.bfloat16)
 
 
+@pytest.mark.parametrize("eighths", range(1, 17))
+def test_backward_predicates_cover_vgg_widths(eighths):
+    """Every VGG16-BN width multiple of 0.125 up to 2.0 meets the bf16
+    predicates of the masked-conv kernels (K1-K3: Cout % 4) and of the
+    fused-chain backward kernels (K5, K6: Cin, Cout % 8)."""
+    from cpg_tpu_torch.models.vgg import CFG_VGG16, scale_channels
+
+    chans = [scale_channels(v, eighths / 8) for v in CFG_VGG16 if v != "M"]
+    opening = {0, 2, 4, 7, 10}  # the masked convs; the rest are fused seams
+    cin = 3
+    for i, cout in enumerate(chans):
+        x = torch.empty((2, 4, 4, cin), dtype=torch.bfloat16)
+        if i in opening:
+            assert t_mc.supported(x, torch.empty((3, 3, cin, cout))), (i, cin)
+        else:
+            assert t_fc._bwd_supported(x, cout, torch.bfloat16), (i, cin, cout)
+        cin = cout
+    assert not t_mc.supported(torch.empty((1, 4, 4, 8), dtype=torch.bfloat16),
+                              torch.empty((3, 3, 8, 70)))
+
+
 def test_eval_preprocess_and_losses_match_jax():
     rng = np.random.RandomState(4)
     x = rng.randint(0, 256, (3, 4, 4, 3)).astype(np.uint8)
@@ -223,8 +244,11 @@ def _imports(path):
 
 
 def test_port_never_imports_jax_or_cpg_tpu():
-    files = sorted((ROOT / "cpg_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "cpg_tpu_torch").rglob("*.py")) + sorted(
+        (ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
+    names = {f.name for f in files}
+    assert {"gating.py", "step.py", "augment.py",
+            "torch_train_profile.py"} <= names
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):

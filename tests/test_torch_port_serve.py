@@ -24,7 +24,8 @@ from cpg_tpu_torch.data.augment import cifar_eval_preprocess as prep
 from cpg_tpu_torch.models import get_model
 from cpg_tpu_torch.serve import TaskServer, _next_bucket
 from cpg_tpu_torch.train.sequence import init_state, start_task
-from cpg_tpu_torch.train.step import TrainConfig, make_eval_step
+from cpg_tpu_torch.train.step import (TrainConfig, make_eval_step,
+                                      make_train_step)
 
 torch.set_num_threads(1)
 MULT = 0.125
@@ -180,6 +181,8 @@ def test_entry_points_default_to_the_card(state, images, tmp_path,
         lambda: t_inference.make_predict_fn(state, 2),
         lambda: make_eval_step(model_fn, num_classes=6, mult=MULT,
                                has_piggymask=True, cfg=TrainConfig()),
+        lambda: make_train_step(model_fn, num_classes=6, mult=MULT,
+                                has_piggymask=True, cfg=TrainConfig()),
         lambda: init_state("vgg16_bn_cifar", torch.Generator(), MULT),
         lambda: cli.main(["serve", "--artifact", art, "--requests", req,
                           "--task-id", "2"]),
