@@ -26,7 +26,24 @@ Needs one CUDA card; exits non-zero without one. It
      same batches and augmentation draws: the update of every tensor after
      one step, the losses over three, the no-forgetting invariants, each
      kernel's launches in one step, and ms/step at batch 256 and 1024;
-  6. prints the kernels' JSON line (launch counts from the serve, eval and
+  6. ViT kernel phases: the flash-attention kernels (K7 forward, dQ, dK/dV)
+     at vit_cifar's batch-256 shape (256, 64, 4, 64), vit_b16's
+     (64, 196, 12, 64), a causal T = 70 and in f32, and the dense route
+     (masked_matmul: K1-K3 at the 1x1 geometry) at vit_cifar's three
+     projection shapes and one ragged vit_b16 shape, each against its plain
+     version and timed beside a library yardstick
+     (`scaled_dot_product_attention`, forward and autograd backward;
+     `effective_kernel` + `torch.matmul`);
+  7. ViT serve phase: a seeded two-task vit_cifar state at full width, a
+     bf16 `TaskServer` through export -> load (the effective-params einsum
+     path, as in `cpg_tpu`) against the f32 server, p50 and img/s at
+     bucket 256;
+  8. ViT eval phase: the eval step with the dense route and flash
+     attention (`use_pallas`, `flash_attention`) against the default step;
+  9. ViT train phase: task 2 as for VGG16-BN, with `use_pallas` and
+     `flash_attention` (exact launches per step: flash 6 + 6 + 6, dense
+     36 + 36 + 36);
+ 10. prints the kernels' JSON line (launch counts from the serve, eval and
      train phases, errors, times, bounds), the card line, and last the
      result line.
 Each phase raises on failure. Per-shape results also go to
@@ -67,6 +84,19 @@ CHAIN_SHAPES = [("conv1", 32, 64, 64), ("conv3", 16, 128, 128),
                 ("conv5", 8, 256, 256), ("conv6", 8, 256, 256),
                 ("conv8", 4, 512, 512), ("conv9", 4, 512, 512),
                 ("conv11", 2, 512, 512), ("conv12", 2, 512, 512)]
+# flash attention (name, N, T, H, hd, causal, dtype, launches per vit_cifar
+# train step at batch 256; 0 = an extra shape, not on the timed step)
+FLASH_SHAPES = [("vit_cifar", BATCH, 64, 4, 64, False, "bfloat16", 6),
+                ("vit_b16", 64, 196, 12, 64, False, "bfloat16", 0),
+                ("causal_t70", BATCH, 70, 4, 64, True, "bfloat16", 0),
+                ("vit_cifar_f32", 32, 64, 4, 64, False, "float32", 0)]
+# dense route (name, M, K, N, dtype, mode, launches per vit_cifar step)
+DENSE_SHAPES = [("qkv_proj", BATCH * 64, 256, 256, "bfloat16", "binary", 24),
+                ("fc1", BATCH * 64, 256, 1024, "bfloat16", "binary", 6),
+                ("fc2", BATCH * 64, 1024, 256, "bfloat16", "binary", 6),
+                ("fc2_ternary", BATCH * 64, 1024, 256, "bfloat16", "ternary", 0),
+                ("vit_b16_qkv", 64 * 196, 768, 768, "bfloat16", "binary", 0),
+                ("qkv_proj_f32", 2048, 256, 256, "float32", "binary", 0)]
 
 
 def card_line() -> str:
@@ -292,12 +322,147 @@ def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name):
     return rows
 
 
-def build_state(torch, dev):
+def flash_phases(torch, dev, name, n, t, h, hd, causal, dtype_name, per_step):
+    """K7 forward, dQ and dK/dV at one shape against the plain versions,
+    with `scaled_dot_product_attention` (forward; autograd backward timed as
+    fwd+bwd - fwd) as the library yardstick."""
+    import torch.nn.functional as F
+    from cpg_tpu_torch.ops import flash as fl
+
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator().manual_seed(SEED + 6)
+    q, k, v, do = (torch.randn((n, t, h, hd), generator=g).to(dev, dt)
+                   for _ in range(4))
+    elt = q.element_size()
+    nqkv = q.numel() * elt                       # one (N, T, H, hd) tensor
+    nrow = n * h * t * 4                         # one f32 (N, H, T) row stat
+    work = n * h * t * t * hd * (0.5 if causal else 1.0)
+    common = dict(layer=name, dtype=dtype_name, shape=[n, t, h, hd],
+                  causal=causal, per_step=per_step)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    rows = []
+
+    o, lse = fl.flash_fwd(q, k, v, causal)
+    o_ref, lse_ref = fl.flash_mha_plain(q, k, v, causal)
+    err = max(compare(o, o_ref, dtype_name, f"flash_fwd o {name}"),
+              compare(lse, lse_ref, "float32", f"flash_fwd lse {name}"))
+    b_ms, b_by = bound(4 * nqkv + nrow, 4 * work, dtype_name)
+    rows.append(dict(kernel="flash_fwd", **common, max_abs_err=err,
+                     ms=time_ms(lambda: fl.flash_fwd(q, k, v, causal)),
+                     plain_ms=time_ms(lambda: fl.flash_mha_plain(q, k, v, causal)),
+                     library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by))
+
+    # library backward: SDPA's autograd backward (dq, dk, dv together)
+    qg, kg, vg = (a.detach().clone().requires_grad_(True) for a in (qt, kt, vt))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        torch.autograd.grad(out, (qg, kg, vg), dot)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+
+    lib_bwd = max(time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd), 0.0)
+
+    dq, d = fl.flash_bwd_dq(q, k, v, o, lse, do, causal)
+    dq_ref, d_ref = fl.flash_mha_bwd_dq_plain(q, k, v, o, lse, do, causal)
+    err = max(compare(dq, dq_ref, dtype_name, f"flash_bwd_dq dq {name}"),
+              compare(d, d_ref, "float32", f"flash_bwd_dq D {name}",
+                      rel=SUM_TOL))
+    b_ms, b_by = bound(5 * nqkv + nrow + nqkv + nrow, 6 * work, dtype_name)
+    rows.append(dict(kernel="flash_bwd_dq", **common, max_abs_err=err,
+                     ms=time_ms(lambda: fl.flash_bwd_dq(q, k, v, o, lse, do, causal)),
+                     plain_ms=time_ms(lambda: fl.flash_mha_bwd_dq_plain(
+                         q, k, v, o, lse, do, causal)),
+                     library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by))
+
+    dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, d, causal)
+    dk_ref, dv_ref = fl.flash_mha_bwd_dkv_plain(q, k, v, do, lse, d, causal)
+    err = max(compare(dk, dk_ref, dtype_name, f"flash_bwd_dkv dk {name}"),
+              compare(dv, dv_ref, dtype_name, f"flash_bwd_dkv dv {name}"))
+    b_ms, b_by = bound(4 * nqkv + 2 * nrow + 2 * nqkv, 8 * work, dtype_name)
+    rows.append(dict(kernel="flash_bwd_dkv", **common, max_abs_err=err,
+                     ms=time_ms(lambda: fl.flash_bwd_dkv(q, k, v, do, lse, d, causal)),
+                     plain_ms=time_ms(lambda: fl.flash_mha_bwd_dkv_plain(
+                         q, k, v, do, lse, d, causal)),
+                     library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def dense_phases(torch, dev, name, m, kd, nd, dtype_name, mode, per_step):
+    """The dense route (masked_matmul: K1, K2, K3 at the 1x1 geometry) at
+    one shape, with `effective_kernel` + `torch.matmul` as the yardstick."""
+    from cpg_tpu_torch.ops import masked_matmul as mm
+    from cpg_tpu_torch.ops.masked import effective_kernel
+
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator().manual_seed(SEED + 7)
+    x = torch.randn((m, kd), generator=g).to(dev, dt)
+    w = (torch.randn((kd, nd), generator=g) * (1.0 / kd) ** 0.5).to(dev)
+    own = torch.randint(0, 4, w.shape, generator=g, dtype=torch.int8).to(dev)
+    pm = (torch.randn(w.shape, generator=g) * 1e-2).to(dev)
+    gy = (torch.randn((m, nd), generator=g) * 0.1).to(dev, dt)
+    elt, n_w = x.element_size(), w.numel()
+    flops = 2.0 * m * kd * nd
+    common = dict(layer=name, dtype=dtype_name, mode=mode, shape=[m, kd, nd],
+                  per_step=per_step)
+    weff = lambda: effective_kernel(w, own, pm, 2, mask_mode=mode).to(dt)
+    rows = []  # gemm_ms: the product alone on the materialised bf16 weight
+
+    kern = lambda: mm.masked_matmul(x, w, own, pm, 2, mask_mode=mode)
+    plain = lambda: mm.masked_matmul_plain(x, w, own, pm, 2, mask_mode=mode)
+    err = compare(kern(), plain(), dtype_name, f"masked_matmul {name}")
+    b_ms, b_by = bound(x.numel() * elt + 9 * n_w + m * nd * elt, flops,
+                       dtype_name)
+    w_dt = weff()
+    rows.append(dict(kernel="masked_matmul_fwd", **common, max_abs_err=err,
+                     ms=time_ms(kern), plain_ms=time_ms(plain),
+                     library_ms=time_ms(lambda: x @ weff()), bound_ms=b_ms,
+                     bound_by=b_by, gemm_ms=time_ms(lambda: x @ w_dt)))
+
+    kern = lambda: mm.masked_matmul_bwd_dx(gy, x, w, own, pm, 2, mask_mode=mode)
+    plain = lambda: mm.masked_matmul_bwd_dx_plain(gy, x, w, own, pm, 2,
+                                                  mask_mode=mode)
+    err = compare(kern(), plain(), dtype_name, f"masked_matmul_bwd_dx {name}")
+    b_ms, b_by = bound(gy.numel() * elt + 9 * n_w + x.numel() * elt, flops,
+                       dtype_name)
+    rows.append(dict(kernel="masked_matmul_bwd_dx", **common, max_abs_err=err,
+                     ms=time_ms(kern), plain_ms=time_ms(plain),
+                     library_ms=time_ms(lambda: gy @ weff().t()),
+                     bound_ms=b_ms, bound_by=b_by,
+                     gemm_ms=time_ms(lambda: gy @ w_dt.t())))
+
+    kern = lambda: mm.masked_matmul_bwd_dw(gy, x, w, own, 2)
+    plain = lambda: mm.masked_matmul_bwd_dw_plain(gy, x, w, own, 2)
+
+    def library():
+        G = (x.t() @ gy).float()
+        return (torch.where(own == 2, G, 0.0),
+                torch.where((own > 0) & (own < 2), G * w, 0.0))
+
+    got, want = kern(), plain()
+    err = max(compare(got[0], want[0], "float32", f"masked_matmul_bwd_dw dw {name}",
+                      rel=SUM_TOL),
+              compare(got[1], want[1], "float32", f"masked_matmul_bwd_dw dpm {name}",
+                      rel=SUM_TOL))
+    b_ms, b_by = bound(x.numel() * elt + gy.numel() * elt + 5 * n_w + 8 * n_w,
+                       flops, dtype_name)
+    rows.append(dict(kernel="masked_matmul_bwd_dw", **common, max_abs_err=err,
+                     ms=time_ms(kern), plain_ms=time_ms(plain),
+                     library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
+                     gemm_ms=time_ms(lambda: x.t() @ gy)))
+    return rows
+
+
+def build_state(torch, dev, arch="vgg16_bn_cifar"):
     from cpg_tpu_torch.core.pruner import one_shot_prune
     from cpg_tpu_torch.train.sequence import init_state, start_task
 
     g = torch.Generator().manual_seed(SEED)
-    state = init_state("vgg16_bn_cifar", g, width_mult=1.0, device=dev)
+    state = init_state(arch, g, width_mult=1.0, device=dev)
     start_task(state, "task1", 5, g)
     state.shared, state.ownership = one_shot_prune(state.shared,
                                                    state.ownership, 1, 0.5)
@@ -307,8 +472,8 @@ def build_state(torch, dev):
         pm[k] = pm[k] + (torch.randn(pm[k].shape, generator=g) * 1e-2).to(dev)
     below = sum(int((v <= state.threshold).sum()) for v in pm.values())
     total = sum(v.numel() for v in pm.values())
-    n_conv = sum(v.numel() for v in state.shared.values())
-    print(f"state: VGG16-BN width 1.0, {n_conv} conv weights, task-2 "
+    n_shared = sum(v.numel() for v in state.shared.values())
+    print(f"state: {arch} width 1.0, {n_shared} sharable weights, task-2 "
           f"piggymask {below / total:.3f} below threshold", flush=True)
     return state
 
@@ -352,12 +517,57 @@ def serve_phase(torch, dev, state):
     return max(errs), lat
 
 
+def vit_serve_phase(torch, dev, state):
+    """bf16 ViT server through export -> load against the f32 server (both
+    the effective-params einsum path; serving runs no port kernel, as
+    `cpg_tpu`'s server has no flash route)."""
+    from cpg_tpu_torch.data.augment import cifar_eval_preprocess as prep
+    from cpg_tpu_torch.serve import TaskServer
+
+    rng = np.random.RandomState(SEED + 8)
+    ref = TaskServer(state, prep, compute_dtype=torch.float32, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        TaskServer(state, prep, compute_dtype=torch.bfloat16,
+                   device=dev).export(tmp)
+        srv = TaskServer.load(tmp, prep, device=dev)
+    srv.warmup()
+    errs = []
+    for n in (1, 37, 256):
+        x = rng.randint(0, 256, (n, 32, 32, 3)).astype(np.uint8)
+        got = torch.from_numpy(srv.predict(2, x))
+        want = torch.from_numpy(ref.predict(2, x))
+        if got.shape != (n, 5):
+            raise AssertionError(f"vit serve: shape {tuple(got.shape)} for {n} rows")
+        errs.append(compare(got, want, "bfloat16", f"vit serve {n} rows"))
+    reqs = [(1 + i % 2, rng.randint(0, 256, (32, 32, 3)).astype(np.uint8))
+            for i in range(12)]
+    for i, (got, want) in enumerate(zip(srv.predict_mixed(reqs),
+                                        ref.predict_mixed(reqs))):
+        errs.append(compare(torch.from_numpy(got), torch.from_numpy(want),
+                            "bfloat16", f"vit predict_mixed request {i}"))
+    x = rng.randint(0, 256, (256, 32, 32, 3)).astype(np.uint8)
+    srv.predict(2, x)
+    ts = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        srv.predict(2, x)
+        ts.append(time.perf_counter() - t0)
+    p50 = float(np.median(ts))
+    return max(errs), {"bf16": {"p50_ms": p50 * 1e3, "img_per_s": 256 / p50}}
+
+
+# the kernel flags of each architecture's eval and train phases
+KERNEL_FLAGS = {"vgg16_bn_cifar": dict(use_pallas_conv=True,
+                                       use_fused_chain=True),
+                "vit_cifar": dict(use_pallas=True, flash_attention=True)}
+
+
 def eval_phase(torch, dev, state, counts):
     from cpg_tpu_torch.data.augment import cifar_eval_preprocess as prep
     from cpg_tpu_torch.models import get_model
     from cpg_tpu_torch.train.step import TrainConfig, make_eval_step
 
-    model_fn, _ = get_model("vgg16_bn_cifar")
+    model_fn, _ = get_model(state.arch)
     kw = dict(num_classes=5, mult=1.0, has_piggymask=True,
               preprocess_fn=prep, device=dev)
     rng = np.random.RandomState(SEED + 2)
@@ -367,20 +577,27 @@ def eval_phase(torch, dev, state, counts):
     args = (state.shared, t.piggymask, t.private, t.bn_state, state.ownership,
             2, x, y)
     ref = make_eval_step(model_fn, cfg=TrainConfig(), **kw)(*args)[0]
+    torch.cuda.synchronize()
     counts.reset()
     got = make_eval_step(model_fn, cfg=TrainConfig(
-        use_pallas_conv=True, use_fused_chain=True), **kw)(*args)[0]
+        **KERNEL_FLAGS[state.arch]), **kw)(*args)[0]
     torch.cuda.synchronize()
     launched = counts.read()
-    return compare(got, ref, "bfloat16", "masked eval step"), launched
+    return compare(got, ref, "bfloat16", f"{state.arch} masked eval step"), launched
 
 
-# launches of each kernel in one train step of VGG16-BN task 2 with
-# use_pallas_conv and use_fused_chain: five masked convs (conv0's input is
-# the image, so no dx) and eight fused seams
-TRAIN_LAUNCHES = {"masked_conv_fwd": 5, "masked_conv_bwd_dx": 4,
-                  "masked_conv_bwd_dw": 5, "fused_chain_fwd": 8,
-                  "fused_chain_bwd_dx": 8, "fused_chain_bwd_dw": 8}
+# launches of each kernel in one train step of task 2 with the kernel flags:
+# VGG16-BN's five masked convs (conv0's input is the image, so no dx) and
+# eight fused seams; vit_cifar's six blocks of six sdense layers and one
+# attention (its patch stem is a plain product); zero for every other kernel
+TRAIN_LAUNCHES = {
+    "vgg16_bn_cifar": {"masked_conv_fwd": 5, "masked_conv_bwd_dx": 4,
+                       "masked_conv_bwd_dw": 5, "fused_chain_fwd": 8,
+                       "fused_chain_bwd_dx": 8, "fused_chain_bwd_dw": 8},
+    "vit_cifar": {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
+                  "masked_matmul_fwd": 36, "masked_matmul_bwd_dx": 36,
+                  "masked_matmul_bwd_dw": 36},
+}
 TRAIN_STEPS = 3
 TRAIN_TIMING_BATCHES = (BATCH, 1024)  # bench.py's batch is 1024
 # Tolerances of the kernel step (bf16) against the default step (bf16). The
@@ -414,7 +631,7 @@ def train_phase(torch, dev, state, counts):
     from cpg_tpu_torch.models import get_model
     from cpg_tpu_torch.train.step import TrainConfig, make_train_step
 
-    model_fn, _ = get_model("vgg16_bn_cifar")
+    model_fn, _ = get_model(state.arch)
     gen = torch.Generator().manual_seed(SEED + 3)
     base = state.map_arrays(lambda t: t.clone())
     # release 2% of task 2's entries so the free-entry invariant has entries
@@ -435,8 +652,8 @@ def train_phase(torch, dev, state, counts):
     def stepper(kernels, dtype=torch.bfloat16):
         st = base.map_arrays(lambda t: t.clone())
         task = st.tasks[2]
-        cfg = TrainConfig(use_pallas_conv=kernels, use_fused_chain=kernels,
-                          compute_dtype=dtype)
+        cfg = TrainConfig(compute_dtype=dtype,
+                          **(KERNEL_FLAGS[state.arch] if kernels else {}))
         step, (opt_w, opt_pm) = make_train_step(
             model_fn, num_classes=5, mult=base.width_mult, has_piggymask=True,
             cfg=cfg, augment_fn=cifar_train_augment, device=dev)
@@ -487,7 +704,6 @@ def train_phase(torch, dev, state, counts):
     stats = dict(losses_f32=l32, losses_default=ld, losses_kernels=lk,
                  loss_max_rel=loss_rel, update_dist_to_f32=dist,
                  f32_update_norm=ref_norm, free_entries=n_free)
-    print(f"train: {json.dumps(stats)}", flush=True)
     if not all(np.isfinite(ld + lk + l32)):
         raise AssertionError(f"train: non-finite losses {ld} {lk} {l32}")
     if loss_rel > LOSS_RTOL:
@@ -511,10 +727,11 @@ def train_phase(torch, dev, state, counts):
             if not torch.equal(pm[own != 1], pm0[own != 1]):
                 raise AssertionError(f"train {label}: piggymask of {k} moved "
                                      "outside the prior-task entries")
-    for k, want in TRAIN_LAUNCHES.items():
-        if launched[k] != want:
-            raise AssertionError(f"train: {k} launched {launched[k]} times in "
-                                 f"one step, expected {want}")
+    expected = TRAIN_LAUNCHES[state.arch]
+    for k, n in launched.items():
+        if n != expected.get(k, 0):
+            raise AssertionError(f"train {state.arch}: {k} launched {n} times "
+                                 f"in one step, expected {expected.get(k, 0)}")
 
     # ms/step by host clock around steps that end in a synchronize; the two
     # steps in turns (default, kernels, kernels, default), 10 steps a round
@@ -541,11 +758,22 @@ def train_phase(torch, dev, state, counts):
     return dict(stats, timing=timing), launched
 
 
+def _per_step(row) -> int:
+    """Launches of a phase row's shape in one train step at batch 256: the
+    ViT rows say so; a VGG16-BN row's layer runs once a step in bf16 binary
+    (its ternary and f32 rows are extra checks)."""
+    if "per_step" in row:
+        return row["per_step"]
+    return int(row["dtype"] == "bfloat16"
+               and row.get("mode", "binary") == "binary")
+
+
 class Counts:
     """The kernel wrappers' launch counters."""
 
     def __init__(self):
-        from cpg_tpu_torch.ops import fused_chain, masked_conv
+        from cpg_tpu_torch.ops import (flash, fused_chain, masked_conv,
+                                       masked_matmul)
 
         self.where = {
             "masked_conv_fwd": (masked_conv, "LAUNCHES"),
@@ -554,6 +782,12 @@ class Counts:
             "fused_chain_fwd": (fused_chain, "LAUNCHES"),
             "fused_chain_bwd_dx": (fused_chain, "LAUNCHES_BWD_DX"),
             "fused_chain_bwd_dw": (fused_chain, "LAUNCHES_BWD_DW"),
+            "flash_fwd": (flash, "LAUNCHES"),
+            "flash_bwd_dq": (flash, "LAUNCHES_BWD_DQ"),
+            "flash_bwd_dkv": (flash, "LAUNCHES_BWD_DKV"),
+            "masked_matmul_fwd": (masked_matmul, "LAUNCHES"),
+            "masked_matmul_bwd_dx": (masked_matmul, "LAUNCHES_BWD_DX"),
+            "masked_matmul_bwd_dw": (masked_matmul, "LAUNCHES_BWD_DW"),
         }
 
     def reset(self):
@@ -605,29 +839,53 @@ def main() -> int:
                                   "float32"))
     rows += fused_chain_bwd_phases(torch, dev, "conv3", 16, 128, 128,
                                    "float32")
+    for name, n, t, h, hd, causal, dname, per_step in FLASH_SHAPES:
+        rows += flash_phases(torch, dev, name, n, t, h, hd, causal, dname,
+                             per_step)
+    for name, m, kd, nd, dname, mode, per_step in DENSE_SHAPES:
+        rows += dense_phases(torch, dev, name, m, kd, nd, dname, mode,
+                             per_step)
     for r in rows:
         print("phase " + json.dumps(r), flush=True)
     t_kernels = time.perf_counter() - t_start
 
-    state = build_state(torch, dev)
     counts = Counts()
-    counts.reset()
-    serve_err, lat = serve_phase(torch, dev, state)
-    torch.cuda.synchronize()
-    serve_counts = counts.read()
-    print(f"serve: max|diff| vs unfused {serve_err}; bucket 256 "
-          f"{json.dumps(lat)} on {card}", flush=True)
-    eval_err, eval_counts = eval_phase(torch, dev, state, counts)
-    print(f"eval: max|diff| vs effective-params step {eval_err}", flush=True)
-    if serve_counts["fused_chain_fwd"] == 0:
-        raise AssertionError("serve phase launched no fused_chain_fwd kernel")
-    for k in ("masked_conv_fwd", "fused_chain_fwd"):
-        if eval_counts[k] == 0:
-            raise AssertionError(f"eval phase launched no {k} kernel")
-    train, train_counts = train_phase(torch, dev, state, counts)
-    print(f"train: {json.dumps(train)} on {card}", flush=True)
-    print(f"launches: serve {serve_counts}, eval {eval_counts}, "
-          f"train (one step) {train_counts}", flush=True)
+    launched = {}  # phase -> kernel -> launches
+    results = {}
+    for arch in ("vgg16_bn_cifar", "vit_cifar"):
+        state = build_state(torch, dev, arch)
+        torch.cuda.synchronize()
+        counts.reset()
+        if arch == "vit_cifar":
+            serve_err, lat = vit_serve_phase(torch, dev, state)
+            what = "the f32 server"
+        else:
+            serve_err, lat = serve_phase(torch, dev, state)
+            what = "the unfused server"
+        torch.cuda.synchronize()
+        launched[f"{arch}/serve"] = counts.read()
+        print(f"serve {arch}: max|diff| vs {what} {serve_err}; bucket 256 "
+              f"{json.dumps(lat)} on {card}", flush=True)
+        eval_err, launched[f"{arch}/eval"] = eval_phase(torch, dev, state,
+                                                        counts)
+        print(f"eval {arch}: max|diff| vs effective-params step {eval_err}",
+              flush=True)
+        train, launched[f"{arch}/train"] = train_phase(torch, dev, state,
+                                                       counts)
+        print(f"train {arch}: {json.dumps(train)} on {card}", flush=True)
+        results[arch] = dict(serve_max_abs_err=serve_err, serve_latency=lat,
+                             eval_max_abs_err=eval_err, train=train)
+        del state
+        torch.cuda.empty_cache()
+    # every phase that should reach a kernel did
+    need = {"vgg16_bn_cifar/serve": ["fused_chain_fwd"],
+            "vgg16_bn_cifar/eval": ["masked_conv_fwd", "fused_chain_fwd"],
+            "vit_cifar/eval": ["flash_fwd", "masked_matmul_fwd"]}
+    for phase, names in need.items():
+        for k in names:
+            if launched[phase][k] == 0:
+                raise AssertionError(f"{phase} phase launched no {k} kernel")
+    print(f"launches: {json.dumps(launched)}", flush=True)
 
     meta = {
         "masked_conv_fwd": ("cpg_tpu_torch/csrc/masked_conv_fwd.cu",
@@ -642,39 +900,47 @@ def main() -> int:
                                "cpg_tpu/ops/pallas/fused_chain.py:233"),
         "fused_chain_bwd_dw": ("cpg_tpu_torch/csrc/fused_chain_bwd_dw.cu",
                                "cpg_tpu/ops/pallas/fused_chain.py:276"),
+        "flash_fwd": ("cpg_tpu_torch/csrc/flash_fwd.cu",
+                      "cpg_tpu/ops/flash.py:97"),
+        "flash_bwd_dq": ("cpg_tpu_torch/csrc/flash_bwd.cu",
+                         "cpg_tpu/ops/flash.py:97"),
+        "flash_bwd_dkv": ("cpg_tpu_torch/csrc/flash_bwd.cu",
+                          "cpg_tpu/ops/flash.py:97"),
+        "masked_matmul_fwd": ("cpg_tpu_torch/csrc/masked_conv_fwd.cu",
+                              "cpg_tpu/ops/pallas/masked_matmul.py:97"),
+        "masked_matmul_bwd_dx": ("cpg_tpu_torch/csrc/masked_conv_bwd_dx.cu",
+                                 "cpg_tpu/ops/pallas/masked_matmul.py:173"),
+        "masked_matmul_bwd_dw": ("cpg_tpu_torch/csrc/masked_conv_bwd_dw.cu",
+                                 "cpg_tpu/ops/pallas/masked_matmul.py:244"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == name]
-        # the layers of one VGG16-BN train step, bf16 binary
-        step = [r for r in mine if r["dtype"] == "bfloat16"
-                and r.get("mode", "binary") == "binary"]
+        # the shapes of one train step at batch 256 (VGG16-BN for the conv
+        # kernels, vit_cifar for the rest), each times its launches there
+        step = [(r, _per_step(r)) for r in mine if _per_step(r)]
         by = {}
-        for r in step:
-            by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
+        for r, k in step:
+            by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + k * r["bound_ms"]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": (serve_counts[name] + eval_counts[name]
-                         + train_counts[name]),
+            "launches": sum(c[name] for c in launched.values()),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": sum(r["ms"] for r in step),
-            "plain_ms": sum(r["plain_ms"] for r in step),
-            "bound_ms": sum(r["bound_ms"] for r in step),
+            "ms": sum(k * r["ms"] for r, k in step),
+            "plain_ms": sum(k * r["plain_ms"] for r, k in step),
+            "bound_ms": sum(k * r["bound_ms"] for r, k in step),
             "bound_by": max(by, key=by.get),
-            "library_ms": sum(r["library_ms"] for r in step),
+            "library_ms": sum(k * r["library_ms"] for r, k in step),
         })
     wall = time.perf_counter() - t_start
     print(f"wall: {wall:.1f} s after the build ({t_kernels:.1f} s kernel "
           f"phases)", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "phases": rows, "serve_latency": lat,
-                   "serve_max_abs_err": serve_err,
-                   "eval_max_abs_err": eval_err, "train": train,
-                   "launches": {"serve": serve_counts, "eval": eval_counts,
-                                "train_one_step": train_counts},
-                   "kernels": kernels, "wall_s": wall}, f, indent=1)
+        json.dump({"card": card, "phases": rows, "results": results,
+                   "launches": launched, "kernels": kernels, "wall_s": wall},
+                  f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
-"""Functional layer framework for CPG models (VGG subset).
+"""Functional layer framework for CPG models (VGG and ViT subset).
 
 The counterpart of `cpg_tpu.models.framework`: a flat parameter dict keyed by
 layer name, split into *shared* sharable kernels (governed by ownership) and
-task-*private* params (BN affine and running stats, heads). Layers take and
-return NHWC tensors; kernels are HWIO; torch layouts appear only inside ops.
+task-*private* params (BN and LayerNorm affines, BN running stats, biases,
+positional embeddings, heads). Layers take and return NHWC (or (N, T, D))
+tensors; conv kernels are HWIO, dense kernels (in, out); torch layouts appear
+only inside ops.
 
 Usage:
     shared, private, bn_state = init(generator, model_fn, sample_x)
@@ -29,15 +31,17 @@ from ..ops.conv import conv2d_nhwc, resolve_padding
 class Masking:
     """Raw-weight mode: `shared` holds RAW weights and each sharable layer
     applies the CPG effective-weight selection itself, as a per-layer select
-    or, with `pallas_conv` (the name `cpg_tpu` uses), inside the masked-conv
-    kernel (ops/masked_conv.py). Numerically the same as consuming
-    pre-masked effective params."""
+    or inside the masked kernels: `pallas_dense` (the names `cpg_tpu` uses)
+    routes `sdense` to ops/masked_matmul.py, `pallas_conv` routes `sconv` to
+    ops/masked_conv.py. Numerically the same as consuming pre-masked
+    effective params."""
 
     ownership: Dict[str, torch.Tensor]
     piggymask: Optional[Dict[str, torch.Tensor]]
     task_id: int
     threshold: float = 5e-3
     mask_mode: str = "binary"
+    pallas_dense: bool = False
     pallas_conv: bool = False
 
 
@@ -46,6 +50,17 @@ def he_normal_fan_out(gen, shape, dtype=torch.float32):
     fan_out = shape[0] * shape[1] * shape[3] if len(shape) == 4 else shape[-1]
     return torch.randn(tuple(shape), generator=gen, dtype=dtype) * math.sqrt(
         2.0 / fan_out)
+
+
+def xavier_normal(gen, shape, dtype=torch.float32):
+    """Glorot-normal over (in, out) dense or HWIO conv kernels."""
+    if len(shape) == 2:
+        fan_in, fan_out = shape[0], shape[-1]
+    else:
+        fan_in = shape[0] * shape[1] * shape[2]
+        fan_out = shape[0] * shape[1] * shape[3]
+    return torch.randn(tuple(shape), generator=gen, dtype=dtype) * math.sqrt(
+        2.0 / (fan_in + fan_out))
 
 
 def normal_init(std):
@@ -79,6 +94,9 @@ class Ctx:
     # route BN+ReLU+conv3x3 chains through the fused kernel
     # (ops/fused_chain.py); honoured by fused_bn_relu_sconv outside init
     fused_chain: bool = False
+    # route transformer attention through the flash kernels (ops/flash.py);
+    # honoured by models/vit.py attention() outside init
+    flash_attention: bool = False
 
     def shared_param(self, name, shape, init_fn):
         if self.mode == "init":
@@ -119,15 +137,28 @@ class Ctx:
                                 mk.mask_mode)
 
 
+def _patchify_dot(x: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
+    """kernel == stride == k VALID conv as space-to-depth + one product. The
+    patch flatten order (kh, kw, cin) is HWIO's row-major flatten, so
+    `w.reshape(k*k*C, F)` pairs elements as the strided conv does."""
+    n, hh, ww, c = x.shape
+    f = w.shape[-1]
+    x = x.reshape(n, hh // k, k, ww // k, k, c).permute(0, 1, 3, 2, 4, 5)
+    y = x.reshape(n, (hh // k) * (ww // k), k * k * c) @ w.reshape(k * k * c, f)
+    return y.reshape(n, hh // k, ww // k, f)
+
+
 def sconv(ctx: Ctx, name: str, x: torch.Tensor, features: int,
-          kernel: int = 3, stride: int = 1, padding="SAME") -> torch.Tensor:
+          kernel: int = 3, stride: int = 1, padding="SAME",
+          kernel_init=he_normal_fan_out) -> torch.Tensor:
     """Sharable 2D conv (ref:models/layers.py SharableConv2d). NHWC/HWIO,
     output in the compute dtype. With a Masking whose `pallas_conv` is set
-    and a piggymask present, the masked-conv kernel selects the weight."""
+    and a piggymask present, the masked-conv kernel selects the weight. A
+    non-overlapping patch embedding (kernel == stride, VALID, as in the ViT
+    stems) runs as space-to-depth + one matmul, as `cpg_tpu` computes it."""
     cin = x.shape[-1]
     key = f"{name}/kernel"
-    w = ctx.shared_param(key, (kernel, kernel, cin, features),
-                         he_normal_fan_out)
+    w = ctx.shared_param(key, (kernel, kernel, cin, features), kernel_init)
     mk = ctx.masking
     if mk is not None and ctx.mode != "init":
         own, pm = ctx.mask_entries(key)
@@ -139,10 +170,46 @@ def sconv(ctx: Ctx, name: str, x: torch.Tensor, features: int,
                                  padding=padding, threshold=mk.threshold,
                                  mask_mode=mk.mask_mode)
         w = ctx.masked_weight(key, w)
+    if (kernel == stride and kernel > 1 and padding == "VALID"
+            and x.shape[1] % kernel == 0 and x.shape[2] % kernel == 0):
+        return _patchify_dot(x.to(ctx.compute_dtype),
+                             w.to(ctx.compute_dtype), kernel)
     pads = resolve_padding(padding, x.shape[1], x.shape[2], kernel, kernel,
                            stride)
     return conv2d_nhwc(x.to(ctx.compute_dtype), w.to(ctx.compute_dtype),
                        stride, pads)
+
+
+def sdense(ctx: Ctx, name: str, x: torch.Tensor, features: int,
+           use_bias: bool = True, kernel_init=normal_init(0.01)
+           ) -> torch.Tensor:
+    """Sharable dense layer (ref:models/layers.py SharableLinear) over any
+    leading shape, output and bias add in the compute dtype. With a Masking
+    whose `pallas_dense` is set and a piggymask present, the leading dims
+    flatten to (M, K) and the masked-matmul kernels select the weight."""
+    key = f"{name}/kernel"
+    w = ctx.shared_param(key, (x.shape[-1], features), kernel_init)
+    mk = ctx.masking
+    if mk is not None and ctx.mode != "init":
+        own, pm = ctx.mask_entries(key)
+        if mk.pallas_dense and pm is not None:
+            from ..ops.masked_matmul import masked_matmul
+
+            x2 = x.reshape(-1, x.shape[-1]).to(ctx.compute_dtype).contiguous()
+            y = masked_matmul(x2, w, own, pm, mk.task_id, mk.threshold,
+                              mk.mask_mode).reshape(*x.shape[:-1], features)
+            return _dense_bias(ctx, name, y, features, use_bias)
+        w = ctx.masked_weight(key, w)
+    y = x.to(ctx.compute_dtype) @ w.to(ctx.compute_dtype)
+    return _dense_bias(ctx, name, y, features, use_bias)
+
+
+def _dense_bias(ctx: Ctx, name: str, y: torch.Tensor, features: int,
+                use_bias: bool) -> torch.Tensor:
+    if not use_bias:
+        return y
+    b = ctx.private_param(f"{name}/bias", (features,), _zeros)
+    return y + b.to(y.dtype)
 
 
 BN_MOMENTUM = 0.1  # torch default: running = (1-m)*running + m*batch
@@ -209,6 +276,29 @@ def fused_bn_relu_sconv(ctx: Ctx, bn_name: str, conv_name: str,
                                   b.contiguous(), w, ctx.compute_dtype)
 
 
+LN_EPS = 1e-6
+
+
+def layernorm(ctx: Ctx, name: str, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm over the last axis with a task-private affine; two-pass f32
+    moments, output in x's dtype."""
+    c = x.shape[-1]
+    scale = ctx.private_param(f"{name}/scale", (c,), _ones)
+    bias = ctx.private_param(f"{name}/bias", (c,), _zeros)
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + LN_EPS) * scale + bias
+    return y.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximation GELU; gelu(0) == 0 exactly (the growth law needs a
+    grown hidden unit to stay 0). On bf16 input torch evaluates in f32 and
+    rounds once, where XLA rounds after each elementwise op."""
+    return F.gelu(x, approximate="tanh")
+
+
 def head(ctx: Ctx, name: str, x: torch.Tensor, num_classes: int) -> torch.Tensor:
     """Task-private classifier head, f32, initialised N(0, 0.01^2)."""
     w = ctx.private_param(f"{name}/kernel", (x.shape[-1], num_classes),
@@ -238,11 +328,12 @@ def init(generator: torch.Generator, model_fn: Callable, sample_x,
 def apply(model_fn: Callable, shared: Dict, private: Dict, bn_state: Dict, x,
           train: bool, compute_dtype=torch.float32,
           masking: Optional[Masking] = None, fused_chain: bool = False,
-          **kwargs):
+          flash_attention: bool = False, **kwargs):
     """Run the model. With `masking=None`, `shared` holds pre-masked
     effective params; with a Masking, `shared` holds RAW weights."""
     ctx = Ctx(mode="apply", train=train, shared=shared, private=private,
               bn_state=bn_state, compute_dtype=compute_dtype,
-              masking=masking, fused_chain=fused_chain)
+              masking=masking, fused_chain=fused_chain,
+              flash_attention=flash_attention)
     out = model_fn(ctx, x, **kwargs)
     return out, ctx.new_bn_state

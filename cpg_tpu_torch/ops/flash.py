@@ -1,0 +1,272 @@
+"""Flash attention: softmax(q k^T / sqrt(hd)) v without the score matrix in
+device memory, forward and backward.
+
+`flash_mha(q, k, v, causal=False)` is the counterpart of `cpg_tpu.ops.flash.
+flash_mha` (the stock Pallas TPU flash-attention kernel with its custom
+VJP): q, k, v are (N, T, H, hd), as models/vit.py's attention reshapes the
+sdense outputs, and the result is (N, T, H, hd) in q's dtype. A
+`torch.autograd.Function` saves q, k, v, the output o and the f32
+log-sum-exp lse (N, H, T) of each query row, and the backward recomputes
+the probabilities tile by tile from them.
+
+On CUDA tensors it launches hand-written kernels that read (N, T, H, hd)
+in place (a row of T is H*hd elements apart; no transpose to (N, H, T, hd)
+and no padding copy: keys >= T are masked inside the kernel):
+
+  * `csrc/flash_fwd.cu` (K7 forward): online softmax over 64-key tiles,
+    writes o and lse;
+  * `csrc/flash_bwd.cu`: `flash_bwd_dq` (one block per 64-row query tile,
+    looping over key tiles; it also writes D = rowsum(dO * o), which the
+    second kernel reads) and `flash_bwd_dkv` (one block per 64-key tile,
+    looping over query tiles). No float atomics: two runs give the same
+    bits.
+
+Rounding points follow the stock kernel: scores and softmax in f32, the
+probabilities cast to v's dtype before P.V; in the backward p and ds are
+cast to dO's dtype before each product, every sum in f32, and the results
+cast to the inputs' dtypes last. Masked scores take the stock kernel's
+mask value -0.7 * FLT_MAX. On CPU tensors the plain versions
+`flash_mha_plain` and `flash_mha_bwd_plain` run; they materialise the f32
+scores.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+# kernel launches since the last reset (set to 0 to start counting)
+LAUNCHES = 0           # K7 forward
+LAUNCHES_BWD_DQ = 0    # K7 backward, dQ (and D)
+LAUNCHES_BWD_DKV = 0   # K7 backward, dK and dV
+
+MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
+_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _scores(q, k, causal: bool):
+    """f32 scaled scores (N, H, T, T) with masked entries at MASK_VALUE."""
+    t, hd = q.shape[1], q.shape[3]
+    s = torch.einsum("nthd,nshd->nhts", q.float(), k.float()) * (
+        1.0 / math.sqrt(hd))
+    if causal:
+        tri = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(tri, s, MASK_VALUE)
+    return s
+
+
+def flash_mha_plain(q, k, v, causal: bool = False):
+    """Plain version: (o, lse) with o (N, T, H, hd) in q's dtype and lse
+    (N, H, T) f32; the probabilities exp(s - m) rounded to v's dtype before
+    the product, the row sum and the normalisation in f32."""
+    s = _scores(q, k, causal)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("nhts,nshd->nhtd", p.to(v.dtype).float(), v.float()) / l
+    lse = (m + torch.log(l)).squeeze(-1)
+    return o.permute(0, 2, 1, 3).to(q.dtype), lse
+
+
+def _p_dp(q, k, v, lse, do, causal):
+    """p and dp = dO v^T of the backward in f32, as the kernels form them."""
+    p = torch.exp(_scores(q, k, causal) - lse.unsqueeze(-1))
+    return p, torch.einsum("nthd,nshd->nhts", do.float(), v.float())
+
+
+def _ds(p, dp, d, q, do):
+    """ds rounded to dO's dtype, as the kernels round it before a product."""
+    ds = (dp - d.unsqueeze(-1)) * p * (1.0 / math.sqrt(q.shape[3]))
+    return ds.to(do.dtype).float()
+
+
+def flash_mha_bwd_dq_plain(q, k, v, o, lse, do, causal: bool = False):
+    """Plain version of the dQ kernel: (dq in q's dtype, D = rowsum(dO * o)
+    f32 (N, H, T))."""
+    d = (do.float() * o.float()).sum(-1).permute(0, 2, 1)
+    p, dp = _p_dp(q, k, v, lse, do, causal)
+    dq = torch.einsum("nhts,nshd->nthd", _ds(p, dp, d, q, do), k.float())
+    return dq.to(q.dtype), d
+
+
+def flash_mha_bwd_dkv_plain(q, k, v, do, lse, d, causal: bool = False):
+    """Plain version of the dK/dV kernel: (dk, dv) in k's and v's dtypes."""
+    p, dp = _p_dp(q, k, v, lse, do, causal)
+    dv = torch.einsum("nhts,nthd->nshd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("nhts,nthd->nshd", _ds(p, dp, d, q, do), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_mha_bwd_plain(q, k, v, o, lse, do, causal: bool = False):
+    """Plain backward: (dq, dk, dv) in the inputs' dtypes, with the stock
+    kernel's rounding points (p, ds cast to dO's dtype before the
+    products, f32 sums)."""
+    dq, d = flash_mha_bwd_dq_plain(q, k, v, o, lse, do, causal)
+    return (dq, *flash_mha_bwd_dkv_plain(q, k, v, do, lse, d, causal))
+
+
+class _FlashMHA(torch.autograd.Function):
+    """o = softmax(q k^T * s) v; residuals q, k, v, o and the f32 lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        dq, d = flash_bwd_dq(q, k, v, o, lse, do, ctx.causal)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, d, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_mha(q, k, v, *, causal: bool = False):
+    """Multi-head attention, q, k, v (N, T, H, hd) -> (N, T, H, hd) in q's
+    dtype, scores scaled by 1/sqrt(hd); `causal` lets query t see keys
+    <= t. Differentiable in q, k and v."""
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"flash_mha: q, k, v must share one (N, T, H, hd) "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("flash_mha: q, k, v must share one dtype")
+    return _FlashMHA.apply(q, k, v, bool(causal))
+
+
+# ------------------------------------------------------------- kernels ----
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures: tensor pointers, then N, T, H, hd, causal, the stream
+_ARGTYPES = {
+    "flash_fwd": [_P] * 5 + [_I] * 5 + [_P],
+    "flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P],
+    "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P],
+}
+_LIBS = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
+         "flash_bwd_dkv": "flash_bwd"}
+
+
+def _fn(name, dtype):
+    f = getattr(_build.load(_LIBS[name]), f"{name}_{_DTYPES[dtype]}")
+    if f.argtypes is None:
+        f.argtypes = _ARGTYPES[name]
+        f.restype = ctypes.c_int
+    return f
+
+
+def supported(q) -> bool:
+    """The kernels' predicate: bf16 or f32, a head dim of 16, 32, 64 or
+    128 (vit_cifar and vit_b16: 64)."""
+    return q.dtype in _DTYPES and q.shape[-1] in _HEAD_DIMS
+
+
+def _checked(**tensors):
+    """Contiguous views of the (N, T, H, hd) tensors after the kernels'
+    checks; raises on what the kernels do not take."""
+    q = tensors["q"]
+    if not q.is_cuda:
+        raise ValueError(f"flash kernel: q must be a CUDA tensor, got {q.device}")
+    if not supported(q):
+        raise ValueError(f"flash kernel: unsupported {q.dtype}, head dim "
+                         f"{q.shape[-1]} (needs bf16 or f32, hd in {_HEAD_DIMS})")
+    out = {}
+    for name, t in tensors.items():
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"flash kernel: {name} must match q "
+                             f"({tuple(q.shape)} {q.dtype} on {q.device})")
+        t = t.contiguous()
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash kernel: {name} must be 16-byte aligned")
+        out[name] = t
+    return out
+
+
+def _checked_lse(q, a):
+    """An (N, H, T) f32 row statistic (lse or D) of q's attention."""
+    n, tt, h, _ = q.shape
+    if a.shape != (n, h, tt) or a.dtype != torch.float32 or a.device != q.device:
+        raise ValueError(f"flash kernel: lse and D must be f32 {(n, h, tt)} "
+                         f"on {q.device}")
+    return a.contiguous()
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _raise_on(err, name):
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def flash_fwd(q, k, v, causal: bool = False):
+    """K7 forward: (o, lse); the kernel on CUDA tensors, the plain version
+    on CPU tensors."""
+    global LAUNCHES
+    if q.device.type == "cpu":
+        return flash_mha_plain(q, k, v, causal)
+    t = _checked(q=q, k=k, v=v)
+    n, tt, h, hd = q.shape
+    o = torch.empty((n, tt, h, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((n, h, tt), dtype=torch.float32, device=q.device)
+    if o.numel():
+        err = _fn("flash_fwd", q.dtype)(
+            t["q"].data_ptr(), t["k"].data_ptr(), t["v"].data_ptr(),
+            o.data_ptr(), lse.data_ptr(), n, tt, h, hd, int(causal),
+            _stream(q))
+        _raise_on(err, "flash_fwd")
+        LAUNCHES += 1
+    return o, lse
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False):
+    """The dQ kernel: (dq in q's dtype, D = rowsum(dO * o) f32 (N, H, T),
+    which the dK/dV kernel reads); the plain version on CPU tensors."""
+    global LAUNCHES_BWD_DQ
+    if q.device.type == "cpu":
+        return flash_mha_bwd_dq_plain(q, k, v, o, lse, do, causal)
+    t = _checked(q=q, k=k, v=v, o=o, do=do)
+    lse = _checked_lse(q, lse)
+    n, tt, h, hd = q.shape
+    dq = torch.empty_like(t["q"])
+    d = torch.empty((n, h, tt), dtype=torch.float32, device=q.device)
+    if dq.numel():
+        err = _fn("flash_bwd_dq", q.dtype)(
+            t["q"].data_ptr(), t["k"].data_ptr(), t["v"].data_ptr(),
+            t["o"].data_ptr(), t["do"].data_ptr(), lse.data_ptr(),
+            dq.data_ptr(), d.data_ptr(), n, tt, h, hd, int(causal),
+            _stream(q))
+        _raise_on(err, "flash_bwd_dq")
+        LAUNCHES_BWD_DQ += 1
+    return dq, d
+
+
+def flash_bwd_dkv(q, k, v, do, lse, d, causal: bool = False):
+    """The dK/dV kernel: (dk, dv) in k's and v's dtypes, from D of
+    `flash_bwd_dq`; the plain version on CPU tensors."""
+    global LAUNCHES_BWD_DKV
+    if q.device.type == "cpu":
+        return flash_mha_bwd_dkv_plain(q, k, v, do, lse, d, causal)
+    t = _checked(q=q, k=k, v=v, do=do)
+    lse, d = _checked_lse(q, lse), _checked_lse(q, d)
+    n, tt, h, hd = q.shape
+    dk, dv = torch.empty_like(t["k"]), torch.empty_like(t["v"])
+    if dk.numel():
+        err = _fn("flash_bwd_dkv", q.dtype)(
+            t["q"].data_ptr(), t["k"].data_ptr(), t["v"].data_ptr(),
+            t["do"].data_ptr(), lse.data_ptr(), d.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), n, tt, h, hd, int(causal), _stream(q))
+        _raise_on(err, "flash_bwd_dkv")
+        LAUNCHES_BWD_DKV += 1
+    return dk, dv
+
+

@@ -115,8 +115,11 @@ class _MaskedConv2d(torch.autograd.Function):
         if x.device.type == "cpu":
             return masked_conv2d_plain(x, w, own, pm, task_id, stride,
                                        padding, threshold, mask_mode)
-        return _launch_fwd(x, w, own, pm, task_id, stride, padding,
-                           threshold, mask_mode)
+        global LAUNCHES
+        y = launch_fwd(x, w, own, pm, task_id, stride, padding, threshold,
+                       mask_mode)
+        LAUNCHES += 1
+        return y
 
     @staticmethod
     def backward(ctx, g):
@@ -153,8 +156,11 @@ def masked_conv2d_bwd_dx(g, x, w, own, pm, task_id, stride: int = 1,
     if x.device.type == "cpu":
         return masked_conv2d_bwd_dx_plain(g, x, w, own, pm, task_id, stride,
                                           padding, threshold, mask_mode)
-    return _launch_bwd_dx(g, x, w, own, pm, int(task_id), stride, padding,
-                          threshold, mask_mode)
+    global LAUNCHES_BWD_DX
+    dx = launch_bwd_dx(g, x, w, own, pm, int(task_id), stride, padding,
+                       threshold, mask_mode)
+    LAUNCHES_BWD_DX += 1
+    return dx
 
 
 def masked_conv2d_bwd_dw(g, x, w, own, task_id, stride: int = 1,
@@ -164,10 +170,17 @@ def masked_conv2d_bwd_dw(g, x, w, own, task_id, stride: int = 1,
     if x.device.type == "cpu":
         return masked_conv2d_bwd_dw_plain(g, x, w, own, task_id, stride,
                                           padding)
-    return _launch_bwd_dw(g, x, w, own, int(task_id), stride, padding)
+    global LAUNCHES_BWD_DW
+    out = launch_bwd_dw(g, x, w, own, int(task_id), stride, padding)
+    LAUNCHES_BWD_DW += 1
+    return out
 
 
 # ------------------------------------------------------------- kernels ----
+# `launch_*` check their inputs and launch one kernel (K3: and its second
+# pass) on the current stream; they count nothing: the op that calls them
+# (this module's conv, or ops/masked_matmul.py's dense product at the 1x1
+# geometry) adds to its own counter.
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the libraries' entry points: pointers, the 12 geometry
@@ -237,9 +250,9 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def _launch_fwd(x, w, own, pm, task_id, stride, padding, threshold,
-                mask_mode):
-    global LAUNCHES
+def launch_fwd(x, w, own, pm, task_id, stride, padding, threshold,
+               mask_mode):
+    """K1: y = conv(x, w_eff), the select in the weight-tile load."""
     _check(pm.dtype == torch.float32 and pm.shape == w.shape,
            "pm must be float32 with w's shape")
     geo = _geometry(x, w, own, stride, padding,
@@ -253,14 +266,12 @@ def _launch_fwd(x, w, own, pm, task_id, stride, padding, threshold,
         y.data_ptr(), *geo, task_id, float(threshold),
         int(mask_mode == "ternary"), _stream(x))
     _raise_on(err, "masked_conv_fwd")
-    LAUNCHES += 1
     return y
 
 
-def _launch_bwd_dx(g, x, w, own, pm, task_id, stride, padding, threshold,
-                   mask_mode):
+def launch_bwd_dx(g, x, w, own, pm, task_id, stride, padding, threshold,
+                  mask_mode):
     """K2: dx = conv_transpose(g, w_eff), the select in the weight tile."""
-    global LAUNCHES_BWD_DX
     _check(pm.dtype == torch.float32 and pm.shape == w.shape,
            "pm must be float32 with w's shape")
     geo = _geometry(x, w, own, stride, padding,
@@ -276,14 +287,12 @@ def _launch_bwd_dx(g, x, w, own, pm, task_id, stride, padding, threshold,
         dx.data_ptr(), *geo, task_id, float(threshold),
         int(mask_mode == "ternary"), _stream(x))
     _raise_on(err, "masked_conv_bwd_dx")
-    LAUNCHES_BWD_DX += 1
     return dx
 
 
-def _launch_bwd_dw(g, x, w, own, task_id, stride, padding):
+def launch_bwd_dw(g, x, w, own, task_id, stride, padding):
     """K3: G = x_patches^T g in f32 (split-K partials summed in a fixed
     order), then dw = G on own == task, dpm = G * w on prior entries."""
-    global LAUNCHES_BWD_DW
     geo = _geometry(x, w, own, stride, padding,
                     {"g": g, "x": x, "w": w, "own": own})
     n, _, _, cin, ho, wo, cout, kh, kw = geo[:9]
@@ -299,5 +308,4 @@ def _launch_bwd_dw(g, x, w, own, task_id, stride, padding):
         ws.data_ptr(), dw.data_ptr(), dpm.data_ptr(), *geo, task_id, s,
         _stream(x))
     _raise_on(err, "masked_conv_bwd_dw")
-    LAUNCHES_BWD_DW += 1
     return dw, dpm

@@ -8,9 +8,12 @@ piggymask gradients -> free entries re-zeroed.
 
 With `use_pallas_conv` the sharable convs of a task >= 2 select their
 weights inside the masked-conv kernels (forward K1, backward K2/K3, whose
-dW and dPM arrive gated); with `use_fused_chain` the BN+ReLU+conv3x3 seams
-run the fused kernels (forward K4, backward K5/K6). Otherwise the effective
-weights are materialised and the convs go to cuDNN through autograd.
+dW and dPM arrive gated), and with `use_pallas` the sharable dense layers
+do the same through the dense route of those kernels (ops/masked_matmul.py);
+with `use_fused_chain` the BN+ReLU+conv3x3 seams run the fused kernels
+(forward K4, backward K5/K6); with `flash_attention` transformer attention
+runs the flash kernels (K7, ops/flash.py). Otherwise the effective weights
+are materialised and the layers go to cuDNN/cuBLAS through autograd.
 
 PyTorch runs eagerly and has no buffer donation: the step updates the
 parameter tensors and the optimizer states IN PLACE and returns the same
@@ -52,8 +55,19 @@ class TrainConfig:
     label_smoothing: float = 0.0
     train_piggymask: bool = True    # False: PackNet mode, masks frozen
     grad_clip_norm: Optional[float] = None  # global norm, weights side
+    use_pallas: bool = False        # masked dense kernels (ops/masked_matmul.py)
     use_pallas_conv: bool = False   # masked-conv kernels (ops/masked_conv.py)
     use_fused_chain: bool = False   # fused BN+ReLU+conv3x3 (ops/fused_chain.py)
+    flash_attention: bool = False   # flash attention kernels (ops/flash.py)
+
+def _masking(cfg: TrainConfig, ownership, pm, task_id, mask_mode):
+    """The raw-weight Masking of a step with masked kernels, else None."""
+    if not (cfg.use_pallas or cfg.use_pallas_conv):
+        return None
+    return fw.Masking(ownership=ownership, piggymask=pm, task_id=int(task_id),
+                      threshold=cfg.threshold, mask_mode=mask_mode,
+                      pallas_dense=cfg.use_pallas,
+                      pallas_conv=cfg.use_pallas_conv)
 
 
 class Optimizer:
@@ -133,10 +147,10 @@ def build_train_step(model_fn: Callable, *, num_classes: int, mult: float,
     model_kwargs = model_kwargs or {}
     if cfg.label_smoothing and loss_fn is cross_entropy:
         loss_fn = make_cross_entropy(cfg.label_smoothing)
-    if cfg.use_pallas_conv and mask_mode == "packnet":
+    if (cfg.use_pallas or cfg.use_pallas_conv) and mask_mode == "packnet":
         raise ValueError(
             "PackNet mode (mask_mode='packnet') has no piggymasks to fuse — "
-            "use the default path (use_pallas_conv=False)")
+            "use the default path (use_pallas/use_pallas_conv=False)")
 
     def step(shared, piggymask, private, bn_state, opt_w_state, opt_pm_state,
              ownership, task_id, x, y, rng, it=0):
@@ -152,23 +166,16 @@ def build_train_step(model_fn: Callable, *, num_classes: int, mult: float,
             p.requires_grad_(True)
         try:
             with torch.enable_grad():
-                if cfg.use_pallas_conv:
-                    masking = fw.Masking(
-                        ownership=ownership, piggymask=pm,
-                        task_id=int(task_id), threshold=cfg.threshold,
-                        mask_mode=mask_mode, pallas_conv=True)
-                    eff = shared
-                else:
-                    masking = None
-                    eff = effective_params(shared, ownership, pm, task_id,
-                                           cfg.threshold,
-                                           compute_dtype=cfg.compute_dtype,
-                                           mask_mode=mask_mode)
+                masking = _masking(cfg, ownership, pm, task_id, mask_mode)
+                eff = shared if masking is not None else effective_params(
+                    shared, ownership, pm, task_id, cfg.threshold,
+                    compute_dtype=cfg.compute_dtype, mask_mode=mask_mode)
                 logits, new_bn = fw.apply(
                     model_fn, eff, private, bn_state, x, train=True,
                     compute_dtype=cfg.compute_dtype, masking=masking,
-                    fused_chain=cfg.use_fused_chain, num_classes=num_classes,
-                    mult=mult, **model_kwargs)
+                    fused_chain=cfg.use_fused_chain,
+                    flash_attention=cfg.flash_attention,
+                    num_classes=num_classes, mult=mult, **model_kwargs)
                 loss = call_loss(loss_fn, logits, y, it)
                 loss.backward()
         finally:
@@ -228,21 +235,14 @@ def build_eval_step(model_fn: Callable, *, num_classes: int, mult: float,
         if preprocess_fn is not None:
             x = preprocess_fn(x)
         pm = piggymask if has_piggymask else None
-        if cfg.use_pallas_conv:
-            masking = fw.Masking(ownership=ownership, piggymask=pm,
-                                 task_id=int(task_id),
-                                 threshold=cfg.threshold, mask_mode=mask_mode,
-                                 pallas_conv=True)
-            eff = shared
-        else:
-            masking = None
-            eff = effective_params(shared, ownership, pm, task_id,
-                                   cfg.threshold,
-                                   compute_dtype=cfg.compute_dtype,
-                                   mask_mode=mask_mode)
+        masking = _masking(cfg, ownership, pm, task_id, mask_mode)
+        eff = shared if masking is not None else effective_params(
+            shared, ownership, pm, task_id, cfg.threshold,
+            compute_dtype=cfg.compute_dtype, mask_mode=mask_mode)
         logits, _ = fw.apply(model_fn, eff, private, bn_state, x, train=False,
                              compute_dtype=cfg.compute_dtype, masking=masking,
                              fused_chain=cfg.use_fused_chain,
+                             flash_attention=cfg.flash_attention,
                              num_classes=num_classes, mult=mult,
                              **model_kwargs)
         cl = class_logits(logits)

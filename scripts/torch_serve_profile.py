@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the port's serving time goes on the card.
 
-    python scripts/torch_serve_profile.py [--bucket 256] [--calls 10]
+    python scripts/torch_serve_profile.py [--arch vgg16_bn_cifar|vit_cifar]
+        [--bucket 256] [--calls 10]
 
-Builds the seeded two-task VGG16-BN state at width 1.0 with chip_smoke.py's
-`build_state`, then for the bf16 `TaskServer` without and with the fused
-chain: times `predict` on one bucket (host clock, p50 of the calls), and profiles
-the same calls with torch.profiler: device time by kernel and the device's
-busy share (summed kernel time over wall time). Needs one CUDA card. Prints
-one JSON line and writes it to chiprun_out/torch_serve_profile.json.
+Builds the seeded two-task state of the architecture at width 1.0 with
+chip_smoke.py's `build_state`, then for the bf16 `TaskServer` (VGG16-BN:
+without and with the fused chain; vit_cifar: the effective-params path,
+which runs no port kernel): times `predict` on one bucket (host clock, p50
+of the calls), and profiles the same calls with torch.profiler: device
+time by kernel and the device's busy share (summed kernel time over wall
+time). Needs one CUDA card. Prints one JSON line and writes it to
+chiprun_out/torch_serve_profile_<arch>.json.
 """
 
 from __future__ import annotations
@@ -61,6 +64,8 @@ def profile(torch, srv, x, calls):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="vgg16_bn_cifar",
+                    choices=("vgg16_bn_cifar", "vit_cifar"))
     ap.add_argument("--bucket", type=int, default=256)
     ap.add_argument("--calls", type=int, default=10)
     args = ap.parse_args(argv)
@@ -75,17 +80,19 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     card = card_line()
-    state = build_state(torch, dev)
+    state = build_state(torch, dev, args.arch)
     x = np.random.RandomState(1).randint(
         0, 256, (args.bucket, 32, 32, 3)).astype(np.uint8)
-    out = {"card": card, "bucket": args.bucket, "calls": args.calls}
-    for fused in (False, True):
+    out = {"card": card, "arch": args.arch, "bucket": args.bucket,
+           "calls": args.calls}
+    for fused in (False, True) if args.arch == "vgg16_bn_cifar" else (False,):
         srv = TaskServer(state, cifar_eval_preprocess,
                          compute_dtype=torch.bfloat16, fused_chain=fused,
                          min_bucket=args.bucket, device=dev)
         out["fused" if fused else "unfused"] = profile(torch, srv, x, args.calls)
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "torch_serve_profile.json"), "w") as f:
+    with open(os.path.join("chiprun_out",
+                           f"torch_serve_profile_{args.arch}.json"), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))
     return 0

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Where the port's train-step time goes on the card.
 
-    python scripts/torch_train_profile.py [--batch 256] [--steps 10]
+    python scripts/torch_train_profile.py [--arch vgg16_bn_cifar|vit_cifar]
+        [--batch 256] [--steps 10]
 
-Builds the seeded two-task VGG16-BN state at width 1.0 with chip_smoke.py's
-`build_state`, then for the bf16 train step of task 2 without the kernels
-(the default step: effective weights, cuDNN, autograd) and with them
-(`use_pallas_conv`, `use_fused_chain`): times the step (host clock around
-steps that end in a synchronize), and profiles the same steps with
-torch.profiler: device time by kernel, grouped (the port's six kernels,
-cuDNN/cuBLAS, elementwise and reductions, optimizer), the device's busy
-share (summed kernel time over wall time) and the peak device memory.
+Builds the seeded two-task state of the architecture at width 1.0 with
+chip_smoke.py's `build_state`, then for the bf16 train step of task 2
+without the kernels (the default step: effective weights, cuDNN/cuBLAS,
+autograd) and with them (chip_smoke.py's `KERNEL_FLAGS`: VGG16-BN
+`use_pallas_conv`, `use_fused_chain`; vit_cifar `use_pallas`,
+`flash_attention`): times the step (host clock around steps that end in a
+synchronize), and profiles the same steps with torch.profiler: device time
+by kernel, grouped (the port's kernels, cuDNN/cuBLAS, elementwise and
+reductions, optimizer), the device's busy share (summed kernel time over
+wall time) and the peak device memory.
 Needs one CUDA card. Prints one JSON line and writes it to
-chiprun_out/torch_train_profile.json.
+chiprun_out/torch_train_profile_<arch>.json.
 """
 
 from __future__ import annotations
@@ -29,10 +32,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 # kernel-name fragments -> group (first match wins)
 GROUPS = (
     ("port kernels", ("masked_conv_fwd_", "fused_chain_fwd_", "cpg::bwd::",
+                      "flash_fwd_", "flash_bwd_",
                       "namespace)::gate_kernel", "namespace)::sum_kernel",
                       "namespace)::colsum_kernel")),
     ("cudnn/cublas", ("cudnn", "conv", "gemm", "xmma", "sm90", "cutlass",
-                      "implicit_", "dgrad", "wgrad", "nchw", "nhwc")),
+                      "nvjet", "implicit_", "dgrad", "wgrad", "nchw", "nhwc")),
     ("optimizer", ("multi_tensor", "foreach", "_amp_")),
     ("elementwise/reduce", ("elementwise", "reduce", "Reduce", "index",
                             "max_pool", "softmax", "fill", "copy", "where",
@@ -98,6 +102,8 @@ def profile(torch, run, steps):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="vgg16_bn_cifar",
+                    choices=("vgg16_bn_cifar", "vit_cifar"))
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args(argv)
@@ -106,27 +112,28 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_train_profile: needs a CUDA card", file=sys.stderr)
         return 1
-    from chip_smoke import build_state, card_line
+    from chip_smoke import KERNEL_FLAGS, build_state, card_line
     from cpg_tpu_torch.data.augment import cifar_train_augment, crop_flip_draws
     from cpg_tpu_torch.models import get_model
     from cpg_tpu_torch.train.step import TrainConfig, make_train_step
 
     dev = torch.device("cuda")
     card = card_line()
-    state = build_state(torch, dev)
-    model_fn, _ = get_model("vgg16_bn_cifar")
+    state = build_state(torch, dev, args.arch)
+    model_fn, _ = get_model(args.arch)
     gen = torch.Generator().manual_seed(1)
     x = torch.randint(0, 256, (args.batch, 32, 32, 3), generator=gen,
                       dtype=torch.uint8).to(dev)
     y = torch.randint(0, 5, (args.batch,), generator=gen).to(dev)
     draws = crop_flip_draws(args.batch, gen, 4)
-    out = {"card": card, "batch": args.batch, "steps": args.steps}
+    out = {"card": card, "arch": args.arch, "batch": args.batch,
+           "steps": args.steps}
     for label, kernels in (("default", False), ("kernels", True)):
         st = state.map_arrays(lambda t: t.clone())
         task = st.tasks[2]
         step, (opt_w, opt_pm) = make_train_step(
             model_fn, num_classes=5, mult=st.width_mult, has_piggymask=True,
-            cfg=TrainConfig(use_pallas_conv=kernels, use_fused_chain=kernels),
+            cfg=TrainConfig(**(KERNEL_FLAGS[args.arch] if kernels else {})),
             augment_fn=cifar_train_augment, device=dev)
         carry = [st.shared, task.piggymask, task.private, task.bn_state,
                  opt_w.init({"shared": st.shared, "private": task.private}),
@@ -138,7 +145,8 @@ def main(argv=None) -> int:
 
         out[label] = profile(torch, run, args.steps)
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "torch_train_profile.json"), "w") as f:
+    with open(os.path.join("chiprun_out",
+                           f"torch_train_profile_{args.arch}.json"), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))
     return 0

@@ -15,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from cpg_tpu_torch.ops import flash as fl
 from cpg_tpu_torch.ops import fused_chain as fc
 from cpg_tpu_torch.ops import masked_conv as mc
+from cpg_tpu_torch.ops import masked_matmul as mm
 
 pytestmark = pytest.mark.gpu
 
@@ -243,3 +245,148 @@ def test_autograd_reaches_every_input_through_the_kernels(cuda):
         assert got.abs().max() > 0, name
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
                                    atol=1e-4, err_msg=name)
+
+
+# ------------------------------------------------------ flash attention ----
+
+def _qkv(n, t, h, hd, device, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(n, t, h, hd).astype(np.float32))
+            .to(device, dtype) for _ in range(4)]
+
+
+@pytest.mark.parametrize("case", [
+    # (n, t, h, hd, causal, dtype)
+    (8, 64, 4, 64, False, "bfloat16"),     # vit_cifar (batch cut to 8)
+    (2, 196, 12, 64, False, "bfloat16"),   # vit_b16: ragged key tile
+    (2, 70, 2, 64, True, "bfloat16"),      # the JAX tests' causal shape
+    (2, 70, 2, 64, False, "float32"),
+    (2, 70, 2, 64, True, "float32"),
+    (3, 5, 2, 32, True, "bfloat16"),       # T < one tile, hd 32
+    (2, 130, 3, 16, False, "bfloat16"),    # three key tiles, hd 16
+    (1, 40, 2, 128, True, "bfloat16"),     # hd 128
+    (1, 40, 2, 128, False, "float32"),
+])
+def test_flash_kernels_match_plain(cuda, case):
+    """Forward (o, lse), dq (with D) and dk/dv against the plain versions;
+    two runs give the same bits. lse and the f32 runs at rtol/atol 1e-4
+    (exp2 with pre-scaled scores against exp: f32 rounding only), bf16
+    tensors at max|diff| <= 2e-2 * max|ref| (p and ds rounded to bf16
+    inside 64-key tiles against the whole row)."""
+    n, t, h, hd, causal, dname = case
+    dtype = getattr(torch, dname)
+    q, k, v, do = _qkv(n, t, h, hd, cuda, dtype)
+    before = (fl.LAUNCHES, fl.LAUNCHES_BWD_DQ, fl.LAUNCHES_BWD_DKV)
+    o, lse = fl.flash_fwd(q, k, v, causal)
+    dq, d = fl.flash_bwd_dq(q, k, v, o, lse, do, causal)
+    grads = (dq, *fl.flash_bwd_dkv(q, k, v, do, lse, d, causal))
+    torch.cuda.synchronize()
+    assert (fl.LAUNCHES, fl.LAUNCHES_BWD_DQ, fl.LAUNCHES_BWD_DKV) == tuple(
+        b + 1 for b in before)
+    o_ref, lse_ref = fl.flash_mha_plain(q, k, v, causal)
+    _check(o, o_ref, dtype)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    want = fl.flash_mha_bwd_plain(q, k, v, o, lse, do, causal)
+    for got, ref in zip(grads, want):
+        _check(got, ref, dtype)
+    _, d_ref = fl.flash_mha_bwd_dq_plain(q, k, v, o, lse, do, causal)
+    _check_sum(d, d_ref)
+    o2, lse2 = fl.flash_fwd(q, k, v, causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    dq2, d2 = fl.flash_bwd_dq(q, k, v, o, lse, do, causal)
+    assert torch.equal(dq, dq2) and torch.equal(d, d2)
+    for first, second in zip(grads[1:], fl.flash_bwd_dkv(q, k, v, do, lse, d, causal)):
+        assert torch.equal(first, second)
+
+
+def test_flash_kernel_refuses_unsupported(cuda):
+    q = torch.zeros((1, 8, 2, 24), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fl.flash_mha(q, q, q)
+
+
+# ----------------------------------------------------- dense masked route ----
+
+@pytest.mark.parametrize("case", [
+    # (m, k, n, dtype, mode)
+    (4096, 256, 256, "bfloat16", "binary"),    # vit_cifar q/k/v/proj, batch 64
+    (4096, 256, 1024, "bfloat16", "binary"),   # fc1
+    (4096, 1024, 256, "bfloat16", "ternary"),  # fc2
+    (2 * 196, 768, 768, "bfloat16", "binary"),  # vit_b16 q/k/v/proj, ragged M
+    (2 * 196, 768, 3072, "bfloat16", "binary"),  # vit_b16 fc1
+    (2 * 196, 3072, 768, "bfloat16", "binary"),  # vit_b16 fc2
+    (333, 40, 36, "bfloat16", "ternary"),      # ragged M, K, N
+    (300, 70, 50, "float32", "binary"),        # f32, any width
+])
+def test_dense_route_matches_plain(cuda, case):
+    """masked_matmul's three kernels (K1-K3 at the 1x1 geometry) against
+    the plain versions; dw/dpm gated; two runs give the same bits."""
+    m, kd, nd, dname, mode = case
+    dtype = getattr(torch, dname)
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(m, kd).astype(np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((rng.randn(kd, nd) / np.sqrt(kd)).astype(np.float32)).to(cuda)
+    own = torch.from_numpy(rng.choice([0, 1, 2, 3], size=(kd, nd)).astype(np.int8)).to(cuda)
+    pm = torch.from_numpy((rng.randn(kd, nd) * 0.01).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.randn(m, nd).astype(np.float32)).to(cuda, dtype)
+    before = (mm.LAUNCHES, mm.LAUNCHES_BWD_DX, mm.LAUNCHES_BWD_DW)
+    conv_before = (mc.LAUNCHES, mc.LAUNCHES_BWD_DX, mc.LAUNCHES_BWD_DW)
+    y = mm.masked_matmul(x, w, own, pm, 2, mask_mode=mode)
+    dx = mm.masked_matmul_bwd_dx(g, x, w, own, pm, 2, mask_mode=mode)
+    dw, dpm = mm.masked_matmul_bwd_dw(g, x, w, own, 2)
+    torch.cuda.synchronize()
+    assert (mm.LAUNCHES, mm.LAUNCHES_BWD_DX, mm.LAUNCHES_BWD_DW) == tuple(
+        b + 1 for b in before)
+    assert (mc.LAUNCHES, mc.LAUNCHES_BWD_DX, mc.LAUNCHES_BWD_DW) == conv_before
+    _check(y, mm.masked_matmul_plain(x, w, own, pm, 2, mask_mode=mode), dtype)
+    _check(dx, mm.masked_matmul_bwd_dx_plain(g, x, w, own, pm, 2,
+                                             mask_mode=mode), dtype)
+    dw_ref, dpm_ref = mm.masked_matmul_bwd_dw_plain(g, x, w, own, 2)
+    _check_sum(dw, dw_ref)
+    _check_sum(dpm, dpm_ref)
+    assert not dw[own != 2].any() and not dpm[(own == 0) | (own >= 2)].any()
+    y2 = mm.masked_matmul(x, w, own, pm, 2, mask_mode=mode)
+    dw2, dpm2 = mm.masked_matmul_bwd_dw(g, x, w, own, 2)
+    assert torch.equal(y, y2) and torch.equal(dw, dw2) and torch.equal(dpm, dpm2)
+
+
+def test_autograd_reaches_q_k_v_w_and_pm_through_dense_and_flash(cuda):
+    """loss.backward() through masked_matmul and flash_mha on the card
+    gives x, w, pm (and through them q, k, v) their gradients, equal to the
+    plain path's on the CPU; dx is skipped when x needs no gradient."""
+    rng = np.random.RandomState(8)
+    n, t, h, hd = 2, 70, 2, 32
+    x0 = rng.randn(n * t, 48).astype(np.float32)
+    ws = [(rng.randn(48, h * hd) * 0.2).astype(np.float32) for _ in range(3)]
+    own = rng.choice([0, 1, 2], size=(48, h * hd)).astype(np.int8)
+    pms = [(rng.randn(48, h * hd) * 0.01 + 0.005).astype(np.float32)
+           for _ in range(3)]
+    gout = rng.randn(n, t, h, hd).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [torch.tensor(a, device=dev, requires_grad=True)
+                  for a in (x0, *ws, *pms)]
+        town = torch.from_numpy(own).to(dev)
+        q, k, v = (mm.masked_matmul(leaves[0], leaves[1 + i], town,
+                                    leaves[4 + i], 2).reshape(n, t, h, hd)
+                   for i in range(3))
+        out = fl.flash_mha(q, k, v, causal=True)
+        before = (fl.LAUNCHES_BWD_DKV, mm.LAUNCHES_BWD_DX)
+        (out * torch.from_numpy(gout).to(dev)).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert fl.LAUNCHES_BWD_DKV == before[0] + 1
+            assert mm.LAUNCHES_BWD_DX == before[1] + 3
+        grads[str(dev)] = [a.grad.detach().cpu() for a in leaves]
+    for i, (got, want) in enumerate(zip(grads["cuda"], grads["cpu"])):
+        assert got.abs().max() > 0, i
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=str(i))
+    x = torch.tensor(x0, device=cuda)  # no gradient wanted: K2 is skipped
+    w = torch.tensor(ws[0], device=cuda, requires_grad=True)
+    before = mm.LAUNCHES_BWD_DX
+    mm.masked_matmul(x, w, torch.from_numpy(own).to(cuda),
+                     torch.tensor(pms[0], device=cuda), 2).sum().backward()
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES_BWD_DX == before and x.grad is None

@@ -216,6 +216,30 @@ def test_backward_predicates_cover_vgg_widths(eighths):
                               torch.empty((3, 3, 8, 70)))
 
 
+@pytest.mark.parametrize("dim,heads", [(256, 4), (768, 12)])
+def test_kernel_predicates_cover_vit_widths(dim, heads):
+    """Every sharable dense kernel of vit_cifar (dim 256, 4 heads) and
+    vit_b16 (768, 12) at width multiples of 0.25 up to 2.0 meets the dense
+    route's bf16 predicate (N % 4 == 0), and the heads (hd = dim / heads =
+    64) meet the flash kernels'."""
+    from cpg_tpu_torch.models.vit import _heads
+    from cpg_tpu_torch.ops import flash as t_flash
+
+    def dense_ok(k, n):  # masked_matmul's kernels are the 1x1 conv's
+        return t_mc.supported(torch.empty((2, 1, 1, k), dtype=torch.bfloat16),
+                              torch.empty((1, 1, k, n)))
+
+    hd = dim // heads
+    for quarters in range(1, 9):
+        inner = _heads(heads, quarters / 4) * hd
+        hidden = max(1, int(dim * 4 * quarters / 4))
+        for k, n in ((dim, inner), (inner, dim), (dim, hidden), (hidden, dim)):
+            assert dense_ok(k, n), (quarters, k, n)
+    assert not dense_ok(8, 70)
+    assert t_flash.supported(torch.empty((1, 4, 2, hd), dtype=torch.bfloat16))
+    assert not t_flash.supported(torch.empty((1, 4, 2, 24)))
+
+
 def test_eval_preprocess_and_losses_match_jax():
     rng = np.random.RandomState(4)
     x = rng.randint(0, 256, (3, 4, 4, 3)).astype(np.uint8)
@@ -247,8 +271,8 @@ def test_port_never_imports_jax_or_cpg_tpu():
     files = sorted((ROOT / "cpg_tpu_torch").rglob("*.py")) + sorted(
         (ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
     names = {f.name for f in files}
-    assert {"gating.py", "step.py", "augment.py",
-            "torch_train_profile.py"} <= names
+    assert {"gating.py", "step.py", "augment.py", "torch_train_profile.py",
+            "vit.py", "flash.py", "masked_matmul.py"} <= names
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):
