@@ -9,7 +9,9 @@ Needs one CUDA card; exits non-zero without one. It
   2. holds each of the six kernels against its plain PyTorch version on the
      card at the shapes VGG16-BN (width 1.0) gives it at batch 256, and
      times kernel, plain version and a library yardstick with CUDA events
-     (TF32 off): the masked conv forward (K1) and its backward (K2 dx, K3
+     (TF32 off), and kernel and yardstick again by torch.profiler's device
+     time (`device_ms`, `library_device_ms`: no host gaps between calls):
+     the masked conv forward (K1) and its backward (K2 dx, K3
      gated dw/dpm), the fused BN+ReLU+conv3x3 forward (K4) and its backward
      (K5 dx/da/db, K6 dW);
   3. serve phase: builds a seeded two-task VGG16-BN state at full width
@@ -122,6 +124,43 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20, warmup=3, tries=3):
+    """Device time per call of fn by torch.profiler: the summed time of the
+    kernels (and copies) it puts on the card, without host gaps. None
+    ("not measured") when the profiler records no device time in `tries`
+    profiles, which CUPTI does now and then late in a long run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    print("device_ms: the profiler recorded no device time", flush=True)
+    return None
+
+
+def _dev_diff(a, b):
+    return None if a is None or b is None else max(a - b, 0.0)
+
+
+def timed(kern, plain, library) -> dict:
+    """CUDA-event ms of the kernel, its plain version and the library call,
+    and the profiler's device ms of the kernel and the library call."""
+    return dict(ms=time_ms(kern), plain_ms=time_ms(plain),
+                library_ms=time_ms(library), device_ms=device_ms(kern),
+                library_device_ms=device_ms(library))
+
+
 def bound(nbytes: float, flops: float, dtype_name: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -174,8 +213,7 @@ def masked_conv_phase(torch, dev, name, hw, cin, cout, dtype_name, mode):
     b_ms, b_by = bound(nbytes, flops, dtype_name)
     return dict(kernel="masked_conv_fwd", layer=name, dtype=dtype_name,
                 mode=mode, shape=[BATCH, hw, hw, cin, cout],
-                max_abs_err=err, ms=time_ms(kern), plain_ms=time_ms(plain),
-                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+                max_abs_err=err, **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by)
 
 
 def fused_chain_phase(torch, dev, name, hw, cin, cout, dtype_name):
@@ -202,8 +240,7 @@ def fused_chain_phase(torch, dev, name, hw, cin, cout, dtype_name):
     b_ms, b_by = bound(nbytes, flops, dtype_name)
     return dict(kernel="fused_chain_fwd", layer=name, dtype=dtype_name,
                 shape=[BATCH, hw, hw, cin, cout], max_abs_err=err,
-                ms=time_ms(kern), plain_ms=time_ms(plain),
-                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+                **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by)
 
 
 def _conv_inputs(torch, dev, hw, cin, cout, dt, seed):
@@ -243,8 +280,7 @@ def masked_conv_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name, mode,
         b_ms, b_by = bound(gy.numel() * elt + 9 * n_w + x.numel() * elt,
                            flops, dtype_name)
         rows.append(dict(kernel="masked_conv_bwd_dx", **common,
-                         max_abs_err=err, ms=time_ms(kern),
-                         plain_ms=time_ms(plain), library_ms=time_ms(library),
+                         max_abs_err=err, **timed(kern, plain, library),
                          bound_ms=b_ms, bound_by=b_by))
 
     kern = lambda: mc.masked_conv2d_bwd_dw(gy, x, w, own, 2)
@@ -264,8 +300,7 @@ def masked_conv_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name, mode,
     b_ms, b_by = bound(x.numel() * elt + gy.numel() * elt + 5 * n_w + 8 * n_w,
                        flops, dtype_name)
     rows.append(dict(kernel="masked_conv_bwd_dw", **common, max_abs_err=err,
-                     ms=time_ms(kern), plain_ms=time_ms(plain),
-                     library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by))
+                     **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -302,8 +337,7 @@ def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name):
     b_ms, b_by = bound((x.numel() + gy.numel() + wd.numel() + x.numel()) * elt,
                        flops, dtype_name)
     rows = [dict(kernel="fused_chain_bwd_dx", **common, max_abs_err=err,
-                 ms=time_ms(kern), plain_ms=time_ms(plain),
-                 library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)]
+                 **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by)]
 
     kern = lambda: fc.fused_bwd_dw(x, a, b, gy, dt)
     plain = lambda: fc.fused_bwd_dw_plain(x, a, b, gy, dt)
@@ -312,13 +346,15 @@ def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name):
         act = torch.relu(x.float() * a + b).to(dt).permute(0, 3, 1, 2)
         return torch.nn.grad.conv2d_weight(act, (cout, cin, 3, 3), gt, 1, 1)
 
-    err = compare(kern(), plain(), "float32", f"fused_chain_bwd_dw {name}",
+    got = kern()
+    err = compare(got, plain(), "float32", f"fused_chain_bwd_dw {name}",
                   rel=SUM_TOL)
+    if not torch.equal(got, kern()):
+        raise AssertionError(f"fused_chain_bwd_dw {name}: two launches differ")
     b_ms, b_by = bound((x.numel() + gy.numel()) * elt + 4 * w.numel(), flops,
                        dtype_name)
     rows.append(dict(kernel="fused_chain_bwd_dw", **common, max_abs_err=err,
-                     ms=time_ms(kern), plain_ms=time_ms(plain),
-                     library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by))
+                     **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -347,11 +383,14 @@ def flash_phases(torch, dev, name, n, t, h, hd, causal, dtype_name, per_step):
     o_ref, lse_ref = fl.flash_mha_plain(q, k, v, causal)
     err = max(compare(o, o_ref, dtype_name, f"flash_fwd o {name}"),
               compare(lse, lse_ref, "float32", f"flash_fwd lse {name}"))
+    o2, lse2 = fl.flash_fwd(q, k, v, causal)
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"flash_fwd {name}: two launches differ")
     b_ms, b_by = bound(4 * nqkv + nrow, 4 * work, dtype_name)
     rows.append(dict(kernel="flash_fwd", **common, max_abs_err=err,
-                     ms=time_ms(lambda: fl.flash_fwd(q, k, v, causal)),
-                     plain_ms=time_ms(lambda: fl.flash_mha_plain(q, k, v, causal)),
-                     library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by))
+                     **timed(lambda: fl.flash_fwd(q, k, v, causal),
+                             lambda: fl.flash_mha_plain(q, k, v, causal), sdpa),
+                     bound_ms=b_ms, bound_by=b_by))
 
     # library backward: SDPA's autograd backward (dq, dk, dv together)
     qg, kg, vg = (a.detach().clone().requires_grad_(True) for a in (qt, kt, vt))
@@ -366,6 +405,7 @@ def flash_phases(torch, dev, name, n, t, h, hd, causal, dtype_name, per_step):
             F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
 
     lib_bwd = max(time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd), 0.0)
+    lib_bwd_dev = _dev_diff(device_ms(sdpa_fwd_bwd), device_ms(sdpa_fwd))
 
     dq, d = fl.flash_bwd_dq(q, k, v, o, lse, do, causal)
     dq_ref, d_ref = fl.flash_mha_bwd_dq_plain(q, k, v, o, lse, do, causal)
@@ -373,22 +413,26 @@ def flash_phases(torch, dev, name, n, t, h, hd, causal, dtype_name, per_step):
               compare(d, d_ref, "float32", f"flash_bwd_dq D {name}",
                       rel=SUM_TOL))
     b_ms, b_by = bound(5 * nqkv + nrow + nqkv + nrow, 6 * work, dtype_name)
+    kern = lambda: fl.flash_bwd_dq(q, k, v, o, lse, do, causal)
     rows.append(dict(kernel="flash_bwd_dq", **common, max_abs_err=err,
-                     ms=time_ms(lambda: fl.flash_bwd_dq(q, k, v, o, lse, do, causal)),
+                     ms=time_ms(kern), device_ms=device_ms(kern),
                      plain_ms=time_ms(lambda: fl.flash_mha_bwd_dq_plain(
                          q, k, v, o, lse, do, causal)),
-                     library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by))
+                     library_ms=lib_bwd, library_device_ms=lib_bwd_dev,
+                     bound_ms=b_ms, bound_by=b_by))
 
     dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, d, causal)
     dk_ref, dv_ref = fl.flash_mha_bwd_dkv_plain(q, k, v, do, lse, d, causal)
     err = max(compare(dk, dk_ref, dtype_name, f"flash_bwd_dkv dk {name}"),
               compare(dv, dv_ref, dtype_name, f"flash_bwd_dkv dv {name}"))
     b_ms, b_by = bound(4 * nqkv + 2 * nrow + 2 * nqkv, 8 * work, dtype_name)
+    kern = lambda: fl.flash_bwd_dkv(q, k, v, do, lse, d, causal)
     rows.append(dict(kernel="flash_bwd_dkv", **common, max_abs_err=err,
-                     ms=time_ms(lambda: fl.flash_bwd_dkv(q, k, v, do, lse, d, causal)),
+                     ms=time_ms(kern), device_ms=device_ms(kern),
                      plain_ms=time_ms(lambda: fl.flash_mha_bwd_dkv_plain(
                          q, k, v, do, lse, d, causal)),
-                     library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by))
+                     library_ms=lib_bwd, library_device_ms=lib_bwd_dev,
+                     bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -419,8 +463,7 @@ def dense_phases(torch, dev, name, m, kd, nd, dtype_name, mode, per_step):
                        dtype_name)
     w_dt = weff()
     rows.append(dict(kernel="masked_matmul_fwd", **common, max_abs_err=err,
-                     ms=time_ms(kern), plain_ms=time_ms(plain),
-                     library_ms=time_ms(lambda: x @ weff()), bound_ms=b_ms,
+                     **timed(kern, plain, lambda: x @ weff()), bound_ms=b_ms,
                      bound_by=b_by, gemm_ms=time_ms(lambda: x @ w_dt)))
 
     kern = lambda: mm.masked_matmul_bwd_dx(gy, x, w, own, pm, 2, mask_mode=mode)
@@ -430,8 +473,7 @@ def dense_phases(torch, dev, name, m, kd, nd, dtype_name, mode, per_step):
     b_ms, b_by = bound(gy.numel() * elt + 9 * n_w + x.numel() * elt, flops,
                        dtype_name)
     rows.append(dict(kernel="masked_matmul_bwd_dx", **common, max_abs_err=err,
-                     ms=time_ms(kern), plain_ms=time_ms(plain),
-                     library_ms=time_ms(lambda: gy @ weff().t()),
+                     **timed(kern, plain, lambda: gy @ weff().t()),
                      bound_ms=b_ms, bound_by=b_by,
                      gemm_ms=time_ms(lambda: gy @ w_dt.t())))
 
@@ -451,8 +493,7 @@ def dense_phases(torch, dev, name, m, kd, nd, dtype_name, mode, per_step):
     b_ms, b_by = bound(x.numel() * elt + gy.numel() * elt + 5 * n_w + 8 * n_w,
                        flops, dtype_name)
     rows.append(dict(kernel="masked_matmul_bwd_dw", **common, max_abs_err=err,
-                     ms=time_ms(kern), plain_ms=time_ms(plain),
-                     library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
+                     **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by,
                      gemm_ms=time_ms(lambda: x.t() @ gy)))
     return rows
 
@@ -768,6 +809,15 @@ def _per_step(row) -> int:
                and row.get("mode", "binary") == "binary")
 
 
+def _step_sum(step, key):
+    """Sum of a per-shape time over one train step's launches; None when a
+    shape's time was not measured."""
+    vals = [(r[key], k) for r, k in step]
+    if any(v is None for v, _ in vals):
+        return None
+    return sum(k * v for v, k in vals)
+
+
 class Counts:
     """The kernel wrappers' launch counters."""
 
@@ -928,10 +978,12 @@ def main() -> int:
             "launches": sum(c[name] for c in launched.values()),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(k * r["ms"] for r, k in step),
+            "device_ms": _step_sum(step, "device_ms"),
             "plain_ms": sum(k * r["plain_ms"] for r, k in step),
             "bound_ms": sum(k * r["bound_ms"] for r, k in step),
             "bound_by": max(by, key=by.get),
             "library_ms": sum(k * r["library_ms"] for r, k in step),
+            "library_device_ms": _step_sum(step, "library_device_ms"),
         })
     wall = time.perf_counter() - t_start
     print(f"wall: {wall:.1f} s after the build ({t_kernels:.1f} s kernel "

@@ -57,13 +57,13 @@ struct Dims {
 template <int HD>
 __host__ __device__ constexpr int ld_bf16() { return HD + 8; }
 
-// Rows [row0, row0 + 64) of one (n, h) slice into smem [64][HD + 8];
-// rows past T are zero-filled.
-template <int HD>
+// Rows [row0, row0 + ROWS) of one (n, h) slice into smem [ROWS][HD + 8]
+// by THREADS threads; rows past T are zero-filled.
+template <int HD, int ROWS = BR, int THREADS = NT>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long rs, int row0, int t) {
   constexpr int CPR = HD / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BR * CPR; i += NT) {
+  for (int i = threadIdx.x; i < ROWS * CPR; i += THREADS) {
     const int r = i / CPR, c = (i % CPR) * 8;
     const bool ok = row0 + r < t;
     cp_async16(dst + r * ld_bf16<HD>() + c,
@@ -94,6 +94,34 @@ __device__ __forceinline__ void mma_abt(float (&c)[NC][4], const bf16* a,
       mma_bf16_16816(c[2 * np + 1], af, &bf[2]);
     }
   }
+}
+
+// The A fragments of a warp's 16 rows x 16*KS columns ([row][k], stride
+// ld), kept in registers across several products (mma_abt_regs).
+template <int KS>
+__device__ __forceinline__ void load_a_frags(uint32_t (&af)[KS][4], const bf16* a,
+                                             int ld, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    ldmatrix_x4(af[kk], a + (lane & 15) * ld + kk * 16 + (lane >> 4) * 8);
+}
+
+// mma_abt with A already in registers (load_a_frags): every accumulator
+// sums over k in the same order as mma_abt.
+template <int KS, int NC>
+__device__ __forceinline__ void mma_abt_regs(float (&c)[NC][4],
+                                             const uint32_t (&af)[KS][4],
+                                             const bf16* b, int ld, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int np = 0; np < NC / 2; ++np) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * ld +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16_16816(c[2 * np], af[kk], &bf[0]);
+      mma_bf16_16816(c[2 * np + 1], af[kk], &bf[2]);
+    }
 }
 
 // C[16 x 8*NC] += bf16(P)[16 x 64] . B[64 x 8*NC]; P is the f32 C-fragment

@@ -14,7 +14,8 @@ in place (a row of T is H*hd elements apart; no transpose to (N, H, T, hd)
 and no padding copy: keys >= T are masked inside the kernel):
 
   * `csrc/flash_fwd.cu` (K7 forward): online softmax over 64-key tiles,
-    writes o and lse;
+    writes o and lse; in bf16 a persistent grid (`fwd_grid`) whose blocks
+    load the next tiles under the current ones' products;
   * `csrc/flash_bwd.cu`: `flash_bwd_dq` (one block per 64-row query tile,
     looping over key tiles; it also writes D = rowsum(dO * o), which the
     second kernel reads) and `flash_bwd_dkv` (one block per 64-key tile,
@@ -33,6 +34,7 @@ scores.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -148,6 +150,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: tensor pointers, then N, T, H, hd, causal, the stream
 _ARGTYPES = {
     "flash_fwd": [_P] * 5 + [_I] * 5 + [_P],
+    "flash_fwd_bf16": [_P] * 5 + [_I] * 6 + [_P],  # + the persistent grid
     "flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P],
     "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P],
 }
@@ -156,11 +159,48 @@ _LIBS = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
 
 
 def _fn(name, dtype):
-    f = getattr(_build.load(_LIBS[name]), f"{name}_{_DTYPES[dtype]}")
+    full = f"{name}_{_DTYPES[dtype]}"
+    f = getattr(_build.load(_LIBS[name]), full)
     if f.argtypes is None:
-        f.argtypes = _ARGTYPES[name]
+        f.argtypes = _ARGTYPES.get(full, _ARGTYPES[name])
         f.restype = ctypes.c_int
     return f
+
+
+# The bf16 forward kernel is persistent: a work item is one (image, query
+# tile, head), and each block takes every grid-th item. A query tile is 16
+# rows a warp: 8 warps (128 rows sharing each 64-key tile) when T > 64 and
+# hd <= 64, else 4. Blocks an SM holds: its launch bound (3 blocks of 4
+# warps at hd <= 64, else 2), or fewer where its shared memory (csrc/flash_fwd.cu
+# `fwd_smem_bf16`: 2 stages of query + 128 key rows of hd + 8 bf16) does
+# not fit 227 KB.
+_KEY_ROWS, _STAGES_FWD, _SMEM_LIMIT = 64, 2, 232448
+
+
+def fwd_warps(t: int, hd: int) -> int:
+    return 8 if t > _KEY_ROWS and hd <= 64 else 4
+
+
+def fwd_blocks_per_sm(t: int, hd: int) -> int:
+    warps = fwd_warps(t, hd)
+    smem = _STAGES_FWD * (16 * warps + 2 * _KEY_ROWS) * (hd + 8) * 2
+    return max(1, min(3 if warps == 4 and hd <= 64 else 2,
+                      _SMEM_LIMIT // (smem + 1024)))
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_grid(n: int, t: int, h: int, hd: int, sms: int):
+    """(work items, persistent grid) of the bf16 forward kernel on a card
+    with `sms` SMs: at most blocks-per-SM x SMs blocks, cut so that every
+    block takes the same number of items (the last one fewer)."""
+    items = n * -(-t // (16 * fwd_warps(t, hd))) * h
+    per = -(-items // (sms * fwd_blocks_per_sm(t, hd)))
+    return items, -(-items // per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def supported(q) -> bool:
@@ -219,9 +259,12 @@ def flash_fwd(q, k, v, causal: bool = False):
     o = torch.empty((n, tt, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((n, h, tt), dtype=torch.float32, device=q.device)
     if o.numel():
+        grid = ()
+        if q.dtype == torch.bfloat16:
+            grid = (fwd_grid(n, tt, h, hd, _sm_count(q.device.index))[1],)
         err = _fn("flash_fwd", q.dtype)(
             t["q"].data_ptr(), t["k"].data_ptr(), t["v"].data_ptr(),
-            o.data_ptr(), lse.data_ptr(), n, tt, h, hd, int(causal),
+            o.data_ptr(), lse.data_ptr(), n, tt, h, hd, int(causal), *grid,
             _stream(q))
         _raise_on(err, "flash_fwd")
         LAUNCHES += 1

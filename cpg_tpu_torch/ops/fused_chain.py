@@ -26,6 +26,7 @@ CUDA call outside a predicate raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -170,16 +171,69 @@ _ARGTYPES = {
     "fused_chain_fwd": [_P] * 5 + [_I] * 5 + [_P],
     "fused_chain_bwd_dx": [_P] * 10 + [_I] * 5 + [_P],
     "fused_chain_bwd_dw": [_P] * 6 + [_I] * 6 + [_P],
+    "fused_chain_bwd_dw_bf16": [_P] * 6 + [_I] * 7 + [_P],  # + rows
 }
 _BM_BWD = 128  # output pixels per block of the dx kernel (da/db partials)
 
 
 def _fn(lib_name, dtype):
-    f = getattr(_build.load(lib_name), f"{lib_name}_{_SUFFIX[dtype]}")
+    name = f"{lib_name}_{_SUFFIX[dtype]}"
+    f = getattr(_build.load(lib_name), name)
     if f.argtypes is None:
-        f.argtypes = _ARGTYPES[lib_name]
+        f.argtypes = _ARGTYPES.get(name, _ARGTYPES[lib_name])
         f.restype = ctypes.c_int
     return f
+
+
+# K6's bf16 tiling (csrc/fused_chain_bwd_dw.cu): a block owns 32 input x 64
+# output channels of dW, all nine taps, and walks steps of whole image rows,
+# at most 128 pixels a step. The split count per seam comes from a cost
+# model: waves of blocks times steps a split, at _K6_STEP_US a 128-pixel
+# step with _K6_SLOTS blocks in flight (an H100: 132 SMs, one 9-warp block
+# each; two would cap the registers at 96 a thread and spill), plus writing
+# and reading the f32 partials at the card's memory rate. One full wave of
+# equal blocks has no tail, so the model takes fewer splits (less scratch)
+# where more would only add waves.
+_K6_CB, _K6_OB, _K6_PIX = 32, 64, 128
+_K6_SLOTS = 132
+_K6_STEP_US = 3.1
+_HBM_BYTES_PER_US = 3.35e6
+_GRID_Y_MAX = 65535
+
+
+def k6_rows(h: int, w: int):
+    """Image rows a K6 step covers: the most whose pixels fit in 128, among
+    the divisors of H below H (a halo row above and below is staged) and
+    the multiples of H (whole images, no halo). None when W > 128."""
+    best = None
+    for r in range(1, _K6_PIX // w + 1):
+        if (r < h and h % r == 0) or r % h == 0:
+            best = r
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def k6_plan(n: int, h: int, w: int, cin: int, cout: int):
+    """(rows a step, split count) of K6 in bf16; raises when W > 128."""
+    rows = k6_rows(h, w)
+    if rows is None:
+        raise ValueError(f"fused_chain_bwd_dw: bf16 needs W <= {_K6_PIX}, got {w}")
+    chunks = -(-n * h // rows)
+    tiles = -(-cin // _K6_CB) * -(-cout // _K6_OB)
+    step_us = _K6_STEP_US * (-(-rows * w // 16) * 16) / _K6_PIX
+    partial_bytes = 9 * cin * cout * 4
+    best = None
+    for per in range(1, chunks + 1):
+        splits = -(-chunks // per)
+        if splits > _GRID_Y_MAX:
+            continue
+        waves = -(-tiles * splits // _K6_SLOTS)
+        cost = waves * per * step_us
+        if splits > 1:  # each partial written once and read once
+            cost += 2 * splits * partial_bytes / _HBM_BYTES_PER_US
+        if best is None or cost < best[0] or (cost == best[0] and splits < best[2]):
+            best = (cost, rows, splits)
+    return best[1], best[2]
 
 
 def _bwd_supported(x, cout, dot_dtype) -> bool:
@@ -267,8 +321,9 @@ def _launch_bwd_dx(x, a, b, w, g, dot_dtype):
 
 
 def _launch_bwd_dw(x, a, b, g, dot_dtype):
-    """K6: dW = act^T shift(g) in f32, act = relu(a*x+b) recomputed in the
-    operand load; split-K partials summed in a fixed order."""
+    """K6: dW = act^T shift(g) in f32, act = relu(a*x+b) formed on chip
+    (bf16: once per element in shared memory, `k6_plan`'s tiling; f32: in
+    the operand load); split-K partials summed in a fixed order."""
     global LAUNCHES_BWD_DW
     n, h, wd, cin = x.shape
     cout = g.shape[3]
@@ -276,12 +331,19 @@ def _launch_bwd_dw(x, a, b, g, dot_dtype):
     if g.shape != (n, h, wd, cout) or g.dtype != dot_dtype:
         raise ValueError(f"fused_chain kernel: g must be {(n, h, wd, cout)} "
                          f"in {dot_dtype}")
-    s = wgrad_splits(n * h * wd, 9 * cin, cout)
-    ws = torch.empty((s, 9 * cin, cout), dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    if dot_dtype == torch.bfloat16:
+        rows, s = k6_plan(n, h, wd, cin, cout)
+        extra = (rows, s)
+    else:
+        s = wgrad_splits(n * h * wd, 9 * cin, cout)
+        extra = (s,)
+    # f32 partials of the split-K reduction; with one split K6 writes dw
+    ws = (torch.empty((s, 9 * cin, cout), dtype=torch.float32, device=x.device)
+          if s > 1 or dot_dtype != torch.bfloat16 else dw)
     err = _fn("fused_chain_bwd_dw", dot_dtype)(
         x.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(), ws.data_ptr(),
-        dw.data_ptr(), n, h, wd, cin, cout, s, _stream(x))
+        dw.data_ptr(), n, h, wd, cin, cout, *extra, _stream(x))
     if err:
         raise RuntimeError(f"fused_chain_bwd_dw launch failed: CUDA error {err}")
     LAUNCHES_BWD_DW += 1

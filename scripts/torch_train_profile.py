@@ -14,8 +14,8 @@ synchronize), and profiles the same steps with torch.profiler: device time
 by kernel, grouped (the port's kernels, cuDNN/cuBLAS, elementwise and
 reductions, optimizer), the device's busy share (summed kernel time over
 wall time) and the peak device memory.
-Needs one CUDA card. Prints one JSON line and writes it to
-chiprun_out/torch_train_profile_<arch>.json.
+Needs one CUDA card. Prints one JSON line and writes it beside
+chip_smoke.py's results, as torch_train_profile_<arch>_b<batch>.json.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 # kernel-name fragments -> group (first match wins)
 GROUPS = (
     ("port kernels", ("masked_conv_fwd_", "fused_chain_fwd_", "cpg::bwd::",
-                      "flash_fwd_", "flash_bwd_",
+                      "flash_fwd_", "flash_bwd_", "k6::dw_bf16_kernel",
                       "namespace)::gate_kernel", "namespace)::sum_kernel",
                       "namespace)::colsum_kernel")),
     ("cudnn/cublas", ("cudnn", "conv", "gemm", "xmma", "sm90", "cutlass",
@@ -146,7 +146,8 @@ def main(argv=None) -> int:
         out[label] = profile(torch, run, args.steps)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out",
-                           f"torch_train_profile_{args.arch}.json"), "w") as f:
+                           f"torch_train_profile_{args.arch}_b{args.batch}.json"),
+              "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))
     return 0

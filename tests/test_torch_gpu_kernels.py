@@ -214,6 +214,43 @@ def test_fused_chain_backward_kernels_match_plain(cuda, case):
         assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("case", [
+    # (n, h, w, cin, cout): every VGG16-BN seam (halo steps at 32x32 and
+    # 16x16, whole images below), N = 1, odd and 1x1 images (only the
+    # centre tap sees data), Cin 8 and 520 (a partial 32-channel slice),
+    # Cout 8 and 24 (a partial 64-channel slice), W = 128 (one row a step)
+    (8, 32, 32, 64, 64), (8, 16, 16, 128, 128), (8, 8, 8, 256, 256),
+    (8, 4, 4, 512, 512), (8, 2, 2, 512, 512), (1, 32, 32, 64, 64),
+    (3, 3, 5, 24, 72), (2, 1, 1, 8, 8), (1, 5, 7, 8, 24),
+    (1, 3, 5, 520, 24), (2, 7, 5, 520, 8), (1, 1, 1, 520, 24),
+    (2, 2, 128, 8, 8),
+])
+def test_fused_chain_dw_tiling_edges_match_plain(cuda, case):
+    """K6 in bf16 at the edges of its tiling: against the plain version
+    (f32 sums in another order), and two launches give the same bits."""
+    n, h, w, cin, cout = case
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy(rng.randn(n, h, w, cin).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    a = torch.from_numpy(rng.uniform(0.5, 1.5, cin).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.randn(cin).astype(np.float32) * 0.3).to(cuda)
+    g = torch.from_numpy(rng.randn(n, h, w, cout).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    before = fc.LAUNCHES_BWD_DW
+    dw = fc.fused_bwd_dw(x, a, b, g, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES_BWD_DW == before + 1
+    _check_sum(dw, fc.fused_bwd_dw_plain(x, a, b, g, torch.bfloat16))
+    assert torch.equal(dw, fc.fused_bwd_dw(x, a, b, g, torch.bfloat16))
+
+
+def test_fused_chain_dw_refuses_rows_wider_than_a_step(cuda):
+    x = torch.zeros((1, 2, 136, 8), device=cuda, dtype=torch.bfloat16)
+    a = torch.ones(8, device=cuda)
+    with pytest.raises(ValueError, match="W <= 128"):
+        fc.fused_bwd_dw(x, a, a, x, torch.bfloat16)
+
+
 def test_autograd_reaches_every_input_through_the_kernels(cuda):
     """loss.backward() through both Functions on the card gives x, w, pm,
     a and b their gradients, equal to the plain path's on the CPU."""
@@ -298,6 +335,38 @@ def test_flash_kernels_match_plain(cuda, case):
     assert torch.equal(dq, dq2) and torch.equal(d, d2)
     for first, second in zip(grads[1:], fl.flash_bwd_dkv(q, k, v, do, lse, d, causal)):
         assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("case", [
+    # (n, t, h, hd, causal): H 1, 3 and 12; T 1, 63, 65, 70, 196 and 257
+    # (one query tile, ragged key tiles, 128-query items from T = 65 at hd
+    # <= 64); hd 16, 32, 64 and 128; item counts that the persistent grid
+    # does not divide (201 x 3 and 67 x 2 x 12 items)
+    (2, 1, 1, 64, False), (2, 1, 3, 16, True), (3, 63, 3, 32, False),
+    (3, 63, 1, 64, True), (2, 65, 12, 64, False), (2, 65, 3, 128, True),
+    (2, 70, 3, 16, True), (1, 196, 12, 64, False), (1, 196, 12, 64, True),
+    (2, 257, 3, 32, False), (2, 257, 1, 128, True), (5, 70, 3, 64, False),
+    (201, 64, 3, 64, False), (67, 196, 12, 64, False),
+])
+def test_flash_fwd_persistent_grid_edges_match_plain(cuda, case):
+    """K7 forward in bf16 at the edges of its persistent tiling: o and lse
+    against the plain version, and two launches give the same bits."""
+    n, t, h, hd, causal = case
+    q, k, v, _ = _qkv(n, t, h, hd, cuda, torch.bfloat16, seed=3)
+    before = fl.LAUNCHES
+    o, lse = fl.flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES == before + 1
+    o_ref, lse_ref = fl.flash_mha_plain(q, k, v, causal)
+    _check(o, o_ref, torch.bfloat16)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    o2, lse2 = fl.flash_fwd(q, k, v, causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    if (n, h) in ((201, 3), (67, 12)):
+        items, grid = fl.fwd_grid(n, t, h, hd, torch.cuda.get_device_properties(
+            cuda).multi_processor_count)
+        assert items % grid
 
 
 def test_flash_kernel_refuses_unsupported(cuda):

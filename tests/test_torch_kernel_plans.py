@@ -1,0 +1,139 @@
+"""The Python planning of the redesigned kernels, on the CPU.
+
+K6 (`fused_chain.k6_plan`) picks the image rows a step and the split count
+of the bf16 dW kernel; K7 forward (`flash.fwd_grid`) sizes the persistent
+grid of the bf16 flash forward. Both feed launch parameters straight to a
+CUDA kernel, so these tests hold them, for every VGG16-BN seam and both
+ViT shapes, to what the kernels assume: steps of whole image rows that
+never straddle an image where a halo is staged, every row and every work
+item covered exactly once, a grid within CUDA's limits, and scratch and
+shared memory within the card's.
+"""
+
+import pytest
+
+from cpg_tpu_torch.ops import flash as fl
+from cpg_tpu_torch.ops import fused_chain as fc
+
+H100_SMS = 132
+SMEM_PER_SM = 233472      # 228 KB, of which 1 KB is reserved per block
+SMEM_PER_BLOCK = 232448   # 227 KB
+
+# (n, h = w, cin, cout) of VGG16-BN's eight fused seams at batch 256
+VGG_SEAMS = [(256, 32, 64, 64), (256, 16, 128, 128), (256, 8, 256, 256),
+             (256, 4, 512, 512), (256, 2, 512, 512)]
+K6_EDGES = [(3, 3, 5, 24, 72), (2, 1, 1, 8, 8), (1, 5, 7, 8, 24),
+            (1, 3, 5, 520, 24), (2, 7, 5, 520, 8), (1, 32, 32, 64, 64),
+            (4, 2, 128, 8, 8)]
+
+
+def _k6_smem(rows, h, w):
+    """Shared memory of one K6 block, as csrc/fused_chain_bwd_dw.cu's
+    `smem_bytes` lays it out (3 stages of g [pk][72] and raw x [staged][32]
+    bf16, act [staged + 1][40] bf16, a and b for 32 channels)."""
+    staged = (rows + (2 if rows < h else 0)) * w
+    pk = -(-rows * w // 16) * 16
+    return (3 * (pk * 72 + staged * 32) + (staged + 1) * 40) * 2 + 2 * 32 * 4
+
+
+def _k6_cases():
+    return ([(n, hw, hw, ci, co) for n, hw, ci, co in VGG_SEAMS] + K6_EDGES)
+
+
+@pytest.mark.parametrize("case", _k6_cases())
+def test_k6_plan_covers_every_row_once(case):
+    n, h, w, cin, cout = case
+    rows, splits = fc.k6_plan(n, h, w, cin, cout)
+    assert 1 <= rows * w <= 128
+    # a step is within one image (halo form) or whole images
+    assert (rows < h and h % rows == 0) or rows % h == 0
+    G = n * h
+    chunks = -(-G // rows)
+    per = -(-chunks // splits)
+    covered = []
+    for split in range(splits):
+        steps = range(split * per, min(chunks, (split + 1) * per))
+        assert len(steps) > 0, "an empty split"
+        for c in steps:
+            covered += [r for r in range(c * rows, (c + 1) * rows) if r < G]
+            if rows < h:
+                assert (c * rows) // h == (c * rows + rows - 1) // h
+    assert covered == list(range(G))
+
+
+@pytest.mark.parametrize("case", _k6_cases())
+def test_k6_plan_fits_the_card(case):
+    n, h, w, cin, cout = case
+    rows, splits = fc.k6_plan(n, h, w, cin, cout)
+    tiles = -(-cin // 32) * -(-cout // 64)
+    assert 1 <= splits <= 65535 and tiles <= 2 ** 31 - 1
+    assert _k6_smem(rows, h, w) <= SMEM_PER_BLOCK
+    # f32 partials: at most 64 MiB of scratch
+    if splits > 1:
+        assert splits * 9 * cin * cout * 4 <= 64 * 2 ** 20
+
+
+def test_k6_plan_fills_the_card_at_every_vgg_seam():
+    """At batch 256 every seam runs a wave of blocks that fills at least 95%
+    of the card (one block an SM), and at most two waves."""
+    for n, hw, cin, cout in VGG_SEAMS:
+        rows, splits = fc.k6_plan(n, hw, hw, cin, cout)
+        blocks = -(-cin // 32) * -(-cout // 64) * splits
+        assert blocks >= 0.95 * H100_SMS, (hw, blocks)
+        assert blocks <= 2 * fc._K6_SLOTS, (hw, blocks)
+
+
+def test_k6_plan_refuses_rows_wider_than_a_step():
+    assert fc.k6_rows(2, 129) is None
+    with pytest.raises(ValueError, match="W <= 128"):
+        fc.k6_plan(1, 2, 129, 8, 8)
+
+
+# (n, t, h, hd, causal): vit_cifar and vit_b16 at their batch, the causal
+# T = 70 shape, and the GPU tests' edges
+FLASH_CASES = [(256, 64, 4, 64, False), (64, 196, 12, 64, False),
+               (256, 70, 4, 64, True), (32, 64, 4, 64, False),
+               (2, 1, 1, 16, True), (3, 63, 3, 32, False),
+               (2, 257, 3, 128, True), (5, 70, 3, 64, False),
+               (201, 64, 3, 64, False), (67, 196, 12, 64, False)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("sms", [H100_SMS, 7])
+def test_flash_fwd_grid_covers_every_item_once(case, sms):
+    n, t, h, hd, _ = case
+    items, grid = fl.fwd_grid(n, t, h, hd, sms)
+    warps = fl.fwd_warps(t, hd)
+    assert items == n * -(-t // (16 * warps)) * h
+    assert 1 <= grid <= min(items, sms * fl.fwd_blocks_per_sm(t, hd))
+    walked = sorted(i for b in range(grid) for i in range(b, items, grid))
+    assert walked == list(range(items))
+    # every block takes the same number of items, give or take one
+    counts = [len(range(b, items, grid)) for b in range(grid)]
+    assert max(counts) - min(counts) <= 1
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [64, 196])
+def test_flash_fwd_blocks_fit_in_shared_memory(hd, t):
+    warps = fl.fwd_warps(t, hd)
+    smem = 2 * (16 * warps + 128) * (hd + 8) * 2
+    assert smem <= SMEM_PER_BLOCK
+    assert fl.fwd_blocks_per_sm(t, hd) * (smem + 1024) <= SMEM_PER_SM
+    assert warps == (8 if t > 64 and hd <= 64 else 4)
+
+
+def test_flash_fwd_grid_at_the_vit_shapes():
+    """vit_cifar: 1,024 items of one 64-key tile, 342 blocks of 3 items on
+    132 SMs; vit_b16: 1,536 items of 128 queries, 256 blocks of 6."""
+    assert fl.fwd_grid(256, 64, 4, 64, H100_SMS) == (1024, 342)
+    assert fl.fwd_grid(64, 196, 12, 64, H100_SMS) == (1536, 256)
+
+
+@pytest.mark.parametrize("case", [(201, 64, 3), (67, 196, 12)])
+def test_flash_fwd_grid_need_not_divide_the_items(case):
+    """The GPU tests' shapes whose item count the persistent grid does not
+    divide (the last block takes fewer items)."""
+    n, t, h = case
+    items, grid = fl.fwd_grid(n, t, h, 64, H100_SMS)
+    assert items % grid
