@@ -31,11 +31,14 @@ Needs one CUDA card; exits non-zero without one. It
   6. ViT kernel phases: the flash-attention kernels (K7 forward, dQ, dK/dV)
      at vit_cifar's batch-256 shape (256, 64, 4, 64), vit_b16's
      (64, 196, 12, 64), a causal T = 70 and in f32, and the dense route
-     (masked_matmul: K1-K3 at the 1x1 geometry) at vit_cifar's three
-     projection shapes and one ragged vit_b16 shape, each against its plain
-     version and timed beside a library yardstick
-     (`scaled_dot_product_attention`, forward and autograd backward;
-     `effective_kernel` + `torch.matmul`);
+     (masked_matmul; bf16: the select pass and TN GEMM of
+     csrc/masked_matmul.cu for y and dx, each also alone against its plain
+     version, two launches equal bits; f32: K1-K2 at the 1x1 geometry; dw:
+     K3 at 1x1) at vit_cifar's three projection shapes and one ragged
+     vit_b16 shape, each against its plain version and timed beside a
+     library yardstick (`scaled_dot_product_attention`, forward and its
+     autograd backward alone; `effective_kernel` + `torch.matmul`, and
+     `torch.matmul` on the pre-selected weight);
   7. ViT serve phase: a seeded two-task vit_cifar state at full width, a
      bf16 `TaskServer` through export -> load (the effective-params einsum
      path, as in `cpg_tpu`) against the f32 server, p50 and img/s at
@@ -44,7 +47,7 @@ Needs one CUDA card; exits non-zero without one. It
      attention (`use_pallas`, `flash_attention`) against the default step;
   9. ViT train phase: task 2 as for VGG16-BN, with `use_pallas` and
      `flash_attention` (exact launches per step: flash 6 + 6 + 6, dense
-     36 + 36 + 36);
+     36 + 36 + 36 and 72 select passes);
  10. prints the kernels' JSON line (launch counts from the serve, eval and
      train phases, errors, times, bounds), the card line, and last the
      result line.
@@ -124,11 +127,11 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, warmup=3, tries=3):
+def device_ms(fn, iters=20, warmup=3, tries=5):
     """Device time per call of fn by torch.profiler: the summed time of the
     kernels (and copies) it puts on the card, without host gaps. None
     ("not measured") when the profiler records no device time in `tries`
-    profiles, which CUPTI does now and then late in a long run."""
+    profiles, which CUPTI does now and then in a long run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -147,10 +150,6 @@ def device_ms(fn, iters=20, warmup=3, tries=3):
             return us / 1e3 / iters
     print("device_ms: the profiler recorded no device time", flush=True)
     return None
-
-
-def _dev_diff(a, b):
-    return None if a is None or b is None else max(a - b, 0.0)
 
 
 def timed(kern, plain, library) -> dict:
@@ -360,8 +359,8 @@ def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name):
 
 def flash_phases(torch, dev, name, n, t, h, hd, causal, dtype_name, per_step):
     """K7 forward, dQ and dK/dV at one shape against the plain versions,
-    with `scaled_dot_product_attention` (forward; autograd backward timed as
-    fwd+bwd - fwd) as the library yardstick."""
+    with `scaled_dot_product_attention` (forward; its autograd backward
+    alone, over one retained graph) as the library yardstick."""
     import torch.nn.functional as F
     from cpg_tpu_torch.ops import flash as fl
 
@@ -392,20 +391,14 @@ def flash_phases(torch, dev, name, n, t, h, hd, causal, dtype_name, per_step):
                              lambda: fl.flash_mha_plain(q, k, v, causal), sdpa),
                      bound_ms=b_ms, bound_by=b_by))
 
-    # library backward: SDPA's autograd backward (dq, dk, dv together)
+    # library backward: SDPA's autograd backward (dq, dk, dv together),
+    # alone: one saved forward, its graph retained, differentiated per call
     qg, kg, vg = (a.detach().clone().requires_grad_(True) for a in (qt, kt, vt))
     dot = do.transpose(1, 2)
-
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-        torch.autograd.grad(out, (qg, kg, vg), dot)
-
-    def sdpa_fwd():
-        with torch.no_grad():
-            F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-
-    lib_bwd = max(time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd), 0.0)
-    lib_bwd_dev = _dev_diff(device_ms(sdpa_fwd_bwd), device_ms(sdpa_fwd))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    sdpa_bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), dot,
+                                           retain_graph=True)
+    lib_bwd, lib_bwd_dev = time_ms(sdpa_bwd), device_ms(sdpa_bwd)
 
     dq, d = fl.flash_bwd_dq(q, k, v, o, lse, do, causal)
     dq_ref, d_ref = fl.flash_mha_bwd_dq_plain(q, k, v, o, lse, do, causal)
@@ -437,8 +430,14 @@ def flash_phases(torch, dev, name, n, t, h, hd, causal, dtype_name, per_step):
 
 
 def dense_phases(torch, dev, name, m, kd, nd, dtype_name, mode, per_step):
-    """The dense route (masked_matmul: K1, K2, K3 at the 1x1 geometry) at
-    one shape, with `effective_kernel` + `torch.matmul` as the yardstick."""
+    """The dense route (masked_matmul) at one shape, with `effective_kernel`
+    + `torch.matmul` as the yardstick and `torch.matmul` on the
+    pre-selected bf16 weight (`gemm_ms`, `gemm_device_ms`) as the GEMM
+    half's. bf16 rows take the select pass + TN GEMM of
+    csrc/masked_matmul.cu for y and dx (each of the two kernels also held
+    alone against its plain version: `masked_matmul_select` rows and
+    `gemm_kernel_*`), the f32 row the 1x1 masked-conv kernels; dw is K3 at
+    1x1 on both."""
     from cpg_tpu_torch.ops import masked_matmul as mm
     from cpg_tpu_torch.ops.masked import effective_kernel
 
@@ -454,28 +453,66 @@ def dense_phases(torch, dev, name, m, kd, nd, dtype_name, mode, per_step):
     common = dict(layer=name, dtype=dtype_name, mode=mode, shape=[m, kd, nd],
                   per_step=per_step)
     weff = lambda: effective_kernel(w, own, pm, 2, mask_mode=mode).to(dt)
-    rows = []  # gemm_ms: the product alone on the materialised bf16 weight
+    gemm = mm.gemm_route(x, w, own, pm)
+    rows = []
+
+    def twice(fn, what):
+        a, b = fn(), fn()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} {name}: two launches differ")
+        return a
+
+    if gemm:  # the select pass alone, in both layouts
+        for transpose, kind in ((True, "fwd"), (False, "dx")):
+            kern = lambda: mm.masked_matmul_select(w, own, pm, 2, mask_mode=mode,
+                                                   transpose=transpose)
+            plain = lambda: mm.masked_matmul_select_plain(
+                w, own, pm, 2, mask_mode=mode, transpose=transpose)
+            got, want = kern(), plain()
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                raise AssertionError(f"masked_matmul_select {name} {kind}: "
+                                     "bits differ from the plain version")
+            b_ms, b_by = bound(11 * n_w, 0.0, dtype_name)
+            rows.append(dict(kernel="masked_matmul_select", **common,
+                             layout=kind, max_abs_err=0.0, ms=time_ms(kern),
+                             device_ms=device_ms(kern), plain_ms=time_ms(plain),
+                             library_ms=None, library_device_ms=None,
+                             bound_ms=b_ms, bound_by=b_by))
+    w_dt = weff()
+
+    def gemm_cols(a, bt):
+        """The GEMM half: cuBLAS on the pre-selected weight; and, on the
+        kernel route, the TN GEMM alone against its plain version."""
+        lib = lambda: a @ bt.t()
+        cols = dict(gemm_ms=time_ms(lib), gemm_device_ms=device_ms(lib))
+        if gemm:
+            kern = lambda: mm.launch_gemm_tn(a, bt)
+            cols["gemm_kernel_err"] = compare(kern(), mm.gemm_tn_plain(a, bt),
+                                              dtype_name, f"gemm_tn {name}")
+            cols.update(gemm_kernel_ms=time_ms(kern),
+                        gemm_kernel_device_ms=device_ms(kern))
+        return cols
 
     kern = lambda: mm.masked_matmul(x, w, own, pm, 2, mask_mode=mode)
     plain = lambda: mm.masked_matmul_plain(x, w, own, pm, 2, mask_mode=mode)
-    err = compare(kern(), plain(), dtype_name, f"masked_matmul {name}")
+    err = compare(twice(kern, "masked_matmul"), plain(), dtype_name,
+                  f"masked_matmul {name}")
     b_ms, b_by = bound(x.numel() * elt + 9 * n_w + m * nd * elt, flops,
                        dtype_name)
-    w_dt = weff()
     rows.append(dict(kernel="masked_matmul_fwd", **common, max_abs_err=err,
                      **timed(kern, plain, lambda: x @ weff()), bound_ms=b_ms,
-                     bound_by=b_by, gemm_ms=time_ms(lambda: x @ w_dt)))
+                     bound_by=b_by, **gemm_cols(x, w_dt.t().contiguous())))
 
     kern = lambda: mm.masked_matmul_bwd_dx(gy, x, w, own, pm, 2, mask_mode=mode)
     plain = lambda: mm.masked_matmul_bwd_dx_plain(gy, x, w, own, pm, 2,
                                                   mask_mode=mode)
-    err = compare(kern(), plain(), dtype_name, f"masked_matmul_bwd_dx {name}")
+    err = compare(twice(kern, "masked_matmul_bwd_dx"), plain(), dtype_name,
+                  f"masked_matmul_bwd_dx {name}")
     b_ms, b_by = bound(gy.numel() * elt + 9 * n_w + x.numel() * elt, flops,
                        dtype_name)
     rows.append(dict(kernel="masked_matmul_bwd_dx", **common, max_abs_err=err,
                      **timed(kern, plain, lambda: gy @ weff().t()),
-                     bound_ms=b_ms, bound_by=b_by,
-                     gemm_ms=time_ms(lambda: gy @ w_dt.t())))
+                     bound_ms=b_ms, bound_by=b_by, **gemm_cols(gy, w_dt)))
 
     kern = lambda: mm.masked_matmul_bwd_dw(gy, x, w, own, 2)
     plain = lambda: mm.masked_matmul_bwd_dw_plain(gy, x, w, own, 2)
@@ -492,9 +529,10 @@ def dense_phases(torch, dev, name, m, kd, nd, dtype_name, mode, per_step):
                       rel=SUM_TOL))
     b_ms, b_by = bound(x.numel() * elt + gy.numel() * elt + 5 * n_w + 8 * n_w,
                        flops, dtype_name)
+    lib = lambda: x.t() @ gy
     rows.append(dict(kernel="masked_matmul_bwd_dw", **common, max_abs_err=err,
                      **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by,
-                     gemm_ms=time_ms(lambda: x.t() @ gy)))
+                     gemm_ms=time_ms(lib), gemm_device_ms=device_ms(lib)))
     return rows
 
 
@@ -630,14 +668,15 @@ def eval_phase(torch, dev, state, counts):
 # launches of each kernel in one train step of task 2 with the kernel flags:
 # VGG16-BN's five masked convs (conv0's input is the image, so no dx) and
 # eight fused seams; vit_cifar's six blocks of six sdense layers and one
-# attention (its patch stem is a plain product); zero for every other kernel
+# attention (its patch stem is a plain product), a select pass before each
+# forward and dx GEMM; zero for every other kernel
 TRAIN_LAUNCHES = {
     "vgg16_bn_cifar": {"masked_conv_fwd": 5, "masked_conv_bwd_dx": 4,
                        "masked_conv_bwd_dw": 5, "fused_chain_fwd": 8,
                        "fused_chain_bwd_dx": 8, "fused_chain_bwd_dw": 8},
     "vit_cifar": {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
                   "masked_matmul_fwd": 36, "masked_matmul_bwd_dx": 36,
-                  "masked_matmul_bwd_dw": 36},
+                  "masked_matmul_bwd_dw": 36, "masked_matmul_select": 72},
 }
 TRAIN_STEPS = 3
 TRAIN_TIMING_BATCHES = (BATCH, 1024)  # bench.py's batch is 1024
@@ -838,6 +877,7 @@ class Counts:
             "masked_matmul_fwd": (masked_matmul, "LAUNCHES"),
             "masked_matmul_bwd_dx": (masked_matmul, "LAUNCHES_BWD_DX"),
             "masked_matmul_bwd_dw": (masked_matmul, "LAUNCHES_BWD_DW"),
+            "masked_matmul_select": (masked_matmul, "LAUNCHES_SELECT"),
         }
 
     def reset(self):
@@ -930,7 +970,8 @@ def main() -> int:
     # every phase that should reach a kernel did
     need = {"vgg16_bn_cifar/serve": ["fused_chain_fwd"],
             "vgg16_bn_cifar/eval": ["masked_conv_fwd", "fused_chain_fwd"],
-            "vit_cifar/eval": ["flash_fwd", "masked_matmul_fwd"]}
+            "vit_cifar/eval": ["flash_fwd", "masked_matmul_fwd",
+                               "masked_matmul_select"]}
     for phase, names in need.items():
         for k in names:
             if launched[phase][k] == 0:
@@ -956,10 +997,12 @@ def main() -> int:
                          "cpg_tpu/ops/flash.py:97"),
         "flash_bwd_dkv": ("cpg_tpu_torch/csrc/flash_bwd.cu",
                           "cpg_tpu/ops/flash.py:97"),
-        "masked_matmul_fwd": ("cpg_tpu_torch/csrc/masked_conv_fwd.cu",
+        "masked_matmul_fwd": ("cpg_tpu_torch/csrc/masked_matmul.cu",
                               "cpg_tpu/ops/pallas/masked_matmul.py:97"),
-        "masked_matmul_bwd_dx": ("cpg_tpu_torch/csrc/masked_conv_bwd_dx.cu",
+        "masked_matmul_bwd_dx": ("cpg_tpu_torch/csrc/masked_matmul.cu",
                                  "cpg_tpu/ops/pallas/masked_matmul.py:173"),
+        "masked_matmul_select": ("cpg_tpu_torch/csrc/masked_matmul.cu",
+                                 "cpg_tpu/ops/pallas/masked_matmul.py:56"),
         "masked_matmul_bwd_dw": ("cpg_tpu_torch/csrc/masked_conv_bwd_dw.cu",
                                  "cpg_tpu/ops/pallas/masked_matmul.py:244"),
     }
@@ -982,7 +1025,7 @@ def main() -> int:
             "plain_ms": sum(k * r["plain_ms"] for r, k in step),
             "bound_ms": sum(k * r["bound_ms"] for r, k in step),
             "bound_by": max(by, key=by.get),
-            "library_ms": sum(k * r["library_ms"] for r, k in step),
+            "library_ms": _step_sum(step, "library_ms"),
             "library_device_ms": _step_sum(step, "library_device_ms"),
         })
     wall = time.perf_counter() - t_start

@@ -1,0 +1,531 @@
+// Dense masked matmul for Hopper (dense K1 forward and dense K2 input
+// gradient), in two launches: a select pass and a TMA + wgmma GEMM.
+//
+// Replaces, for bf16 activations at the dense shapes of the ViTs:
+// cpg_tpu/ops/pallas/masked_matmul.py `_fwd` (y = x @ w_eff) and `_bwd_dx`
+// (dx = g @ w_eff^T), with the ownership/piggymask select of `_mask_tile`:
+//
+//   w_eff = w where own == task; 1[pm > thr] * w (ternary: also -w where
+//           pm < 0) where 0 < own < task; 0 elsewhere;
+//   selected in f32, then rounded to bf16 (the activation dtype).
+//
+// What bounds it on the H100: at vit_cifar's shapes (M = 16,384 rows,
+// K, N in {256, 1024}) the product is bound by bytes: x and y (or g and
+// dx) cross HBM once, 2 B an element each way, and the weights, 9 B an
+// entry (w f32, own int8, pm f32), once. The TPU kernel selected inside its
+// weight-tile load with bm = 1024 rows in 16 MB of VMEM; a Hopper block has
+// 227 KB, so an in-tile select re-reads 9 B and re-selects every weight
+// entry once per 128-row M tile (128 times at M = 16,384), which made the
+// earlier 1x1 implicit-GEMM form bound by L2 and the select. Here:
+//   * `masked_matmul_select_bf16` reads w, own and pm once (16-byte loads)
+//     and writes the bf16 effective weight, 2 B an entry, to a per-call
+//     scratch, in the layout the GEMM wants: w_eff^T (N, K) through a
+//     shared-memory transpose tile for the forward, w_eff (K, N) as it is
+//     for dx. The effective weight reaches device memory for one call; the
+//     autograd residuals stay x, w, own and pm.
+//   * `masked_matmul_gemm_tn_bf16` computes C[M, Nout] = A[M, R] Bt[Nout,
+//     R]^T, both operands with the reduction axis contiguous (forward:
+//     A = x, Bt = w_eff^T, R = K; dx: A = g, Bt = w_eff, R = N, Nout = K),
+//     bf16 in and out, f32 accumulation. Persistent blocks, one an SM
+//     (ops/masked_matmul.py `gemm_plan` sizes the grid and picks the tile
+//     width BN of 64, 128 or 192), walk the 128 x BN output tiles with M
+//     fastest. In each block one thread of a producer warp keeps a ring of
+//     2-5 stages of {A 128 x 64, B BN x 64} tiles in flight by TMA
+//     (128-byte swizzle, a "full" and an "empty" mbarrier a stage); two
+//     consumer warpgroups, 64 rows each, run wgmma.mma_async m64nBNk16 on
+//     the stages that have landed (A and B from shared memory, the
+//     descriptors' swizzle matching TMA's), keep one wgmma group in flight
+//     and hand a stage back when its group is done. The epilogue rounds
+//     the f32 sums to bf16 into a swizzled shared-memory staging tile and
+//     stores it by TMA, which drains while the warpgroup runs the next
+//     tile's products (register-to-global stores of 4 bytes a thread, not
+//     overlapped, were the largest cost of development builds). Ragged M,
+//     R and Nout come from TMA's zero fill and clipped stores; nothing is
+//     padded. No split-K and no atomics: two launches give equal bits.
+// A and Bt need R % 8 == 0 and Nout % 8 == 0 (TMA's 16-byte row strides)
+// and 16-byte aligned bases; the wrapper takes the 1x1 masked-conv kernels
+// for any other shape and for f32.
+#include <cuda.h>
+
+#include "common.cuh"
+
+using bf16 = __nv_bfloat16;
+
+namespace {
+
+// ------------------------------------------------------------- select ----
+constexpr int SK = 32, SN = 64;  // select tile: 32 k x 64 n, 256 threads
+
+__device__ __forceinline__ float select_weight(float w, int own, float pm,
+                                               int task, float thr,
+                                               int ternary) {
+  if (own == task) return w;
+  if (own > 0 && own < task) {
+    if (pm > thr) return w;
+    if (ternary && pm < 0.f) return -w;
+  }
+  return 0.f;
+}
+
+// w, pm (K, N) f32 and own (K, N) int8 -> w_eff (K, N) or, with kTrans,
+// w_eff^T (N, K), bf16. K and N are multiples of 8.
+template <bool kTrans>
+__global__ void __launch_bounds__(256)
+select_bf16_kernel(const float* __restrict__ w, const int8_t* __restrict__ own,
+                   const float* __restrict__ pm, bf16* __restrict__ out, int K,
+                   int N, int task, float thr, int ternary) {
+  __shared__ __align__(16) bf16 t[SN][SK + 8];  // [n][k] when kTrans
+  const int k0 = blockIdx.y * SK, n0 = blockIdx.x * SN;
+  const int tid = threadIdx.x;
+  const int c4 = (tid % 16) * 4;
+#pragma unroll
+  for (int p = 0; p < SK / 16; ++p) {
+    const int r = p * 16 + tid / 16;
+    const int k = k0 + r, n = n0 + c4;
+    if (k < K && n < N) {
+      const size_t i = (size_t)k * N + n;
+      const float4 wv = *reinterpret_cast<const float4*>(w + i);
+      const float4 pv = *reinterpret_cast<const float4*>(pm + i);
+      const char4 ov = *reinterpret_cast<const char4*>(own + i);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(
+          select_weight(wv.x, ov.x, pv.x, task, thr, ternary),
+          select_weight(wv.y, ov.y, pv.y, task, thr, ternary));
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(
+          select_weight(wv.z, ov.z, pv.z, task, thr, ternary),
+          select_weight(wv.w, ov.w, pv.w, task, thr, ternary));
+      if (kTrans) {
+        t[c4][r] = lo.x;
+        t[c4 + 1][r] = lo.y;
+        t[c4 + 2][r] = hi.x;
+        t[c4 + 3][r] = hi.y;
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(out + i) = lo;
+        *reinterpret_cast<__nv_bfloat162*>(out + i + 2) = hi;
+      }
+    }
+  }
+  if (!kTrans) return;
+  __syncthreads();
+  // 64 rows of n, each 32 k = four 16-byte chunks: one a thread
+  const int nn = tid / 4, kc = (tid % 4) * 8;
+  const int n = n0 + nn, k = k0 + kc;
+  if (n < N && k < K)
+    *reinterpret_cast<uint4*>(out + (size_t)n * K + k) =
+        *reinterpret_cast<const uint4*>(&t[nn][kc]);
+}
+
+// --------------------------------------------------------------- GEMM ----
+constexpr int BM = 128;            // output rows a tile: two warpgroups of 64
+constexpr int BK = 64;             // reduction depth a stage: one 128-B row
+constexpr int CONSUMERS = 2;       // consumer warpgroups
+constexpr int THREADS = 128 * CONSUMERS + 32;  // + one producer warp
+constexpr int A_TILE = BM * BK * 2;
+
+__host__ __device__ constexpr int stage_bytes(int bn) {
+  return A_TILE + bn * BK * 2;
+}
+
+// dynamic shared memory: 1 KB of slack to align the ring to 1,024 bytes
+// (the 128-byte swizzle repeats every 8 rows of 128 B), the ring, the
+// output staging (each consumer warpgroup's 64 x bn tile, as bn / 64
+// swizzled 64 x 64 boxes), and a full and an empty barrier a stage
+__host__ __device__ constexpr int gemm_smem_bytes(int bn, int stages) {
+  return 1024 + stages * stage_bytes(bn) + CONSUMERS * bn * 128 + 16 * stages;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase of this parity has completed. A wait that
+// lasts past ~2^32 cycles (about two seconds) means a broken pipeline:
+// trap, so that the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1LL << 32)) __trap();
+}
+
+// 2-D TMA load of the box at (c0 innermost, c1) into shared memory; the
+// barrier counts its bytes. Out-of-range elements land as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// 2-D TMA store of the box at (c0 innermost, c1) from shared memory;
+// rows and columns past the tensor are not written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2}], [%3];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile of 128-byte rows in the
+// 128-byte swizzle: start address >> 4, leading offset unused (1), stride
+// offset 1,024 B between groups of 8 rows, layout type 1 (128B swizzle).
+// The tile starts on a 1,024-byte boundary; a step of 16 along K adds 32 B
+// to the start address (the hardware applies the swizzle to the address).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], bf16 operands from shared memory
+// (both K-major), f32 accumulators; scale_d == 0 overwrites D. The operand
+// lists are written out: wgmma names every accumulator register.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<192>(float (&d)[96], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// C[M, Nout] = A[M, R] Bt[Nout, R]^T, bf16, f32 accumulation (see the top).
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_tn_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
+                    const __grid_constant__ CUtensorMap tma_b,
+                    const __grid_constant__ CUtensorMap tma_c, int M, int R,
+                    int Nout, int stages) {
+  constexpr int STAGE = stage_bytes(BN);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t staging = ring + stages * STAGE;  // CONSUMERS x bn x 128 B
+  const uint32_t bars = staging + CONSUMERS * BN * 128;  // full, empty
+  const int tiles_m = (M + BM - 1) / BM;
+  const int tiles = tiles_m * ((Nout + BN - 1) / BN);
+  const int KT = (R + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bars + 8 * s, 1);                       // the producer
+      mbar_init(bars + 8 * (stages + s), CONSUMERS);   // one thread a WG
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // producer warp: one thread issues every TMA load of the block
+    if (threadIdx.x != CONSUMERS * 128) return;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t % tiles_m) * BM, n0 = (t / tiles_m) * BN;
+      for (int kt = 0; kt < KT; ++kt) {
+        mbar_wait(bars + 8 * (stages + s), phase ^ 1);  // stage s is free
+        const uint32_t full = bars + 8 * s;
+        mbar_expect_tx(full, STAGE);
+        tma_load_2d(ring + s * STAGE, &tma_a, kt * BK, m0, full);
+        tma_load_2d(ring + s * STAGE + A_TILE, &tma_b, kt * BK, n0, full);
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64*wg .. 64*wg + 63 of each tile
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  const bool leader = threadIdx.x % 128 == 0;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  int s = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t % tiles_m) * BM, n0 = (t / tiles_m) * BN;
+    int prev = 0;
+    for (int kt = 0; kt < KT; ++kt) {
+      mbar_wait(bars + 8 * s, phase);
+      const uint32_t a = ring + s * STAGE + wg * 64 * BK * 2;
+      const uint64_t da = smem_desc(a), db = smem_desc(ring + s * STAGE + A_TILE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_bf16<BN>(acc, da + 2 * kk, db + 2 * kk, (kt | kk) != 0);
+      wgmma_commit();
+      // the previous stage's products are done: hand it back
+      wgmma_wait<1>();
+      if (kt > 0 && leader) mbar_arrive(bars + 8 * (stages + prev));
+      prev = s;
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    if (leader) mbar_arrive(bars + 8 * (stages + prev));
+
+    // epilogue: D fragment of m64nBN: warp w of the warpgroup holds rows
+    // 16w + lane/4 and + 8; register 4j + {0,1} (+{2,3}: row + 8) holds
+    // columns 8j + 2*(lane%4) + {0,1}. Rounded to bf16 into this
+    // warpgroup's staging boxes in TMA's 128-byte swizzle (column group
+    // j % 8 of box j / 8 lands at group (j % 8) ^ (row % 8)), then one
+    // thread stores the boxes by TMA, which clips them at M and Nout. The
+    // stores drain while the warpgroup runs the next tile's products.
+    const uint32_t mine = staging + wg * BN * 128;
+    if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    named_sync(1 + wg, 128);
+    const int r0 = warp * 16 + lane / 4;
+    const uint32_t row0 = mine + r0 * 128 + 4 * (lane % 4);
+    const uint32_t row1 = row0 + 8 * 128;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const uint32_t off = (j / 8) * 8192 + (((j % 8) ^ (r0 % 8)) << 4);
+      const __nv_bfloat162 v0 = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+      const __nv_bfloat162 v1 =
+          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(row0 + off),
+                   "r"(*reinterpret_cast<const uint32_t*>(&v0))
+                   : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(row1 + off),
+                   "r"(*reinterpret_cast<const uint32_t*>(&v1))
+                   : "memory");
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(1 + wg, 128);
+    if (leader) {
+#pragma unroll
+      for (int q = 0; q < BN / 64; ++q)
+        tma_store_2d(&tma_c, mine + q * 8192, n0 + 64 * q, m0 + 64 * wg);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+  }
+  if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ------------------------------------------------------ tensor maps ----
+// cuTensorMapEncodeTiled is a driver function; it is reached through the
+// runtime's entry-point query, so the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (rows, cols) row-major bf16 matrix, in boxes of box_rows x BK
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+              int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb,
+                const CUtensorMap& mc, int m, int r, int nout, int stages,
+                int grid, cudaStream_t stream) {
+  const int smem = gemm_smem_bytes(BN, stages);
+  // per call: the attribute belongs to the current device
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_tn_bf16_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  gemm_tn_bf16_kernel<BN><<<grid, THREADS, smem, stream>>>(ma, mb, mc, m, r,
+                                                           nout, stages);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// w, pm (K, N) f32 and own (K, N) int8 -> out bf16: w_eff (K, N), or with
+// transpose w_eff^T (N, K). K and N multiples of 8; w, pm 16-byte and out
+// 16-byte aligned. Returns cudaGetLastError().
+int masked_matmul_select_bf16(const void* w, const void* own, const void* pm,
+                              void* out, int k, int n, int task, float thr,
+                              int ternary, int transpose, void* stream) {
+  if (k % 8 || n % 8) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + SN - 1) / SN, (k + SK - 1) / SK);
+  if (transpose)
+    select_bf16_kernel<true><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)w, (const int8_t*)own, (const float*)pm, (bf16*)out, k,
+        n, task, thr, ternary);
+  else
+    select_bf16_kernel<false><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)w, (const int8_t*)own, (const float*)pm, (bf16*)out, k,
+        n, task, thr, ternary);
+  return (int)cudaGetLastError();
+}
+
+// C (M, Nout) = A (M, R) @ Bt (Nout, R)^T, bf16 row-major, f32 sums. R and
+// Nout multiples of 8, bases 16-byte aligned; bn (tile width: 64, 128 or
+// 192), stages and grid from ops/masked_matmul.py `gemm_plan`.
+int masked_matmul_gemm_tn_bf16(const void* a, const void* bt, void* c, int m,
+                               int r, int nout, int bn, int stages, int grid,
+                               void* stream) {
+  if (m <= 0 || r <= 0 || nout <= 0 || r % 8 || nout % 8 || stages < 2 ||
+      grid <= 0 || gemm_smem_bytes(bn, stages) > 232448)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mb, mc;  // C in 64 x 64 boxes (64 columns: one 128-B row)
+  if (!make_map(&ma, a, m, r, BM) || !make_map(&mb, bt, nout, r, bn) ||
+      !make_map(&mc, c, m, nout, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (bn) {
+    case 64: return launch_gemm<64>(ma, mb, mc, m, r, nout, stages, grid, st);
+    case 128: return launch_gemm<128>(ma, mb, mc, m, r, nout, stages, grid, st);
+    case 192: return launch_gemm<192>(ma, mb, mc, m, r, nout, stages, grid, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -34,7 +34,9 @@ GROUPS = (
     ("port kernels", ("masked_conv_fwd_", "fused_chain_fwd_", "cpg::bwd::",
                       "flash_fwd_", "flash_bwd_", "k6::dw_bf16_kernel",
                       "namespace)::gate_kernel", "namespace)::sum_kernel",
-                      "namespace)::colsum_kernel")),
+                      "namespace)::colsum_kernel",
+                      "namespace)::gemm_tn_bf16_kernel",
+                      "namespace)::select_bf16_kernel")),
     ("cudnn/cublas", ("cudnn", "conv", "gemm", "xmma", "sm90", "cutlass",
                       "nvjet", "implicit_", "dgrad", "wgrad", "nchw", "nhwc")),
     ("optimizer", ("multi_tensor", "foreach", "_amp_")),

@@ -420,6 +420,109 @@ def test_dense_route_matches_plain(cuda, case):
     assert torch.equal(y, y2) and torch.equal(dw, dw2) and torch.equal(dpm, dpm2)
 
 
+def _dense_case(m, kd, nd, device, dtype, seed):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(m, kd).astype(np.float32)).to(device, dtype)
+    w = torch.from_numpy((rng.randn(kd, nd) / np.sqrt(kd)).astype(np.float32)).to(device)
+    own = torch.from_numpy(rng.choice([0, 1, 2, 3], size=(kd, nd)).astype(np.int8)).to(device)
+    pm = torch.from_numpy((rng.randn(kd, nd) * 0.01).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.randn(m, nd).astype(np.float32)).to(device, dtype)
+    return x, w, own, pm, g
+
+
+@pytest.mark.parametrize("case", [
+    # (m, k, n, mode): ragged M, K not a multiple of 64, N = 8
+    (1000, 200, 72, "binary"),
+    (333, 40, 8, "ternary"),
+    (129, 8, 264, "binary"),
+    (4096, 256, 256, "ternary"),       # vit_cifar q/k/v/proj, batch 64
+    (2 * 196, 768, 768, "binary"),     # vit_b16 q/k/v/proj, 128 x 192 tiles
+])
+def test_dense_gemm_route_matches_plain(cuda, case):
+    """bf16 shapes with K, N multiples of 8 take the select pass + TN GEMM
+    (`csrc/masked_matmul.cu`) for y and dx: one select and one GEMM a
+    product, no 1x1 launch; y and dx agree with the plain versions and two
+    runs give the same bits."""
+    m, kd, nd, mode = case
+    x, w, own, pm, g = _dense_case(m, kd, nd, cuda, torch.bfloat16, seed=11)
+    assert mm.gemm_route(x, w, own, pm) and mm.gemm_route(g, w, own, pm)
+    before = (mm.LAUNCHES, mm.LAUNCHES_BWD_DX, mm.LAUNCHES_SELECT)
+    y = mm.masked_matmul(x, w, own, pm, 2, mask_mode=mode)
+    dx = mm.masked_matmul_bwd_dx(g, x, w, own, pm, 2, mask_mode=mode)
+    torch.cuda.synchronize()
+    assert (mm.LAUNCHES, mm.LAUNCHES_BWD_DX, mm.LAUNCHES_SELECT) == (
+        before[0] + 1, before[1] + 1, before[2] + 2)
+    _check(y, mm.masked_matmul_plain(x, w, own, pm, 2, mask_mode=mode),
+           torch.bfloat16)
+    _check(dx, mm.masked_matmul_bwd_dx_plain(g, x, w, own, pm, 2,
+                                             mask_mode=mode), torch.bfloat16)
+    y2 = mm.masked_matmul(x, w, own, pm, 2, mask_mode=mode)
+    dx2 = mm.masked_matmul_bwd_dx(g, x, w, own, pm, 2, mask_mode=mode)
+    assert torch.equal(y, y2) and torch.equal(dx, dx2)
+
+
+@pytest.mark.parametrize("case", [(64, 64), (200, 72), (768, 768), (8, 264)])
+@pytest.mark.parametrize("mode", ["binary", "ternary"])
+def test_dense_select_kernel_matches_plain_bit_for_bit(cuda, case, mode):
+    kd, nd = case
+    _, w, own, pm, _ = _dense_case(8, kd, nd, cuda, torch.bfloat16, seed=12)
+    for transpose in (False, True):
+        got = mm.masked_matmul_select(w, own, pm, 3, mask_mode=mode,
+                                      transpose=transpose)
+        want = mm.masked_matmul_select_plain(w, own, pm, 3, mask_mode=mode,
+                                             transpose=transpose)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("case", [(1, 8, 8), (127, 64, 64), (1000, 200, 72),
+                                  (256, 520, 136), (16384, 256, 1024)])
+def test_dense_gemm_kernel_matches_plain(cuda, case):
+    """The TN GEMM alone, C = A @ Bt^T: one row, a tile edge, ragged M, R
+    and Nout, more than four k-tiles per ring, and a persistent walk of
+    four tiles a block."""
+    m, r, nout = case
+    rng = np.random.RandomState(13)
+    a = torch.from_numpy(rng.randn(m, r).astype(np.float32)).to(cuda, torch.bfloat16)
+    bt = torch.from_numpy((rng.randn(nout, r) / np.sqrt(r)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    got = mm.launch_gemm_tn(a, bt)
+    torch.cuda.synchronize()
+    _check(got, mm.gemm_tn_plain(a, bt), torch.bfloat16)
+    assert torch.equal(got, mm.launch_gemm_tn(a, bt))
+
+
+@pytest.mark.parametrize("case", [(300, 70, 64, "bfloat16"),
+                                  (300, 64, 36, "bfloat16"),
+                                  (300, 64, 64, "float32")])
+def test_dense_route_off_the_gemm_takes_the_1x1_kernels(cuda, case):
+    """A width that is not a multiple of 8, or f32, runs K1 and K2 at the
+    1x1 geometry: no select launch, and y and dx match too."""
+    m, kd, nd, dname = case
+    dtype = getattr(torch, dname)
+    x, w, own, pm, g = _dense_case(m, kd, nd, cuda, dtype, seed=14)
+    assert not mm.gemm_route(x, w, own, pm)
+    before = (mm.LAUNCHES, mm.LAUNCHES_BWD_DX, mm.LAUNCHES_SELECT)
+    y = mm.masked_matmul(x, w, own, pm, 2)
+    dx = mm.masked_matmul_bwd_dx(g, x, w, own, pm, 2)
+    torch.cuda.synchronize()
+    assert (mm.LAUNCHES, mm.LAUNCHES_BWD_DX, mm.LAUNCHES_SELECT) == (
+        before[0] + 1, before[1] + 1, before[2])
+    _check(y, mm.masked_matmul_plain(x, w, own, pm, 2), dtype)
+    _check(dx, mm.masked_matmul_bwd_dx_plain(g, x, w, own, pm, 2), dtype)
+
+
+def test_dense_kernels_refuse_unsupported(cuda):
+    a = torch.zeros((16, 12), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mm.launch_gemm_tn(a, torch.zeros((8, 12), device=cuda,
+                                         dtype=torch.bfloat16))
+    w = torch.zeros((12, 8), device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mm.launch_select(w, w.to(torch.int8), w, 2, 5e-3, "binary", True)
+
+
 def test_autograd_reaches_q_k_v_w_and_pm_through_dense_and_flash(cuda):
     """loss.backward() through masked_matmul and flash_mha on the card
     gives x, w, pm (and through them q, k, v) their gradients, equal to the

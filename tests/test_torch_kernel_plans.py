@@ -2,18 +2,23 @@
 
 K6 (`fused_chain.k6_plan`) picks the image rows a step and the split count
 of the bf16 dW kernel; K7 forward (`flash.fwd_grid`) sizes the persistent
-grid of the bf16 flash forward. Both feed launch parameters straight to a
-CUDA kernel, so these tests hold them, for every VGG16-BN seam and both
-ViT shapes, to what the kernels assume: steps of whole image rows that
-never straddle an image where a halo is staged, every row and every work
-item covered exactly once, a grid within CUDA's limits, and scratch and
-shared memory within the card's.
+grid of the bf16 flash forward; the dense route's TN GEMM
+(`masked_matmul.gemm_plan`) picks its tile width, ring depth and
+persistent grid, and `masked_matmul.gemm_route` decides which products
+take it. All feed launch parameters straight to a CUDA kernel, so these
+tests hold them, for every VGG16-BN seam and the ViT shapes, to what the
+kernels assume: steps of whole image rows that never straddle an image
+where a halo is staged, every row, work item and output tile covered
+exactly once, a grid within CUDA's limits and the SM count, and scratch
+and shared memory within the card's.
 """
 
 import pytest
+import torch
 
 from cpg_tpu_torch.ops import flash as fl
 from cpg_tpu_torch.ops import fused_chain as fc
+from cpg_tpu_torch.ops import masked_matmul as mm
 
 H100_SMS = 132
 SMEM_PER_SM = 233472      # 228 KB, of which 1 KB is reserved per block
@@ -137,3 +142,78 @@ def test_flash_fwd_grid_need_not_divide_the_items(case):
     n, t, h = case
     items, grid = fl.fwd_grid(n, t, h, 64, H100_SMS)
     assert items % grid
+
+
+# ------------------------------------------------------ dense TN GEMM ----
+# (m, r, nout) of the GEMM: vit_cifar at batch 256 (forward: R = K,
+# Nout = N; dx: R = N, Nout = K), vit_b16 at batch 64, and ragged edges
+GEMM_CASES = [(16384, 256, 256), (16384, 256, 1024), (16384, 1024, 256),
+              (12544, 768, 768), (12544, 768, 3072), (12544, 3072, 768),
+              (1000, 200, 72), (333, 40, 8), (1, 8, 8), (129, 64, 264),
+              (4096, 1024, 1024)]
+
+
+def _gemm_walk(m, nout, bn, grid):
+    """The output tiles each block walks, as gemm_tn_bf16_kernel does:
+    t = blockIdx.x, + gridDim.x, ...; M fastest."""
+    tiles_m = -(-m // mm.GEMM_BM)
+    tiles = tiles_m * -(-nout // bn)
+    return [(t % tiles_m, t // tiles_m) for b in range(grid)
+            for t in range(b, tiles, grid)]
+
+
+@pytest.mark.parametrize("case", GEMM_CASES)
+@pytest.mark.parametrize("sms", [H100_SMS, 7])
+def test_gemm_plan_covers_every_output_tile_once(case, sms):
+    m, r, nout = case
+    bn, stages, grid = mm.gemm_plan(m, r, nout, sms)
+    walked = _gemm_walk(m, nout, bn, grid)
+    tiles_m, tiles_n = -(-m // mm.GEMM_BM), -(-nout // bn)
+    assert sorted(walked) == [(i, j) for i in range(tiles_m)
+                              for j in range(tiles_n)]
+    # the tiles reach past the output by less than one tile (clipped stores)
+    assert (tiles_m - 1) * mm.GEMM_BM < m and (tiles_n - 1) * bn < nout
+
+
+@pytest.mark.parametrize("case", GEMM_CASES)
+def test_gemm_plan_fits_the_card(case):
+    bn, stages, grid = mm.gemm_plan(*case, H100_SMS)
+    assert bn in mm.GEMM_BNS and bn % 64 == 0 and bn <= 256  # wgmma N, TMA box
+    assert 2 <= stages <= mm.GEMM_MAX_STAGES
+    assert mm.gemm_smem_bytes(bn, stages) <= SMEM_PER_BLOCK
+    assert 1 <= grid <= H100_SMS
+
+
+def test_gemm_plan_at_the_vit_shapes():
+    """vit_cifar: 128 x 128 tiles at Nout = 256 (256 tiles on 132 blocks, 5
+    stages), 128 x 192 at Nout = 1024 (768 tiles, 4 stages); vit_b16:
+    128 x 192 (392 tiles, three waves with all but 4 blocks full)."""
+    assert mm.gemm_plan(16384, 256, 256, H100_SMS) == (128, 5, H100_SMS)
+    assert mm.gemm_plan(16384, 1024, 256, H100_SMS) == (128, 5, H100_SMS)
+    assert mm.gemm_plan(16384, 256, 1024, H100_SMS) == (192, 4, H100_SMS)
+    assert mm.gemm_plan(12544, 768, 768, H100_SMS) == (192, 4, H100_SMS)
+
+
+def _route(dtype, k, n, offset=0):
+    x = torch.zeros(64 * k + offset, dtype=dtype)[offset:].view(64, k)
+    w = torch.zeros(k, n)
+    own = torch.zeros(k, n, dtype=torch.int8)
+    return mm.gemm_route(x, w, own, torch.zeros(k, n))
+
+
+@pytest.mark.parametrize("case", [
+    # (dtype, K, N, storage offset of x, takes the TN GEMM)
+    (torch.bfloat16, 256, 256, 0, True),    # vit_cifar q/k/v/proj
+    (torch.bfloat16, 256, 1024, 0, True),   # fc1
+    (torch.bfloat16, 768, 3072, 0, True),   # vit_b16 fc1
+    (torch.bfloat16, 200, 72, 0, True),     # ragged, multiples of 8
+    (torch.bfloat16, 8, 8, 0, True),
+    (torch.float32, 256, 256, 0, False),    # f32: the 1x1 route
+    (torch.bfloat16, 40, 36, 0, False),     # N % 8 != 0
+    (torch.bfloat16, 70, 64, 0, False),     # K % 8 != 0
+    (torch.bfloat16, 48, 3, 0, False),
+    (torch.bfloat16, 256, 256, 4, False),   # x not 16-byte aligned
+])
+def test_gemm_route_predicate(case):
+    dtype, k, n, offset, want = case
+    assert _route(dtype, k, n, offset) is want
