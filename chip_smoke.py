@@ -13,7 +13,14 @@ Needs one CUDA card; exits non-zero without one. It
      time (`device_ms`, `library_device_ms`: no host gaps between calls):
      the masked conv forward (K1) and its backward (K2 dx, K3
      gated dw/dpm), the fused BN+ReLU+conv3x3 forward (K4) and its backward
-     (K5 dx/da/db, K6 dW);
+     (K5 dx/da/db, K6 dW). K1 and K2 at conv2/4/7/10 (binary and ternary)
+     take the GEMM route (`route`: the select pass, held alone against its
+     plain version bit for bit in `masked_conv_select` rows, then the
+     TMA/wgmma implicit GEMM of csrc/masked_matmul.cu; `select_device_ms`
+     and `gemm_kernel_device_ms` are the two launches' own device times);
+     conv0, a width-0.125 conv2 (Cin 8, Cout 16) and the f32 conv7 hold
+     the old K1 and K2. Every K1 and K2 row checks that two launches give
+     the same bits;
   3. serve phase: builds a seeded two-task VGG16-BN state at full width
      (init_state -> start_task -> one_shot_prune 0.5 -> start_task, task 2's
      piggymask perturbed so some entries fall below the threshold), runs a
@@ -188,8 +195,50 @@ def compare(got, want, dtype_name: str, what: str, rel=None) -> float:
     return err
 
 
-def masked_conv_phase(torch, dev, name, hw, cin, cout, dtype_name, mode):
+def twice(torch, fn, what):
+    """fn's result, after checking that a second launch gives its bits."""
+    a, b = fn(), fn()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{what}: two launches differ")
+    return a
+
+
+def conv_route_rows(torch, w, own, pm, mode, gemm, cudnn, dgrad, common):
+    """On the masked conv's GEMM route: the select pass alone against its
+    plain version (bit for bit; a `masked_conv_select` row), and for the
+    op's row the select's and the implicit GEMM's own device times and
+    cuDNN's on the pre-selected weight (`cudnn(weff)`, the GEMM half's
+    yardstick)."""
+    from cpg_tpu_torch.ops import masked_matmul as mm
+
+    views = [t.reshape(-1, w.shape[-1]) for t in (w, own, pm)]
+    kern = lambda: mm.launch_select(*views, 2, THR, mode, not dgrad)
+    plain = lambda: mm.masked_matmul_select_plain(*views, 2, THR, mode,
+                                                  transpose=not dgrad)
+    weff, want = kern(), plain()
+    if not torch.equal(weff.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError(f"masked_conv select {common['layer']}: bits "
+                             "differ from the plain version")
+    b_ms, b_by = bound(11 * w.numel(), 0.0, "bfloat16")
+    sel_dev = device_ms(kern)
+    row = dict(kernel="masked_conv_select", **common,
+               layout="dx" if dgrad else "fwd", max_abs_err=0.0,
+               ms=time_ms(kern), device_ms=sel_dev, plain_ms=time_ms(plain),
+               library_ms=None, library_device_ms=None, bound_ms=b_ms,
+               bound_by=b_by)
+    w_sel = (weff.reshape(w.shape) if dgrad else weff.reshape(
+        w.shape[-1], *w.shape[:-1]).permute(1, 2, 3, 0)).contiguous()  # HWIO
+    return row, dict(select_device_ms=sel_dev,
+                     gemm_kernel_device_ms=device_ms(lambda: gemm(weff)),
+                     cudnn_device_ms=device_ms(lambda: cudnn(w_sel)))
+
+
+def masked_conv_phase(torch, dev, name, hw, cin, cout, dtype_name, mode,
+                      per_step=None):
+    """K1 at one shape (the GEMM route or the old kernel, as `conv_route`
+    decides), two launches equal bits; on the route also its select row."""
     from cpg_tpu_torch.ops import masked_conv as mc
+    from cpg_tpu_torch.ops import masked_matmul as mm
     from cpg_tpu_torch.ops.conv import conv2d_nhwc
     from cpg_tpu_torch.ops.masked import effective_kernel
 
@@ -205,14 +254,29 @@ def masked_conv_phase(torch, dev, name, hw, cin, cout, dtype_name, mode):
     library = lambda: conv2d_nhwc(
         x, effective_kernel(w, own, pm, 2, mask_mode=mode).to(dt), 1,
         (1, 1, 1, 1))
-    err = compare(kern(), plain(), dtype_name, f"masked_conv {name}")
+    err = compare(twice(torch, kern, f"masked_conv {name}"), plain(),
+                  dtype_name, f"masked_conv {name}")
     elt = x.element_size()
     nbytes = x.numel() * elt + w.numel() * 9 + BATCH * hw * hw * cout * elt
     flops = 2.0 * BATCH * hw * hw * 9 * cin * cout
     b_ms, b_by = bound(nbytes, flops, dtype_name)
-    return dict(kernel="masked_conv_fwd", layer=name, dtype=dtype_name,
-                mode=mode, shape=[BATCH, hw, hw, cin, cout],
-                max_abs_err=err, **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by)
+    common = dict(layer=name, dtype=dtype_name, mode=mode,
+                  shape=[BATCH, hw, hw, cin, cout],
+                  **({} if per_step is None else {"per_step": per_step}))
+    route = mc.conv_route(x, w, 1, "SAME")
+    rows, extra = [], {}
+    if route:
+        sel, extra = conv_route_rows(
+            torch, w, own, pm, mode,
+            lambda wt: mm.launch_conv_gemm(x, wt, (hw, hw), 3, 3, 1, 1, False),
+            lambda w_sel: conv2d_nhwc(x, w_sel, 1, (1, 1, 1, 1)), False,
+            common)
+        rows.append(sel)
+    rows.insert(0, dict(kernel="masked_conv_fwd", **common,
+                        route="select+gemm" if route else "k1",
+                        max_abs_err=err, **timed(kern, plain, library),
+                        bound_ms=b_ms, bound_by=b_by, **extra))
+    return rows
 
 
 def fused_chain_phase(torch, dev, name, hw, cin, cout, dtype_name):
@@ -252,9 +316,11 @@ def _conv_inputs(torch, dev, hw, cin, cout, dt, seed):
 
 
 def masked_conv_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name, mode,
-                           with_dx=True):
-    """K2 (when the layer's input needs a gradient) and K3 at one shape."""
+                           with_dx=True, per_step=None):
+    """K2 (when the layer's input needs a gradient; the GEMM route or the
+    old kernel, two launches equal bits) and K3 at one shape."""
     from cpg_tpu_torch.ops import masked_conv as mc
+    from cpg_tpu_torch.ops import masked_matmul as mm
     from cpg_tpu_torch.ops.masked import effective_kernel
 
     dt = getattr(torch, dtype_name)
@@ -265,7 +331,8 @@ def masked_conv_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name, mode,
     flops = 2.0 * BATCH * hw * hw * 9 * cin * cout
     gt, xt = gy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
     common = dict(layer=name, dtype=dtype_name, mode=mode,
-                  shape=[BATCH, hw, hw, cin, cout])
+                  shape=[BATCH, hw, hw, cin, cout],
+                  **({} if per_step is None else {"per_step": per_step}))
     rows = []
     if with_dx:
         kern = lambda: mc.masked_conv2d_bwd_dx(gy, x, w, own, pm, 2,
@@ -275,12 +342,26 @@ def masked_conv_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name, mode,
         library = lambda: torch.nn.grad.conv2d_input(
             xt.shape, effective_kernel(w, own, pm, 2, mask_mode=mode)
             .to(dt).permute(3, 2, 0, 1), gt, 1, 1)
-        err = compare(kern(), plain(), dtype_name, f"masked_conv_bwd_dx {name}")
+        err = compare(twice(torch, kern, f"masked_conv_bwd_dx {name}"),
+                      plain(), dtype_name, f"masked_conv_bwd_dx {name}")
         b_ms, b_by = bound(gy.numel() * elt + 9 * n_w + x.numel() * elt,
                            flops, dtype_name)
+        route = mc.conv_route(x, w, 1, "SAME")
+        extra = {}
+        if route:
+            sel, extra = conv_route_rows(
+                torch, w, own, pm, mode,
+                lambda weff: mm.launch_conv_gemm(gy, weff, (hw, hw), 3, 3, 1,
+                                                 1, True),
+                lambda w_sel: torch.nn.grad.conv2d_input(
+                    xt.shape, w_sel.permute(3, 2, 0, 1), gt, 1, 1),
+                True, common)
         rows.append(dict(kernel="masked_conv_bwd_dx", **common,
+                         route="select+gemm" if route else "k2",
                          max_abs_err=err, **timed(kern, plain, library),
-                         bound_ms=b_ms, bound_by=b_by))
+                         bound_ms=b_ms, bound_by=b_by, **extra))
+        if route:
+            rows.append(sel)
 
     kern = lambda: mc.masked_conv2d_bwd_dw(gy, x, w, own, 2)
     plain = lambda: mc.masked_conv2d_bwd_dw_plain(gy, x, w, own, 2)
@@ -456,12 +537,6 @@ def dense_phases(torch, dev, name, m, kd, nd, dtype_name, mode, per_step):
     gemm = mm.gemm_route(x, w, own, pm)
     rows = []
 
-    def twice(fn, what):
-        a, b = fn(), fn()
-        if not torch.equal(a, b):
-            raise AssertionError(f"{what} {name}: two launches differ")
-        return a
-
     if gemm:  # the select pass alone, in both layouts
         for transpose, kind in ((True, "fwd"), (False, "dx")):
             kern = lambda: mm.masked_matmul_select(w, own, pm, 2, mask_mode=mode,
@@ -495,8 +570,8 @@ def dense_phases(torch, dev, name, m, kd, nd, dtype_name, mode, per_step):
 
     kern = lambda: mm.masked_matmul(x, w, own, pm, 2, mask_mode=mode)
     plain = lambda: mm.masked_matmul_plain(x, w, own, pm, 2, mask_mode=mode)
-    err = compare(twice(kern, "masked_matmul"), plain(), dtype_name,
-                  f"masked_matmul {name}")
+    err = compare(twice(torch, kern, f"masked_matmul {name}"), plain(),
+                  dtype_name, f"masked_matmul {name}")
     b_ms, b_by = bound(x.numel() * elt + 9 * n_w + m * nd * elt, flops,
                        dtype_name)
     rows.append(dict(kernel="masked_matmul_fwd", **common, max_abs_err=err,
@@ -506,8 +581,8 @@ def dense_phases(torch, dev, name, m, kd, nd, dtype_name, mode, per_step):
     kern = lambda: mm.masked_matmul_bwd_dx(gy, x, w, own, pm, 2, mask_mode=mode)
     plain = lambda: mm.masked_matmul_bwd_dx_plain(gy, x, w, own, pm, 2,
                                                   mask_mode=mode)
-    err = compare(twice(kern, "masked_matmul_bwd_dx"), plain(), dtype_name,
-                  f"masked_matmul_bwd_dx {name}")
+    err = compare(twice(torch, kern, f"masked_matmul_bwd_dx {name}"),
+                  plain(), dtype_name, f"masked_matmul_bwd_dx {name}")
     b_ms, b_by = bound(gy.numel() * elt + 9 * n_w + x.numel() * elt, flops,
                        dtype_name)
     rows.append(dict(kernel="masked_matmul_bwd_dx", **common, max_abs_err=err,
@@ -666,13 +741,15 @@ def eval_phase(torch, dev, state, counts):
 
 
 # launches of each kernel in one train step of task 2 with the kernel flags:
-# VGG16-BN's five masked convs (conv0's input is the image, so no dx) and
-# eight fused seams; vit_cifar's six blocks of six sdense layers and one
+# VGG16-BN's five masked convs (conv0's input is the image, so no dx; a
+# select pass before the forward and dx of conv2, 4, 7 and 10, the GEMM
+# route) and eight fused seams; vit_cifar's six blocks of six sdense layers and one
 # attention (its patch stem is a plain product), a select pass before each
 # forward and dx GEMM; zero for every other kernel
 TRAIN_LAUNCHES = {
     "vgg16_bn_cifar": {"masked_conv_fwd": 5, "masked_conv_bwd_dx": 4,
-                       "masked_conv_bwd_dw": 5, "fused_chain_fwd": 8,
+                       "masked_conv_bwd_dw": 5, "masked_conv_select": 8,
+                       "fused_chain_fwd": 8,
                        "fused_chain_bwd_dx": 8, "fused_chain_bwd_dw": 8},
     "vit_cifar": {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
                   "masked_matmul_fwd": 36, "masked_matmul_bwd_dx": 36,
@@ -868,6 +945,7 @@ class Counts:
             "masked_conv_fwd": (masked_conv, "LAUNCHES"),
             "masked_conv_bwd_dx": (masked_conv, "LAUNCHES_BWD_DX"),
             "masked_conv_bwd_dw": (masked_conv, "LAUNCHES_BWD_DW"),
+            "masked_conv_select": (masked_conv, "LAUNCHES_SELECT"),
             "fused_chain_fwd": (fused_chain, "LAUNCHES"),
             "fused_chain_bwd_dx": (fused_chain, "LAUNCHES_BWD_DX"),
             "fused_chain_bwd_dw": (fused_chain, "LAUNCHES_BWD_DW"),
@@ -907,17 +985,23 @@ def main() -> int:
     t_start = time.perf_counter()
     rows = []
     for name, hw, cin, cout in MASKED_CONV_SHAPES:
-        rows.append(masked_conv_phase(torch, dev, name, hw, cin, cout,
-                                      "bfloat16", "binary"))
+        rows += masked_conv_phase(torch, dev, name, hw, cin, cout,
+                                  "bfloat16", "binary")
         rows += masked_conv_bwd_phases(torch, dev, name, hw, cin, cout,
                                        "bfloat16", "binary",
                                        with_dx=name != "conv0")
-    rows.append(masked_conv_phase(torch, dev, "conv4", 8, 128, 256,
-                                  "bfloat16", "ternary"))
-    rows += masked_conv_bwd_phases(torch, dev, "conv4", 8, 128, 256,
-                                   "bfloat16", "ternary")
-    rows.append(masked_conv_phase(torch, dev, "conv7", 4, 256, 512,
-                                  "float32", "binary"))
+    for name, hw, cin, cout in MASKED_CONV_SHAPES[1:]:
+        rows += masked_conv_phase(torch, dev, name, hw, cin, cout,
+                                  "bfloat16", "ternary")
+        rows += masked_conv_bwd_phases(torch, dev, name, hw, cin, cout,
+                                       "bfloat16", "ternary")
+    # conv2 at width 0.125 holds the old bf16 K1 and K2 (off the route)
+    rows += masked_conv_phase(torch, dev, "conv2_w0.125", 16, 8, 16,
+                              "bfloat16", "binary", per_step=0)
+    rows += masked_conv_bwd_phases(torch, dev, "conv2_w0.125", 16, 8, 16,
+                                   "bfloat16", "binary", per_step=0)
+    rows += masked_conv_phase(torch, dev, "conv7", 4, 256, 512, "float32",
+                              "binary")
     rows += masked_conv_bwd_phases(torch, dev, "conv7", 4, 256, 512,
                                    "float32", "binary")
     for name, hw, cin, cout in CHAIN_SHAPES:
@@ -969,7 +1053,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     # every phase that should reach a kernel did
     need = {"vgg16_bn_cifar/serve": ["fused_chain_fwd"],
-            "vgg16_bn_cifar/eval": ["masked_conv_fwd", "fused_chain_fwd"],
+            "vgg16_bn_cifar/eval": ["masked_conv_fwd", "masked_conv_select",
+                                    "fused_chain_fwd"],
             "vit_cifar/eval": ["flash_fwd", "masked_matmul_fwd",
                                "masked_matmul_select"]}
     for phase, names in need.items():
@@ -978,11 +1063,17 @@ def main() -> int:
                 raise AssertionError(f"{phase} phase launched no {k} kernel")
     print(f"launches: {json.dumps(launched)}", flush=True)
 
+    # conv K1 and K2: the GEMM route's file (conv2/4/7/10), then the old
+    # kernel's (conv0, narrow widths, f32) under "sources"
     meta = {
-        "masked_conv_fwd": ("cpg_tpu_torch/csrc/masked_conv_fwd.cu",
+        "masked_conv_fwd": (("cpg_tpu_torch/csrc/masked_matmul.cu",
+                             "cpg_tpu_torch/csrc/masked_conv_fwd.cu"),
                             "cpg_tpu/ops/pallas/masked_matmul.py:97"),
-        "masked_conv_bwd_dx": ("cpg_tpu_torch/csrc/masked_conv_bwd_dx.cu",
+        "masked_conv_bwd_dx": (("cpg_tpu_torch/csrc/masked_matmul.cu",
+                                "cpg_tpu_torch/csrc/masked_conv_bwd_dx.cu"),
                                "cpg_tpu/ops/pallas/masked_matmul.py:173"),
+        "masked_conv_select": ("cpg_tpu_torch/csrc/masked_matmul.cu",
+                               "cpg_tpu/ops/pallas/masked_matmul.py:56"),
         "masked_conv_bwd_dw": ("cpg_tpu_torch/csrc/masked_conv_bwd_dw.cu",
                                "cpg_tpu/ops/pallas/masked_matmul.py:244"),
         "fused_chain_fwd": ("cpg_tpu_torch/csrc/fused_chain_fwd.cu",
@@ -1015,8 +1106,10 @@ def main() -> int:
         by = {}
         for r, k in step:
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + k * r["bound_ms"]
+        sources = (source,) if isinstance(source, str) else source
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": name, "route": "cuda", "source": sources[0],
+            **({"sources": list(sources)} if len(sources) > 1 else {}),
             "replaces": replaces,
             "launches": sum(c[name] for c in launched.values()),
             "max_abs_err": max(r["max_abs_err"] for r in mine),

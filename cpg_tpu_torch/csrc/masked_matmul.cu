@@ -45,6 +45,30 @@
 // A and Bt need R % 8 == 0 and Nout % 8 == 0 (TMA's 16-byte row strides)
 // and 16-byte aligned bases; the wrapper takes the 1x1 masked-conv kernels
 // for any other shape and for f32.
+//
+// The same GEMM is the masked conv's forward (conv K1) and input gradient
+// (conv K2) at VGG16-BN's 3x3, stride-1 shapes (`masked_conv_gemm_bf16`;
+// replaces `_fwd` and `_bwd_dx` as reached through
+// cpg_tpu/ops/pallas/masked_conv.py `masked_conv2d`, whose patches the TPU
+// wrote to HBM). The weight is selected once over the HWIO kernel viewed as
+// (kh*kw*Cin, Cout), transposed for the forward; only the producer's loads
+// differ from the dense GEMM. k-step kt is (tap, channel block) = (kt / (C /
+// 64), kt % (C / 64)), C the reduction channels (Cin forward, Cout dgrad),
+// and its A tile is one TMA box of a 4-D map over the NHWC activation, dims
+// (C, W, H, N), box (64, Wo, rows, images) with Wo * rows * images = 128:
+// 128 consecutive output pixels (whole rows of one image, or whole images),
+// laid out in shared memory exactly as the dense 128 x 64 K-major tile. The
+// forward reads x at (c, ow0 + dw - pad_left, oh0 + dh - pad_top, n0), the
+// input gradient g at the mirrored (c, iw0 + pad_left - dw, ih0 + pad_top -
+// dh, n0); TMA's zero fill of coordinates outside the tensor (negative ones
+// too) is the padding, so no im2col tensor is written. B is w_eff^T's 2-D
+// box at (kt * 64, n0) for the forward (Cin % 64 == 0: a box never straddles
+// two taps) and a 3-D map of w_eff as (Cout, Cin, taps) at (c, n0, tap) for
+// the input gradient, which clips at Cin inside each tap. The output tile is
+// 128 rows of (N*Ho*Wo, Cout) or (N*H*W, Cin), stored as the dense one.
+// Bound on the H100 at batch 256: by operations (4.8-9.7 GFLOP a layer
+// against 1-17 MB of activations), so the activation boxes and the selected
+// weight come from L2 after their first read.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -187,6 +211,29 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The same for 3-D and 4-D maps.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
 // 2-D TMA store of the box at (c0 innermost, c1) from shared memory;
 // rows and columns past the tensor are not written.
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
@@ -307,13 +354,24 @@ __device__ __forceinline__ void wgmma_bf16<192>(float (&d)[96], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// What the producer loads: the dense product, or the conv's forward or
+// input gradient over per-tap activation boxes (see the top).
+enum Walk { DENSE = 0, CONV_FWD = 1, CONV_DGRAD = 2 };
+
+// The conv's reduction walk and output grid (unused by DENSE): C / 64
+// channel blocks a tap, kw taps a kernel row, the output grid's hw = Ho*Wo
+// and wo, the padding before the first row and column.
+struct ConvWalk {
+  int cblocks, kw, hw, wo, pad_top, pad_left;
+};
+
 // C[M, Nout] = A[M, R] Bt[Nout, R]^T, bf16, f32 accumulation (see the top).
-template <int BN>
+template <int BN, int WALK>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_tn_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
                     const __grid_constant__ CUtensorMap tma_b,
                     const __grid_constant__ CUtensorMap tma_c, int M, int R,
-                    int Nout, int stages) {
+                    int Nout, int stages, ConvWalk cw) {
   constexpr int STAGE = stage_bytes(BN);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -340,12 +398,31 @@ gemm_tn_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
     uint32_t phase = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int m0 = (t % tiles_m) * BM, n0 = (t / tiles_m) * BN;
+      // the conv tile's first output pixel: image, row, column
+      const int img = WALK == DENSE ? 0 : m0 / cw.hw;
+      const int oh0 = WALK == DENSE ? 0 : (m0 - img * cw.hw) / cw.wo;
+      const int ow0 = WALK == DENSE ? 0 : m0 - img * cw.hw - oh0 * cw.wo;
       for (int kt = 0; kt < KT; ++kt) {
         mbar_wait(bars + 8 * (stages + s), phase ^ 1);  // stage s is free
         const uint32_t full = bars + 8 * s;
+        // every box lands whole: out-of-range elements count as zeros
         mbar_expect_tx(full, STAGE);
-        tma_load_2d(ring + s * STAGE, &tma_a, kt * BK, m0, full);
-        tma_load_2d(ring + s * STAGE + A_TILE, &tma_b, kt * BK, n0, full);
+        const uint32_t a = ring + s * STAGE, b = a + A_TILE;
+        if constexpr (WALK == DENSE) {
+          tma_load_2d(a, &tma_a, kt * BK, m0, full);
+          tma_load_2d(b, &tma_b, kt * BK, n0, full);
+        } else {
+          const int tap = kt / cw.cblocks, c0 = (kt % cw.cblocks) * BK;
+          const int dh = tap / cw.kw - cw.pad_top, dw = tap % cw.kw - cw.pad_left;
+          // the forward reads x at (row + dh, col + dw); dgrad reads g at
+          // (row - dh, col - dw)
+          constexpr int sgn = WALK == CONV_FWD ? 1 : -1;
+          tma_load_4d(a, &tma_a, c0, ow0 + sgn * dw, oh0 + sgn * dh, img, full);
+          if constexpr (WALK == CONV_FWD)
+            tma_load_2d(b, &tma_b, kt * BK, n0, full);
+          else
+            tma_load_3d(b, &tma_b, c0, n0, tap, full);
+        }
         if (++s == stages) {
           s = 0;
           phase ^= 1;
@@ -453,34 +530,69 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (rows, cols) row-major bf16 matrix, in boxes of box_rows x BK
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-              int box_rows) {
+// a dense row-major bf16 tensor of `rank` dims (dims[0] innermost), in
+// boxes of box[0] = BK x box[1] x ... (128-byte rows, swizzled)
+bool make_map_nd(CUtensorMap* map, const void* ptr, int rank,
+                 const long long* dims, const int* box) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  cuuint64_t d[4], strides[3];
+  cuuint32_t b[4];
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  cuuint64_t stride = sizeof(bf16);
+  for (int i = 0; i < rank; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    b[i] = (cuuint32_t)box[i];
+    stride *= d[i];
+    if (i + 1 < rank) strides[i] = stride;
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(ptr), d, strides, b, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN>
+// a (rows, cols) row-major bf16 matrix, in boxes of box_rows x BK
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+              int box_rows) {
+  const long long dims[2] = {cols, rows};
+  const int box[2] = {BK, box_rows};
+  return make_map_nd(map, ptr, 2, dims, box);
+}
+
+template <int BN, int WALK>
 int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb,
                 const CUtensorMap& mc, int m, int r, int nout, int stages,
-                int grid, cudaStream_t stream) {
+                int grid, const ConvWalk& cw, cudaStream_t stream) {
   const int smem = gemm_smem_bytes(BN, stages);
   // per call: the attribute belongs to the current device
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_tn_bf16_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      gemm_tn_bf16_kernel<BN, WALK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  gemm_tn_bf16_kernel<BN><<<grid, THREADS, smem, stream>>>(ma, mb, mc, m, r,
-                                                           nout, stages);
+  gemm_tn_bf16_kernel<BN, WALK><<<grid, THREADS, smem, stream>>>(
+      ma, mb, mc, m, r, nout, stages, cw);
   return (int)cudaGetLastError();
+}
+
+template <int WALK>
+int launch_walk(const CUtensorMap& ma, const CUtensorMap& mb,
+                const CUtensorMap& mc, int m, int r, int nout, int bn,
+                int stages, int grid, const ConvWalk& cw, cudaStream_t st) {
+  switch (bn) {
+    case 64:
+      return launch_gemm<64, WALK>(ma, mb, mc, m, r, nout, stages, grid, cw, st);
+    case 128:
+      return launch_gemm<128, WALK>(ma, mb, mc, m, r, nout, stages, grid, cw, st);
+    case 192:
+      return launch_gemm<192, WALK>(ma, mb, mc, m, r, nout, stages, grid, cw, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+bool bad_plan(int bn, int stages, int grid) {
+  return stages < 2 || grid <= 0 || gemm_smem_bytes(bn, stages) > 232448;
 }
 
 }  // namespace
@@ -512,20 +624,54 @@ int masked_matmul_select_bf16(const void* w, const void* own, const void* pm,
 int masked_matmul_gemm_tn_bf16(const void* a, const void* bt, void* c, int m,
                                int r, int nout, int bn, int stages, int grid,
                                void* stream) {
-  if (m <= 0 || r <= 0 || nout <= 0 || r % 8 || nout % 8 || stages < 2 ||
-      grid <= 0 || gemm_smem_bytes(bn, stages) > 232448)
+  if (m <= 0 || r <= 0 || nout <= 0 || r % 8 || nout % 8 ||
+      bad_plan(bn, stages, grid))
     return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb, mc;  // C in 64 x 64 boxes (64 columns: one 128-B row)
   if (!make_map(&ma, a, m, r, BM) || !make_map(&mb, bt, nout, r, bn) ||
       !make_map(&mc, c, m, nout, 64))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (bn) {
-    case 64: return launch_gemm<64>(ma, mb, mc, m, r, nout, stages, grid, st);
-    case 128: return launch_gemm<128>(ma, mb, mc, m, r, nout, stages, grid, st);
-    case 192: return launch_gemm<192>(ma, mb, mc, m, r, nout, stages, grid, st);
-    default: return (int)cudaErrorInvalidValue;
+  return launch_walk<DENSE>(ma, mb, mc, m, r, nout, bn, stages, grid,
+                            ConvWalk{}, (cudaStream_t)stream);
+}
+
+// Stride-1 masked conv over the selected weight, as an implicit GEMM (see
+// the top). Forward (dgrad = 0): a = x (n, ah, aw, ch) with ch = Cin, bt =
+// w_eff^T (nout = Cout, taps * ch), c = y (n * oh * ow, nout). Input
+// gradient (dgrad = 1): a = g (n, ah, aw, ch) with ch = Cout, bt = w_eff
+// (taps * nout, ch) with nout = Cin, c = dx (n * oh * ow, nout). taps = kh
+// * kw; (oh, ow) is the output grid, tiled by boxes of (64, ow, box_h,
+// box_n) with ow * box_h * box_n = 128; ch % 64 == 0, nout % 8 == 0, bases
+// 16-byte aligned; bn, stages and grid from ops/masked_matmul.py
+// `conv_plan`.
+int masked_conv_gemm_bf16(const void* a, const void* bt, void* c, int n,
+                          int ah, int aw, int ch, int oh, int ow, int nout,
+                          int kh, int kw, int pad_top, int pad_left,
+                          int dgrad, int box_h, int box_n, int bn, int stages,
+                          int grid, void* stream) {
+  const int taps = kh * kw, m = n * oh * ow;
+  if (n <= 0 || ch <= 0 || ch % BK || nout <= 0 || nout % 8 || taps <= 0 ||
+      ow * box_h * box_n != BM || bad_plan(bn, stages, grid))
+    return (int)cudaErrorInvalidValue;
+  const long long adims[4] = {ch, aw, ah, n};
+  const int abox[4] = {BK, ow, box_h, box_n};
+  CUtensorMap ma, mb, mc;
+  bool ok = make_map_nd(&ma, a, 4, adims, abox) &&
+            make_map(&mc, c, m, nout, 64);
+  if (dgrad) {  // w_eff (taps, Cin, Cout) in boxes of 64 Cout x bn Cin
+    const long long bdims[3] = {ch, nout, taps};
+    const int bbox[3] = {BK, bn, 1};
+    ok = ok && make_map_nd(&mb, bt, 3, bdims, bbox);
+  } else {
+    ok = ok && make_map(&mb, bt, nout, taps * ch, bn);
   }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const ConvWalk cw{ch / BK, kw, oh * ow, ow, pad_top, pad_left};
+  cudaStream_t st = (cudaStream_t)stream;
+  return dgrad ? launch_walk<CONV_DGRAD>(ma, mb, mc, m, taps * ch, nout, bn,
+                                         stages, grid, cw, st)
+               : launch_walk<CONV_FWD>(ma, mb, mc, m, taps * ch, nout, bn,
+                                       stages, grid, cw, st);
 }
 
 }  // extern "C"

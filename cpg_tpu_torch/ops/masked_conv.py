@@ -15,11 +15,25 @@ the binary and the ternary mode (straight-through estimator); `own`, the
 task id, the threshold and the mode get no gradient, and `dx` is computed
 only when x needs it (conv0's input is the image).
 
-On CUDA tensors the three products are hand-written implicit-GEMM kernels:
-`csrc/masked_conv_fwd.cu` (K1), `csrc/masked_conv_bwd_dx.cu` (K2, the
-select in the transposed weight-tile load) and `csrc/masked_conv_bwd_dw.cu`
-(K3, split-K f32 partials summed in a fixed order by a second pass that
-applies the gating). On CPU tensors the plain versions `masked_conv2d_plain` and
+On CUDA tensors the three products are hand-written implicit-GEMM kernels.
+y and dx take one of two routes, chosen by `conv_route` (a shape predicate)
+before any launch:
+
+* bf16, stride 1, Cin and Cout multiples of 64, and output and input grids
+  whose 128-pixel tiles are each one TMA box (`conv_box`; VGG16-BN's conv2,
+  4, 7 and 10 at width 1.0): the select pass of `csrc/masked_matmul.cu`
+  (w, own and pm read once; the bf16 effective weight of the (kh*kw*Cin,
+  Cout) view written to a per-call scratch, transposed for the forward,
+  counted in `LAUNCHES_SELECT`), then that file's TMA + wgmma GEMM walking
+  the taps as an implicit GEMM (`masked_matmul.launch_conv_gemm`). The
+  scratch is not saved for the backward.
+* otherwise (conv0's Cin = 3, narrow widths, f32, stride 2):
+  `csrc/masked_conv_fwd.cu` (K1) and `csrc/masked_conv_bwd_dx.cu` (K2),
+  the select in the (transposed) weight-tile load.
+
+dw and dpm run `csrc/masked_conv_bwd_dw.cu` (K3, split-K f32 partials
+summed in a fixed order by a second pass that applies the gating). On CPU
+tensors the plain versions `masked_conv2d_plain` and
 `masked_conv2d_bwd_plain` run. Every kernel keeps its own launch counter.
 """
 
@@ -39,6 +53,7 @@ from .masked import effective_kernel
 LAUNCHES = 0          # K1, forward
 LAUNCHES_BWD_DX = 0   # K2
 LAUNCHES_BWD_DW = 0   # K3
+LAUNCHES_SELECT = 0   # the select pass before the GEMM route's y and dx
 
 _MODES = ("binary", "ternary")
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -116,8 +131,12 @@ class _MaskedConv2d(torch.autograd.Function):
             return masked_conv2d_plain(x, w, own, pm, task_id, stride,
                                        padding, threshold, mask_mode)
         global LAUNCHES
-        y = launch_fwd(x, w, own, pm, task_id, stride, padding, threshold,
-                       mask_mode)
+        if conv_route(x, w, stride, padding):
+            y = _select_then_gemm(x, x, w, own, pm, task_id, padding,
+                                  threshold, mask_mode, dgrad=False)
+        else:
+            y = launch_fwd(x, w, own, pm, task_id, stride, padding,
+                           threshold, mask_mode)
         LAUNCHES += 1
         return y
 
@@ -151,14 +170,18 @@ def masked_conv2d(x, w, own, pm, task_id, stride: int = 1, padding="SAME",
 def masked_conv2d_bwd_dx(g, x, w, own, pm, task_id, stride: int = 1,
                          padding="SAME", threshold: float = DEFAULT_THRESHOLD,
                          mask_mode: str = "binary"):
-    """dx for output gradient g: K2 on CUDA tensors, the plain version on
-    CPU tensors."""
+    """dx for output gradient g: on CUDA tensors the select pass and the
+    implicit GEMM (`conv_route`) or K2, on CPU tensors the plain version."""
     if x.device.type == "cpu":
         return masked_conv2d_bwd_dx_plain(g, x, w, own, pm, task_id, stride,
                                           padding, threshold, mask_mode)
     global LAUNCHES_BWD_DX
-    dx = launch_bwd_dx(g, x, w, own, pm, int(task_id), stride, padding,
-                       threshold, mask_mode)
+    if conv_route(x, w, stride, padding):
+        dx = _select_then_gemm(g, x, w, own, pm, int(task_id), padding,
+                               threshold, mask_mode, dgrad=True)
+    else:
+        dx = launch_bwd_dx(g, x, w, own, pm, int(task_id), stride, padding,
+                           threshold, mask_mode)
     LAUNCHES_BWD_DX += 1
     return dx
 
@@ -174,6 +197,69 @@ def masked_conv2d_bwd_dw(g, x, w, own, task_id, stride: int = 1,
     out = launch_bwd_dw(g, x, w, own, int(task_id), stride, padding)
     LAUNCHES_BWD_DW += 1
     return out
+
+
+# ------------------------------------------------------------ GEMM route ----
+
+def conv_box(ho: int, wo: int):
+    """The TMA box (channels, columns, rows, images) that holds one
+    128-pixel output tile of an (ho, wo) grid in NHWC order: whole rows of
+    one image, or whole images; None when no box does (128 % wo != 0, or
+    neither whole rows nor whole images make 128)."""
+    if wo <= 0 or ho <= 0 or 128 % wo:
+        return None
+    rows = 128 // wo
+    if ho % rows == 0:
+        return (64, wo, rows, 1)
+    if rows % ho == 0:
+        return (64, wo, ho, rows // ho)
+    return None
+
+
+def conv_route(x, w, stride, padding) -> bool:
+    """Whether a conv's y and dx on the card take the select pass + TMA/wgmma
+    implicit GEMM: bf16, stride 1, Cin and Cout multiples of 64 (a k-step is
+    one tap's 64 channels of the reduction: Cin for y, Cout for dx), output
+    and input grids tiled by `conv_box`, x and w 16-byte aligned. The launch
+    checks the rest (contiguity, g and pm alignment) and raises; every other
+    shape takes K1 and K2."""
+    if (x.dtype != torch.bfloat16 or stride != 1 or x.dim() != 4
+            or w.dim() != 4):
+        return False
+    _, h, wd, _ = x.shape
+    _, _, ho, wo = _stride1_grid(x, w, padding)
+    return (w.shape[2] % 64 == 0 and w.shape[3] % 64 == 0
+            and conv_box(ho, wo) is not None and conv_box(h, wd) is not None
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def _stride1_grid(x, w, padding):
+    """(pad_top, pad_left, Ho, Wo) of a stride-1 conv of x with w."""
+    kh, kw = w.shape[:2]
+    _, h, wd, _ = x.shape
+    pt, pb, pl, pr = resolve_padding(padding, h, wd, kh, kw, 1)
+    return pt, pl, out_size(h, kh, 1, pt, pb), out_size(wd, kw, 1, pl, pr)
+
+
+def _select_then_gemm(a, x, w, own, pm, task_id, padding, threshold,
+                      mask_mode, dgrad):
+    """The `conv_route` path: the select pass over w viewed as (kh*kw*Cin,
+    Cout), transposed for the forward, then the implicit GEMM over it; a is
+    x (forward) or g (dgrad)."""
+    from . import masked_matmul as mm  # imports this module: not at the top
+
+    global LAUNCHES_SELECT
+    kh, kw, _, cout = w.shape
+    n, h, wd, _ = x.shape
+    pt, pl, ho, wo = _stride1_grid(x, w, padding)
+    if dgrad:
+        _check(a.shape == (n, ho, wo, cout) and a.dtype == x.dtype,
+               f"g must be {(n, ho, wo, cout)} in x's dtype")
+    weff = mm.launch_select(*(t.reshape(-1, cout) for t in (w, own, pm)),
+                            task_id, threshold, mask_mode, not dgrad)
+    LAUNCHES_SELECT += 1
+    return mm.launch_conv_gemm(a, weff, (h, wd) if dgrad else (ho, wo), kh,
+                               kw, pt, pl, dgrad)
 
 
 # ------------------------------------------------------------- kernels ----

@@ -31,6 +31,10 @@ before any launch:
 dw and dpm run K3 (`csrc/masked_conv_bwd_dw.cu`) at the 1x1 geometry on
 either route. On CPU tensors the plain versions run. This module keeps its
 own launch counters.
+
+The masked conv's GEMM route (`masked_conv.conv_route`) launches the same
+select pass and the same GEMM, whose producer walks the conv's taps
+(`launch_conv_gemm`, planned by `conv_plan`); it counts in `masked_conv`.
 """
 
 from __future__ import annotations
@@ -141,6 +145,20 @@ def gemm_plan(m: int, r: int, nout: int, sms: int):
     while gemm_smem_bytes(bn, stages) > SMEM_PER_BLOCK:
         stages -= 1
     return bn, stages, min(tiles_m * -(-nout // bn), sms)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(n: int, ho: int, wo: int, c: int, nout: int, taps: int,
+              sms: int):
+    """(box, bn, stages, grid) of the masked conv's implicit GEMM
+    (`launch_conv_gemm`) with an output grid of n images of ho x wo, c
+    reduction channels a tap and nout output channels: the A tile's TMA box
+    (64 channels, wo, rows, images), 128 consecutive output pixels
+    (`masked_conv.conv_box`), and the TN GEMM's plan (`gemm_plan`) for M =
+    n*ho*wo rows and R = taps * c."""
+    box = _mc.conv_box(ho, wo)
+    _check(box is not None, f"no 128-pixel TMA box tiles a {ho}x{wo} grid")
+    return (box, *gemm_plan(n * ho * wo, taps * c, nout, sms))
 
 
 def gemm_route(a, w, own, pm) -> bool:
@@ -283,6 +301,8 @@ def _lib():
         lib.masked_matmul_select_bf16.restype = ctypes.c_int
         lib.masked_matmul_gemm_tn_bf16.argtypes = [_P] * 3 + [_I] * 6 + [_P]
         lib.masked_matmul_gemm_tn_bf16.restype = ctypes.c_int
+        lib.masked_conv_gemm_bf16.argtypes = [_P] * 3 + [_I] * 17 + [_P]
+        lib.masked_conv_gemm_bf16.restype = ctypes.c_int
     return lib
 
 
@@ -355,3 +375,39 @@ def launch_gemm_tn(a, bt):
     if err:
         raise RuntimeError(f"masked_matmul_gemm_tn launch failed: CUDA error {err}")
     return c
+
+
+def launch_conv_gemm(a, bt, grid_hw, kh, kw, pad_top, pad_left, dgrad):
+    """The masked conv's implicit GEMM over the selected weight (stride 1),
+    planned by `conv_plan`. Forward: y (N, Ho, Wo, Cout) from a = x (N, H,
+    W, Cin) and bt = w_eff^T (Cout, kh*kw*Cin). dgrad: dx (N, H, W, Cin)
+    from a = g (N, Ho, Wo, Cout) and bt = w_eff (kh*kw*Cin, Cout). grid_hw
+    is the output's (rows, columns); the pads are the forward's."""
+    _check(a.is_cuda and bt.device == a.device,
+           f"a and bt must be on one CUDA device, got {a.device}, {bt.device}")
+    _check(a.dtype == bt.dtype == torch.bfloat16, "a and bt must be bf16")
+    _check(a.dim() == 4 and bt.dim() == 2, "a must be NHWC and bt 2-D")
+    _check(a.is_contiguous() and bt.is_contiguous(), "a and bt must be contiguous")
+    n, ah, aw, ch = a.shape
+    taps = kh * kw
+    nout = bt.shape[0] // taps if dgrad else bt.shape[0]
+    want = (taps * nout, ch) if dgrad else (nout, taps * ch)
+    _check(tuple(bt.shape) == want, f"bt {tuple(bt.shape)} is not {want}")
+    _check(ch % 64 == 0 and nout % 8 == 0,
+           f"reduction channels must be a multiple of 64 and output channels "
+           f"of 8, got {(ch, nout)}")
+    _check(a.data_ptr() % 16 == 0 and bt.data_ptr() % 16 == 0,
+           "a and bt must be 16-byte aligned")
+    oh, ow = grid_hw
+    out = torch.empty((n, oh, ow, nout), dtype=torch.bfloat16, device=a.device)
+    if out.numel() == 0:
+        return out
+    (_, _, box_h, box_n), bn, stages, grid = conv_plan(
+        n, oh, ow, ch, nout, taps, _sms(a.device.index or 0))
+    err = _lib().masked_conv_gemm_bf16(
+        a.data_ptr(), bt.data_ptr(), out.data_ptr(), n, ah, aw, ch, oh, ow,
+        nout, kh, kw, pad_top, pad_left, int(dgrad), box_h, box_n, bn,
+        stages, grid, _stream(a))
+    if err:
+        raise RuntimeError(f"masked_conv_gemm launch failed: CUDA error {err}")
+    return out

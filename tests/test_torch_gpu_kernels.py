@@ -253,7 +253,8 @@ def test_fused_chain_dw_refuses_rows_wider_than_a_step(cuda):
 
 def test_autograd_reaches_every_input_through_the_kernels(cuda):
     """loss.backward() through both Functions on the card gives x, w, pm,
-    a and b their gradients, equal to the plain path's on the CPU."""
+    a and b their gradients, equal to the plain path's on the CPU (f32:
+    the masked conv takes K1 and K2, off the GEMM route)."""
     rng = np.random.RandomState(7)
     x0 = rng.randn(2, 8, 8, 16).astype(np.float32)
     w1 = (rng.randn(3, 3, 16, 32) * 0.2).astype(np.float32)
@@ -282,6 +283,110 @@ def test_autograd_reaches_every_input_through_the_kernels(cuda):
         assert got.abs().max() > 0, name
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
                                    atol=1e-4, err_msg=name)
+
+
+# ----------------------------------------------- masked conv GEMM route ----
+
+# (layer, H = W, Cin, Cout) of VGG16-BN's masked convs on the route
+CONV_ROUTE_LAYERS = [("conv2", 16, 64, 128), ("conv4", 8, 128, 256),
+                     ("conv7", 4, 256, 512), ("conv10", 2, 512, 512)]
+
+
+@pytest.mark.parametrize("n", [256, 3])
+@pytest.mark.parametrize("mode", ["binary", "ternary"])
+@pytest.mark.parametrize("layer", CONV_ROUTE_LAYERS,
+                         ids=[c[0] for c in CONV_ROUTE_LAYERS])
+def test_conv_gemm_route_matches_plain(cuda, layer, mode, n):
+    """conv2/4/7/10 in bf16 take the select pass + TMA/wgmma implicit GEMM
+    for y and dx (one select each, no K1/K2 launch): within 2e-2 * max|ref|
+    of the plain versions at batch 256 and at a ragged batch of 3, and two
+    launches give the same bits."""
+    _, hw, cin, cout = layer
+    x, wt, own, pm = _conv_case(n, hw, hw, cin, cout, 3, cuda, torch.bfloat16,
+                                seed=hw)
+    g = torch.from_numpy(np.random.RandomState(hw + 1).randn(
+        n, hw, hw, cout).astype(np.float32)).to(cuda, torch.bfloat16)
+    assert mc.conv_route(x, wt, 1, "SAME")
+    before = (mc.LAUNCHES, mc.LAUNCHES_BWD_DX, mc.LAUNCHES_SELECT)
+    y = mc.masked_conv2d(x, wt, own, pm, 2, mask_mode=mode)
+    dx = mc.masked_conv2d_bwd_dx(g, x, wt, own, pm, 2, mask_mode=mode)
+    torch.cuda.synchronize()
+    assert (mc.LAUNCHES, mc.LAUNCHES_BWD_DX, mc.LAUNCHES_SELECT) == (
+        before[0] + 1, before[1] + 1, before[2] + 2)
+    _check(y, mc.masked_conv2d_plain(x, wt, own, pm, 2, mask_mode=mode),
+           torch.bfloat16)
+    _check(dx, mc.masked_conv2d_bwd_dx_plain(g, x, wt, own, pm, 2,
+                                             mask_mode=mode), torch.bfloat16)
+    assert torch.equal(y, mc.masked_conv2d(x, wt, own, pm, 2, mask_mode=mode))
+    assert torch.equal(dx, mc.masked_conv2d_bwd_dx(g, x, wt, own, pm, 2,
+                                                   mask_mode=mode))
+
+
+@pytest.mark.parametrize("case", [
+    # (n, H = W, Cin, Cout, dtype): conv0 (Cin = 3), conv2 at width 0.125,
+    # conv7 in f32
+    (4, 32, 3, 64, "bfloat16"), (4, 16, 8, 16, "bfloat16"),
+    (2, 4, 256, 512, "float32"),
+])
+def test_conv_off_the_route_takes_k1_and_k2(cuda, case):
+    n, hw, cin, cout, dname = case
+    dtype = getattr(torch, dname)
+    x, wt, own, pm = _conv_case(n, hw, hw, cin, cout, 3, cuda, dtype, seed=5)
+    g = torch.from_numpy(np.random.RandomState(6).randn(
+        n, hw, hw, cout).astype(np.float32)).to(cuda, dtype)
+    assert not mc.conv_route(x, wt, 1, "SAME")
+    before = (mc.LAUNCHES, mc.LAUNCHES_BWD_DX, mc.LAUNCHES_SELECT)
+    y = mc.masked_conv2d(x, wt, own, pm, 2)
+    dx = mc.masked_conv2d_bwd_dx(g, x, wt, own, pm, 2)
+    torch.cuda.synchronize()
+    assert (mc.LAUNCHES, mc.LAUNCHES_BWD_DX, mc.LAUNCHES_SELECT) == (
+        before[0] + 1, before[1] + 1, before[2])
+    _check(y, mc.masked_conv2d_plain(x, wt, own, pm, 2), dtype)
+    _check(dx, mc.masked_conv2d_bwd_dx_plain(g, x, wt, own, pm, 2), dtype)
+
+
+def test_conv_gemm_route_refuses_a_misaligned_tensor(cuda):
+    """On the route, a g (or pm) off a 16-byte boundary raises; nothing
+    falls back to K2."""
+    x, wt, own, pm = _conv_case(2, 8, 8, 128, 256, 3, cuda, torch.bfloat16)
+    assert mc.conv_route(x, wt, 1, "SAME")
+    flat = torch.zeros(2 * 8 * 8 * 256 + 4, device=cuda, dtype=torch.bfloat16)
+    g = flat[4:].view(2, 8, 8, 256)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mc.masked_conv2d_bwd_dx(g, x, wt, own, pm, 2)
+    pm_off = torch.zeros(pm.numel() + 1, device=cuda)[1:].view(pm.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        mc.masked_conv2d(x, wt, own, pm_off, 2)
+
+
+def test_autograd_reaches_x_w_and_pm_through_the_conv_gemm_route(cuda):
+    """loss.backward() through a bf16 masked conv on the route: two selects
+    (y and dx), K3 for dw and dpm; the gradients match the plain path's
+    on the CPU (bf16 y and dx: 2e-2 * max|ref|; dw, dpm: f32 sums of bf16
+    terms in another order, 1e-3 * max|ref|)."""
+    rng = np.random.RandomState(10)
+    x0 = rng.randn(2, 8, 8, 64).astype(np.float32)
+    w1 = (rng.randn(3, 3, 64, 64) * 0.06).astype(np.float32)
+    own = rng.choice([0, 1, 2], size=w1.shape).astype(np.int8)
+    pm = (rng.randn(*w1.shape) * 0.01 + 0.005).astype(np.float32)
+    gout = rng.randn(2, 8, 8, 64).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        tx = torch.tensor(x0, device=dev).bfloat16().requires_grad_(True)
+        tw = torch.tensor(w1, device=dev, requires_grad=True)
+        tpm = torch.tensor(pm, device=dev, requires_grad=True)
+        before = mc.LAUNCHES_SELECT
+        y = mc.masked_conv2d(tx, tw, torch.from_numpy(own).to(dev), tpm, 2)
+        (y.float() * torch.from_numpy(gout).to(dev)).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert mc.LAUNCHES_SELECT == before + 2
+        grads[str(dev)] = [t.grad.detach().cpu() for t in (tx, tw, tpm)]
+    for name, got, want, rel in zip(("x", "w", "pm"), grads["cuda"],
+                                    grads["cpu"], (2e-2, 1e-3, 1e-3)):
+        assert got.dtype == want.dtype and got.abs().max() > 0, name
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= rel * want.float().abs().max().item(), name
 
 
 # ------------------------------------------------------ flash attention ----

@@ -5,7 +5,9 @@ of the bf16 dW kernel; K7 forward (`flash.fwd_grid`) sizes the persistent
 grid of the bf16 flash forward; the dense route's TN GEMM
 (`masked_matmul.gemm_plan`) picks its tile width, ring depth and
 persistent grid, and `masked_matmul.gemm_route` decides which products
-take it. All feed launch parameters straight to a CUDA kernel, so these
+take it; the masked conv's implicit GEMM (`masked_matmul.conv_plan`) adds
+the TMA box of 128 output pixels, and `masked_conv.conv_route` decides
+which convs take it. All feed launch parameters straight to a CUDA kernel, so these
 tests hold them, for every VGG16-BN seam and the ViT shapes, to what the
 kernels assume: steps of whole image rows that never straddle an image
 where a halo is staged, every row, work item and output tile covered
@@ -17,7 +19,9 @@ import pytest
 import torch
 
 from cpg_tpu_torch.ops import flash as fl
+from cpg_tpu_torch.models import vgg
 from cpg_tpu_torch.ops import fused_chain as fc
+from cpg_tpu_torch.ops import masked_conv as mc
 from cpg_tpu_torch.ops import masked_matmul as mm
 
 H100_SMS = 132
@@ -217,3 +221,131 @@ def _route(dtype, k, n, offset=0):
 def test_gemm_route_predicate(case):
     dtype, k, n, offset, want = case
     assert _route(dtype, k, n, offset) is want
+
+
+# ------------------------------------------ masked conv's GEMM route ----
+# (layer, H = W, Cin, Cout) of VGG16-BN's 13 convs at width 1.0; the eight
+# seams (conv1, 3, 5, 6, 8, 9, 11, 12) run the fused chain in the kernel
+# step, so its masked convs are conv0, 2, 4, 7 and 10
+VGG_CONVS = [("conv0", 32, 3, 64), ("conv1", 32, 64, 64),
+             ("conv2", 16, 64, 128), ("conv3", 16, 128, 128),
+             ("conv4", 8, 128, 256), ("conv5", 8, 256, 256),
+             ("conv6", 8, 256, 256), ("conv7", 4, 256, 512),
+             ("conv8", 4, 512, 512), ("conv9", 4, 512, 512),
+             ("conv10", 2, 512, 512), ("conv11", 2, 512, 512),
+             ("conv12", 2, 512, 512)]
+MASKED_CONVS = ("conv0", "conv2", "conv4", "conv7", "conv10")
+
+
+def _conv_route(dtype, hw, cin, cout, stride=1, offset=0, k=3):
+    x = torch.zeros(hw * hw * cin + offset, dtype=dtype)[offset:]
+    w = torch.zeros(k, k, cin, cout)
+    return mc.conv_route(x.view(1, hw, hw, cin), w, stride, "SAME")
+
+
+@pytest.mark.parametrize("mult", [1.0, 0.125])
+@pytest.mark.parametrize("layer", VGG_CONVS, ids=[c[0] for c in VGG_CONVS])
+def test_conv_route_at_every_vgg_conv(layer, mult):
+    """bf16 at width 1.0: every conv but conv0 (Cin = 3) takes the GEMM
+    route; of the kernel step's masked convs that is conv2, 4, 7 and 10. At
+    width 0.125 (channels 8-64) only the convs with 64 input and output
+    channels take it: conv8-12 (64 -> 64 at 4x4 and 2x2); conv0, 2, 4 and 7
+    keep K1 and K2. f32 never takes it."""
+    name, hw, cin, cout = layer
+    cin, cout = (vgg.scale_channels(c, mult) if c != 3 else 3
+                 for c in (cin, cout))
+    want = cin % 64 == 0 and cout % 64 == 0
+    assert _conv_route(torch.bfloat16, hw, cin, cout) is want
+    assert _conv_route(torch.float32, hw, cin, cout) is False
+    if mult == 1.0 and name in MASKED_CONVS:
+        assert want is (name != "conv0")
+    if mult == 0.125 and name in MASKED_CONVS:
+        assert want is (name == "conv10")
+
+
+@pytest.mark.parametrize("case", [
+    # (dtype, H = W, Cin, Cout, stride, storage offset of x, kernel, takes it)
+    (torch.bfloat16, 16, 64, 128, 2, 0, 3, False),   # stride 2
+    (torch.bfloat16, 16, 64, 128, 1, 4, 3, False),   # x not 16-byte aligned
+    (torch.bfloat16, 16, 64, 72, 1, 0, 3, False),    # Cout % 64 != 0
+    (torch.bfloat16, 16, 96, 128, 1, 0, 3, False),   # Cin % 64 != 0
+    (torch.bfloat16, 12, 64, 64, 1, 0, 3, False),    # 128 % 12 != 0
+    (torch.bfloat16, 32, 64, 64, 1, 0, 3, True),     # rows of one image
+    (torch.bfloat16, 1, 64, 64, 1, 0, 3, True),      # 128 images a box
+    (torch.bfloat16, 8, 64, 64, 1, 0, 1, True),      # 1x1
+    (torch.bfloat16, 256, 64, 64, 1, 0, 3, False),   # a row wider than 128
+])
+def test_conv_route_predicate(case):
+    dtype, hw, cin, cout, stride, offset, k, want = case
+    assert _conv_route(dtype, hw, cin, cout, stride, offset, k) is want
+
+
+def _conv_walk(n, ho, wo, nout, plan):
+    """The (output pixel, output channel tile) pairs each block of the
+    conv's implicit GEMM stores, as gemm_tn_bf16_kernel walks them: tile t
+    = blockIdx.x, + gridDim.x, ...; M fastest; a tile's box of (images,
+    rows, columns) starting at its first pixel; rows past N*Ho*Wo
+    clipped."""
+    (_, bw, bh, bn_img), bn, _, grid = plan
+    m = n * ho * wo
+    tiles_m = -(-m // mm.GEMM_BM)
+    tiles = tiles_m * -(-nout // bn)
+    out = []
+    for b in range(grid):
+        for t in range(b, tiles, grid):
+            m0, j = (t % tiles_m) * mm.GEMM_BM, t // tiles_m
+            img, rem = divmod(m0, ho * wo)
+            oh0, ow0 = divmod(rem, wo)
+            r = 0
+            for i in range(bn_img):
+                for h in range(bh):
+                    for c in range(bw):
+                        pix = (img + i) * ho * wo + (oh0 + h) * wo + ow0 + c
+                        assert pix == m0 + r, "box rows out of pixel order"
+                        assert bn_img == 1 or (oh0, ow0) == (0, 0)
+                        assert oh0 + h < ho and ow0 + c < wo
+                        if pix < m:
+                            out.append((pix, j))
+                        r += 1
+    return out
+
+
+# (n, H = W, C, Nout) of the route's products: conv2/4/7/10 forward (C =
+# Cin) and dgrad (C = Cout, Nout = Cin) at batch 256 and 3
+CONV_PLAN_CASES = [(n, hw, c, nout) for n in (256, 3)
+                   for hw, cin, cout in ((16, 64, 128), (8, 128, 256),
+                                         (4, 256, 512), (2, 512, 512))
+                   for c, nout in ((cin, cout), (cout, cin))]
+
+
+@pytest.mark.parametrize("case", CONV_PLAN_CASES)
+@pytest.mark.parametrize("sms", [H100_SMS, 7])
+def test_conv_plan_covers_every_output_pixel_once(case, sms):
+    n, hw, c, nout = case
+    plan = mm.conv_plan(n, hw, hw, c, nout, 9, sms)
+    bn = plan[1]
+    walked = sorted(_conv_walk(n, hw, hw, nout, plan))
+    assert walked == [(p, j) for p in range(n * hw * hw)
+                      for j in range(-(-nout // bn))]
+
+
+@pytest.mark.parametrize("case", CONV_PLAN_CASES)
+def test_conv_plan_fits_the_card(case):
+    n, hw, c, nout = case
+    box, bn, stages, grid = mm.conv_plan(n, hw, hw, c, nout, 9, H100_SMS)
+    assert box[0] == mm.GEMM_BK and box[1] * box[2] * box[3] == mm.GEMM_BM
+    assert all(1 <= d <= 256 for d in box)       # TMA's box limit
+    assert bn in mm.GEMM_BNS and 2 <= stages <= mm.GEMM_MAX_STAGES
+    assert mm.gemm_smem_bytes(bn, stages) <= SMEM_PER_BLOCK
+    assert 1 <= grid <= H100_SMS
+
+
+def test_conv_plan_boxes_at_the_vgg_shapes():
+    """The A boxes (C, W, rows, images) of conv2/4/7/10 as the design
+    table gives them, and a grid that has no box."""
+    boxes = {hw: mm.conv_plan(256, hw, hw, 64, 64, 9, H100_SMS)[0]
+             for hw in (16, 8, 4, 2)}
+    assert boxes == {16: (64, 16, 8, 1), 8: (64, 8, 8, 2),
+                     4: (64, 4, 4, 8), 2: (64, 2, 2, 32)}
+    with pytest.raises(ValueError, match="TMA box"):
+        mm.conv_plan(2, 3, 3, 64, 64, 9, H100_SMS)
