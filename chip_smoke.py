@@ -19,8 +19,14 @@ Needs one CUDA card; exits non-zero without one. It
      TMA/wgmma implicit GEMM of csrc/masked_matmul.cu; `select_device_ms`
      and `gemm_kernel_device_ms` are the two launches' own device times);
      conv0, a width-0.125 conv2 (Cin 8, Cout 16) and the f32 conv7 hold
-     the old K1 and K2. Every K1 and K2 row checks that two launches give
-     the same bits;
+     the old K1 and K2. K3 takes csrc/masked_matmul_wgrad.cu's split-M
+     wgmma wgrad GEMM at conv2/4/7/10 (`route` "wgmma") and over conv0's
+     im2col patches ("im2col+wgmma"; the im2col kernel also alone, bit for
+     bit, in a `masked_conv_im2col` row), with the device ms of the GEMM,
+     the gate pass and the im2col, cuDNN's weight gradient alone
+     (`cudnn_device_ms`), the plan and its partials' bytes; the
+     width-0.125 conv2 and the f32 conv7 hold the old K3. Every K1, K2 and
+     K3 row checks that two launches give the same bits;
   3. serve phase: builds a seeded two-task VGG16-BN state at full width
      (init_state -> start_task -> one_shot_prune 0.5 -> start_task, task 2's
      piggymask perturbed so some entries fall below the threshold), runs a
@@ -41,7 +47,9 @@ Needs one CUDA card; exits non-zero without one. It
      (masked_matmul; bf16: the select pass and TN GEMM of
      csrc/masked_matmul.cu for y and dx, each also alone against its plain
      version, two launches equal bits; f32: K1-K2 at the 1x1 geometry; dw:
-     K3 at 1x1) at vit_cifar's three projection shapes and one ragged
+     the wgrad GEMM in bf16, with the columns of the conv rows and cuBLAS
+     x^T g alone as `gemm_device_ms`, K3 at 1x1 in f32) at vit_cifar's
+     three projection shapes and one ragged
      vit_b16 shape, each against its plain version and timed beside a
      library yardstick (`scaled_dot_product_attention`, forward and its
      autograd backward alone; `effective_kernel` + `torch.matmul`, and
@@ -134,11 +142,10 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, warmup=3, tries=5):
-    """Device time per call of fn by torch.profiler: the summed time of the
-    kernels (and copies) it puts on the card, without host gaps. None
-    ("not measured") when the profiler records no device time in `tries`
-    profiles, which CUPTI does now and then in a long run."""
+def _device_us(fn, iters, warmup, tries):
+    """{kernel name: device us} over `iters` calls of fn by torch.profiler,
+    or None when the profiler records no device time in `tries` profiles,
+    which CUPTI does now and then in a long run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -151,12 +158,32 @@ def device_ms(fn, iters=20, warmup=3, tries=5):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
+        us = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                us[e.key] = us.get(e.key, 0.0) + e.self_device_time_total
+        if sum(us.values()) > 0:
+            return us
     print("device_ms: the profiler recorded no device time", flush=True)
     return None
+
+
+def device_ms(fn, iters=20, warmup=3, tries=5):
+    """Device time per call of fn by torch.profiler: the summed time of the
+    kernels (and copies) it puts on the card, without host gaps. None
+    ("not measured") when the profiler records nothing."""
+    us = _device_us(fn, iters, warmup, tries)
+    return None if us is None else sum(us.values()) / 1e3 / iters
+
+
+def kernel_device_ms(fn, keys, iters=20, warmup=3, tries=5):
+    """Device ms per call of fn of the kernels whose names contain each
+    key (0.0 for a key no kernel matches; None when nothing was
+    recorded)."""
+    us = _device_us(fn, iters, warmup, tries)
+    return {k: None if us is None else
+            sum(v for name, v in us.items() if k in name) / 1e3 / iters
+            for k in keys}
 
 
 def timed(kern, plain, library) -> dict:
@@ -196,11 +223,36 @@ def compare(got, want, dtype_name: str, what: str, rel=None) -> float:
 
 
 def twice(torch, fn, what):
-    """fn's result, after checking that a second launch gives its bits."""
+    """fn's result (a tensor or a tuple of them), after checking that a
+    second launch gives its bits."""
     a, b = fn(), fn()
-    if not torch.equal(a, b):
+    pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+    if not all(torch.equal(u, v) for u, v in pairs):
         raise AssertionError(f"{what}: two launches differ")
     return a
+
+
+# the wgrad GEMM's kernels by name (csrc/masked_matmul_wgrad.cu)
+WGRAD_KERNELS = ("wgrad_wgmma_kernel", "wgrad_gate_kernel",
+                 "im2col_bf16_kernel")
+
+
+def wgrad_cols(kern, plan, k, n):
+    """Per-layer columns of a K3 row on the wgrad GEMM: the device ms of
+    its kernels in the op (the GEMM, the gate pass that sums the splits
+    and gates, the im2col), the plan and the bytes of the f32 partials
+    (written once, read once)."""
+    from cpg_tpu_torch.ops import masked_matmul as mm
+
+    parts = kernel_device_ms(kern, WGRAD_KERNELS)
+    bn, splits = plan[-4], plan[-3]
+    tiles = -(-k // mm.WGRAD_BK) * -(-n // bn)
+    return {"gemm_kernel_device_ms": parts["wgrad_wgmma_kernel"],
+            "gate_device_ms": parts["wgrad_gate_kernel"],
+            "im2col_device_ms": parts["im2col_bf16_kernel"],
+            "plan": [list(p) if isinstance(p, tuple) else p for p in plan],
+            "partial_bytes": (splits * tiles * mm.WGRAD_BK * bn * 4
+                              if splits > 1 else 0)}
 
 
 def conv_route_rows(torch, w, own, pm, mode, gemm, cudnn, dgrad, common):
@@ -365,23 +417,56 @@ def masked_conv_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name, mode,
 
     kern = lambda: mc.masked_conv2d_bwd_dw(gy, x, w, own, 2)
     plain = lambda: mc.masked_conv2d_bwd_dw_plain(gy, x, w, own, 2)
+    cudnn = lambda: torch.nn.grad.conv2d_weight(xt, (cout, cin, 3, 3), gt, 1, 1)
 
     def library():
-        G = torch.nn.grad.conv2d_weight(xt, (cout, cin, 3, 3), gt, 1, 1)
-        G = G.permute(2, 3, 1, 0).float()
+        G = cudnn().permute(2, 3, 1, 0).float()
         return (torch.where(own == 2, G, 0.0),
                 torch.where((own > 0) & (own < 2), G * w, 0.0))
 
-    got, want = kern(), plain()
+    got = twice(torch, kern, f"masked_conv_bwd_dw {name}")
+    want = plain()
     err = max(compare(got[0], want[0], "float32", f"masked_conv_bwd_dw dw {name}",
                       rel=SUM_TOL),
               compare(got[1], want[1], "float32", f"masked_conv_bwd_dw dpm {name}",
                       rel=SUM_TOL))
     b_ms, b_by = bound(x.numel() * elt + gy.numel() * elt + 5 * n_w + 8 * n_w,
                        flops, dtype_name)
-    rows.append(dict(kernel="masked_conv_bwd_dw", **common, max_abs_err=err,
-                     **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by))
+    extra, route = {}, "k3"
+    if mc.conv_route(x, w, 1, "SAME"):
+        route = "wgmma"
+        plan = mm.wgrad_conv_plan(BATCH, hw, hw, cin, cout, 9, mm._sms(0))
+        extra = wgrad_cols(kern, plan, 9 * cin, cout)
+    elif mc.im2col_route(x, w):
+        route = "im2col+wgmma"
+        plan = mm.wgrad_plan(BATCH * hw * hw, 9 * cin, cout, mm._sms(0))
+        extra = wgrad_cols(kern, plan, 9 * cin, cout)
+        rows.append(im2col_row(torch, x, -(-9 * cin // 8) * 8, common))
+    if extra:  # cuDNN's weight gradient alone: the GEMM's yardstick
+        extra["cudnn_device_ms"] = device_ms(cudnn)
+    rows.append(dict(kernel="masked_conv_bwd_dw", **common, route=route,
+                     max_abs_err=err, **timed(kern, plain, library),
+                     bound_ms=b_ms, bound_by=b_by, **extra))
     return rows
+
+
+def im2col_row(torch, x, kp, common):
+    """conv0's im2col kernel alone against its plain version, bit for bit;
+    bound by its bytes (x read once, the patches written once)."""
+    from cpg_tpu_torch.ops import masked_matmul as mm
+
+    kern = lambda: mm.launch_im2col(x, 3, 3, 1, (1, 1, 1, 1), kp)
+    plain = lambda: mm.im2col_plain(x, 3, 3, 1, (1, 1, 1, 1), kp)
+    got = kern()
+    if not torch.equal(got.view(torch.int16), plain().view(torch.int16)):
+        raise AssertionError(f"masked_conv_im2col {common['layer']}: bits "
+                             "differ from the plain version")
+    b_ms, b_by = bound((x.numel() + got.numel()) * x.element_size(), 0.0,
+                       "bfloat16")
+    return dict(kernel="masked_conv_im2col", **common, max_abs_err=0.0,
+                ms=time_ms(kern), device_ms=device_ms(kern),
+                plain_ms=time_ms(plain), library_ms=None,
+                library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
 def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name):
@@ -597,7 +682,8 @@ def dense_phases(torch, dev, name, m, kd, nd, dtype_name, mode, per_step):
         return (torch.where(own == 2, G, 0.0),
                 torch.where((own > 0) & (own < 2), G * w, 0.0))
 
-    got, want = kern(), plain()
+    got = twice(torch, kern, f"masked_matmul_bwd_dw {name}")
+    want = plain()
     err = max(compare(got[0], want[0], "float32", f"masked_matmul_bwd_dw dw {name}",
                       rel=SUM_TOL),
               compare(got[1], want[1], "float32", f"masked_matmul_bwd_dw dpm {name}",
@@ -605,9 +691,14 @@ def dense_phases(torch, dev, name, m, kd, nd, dtype_name, mode, per_step):
     b_ms, b_by = bound(x.numel() * elt + gy.numel() * elt + 5 * n_w + 8 * n_w,
                        flops, dtype_name)
     lib = lambda: x.t() @ gy
-    rows.append(dict(kernel="masked_matmul_bwd_dw", **common, max_abs_err=err,
-                     **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by,
-                     gemm_ms=time_ms(lib), gemm_device_ms=device_ms(lib)))
+    extra, route = {}, "k3_1x1"
+    if mm.wgrad_route(x, gy, w, own):
+        route = "wgmma"
+        extra = wgrad_cols(kern, mm.wgrad_plan(m, kd, nd, mm._sms(0)), kd, nd)
+    rows.append(dict(kernel="masked_matmul_bwd_dw", **common, route=route,
+                     max_abs_err=err, **timed(kern, plain, library),
+                     bound_ms=b_ms, bound_by=b_by, gemm_ms=time_ms(lib),
+                     gemm_device_ms=device_ms(lib), **extra))
     return rows
 
 
@@ -749,6 +840,7 @@ def eval_phase(torch, dev, state, counts):
 TRAIN_LAUNCHES = {
     "vgg16_bn_cifar": {"masked_conv_fwd": 5, "masked_conv_bwd_dx": 4,
                        "masked_conv_bwd_dw": 5, "masked_conv_select": 8,
+                       "masked_conv_im2col": 1,
                        "fused_chain_fwd": 8,
                        "fused_chain_bwd_dx": 8, "fused_chain_bwd_dw": 8},
     "vit_cifar": {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
@@ -946,6 +1038,7 @@ class Counts:
             "masked_conv_bwd_dx": (masked_conv, "LAUNCHES_BWD_DX"),
             "masked_conv_bwd_dw": (masked_conv, "LAUNCHES_BWD_DW"),
             "masked_conv_select": (masked_conv, "LAUNCHES_SELECT"),
+            "masked_conv_im2col": (masked_conv, "LAUNCHES_IM2COL"),
             "fused_chain_fwd": (fused_chain, "LAUNCHES"),
             "fused_chain_bwd_dx": (fused_chain, "LAUNCHES_BWD_DX"),
             "fused_chain_bwd_dw": (fused_chain, "LAUNCHES_BWD_DW"),
@@ -1064,7 +1157,9 @@ def main() -> int:
     print(f"launches: {json.dumps(launched)}", flush=True)
 
     # conv K1 and K2: the GEMM route's file (conv2/4/7/10), then the old
-    # kernel's (conv0, narrow widths, f32) under "sources"
+    # kernel's (conv0, narrow widths, f32) under "sources"; K3 likewise:
+    # the wgrad GEMM's file (conv0 by im2col, conv2/4/7/10, dense bf16),
+    # then the old kernel's (narrow widths, f32)
     meta = {
         "masked_conv_fwd": (("cpg_tpu_torch/csrc/masked_matmul.cu",
                              "cpg_tpu_torch/csrc/masked_conv_fwd.cu"),
@@ -1074,7 +1169,10 @@ def main() -> int:
                                "cpg_tpu/ops/pallas/masked_matmul.py:173"),
         "masked_conv_select": ("cpg_tpu_torch/csrc/masked_matmul.cu",
                                "cpg_tpu/ops/pallas/masked_matmul.py:56"),
-        "masked_conv_bwd_dw": ("cpg_tpu_torch/csrc/masked_conv_bwd_dw.cu",
+        "masked_conv_bwd_dw": (("cpg_tpu_torch/csrc/masked_matmul_wgrad.cu",
+                                "cpg_tpu_torch/csrc/masked_conv_bwd_dw.cu"),
+                               "cpg_tpu/ops/pallas/masked_matmul.py:244"),
+        "masked_conv_im2col": ("cpg_tpu_torch/csrc/masked_matmul_wgrad.cu",
                                "cpg_tpu/ops/pallas/masked_matmul.py:244"),
         "fused_chain_fwd": ("cpg_tpu_torch/csrc/fused_chain_fwd.cu",
                             "cpg_tpu/ops/pallas/fused_chain.py:134"),
@@ -1094,7 +1192,8 @@ def main() -> int:
                                  "cpg_tpu/ops/pallas/masked_matmul.py:173"),
         "masked_matmul_select": ("cpg_tpu_torch/csrc/masked_matmul.cu",
                                  "cpg_tpu/ops/pallas/masked_matmul.py:56"),
-        "masked_matmul_bwd_dw": ("cpg_tpu_torch/csrc/masked_conv_bwd_dw.cu",
+        "masked_matmul_bwd_dw": (("cpg_tpu_torch/csrc/masked_matmul_wgrad.cu",
+                                  "cpg_tpu_torch/csrc/masked_conv_bwd_dw.cu"),
                                  "cpg_tpu/ops/pallas/masked_matmul.py:244"),
     }
     kernels = []

@@ -31,9 +31,21 @@ before any launch:
   `csrc/masked_conv_fwd.cu` (K1) and `csrc/masked_conv_bwd_dx.cu` (K2),
   the select in the (transposed) weight-tile load.
 
-dw and dpm run `csrc/masked_conv_bwd_dw.cu` (K3, split-K f32 partials
-summed in a fixed order by a second pass that applies the gating). On CPU
-tensors the plain versions `masked_conv2d_plain` and
+dw and dpm (K3) take one of three routes, chosen by shape predicates:
+
+* `conv_route`: `csrc/masked_matmul_wgrad.cu`'s split-M TMA + wgmma GEMM,
+  the k tile's x read as per-tap 4-D TMA boxes of the NHWC input, both
+  operands MN-major, the splits summed in a fixed order and the gating in
+  the epilogue (`masked_matmul.launch_wgrad_conv`);
+* `im2col_route` (bf16, kh*kw*Cin <= 64: VGG16-BN's conv0): that file's
+  im2col kernel writes the patches, K rounded up to 8 columns (counted in
+  `LAUNCHES_IM2COL`), and the same GEMM reduces them as a dense product
+  (`masked_matmul.launch_wgrad`);
+* otherwise (f32, narrow widths, stride 2): `csrc/masked_conv_bwd_dw.cu`
+  (split-K f32 partials summed in a fixed order by a second pass that
+  applies the gating).
+
+On CPU tensors the plain versions `masked_conv2d_plain` and
 `masked_conv2d_bwd_plain` run. Every kernel keeps its own launch counter.
 """
 
@@ -54,6 +66,7 @@ LAUNCHES = 0          # K1, forward
 LAUNCHES_BWD_DX = 0   # K2
 LAUNCHES_BWD_DW = 0   # K3
 LAUNCHES_SELECT = 0   # the select pass before the GEMM route's y and dx
+LAUNCHES_IM2COL = 0   # the patches before conv0's K3
 
 _MODES = ("binary", "ternary")
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -188,13 +201,22 @@ def masked_conv2d_bwd_dx(g, x, w, own, pm, task_id, stride: int = 1,
 
 def masked_conv2d_bwd_dw(g, x, w, own, task_id, stride: int = 1,
                          padding="SAME"):
-    """(dw, dpm) for output gradient g: K3 on CUDA tensors, the plain
-    version on CPU tensors."""
+    """(dw, dpm) for output gradient g: on CUDA tensors the wgrad GEMM
+    (`conv_route`, or over conv0's patches by `im2col_route`) or the old K3,
+    on CPU tensors the plain version."""
     if x.device.type == "cpu":
         return masked_conv2d_bwd_dw_plain(g, x, w, own, task_id, stride,
                                           padding)
+    from . import masked_matmul as mm  # imports this module: not at the top
+
     global LAUNCHES_BWD_DW
-    out = launch_bwd_dw(g, x, w, own, int(task_id), stride, padding)
+    if conv_route(x, w, stride, padding):
+        pt, pl, _, _ = _stride1_grid(x, w, padding)
+        out = mm.launch_wgrad_conv(g, x, w, own, int(task_id), pt, pl)
+    elif im2col_route(x, w):
+        out = _im2col_then_wgrad(g, x, w, own, int(task_id), stride, padding)
+    else:
+        out = launch_bwd_dw(g, x, w, own, int(task_id), stride, padding)
     LAUNCHES_BWD_DW += 1
     return out
 
@@ -231,6 +253,37 @@ def conv_route(x, w, stride, padding) -> bool:
     return (w.shape[2] % 64 == 0 and w.shape[3] % 64 == 0
             and conv_box(ho, wo) is not None and conv_box(h, wd) is not None
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def im2col_route(x, w) -> bool:
+    """Whether a conv's K3 on the card reduces its patches on the wgrad
+    GEMM: bf16 with kh*kw*Cin <= 64 (the patches, rounded up to 8 columns,
+    fit one 128-byte TMA row: VGG16-BN's conv0, K = 27) and Cout a multiple
+    of 8; any stride and padding. The launch checks alignment and raises."""
+    return (x.dtype == torch.bfloat16 and x.dim() == 4 and w.dim() == 4
+            and w.shape[0] * w.shape[1] * w.shape[2] <= 64
+            and w.shape[3] % 8 == 0)
+
+
+def _im2col_then_wgrad(g, x, w, own, task_id, stride, padding):
+    """The `im2col_route` path: conv0's patches (N*Ho*Wo, K rounded up to 8)
+    by the im2col kernel, then the dense wgrad GEMM over them against g
+    viewed as (N*Ho*Wo, Cout); dw and dpm HWIO."""
+    from . import masked_matmul as mm
+
+    global LAUNCHES_IM2COL
+    kh, kw, cin, cout = w.shape
+    k = kh * kw * cin
+    pads = resolve_padding(padding, x.shape[1], x.shape[2], kh, kw, stride)
+    _check(g.dim() == 4 and g.shape[-1] == cout and g.dtype == x.dtype,
+           f"g must be NHWC with {cout} channels in x's dtype")
+    patches = mm.launch_im2col(x, kh, kw, stride, pads, -(-k // 8) * 8)
+    LAUNCHES_IM2COL += 1
+    _check(g.shape[0] * g.shape[1] * g.shape[2] == patches.shape[0],
+           f"g {tuple(g.shape)} does not match the output grid")
+    dw, dpm = mm.launch_wgrad(patches, g.reshape(-1, cout), w.reshape(k, cout),
+                              own.reshape(k, cout), task_id)
+    return dw.reshape(w.shape), dpm.reshape(w.shape)
 
 
 def _stride1_grid(x, w, padding):

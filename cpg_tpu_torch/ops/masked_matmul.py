@@ -28,13 +28,20 @@ before any launch:
   stride-1, unpadded geometry: x (M, K) viewed as (M, 1, 1, K) and w (K, N)
   as (1, 1, K, N), the same GEMM with the select in the weight-tile load.
 
-dw and dpm run K3 (`csrc/masked_conv_bwd_dw.cu`) at the 1x1 geometry on
-either route. On CPU tensors the plain versions run. This module keeps its
-own launch counters.
+dw and dpm (K3) take, for bf16 x and g with K and N multiples of 8
+(`wgrad_route`), `csrc/masked_matmul_wgrad.cu`: a split-M TMA + wgmma GEMM
+G = x^T g with both operands MN-major, the splits summed in a fixed order
+by a gate pass that applies the ownership gating (with one split, the
+GEMM's epilogue gates) (`launch_wgrad`, planned by `wgrad_plan`);
+otherwise (f32, other widths) `csrc/masked_conv_bwd_dw.cu` at the 1x1
+geometry. On CPU tensors
+the plain versions run. This module keeps its own launch counters.
 
 The masked conv's GEMM route (`masked_conv.conv_route`) launches the same
 select pass and the same GEMM, whose producer walks the conv's taps
-(`launch_conv_gemm`, planned by `conv_plan`); it counts in `masked_conv`.
+(`launch_conv_gemm`, planned by `conv_plan`), and the same weight-gradient
+GEMM over per-tap boxes of x (`launch_wgrad_conv`); it counts in
+`masked_conv`.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ from .masked import effective_kernel
 # kernel launches of the dense route since the last reset
 LAUNCHES = 0          # forward: the TN GEMM, or K1 at 1x1
 LAUNCHES_BWD_DX = 0   # dx: the TN GEMM, or K2 at 1x1
-LAUNCHES_BWD_DW = 0   # K3 at 1x1
+LAUNCHES_BWD_DW = 0   # K3: the wgrad GEMM, or K3 at 1x1
 LAUNCHES_SELECT = 0   # the select pass (one before each GEMM)
 
 # the GEMM's tiles: 128 rows (two consumer warpgroups of 64), 64 deep a
@@ -61,6 +68,28 @@ GEMM_BM, GEMM_BK = 128, 64
 GEMM_BNS = (192, 128, 64)
 GEMM_MAX_STAGES = 5
 SMEM_PER_BLOCK = 232448
+
+# the weight-gradient GEMM's tiles: 128 k-rows (two consumer warpgroups of
+# 64) by BN output columns; a stage reduces 64 rows of a dense product or
+# one 128-pixel box of a conv
+WGRAD_BK = 128
+WGRAD_BNS = (128, 64)
+WGRAD_DENSE_ROWS, WGRAD_CONV_ROWS = 64, 128
+WGRAD_MAX_STAGES = 6
+# at most this many pixels a split: one f32 accumulator chain (a 262,144-
+# pixel chain at conv0 was 3e-4 of max|G| from the plain version)
+WGRAD_MAX_SPLIT_ROWS = 16384
+# the split counts a plan may take (the ladder the cost model was fitted on)
+WGRAD_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128)
+# `wgrad_plan`'s cost model, fitted to scripts/torch_wgrad_plans.py's sweep
+# on an H100 (every product there was bound by its operand loads): the
+# operand bytes an SM loads a second from L2, alone and all active SMs
+# together, and the HBM rate at which the partials (written, then read by
+# the gate pass) and the gated outputs (w and own read, dw and dpm
+# written: 13 B an entry) move
+_WG_SM_BPS = 60e9
+_WG_L2_BPS = 7e12
+_HBM_BPS = 3.35e12
 
 _MODES = ("binary", "ternary")
 
@@ -161,6 +190,71 @@ def conv_plan(n: int, ho: int, wo: int, c: int, nout: int, taps: int,
     return (box, *gemm_plan(n * ho * wo, taps * c, nout, sms))
 
 
+def wgrad_smem_bytes(bn: int, rows: int, stages: int) -> int:
+    """Dynamic shared memory of one wgrad block, as `wgrad_smem_bytes` in
+    csrc/masked_matmul_wgrad.cu lays it out: 1 KB of alignment slack, the
+    ring of {A 2 x 64 x rows, B bn x rows} bf16 stages, two barriers a
+    stage."""
+    return 1024 + stages * (WGRAD_BK + bn) * rows * 2 + 16 * stages
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(m: int, k: int, n: int, sms: int,
+               rows: int = WGRAD_DENSE_ROWS):
+    """(bn, splits, stages, grid) of the weight-gradient GEMM G (k, n) =
+    x^T g reduced over m pixels, `rows` a step (64 dense, 128 conv).
+
+    Items are (128 x bn tile, split of the steps); one persistent block an
+    SM walks them. The plan takes the (bn, split count) of least estimated
+    time: for each round of items the blocks walk together, the steps of a
+    split times a step's operand bytes over the rate each active SM gets
+    from L2 (its own limit, or its share of the whole); plus the gated
+    outputs and, with more than one split, the f32 partials written and
+    read again by the gate pass, at the HBM rate. The split count comes
+    from WGRAD_SPLITS (or the fewest that keep each split within
+    WGRAD_MAX_SPLIT_ROWS pixels); splits are whole steps and none is
+    empty; ties go to fewer splits, then the wider tile. As many ring
+    stages as fit, up to WGRAD_MAX_STAGES; the grid is at most the SM
+    count."""
+    steps = -(-m // rows)
+    tiles_k = -(-k // WGRAD_BK)
+    least = -(-steps // (WGRAD_MAX_SPLIT_ROWS // rows))
+    best = None
+    for bn in WGRAD_BNS:
+        tiles = tiles_k * -(-n // bn)
+        step_bytes = rows * (WGRAD_BK + bn) * 2
+        for want in sorted({max(least, s) for s in WGRAD_SPLITS}):
+            per = -(-steps // min(want, steps))
+            splits = -(-steps // per)  # none empty
+            items = tiles * splits
+            grid = min(items, sms)
+            t = k * n * 13 / _HBM_BPS
+            for r0 in range(0, items, grid):  # the rounds of items
+                active = min(grid, items - r0)
+                t += per * step_bytes / min(_WG_SM_BPS, _WG_L2_BPS / active)
+            if splits > 1:
+                t += 2 * items * WGRAD_BK * bn * 4 / _HBM_BPS
+            key = (t, splits, -bn)
+            if best is None or key < best[0]:
+                best = (key, bn, splits, grid)
+    _, bn, splits, grid = best
+    stages = WGRAD_MAX_STAGES
+    while wgrad_smem_bytes(bn, rows, stages) > SMEM_PER_BLOCK - 1024:
+        stages -= 1
+    return bn, splits, stages, grid
+
+
+def wgrad_route(x, g, w, own) -> bool:
+    """Whether dense K3 on the card takes the wgrad GEMM: bf16 x and g, K
+    and N multiples of 8 (TMA's 16-byte row strides), x and g 16-byte, w
+    8-byte and own 2-byte aligned (the epilogue's pair loads). Otherwise
+    K3 runs at the 1x1 geometry."""
+    return (x.dtype == torch.bfloat16 and g.dtype == torch.bfloat16
+            and w.shape[0] % 8 == 0 and w.shape[1] % 8 == 0
+            and x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+            and w.data_ptr() % 8 == 0 and own.data_ptr() % 2 == 0)
+
+
 def gemm_route(a, w, own, pm) -> bool:
     """Whether a dense-route product on the card takes the select pass +
     TN GEMM, where a is the GEMM's activation operand (x (M, K) for the
@@ -207,16 +301,20 @@ def masked_matmul_bwd_dx(g, x, w, own, pm, task_id,
 
 
 def masked_matmul_bwd_dw(g, x, w, own, task_id):
-    """(dw, dpm) for output gradient g (M, N): K3 on CUDA tensors, the
-    plain version on CPU tensors."""
+    """(dw, dpm) for output gradient g (M, N): on CUDA tensors the wgrad
+    GEMM (`wgrad_route`) or K3 at 1x1, on CPU tensors the plain version."""
     if x.device.type == "cpu":
         return masked_matmul_bwd_dw_plain(g, x, w, own, task_id)
     global LAUNCHES_BWD_DW
-    x4, w4, own4 = _as_conv(x, w, own)
-    dw, dpm = _mc.launch_bwd_dw(g.reshape(g.shape[0], 1, 1, g.shape[1]), x4,
-                                w4, own4, int(task_id), 1, "VALID")
+    if wgrad_route(x, g, w, own):
+        dw, dpm = launch_wgrad(x, g, w, own, int(task_id))
+    else:
+        x4, w4, own4 = _as_conv(x, w, own)
+        dw, dpm = _mc.launch_bwd_dw(g.reshape(g.shape[0], 1, 1, g.shape[1]),
+                                    x4, w4, own4, int(task_id), 1, "VALID")
+        dw, dpm = dw.reshape(w.shape), dpm.reshape(w.shape)
     LAUNCHES_BWD_DW += 1
-    return dw.reshape(w.shape), dpm.reshape(w.shape)
+    return dw, dpm
 
 
 def masked_matmul_select(w, own, pm, task_id,
@@ -411,3 +509,149 @@ def launch_conv_gemm(a, bt, grid_hw, kh, kw, pad_top, pad_left, dgrad):
     if err:
         raise RuntimeError(f"masked_conv_gemm launch failed: CUDA error {err}")
     return out
+
+
+# ------------------------------------------------ weight-gradient GEMM ----
+# `launch_wgrad*` check their inputs and launch csrc/masked_matmul_wgrad.cu's
+# GEMM (and, with more than one split, its gate pass) on the current stream;
+# they count nothing.
+
+def _wlib():
+    lib = _build.load("masked_matmul_wgrad")
+    if lib.masked_matmul_wgrad_bf16.argtypes is None:
+        lib.masked_matmul_wgrad_bf16.argtypes = [_P] * 7 + [_I] * 9 + [_P]
+        lib.masked_matmul_wgrad_bf16.restype = ctypes.c_int
+        lib.masked_conv_wgrad_bf16.argtypes = [_P] * 7 + [_I] * 18 + [_P]
+        lib.masked_conv_wgrad_bf16.restype = ctypes.c_int
+        lib.masked_conv_im2col_bf16.argtypes = [_P] * 2 + [_I] * 12 + [_P]
+        lib.masked_conv_im2col_bf16.restype = ctypes.c_int
+    return lib
+
+
+def _wgrad_buffers(w, k, n, bn, splits):
+    """dw, dpm (w's shape, f32) and the partials' scratch."""
+    tiles = -(-k // WGRAD_BK) * -(-n // bn)
+    ws = torch.empty(splits * tiles * WGRAD_BK * bn if splits > 1 else 4,
+                     dtype=torch.float32, device=w.device)
+    dw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    return dw, torch.empty_like(dw), ws
+
+
+def _check_wgrad(x, g, w, own):
+    _check(x.is_cuda, f"x must be a CUDA tensor, got {x.device}")
+    _check(x.dtype == g.dtype == torch.bfloat16, "x and g must be bf16")
+    _check(w.dtype == torch.float32 and own.dtype == torch.int8
+           and own.shape == w.shape, "w must be f32 and own int8 of w's shape")
+    for name, t in (("g", g), ("w", w), ("own", own)):
+        _check(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
+    for name, t in (("x", x), ("g", g), ("w", w), ("own", own)):
+        _check(t.is_contiguous(), f"{name} must be contiguous")
+    _check(x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+           and w.data_ptr() % 8 == 0 and own.data_ptr() % 2 == 0,
+           "x and g must be 16-byte aligned, w 8-byte, own 2-byte")
+
+
+def launch_wgrad(x, g, w, own, task_id, plan=None):
+    """Dense K3 on the wgrad GEMM: G = x[:, :K]^T g, f32 sums, then dw = G on
+    own == task, dpm = G * w on 0 < own < task. x (M, Kx) with Kx >= K (the
+    columns past K are conv0's zero padding), g (M, N), bf16; w, own (K, N).
+    `plan` overrides `wgrad_plan` (the tests' other grids)."""
+    _check_wgrad(x, g, w, own)
+    _check(x.dim() == 2 and g.dim() == 2 and w.dim() == 2
+           and x.shape[0] == g.shape[0] and x.shape[1] >= w.shape[0]
+           and g.shape[1] == w.shape[1],
+           f"x {tuple(x.shape)}, g {tuple(g.shape)} and w {tuple(w.shape)} "
+           "are not (M, Kx >= K), (M, N) and (K, N)")
+    (m, kx), (k, n) = x.shape, w.shape
+    _check(kx % 8 == 0 and n % 8 == 0,
+           f"x's columns and N must be multiples of 8, got {(kx, n)}")
+    if m == 0 or k == 0 or n == 0:
+        z = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        return z, z.clone()
+    bn, splits, stages, grid = plan or wgrad_plan(
+        m, k, n, _sms(x.device.index or 0), WGRAD_DENSE_ROWS)
+    dw, dpm, ws = _wgrad_buffers(w, k, n, bn, splits)
+    err = _wlib().masked_matmul_wgrad_bf16(
+        x.data_ptr(), g.data_ptr(), w.data_ptr(), own.data_ptr(),
+        ws.data_ptr(), dw.data_ptr(), dpm.data_ptr(), m, kx, k, n,
+        int(task_id), bn, splits, stages, grid, _stream(x))
+    if err:
+        raise RuntimeError(f"masked_matmul_wgrad launch failed: CUDA error {err}")
+    return dw, dpm
+
+
+def wgrad_conv_plan(n: int, ho: int, wo: int, cin: int, cout: int,
+                    taps: int, sms: int):
+    """(box, bn, splits, stages, grid) of the conv's weight-gradient
+    GEMM: x's TMA box (64 channels, wo, rows, images) of 128 output pixels
+    (`masked_conv.conv_box`) and `wgrad_plan` over M = n*ho*wo pixels in
+    128-pixel steps, K = taps * cin, N = cout."""
+    box = _mc.conv_box(ho, wo)
+    _check(box is not None, f"no 128-pixel TMA box tiles a {ho}x{wo} grid")
+    return (box, *wgrad_plan(n * ho * wo, taps * cin, cout, sms,
+                             WGRAD_CONV_ROWS))
+
+
+def launch_wgrad_conv(g, x, w, own, task_id, pad_top, pad_left, plan=None):
+    """Conv K3 at stride 1 on the wgrad GEMM, each k tile's x read as per-tap
+    4-D TMA boxes of the NHWC input (the padding by TMA's zero fill): x (N,
+    H, W, Cin), g (N, Ho, Wo, Cout) bf16, w, own HWIO. Cin % 64 == 0, Cout %
+    8 == 0, the output grid tiled by `masked_conv.conv_box`. Returns dw, dpm
+    HWIO f32. `plan` overrides `wgrad_conv_plan`."""
+    _check_wgrad(x, g, w, own)
+    _check(x.dim() == 4 and g.dim() == 4 and w.dim() == 4,
+           "x and g must be NHWC and w HWIO")
+    kh, kw, cin, cout = w.shape
+    n, h, wd, c = x.shape
+    ho, wo = g.shape[1:3]
+    _check(c == cin and g.shape[0] == n and g.shape[3] == cout,
+           f"x {tuple(x.shape)}, g {tuple(g.shape)} and w {tuple(w.shape)} "
+           "do not match")
+    _check(cin % 64 == 0 and cout % 8 == 0,
+           f"Cin must be a multiple of 64 and Cout of 8, got {(cin, cout)}")
+    (_, _, box_h, box_n), bn, splits, stages, grid = plan or \
+        wgrad_conv_plan(n, ho, wo, cin, cout, kh * kw, _sms(x.device.index or 0))
+    dw, dpm, ws = _wgrad_buffers(w, kh * kw * cin, cout, bn, splits)
+    err = _wlib().masked_conv_wgrad_bf16(
+        x.data_ptr(), g.data_ptr(), w.data_ptr(), own.data_ptr(),
+        ws.data_ptr(), dw.data_ptr(), dpm.data_ptr(), n, h, wd, cin, ho, wo,
+        cout, kh, kw, pad_top, pad_left, box_h, box_n, int(task_id), bn,
+        splits, stages, grid, _stream(x))
+    if err:
+        raise RuntimeError(f"masked_conv_wgrad launch failed: CUDA error {err}")
+    return dw, dpm
+
+
+def launch_im2col(x, kh, kw, stride, pads, kp):
+    """The patches of x (N, H, W, C) bf16 as (N*Ho*Wo, kp) bf16: column k =
+    (dh*kw + dw)*C + c, zero in the padding and past kh*kw*C (kp a multiple
+    of 8)."""
+    _check(x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4
+           and x.is_contiguous(), "x must be a contiguous NHWC bf16 CUDA tensor")
+    n, h, wd, c = x.shape
+    pt, pb, pl, pr = pads
+    ho, wo = (h + pt + pb - kh) // stride + 1, (wd + pl + pr - kw) // stride + 1
+    _check(kp % 8 == 0 and kp >= kh * kw * c,
+           f"kp {kp} must be a multiple of 8 and >= {kh * kw * c}")
+    out = torch.empty((n * ho * wo, kp), dtype=torch.bfloat16, device=x.device)
+    if out.numel() == 0:
+        return out
+    err = _wlib().masked_conv_im2col_bf16(
+        x.data_ptr(), out.data_ptr(), n, h, wd, c, ho, wo, kh, kw, stride, pt,
+        pl, kp, _stream(x))
+    if err:
+        raise RuntimeError(f"masked_conv_im2col launch failed: CUDA error {err}")
+    return out
+
+
+def im2col_plain(x, kh, kw, stride, pads, kp):
+    """Plain version of `launch_im2col`."""
+    n, h, wd, c = x.shape
+    pt, pb, pl, pr = pads
+    ho, wo = (h + pt + pb - kh) // stride + 1, (wd + pl + pr - kw) // stride + 1
+    xp = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb))
+    cols = [xp[:, dh:dh + stride * (ho - 1) + 1:stride,
+               dw:dw + stride * (wo - 1) + 1:stride] for dh in range(kh)
+            for dw in range(kw)]
+    p = torch.cat(cols, -1).reshape(n * ho * wo, kh * kw * c)
+    return torch.nn.functional.pad(p, (0, kp - kh * kw * c))

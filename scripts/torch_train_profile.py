@@ -36,7 +36,10 @@ GROUPS = (
                       "namespace)::gate_kernel", "namespace)::sum_kernel",
                       "namespace)::colsum_kernel",
                       "namespace)::gemm_tn_bf16_kernel",
-                      "namespace)::select_bf16_kernel")),
+                      "namespace)::select_bf16_kernel",
+                      "namespace)::wgrad_wgmma_kernel",
+                      "namespace)::wgrad_gate_kernel",
+                      "namespace)::im2col_bf16_kernel")),
     ("cudnn/cublas", ("cudnn", "conv", "gemm", "xmma", "sm90", "cutlass",
                       "nvjet", "implicit_", "dgrad", "wgrad", "nchw", "nhwc")),
     ("optimizer", ("multi_tensor", "foreach", "_amp_")),

@@ -667,3 +667,148 @@ def test_autograd_reaches_q_k_v_w_and_pm_through_dense_and_flash(cuda):
                      torch.tensor(pms[0], device=cuda), 2).sum().backward()
     torch.cuda.synchronize()
     assert mm.LAUNCHES_BWD_DX == before and x.grad is None
+
+
+# --------------------------------------------------- wgrad GEMM (K3) ----
+
+def _ints(shape, device, seed, lo=-3, hi=4):
+    """Small integers as bf16: every product and sum is exact in f32."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(lo, hi, shape, generator=g).to(device, torch.bfloat16)
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+def test_wgrad_one_tile_of_small_integers_is_exact(cuda, bn):
+    """One 128 x bn output tile over 64 pixels of small integers, exact in
+    f32: the MN-major descriptors (leading offset between 64-wide atoms
+    along M or N, stride offset between 8-pixel atoms, a k16 step of
+    2,048 B) must give x^T g to the bit, gated."""
+    x, g = _ints((64, 128), cuda, 1), _ints((64, bn), cuda, 2)
+    w = torch.randn((128, bn), generator=torch.Generator().manual_seed(3)).to(cuda)
+    own = torch.randint(0, 4, (128, bn), generator=torch.Generator().manual_seed(4),
+                        dtype=torch.int8).to(cuda)
+    dw, dpm = mm.launch_wgrad(x, g, w, own, 2, (bn, 1, 4, 1))
+    torch.cuda.synchronize()
+    want = mm.masked_matmul_bwd_dw_plain(g, x, w, own, 2)
+    assert torch.equal(dw, want[0]) and torch.equal(dpm, want[1])
+
+
+def test_wgrad_conv_one_box_of_small_integers_is_exact(cuda):
+    """The conv walk on one 128-pixel box (two 8x8 images, Cin = Cout =
+    64, a k tile spanning two taps) with small integers: exact."""
+    x = _ints((2, 8, 8, 64), cuda, 5)
+    g = _ints((2, 8, 8, 64), cuda, 6)
+    w = torch.randn((3, 3, 64, 64), generator=torch.Generator().manual_seed(7)).to(cuda)
+    own = torch.randint(0, 4, w.shape, generator=torch.Generator().manual_seed(8),
+                        dtype=torch.int8).to(cuda)
+    dw, dpm = mm.launch_wgrad_conv(g, x, w, own, 2, 1, 1)
+    torch.cuda.synchronize()
+    # the reference by exact products (cuDNN's f32 weight gradient may take
+    # an inexact algorithm): the patches' x^T g
+    patches = mm.im2col_plain(x.float(), 3, 3, 1, (1, 1, 1, 1), 576)
+    want = mm.masked_matmul_bwd_dw_plain(g.reshape(-1, 64), patches,
+                                         w.reshape(576, 64),
+                                         own.reshape(576, 64), 2)
+    assert torch.equal(dw, want[0].reshape(w.shape))
+    assert torch.equal(dpm, want[1].reshape(w.shape))
+
+
+@pytest.mark.parametrize("case", [
+    # (m, k, n, plan or None): ragged M, K and N; one split and several (the
+    # gate pass), several rounds of items a block, BN 64 and 128
+    (1000, 200, 72, None), (333, 40, 8, None), (129, 8, 264, None),
+    (4096, 256, 256, None), (2 * 196, 768, 768, None),
+    (1000, 200, 72, (64, 5, 6, 3)), (1000, 200, 72, (64, 1, 6, 1)),
+    (777, 136, 264, (128, 3, 6, 2)), (777, 136, 264, (64, 4, 6, 132)),
+])
+def test_wgrad_dense_matches_plain(cuda, case):
+    m, kd, nd, plan = case
+    x, w, own, _, g = _dense_case(m, kd, nd, cuda, torch.bfloat16, seed=21)
+    dw, dpm = mm.launch_wgrad(x, g, w, own, 2, plan)
+    torch.cuda.synchronize()
+    want = mm.masked_matmul_bwd_dw_plain(g, x, w, own, 2)
+    _check_sum(dw, want[0])
+    _check_sum(dpm, want[1])
+    again = mm.launch_wgrad(x, g, w, own, 2, plan)
+    assert torch.equal(dw, again[0]) and torch.equal(dpm, again[1])
+
+
+def test_wgrad_bits_do_not_depend_on_the_grid(cuda):
+    """One (BN, split) plan under grids of 1, 7 and 132 blocks: equal bits
+    (each tile's partials summed in split order by the gate pass, whichever
+    block wrote them when)."""
+    x, w, own, _, g = _dense_case(3000, 256, 192, cuda, torch.bfloat16, seed=22)
+    outs = [mm.launch_wgrad(x, g, w, own, 2, (64, 9, 6, grid))
+            for grid in (1, 7, 132)]
+    torch.cuda.synchronize()
+    for dw, dpm in outs[1:]:
+        assert torch.equal(dw, outs[0][0]) and torch.equal(dpm, outs[0][1])
+
+
+@pytest.mark.parametrize("n", [256, 3])
+@pytest.mark.parametrize("layer", CONV_ROUTE_LAYERS,
+                         ids=[c[0] for c in CONV_ROUTE_LAYERS])
+def test_wgrad_conv_route_matches_plain(cuda, layer, n):
+    """conv2/4/7/10 in bf16: K3 on the per-tap wgrad GEMM (no im2col, the
+    op counted once), within 1e-4 * max|ref| of the plain version, two
+    launches equal bits."""
+    _, hw, cin, cout = layer
+    x, wt, own, _ = _conv_case(n, hw, hw, cin, cout, 3, cuda, torch.bfloat16,
+                               seed=hw + 2)
+    g = torch.from_numpy(np.random.RandomState(hw + 3).randn(
+        n, hw, hw, cout).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = (mc.LAUNCHES_BWD_DW, mc.LAUNCHES_IM2COL)
+    dw, dpm = mc.masked_conv2d_bwd_dw(g, x, wt, own, 2)
+    torch.cuda.synchronize()
+    assert (mc.LAUNCHES_BWD_DW, mc.LAUNCHES_IM2COL) == (before[0] + 1, before[1])
+    want = mc.masked_conv2d_bwd_dw_plain(g, x, wt, own, 2)
+    _check_sum(dw, want[0])
+    _check_sum(dpm, want[1])
+    again = mc.masked_conv2d_bwd_dw(g, x, wt, own, 2)
+    assert torch.equal(dw, again[0]) and torch.equal(dpm, again[1])
+
+
+@pytest.mark.parametrize("case", [
+    # (n, h = w, cin, cout, k, stride): VGG16-BN's conv0 at batch 256, a
+    # stride-2 ragged conv (K = 45), a 1x1 (K = 64)
+    (256, 32, 3, 64, 3, 1), (2, 7, 5, 72, 3, 2), (3, 9, 64, 24, 1, 1),
+])
+def test_wgrad_im2col_route_matches_plain(cuda, case):
+    """kh*kw*Cin <= 64: the im2col kernel (bit-equal to its plain version,
+    one launch) and the dense wgrad GEMM over the patches."""
+    n, hw, cin, cout, k, s = case
+    x, wt, own, _ = _conv_case(n, hw, hw, cin, cout, k, cuda, torch.bfloat16,
+                               seed=9)
+    ho = -(-hw // s)
+    g = torch.from_numpy(np.random.RandomState(10).randn(
+        n, ho, ho, cout).astype(np.float32)).to(cuda, torch.bfloat16)
+    assert mc.im2col_route(x, wt) and not mc.conv_route(x, wt, s, "SAME")
+    pads = mc.resolve_padding("SAME", hw, hw, k, k, s)
+    kp = -(-k * k * cin // 8) * 8
+    got = mm.launch_im2col(x, k, k, s, pads, kp)
+    assert torch.equal(got.view(torch.int16),
+                       mm.im2col_plain(x, k, k, s, pads, kp).view(torch.int16))
+    before = (mc.LAUNCHES_BWD_DW, mc.LAUNCHES_IM2COL)
+    dw, dpm = mc.masked_conv2d_bwd_dw(g, x, wt, own, 2, s)
+    torch.cuda.synchronize()
+    assert (mc.LAUNCHES_BWD_DW, mc.LAUNCHES_IM2COL) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = mc.masked_conv2d_bwd_dw_plain(g, x, wt, own, 2, s)
+    _check_sum(dw, want[0])
+    _check_sum(dpm, want[1])
+    again = mc.masked_conv2d_bwd_dw(g, x, wt, own, 2, s)
+    assert torch.equal(dw, again[0]) and torch.equal(dpm, again[1])
+
+
+def test_wgrad_refuses_a_misaligned_operand(cuda):
+    """On the route a g off a 16-byte boundary raises; nothing falls back
+    to the old K3."""
+    x, w, own, _, _ = _dense_case(256, 64, 64, cuda, torch.bfloat16, seed=23)
+    g = torch.zeros(256 * 64 + 4, device=cuda, dtype=torch.bfloat16)[4:].view(256, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        mm.launch_wgrad(x, g, w, own, 2)
+    x4, wt, own4, _ = _conv_case(2, 8, 8, 64, 64, 3, cuda, torch.bfloat16)
+    g4 = torch.zeros(2 * 8 * 8 * 64 + 4, device=cuda,
+                     dtype=torch.bfloat16)[4:].view(2, 8, 8, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        mc.masked_conv2d_bwd_dw(g4, x4, wt, own4, 2)

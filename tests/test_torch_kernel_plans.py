@@ -7,7 +7,11 @@ grid of the bf16 flash forward; the dense route's TN GEMM
 persistent grid, and `masked_matmul.gemm_route` decides which products
 take it; the masked conv's implicit GEMM (`masked_matmul.conv_plan`) adds
 the TMA box of 128 output pixels, and `masked_conv.conv_route` decides
-which convs take it. All feed launch parameters straight to a CUDA kernel, so these
+which convs take it; the weight-gradient GEMM (`masked_matmul.wgrad_plan`,
+`wgrad_conv_plan`) picks its tile width, split count, ring depth and grid,
+and `wgrad_route`, `masked_conv.conv_route` and
+`masked_conv.im2col_route` decide which weight gradients take it. All feed
+launch parameters straight to a CUDA kernel, so these
 tests hold them, for every VGG16-BN seam and the ViT shapes, to what the
 kernels assume: steps of whole image rows that never straddle an image
 where a halo is staged, every row, work item and output tile covered
@@ -349,3 +353,135 @@ def test_conv_plan_boxes_at_the_vgg_shapes():
                      4: (64, 4, 4, 8), 2: (64, 2, 2, 32)}
     with pytest.raises(ValueError, match="TMA box"):
         mm.conv_plan(2, 3, 3, 64, 64, 9, H100_SMS)
+
+
+# ------------------------------------------------ weight-gradient GEMM ----
+# (m, k, n, rows) of K3: vit_cifar's dense products at batch 256, vit_b16's
+# at 64, VGG16-BN's route convs at batch 256 and 3 (rows = one 128-pixel
+# box, k = 9 * Cin) and conv0's patches (k = 27), ragged edges
+WGRAD_CASES = ([(16384, 256, 256, 64), (16384, 256, 1024, 64),
+                (16384, 1024, 256, 64), (12544, 768, 768, 64),
+                (12544, 768, 3072, 64), (12544, 3072, 768, 64),
+                (262144, 27, 64, 64), (300, 200, 72, 64), (1, 8, 8, 64),
+                (65, 136, 264, 64)]
+               + [(n * hw * hw, 9 * cin, cout, 128) for n in (256, 3)
+                  for hw, cin, cout in ((16, 64, 128), (8, 128, 256),
+                                        (4, 256, 512), (2, 512, 512))])
+
+
+def _wgrad_items(m, k, n, rows, plan):
+    """The (tile, pixel step) pairs the blocks reduce, as wgrad_wgmma_kernel
+    walks them: item it = blockIdx.x, + gridDim.x, ...; tile it % tiles,
+    split it // tiles, split z's steps z*per .. min((z+1)*per, steps)."""
+    bn, splits, _, grid = plan
+    steps = -(-m // rows)
+    per = -(-steps // splits)
+    tiles = -(-k // mm.WGRAD_BK) * -(-n // bn)
+    out, per_split = [], {}
+    for b in range(grid):
+        for it in range(b, tiles * splits, grid):
+            t, z = it % tiles, it // tiles
+            span = range(z * per, min((z + 1) * per, steps))
+            per_split[z] = len(span)
+            out += [(t, st) for st in span]
+    return out, tiles, steps, per_split
+
+
+@pytest.mark.parametrize("case", WGRAD_CASES)
+@pytest.mark.parametrize("sms", [H100_SMS, 7])
+def test_wgrad_plan_covers_every_tile_and_step_once(case, sms):
+    """Every (output tile, step) is reduced by exactly one item, the splits
+    are runs of whole steps (64 rows or one 128-pixel box) and none is
+    empty; no split is a longer f32 chain than WGRAD_MAX_SPLIT_ROWS
+    pixels."""
+    m, k, n, rows = case
+    plan = mm.wgrad_plan(m, k, n, sms, rows)
+    walked, tiles, steps, per_split = _wgrad_items(m, k, n, rows, plan)
+    assert sorted(walked) == [(t, s) for t in range(tiles)
+                              for s in range(steps)]
+    assert len(per_split) == plan[1] and min(per_split.values()) >= 1
+    assert max(per_split.values()) * rows <= mm.WGRAD_MAX_SPLIT_ROWS
+
+
+@pytest.mark.parametrize("case", WGRAD_CASES)
+def test_wgrad_plan_fits_the_card(case):
+    m, k, n, rows = case
+    bn, splits, stages, grid = mm.wgrad_plan(m, k, n, H100_SMS, rows)
+    assert bn in mm.WGRAD_BNS and bn % 64 == 0 and bn <= 128  # wgmma N
+    assert 2 <= stages <= mm.WGRAD_MAX_STAGES
+    assert mm.wgrad_smem_bytes(bn, rows, stages) <= SMEM_PER_BLOCK
+    assert 1 <= grid <= H100_SMS and grid <= -(-k // 128) * -(-n // bn) * splits
+    assert 1 <= splits <= -(-m // rows)
+
+
+def test_wgrad_plan_at_the_vit_and_vgg_shapes():
+    """The picks of the cost model, each the fastest or within 6% of the
+    fastest plan of scripts/torch_wgrad_plans.py's sweep on the H100:
+    vit_cifar q/k/v/proj 128 x 64 tiles in 16 splits (128 items), fc1 and
+    fc2 128 x 128 in 8; vit_b16's q/k/v 128 x 128 in 3 (108 items); conv0's
+    patches one 128 x 64 tile in 128 splits; conv2 in 24 splits, conv4 in
+    6, conv7 in 3 (216 items: two rounds), conv10 in one (144 tiles)."""
+    def plan(m, k, n, rows=64):
+        return mm.wgrad_plan(m, k, n, H100_SMS, rows)
+    assert plan(16384, 256, 256) == (64, 16, 6, 128)
+    assert plan(16384, 256, 1024) == (128, 8, 6, 128)
+    assert plan(16384, 1024, 256) == (128, 8, 6, 128)
+    assert plan(12544, 768, 768) == (128, 3, 6, 108)
+    assert plan(262144, 27, 64) == (64, 128, 6, 128)
+    convs = {hw: mm.wgrad_conv_plan(256, hw, hw, cin, cout, 9, H100_SMS)
+             for hw, cin, cout in ((16, 64, 128), (8, 128, 256),
+                                   (4, 256, 512), (2, 512, 512))}
+    assert convs == {16: ((64, 16, 8, 1), 128, 24, 3, 120),
+                     8: ((64, 8, 8, 2), 128, 6, 3, 108),
+                     4: ((64, 4, 4, 8), 128, 3, 3, 132),
+                     2: ((64, 2, 2, 32), 128, 1, 3, 132)}
+
+
+@pytest.mark.parametrize("mult", [1.0, 0.125])
+@pytest.mark.parametrize("layer", VGG_CONVS, ids=[c[0] for c in VGG_CONVS])
+def test_wgrad_routes_at_every_vgg_conv(layer, mult):
+    """bf16 K3: the convs on `conv_route` (Cin and Cout multiples of 64)
+    take the per-tap wgrad GEMM; conv0 (K = 27) the im2col route at both
+    widths; the rest at width 0.125 (conv1-7: K = 72-576 with Cin of 8-32)
+    keep the old kernel. f32 takes neither."""
+    name, hw, cin, cout = layer
+    cin, cout = (vgg.scale_channels(c, mult) if c != 3 else 3
+                 for c in (cin, cout))
+    x = torch.zeros((1, hw, hw, cin), dtype=torch.bfloat16)
+    w = torch.zeros((3, 3, cin, cout))
+    gemm = mc.conv_route(x, w, 1, "SAME")
+    im2col = mc.im2col_route(x, w)
+    assert gemm is (cin % 64 == 0 and cout % 64 == 0)
+    assert im2col is (name == "conv0")
+    assert not (gemm and im2col)
+    assert not mc.im2col_route(x.float(), w)
+    if name in MASKED_CONVS and name != "conv0":
+        assert gemm is (mult == 1.0 or name == "conv10")
+
+
+@pytest.mark.parametrize("case", [
+    # (dtype, K, N, storage offset of x, takes the wgrad GEMM)
+    (torch.bfloat16, 256, 256, 0, True),    # vit_cifar q/k/v/proj
+    (torch.bfloat16, 1024, 256, 0, True),   # fc2
+    (torch.bfloat16, 200, 72, 0, True),     # ragged, multiples of 8
+    (torch.float32, 256, 256, 0, False),    # f32: K3 at 1x1
+    (torch.bfloat16, 70, 64, 0, False),     # K % 8 != 0
+    (torch.bfloat16, 64, 36, 0, False),     # N % 8 != 0
+    (torch.bfloat16, 256, 256, 4, False),   # x not 16-byte aligned
+])
+def test_wgrad_route_predicate(case):
+    dtype, k, n, offset, want = case
+    x = torch.zeros(64 * k + offset, dtype=dtype)[offset:].view(64, k)
+    g = torch.zeros((64, n), dtype=dtype)
+    own = torch.zeros(k, n, dtype=torch.int8)
+    assert mm.wgrad_route(x, g, torch.zeros(k, n), own) is want
+
+
+def test_im2col_route_predicate():
+    """kh*kw*Cin <= 64 and Cout % 8 == 0, any stride: 3x3 with Cin <= 7,
+    1x1 with Cin <= 64."""
+    def route(k, cin, cout):
+        x = torch.zeros((1, 4, 4, cin), dtype=torch.bfloat16)
+        return mc.im2col_route(x, torch.zeros((k, k, cin, cout)))
+    assert route(3, 7, 8) and route(1, 64, 64) and route(3, 3, 64)
+    assert not route(3, 8, 16) and not route(3, 3, 60)
