@@ -13,7 +13,14 @@ Needs one CUDA card; exits non-zero without one. It
      time (`device_ms`, `library_device_ms`: no host gaps between calls):
      the masked conv forward (K1) and its backward (K2 dx, K3
      gated dw/dpm), the fused BN+ReLU+conv3x3 forward (K4) and its backward
-     (K5 dx/da/db, K6 dW). K1 and K2 at conv2/4/7/10 (binary and ternary)
+     (K5 dx/da/db, K6 dW). K4 and K5 at the eight bf16 seams take the
+     TMA/wgmma GEMM route (`route` "gemm", with the `plan`, the route
+     kernel's own device time `gemm_kernel_device_ms`, K5's tile-sum pass
+     `colsum_device_ms`, and cuDNN's product alone on the materialised
+     activation or on g as `cudnn_device_ms`; two launches equal bits);
+     a width-0.125 conv3 (16 channels, bf16) and the f32 conv3 rows hold
+     the earlier K4 and K5 (each row fails on another route). K1 and K2 at
+     conv2/4/7/10 (binary and ternary)
      take the GEMM route (`route`: the select pass, held alone against its
      plain version bit for bit in `masked_conv_select` rows, then the
      TMA/wgmma implicit GEMM of csrc/masked_matmul.cu; `select_device_ms`
@@ -331,8 +338,14 @@ def masked_conv_phase(torch, dev, name, hw, cin, cout, dtype_name, mode,
     return rows
 
 
-def fused_chain_phase(torch, dev, name, hw, cin, cout, dtype_name):
+def fused_chain_phase(torch, dev, name, hw, cin, cout, dtype_name,
+                      want_route, per_step=None):
+    """K4 at one seam (the GEMM route or the earlier kernel, as
+    `fused_chain.fwd_route` decides; fails unless it is `want_route`), two
+    launches equal bits; on the route its plan and the kernel's own device
+    time; cuDNN's conv alone on the materialised activation beside it."""
     from cpg_tpu_torch.ops import fused_chain as fc
+    from cpg_tpu_torch.ops import masked_matmul as mm
     from cpg_tpu_torch.ops.conv import conv2d_nhwc
 
     dt = getattr(torch, dtype_name)
@@ -347,15 +360,32 @@ def fused_chain_phase(torch, dev, name, hw, cin, cout, dtype_name):
     plain = lambda: fc.fused_oracle(x, a, b, wd, dt)
     ad, bd = a.to(dt), b.to(dt)
     library = lambda: conv2d_nhwc(torch.relu(x * ad + bd), wd, 1, (1, 1, 1, 1))
-    err = compare(kern(), plain(), dtype_name, f"fused_chain {name}")
+    err = compare(twice(torch, kern, f"fused_chain {name}"), plain(),
+                  dtype_name, f"fused_chain {name}")
     elt = x.element_size()
     nbytes = (x.numel() * elt + 8 * cin + wd.numel() * elt
               + BATCH * hw * hw * cout * elt)
     flops = 2.0 * BATCH * hw * hw * 9 * cin * cout
     b_ms, b_by = bound(nbytes, flops, dtype_name)
+    act = torch.relu(x * ad + bd)
+    extra = dict(route="k4")
+    if fc.fwd_route(x, wd, dt):
+        plan = mm.fused_fwd_plan(BATCH, hw, hw, cin, cout, mm._sms(0))
+        extra = dict(route="gemm", plan=[list(p) if isinstance(p, tuple)
+                                         else p for p in plan],
+                     gemm_kernel_device_ms=kernel_device_ms(
+                         kern, ("fwd_wgmma_kernel",))["fwd_wgmma_kernel"])
+    if extra["route"] != want_route:
+        raise AssertionError(f"fused_chain {name}: route {extra['route']}, "
+                             f"expected {want_route}")
+    # cuDNN's product alone on the materialised activation: the GEMM half's
+    # yardstick
+    extra["cudnn_device_ms"] = device_ms(
+        lambda: conv2d_nhwc(act, wd, 1, (1, 1, 1, 1)))
     return dict(kernel="fused_chain_fwd", layer=name, dtype=dtype_name,
                 shape=[BATCH, hw, hw, cin, cout], max_abs_err=err,
-                **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by)
+                **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by,
+                **extra, **({} if per_step is None else {"per_step": per_step}))
 
 
 def _conv_inputs(torch, dev, hw, cin, cout, dt, seed):
@@ -469,9 +499,14 @@ def im2col_row(torch, x, kp, common):
                 library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name):
-    """K5 and K6 at one shape."""
+def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name,
+                           want_route, per_step=None):
+    """K5 (the GEMM route or the earlier kernel, as `fused_chain.gemm_route`
+    decides; fails unless it is `want_route`; two launches equal bits, with
+    its plan, kernels' device times and cuDNN's dgrad alone on the route)
+    and K6 at one shape."""
     from cpg_tpu_torch.ops import fused_chain as fc
+    from cpg_tpu_torch.ops import masked_matmul as mm
 
     dt = getattr(torch, dtype_name)
     gen, x, w, gy = _conv_inputs(torch, dev, hw, cin, cout, dt, SEED + 5)
@@ -481,7 +516,8 @@ def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name):
     elt = x.element_size()
     flops = 2.0 * BATCH * hw * hw * 9 * cin * cout
     gt, xt = gy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
-    common = dict(layer=name, dtype=dtype_name, shape=[BATCH, hw, hw, cin, cout])
+    common = dict(layer=name, dtype=dtype_name, shape=[BATCH, hw, hw, cin, cout],
+                  **({} if per_step is None else {"per_step": per_step}))
 
     kern = lambda: fc.fused_bwd_dx(x, a, b, wd, gy, dt)
     plain = lambda: fc.fused_bwd_dx_plain(x, a, b, wd, gy, dt)
@@ -493,7 +529,8 @@ def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name):
         dm = torch.where(xf * a + b > 0, dact.float(), 0.0)
         return (dm * a).to(dt), (dm * xf).sum((0, 1, 2)), dm.sum((0, 1, 2))
 
-    got, want = kern(), plain()
+    got = twice(torch, kern, f"fused_chain_bwd_dx {name}")
+    want = plain()
     err = max(compare(got[0], want[0], dtype_name, f"fused_chain_bwd_dx dx {name}"),
               compare(got[1], want[1], "float32", f"fused_chain_bwd_dx da {name}",
                       rel=AFFINE_SUM_TOL),
@@ -501,8 +538,24 @@ def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name):
                       rel=AFFINE_SUM_TOL))
     b_ms, b_by = bound((x.numel() + gy.numel() + wd.numel() + x.numel()) * elt,
                        flops, dtype_name)
+    extra = dict(route="k5")
+    if fc.gemm_route(x, wd, dt):
+        plan = mm.fused_dx_plan(BATCH, hw, hw, cin, cout, mm._sms(0))
+        parts = kernel_device_ms(kern, ("gemm_tn_bf16_kernel",
+                                        "colsum_kernel"))
+        extra = dict(route="gemm", plan=[list(p) if isinstance(p, tuple)
+                                         else p for p in plan],
+                     gemm_kernel_device_ms=parts["gemm_tn_bf16_kernel"],
+                     colsum_device_ms=parts["colsum_kernel"])
+    if extra["route"] != want_route:
+        raise AssertionError(f"fused_chain_bwd_dx {name}: route "
+                             f"{extra['route']}, expected {want_route}")
+    # cuDNN's dgrad alone: the GEMM half's yardstick
+    extra["cudnn_device_ms"] = device_ms(lambda: torch.nn.grad.conv2d_input(
+        xt.shape, wd.permute(3, 2, 0, 1), gt, 1, 1))
     rows = [dict(kernel="fused_chain_bwd_dx", **common, max_abs_err=err,
-                 **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by)]
+                 **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by,
+                 **extra)]
 
     kern = lambda: fc.fused_bwd_dw(x, a, b, gy, dt)
     plain = lambda: fc.fused_bwd_dw_plain(x, a, b, gy, dt)
@@ -1099,13 +1152,19 @@ def main() -> int:
                                    "float32", "binary")
     for name, hw, cin, cout in CHAIN_SHAPES:
         rows.append(fused_chain_phase(torch, dev, name, hw, cin, cout,
-                                      "bfloat16"))
+                                      "bfloat16", "gemm"))
         rows += fused_chain_bwd_phases(torch, dev, name, hw, cin, cout,
-                                       "bfloat16")
+                                       "bfloat16", "gemm")
+    # conv3 at width 0.125 holds the earlier bf16 K4 and K5 (off the route:
+    # 16 channels), which width-0.125 seams conv1-6 run
+    rows.append(fused_chain_phase(torch, dev, "conv3_w0.125", 16, 16, 16,
+                                  "bfloat16", "k4", per_step=0))
+    rows += fused_chain_bwd_phases(torch, dev, "conv3_w0.125", 16, 16, 16,
+                                   "bfloat16", "k5", per_step=0)
     rows.append(fused_chain_phase(torch, dev, "conv3", 16, 128, 128,
-                                  "float32"))
+                                  "float32", "k4"))
     rows += fused_chain_bwd_phases(torch, dev, "conv3", 16, 128, 128,
-                                   "float32")
+                                   "float32", "k5")
     for name, n, t, h, hd, causal, dname, per_step in FLASH_SHAPES:
         rows += flash_phases(torch, dev, name, n, t, h, hd, causal, dname,
                              per_step)
@@ -1159,7 +1218,8 @@ def main() -> int:
     # conv K1 and K2: the GEMM route's file (conv2/4/7/10), then the old
     # kernel's (conv0, narrow widths, f32) under "sources"; K3 likewise:
     # the wgrad GEMM's file (conv0 by im2col, conv2/4/7/10, dense bf16),
-    # then the old kernel's (narrow widths, f32)
+    # then the old kernel's (narrow widths, f32); K5: its file, then the
+    # GEMM's header that holds its route's kernel
     meta = {
         "masked_conv_fwd": (("cpg_tpu_torch/csrc/masked_matmul.cu",
                              "cpg_tpu_torch/csrc/masked_conv_fwd.cu"),
@@ -1176,7 +1236,8 @@ def main() -> int:
                                "cpg_tpu/ops/pallas/masked_matmul.py:244"),
         "fused_chain_fwd": ("cpg_tpu_torch/csrc/fused_chain_fwd.cu",
                             "cpg_tpu/ops/pallas/fused_chain.py:134"),
-        "fused_chain_bwd_dx": ("cpg_tpu_torch/csrc/fused_chain_bwd_dx.cu",
+        "fused_chain_bwd_dx": (("cpg_tpu_torch/csrc/fused_chain_bwd_dx.cu",
+                                "cpg_tpu_torch/csrc/tma_gemm.cuh"),
                                "cpg_tpu/ops/pallas/fused_chain.py:233"),
         "fused_chain_bwd_dw": ("cpg_tpu_torch/csrc/fused_chain_bwd_dw.cu",
                                "cpg_tpu/ops/pallas/fused_chain.py:276"),

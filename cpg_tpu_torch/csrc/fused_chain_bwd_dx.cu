@@ -3,49 +3,84 @@
 // Replaces: cpg_tpu/ops/pallas/fused_chain.py `_bwd_pallas` through
 // `_bwd_dx_kernel` (the TPU kernel behind the custom VJP of
 // `fused_affine_relu_conv`), and the XLA backward `_fused_bwd_xla` that JAX
-// used for the 2x2 seams: this kernel takes every shape the forward kernel
-// takes, so no seam switches implementation.
+// used for the 2x2 seams: every shape the forward takes has a kernel here,
+// so no seam switches to a plain version.
 //
 //   dact = conv_transpose(g, W)          (dot-dtype operands, f32 sums)
 //   dmasked = dact * 1[a*x + b > 0]
 //   dx = dmasked * a  (x's dtype),  da = sum dmasked * x,  db = sum dmasked
 //
-// dact is an implicit-GEMM dgrad (conv_bwd.cuh) with stride 1 and padding 1:
-// the A tile gathers g around each pixel, zero outside its image, the B
-// tile is W read transposed. The ReLU mask is recomputed from x in the
-// epilogue, so neither the activation nor dact reaches device memory. The
-// TPU kernel summed da and db across its sequential grid; here each block
-// writes its 128-pixel column sums to an f32 workspace (a fixed-order warp
-// shuffle and a fixed-order sum over the block's four warp rows), and a
-// second kernel sums the blocks in order: two runs give the same bits.
+// What bounds it on the H100: operations at every VGG16-BN seam at batch
+// 256 (4.8-19.3 GFLOP against 3-50 MB of x, g and dx). Two routes, chosen
+// by ops/fused_chain.py before the launch (`masked_conv.conv_route`):
 //
-// What bounds it on the H100: compute at every VGG16-BN seam at batch 256.
-// bf16 needs Cin and Cout in multiples of 8 (the forward kernel's
-// predicate); f32 takes any shape.
+// * bf16 with Cin and Cout multiples of 64 on a grid that `conv_box` tiles
+//   (every VGG16-BN seam at width 1.0): `fused_chain_bwd_dx_gemm_bf16`.
+//   dact is the persistent TMA + wgmma GEMM of tma_gemm.cuh on its
+//   CONV_DGRAD walk, unchanged: A is g's mirrored per-tap 4-D TMA box (its
+//   zero fill is the padding), B the seam's bf16 HWIO weight as it is,
+//   through a 3-D (Cout, Cin, taps) map; the output tile is 128 input
+//   pixels x BN input channels. Its epilogue (EPI_FUSED_DX) is K5's: the
+//   producer loads x's 128 x BN tile by TMA on a barrier of its own, once
+//   the ring holds the tile's first stages; the consumers recompute pre =
+//   a*x + b with the product and the sum rounded apart (`__fmul_rn`,
+//   `__fadd_rn`: nvcc would contract x*a + b into an FMA, and the mask must
+//   be the plain version's bit for bit), write dx = bf16(dm * a) through
+//   the staging tile and a TMA store, and sum the tile's columns of dm * x
+//   and dm in a fixed order (the thread's two rows, a butterfly over the
+//   lanes that share columns, the 8 warps in order through shared memory)
+//   into an f32 workspace (2, tiles, Cin). Plan (tile width, ring depth,
+//   grid): ops/masked_matmul.py `fused_dx_plan`.
+// * every other shape (f32, narrow widths): `fused_chain_bwd_dx_bf16` /
+//   `_f32`, the implicit-GEMM dgrad of conv_bwd.cuh (mma.sync, the A tile
+//   gathering g around each pixel, W read transposed) with the mask in its
+//   epilogue and 128-pixel column partials.
+//
+// Either way `colsum_kernel` then sums the tiles' partials in tile order:
+// no float atomics, two runs give the same bits. Neither the activation nor
+// dact reaches device memory.
 #include "conv_bwd.cuh"
+#include "tma_gemm.cuh"
 
 using namespace cpg::bwd;
+namespace gm = cpg::gemm;
 
 namespace {
 
-// out[which][c] = sum over tiles of ws[which][tile][c], tiles in order
+// out[which][c] = sum over tiles of ws[which][tile][c] in a fixed order:
+// thread row y sums tiles y, y + 32, ... in order (eight loads in flight),
+// then row 0 sums the 32 rows in order
+constexpr int COLSUM_ROWS = 32;
+
 __global__ void colsum_kernel(const float* __restrict__ ws_da,
                               const float* __restrict__ ws_db, int tiles,
                               int cin, float* __restrict__ da,
                               float* __restrict__ db) {
-  __shared__ float part[8][33];
+  __shared__ float part[COLSUM_ROWS][33];
   const float* ws = blockIdx.y ? ws_db : ws_da;
   const int c = blockIdx.x * 32 + threadIdx.x;
   float v = 0.f;
-  if (c < cin)
-    for (int t = threadIdx.y; t < tiles; t += 8) v += ws[(long long)t * cin + c];
+  if (c < cin) {
+#pragma unroll 8
+    for (int t = threadIdx.y; t < tiles; t += COLSUM_ROWS)
+      v += ws[(long long)t * cin + c];
+  }
   part[threadIdx.y][threadIdx.x] = v;
   __syncthreads();
   if (threadIdx.y == 0 && c < cin) {
     float sum = 0.f;
-    for (int r = 0; r < 8; ++r) sum += part[r][threadIdx.x];
+    for (int r = 0; r < COLSUM_ROWS; ++r) sum += part[r][threadIdx.x];
     (blockIdx.y ? db : da)[c] = sum;
   }
+}
+
+int launch_colsum(const void* ws_da, const void* ws_db, int tiles, int cin,
+                  void* da, void* db, void* stream) {
+  colsum_kernel<<<dim3((unsigned)((cin + 31) / 32), 2), dim3(32, COLSUM_ROWS), 0,
+                  (cudaStream_t)stream>>>((const float*)ws_da,
+                                          (const float*)ws_db, tiles, cin,
+                                          (float*)da, (float*)db);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, typename K>
@@ -67,15 +102,21 @@ int launch(K kernel, const void* x, const void* g, const void* a,
   kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(p, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  colsum_kernel<<<dim3((unsigned)((cin + 31) / 32), 2), dim3(32, 8), 0,
-                  (cudaStream_t)stream>>>((const float*)ws_da,
-                                          (const float*)ws_db, (int)grid.x,
-                                          cin, (float*)da, (float*)db);
-  return (int)cudaGetLastError();
+  return launch_colsum(ws_da, ws_db, (int)grid.x, cin, da, db, stream);
 }
 
 bool bad_shape(int n, int h, int wd, int cin, int cout) {
   return n < 1 || h < 1 || wd < 1 || cin < 1 || cout < 1;
+}
+
+template <int BN>
+int launch_route(const CUtensorMap& mg, const CUtensorMap& mw,
+                 const CUtensorMap& mdx, const CUtensorMap& mx, int m,
+                 int cin, int cout, int stages, int grid,
+                 const gm::ConvWalk& cw, const gm::FusedDx& fd,
+                 cudaStream_t st) {
+  return gm::launch_gemm<BN, gm::CONV_DGRAD, gm::EPI_FUSED_DX>(
+      mg, mw, mdx, mx, m, 9 * cout, cin, stages, grid, cw, fd, st);
 }
 
 }  // namespace
@@ -107,6 +148,54 @@ int fused_chain_bwd_dx_f32(const void* x, const void* g, const void* a,
   if (bad_shape(n, h, wd, cin, cout)) return (int)cudaErrorInvalidValue;
   return launch<float>(dgrad_f32_kernel<true>, x, g, a, b, w, dx, ws_da,
                        ws_db, da, db, n, h, wd, cin, cout, stream);
+}
+
+// The GEMM route (see the top): x (N,H,W,Cin), g (N,H,W,Cout), w
+// (3,3,Cin,Cout) and dx (N,H,W,Cin) bf16; a, b, da, db (Cin,) f32; ws_da,
+// ws_db (ceil(N*H*W / 128), Cin) f32 scratch. Cin and Cout multiples of
+// 64, bases 16-byte aligned; the 128-pixel tile is the box (64, W, box_h,
+// box_n) of ops/masked_conv.py `conv_box`; bn (64 or 128), stages and
+// grid from ops/masked_matmul.py `fused_dx_plan`. Returns
+// cudaGetLastError().
+int fused_chain_bwd_dx_gemm_bf16(const void* x, const void* g, const void* a,
+                                 const void* b, const void* w, void* dx,
+                                 void* ws_da, void* ws_db, void* da, void* db,
+                                 int n, int h, int wd, int cin, int cout,
+                                 int box_h, int box_n, int bn, int stages,
+                                 int grid, void* stream) {
+  if (bad_shape(n, h, wd, cin, cout) || cin % gm::BK || cout % gm::BK ||
+      wd * box_h * box_n != gm::BM ||
+      gm::bad_plan(bn, stages, grid, gm::EPI_FUSED_DX))
+    return (int)cudaErrorInvalidValue;
+  const int m = n * h * wd;
+  const long long gdims[4] = {cout, wd, h, n};
+  const int gbox[4] = {gm::BK, wd, box_h, box_n};
+  const long long wdims[3] = {cout, cin, 9};  // w as (taps, Cin, Cout)
+  const int wbox[3] = {gm::BK, bn, 1};
+  CUtensorMap mg, mw, mdx, mx;
+  if (!cpg::hopper::make_map_nd(&mg, g, 4, gdims, gbox) ||
+      !cpg::hopper::make_map_nd(&mw, w, 3, wdims, wbox) ||
+      !gm::make_map(&mdx, dx, m, cin, 64) || !gm::make_map(&mx, x, m, cin, 64))
+    return (int)cudaErrorInvalidValue;
+  const gm::ConvWalk cw{cout / gm::BK, 3, h * wd, wd, 1, 1};
+  const gm::FusedDx fd{(const float*)a, (const float*)b, (float*)ws_da,
+                       (float*)ws_db, cin};
+  cudaStream_t st = (cudaStream_t)stream;
+  int err;
+  switch (bn) {
+    case 64:
+      err = launch_route<64>(mg, mw, mdx, mx, m, cin, cout, stages, grid, cw,
+                             fd, st);
+      break;
+    case 128:
+      err = launch_route<128>(mg, mw, mdx, mx, m, cin, cout, stages, grid,
+                              cw, fd, st);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  return launch_colsum(ws_da, ws_db, (m + gm::BM - 1) / gm::BM, cin, da, db,
+                       stream);
 }
 
 }  // extern "C"

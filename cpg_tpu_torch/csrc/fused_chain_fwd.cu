@@ -1,4 +1,4 @@
-// Fused BN-affine + ReLU + 3x3 SAME convolution forward (stride 1).
+// Fused BN-affine + ReLU + 3x3 SAME convolution forward (stride 1), K4.
 //
 // Replaces: cpg_tpu/ops/pallas/fused_chain.py `_fwd_pallas` / `_fused_kernel`
 // (the TPU forward kernel behind `fused_affine_relu_conv`).
@@ -9,10 +9,49 @@
 // BN -> ReLU -> conv seams read the previous conv's output once and never
 // write the normalised activation to device memory.
 //
-// Tiling. A block owns `rows` consecutive image rows of the flattened
-// (N*H, W) row space (rows = 128 / W, so one tile is up to 128 output pixels
-// and may span several small images) and a 64-wide slice of Cout. Per Cin
-// chunk of 32 it
+// What bounds it on the H100: operations at every VGG16-BN seam at batch
+// 256 (4.8-19.3 GFLOP against 3-34 MB of x and y). Two routes, chosen by
+// ops/fused_chain.py before the launch (`fwd_route`):
+//
+// * bf16 with Cin and Cout multiples of 64 on a grid that `conv_box` tiles
+//   and whose halo tiles fit shared memory (every VGG16-BN seam at width
+//   1.0; not 1x1): `fused_chain_fwd_gemm_bf16`, an
+//   implicit GEMM on Hopper's TMA and wgmma. TMA can land only raw x, and
+//   SAME padding comes after the activation (a padded position of the
+//   activation is 0, not relu(b)), so the A operand cannot be TMA's zero-
+//   filled per-tap box fed straight to wgmma. Instead, for each (128-pixel
+//   output tile, 64-channel block), one producer thread loads one 4-D TMA box
+//   of raw x with its halo, (64, W + 2, rows + 2, images) at (c0, -1, oh0 -
+//   1, n0): images are a box dimension, so a tile of whole images gets a halo
+//   per image. The two consumer warpgroups activate it once, in place:
+//   relu(a*x + b) with the product and the sum rounded apart (`__fmul_rn`,
+//   `__fadd_rn`; nvcc would contract them into an FMA) and rounded once to
+//   bf16, 0 at every halo position outside its image; a 16-byte chunk of
+//   pixel p holds channels 8 * (chunk ^ (p & 7)) under the 128-byte swizzle.
+//   The nine taps then read shifted pixel rows of that tile with ldmatrix:
+//   their rows have pitch W + 2 and shift by single pixels, which no wgmma
+//   descriptor addresses, so the product is wgmma with A from registers
+//   (tma_wgmma.cuh `wgmma_bf16_ra`), the fragments of the next tap loaded
+//   while this tap's group runs (two register sets). B is the weight (9 *
+//   Cin, Cout) read MN-major: a ring of per-tap boxes of 64 input x BN output
+//   channels (`smem_desc_mn`, the transpose flag set; tma_wgmma.cuh `Ring`,
+//   as the other GEMMs), so no transposed copy is written. The activated halo tiles are double-buffered apart from the
+//   ring and released after their nine taps. The activation runs beside the
+//   products: each step (tile, channel block) activates the next step's halo
+//   in slices, one after each of its last five taps while that tap's wgmma
+//   group runs (the producer issues that halo after the step's fifth weight
+//   box, when the buffer's previous step is done). The epilogue rounds to
+//   bf16 through the swizzled staging tile and stores by TMA (tma_gemm.cuh
+//   `stage_store`). Whole K a tile, no split, no atomics. Plan (tile width,
+//   ring depth, halo bytes, grid): ops/masked_matmul.py `fused_fwd_plan`,
+//   whose shared-memory sum is `fwd_smem_bytes` below.
+// * every other shape (f32, narrow widths): the kernels below the route,
+//   described next.
+//
+// Off the route: a block owns `rows` consecutive image rows of the
+// flattened (N*H, W) row space (rows = 128 / W, so one tile is up to 128
+// output pixels and may span several small images) and a 64-wide slice of
+// Cout. Per Cin chunk of 32 it
 //   1. stages the rows g0-1 .. g0+rows (halo included) in shared memory as
 //      act = relu(a*x + b), computed in f32 (multiply and add rounded
 //      separately, as the plain version does) and cast to the dot dtype,
@@ -22,7 +61,7 @@
 //   3. after the last chunk, writes y in the dot dtype.
 // act exists only in shared memory.
 //
-// Pitfalls this source handles:
+// Pitfalls these sources handle:
 //   * Halo positions outside the image are 0 in act, not relu(b): SAME
 //     padding applies after the activation. A tap whose neighbour lies
 //     outside its image (above/below, left/right, or in the next image of a
@@ -38,16 +77,13 @@
 //     effective weight cast to the dot dtype by the wrapper, y is in the dot
 //     dtype.
 //
-// What bounds it on the H100: at batch 256 the 32x32 seam moves more bytes
-// than it computes for; every other seam is compute-bound. The bf16 kernel
-// (the serving path) runs on the tensor cores with mma.sync m16n8k16 and
-// f32 accumulation, loads its fragments with ldmatrix, copies the weight
-// slice with 16-byte cp.async and stages act with 16-byte loads issued
-// together. Each chunk still stages, synchronises and computes in turn (no
-// multi-stage ring, no wgmma), so it runs well below the tensor-core peak;
-// see PERF.md for its times. The f32 kernel is exact f32 FMA with scalar
-// staging, for f32 evaluation.
+// The off-route bf16 kernel runs on the tensor cores with mma.sync
+// m16n8k16 and f32 accumulation, loads its fragments with ldmatrix, copies
+// the weight slice with 16-byte cp.async and stages act with 16-byte loads
+// issued together; each chunk stages, synchronises and computes in turn.
+// The f32 kernel is exact f32 FMA with scalar staging, for f32 evaluation.
 #include "common.cuh"
+#include "tma_gemm.cuh"
 
 using bf16 = __nv_bfloat16;
 
@@ -341,6 +377,326 @@ bool bad_shape(int n, int h, int wd, int cin, int cout) {
 
 }  // namespace
 
+// ---------------------------------------------------- the GEMM route ----
+namespace k4 {
+
+namespace gm = cpg::gemm;
+using namespace cpg::hopper;
+
+constexpr int BM = gm::BM;            // output pixels a tile
+constexpr int BK = gm::BK;            // input channels a halo tile and a tap
+constexpr int CONSUMERS = gm::CONSUMERS;
+constexpr int THREADS = gm::THREADS;  // two consumer WGs + a producer warp
+constexpr int HALOS = 2;              // activated halo tiles in flight
+// the taps from which a step activates the next step's halo, a slice
+// after each (the producer loads that halo after this tap's weights)
+constexpr int ACT_FIRST_TAP = 4;
+
+// One seam on the route: the 128-pixel output tile is `rows` rows of w
+// pixels of `imgs` images; its halo box holds halo_px = (w + 2) * (rows +
+// 2) * imgs pixels of 128 B, in a buffer of halo_bytes (rounded up to the
+// swizzle's 1,024 B); magic_pw and magic_ph divide by w + 2 and rows + 2
+// (`div_small`).
+struct Geo {
+  int n, h, w, cin, cout, rows, imgs, halo_px, halo_bytes, magic_pw,
+      magic_ph;
+};
+
+// dynamic shared memory: 1 KB of slack to align to 1,024 bytes, the halo
+// tiles, the ring of bn x 64 weight stages, the output staging (as
+// tma_gemm.cuh's), a full and an empty barrier a stage and a halo tile
+__host__ __device__ constexpr int fwd_smem_bytes(int bn, int stages,
+                                                 int halo_bytes) {
+  return 1024 + HALOS * halo_bytes + stages * bn * BK * 2 +
+         CONSUMERS * bn * 128 + 16 * (stages + HALOS);
+}
+
+// relu(a*x + b) of the eight channels of one 16-byte chunk, the product and
+// the sum rounded apart, rounded once to bf16
+__device__ __forceinline__ uint4 act8(uint4 v, const float (&av)[8],
+                                      const float (&bv)[8]) {
+  uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = gm::bf16x2_to_float2(u[i]);
+    const __nv_bfloat162 r = __floats2bfloat162_rn(
+        fmaxf(__fadd_rn(__fmul_rn(f.x, av[2 * i]), bv[2 * i]), 0.f),
+        fmaxf(__fadd_rn(__fmul_rn(f.y, av[2 * i + 1]), bv[2 * i + 1]), 0.f));
+    u[i] = *reinterpret_cast<const uint32_t*>(&r);
+  }
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// floor(p / d) for 0 <= p < 2,048 and 1 <= d <= 256, by a multiply with
+// the magic number m = floor(2^20 / d) + 1: the error p (m - 2^20 / d) /
+// 2^20 < 1 / 512 never carries past the next multiple of 1 / d
+__host__ __device__ constexpr int div_magic(int d) {
+  return (1 << 20) / d + 1;
+}
+__device__ __forceinline__ int div_small(int p, int magic) {
+  return (p * magic) >> 20;
+}
+
+// One 16-byte chunk of the halo tile activated in place (0 outside the
+// image), logical chunk lc of pixel p.
+__device__ __forceinline__ void activate_chunk(uint32_t buf, const Geo& g,
+                                               const float (&av)[8],
+                                               const float (&bv)[8], int lc,
+                                               int p, int img, int oh0) {
+  const int pw = g.w + 2;
+  const int q = div_small(p, g.magic_pw), col = p - q * pw;
+  const int i = div_small(q, g.magic_ph), ih = oh0 - 1 + q - i * (g.rows + 2);
+  const bool in = col >= 1 && col <= g.w && ih >= 0 && ih < g.h &&
+                  img + i < g.n;
+  const uint32_t at = buf + p * 128 + ((lc ^ (p & 7)) << 4);
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(at));
+  v = in ? act8(v, av, bv) : make_uint4(0u, 0u, 0u, 0u);
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(at),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// a and b of the eight channels of logical chunk lc of channel block c0
+__device__ __forceinline__ void load_affine(float (&av)[8], float (&bv)[8],
+                                            const float* __restrict__ a,
+                                            const float* __restrict__ b,
+                                            int c0, int lc) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    av[e] = __ldg(a + c0 + 8 * lc + e);
+    bv[e] = __ldg(b + c0 + 8 * lc + e);
+  }
+}
+
+// The consumers activate the halo tile at buf in place, activation rows k0
+// .. k1 - 1 of 32 pixels: consumer thread c takes logical chunk c % 8
+// (channels c0 + 8 (c % 8) ..; a and b in av, bv) of pixels 32 k + c / 8;
+// positions outside their image (columns -1 and w, rows outside 0 .. h -
+// 1, images past n) become 0.
+__device__ __forceinline__ void activate(uint32_t buf, const Geo& g,
+                                         const float (&av)[8],
+                                         const float (&bv)[8], int lc,
+                                         int k0, int k1, int img, int oh0) {
+  for (int k = k0; k < k1; ++k) {
+    const int p = 32 * k + (int)threadIdx.x / 8;
+    if (p < g.halo_px) activate_chunk(buf, g, av, bv, lc, p, img, oh0);
+  }
+  // the next write to this buffer is TMA's (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The A fragments of one tap (4 k16 steps of 64 channels) for this lane's
+// ldmatrix row: halo pixel p, 16-byte chunk 2 kk + lane / 16 under the
+// swizzle.
+__device__ __forceinline__ void load_tap(uint32_t (&fr)[4][4], uint32_t buf,
+                                         int p) {
+  const int hi = (threadIdx.x % 32) >> 4;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t at = buf + p * 128 + (((2 * kk + hi) ^ (p & 7)) << 4);
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(fr[kk][0]), "=r"(fr[kk][1]), "=r"(fr[kk][2]), "=r"(fr[kk][3])
+        : "r"(at)
+        : "memory");
+  }
+}
+
+// Keep a tap's fragment registers where the compiler put them until here:
+// a wgmma reads them after its issue, so they must not be reused before
+// the group that reads them is done.
+__device__ __forceinline__ void hold(uint32_t (&fr)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(fr[kk][i])::"memory");
+}
+
+// The producer's load of step k's halo box (tile t, channel block cb) into
+// buffer k % 2, once the consumers are done with that buffer's last step
+__device__ __forceinline__ void load_halo(const Geo& geo,
+                                          const CUtensorMap* map,
+                                          uint32_t halo, uint32_t hfull,
+                                          uint32_t hempty, int tiles_m, int k,
+                                          int t, int cb) {
+  const int hb = k & 1, hw = geo.h * geo.w;
+  const int m0 = (t % tiles_m) * BM, img = m0 / hw;
+  const int oh0 = (m0 - img * hw) / geo.w;
+  mbar_wait(hempty + 8 * hb, ((k >> 1) & 1) ^ 1);
+  mbar_expect_tx(hfull + 8 * hb, geo.halo_px * 128);
+  tma_load_4d(halo + hb * geo.halo_bytes, map, cb * BK, -1, oh0 - 1, img,
+              hfull + 8 * hb);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
+                 const __grid_constant__ CUtensorMap tma_w,
+                 const __grid_constant__ CUtensorMap tma_y,
+                 const float* __restrict__ a, const float* __restrict__ b,
+                 Geo geo, int stages) {
+  constexpr int STAGE = BN * BK * 2;  // BN / 64 boxes of 64 k x 64 n
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t halo = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t ring = halo + HALOS * geo.halo_bytes;
+  const uint32_t staging = ring + stages * STAGE;
+  const uint32_t bars = staging + CONSUMERS * BN * 128;
+  const Ring pipe{bars, stages};
+  const uint32_t hfull = bars + 16 * stages, hempty = hfull + 8 * HALOS;
+  const int hw = geo.h * geo.w, M = geo.n * hw;
+  const int tiles_m = (M + BM - 1) / BM;
+  const int tiles = tiles_m * ((geo.cout + BN - 1) / BN);
+  const int cblocks = geo.cin / BK;
+
+  if (threadIdx.x == 0) {
+    pipe.init(CONSUMERS);
+    for (int i = 0; i < HALOS; ++i) {
+      mbar_init(hfull + 8 * i, 1);
+      mbar_init(hempty + 8 * i, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // A block's steps are (tile, channel block) pairs in order: tiles
+  // blockIdx.x, + gridDim.x, ..., each over its cblocks; step k uses halo
+  // buffer k % 2 for the (k / 2)-th time.
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // producer warp: one thread issues every TMA load of the block. The
+    // next step's halo goes out after this step's fifth weight box: by
+    // then the consumers are done with the step before (its buffer), and
+    // they activate the halo during this step's last taps.
+    if (threadIdx.x != CONSUMERS * 128) return;
+    RingPos pos;
+    int k = 0;
+    if (blockIdx.x < tiles)
+      load_halo(geo, &tma_x, halo, hfull, hempty, tiles_m, 0, blockIdx.x, 0);
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int n0 = (t / tiles_m) * BN;
+      for (int cb = 0; cb < cblocks; ++cb, ++k) {
+        for (int tap = 0; tap < 9; ++tap) {
+          const uint32_t full = pipe.acquire(pos, STAGE);
+          for (int q = 0; q < BN / 64; ++q)
+            tma_load_2d(ring + pos.s * STAGE + q * 8192, &tma_w, n0 + 64 * q,
+                        tap * geo.cin + cb * BK, full);
+          pos.advance(stages);
+          if (tap == ACT_FIRST_TAP) {
+            const bool last = cb + 1 == cblocks;
+            const int tn = last ? t + gridDim.x : t;
+            if (tn < tiles)
+              load_halo(geo, &tma_x, halo, hfull, hempty, tiles_m, k + 1, tn,
+                        last ? 0 : cb + 1);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns output rows 64 wg .. 64 wg + 63 of a tile;
+  // this lane's ldmatrix row r and its halo pixel at the centre tap
+  const int lane = threadIdx.x % 32, lc = threadIdx.x % 8;
+  const int r = 64 * wg + 16 * ((threadIdx.x / 32) % 4) + (lane & 15);
+  const int pw = geo.w + 2;
+  const int rq = r / geo.w, ri = rq / geo.rows;
+  const int p0 = (ri * (geo.rows + 2) + rq - ri * geo.rows + 1) * pw +
+                 r % geo.w + 1;
+  const int kpx = (geo.halo_px + 31) / 32;  // activation rows of 32 pixels
+  const bool leader = threadIdx.x % 128 == 0;
+  float acc[BN / 2], av[8], bv[8];
+  if (blockIdx.x < tiles) {  // the first step's halo, all of it
+    const int img = ((blockIdx.x % tiles_m) * BM) / hw;
+    const int oh0 = ((blockIdx.x % tiles_m) * BM - img * hw) / geo.w;
+    mbar_wait(hfull, 0);
+    load_affine(av, bv, a, b, 0, lc);
+    activate(halo, geo, av, bv, lc, 0, kpx, img, oh0);
+    named_sync(3, 256);
+  }
+  RingPos pos;
+  int k = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t % tiles_m) * BM, n0 = (t / tiles_m) * BN;
+    for (int cb = 0; cb < cblocks; ++cb, ++k) {
+      const uint32_t buf = halo + (k & 1) * geo.halo_bytes;
+      const uint32_t nbuf = halo + ((k + 1) & 1) * geo.halo_bytes;
+      // the next step, whose halo this step activates during its last taps
+      const bool last = cb + 1 == cblocks;
+      const int tn = last ? t + gridDim.x : t, cbn = last ? 0 : cb + 1;
+      const bool next = tn < tiles;
+      const int mn = (tn % tiles_m) * BM, imgn = mn / hw;
+      const int ohn = (mn - imgn * hw) / geo.w;
+      uint32_t fr[2][4][4];
+      load_tap(fr[0], buf, p0 - pw - 1);
+      int prev = 0;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        pipe.wait(pos);
+        const uint64_t db = smem_desc_mn(ring + pos.s * STAGE, 8192, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // 16 k rows = 2,048 B
+          wgmma_bf16_ra<BN, 1>(acc, fr[tap & 1][kk], db + 128 * kk,
+                               (cb | tap | kk) != 0);
+        wgmma_commit();
+        if (tap > 0) {
+          // the previous tap's group is done: its stage and registers free
+          wgmma_wait<1>();
+          hold(fr[(tap + 1) & 1]);
+          if (leader) pipe.release(prev);
+        }
+        prev = pos.s;
+        pos.advance(stages);
+        // while this tap's group runs, a slice of the next step's halo
+        if (next && tap >= ACT_FIRST_TAP) {
+          constexpr int SLICES = 9 - ACT_FIRST_TAP;
+          if (tap == ACT_FIRST_TAP) {
+            mbar_wait(hfull + 8 * ((k + 1) & 1), ((k + 1) >> 1) & 1);
+            load_affine(av, bv, a, b, cbn * BK, lc);
+          }
+          const int sl = tap - ACT_FIRST_TAP;
+          activate(nbuf, geo, av, bv, lc, sl * kpx / SLICES,
+                   (sl + 1) * kpx / SLICES, imgn, ohn);
+        }
+        if (tap < 8) {
+          const int nt = tap + 1;
+          load_tap(fr[nt & 1], buf, p0 + (nt / 3 - 1) * pw + nt % 3 - 1);
+        }
+      }
+      wgmma_wait<0>();
+      hold(fr[0]);
+      if (leader) {
+        // every ldmatrix of this warpgroup came before its finished groups
+        pipe.release(prev);
+        mbar_arrive(hempty + 8 * (k & 1));
+      }
+      if (next) named_sync(3, 256);  // both halves of the next halo are in
+    }
+    gm::stage_store<BN>(acc, staging + wg * BN * 128, &tma_y, n0,
+                        m0 + 64 * wg, wg);
+  }
+  if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+template <int BN>
+int launch_fwd(const CUtensorMap& mx, const CUtensorMap& mw,
+               const CUtensorMap& my, const float* a, const float* b,
+               const Geo& geo, int stages, int grid, cudaStream_t st) {
+  const int smem = fwd_smem_bytes(BN, stages, geo.halo_bytes);
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  fwd_wgmma_kernel<BN><<<grid, THREADS, smem, st>>>(mx, mw, my, a, b, geo,
+                                                    stages);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k4
+
 extern "C" {
 
 // x (N,H,W,Cin) bf16, a/b (Cin,) f32, w (3,3,Cin,Cout) bf16, y (N,H,W,Cout)
@@ -364,4 +720,46 @@ int fused_chain_fwd_f32(const void* x, const void* a, const void* b,
                        b, w, y, n, h, wd, cin, cout, stream);
 }
 
+// The GEMM route (see the top): x (N,H,W,Cin), w (3,3,Cin,Cout) and y
+// (N,H,W,Cout) bf16, a, b (Cin,) f32; Cin and Cout multiples of 64, bases
+// 16-byte aligned. The 128-pixel tile is the box (64, W, box_h, box_n) of
+// ops/masked_conv.py `conv_box`; bn (64 or 128), stages and grid from
+// ops/masked_matmul.py `fused_fwd_plan`. Returns a cudaError_t code.
+int fused_chain_fwd_gemm_bf16(const void* x, const void* a, const void* b,
+                              const void* w, void* y, int n, int h, int wd,
+                              int cin, int cout, int box_h, int box_n, int bn,
+                              int stages, int grid, void* stream) {
+  namespace gm = cpg::gemm;
+  const int halo_px = (wd + 2) * (box_h + 2) * box_n;
+  const k4::Geo geo{n,
+                    h,
+                    wd,
+                    cin,
+                    cout,
+                    box_h,
+                    box_n,
+                    halo_px,
+                    (halo_px * 128 + 1023) / 1024 * 1024,
+                    k4::div_magic(wd + 2),
+                    k4::div_magic(box_h + 2)};
+  if (n < 1 || h < 1 || cin < 1 || cout < 1 || cin % k4::BK ||
+      cout % k4::BK || wd * box_h * box_n != k4::BM || h % box_h ||
+      (box_n > 1 && box_h != h) || wd + 2 > 256 || box_h + 2 > 256 ||
+      halo_px > 2048 ||
+      stages < 2 || grid <= 0 || (bn != 64 && bn != 128) ||
+      k4::fwd_smem_bytes(bn, stages, geo.halo_bytes) > gm::SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const long long xdims[4] = {cin, wd, h, n};
+  const int xbox[4] = {k4::BK, wd + 2, box_h + 2, box_n};
+  CUtensorMap mx, mw, my;
+  if (!cpg::hopper::make_map_nd(&mx, x, 4, xdims, xbox) ||
+      !gm::make_map(&mw, w, 9 * cin, cout, 64) ||
+      !gm::make_map(&my, y, n * h * wd, cout, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float *af = (const float*)a, *bf = (const float*)b;
+  return bn == 64
+             ? k4::launch_fwd<64>(mx, mw, my, af, bf, geo, stages, grid, st)
+             : k4::launch_fwd<128>(mx, mw, my, af, bf, geo, stages, grid, st);
+}
 }  // extern "C"

@@ -42,6 +42,8 @@
 //     overlapped, were the largest cost of development builds). Ragged M,
 //     R and Nout come from TMA's zero fill and clipped stores; nothing is
 //     padded. No split-K and no atomics: two launches give equal bits.
+// The GEMM kernel is in tma_gemm.cuh (EPI_STORE here), which K5
+// (fused_chain_bwd_dx.cu) instantiates with its own epilogue.
 // A and Bt need R % 8 == 0 and Nout % 8 == 0 (TMA's 16-byte row strides)
 // and 16-byte aligned bases; the wrapper takes the 1x1 masked-conv kernels
 // for any other shape and for f32.
@@ -70,10 +72,11 @@
 // against 1-17 MB of activations), so the activation boxes and the selected
 // weight come from L2 after their first read.
 #include "common.cuh"
-#include "tma_wgmma.cuh"
+#include "tma_gemm.cuh"
 
 using bf16 = __nv_bfloat16;
 using namespace cpg::hopper;
+using namespace cpg::gemm;
 
 namespace {
 
@@ -139,213 +142,25 @@ select_bf16_kernel(const float* __restrict__ w, const int8_t* __restrict__ own,
 }
 
 // --------------------------------------------------------------- GEMM ----
-constexpr int BM = 128;            // output rows a tile: two warpgroups of 64
-constexpr int BK = 64;             // reduction depth a stage: one 128-B row
-constexpr int CONSUMERS = 2;       // consumer warpgroups
-constexpr int THREADS = 128 * CONSUMERS + 32;  // + one producer warp
-constexpr int A_TILE = BM * BK * 2;
-
-__host__ __device__ constexpr int stage_bytes(int bn) {
-  return A_TILE + bn * BK * 2;
-}
-
-// dynamic shared memory: 1 KB of slack to align the ring to 1,024 bytes
-// (the 128-byte swizzle repeats every 8 rows of 128 B), the ring, the
-// output staging (each consumer warpgroup's 64 x bn tile, as bn / 64
-// swizzled 64 x 64 boxes), and a full and an empty barrier a stage
-__host__ __device__ constexpr int gemm_smem_bytes(int bn, int stages) {
-  return 1024 + stages * stage_bytes(bn) + CONSUMERS * bn * 128 + 16 * stages;
-}
-
-// What the producer loads: the dense product, or the conv's forward or
-// input gradient over per-tap activation boxes (see the top).
-enum Walk { DENSE = 0, CONV_FWD = 1, CONV_DGRAD = 2 };
-
-// The conv's reduction walk and output grid (unused by DENSE): C / 64
-// channel blocks a tap, kw taps a kernel row, the output grid's hw = Ho*Wo
-// and wo, the padding before the first row and column.
-struct ConvWalk {
-  int cblocks, kw, hw, wo, pad_top, pad_left;
-};
-
-// C[M, Nout] = A[M, R] Bt[Nout, R]^T, bf16, f32 accumulation (see the top).
-template <int BN, int WALK>
-__global__ void __launch_bounds__(THREADS, 1)
-gemm_tn_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
-                    const __grid_constant__ CUtensorMap tma_b,
-                    const __grid_constant__ CUtensorMap tma_c, int M, int R,
-                    int Nout, int stages, ConvWalk cw) {
-  constexpr int STAGE = stage_bytes(BN);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t staging = ring + stages * STAGE;  // CONSUMERS x bn x 128 B
-  const uint32_t bars = staging + CONSUMERS * BN * 128;  // full, empty
-  const int tiles_m = (M + BM - 1) / BM;
-  const int tiles = tiles_m * ((Nout + BN - 1) / BN);
-  const int KT = (R + BK - 1) / BK;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(bars + 8 * s, 1);                       // the producer
-      mbar_init(bars + 8 * (stages + s), CONSUMERS);   // one thread a WG
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == CONSUMERS) {
-    // producer warp: one thread issues every TMA load of the block
-    if (threadIdx.x != CONSUMERS * 128) return;
-    int s = 0;
-    uint32_t phase = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int m0 = (t % tiles_m) * BM, n0 = (t / tiles_m) * BN;
-      // the conv tile's first output pixel: image, row, column
-      const int img = WALK == DENSE ? 0 : m0 / cw.hw;
-      const int oh0 = WALK == DENSE ? 0 : (m0 - img * cw.hw) / cw.wo;
-      const int ow0 = WALK == DENSE ? 0 : m0 - img * cw.hw - oh0 * cw.wo;
-      for (int kt = 0; kt < KT; ++kt) {
-        mbar_wait(bars + 8 * (stages + s), phase ^ 1);  // stage s is free
-        const uint32_t full = bars + 8 * s;
-        // every box lands whole: out-of-range elements count as zeros
-        mbar_expect_tx(full, STAGE);
-        const uint32_t a = ring + s * STAGE, b = a + A_TILE;
-        if constexpr (WALK == DENSE) {
-          tma_load_2d(a, &tma_a, kt * BK, m0, full);
-          tma_load_2d(b, &tma_b, kt * BK, n0, full);
-        } else {
-          const int tap = kt / cw.cblocks, c0 = (kt % cw.cblocks) * BK;
-          const int dh = tap / cw.kw - cw.pad_top, dw = tap % cw.kw - cw.pad_left;
-          // the forward reads x at (row + dh, col + dw); dgrad reads g at
-          // (row - dh, col - dw)
-          constexpr int sgn = WALK == CONV_FWD ? 1 : -1;
-          tma_load_4d(a, &tma_a, c0, ow0 + sgn * dw, oh0 + sgn * dh, img, full);
-          if constexpr (WALK == CONV_FWD)
-            tma_load_2d(b, &tma_b, kt * BK, n0, full);
-          else
-            tma_load_3d(b, &tma_b, c0, n0, tap, full);
-        }
-        if (++s == stages) {
-          s = 0;
-          phase ^= 1;
-        }
-      }
-    }
-    return;
-  }
-
-  // consumers: warpgroup wg owns rows 64*wg .. 64*wg + 63 of each tile
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-  const bool leader = threadIdx.x % 128 == 0;
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  int s = 0;
-  uint32_t phase = 0;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int m0 = (t % tiles_m) * BM, n0 = (t / tiles_m) * BN;
-    int prev = 0;
-    for (int kt = 0; kt < KT; ++kt) {
-      mbar_wait(bars + 8 * s, phase);
-      const uint32_t a = ring + s * STAGE + wg * 64 * BK * 2;
-      const uint64_t da = smem_desc(a), db = smem_desc(ring + s * STAGE + A_TILE);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_bf16<BN>(acc, da + 2 * kk, db + 2 * kk, (kt | kk) != 0);
-      wgmma_commit();
-      // the previous stage's products are done: hand it back
-      wgmma_wait<1>();
-      if (kt > 0 && leader) mbar_arrive(bars + 8 * (stages + prev));
-      prev = s;
-      if (++s == stages) {
-        s = 0;
-        phase ^= 1;
-      }
-    }
-    wgmma_wait<0>();
-    if (leader) mbar_arrive(bars + 8 * (stages + prev));
-
-    // epilogue: D fragment of m64nBN: warp w of the warpgroup holds rows
-    // 16w + lane/4 and + 8; register 4j + {0,1} (+{2,3}: row + 8) holds
-    // columns 8j + 2*(lane%4) + {0,1}. Rounded to bf16 into this
-    // warpgroup's staging boxes in TMA's 128-byte swizzle (column group
-    // j % 8 of box j / 8 lands at group (j % 8) ^ (row % 8)), then one
-    // thread stores the boxes by TMA, which clips them at M and Nout. The
-    // stores drain while the warpgroup runs the next tile's products.
-    const uint32_t mine = staging + wg * BN * 128;
-    if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-    named_sync(1 + wg, 128);
-    const int r0 = warp * 16 + lane / 4;
-    const uint32_t row0 = mine + r0 * 128 + 4 * (lane % 4);
-    const uint32_t row1 = row0 + 8 * 128;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const uint32_t off = (j / 8) * 8192 + (((j % 8) ^ (r0 % 8)) << 4);
-      const __nv_bfloat162 v0 = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
-      const __nv_bfloat162 v1 =
-          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(row0 + off),
-                   "r"(*reinterpret_cast<const uint32_t*>(&v0))
-                   : "memory");
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(row1 + off),
-                   "r"(*reinterpret_cast<const uint32_t*>(&v1))
-                   : "memory");
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    named_sync(1 + wg, 128);
-    if (leader) {
-#pragma unroll
-      for (int q = 0; q < BN / 64; ++q)
-        tma_store_2d(&tma_c, mine + q * 8192, n0 + 64 * q, m0 + 64 * wg);
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    }
-  }
-  if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// ------------------------------------------------------ tensor maps ----
-// a (rows, cols) row-major bf16 matrix, in boxes of box_rows x BK
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-              int box_rows) {
-  const long long dims[2] = {cols, rows};
-  const int box[2] = {BK, box_rows};
-  return make_map_nd(map, ptr, 2, dims, box);
-}
-
-template <int BN, int WALK>
-int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb,
-                const CUtensorMap& mc, int m, int r, int nout, int stages,
-                int grid, const ConvWalk& cw, cudaStream_t stream) {
-  const int smem = gemm_smem_bytes(BN, stages);
-  // per call: the attribute belongs to the current device
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_tn_bf16_kernel<BN, WALK>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  gemm_tn_bf16_kernel<BN, WALK><<<grid, THREADS, smem, stream>>>(
-      ma, mb, mc, m, r, nout, stages, cw);
-  return (int)cudaGetLastError();
-}
+// tma_gemm.cuh holds the kernel; here its EPI_STORE launches by tile width
 
 template <int WALK>
 int launch_walk(const CUtensorMap& ma, const CUtensorMap& mb,
                 const CUtensorMap& mc, int m, int r, int nout, int bn,
                 int stages, int grid, const ConvWalk& cw, cudaStream_t st) {
+  const FusedDx none{};
   switch (bn) {
     case 64:
-      return launch_gemm<64, WALK>(ma, mb, mc, m, r, nout, stages, grid, cw, st);
+      return launch_gemm<64, WALK, EPI_STORE>(ma, mb, mc, mc, m, r, nout,
+                                              stages, grid, cw, none, st);
     case 128:
-      return launch_gemm<128, WALK>(ma, mb, mc, m, r, nout, stages, grid, cw, st);
+      return launch_gemm<128, WALK, EPI_STORE>(ma, mb, mc, mc, m, r, nout,
+                                               stages, grid, cw, none, st);
     case 192:
-      return launch_gemm<192, WALK>(ma, mb, mc, m, r, nout, stages, grid, cw, st);
+      return launch_gemm<192, WALK, EPI_STORE>(ma, mb, mc, mc, m, r, nout,
+                                               stages, grid, cw, none, st);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-bool bad_plan(int bn, int stages, int grid) {
-  return stages < 2 || grid <= 0 || gemm_smem_bytes(bn, stages) > 232448;
 }
 
 }  // namespace

@@ -146,15 +146,12 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
   constexpr int STAGE = stage_bytes(BN, P);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t bars = ring + stages * STAGE;  // full, then empty
+  const Ring pipe{ring + stages * STAGE, stages};
   const int steps = (p.m + P - 1) / P;
   const int items = p.tiles * p.splits;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(bars + 8 * s, 1);                      // the producer
-      mbar_init(bars + 8 * (stages + s), CONSUMERS);  // one thread a WG
-    }
+    pipe.init(CONSUMERS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -163,8 +160,7 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
   if (wg == CONSUMERS) {
     // producer warp: one thread issues every TMA load of the block
     if (threadIdx.x != CTHREADS) return;
-    int s = 0;
-    uint32_t phase = 0;
+    RingPos pos;
     for (int it = blockIdx.x; it < items; it += gridDim.x) {
       const int t = it % p.tiles, z = it / p.tiles;
       const int k0 = (t % p.tiles_k) * BKW, n0 = (t / p.tiles_k) * BN;
@@ -173,10 +169,8 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
       for (int h = 0; h < 2; ++h) bytes += k0 + 64 * h < p.kx ? BOX : 0;
       for (int q = 0; q < BN / 64; ++q) bytes += n0 + 64 * q < p.n ? BOX : 0;
       for (int st = z * p.per; st < s1; ++st) {
-        mbar_wait(bars + 8 * (stages + s), phase ^ 1);  // stage s is free
-        const uint32_t full = bars + 8 * s;
-        mbar_expect_tx(full, bytes);
-        const uint32_t a = ring + s * STAGE, b = a + 2 * BOX;
+        const uint32_t full = pipe.acquire(pos, bytes);
+        const uint32_t a = ring + pos.s * STAGE, b = a + 2 * BOX;
         const int m0 = st * P;
         if constexpr (WALK == WGRAD_DENSE) {
           for (int h = 0; h < 2; ++h)
@@ -199,10 +193,7 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
         for (int q = 0; q < BN / 64; ++q)
           if (n0 + 64 * q < p.n)
             tma_load_2d(b + q * BOX, &tma_g, n0 + 64 * q, m0, full);
-        if (++s == stages) {
-          s = 0;
-          phase ^= 1;
-        }
+        pos.advance(stages);
       }
     }
     return;
@@ -212,8 +203,7 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
   const int c = threadIdx.x;
   const bool leader = c % 128 == 0;
   float acc[BN / 2];
-  int s = 0;
-  uint32_t phase = 0;
+  RingPos pos;
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int t = it % p.tiles, z = it / p.tiles;
     const int k0 = (t % p.tiles_k) * BKW, n0 = (t / p.tiles_k) * BN;
@@ -222,9 +212,9 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     int prev = -1;
     for (int st = z * p.per; st < s1; ++st) {
-      mbar_wait(bars + 8 * s, phase);
-      const uint32_t a = ring + s * STAGE + wg * BOX;
-      const uint32_t b = ring + s * STAGE + 2 * BOX;
+      pipe.wait(pos);
+      const uint32_t a = ring + pos.s * STAGE + wg * BOX;
+      const uint32_t b = ring + pos.s * STAGE + 2 * BOX;
       const uint64_t da = smem_desc_mn(a, BOX, 1024);
       const uint64_t db = smem_desc_mn(b, BOX, 1024);
       wgmma_fence();
@@ -234,15 +224,12 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
       wgmma_commit();
       // the previous stage's products are done: hand it back
       wgmma_wait<1>();
-      if (prev >= 0 && leader) mbar_arrive(bars + 8 * (stages + prev));
-      prev = s;
-      if (++s == stages) {
-        s = 0;
-        phase ^= 1;
-      }
+      if (prev >= 0 && leader) pipe.release(prev);
+      prev = pos.s;
+      pos.advance(stages);
     }
     wgmma_wait<0>();
-    if (prev >= 0 && leader) mbar_arrive(bars + 8 * (stages + prev));
+    if (prev >= 0 && leader) pipe.release(prev);
 
     if (p.splits > 1) {  // the gate pass sums and gates
       float4* part =

@@ -1,10 +1,11 @@
 // TMA, mbarrier and wgmma helpers shared by the port's Hopper GEMMs
-// (masked_matmul.cu: the dense and conv TN GEMM; masked_matmul_wgrad.cu:
-// the weight-gradient GEMM). Device side: shared-memory addresses,
-// mbarriers with a trapping wait, TMA loads and stores of 2-4-D boxes,
-// named barriers, wgmma descriptors of 128-byte-swizzled tiles (K-major and
-// MN-major) and the wgmma m64nNk16 bf16 instruction with both transpose
-// flags. Host side: cuTensorMapEncodeTiled through the runtime's
+// (tma_gemm.cuh: the dense and conv TN GEMM of masked_matmul.cu and K5;
+// masked_matmul_wgrad.cu: the weight-gradient GEMM; fused_chain_fwd.cu:
+// K4). Device side: shared-memory addresses, mbarriers with a trapping
+// wait, the producer/consumer ring of stages, TMA loads and stores of
+// 2-4-D boxes, named barriers, wgmma descriptors of 128-byte-swizzled
+// tiles (K-major and MN-major), the wgmma m64nNk16 bf16 instruction with
+// both transpose flags and its form with A from registers. Host side: cuTensorMapEncodeTiled through the runtime's
 // entry-point query (no -lcuda) and a bf16 tensor map of any rank.
 #pragma once
 
@@ -58,6 +59,57 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   while (!mbar_try_wait(bar, parity))
     if (clock64() - t0 > (1LL << 32)) __trap();
 }
+
+// The mbarrier ring of the warp-specialised GEMMs: `stages` shared-memory
+// stages that one producer thread fills by TMA and the consumer
+// warpgroups read. Stage s has a full barrier (the producer's arrival
+// with the stage's byte count, completed by the TMA) and an empty one (one
+// arrival a consumer warpgroup, from its leader, once the products that
+// read the stage are done); `bars` holds the full barriers, then the
+// empty ones, 8 B each. Each side walks the stages in order with a
+// RingPos of its own; the producer's first pass finds every stage free.
+struct RingPos {
+  int s = 0;           // the stage
+  uint32_t phase = 0;  // the parity of this pass over the ring
+  __device__ __forceinline__ void advance(int stages) {
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+struct Ring {
+  uint32_t full0, empty0;  // stage 0's barriers; stage s's are 8 s B on
+  int stages;
+  __device__ __forceinline__ Ring(uint32_t bars, int stages)
+      : full0(bars), empty0(bars + 8 * stages), stages(stages) {}
+  __device__ __forceinline__ uint32_t full(int s) const { return full0 + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return empty0 + 8 * s;
+  }
+  // one thread, before the block's mbarrier-init fence and __syncthreads
+  __device__ __forceinline__ void init(int consumers) const {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), consumers);
+    }
+  }
+  // producer: wait until stage p.s is free, arm its full barrier for
+  // `bytes`, and return that barrier for the stage's TMA loads
+  __device__ __forceinline__ uint32_t acquire(const RingPos& p,
+                                              uint32_t bytes) const {
+    mbar_wait(empty(p.s), p.phase ^ 1);
+    mbar_expect_tx(full(p.s), bytes);
+    return full(p.s);
+  }
+  // consumer: wait until stage p.s has landed
+  __device__ __forceinline__ void wait(const RingPos& p) const {
+    mbar_wait(full(p.s), p.phase);
+  }
+  // a consumer warpgroup's leader: hand stage s back to the producer
+  __device__ __forceinline__ void release(int s) const { mbar_arrive(empty(s)); }
+};
 
 // 2-D TMA load of the box at (c0 innermost, c1) into shared memory; the
 // barrier counts its bytes. Out-of-range elements land as zeros.
@@ -240,6 +292,76 @@ template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
                                            uint64_t db, int scale_d) {
   Wgmma<N, TA, TB>::run(d, da, db, scale_d);
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N] with A from registers: warp w of the
+// warpgroup holds rows 16w .. 16w + 15 in the m16n8k16 A fragment (a[0]:
+// row lane / 4, k 2 * (lane % 4) + {0, 1}; a[1]: row + 8; a[2]: k + 8;
+// a[3]: both), which ldmatrix.x4 gives from any 16 row addresses, so the
+// rows may be gathered (shifted taps) where a descriptor could not address
+// them. B from shared memory as above; TB is its transpose immediate. The
+// registers of a[] must not change until the group that reads them is
+// done (wgmma_wait), and a wgmma_fence must come between writing them and
+// the wgmma that reads them.
+template <int N, int TB>
+struct WgmmaRA;
+
+template <int TB>
+struct WgmmaRA<64, TB> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaRA<128, TB> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+  }
+};
+
+template <int N, int TB = 0>
+__device__ __forceinline__ void wgmma_bf16_ra(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  WgmmaRA<N, TB>::run(d, a, db, scale_d);
 }
 
 // ------------------------------------------------------ tensor maps ----

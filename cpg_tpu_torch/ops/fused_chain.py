@@ -9,18 +9,35 @@ its `custom_vjp`: a `torch.autograd.Function` that saves x, a, b and w (not
 the activation) and returns dx in x's dtype and da, db, dW in f32.
 
 On CUDA tensors it launches hand-written kernels, in which the normalised
-activation never reaches device memory: `csrc/fused_chain_fwd.cu` (K4, the
-activation staged in shared memory), `csrc/fused_chain_bwd_dx.cu` (K5: dx,
-and da, db from per-block partials; the ReLU mask recomputed from x in the
-epilogue) and `csrc/fused_chain_bwd_dw.cu` (K6: dW with relu(a*x+b)
-recomputed in the operand load). On CPU tensors the plain versions
+activation never reaches device memory: K4 (`csrc/fused_chain_fwd.cu`, y),
+K5 (`csrc/fused_chain_bwd_dx.cu`: dx, and da, db from per-tile partials
+summed in tile order; the ReLU mask recomputed from x in the epilogue) and
+K6 (`csrc/fused_chain_bwd_dw.cu`: dW with relu(a*x+b) recomputed in the
+operand load). K4 and K5 have two routes each, chosen by `fwd_route` and
+`gemm_route` before any launch:
+
+* bf16 seams on `masked_conv.conv_route` (Cin and Cout multiples of 64, a
+  grid that `conv_box` tiles: every VGG16-BN seam at width 1.0, and the
+  64-channel seams at width 0.125): TMA + wgmma implicit GEMMs. K4 loads a
+  halo box of raw x a 64-channel block, activates it once in shared memory
+  and runs the nine taps as wgmma with A from registers
+  (`masked_matmul.fused_fwd_plan`; also needs the halo tile to fit,
+  which a 1x1 grid's does not); K5 is the conv GEMM's CONV_DGRAD walk
+  over g and the seam's weight with K5's epilogue
+  (`masked_matmul.fused_dx_plan`).
+* every other shape (f32, narrow widths): the earlier kernels (K4 stages
+  the activation in shared memory with mma.sync; K5 is conv_bwd.cuh's
+  dgrad with the mask in its epilogue).
+
+A route kernel that fails to build or launch raises; it never gives way to
+the other route or to the plain version. On CPU tensors the plain versions
 `fused_oracle` and `fused_bwd_plain` run.
 
-The forward kernel's shape predicate (`supported`) is its own, derived from
-its shared-memory tiles; it covers every VGG16-BN seam at width mult <= 2,
-including the 2x2 seams that the TPU kernels left to XLA, and the backward
-kernels take every shape it admits, so no seam switches implementation. A
-CUDA call outside a predicate raises.
+The off-route forward kernel's shape predicate (`supported`) is its own,
+derived from its shared-memory tiles; it covers every VGG16-BN seam at
+width mult <= 2, including the 2x2 seams that the TPU kernels left to XLA,
+and the backward kernels take every shape it admits, so no seam falls back
+to a plain version. A CUDA call outside a predicate raises.
 """
 
 from __future__ import annotations
@@ -31,6 +48,8 @@ import functools
 import torch
 
 from . import _build
+from . import masked_conv as _mc
+from . import masked_matmul as _mm
 from .conv import conv2d_nhwc, wgrad_splits
 
 # kernel launches since the last reset (set to 0 to start counting)
@@ -73,6 +92,25 @@ def supported(x, w, dot_dtype) -> bool:
     return (dot_dtype in _DOT_DTYPES and x.dtype == dot_dtype and 1 <= wd <= _BM
             and min(n, h, c, cout) >= 1
             and _smem_bytes(wd, dot_dtype) <= _SMEM_LIMIT)
+
+
+def gemm_route(x, w, dot_dtype) -> bool:
+    """Whether K5 on the card takes its TMA + wgmma implicit GEMM: bf16 x
+    and dot dtype on `masked_conv.conv_route` at stride 1, SAME (Cin and
+    Cout multiples of 64, a 128-pixel TMA box tiles the grid, x and w
+    16-byte aligned). w is the (3, 3, Cin, Cout) weight the launch reads.
+    Every other shape takes the earlier kernel."""
+    return (dot_dtype == torch.bfloat16 and x.dtype == torch.bfloat16
+            and w.dtype == torch.bfloat16 and tuple(w.shape[:2]) == (3, 3)
+            and _mc.conv_route(x, w, 1, "SAME"))
+
+
+def fwd_route(x, w, dot_dtype) -> bool:
+    """Whether K4 on the card takes its GEMM: `gemm_route`, and a grid
+    whose halo tile fits (`masked_matmul.fused_fwd_fits`: every VGG16-BN
+    seam grid, not 1x1). Every other shape takes the earlier kernel."""
+    return (gemm_route(x, w, dot_dtype)
+            and _mm.fused_fwd_fits(x.shape[1], x.shape[2]))
 
 
 def fused_bwd_dx_plain(x, a, b, w, g, dot_dtype=torch.float32):
@@ -172,12 +210,15 @@ _ARGTYPES = {
     "fused_chain_bwd_dx": [_P] * 10 + [_I] * 5 + [_P],
     "fused_chain_bwd_dw": [_P] * 6 + [_I] * 6 + [_P],
     "fused_chain_bwd_dw_bf16": [_P] * 6 + [_I] * 7 + [_P],  # + rows
+    # the GEMM routes: + box_h, box_n, bn, stages, grid
+    "fused_chain_fwd_gemm_bf16": [_P] * 5 + [_I] * 10 + [_P],
+    "fused_chain_bwd_dx_gemm_bf16": [_P] * 10 + [_I] * 10 + [_P],
 }
-_BM_BWD = 128  # output pixels per block of the dx kernel (da/db partials)
+_BM_BWD = 128  # pixels a tile of either dx kernel (da/db partials)
 
 
-def _fn(lib_name, dtype):
-    name = f"{lib_name}_{_SUFFIX[dtype]}"
+def _fn(lib_name, dtype, gemm=False):
+    name = f"{lib_name}_{'gemm_' if gemm else ''}{_SUFFIX[dtype]}"
     f = getattr(_build.load(lib_name), name)
     if f.argtypes is None:
         f.argtypes = _ARGTYPES.get(name, _ARGTYPES[lib_name])
@@ -278,15 +319,24 @@ def _stream(x):
 
 
 def _launch_fwd(x, a, b, w, dot_dtype):
+    """K4: y, on the GEMM route (`fwd_route`) or the earlier kernel."""
     global LAUNCHES
     w = w.to(dot_dtype).contiguous()
     _checked(x, a, b, w.shape, dot_dtype, True, {"w": w})
     n, h, wd, cin = x.shape
     cout = w.shape[3]
     y = torch.empty((n, h, wd, cout), dtype=dot_dtype, device=x.device)
-    err = _fn("fused_chain_fwd", dot_dtype)(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(), y.data_ptr(),
-        n, h, wd, cin, cout, _stream(x))
+    ptrs = (x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
+            y.data_ptr())
+    if fwd_route(x, w, dot_dtype):
+        (_, _, box_h, box_n), bn, stages, grid, _ = _mm.fused_fwd_plan(
+            n, h, wd, cin, cout, _mm._sms(x.device.index or 0))
+        err = _fn("fused_chain_fwd", dot_dtype, gemm=True)(
+            *ptrs, n, h, wd, cin, cout, box_h, box_n, bn, stages, grid,
+            _stream(x))
+    else:
+        err = _fn("fused_chain_fwd", dot_dtype)(*ptrs, n, h, wd, cin, cout,
+                                                _stream(x))
     if err:
         raise RuntimeError(f"fused_chain_fwd launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -294,7 +344,8 @@ def _launch_fwd(x, a, b, w, dot_dtype):
 
 
 def _launch_bwd_dx(x, a, b, w, g, dot_dtype):
-    """K5: dx, da, db; da and db from per-block partials summed in a fixed
+    """K5: dx, da, db, on the GEMM route (`gemm_route`) or the earlier
+    kernel; da and db from 128-pixel tiles' partials summed in tile
     order."""
     global LAUNCHES_BWD_DX
     w = w.to(dot_dtype).contiguous()
@@ -310,10 +361,21 @@ def _launch_bwd_dx(x, a, b, w, g, dot_dtype):
     dx = torch.empty_like(x)
     da = torch.empty((cin,), **f32)
     db = torch.empty((cin,), **f32)
-    err = _fn("fused_chain_bwd_dx", dot_dtype)(
-        x.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
-        dx.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(), da.data_ptr(),
-        db.data_ptr(), n, h, wd, cin, cout, _stream(x))
+    ptrs = (x.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(),
+            w.data_ptr(), dx.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
+            da.data_ptr(), db.data_ptr())
+    if gemm_route(x, w, dot_dtype):
+        if a.data_ptr() % 8 or b.data_ptr() % 8:  # the epilogue's pair loads
+            raise ValueError("fused_chain_bwd_dx: a and b must be 8-byte "
+                             "aligned on the GEMM route")
+        (_, _, box_h, box_n), bn, stages, grid = _mm.fused_dx_plan(
+            n, h, wd, cin, cout, _mm._sms(x.device.index or 0))
+        err = _fn("fused_chain_bwd_dx", dot_dtype, gemm=True)(
+            *ptrs, n, h, wd, cin, cout, box_h, box_n, bn, stages, grid,
+            _stream(x))
+    else:
+        err = _fn("fused_chain_bwd_dx", dot_dtype)(*ptrs, n, h, wd, cin,
+                                                   cout, _stream(x))
     if err:
         raise RuntimeError(f"fused_chain_bwd_dx launch failed: CUDA error {err}")
     LAUNCHES_BWD_DX += 1

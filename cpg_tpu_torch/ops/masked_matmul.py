@@ -69,6 +69,18 @@ GEMM_BNS = (192, 128, 64)
 GEMM_MAX_STAGES = 5
 SMEM_PER_BLOCK = 232448
 
+# K4 and K5 on the conv GEMM route: their tile widths (192 would spill in
+# K5's epilogue at the 168 registers nine warps leave), the deepest rings
+# (deeper ones gained nothing in scripts/torch_fused_chain_plans.py's
+# sweep) and K4's activated halo buffers
+FUSED_BNS = (128, 64)
+FWD_MAX_STAGES = 6
+DX_MAX_STAGES = 8
+FWD_HALOS = 2
+# the most halo pixels K4's CUDA entry takes (its pixel division is exact
+# below 2,048)
+FWD_MAX_HALO_PX = 2048
+
 # the weight-gradient GEMM's tiles: 128 k-rows (two consumer warpgroups of
 # 64) by BN output columns; a stage reduces 64 rows of a dense product or
 # one 128-pixel box of a conv
@@ -156,23 +168,28 @@ def gemm_smem_bytes(bn: int, stages: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def gemm_plan(m: int, r: int, nout: int, sms: int):
-    """(bn, stages, grid) of the TN GEMM: the tile width that finishes the
-    output in the least work a block, counted as the waves of tiles a
-    block walks times the rows it loads a stage (128 of A and bn of B),
-    ties to the wider tile (fewer A passes); as many ring stages as fit, up
-    to GEMM_MAX_STAGES; one persistent block an SM, no more than the
-    tiles."""
+def gemm_plan(m: int, r: int, nout: int, sms: int, bns=GEMM_BNS,
+              max_stages: int = GEMM_MAX_STAGES, smem=gemm_smem_bytes):
+    """(bn, stages, grid) of the TN GEMM: of the tile widths `bns`, the one
+    that finishes the output in the least work a block, counted as the
+    waves of tiles a block walks times the rows it loads a stage (128 of A
+    and bn of B), ties to the wider tile (fewer A passes); as many ring
+    stages as `smem(bn, stages)` fits, up to `max_stages` and no fewer than
+    2; one persistent block an SM, no more than the tiles. The defaults
+    are K1/K2's; K4 and K5 pass their own widths, rings and layouts
+    (`fused_fwd_plan`, `fused_dx_plan`)."""
     tiles_m = -(-m // GEMM_BM)
 
     def cost(bn):
         tiles = tiles_m * -(-nout // bn)
         return -(-tiles // sms) * (GEMM_BM + bn), -bn
 
-    bn = min(GEMM_BNS, key=cost)
-    stages = GEMM_MAX_STAGES
-    while gemm_smem_bytes(bn, stages) > SMEM_PER_BLOCK:
+    bn = min(bns, key=cost)
+    stages = max_stages
+    while stages > 2 and smem(bn, stages) > SMEM_PER_BLOCK:
         stages -= 1
+    _check(smem(bn, stages) <= SMEM_PER_BLOCK,
+           f"no {bn}-wide GEMM plan fits shared memory")
     return bn, stages, min(tiles_m * -(-nout // bn), sms)
 
 
@@ -188,6 +205,79 @@ def conv_plan(n: int, ho: int, wo: int, c: int, nout: int, taps: int,
     box = _mc.conv_box(ho, wo)
     _check(box is not None, f"no 128-pixel TMA box tiles a {ho}x{wo} grid")
     return (box, *gemm_plan(n * ho * wo, taps * c, nout, sms))
+
+
+def fused_dx_smem_bytes(bn: int, stages: int) -> int:
+    """Dynamic shared memory of one K5 block on the conv GEMM route, as
+    `gemm_smem_bytes(bn, stages, EPI_FUSED_DX)` in csrc/tma_gemm.cuh lays
+    it out: the GEMM's, plus x's 128 x bn bf16 tile and its two
+    barriers."""
+    return gemm_smem_bytes(bn, stages) + GEMM_BM * bn * 2 + 16
+
+
+@functools.lru_cache(maxsize=None)
+def fused_dx_plan(n: int, h: int, w: int, cin: int, cout: int, sms: int):
+    """(box, bn, stages, grid) of K5 on the conv GEMM route: the dgrad
+    product over g's box (`masked_conv.conv_box` of the n x h x w grid),
+    Cout reduction channels a tap and Cin output channels; `gemm_plan`
+    over FUSED_BNS with up to DX_MAX_STAGES ring stages beside x's tile
+    (`fused_dx_smem_bytes`)."""
+    box = _mc.conv_box(h, w)
+    _check(box is not None, f"no 128-pixel TMA box tiles a {h}x{w} grid")
+    return (box, *gemm_plan(n * h * w, 9 * cout, cin, sms, FUSED_BNS,
+                            DX_MAX_STAGES, fused_dx_smem_bytes))
+
+
+def fused_halo_bytes(box) -> int:
+    """Bytes of one K4 halo buffer for the output tile's TMA box (64, w,
+    rows, images): (w + 2) x (rows + 2) x images pixels of 128 B, rounded
+    up to the 128-byte swizzle's 1,024 B."""
+    _, w, rows, imgs = box
+    return -(-(w + 2) * (rows + 2) * imgs * 128 // 1024) * 1024
+
+
+def fused_fwd_smem_bytes(bn: int, stages: int, halo: int) -> int:
+    """Dynamic shared memory of one K4 block on the route, as
+    `fwd_smem_bytes` in csrc/fused_chain_fwd.cu lays it out: 1 KB of
+    alignment slack, FWD_HALOS halo buffers, the ring of bn x 64 weight
+    stages, the 128 x bn bf16 output staging, two barriers a stage and a
+    halo buffer."""
+    return (1024 + FWD_HALOS * halo + stages * bn * GEMM_BK * 2
+            + GEMM_BM * bn * 2 + 16 * (stages + FWD_HALOS))
+
+
+def fused_fwd_fits(h: int, w: int) -> bool:
+    """Whether K4's route can run an h x w grid: `masked_conv.conv_box`
+    tiles it, the halo box is within TMA's 256 a dimension and the CUDA
+    entry's FWD_MAX_HALO_PX pixels, and two halo buffers with the widest
+    tile's two-stage ring fit shared memory, so that `fused_fwd_plan`
+    finds a plan. Every VGG16-BN seam grid (32x32 to 2x2) does; a 1x1
+    grid (128 images a box, 147,456 B a halo) does not."""
+    box = _mc.conv_box(h, w)
+    if box is None:
+        return False
+    _, bw, rows, imgs = box
+    return (max(bw, rows) + 2 <= 256 and imgs <= 256
+            and (bw + 2) * (rows + 2) * imgs <= FWD_MAX_HALO_PX
+            and fused_fwd_smem_bytes(max(FUSED_BNS), 2,
+                                     fused_halo_bytes(box)) <= SMEM_PER_BLOCK)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_fwd_plan(n: int, h: int, w: int, cin: int, cout: int, sms: int):
+    """(box, bn, stages, grid, halo bytes) of K4 on the conv GEMM route
+    (`csrc/fused_chain_fwd.cu` `fused_chain_fwd_gemm_bf16`): the output
+    tile's box (`masked_conv.conv_box`), whose halo box (64, w + 2, rows +
+    2, images) each of FWD_HALOS buffers holds; `gemm_plan` over FUSED_BNS
+    with up to FWD_MAX_STAGES weight stages beside the halos
+    (`fused_fwd_smem_bytes`). Raises where `fused_fwd_fits` is false."""
+    _check(fused_fwd_fits(h, w), f"no K4 plan fits a {h}x{w} grid")
+    box = _mc.conv_box(h, w)
+    halo = fused_halo_bytes(box)
+    return (box, *gemm_plan(n * h * w, 9 * cin, cout, sms, FUSED_BNS,
+                            FWD_MAX_STAGES,
+                            lambda bn, st: fused_fwd_smem_bytes(bn, st, halo)),
+            halo)
 
 
 def wgrad_smem_bytes(bn: int, rows: int, stages: int) -> int:

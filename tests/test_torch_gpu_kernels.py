@@ -214,6 +214,127 @@ def test_fused_chain_backward_kernels_match_plain(cuda, case):
         assert torch.equal(first, second)
 
 
+# ------------------------------------- K4 and K5 on the conv GEMM route ----
+
+@pytest.mark.parametrize("n,cin,cout", [
+    (1, 64, 64), (1, 128, 64),        # one tile at BN 64, 1 and 2 blocks
+    (68, 64, 128), (68, 128, 128),    # 68 tiles: the plan takes BN 128
+])
+def test_fused_fwd_tiles_of_small_integers_are_exact(cuda, n, cin, cout):
+    """K4's wgmma with A from registers on 128-pixel tiles (8 rows of 16)
+    at BN 64 and 128, one and two channel blocks: x in 0..3, a = 1, b = 0
+    and w in -2..2 make every product and sum exact, so y must equal the
+    plain version bit for bit, and a wrong fragment layout, tap shift or
+    descriptor shows as a wrong integer."""
+    rng = np.random.RandomState(cin + cout)
+    x = torch.from_numpy(rng.randint(0, 4, (n, 8, 16, cin)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    wt = torch.from_numpy(rng.randint(-2, 3, (3, 3, cin, cout)).astype(
+        np.float32)).to(cuda)
+    a = torch.ones(cin, device=cuda)
+    b = torch.zeros(cin, device=cuda)
+    assert fc.fwd_route(x, wt.bfloat16(), torch.bfloat16)
+    assert mm.fused_fwd_plan(n, 8, 16, cin, cout, mm._sms(0))[1] == cout
+    before = fc.LAUNCHES
+    got = fc.fused_affine_relu_conv(x, a, b, wt, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES == before + 1
+    want = fc.fused_oracle(x, a, b, wt, torch.bfloat16)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+# (H = W, Cin, Cout) of VGG16-BN's seam grids at width 1.0
+FUSED_ROUTE_SEAMS = [(32, 64, 64), (16, 128, 128), (8, 256, 256),
+                     (4, 512, 512), (2, 512, 512)]
+
+
+@pytest.mark.parametrize("positive_b", [False, True])
+@pytest.mark.parametrize("seam", FUSED_ROUTE_SEAMS,
+                         ids=[f"{s[0]}x{s[0]}" for s in FUSED_ROUTE_SEAMS])
+def test_fused_route_matches_plain(cuda, seam, positive_b):
+    """K4 and K5 on the GEMM route at each seam grid with N = 3 (at 4x4
+    and 2x2 a box of 8 and 32 images, partly past N), against the plain
+    versions; with b > 0 in every channel a padding of relu(b) would show.
+    Two launches give the same bits (K5's da and db too)."""
+    hw, cin, cout = seam
+    n = 3
+    rng = np.random.RandomState(hw + positive_b)
+    x = torch.from_numpy(rng.randn(n, hw, hw, cin).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    a = torch.from_numpy(rng.uniform(0.5, 1.5, cin).astype(np.float32)).to(cuda)
+    b = rng.randn(cin).astype(np.float32) * 0.3
+    b = torch.from_numpy(np.abs(b) + 0.1 if positive_b else b).to(cuda)
+    wt = torch.from_numpy((rng.randn(3, 3, cin, cout) * np.sqrt(
+        2.0 / (9 * cout))).astype(np.float32)).to(cuda).bfloat16()
+    g = torch.from_numpy(rng.randn(n, hw, hw, cout).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    assert fc.fwd_route(x, wt, torch.bfloat16)
+    assert fc.gemm_route(x, wt, torch.bfloat16)
+    before = (fc.LAUNCHES, fc.LAUNCHES_BWD_DX)
+    y = fc.fused_affine_relu_conv(x, a, b, wt, torch.bfloat16)
+    dx, da, db = fc.fused_bwd_dx(x, a, b, wt, g, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (fc.LAUNCHES, fc.LAUNCHES_BWD_DX) == (before[0] + 1, before[1] + 1)
+    _check(y, fc.fused_oracle(x, a, b, wt, torch.bfloat16), torch.bfloat16)
+    want = fc.fused_bwd_dx_plain(x, a, b, wt, g, torch.bfloat16)
+    _check(dx, want[0], torch.bfloat16)
+    _check_sum(da, want[1], 1e-3)
+    _check_sum(db, want[2], 1e-3)
+    assert torch.equal(y, fc.fused_affine_relu_conv(x, a, b, wt,
+                                                    torch.bfloat16))
+    for first, second in zip((dx, da, db),
+                             fc.fused_bwd_dx(x, a, b, wt, g, torch.bfloat16)):
+        assert torch.equal(first, second)
+
+
+def test_fused_1x1_grid_takes_the_earlier_k4_and_k5s_route(cuda):
+    """A bf16 1x1 grid with 64-multiple channels: K4's halo tile (128
+    images a box) does not fit, so `fwd_route` sends it to the earlier
+    K4, which still matches `fused_oracle`; K5 takes its GEMM route (one
+    pixel a image a box) and matches its plain version."""
+    rng = np.random.RandomState(11)
+    n, c = 130, 64   # two 128-image tiles, the second partly past N
+    x = torch.from_numpy(rng.randn(n, 1, 1, c).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    a = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(np.abs(rng.randn(c)).astype(np.float32) * 0.3
+                         + 0.1).to(cuda)
+    wt = torch.from_numpy((rng.randn(3, 3, c, c) * np.sqrt(
+        2.0 / (9 * c))).astype(np.float32)).to(cuda).bfloat16()
+    g = torch.from_numpy(rng.randn(n, 1, 1, c).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    assert not fc.fwd_route(x, wt, torch.bfloat16)
+    assert fc.gemm_route(x, wt, torch.bfloat16)
+    y = fc.fused_affine_relu_conv(x, a, b, wt, torch.bfloat16)
+    _check(y, fc.fused_oracle(x, a, b, wt, torch.bfloat16), torch.bfloat16)
+    dx, da, db = fc.fused_bwd_dx(x, a, b, wt, g, torch.bfloat16)
+    want = fc.fused_bwd_dx_plain(x, a, b, wt, g, torch.bfloat16)
+    _check(dx, want[0], torch.bfloat16)
+    _check_sum(da, want[1], 1e-3)
+    _check_sum(db, want[2], 1e-3)
+
+
+def test_fused_dx_mask_is_the_plain_versions_bit_for_bit(cuda):
+    """K5's ReLU mask rounds a*x and + b apart, as the plain version does:
+    with g's sums exact (small integers) dx equals the plain dx bit for
+    bit, including at entries where a*x + b is exactly 0 and where an FMA
+    would round the other way."""
+    rng = np.random.RandomState(7)
+    n, hw, c = 2, 8, 64
+    x = torch.from_numpy(rng.randn(n, hw, hw, c).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    a = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(cuda)
+    b = (-x[0, 0, 0].float() * a).contiguous()   # a*x + b == 0 at pixel 0
+    wt = torch.from_numpy(rng.randint(-2, 3, (3, 3, c, c)).astype(
+        np.float32)).to(cuda).bfloat16()
+    g = torch.from_numpy(rng.randint(-2, 3, (n, hw, hw, c)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    dx = fc.fused_bwd_dx(x, a, b, wt, g, torch.bfloat16)[0]
+    want = fc.fused_bwd_dx_plain(x, a, b, wt, g, torch.bfloat16)[0]
+    assert not want[0, 0, 0].any()
+    assert torch.equal(dx, want)
+
+
 @pytest.mark.parametrize("case", [
     # (n, h, w, cin, cout): every VGG16-BN seam (halo steps at 32x32 and
     # 16x16, whole images below), N = 1, odd and 1x1 images (only the

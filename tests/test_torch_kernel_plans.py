@@ -485,3 +485,167 @@ def test_im2col_route_predicate():
         return mc.im2col_route(x, torch.zeros((k, k, cin, cout)))
     assert route(3, 7, 8) and route(1, 64, 64) and route(3, 3, 64)
     assert not route(3, 8, 16) and not route(3, 3, 60)
+
+
+# ------------------------------------ K4 and K5 on the conv GEMM route ----
+# VGG16-BN's eight fused seams (BN -> ReLU -> conv): every conv but the
+# first of each block
+FUSED_SEAMS = [c for c in VGG_CONVS if c[0] not in MASKED_CONVS]
+
+
+@pytest.mark.parametrize("mult", [1.0, 0.125])
+@pytest.mark.parametrize("seam", FUSED_SEAMS, ids=[c[0] for c in FUSED_SEAMS])
+def test_fused_route_at_every_vgg_seam(seam, mult):
+    """bf16 at width 1.0: all eight seams take K4's and K5's GEMM route. At
+    width 0.125 only the 64 -> 64 seams (conv8/9 at 4x4, conv11/12 at
+    2x2) do; conv1-6 (8-32 channels) keep the earlier kernels. f32 and a
+    bf16 x with an f32 dot dtype never take it."""
+    name, hw, cin, cout = seam
+    cin, cout = (vgg.scale_channels(c, mult) for c in (cin, cout))
+    x = torch.zeros((1, hw, hw, cin), dtype=torch.bfloat16)
+    w = torch.zeros((3, 3, cin, cout), dtype=torch.bfloat16)
+    want = mult == 1.0 or name in ("conv8", "conv9", "conv11", "conv12")
+    for route in (fc.gemm_route, fc.fwd_route):
+        assert route(x, w, torch.bfloat16) is want
+        assert route(x, w, torch.float32) is False
+        assert route(x.float(), w.float(), torch.float32) is False
+
+
+@pytest.mark.parametrize("case", [
+    # (H = W, Cin, Cout, storage offset of x, K4 takes it, K5 takes it)
+    (16, 64, 64, 0, True, True),
+    (16, 64, 64, 4, False, False),    # x not 16-byte aligned
+    (16, 64, 96, 0, False, False),    # Cout % 64 != 0
+    (16, 32, 64, 0, False, False),    # Cin % 64 != 0
+    (12, 64, 64, 0, False, False),    # no 128-pixel box tiles 12x12
+    # 128 images a box: K5's dgrad box is one pixel a image, but K4's
+    # two halo buffers of 3 x 3 x 128 pixels (147,456 B each) do not fit
+    (1, 64, 64, 0, False, True),
+])
+def test_fused_route_predicate(case):
+    hw, cin, cout, offset, fwd, dx = case
+    x = torch.zeros(hw * hw * cin + offset, dtype=torch.bfloat16)[offset:]
+    x = x.view(1, hw, hw, cin)
+    w = torch.zeros((3, 3, cin, cout), dtype=torch.bfloat16)
+    assert fc.fwd_route(x, w, torch.bfloat16) is fwd
+    assert fc.gemm_route(x, w, torch.bfloat16) is dx
+
+
+@pytest.mark.parametrize("hw", [1, 2, 4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("n", [1, 3, 256])
+def test_fused_plans_exist_wherever_their_route_is_taken(hw, n):
+    """On every square grid that `conv_box` tiles, the predicates and the
+    plans agree: K4's plan is found exactly where `fused_fwd_fits` holds
+    (so a routed shape is never refused at launch), and then fits the
+    CUDA entry's limits; K5's plan is found on every such grid."""
+    cin = cout = 64
+    if mm.fused_fwd_fits(hw, hw):
+        box, bn, stages, grid, halo = mm.fused_fwd_plan(n, hw, hw, cin,
+                                                        cout, H100_SMS)
+        _, bw, rows, imgs = box
+        assert (bw + 2) * (rows + 2) * imgs <= mm.FWD_MAX_HALO_PX
+        assert mm.fused_fwd_smem_bytes(bn, stages, halo) <= SMEM_PER_BLOCK
+    else:
+        assert hw == 1
+        with pytest.raises(ValueError, match="no K4 plan"):
+            mm.fused_fwd_plan(n, hw, hw, cin, cout, H100_SMS)
+    box, bn, stages, grid = mm.fused_dx_plan(n, hw, hw, cin, cout, H100_SMS)
+    assert mm.fused_dx_smem_bytes(bn, stages) <= SMEM_PER_BLOCK
+
+
+# (n, H = W, Cin, Cout) of the eight seams' grids at batch 256 and 3
+FUSED_PLAN_CASES = [(n, hw, cin, cout) for n in (256, 3)
+                    for _, hw, cin, cout in FUSED_SEAMS]
+
+
+def _fused_fwd_walk(n, h, w, cout, plan):
+    """The (output pixel, output channel tile) pairs K4's blocks store, and
+    for each stored pixel the halo-box pixel of its centre tap, which must
+    hold that pixel with all eight neighbours inside the box."""
+    (_, bw, rows, imgs), bn, _, grid, _ = plan
+    pw, ph = bw + 2, rows + 2
+    m = n * h * w
+    tiles_m = -(-m // mm.GEMM_BM)
+    out = []
+    for b in range(grid):
+        for t in range(b, tiles_m * -(-cout // bn), grid):
+            m0, j = (t % tiles_m) * mm.GEMM_BM, t // tiles_m
+            img, rem = divmod(m0, h * w)
+            oh0 = rem // w
+            assert rem % w == 0 and (imgs == 1 or oh0 == 0)
+            for r in range(mm.GEMM_BM):
+                rq, ri = r // bw, r // (bw * rows)
+                p0 = (ri * ph + rq - ri * rows + 1) * pw + r % bw + 1
+                col, q = p0 % pw, p0 // pw
+                assert 1 <= col <= bw and 1 <= q % ph <= rows   # not a halo
+                assert (img + q // ph, oh0 + q % ph - 1, col - 1) == (
+                    img + ri, oh0 + rq - ri * rows, r % bw)
+                if m0 + r < m:
+                    out.append((m0 + r, j))
+    return out
+
+
+@pytest.mark.parametrize("case", FUSED_PLAN_CASES)
+@pytest.mark.parametrize("sms", [H100_SMS, 7])
+def test_fused_fwd_plan_covers_every_output_pixel_once(case, sms):
+    n, hw, cin, cout = case
+    plan = mm.fused_fwd_plan(n, hw, hw, cin, cout, sms)
+    walked = sorted(_fused_fwd_walk(n, hw, hw, cout, plan))
+    assert walked == [(p, j) for p in range(n * hw * hw)
+                      for j in range(-(-cout // plan[1]))]
+
+
+@pytest.mark.parametrize("case", FUSED_PLAN_CASES)
+def test_fused_dx_plan_covers_every_input_pixel_once(case):
+    """K5's tiles are the conv GEMM's dgrad tiles: 128 input pixels x BN
+    input channels, walked as `conv_plan`'s."""
+    n, hw, cin, cout = case
+    box, bn, stages, grid = mm.fused_dx_plan(n, hw, hw, cin, cout, H100_SMS)
+    walked = sorted(_conv_walk(n, hw, hw, cin, (box, bn, stages, grid)))
+    assert walked == [(p, j) for p in range(n * hw * hw)
+                      for j in range(-(-cin // bn))]
+
+
+@pytest.mark.parametrize("case", FUSED_PLAN_CASES)
+def test_fused_plans_fit_the_card(case):
+    n, hw, cin, cout = case
+    box, bn, stages, grid, halo = mm.fused_fwd_plan(n, hw, hw, cin, cout,
+                                                    H100_SMS)
+    _, bw, rows, imgs = box
+    halo_box = (mm.GEMM_BK, bw + 2, rows + 2, imgs)
+    assert all(1 <= d <= 256 for d in halo_box)        # TMA's box limit
+    assert halo % 1024 == 0 and halo >= 128 * (bw + 2) * (rows + 2) * imgs
+    assert bn in mm.FUSED_BNS and 2 <= stages <= mm.FWD_MAX_STAGES
+    assert mm.fused_fwd_smem_bytes(bn, stages, halo) <= SMEM_PER_BLOCK
+    assert 1 <= grid <= H100_SMS
+    box, bn, stages, grid = mm.fused_dx_plan(n, hw, hw, cin, cout, H100_SMS)
+    assert box == mm.conv_plan(n, hw, hw, cout, cin, 9, H100_SMS)[0]
+    assert bn in mm.FUSED_BNS and 2 <= stages <= mm.DX_MAX_STAGES
+    assert mm.fused_dx_smem_bytes(bn, stages) <= SMEM_PER_BLOCK
+    assert 1 <= grid <= H100_SMS
+
+
+@pytest.mark.parametrize("hw", [32, 16, 8, 4, 2])
+def test_fused_fwd_fits_at_both_tile_widths_on_every_seam_grid(hw):
+    """Two halo buffers, a ring of at least 4 weight stages, the output
+    staging and the barriers fit 232,448 B at both tile widths on every
+    seam grid; at 2x2 (32 images a box, 65,536 B a halo) BN = 128 leaves 4
+    stages and 1,952 B: 230,496 B in all."""
+    halo = mm.fused_halo_bytes(mm.conv_plan(3, hw, hw, 64, 64, 9, 7)[0])
+    for bn in mm.FUSED_BNS:
+        assert mm.fused_fwd_smem_bytes(bn, 4, halo) <= SMEM_PER_BLOCK
+    if hw == 2:
+        assert halo == 65536
+        assert mm.fused_fwd_smem_bytes(128, 4, halo) == 230496
+        assert mm.fused_fwd_smem_bytes(128, 5, halo) > SMEM_PER_BLOCK
+
+
+def test_fused_plans_at_the_vgg_seams():
+    """The tile widths at batch 256: BN = 64 where Cout (K4) or Cin (K5) is
+    64 (conv1) and at 2x2, whose 8 row tiles fill more SMs at 64; 128
+    elsewhere."""
+    fwd = {hw: mm.fused_fwd_plan(256, hw, hw, cin, cout, H100_SMS)[1]
+           for _, hw, cin, cout in FUSED_SEAMS}
+    dx = {hw: mm.fused_dx_plan(256, hw, hw, cin, cout, H100_SMS)[1]
+          for _, hw, cin, cout in FUSED_SEAMS}
+    assert fwd == dx == {32: 64, 16: 128, 8: 128, 4: 128, 2: 64}
