@@ -48,9 +48,13 @@ Needs one CUDA card; exits non-zero without one. It
      same batches and augmentation draws: the update of every tensor after
      one step, the losses over three, the no-forgetting invariants, each
      kernel's launches in one step, and ms/step at batch 256 and 1024;
-  6. ViT kernel phases: the flash-attention kernels (K7 forward, dQ, dK/dV)
-     at vit_cifar's batch-256 shape (256, 64, 4, 64), vit_b16's
-     (64, 196, 12, 64), a causal T = 70 and in f32, and the dense route
+  6. ViT kernel phases: the flash-attention kernels (K7 forward; the
+     one-launch backward `flash_bwd`, csrc/flash_bwd_wgmma.cu, where
+     `bwd_route` takes the shape, two launches equal bits, its walk and
+     ring in `plan` and the pair's device time beside it; the dQ + dK/dV
+     pair at every shape) at vit_cifar's batch-256 shape (256, 64, 4, 64),
+     vit_b16's (64, 196, 12, 64), a causal T = 70, T = 320 (off the
+     route) and in f32, and the dense route
      (masked_matmul; bf16: the select pass and TN GEMM of
      csrc/masked_matmul.cu for y and dx, each also alone against its plain
      version, two launches equal bits; f32: K1-K2 at the 1x1 geometry; dw:
@@ -68,7 +72,8 @@ Needs one CUDA card; exits non-zero without one. It
   8. ViT eval phase: the eval step with the dense route and flash
      attention (`use_pallas`, `flash_attention`) against the default step;
   9. ViT train phase: task 2 as for VGG16-BN, with `use_pallas` and
-     `flash_attention` (exact launches per step: flash 6 + 6 + 6, dense
+     `flash_attention` (exact launches per step: flash forward 6 and the
+     one-launch backward 6, no dQ or dK/dV, dense
      36 + 36 + 36 and 72 select passes);
  10. prints the kernels' JSON line (launch counts from the serve, eval and
      train phases, errors, times, bounds), the card line, and last the
@@ -112,10 +117,14 @@ CHAIN_SHAPES = [("conv1", 32, 64, 64), ("conv3", 16, 128, 128),
                 ("conv8", 4, 512, 512), ("conv9", 4, 512, 512),
                 ("conv11", 2, 512, 512), ("conv12", 2, 512, 512)]
 # flash attention (name, N, T, H, hd, causal, dtype, launches per vit_cifar
-# train step at batch 256; 0 = an extra shape, not on the timed step)
+# train step at batch 256; 0 = an extra shape, not on the timed step). The
+# backward takes `flash.bwd_route`'s one-launch kernel at the bf16 hd-64
+# shapes up to T = 256; T = 320 and f32 keep the dQ + dK/dV pair on the
+# path, which every shape also times beside it.
 FLASH_SHAPES = [("vit_cifar", BATCH, 64, 4, 64, False, "bfloat16", 6),
                 ("vit_b16", 64, 196, 12, 64, False, "bfloat16", 0),
                 ("causal_t70", BATCH, 70, 4, 64, True, "bfloat16", 0),
+                ("off_route_t320", 32, 320, 4, 64, False, "bfloat16", 0),
                 ("vit_cifar_f32", 32, 64, 4, 64, False, "float32", 0)]
 # dense route (name, M, K, N, dtype, mode, launches per vit_cifar step)
 DENSE_SHAPES = [("qkv_proj", BATCH * 64, 256, 256, "bfloat16", "binary", 24),
@@ -577,9 +586,12 @@ def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name,
 
 
 def flash_phases(torch, dev, name, n, t, h, hd, causal, dtype_name, per_step):
-    """K7 forward, dQ and dK/dV at one shape against the plain versions,
-    with `scaled_dot_product_attention` (forward; its autograd backward
-    alone, over one retained graph) as the library yardstick."""
+    """K7 forward, the one-launch backward (`flash_bwd`, on its route) and
+    the dQ + dK/dV pair at one shape against the plain versions, with
+    `scaled_dot_product_attention` (forward; its autograd backward alone,
+    over one retained graph) as the library yardstick. `on_path`: the
+    backward the model's autograd takes at this shape; the pair's rows
+    carry per_step 0 where the one-launch kernel is on the path."""
     import torch.nn.functional as F
     from cpg_tpu_torch.ops import flash as fl
 
@@ -592,7 +604,7 @@ def flash_phases(torch, dev, name, n, t, h, hd, causal, dtype_name, per_step):
     nrow = n * h * t * 4                         # one f32 (N, H, T) row stat
     work = n * h * t * t * hd * (0.5 if causal else 1.0)
     common = dict(layer=name, dtype=dtype_name, shape=[n, t, h, hd],
-                  causal=causal, per_step=per_step)
+                  causal=causal)
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     rows = []
@@ -605,7 +617,8 @@ def flash_phases(torch, dev, name, n, t, h, hd, causal, dtype_name, per_step):
     if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
         raise AssertionError(f"flash_fwd {name}: two launches differ")
     b_ms, b_by = bound(4 * nqkv + nrow, 4 * work, dtype_name)
-    rows.append(dict(kernel="flash_fwd", **common, max_abs_err=err,
+    rows.append(dict(kernel="flash_fwd", **common, per_step=per_step,
+                     max_abs_err=err,
                      **timed(lambda: fl.flash_fwd(q, k, v, causal),
                              lambda: fl.flash_mha_plain(q, k, v, causal), sdpa),
                      bound_ms=b_ms, bound_by=b_by))
@@ -618,6 +631,26 @@ def flash_phases(torch, dev, name, n, t, h, hd, causal, dtype_name, per_step):
     sdpa_bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), dot,
                                            retain_graph=True)
     lib_bwd, lib_bwd_dev = time_ms(sdpa_bwd), device_ms(sdpa_bwd)
+    route = fl.bwd_route(q)
+    pair_step = 0 if route else per_step
+
+    if route:
+        grads = twice(torch, lambda: fl.flash_bwd(q, k, v, o, lse, do, causal),
+                      f"flash_bwd {name}")
+        want = fl.flash_mha_bwd_plain(q, k, v, o, lse, do, causal)
+        err = max(compare(g_, w_, dtype_name, f"flash_bwd d{x} {name}")
+                  for g_, w_, x in zip(grads, want, "qkv"))
+        b_ms, b_by = bound(8 * nqkv + nrow, 10 * work, dtype_name)
+        kern = lambda: fl.flash_bwd(q, k, v, o, lse, do, causal)
+        plan = fl.bwd_plan(n, t, h, hd, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        rows.append(dict(kernel="flash_bwd", **common, per_step=per_step,
+                         on_path=True, max_abs_err=err, plan=list(plan),
+                         ms=time_ms(kern), device_ms=device_ms(kern),
+                         plain_ms=time_ms(lambda: fl.flash_mha_bwd_plain(
+                             q, k, v, o, lse, do, causal)),
+                         library_ms=lib_bwd, library_device_ms=lib_bwd_dev,
+                         bound_ms=b_ms, bound_by=b_by))
 
     dq, d = fl.flash_bwd_dq(q, k, v, o, lse, do, causal)
     dq_ref, d_ref = fl.flash_mha_bwd_dq_plain(q, k, v, o, lse, do, causal)
@@ -626,7 +659,8 @@ def flash_phases(torch, dev, name, n, t, h, hd, causal, dtype_name, per_step):
                       rel=SUM_TOL))
     b_ms, b_by = bound(5 * nqkv + nrow + nqkv + nrow, 6 * work, dtype_name)
     kern = lambda: fl.flash_bwd_dq(q, k, v, o, lse, do, causal)
-    rows.append(dict(kernel="flash_bwd_dq", **common, max_abs_err=err,
+    rows.append(dict(kernel="flash_bwd_dq", **common, per_step=pair_step,
+                     on_path=not route, max_abs_err=err,
                      ms=time_ms(kern), device_ms=device_ms(kern),
                      plain_ms=time_ms(lambda: fl.flash_mha_bwd_dq_plain(
                          q, k, v, o, lse, do, causal)),
@@ -639,12 +673,16 @@ def flash_phases(torch, dev, name, n, t, h, hd, causal, dtype_name, per_step):
               compare(dv, dv_ref, dtype_name, f"flash_bwd_dkv dv {name}"))
     b_ms, b_by = bound(4 * nqkv + 2 * nrow + 2 * nqkv, 8 * work, dtype_name)
     kern = lambda: fl.flash_bwd_dkv(q, k, v, do, lse, d, causal)
-    rows.append(dict(kernel="flash_bwd_dkv", **common, max_abs_err=err,
+    rows.append(dict(kernel="flash_bwd_dkv", **common, per_step=pair_step,
+                     on_path=not route, max_abs_err=err,
                      ms=time_ms(kern), device_ms=device_ms(kern),
                      plain_ms=time_ms(lambda: fl.flash_mha_bwd_dkv_plain(
                          q, k, v, do, lse, d, causal)),
                      library_ms=lib_bwd, library_device_ms=lib_bwd_dev,
                      bound_ms=b_ms, bound_by=b_by))
+    if route:  # the pair beside the kernel, in device time
+        pair = [r["device_ms"] for r in rows[-2:]]
+        rows[-3]["pair_device_ms"] = (None if None in pair else sum(pair))
     return rows
 
 
@@ -896,7 +934,7 @@ TRAIN_LAUNCHES = {
                        "masked_conv_im2col": 1,
                        "fused_chain_fwd": 8,
                        "fused_chain_bwd_dx": 8, "fused_chain_bwd_dw": 8},
-    "vit_cifar": {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
+    "vit_cifar": {"flash_fwd": 6, "flash_bwd": 6,
                   "masked_matmul_fwd": 36, "masked_matmul_bwd_dx": 36,
                   "masked_matmul_bwd_dw": 36, "masked_matmul_select": 72},
 }
@@ -1098,6 +1136,7 @@ class Counts:
             "flash_fwd": (flash, "LAUNCHES"),
             "flash_bwd_dq": (flash, "LAUNCHES_BWD_DQ"),
             "flash_bwd_dkv": (flash, "LAUNCHES_BWD_DKV"),
+            "flash_bwd": (flash, "LAUNCHES_BWD"),
             "masked_matmul_fwd": (masked_matmul, "LAUNCHES"),
             "masked_matmul_bwd_dx": (masked_matmul, "LAUNCHES_BWD_DX"),
             "masked_matmul_bwd_dw": (masked_matmul, "LAUNCHES_BWD_DW"),
@@ -1247,6 +1286,8 @@ def main() -> int:
                          "cpg_tpu/ops/flash.py:97"),
         "flash_bwd_dkv": ("cpg_tpu_torch/csrc/flash_bwd.cu",
                           "cpg_tpu/ops/flash.py:97"),
+        "flash_bwd": ("cpg_tpu_torch/csrc/flash_bwd_wgmma.cu",
+                      "cpg_tpu/ops/flash.py:97"),
         "masked_matmul_fwd": ("cpg_tpu_torch/csrc/masked_matmul.cu",
                               "cpg_tpu/ops/pallas/masked_matmul.py:97"),
         "masked_matmul_bwd_dx": ("cpg_tpu_torch/csrc/masked_matmul.cu",
@@ -1261,8 +1302,12 @@ def main() -> int:
     for name, (source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == name]
         # the shapes of one train step at batch 256 (VGG16-BN for the conv
-        # kernels, vit_cifar for the rest), each times its launches there
+        # kernels, vit_cifar for the rest), each times its launches there;
+        # a kernel that step does not launch (K7's dQ + dK/dV pair) sums
+        # its shapes where the path takes it, once each
         step = [(r, _per_step(r)) for r in mine if _per_step(r)]
+        if not step:
+            step = [(r, 1) for r in mine if r.get("on_path")]
         by = {}
         for r, k in step:
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + k * r["bound_ms"]

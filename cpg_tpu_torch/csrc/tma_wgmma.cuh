@@ -3,7 +3,7 @@
 // masked_matmul_wgrad.cu: the weight-gradient GEMM; fused_chain_fwd.cu:
 // K4). Device side: shared-memory addresses, mbarriers with a trapping
 // wait, the producer/consumer ring of stages, TMA loads and stores of
-// 2-4-D boxes, named barriers, wgmma descriptors of 128-byte-swizzled
+// 2-4-D boxes (stores: 2-D and 4-D), named barriers, wgmma descriptors of 128-byte-swizzled
 // tiles (K-major and MN-major), the wgmma m64nNk16 bf16 instruction with
 // both transpose flags and its form with A from registers. Host side: cuTensorMapEncodeTiled through the runtime's
 // entry-point query (no -lcuda) and a bf16 tensor map of any rank.
@@ -153,6 +153,17 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
       " [%0, {%1, %2}], [%3];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+
+// The same for a 4-D map.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
       : "memory");
 }
 

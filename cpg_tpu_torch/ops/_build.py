@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 KERNELS = ("masked_conv_fwd", "masked_conv_bwd_dx", "masked_conv_bwd_dw",
            "fused_chain_fwd", "fused_chain_bwd_dx", "fused_chain_bwd_dw",
-           "flash_fwd", "flash_bwd", "masked_matmul", "masked_matmul_wgrad")
+           "flash_fwd", "flash_bwd", "flash_bwd_wgmma", "masked_matmul",
+           "masked_matmul_wgrad")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

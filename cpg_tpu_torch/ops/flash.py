@@ -16,11 +16,16 @@ and no padding copy: keys >= T are masked inside the kernel):
   * `csrc/flash_fwd.cu` (K7 forward): online softmax over 64-key tiles,
     writes o and lse; in bf16 a persistent grid (`fwd_grid`) whose blocks
     load the next tiles under the current ones' products;
-  * `csrc/flash_bwd.cu`: `flash_bwd_dq` (one block per 64-row query tile,
-    looping over key tiles; it also writes D = rowsum(dO * o), which the
-    second kernel reads) and `flash_bwd_dkv` (one block per 64-key tile,
-    looping over query tiles). No float atomics: two runs give the same
-    bits.
+  * `csrc/flash_bwd_wgmma.cu` (K7 backward on `bwd_route`: bf16, hd 64,
+    T <= 256): `flash_bwd`, one TMA + wgmma launch that forms S and dP once
+    a tile, D inside, and writes dq, dk and dv, dq summed over 128-key
+    blocks in their order (`bwd_plan`: the walk, ring and persistent grid);
+  * `csrc/flash_bwd.cu` (K7 backward off that route: f32, other head dims,
+    T > 256): `flash_bwd_dq` (one block per 64-row query tile, looping over
+    key tiles; it also writes D = rowsum(dO * o), which the second kernel
+    reads) and `flash_bwd_dkv` (one block per 64-key tile, looping over
+    query tiles).
+  No float atomics: two runs give the same bits.
 
 Rounding points follow the stock kernel: scores and softmax in f32, the
 probabilities cast to v's dtype before P.V; in the backward p and ds are
@@ -36,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -45,6 +51,7 @@ from . import _build
 LAUNCHES = 0           # K7 forward
 LAUNCHES_BWD_DQ = 0    # K7 backward, dQ (and D)
 LAUNCHES_BWD_DKV = 0   # K7 backward, dK and dV
+LAUNCHES_BWD = 0       # K7 backward on `bwd_route`: dQ, dK and dV in one
 
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -126,6 +133,8 @@ class _FlashMHA(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
+        if bwd_route(q):
+            return (*flash_bwd(q, k, v, o, lse, do, ctx.causal), None)
         dq, d = flash_bwd_dq(q, k, v, o, lse, do, ctx.causal)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, d, ctx.causal)
         return dq, dk, dv, None
@@ -153,9 +162,10 @@ _ARGTYPES = {
     "flash_fwd_bf16": [_P] * 5 + [_I] * 6 + [_P],  # + the persistent grid
     "flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P],
     "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P],
+    "flash_bwd_wgmma": [_P] * 9 + [_I] * 7 + [_P],  # + stages, grid
 }
 _LIBS = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
-         "flash_bwd_dkv": "flash_bwd"}
+         "flash_bwd_dkv": "flash_bwd", "flash_bwd_wgmma": "flash_bwd_wgmma"}
 
 
 def _fn(name, dtype):
@@ -196,6 +206,65 @@ def fwd_grid(n: int, t: int, h: int, hd: int, sms: int):
     items = n * -(-t // (16 * fwd_warps(t, hd))) * h
     per = -(-items // (sms * fwd_blocks_per_sm(t, hd)))
     return items, -(-items // per)
+
+
+# The one-launch backward (csrc/flash_bwd_wgmma.cu): two consumer
+# warpgroups of 64 keys each and one producer warp a block, one block an
+# SM. T <= 64: the PAIR walk, an item is two (image, head)s, one a
+# warpgroup; else the BLOCK walk, an item is one (image, head) whose keys
+# are walked in 128-key blocks, each over every 64-query tile. Shared
+# memory: `bwd_smem_bytes`, the CUDA function of the same name. The ring
+# holds BWD_STAGES query tiles: scripts/torch_flash_bwd_plans.py found no
+# deeper ring faster at vit_cifar, vit_b16 or the causal T = 70 (deeper
+# rings fit only at T <= 128).
+_BWD_HD, _BWD_MAX_T, BWD_STAGES = 64, 256, 2
+_TILE = 64 * 128  # bytes of one 64-row bf16 tile of hd 64
+
+
+def bwd_route(q) -> bool:
+    """Whether `flash_bwd` (the one-launch kernel) takes q's backward:
+    bf16, hd 64, T <= 256 (vit_cifar's 64, vit_b16's 196), causal or not.
+    Everything else runs `flash_bwd_dq` + `flash_bwd_dkv`."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] == _BWD_HD
+            and q.shape[1] <= _BWD_MAX_T)
+
+
+def bwd_smem_bytes(pair: bool, n_kb: int, n_qt: int, stages: int) -> int:
+    """Dynamic shared memory of the one-launch backward: alignment slack,
+    K/V x 2, the ring, each warpgroup's dS^T, the dq staging tiles, BLOCK's
+    f32 dQ hand-over and first-key-block dQ tiles (two key blocks), lse
+    and D, the mbarriers."""
+    stage = (2 if pair else 1) * 3 * _TILE
+    part = n_qt * 2 * _TILE if n_kb > 1 else 0
+    return (1024 + 8 * _TILE + stages * stage + 2 * _TILE
+            + (2 if pair else 1) * _TILE + (0 if pair else 2 * _TILE) + part
+            + 2 * _BWD_MAX_T * 4 + 2 * 2 * 64 * 4 + 16 * stages + 32)
+
+
+class BwdPlan(NamedTuple):
+    pair: bool   # the PAIR walk (T <= 64)
+    n_kb: int    # 128-key blocks an item (PAIR: 1)
+    n_qt: int    # 64-query tiles an item
+    items: int   # PAIR: (image, head) pairs; else (image, head)s
+    stages: int  # query tiles in the ring
+    grid: int    # persistent blocks, each taking every grid-th item
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(n: int, t: int, h: int, hd: int, sms: int) -> BwdPlan:
+    """The one-launch backward's walk and persistent grid on a card with
+    `sms` SMs (at most one block an SM, cut so that every block takes the
+    same number of items, the last ones fewer)."""
+    if hd != _BWD_HD or not 1 <= t <= _BWD_MAX_T:
+        raise ValueError(f"flash_bwd: no plan for T = {t}, hd = {hd}")
+    pair = t <= 64
+    n_qt = -(-t // 64)
+    n_kb = 1 if pair else -(-t // 128)
+    items = -(-(n * h) // 2) if pair else n * h
+    per = -(-items // sms)
+    return BwdPlan(pair, n_kb, n_qt, items, BWD_STAGES, -(-items // per),
+                   bwd_smem_bytes(pair, n_kb, n_qt, BWD_STAGES))
 
 
 @functools.lru_cache(maxsize=None)
@@ -313,3 +382,28 @@ def flash_bwd_dkv(q, k, v, do, lse, d, causal: bool = False):
     return dk, dv
 
 
+def flash_bwd(q, k, v, o, lse, do, causal: bool = False):
+    """K7 backward in one launch on `bwd_route` shapes: (dq, dk, dv) in the
+    inputs' dtype; the plain version on CPU tensors. Raises on a CUDA
+    tensor off the route."""
+    global LAUNCHES_BWD
+    if q.device.type == "cpu":
+        return flash_mha_bwd_plain(q, k, v, o, lse, do, causal)
+    if not bwd_route(q):
+        raise ValueError(f"flash_bwd: off its route ({q.dtype}, T = "
+                         f"{q.shape[1]}, hd = {q.shape[-1]}): needs bf16, "
+                         f"hd {_BWD_HD}, T <= {_BWD_MAX_T}")
+    t = _checked(q=q, k=k, v=v, o=o, do=do)
+    lse = _checked_lse(q, lse)
+    n, tt, h, hd = q.shape
+    dq, dk, dv = (torch.empty_like(t[x]) for x in ("q", "k", "v"))
+    if dq.numel():
+        plan = bwd_plan(n, tt, h, hd, _sm_count(q.device.index))
+        err = _fn("flash_bwd_wgmma", q.dtype)(
+            t["q"].data_ptr(), t["k"].data_ptr(), t["v"].data_ptr(),
+            t["o"].data_ptr(), t["do"].data_ptr(), lse.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), n, tt, h, hd,
+            int(causal), plan.stages, plan.grid, _stream(q))
+        _raise_on(err, "flash_bwd")
+        LAUNCHES_BWD += 1
+    return dq, dk, dv

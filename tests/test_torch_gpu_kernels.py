@@ -595,6 +595,74 @@ def test_flash_fwd_persistent_grid_edges_match_plain(cuda, case):
         assert items % grid
 
 
+# the cases of test_flash_kernels_match_plain that `bwd_route` takes, then
+# ragged T around the walks' edges (one query tile, one and two key blocks,
+# a slot past T), causal and not
+FLASH_BWD_CASES = [(8, 64, 4, 64, False), (2, 196, 12, 64, False),
+                   (2, 70, 2, 64, True)] + [
+    (n, t, h, 64, causal)
+    for n, t, h in [(3, 1, 3), (3, 63, 3), (5, 64, 3), (2, 65, 3),
+                    (2, 127, 2), (2, 128, 3), (2, 129, 2), (1, 196, 3),
+                    (2, 255, 2), (2, 256, 3)]
+    for causal in (False, True)]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_bwd_matches_plain(cuda, case):
+    """The one-launch backward (csrc/flash_bwd_wgmma.cu) against
+    flash_mha_bwd_plain at max|diff| <= 2e-2 * max|ref| + 1e-5 (p and ds
+    rounded to bf16 in 64-query tiles against the whole row; the 1e-5
+    floor is for T = 1, where dq and dk are exactly 0 in exact arithmetic,
+    D = dO . o = dO . v, and both sides give f32 rounding noise of ~1e-6);
+    one launch each, and two launches give the same bits (dq summed in
+    key-block order)."""
+    n, t, h, hd, causal = case
+    q, k, v, do = _qkv(n, t, h, hd, cuda, torch.bfloat16, seed=5)
+    assert fl.bwd_route(q)
+    o, lse = fl.flash_fwd(q, k, v, causal)
+    before = (fl.LAUNCHES_BWD, fl.LAUNCHES_BWD_DQ, fl.LAUNCHES_BWD_DKV)
+    grads = fl.flash_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (fl.LAUNCHES_BWD, fl.LAUNCHES_BWD_DQ, fl.LAUNCHES_BWD_DKV) == (
+        before[0] + 1, before[1], before[2])
+    want = fl.flash_mha_bwd_plain(q, k, v, o, lse, do, causal)
+    for got, ref in zip(grads, want):
+        assert got.dtype == ref.dtype == torch.bfloat16
+        got, ref = got.float().cpu(), ref.float().cpu()
+        assert torch.isfinite(got).all()
+        err = (got - ref).abs().max().item()
+        assert err <= 2e-2 * ref.abs().max().item() + 1e-5, err
+    for first, second in zip(grads, fl.flash_bwd(q, k, v, o, lse, do, causal)):
+        assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("case", [
+    # (n, t, h, hd, dtype): T past the route, f32, head dims it does not take
+    (2, 320, 2, 64, "bfloat16"), (2, 70, 2, 64, "float32"),
+    (3, 5, 2, 32, "bfloat16"), (1, 40, 2, 128, "bfloat16")])
+def test_flash_backward_off_the_route_takes_the_pair(cuda, case):
+    """Through flash_mha's autograd, a shape off `bwd_route` launches
+    flash_bwd_dq and flash_bwd_dkv once each and not the one-launch kernel,
+    which raises there."""
+    n, t, h, hd, dname = case
+    dtype = getattr(torch, dname)
+    q, k, v, do = _qkv(n, t, h, hd, cuda, dtype, seed=6)
+    assert not fl.bwd_route(q)
+    qkv = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    out = fl.flash_mha(*qkv, causal=False)
+    before = (fl.LAUNCHES_BWD, fl.LAUNCHES_BWD_DQ, fl.LAUNCHES_BWD_DKV)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fl.LAUNCHES_BWD, fl.LAUNCHES_BWD_DQ, fl.LAUNCHES_BWD_DKV) == (
+        before[0], before[1] + 1, before[2] + 1)
+    o, lse = fl.flash_fwd(q, k, v)
+    want = fl.flash_mha_bwd_plain(q, k, v, o, lse, do)
+    for a, ref in zip(qkv, want):
+        _check(a.grad, ref, dtype)
+    with pytest.raises(ValueError, match="off its route"):
+        fl.flash_bwd(q, k, v, o, lse, do)
+
+
 def test_flash_kernel_refuses_unsupported(cuda):
     q = torch.zeros((1, 8, 2, 24), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
@@ -749,12 +817,20 @@ def test_dense_kernels_refuse_unsupported(cuda):
         mm.launch_select(w, w.to(torch.int8), w, 2, 5e-3, "binary", True)
 
 
-def test_autograd_reaches_q_k_v_w_and_pm_through_dense_and_flash(cuda):
+@pytest.mark.parametrize("flash_dtype,hd", [("float32", 32),
+                                             ("bfloat16", 64)])
+def test_autograd_reaches_q_k_v_w_and_pm_through_dense_and_flash(
+        cuda, flash_dtype, hd):
     """loss.backward() through masked_matmul and flash_mha on the card
     gives x, w, pm (and through them q, k, v) their gradients, equal to the
-    plain path's on the CPU; dx is skipped when x needs no gradient."""
+    plain path's on the CPU; dx is skipped when x needs no gradient. In f32
+    at hd 32 flash's backward is the dQ + dK/dV pair (rtol/atol 1e-4); with
+    q, k, v cast to bf16 at hd 64 it is the one-launch kernel on
+    `bwd_route` (max|diff| <= 2e-2 * max|ref|: the two sides round p and ds
+    to bf16 in different tiles)."""
     rng = np.random.RandomState(8)
-    n, t, h, hd = 2, 70, 2, 32
+    n, t, h = 2, 70, 2
+    fdt = getattr(torch, flash_dtype)
     x0 = rng.randn(n * t, 48).astype(np.float32)
     ws = [(rng.randn(48, h * hd) * 0.2).astype(np.float32) for _ in range(3)]
     own = rng.choice([0, 1, 2], size=(48, h * hd)).astype(np.int8)
@@ -768,19 +844,26 @@ def test_autograd_reaches_q_k_v_w_and_pm_through_dense_and_flash(cuda):
         town = torch.from_numpy(own).to(dev)
         q, k, v = (mm.masked_matmul(leaves[0], leaves[1 + i], town,
                                     leaves[4 + i], 2).reshape(n, t, h, hd)
-                   for i in range(3))
+                   .to(fdt) for i in range(3))
         out = fl.flash_mha(q, k, v, causal=True)
-        before = (fl.LAUNCHES_BWD_DKV, mm.LAUNCHES_BWD_DX)
-        (out * torch.from_numpy(gout).to(dev)).sum().backward()
+        assert fl.bwd_route(q) == (fdt == torch.bfloat16)
+        before = (fl.LAUNCHES_BWD_DKV, fl.LAUNCHES_BWD, mm.LAUNCHES_BWD_DX)
+        (out.float() * torch.from_numpy(gout).to(dev)).sum().backward()
         if dev != "cpu":
             torch.cuda.synchronize()
-            assert fl.LAUNCHES_BWD_DKV == before[0] + 1
-            assert mm.LAUNCHES_BWD_DX == before[1] + 3
+            route = int(fdt == torch.bfloat16)
+            assert fl.LAUNCHES_BWD_DKV == before[0] + 1 - route
+            assert fl.LAUNCHES_BWD == before[1] + route
+            assert mm.LAUNCHES_BWD_DX == before[2] + 3
         grads[str(dev)] = [a.grad.detach().cpu() for a in leaves]
     for i, (got, want) in enumerate(zip(grads["cuda"], grads["cpu"])):
         assert got.abs().max() > 0, i
-        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
-                                   atol=1e-4, err_msg=str(i))
+        if fdt == torch.float32:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                       atol=1e-4, err_msg=str(i))
+        else:
+            err = (got - want).abs().max().item()
+            assert err <= 2e-2 * want.abs().max().item(), (i, err)
     x = torch.tensor(x0, device=cuda)  # no gradient wanted: K2 is skipped
     w = torch.tensor(ws[0], device=cuda, requires_grad=True)
     before = mm.LAUNCHES_BWD_DX

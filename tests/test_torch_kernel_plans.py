@@ -2,7 +2,9 @@
 
 K6 (`fused_chain.k6_plan`) picks the image rows a step and the split count
 of the bf16 dW kernel; K7 forward (`flash.fwd_grid`) sizes the persistent
-grid of the bf16 flash forward; the dense route's TN GEMM
+grid of the bf16 flash forward; K7's one-launch backward (`flash.bwd_plan`)
+picks its walk, ring depth and persistent grid, and `flash.bwd_route`
+decides which backward passes take it; the dense route's TN GEMM
 (`masked_matmul.gemm_plan`) picks its tile width, ring depth and
 persistent grid, and `masked_matmul.gemm_route` decides which products
 take it; the masked conv's implicit GEMM (`masked_matmul.conv_plan`) adds
@@ -150,6 +152,89 @@ def test_flash_fwd_grid_need_not_divide_the_items(case):
     n, t, h = case
     items, grid = fl.fwd_grid(n, t, h, 64, H100_SMS)
     assert items % grid
+
+
+# ------------------------------------------- K7 backward, one launch ----
+# (n, t, h): vit_cifar, vit_b16, the causal T = 70 shape and the walks'
+# edges (one query tile; one and two key blocks; an odd (image, head) count)
+FLASH_BWD_CASES = [(256, 64, 4), (64, 196, 12), (256, 70, 4), (3, 1, 3),
+                   (3, 63, 3), (5, 64, 3), (2, 65, 3), (2, 128, 3),
+                   (2, 129, 2), (1, 196, 3), (2, 255, 2), (2, 256, 3)]
+
+
+def _bwd_walk(plan, n, h):
+    """(block, image, head, key block) as csrc/flash_bwd_wgmma.cu walks
+    them: block b takes items b, b + grid, ...; a PAIR item is two (image,
+    head)s, of which the second may be past N * H (not stored)."""
+    for b in range(plan.grid):
+        for it in range(b, plan.items, plan.grid):
+            for item in ([2 * it, 2 * it + 1] if plan.pair else [it]):
+                if item < n * h:
+                    for kb in range(plan.n_kb):
+                        yield b, item // h, item % h, kb
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+@pytest.mark.parametrize("sms", [H100_SMS, 7])
+def test_flash_bwd_plan_covers_every_image_head_key_block_once(case, sms):
+    n, t, h = case
+    plan = fl.bwd_plan(n, t, h, 64, sms)
+    assert plan.pair == (t <= 64)
+    assert plan.n_qt == -(-t // 64)
+    assert plan.n_kb == (1 if plan.pair else -(-t // 128))
+    assert 1 <= plan.grid <= min(plan.items, sms)
+    walked = [(i, hh, kb) for _, i, hh, kb in _bwd_walk(plan, n, h)]
+    assert sorted(walked) == [(i, hh, kb) for i in range(n) for hh in range(h)
+                              for kb in range(plan.n_kb)]
+    # every block takes the same number of items, give or take one
+    counts = [len(range(b, plan.items, plan.grid)) for b in range(plan.grid)]
+    assert max(counts) - min(counts) <= 1
+
+
+@pytest.mark.parametrize("t", range(1, 257))
+def test_flash_bwd_plan_fits_the_card_at_every_t_the_route_takes(t):
+    """Shared memory within a block's 232,448 B with the plan's two-stage
+    ring, for every T <= 256; no third stage fits past T = 128."""
+    plan = fl.bwd_plan(64, t, 12, 64, H100_SMS)
+    assert plan.stages == fl.BWD_STAGES == 2
+    assert plan.smem == fl.bwd_smem_bytes(plan.pair, plan.n_kb, plan.n_qt,
+                                          plan.stages) <= SMEM_PER_BLOCK
+    if t > 128:
+        assert fl.bwd_smem_bytes(plan.pair, plan.n_kb, plan.n_qt,
+                                 3) > SMEM_PER_BLOCK
+
+
+def test_flash_bwd_plan_at_the_vit_shapes():
+    """vit_cifar: 512 pairs of (image, head)s, 128 blocks of 4, 2 stages;
+    vit_b16: 768 (image, head)s in two key blocks of four query tiles, 128
+    blocks of 6, 2 stages."""
+    cifar = fl.bwd_plan(256, 64, 4, 64, H100_SMS)
+    assert (cifar.pair, cifar.n_kb, cifar.n_qt, cifar.items, cifar.stages,
+            cifar.grid) == (True, 1, 1, 512, 2, 128)
+    b16 = fl.bwd_plan(64, 196, 12, 64, H100_SMS)
+    assert (b16.pair, b16.n_kb, b16.n_qt, b16.items, b16.stages,
+            b16.grid) == (False, 2, 4, 768, 2, 128)
+
+
+@pytest.mark.parametrize("case", [
+    # (t, hd, dtype, taken)
+    (64, 64, torch.bfloat16, True), (196, 64, torch.bfloat16, True),
+    (1, 64, torch.bfloat16, True), (256, 64, torch.bfloat16, True),
+    (257, 64, torch.bfloat16, False), (320, 64, torch.bfloat16, False),
+    (64, 64, torch.float32, False), (70, 64, torch.float32, False),
+    (64, 16, torch.bfloat16, False), (64, 32, torch.bfloat16, False),
+    (64, 128, torch.bfloat16, False)])
+def test_flash_bwd_route_predicate(case):
+    """The one-launch backward takes bf16 at hd 64 up to T = 256; f32,
+    T > 256 and the other head dims keep the dQ + dK/dV pair."""
+    t, hd, dtype, taken = case
+    q = torch.zeros((2, t, 3, hd), dtype=dtype)
+    assert fl.bwd_route(q) == taken
+    if not taken and hd == 64 and t <= 256:
+        assert fl.bwd_plan(2, t, 3, hd, H100_SMS)  # f32: a plan, no route
+    if hd != 64 or t > 256:
+        with pytest.raises(ValueError, match="no plan"):
+            fl.bwd_plan(2, t, 3, hd, H100_SMS)
 
 
 # ------------------------------------------------------ dense TN GEMM ----
