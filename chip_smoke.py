@@ -75,9 +75,19 @@ Needs one CUDA card; exits non-zero without one. It
      `flash_attention` (exact launches per step: flash forward 6 and the
      one-launch backward 6, no dQ or dK/dV, dense
      36 + 36 + 36 and 72 select passes);
- 10. prints the kernels' JSON line (launch counts from the serve, eval and
-     train phases, errors, times, bounds), the card line, and last the
-     result line.
+ 10. cycle phase: `run_sequence` over three synthetic CIFAR-100 tasks of
+     5 classes on the bf16 kernel step, VGG16-BN at width 1.0, task 3
+     growing once to 1.5 under an unreachable goal; per phase steps,
+     ms/step and img/s, `check_state` at every task boundary, old-task
+     logits across add-task and prune (max|diff| must be 0), the growth
+     audit against its bound, a second `run_sequence` over the checkpoints
+     (every task resumed, the same state bit for bit), ms per prune event
+     at width 1.0 and seconds for `grow_state`;
+ 11. checks that each phase reached its kernels (the serve and eval phases
+     their forwards, the train phases their backwards, the cycle K1-K6),
+     prints the kernels' JSON line (launch counts from the serve, eval,
+     train and cycle phases, errors, times, bounds), the card line, and
+     last the result line.
 Each phase raises on failure. Per-shape results also go to
 chiprun_out/chip_smoke.json.
 """
@@ -86,6 +96,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1098,6 +1109,221 @@ def train_phase(torch, dev, state, counts):
     return dict(stats, timing=timing), launched
 
 
+# The cycle phase: run_sequence over three synthetic CIFAR-100 tasks of 5
+# classes (128 training images a class, batch 128: 5 steps an epoch) on the
+# bf16 kernel step, VGG16-BN at width 1.0; task 3's goal 1.01 cannot be met,
+# so it grows once, 1.0 -> 1.5 (on_goal_miss "accept"), with the growth audit
+# on. The `.pick` checkpoints are kept (as a crash before the final save
+# would keep them) so that every task boundary can be audited.
+CYCLE = dict(finetune_epochs=2, prune_epochs=1, retrain_epochs=1,
+             prune_ratios=(0.5, 0.75), prune_freq=2, batch_size=128,
+             growth_step=0.5, max_width_mult=1.5, on_goal_miss="accept",
+             seed=SEED)
+CYCLE_TRAIN_PER_CLASS, CYCLE_TEST_PER_CLASS = 128, 20
+PRUNE_TIMING_EVENTS = 5
+
+
+def _same_state(torch, a, b) -> bool:
+    """Every tensor of two states equal, bit for bit."""
+    if (a.width_mult, list(a.tasks)) != (b.width_mult, list(b.tasks)):
+        return False
+    trees = [(a.shared, b.shared), (a.ownership, b.ownership)]
+    for tid, t in a.tasks.items():
+        u = b.tasks[tid]
+        trees += [(t.private, u.private), (t.bn_state, u.bn_state),
+                  (t.piggymask or {}, u.piggymask or {})]
+    return all(sorted(x) == sorted(y)
+               and all(torch.equal(x[k], y[k]) for k in x) for x, y in trees)
+
+
+def _timed(torch, spent, owner, attr, label):
+    """Wrap `owner.attr` so that each call adds its device-synchronised
+    seconds to spent[label]; returns the undo."""
+    orig = getattr(owner, attr)
+
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            return orig(*a, **k)
+        finally:
+            torch.cuda.synchronize()
+            spent[label] = spent.get(label, 0.0) + time.perf_counter() - t
+
+    setattr(owner, attr, wrapper)
+    return lambda: setattr(owner, attr, orig)
+
+
+def cycle_phase(torch, dev, counts):
+    """The compact-pick-grow cycle through `run_sequence` on the card, then
+    its audits: check_state at every task boundary, old-task logits across
+    add-task and prune (max|diff| must be 0), the growth audit against its
+    bound, a second run_sequence over the checkpoints (must resume every
+    task and give the same state bit for bit), ms per prune event at width
+    1.0 and seconds for grow_state. The first run_sequence's wall time is
+    split by synchronised timers around the cycle's parts outside the
+    train loops (evals, snapshots and restores, checkpoint saves, Manager
+    set-up, start_task, growth with its audit). The prune events inside
+    the loops get no timer, so the loops keep the host running ahead of
+    the card; their cost is the separate ms-per-event measurement. Returns the results and the launches of the first
+    run_sequence."""
+    from cpg_tpu_torch.core import pruner
+    from cpg_tpu_torch.core.invariants import check_state
+    from cpg_tpu_torch.data.augment import (cifar_eval_preprocess,
+                                            cifar_train_augment)
+    from cpg_tpu_torch.data.cifar import synthetic_cifar100, task_splits
+    from cpg_tpu_torch.inference import predict
+    from cpg_tpu_torch.train import sequence as seq_mod
+    from cpg_tpu_torch.train.manager import Manager
+    from cpg_tpu_torch.train.step import TrainConfig
+    from cpg_tpu_torch.utils.checkpoint import load_state
+
+    data = synthetic_cifar100(n_train_per_class=CYCLE_TRAIN_PER_CLASS,
+                              n_test_per_class=CYCLE_TEST_PER_CLASS, seed=SEED)
+    tasks = dict(list(task_splits(data).items())[:3])
+    names = list(tasks)
+    cfg = TrainConfig(**KERNEL_FLAGS["vgg16_bn_cifar"])
+    tmp = tempfile.mkdtemp(prefix="cycle_")
+    try:
+        seq = seq_mod.SequenceConfig(**CYCLE,
+                                     checkpoint_dir=os.path.join(tmp, "ck"),
+                                     jsonl_path=os.path.join(tmp, "ph.jsonl"))
+
+        def run():
+            return seq_mod.run_sequence(
+                "vgg16_bn_cifar", tasks, cfg, seq, goals={names[2]: 1.01},
+                augment_fn=cifar_train_augment,
+                preprocess_fn=cifar_eval_preprocess, width_mult=1.0,
+                device=dev)
+
+        keep = seq_mod.remove_after_save
+        seq_mod.remove_after_save = lambda path: None
+        spent = {}
+        undo = [_timed(torch, spent, owner, attr, label)
+                for owner, attr, label in (
+                    (Manager, "eval", "eval"),
+                    (Manager, "__init__", "manager_setup"),
+                    (seq_mod, "snapshot", "snapshot"),
+                    (seq_mod, "_restore", "restore"),
+                    (seq_mod, "save_state", "checkpoint_save"),
+                    (seq_mod, "start_task", "start_task"),
+                    (seq_mod, "_growth_audit", "growth_and_audit"))]
+        try:
+            torch.cuda.synchronize()
+            counts.reset()
+            t0 = time.perf_counter()
+            state, reports = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = counts.read()
+        finally:
+            seq_mod.remove_after_save = keep
+            for u in undo:
+                u()
+        with open(seq.jsonl_path) as f:
+            phases = [json.loads(line) for line in f]
+        for ph in phases:
+            ph["ms_per_step"] = ph["seconds"] / max(ph["steps"], 1) * 1e3
+        loops = sum(ph["seconds"] for ph in phases)
+        outside = sum(spent.values())
+        split = dict(wall_s=wall, train_loops_s=loops, **spent,
+                     other_s=wall - loops - outside)
+
+        def ck(tid, suffix=""):
+            return load_state(os.path.join(
+                seq.checkpoint_dir, f"task{tid:02d}_{names[tid - 1]}{suffix}"),
+                device=dev)
+
+        boundaries = [("task1", ck(1)), ("task2.pick", ck(2, ".pick")),
+                      ("task2", ck(2)), ("task3.pick", ck(3, ".pick")),
+                      ("task3", ck(3)), ("final", state)]
+        audits = {}
+        for label, st in boundaries:
+            audits[label] = check_state(st)  # raises on a violation
+            for k, own in st.ownership.items():
+                if st.shared[k][own == 0].any():
+                    raise AssertionError(f"cycle {label}: free entries of "
+                                         f"{k} nonzero")
+
+        px = cifar_eval_preprocess(torch.from_numpy(
+            tasks[names[0]]["test_x"][:64]).to(dev))
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            def logits(st, tid):
+                return predict(st, tid, px, device=dev)
+
+            old = {}
+            by = dict(boundaries)
+            # task 1 across task 2's add-task and pick, then its prune; tasks
+            # 1 and 2 across task 3's prune at the grown width
+            for tid, labels in ((1, ("task1", "task2.pick", "task2")),
+                                (1, ("task3.pick", "task3", "final")),
+                                (2, ("task3.pick", "task3", "final"))):
+                ref = logits(by[labels[0]], tid)
+                d = max(float((logits(by[lb], tid) - ref).abs().max())
+                        for lb in labels[1:])
+                old[f"task{tid} {' -> '.join(labels)}"] = d
+                if d != 0.0:
+                    raise AssertionError(f"cycle: task {tid} logits moved by "
+                                         f"{d} across {labels}")
+        finally:
+            torch.backends.cudnn.deterministic = det
+        audit = reports[2].growth_audit
+        if not audit or any(a["max_abs_diff"] > a["bound"] for a in audit):
+            raise AssertionError(f"cycle: growth audit {audit}")
+        if [r.grew for r in reports] != [0, 0, 1] or state.width_mult != 1.5:
+            raise AssertionError(f"cycle: grew {[r.grew for r in reports]}, "
+                                 f"width {state.width_mult}")
+
+        # resume: every task from its final checkpoint, the same state
+        trained = []
+        orig_train = Manager.train
+        Manager.train = lambda *a, **k: trained.append(1)
+        try:
+            again, _ = run()
+        finally:
+            Manager.train = orig_train
+        if trained or not _same_state(torch, again, state):
+            raise AssertionError("cycle: resume did not reproduce the state")
+
+        # one prune event at width 1.0: task 2's 13 layers to 0.5 of their
+        # post-pick counts, device-synchronised, each on a fresh copy
+        base = ck(2, ".pick")
+        n0 = {k: int(v) for k, v in pruner.snapshot_owned_counts(
+            base.ownership, 2).items()}
+        prune_ms = []
+        for i in range(PRUNE_TIMING_EVENTS + 1):
+            sh = {k: v.clone() for k, v in base.shared.items()}
+            own = {k: v.clone() for k, v in base.ownership.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pruner.gradual_prune_(sh, own, 2, 0.5, n0)
+            torch.cuda.synchronize()
+            if i:  # the first is a warm-up
+                prune_ms.append((time.perf_counter() - t) * 1e3)
+        grow_base = ck(2)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        seq_mod.grow_state(grow_base, 1.5, torch.Generator().manual_seed(SEED),
+                           device=dev, cfg=cfg)
+        torch.cuda.synchronize()
+        grow_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(
+        wall_s=wall, wall_split_s=split, phases=phases, check_state=audits,
+        old_task_max_abs_diff=old, growth_audit=audit,
+        reports=[{"task": r.name, "pick_acc": r.pick_acc,
+                  "final_acc": r.final_acc, "chosen_ratio": r.chosen_ratio,
+                  "ratio_to_acc": r.ratio_to_acc, "width_mult": r.width_mult,
+                  "grew": r.grew} for r in reports],
+        resume_equal=True,
+        prune_event_ms=dict(median=float(np.median(prune_ms)),
+                            all=prune_ms, layers=len(n0)),
+        grow_state_s=grow_s), launched
+
+
 def _per_step(row) -> int:
     """Launches of a phase row's shape in one train step at batch 256: the
     ViT rows say so; a VGG16-BN row's layer runs once a step in bf16 binary
@@ -1242,12 +1468,27 @@ def main() -> int:
                              eval_max_abs_err=eval_err, train=train)
         del state
         torch.cuda.empty_cache()
+    cycle, launched["vgg16_bn_cifar/cycle"] = cycle_phase(torch, dev, counts)
+    results["vgg16_bn_cifar"]["cycle"] = cycle
+    print(f"cycle vgg16_bn_cifar: {json.dumps(cycle)} on {card}", flush=True)
+    torch.cuda.empty_cache()
     # every phase that should reach a kernel did
     need = {"vgg16_bn_cifar/serve": ["fused_chain_fwd"],
             "vgg16_bn_cifar/eval": ["masked_conv_fwd", "masked_conv_select",
                                     "fused_chain_fwd"],
+            "vgg16_bn_cifar/train": ["masked_conv_bwd_dx",
+                                     "masked_conv_bwd_dw",
+                                     "masked_conv_im2col",
+                                     "fused_chain_bwd_dx",
+                                     "fused_chain_bwd_dw"],
             "vit_cifar/eval": ["flash_fwd", "masked_matmul_fwd",
-                               "masked_matmul_select"]}
+                               "masked_matmul_select"],
+            "vit_cifar/train": ["flash_bwd", "masked_matmul_bwd_dx",
+                                "masked_matmul_bwd_dw"],
+            "vgg16_bn_cifar/cycle": ["masked_conv_fwd", "masked_conv_bwd_dx",
+                                     "masked_conv_bwd_dw", "fused_chain_fwd",
+                                     "fused_chain_bwd_dx",
+                                     "fused_chain_bwd_dw"]}
     for phase, names in need.items():
         for k in names:
             if launched[phase][k] == 0:

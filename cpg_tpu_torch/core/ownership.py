@@ -29,6 +29,11 @@ def assign_free_to_task(ownership, task_id: int):
     return {k: m.masked_fill(m == FREE, task_id) for k, m in ownership.items()}
 
 
+def visible_mask(own: torch.Tensor, task_id) -> torch.Tensor:
+    """Entries a forward pass for `task_id` may use: 0 < own <= task_id."""
+    return (own > FREE) & (own <= int(task_id))
+
+
 def owned_mask(own: torch.Tensor, task_id) -> torch.Tensor:
     return own == int(task_id)
 

@@ -1,10 +1,21 @@
-"""Magnitude pruner (one-shot).
+"""Magnitude pruner: one-shot and gradual.
 
 Per layer, collect |w| over entries owned by the current task; the cutoff is
-the k-th smallest with k = round(ratio * n_owned) (f32, half-to-even); entries
-with |w| <= cutoff (ties all pruned) are released: ownership -> 0 and weight
--> 0. Same semantics, bit for bit, as `cpg_tpu.core.pruner`. The rank stays a
-tensor, so a prune on the card never waits for the host.
+the k-th smallest with k = round(ratio * n_owned) (f32, half-to-even);
+entries with |w| <= cutoff (ties all pruned) are released: ownership -> 0
+and weight -> 0. Same semantics, bit for bit, as `cpg_tpu.core.pruner`. The
+rank stays a tensor, so a prune on the card never waits for the host.
+
+Gradual pruning: the cubic schedule's target s(t) is a fraction of the
+task's owned count at the start of the prune phase (n0). Entries already
+released count toward it, so each event prunes
+`max(round(s(t) * n0) - (n0 - n_now), 0)` more, smallest magnitude first.
+
+Every prune writes into the live weight and ownership tensors with
+`masked_fill_` (the `_` forms): the train step and its `torch.optim`
+optimizers hold references to those tensors, so a prune inside a training
+phase must not replace them. `one_shot_prune` alone also returns new
+tensors, for callers that keep the state they pruned from.
 """
 
 from __future__ import annotations
@@ -26,27 +37,76 @@ def _kth_smallest(values: torch.Tensor, valid: torch.Tensor,
     return torch.where(rank < 1, -inf, s[idx])
 
 
-def prune_layer_by_count(w, own, task_id, n_prune):
-    """Release the `n_prune` smallest-|w| entries owned by `task_id`; ties at
-    the cutoff magnitude are all released. Returns (w', own')."""
+def _release_(w, own, task_id, n_prune) -> None:
+    """Release the `n_prune` smallest-|w| entries owned by `task_id`, and
+    every entry tied with the cutoff magnitude, in place."""
     owned = owned_mask(own, task_id)
     rank = torch.as_tensor(n_prune, dtype=torch.int32, device=w.device)
-    cutoff = _kth_smallest(w.abs(), owned, rank)
-    remove = owned & (w.abs() <= cutoff)
-    return w.masked_fill(remove, 0), own.masked_fill(remove, FREE)
+    remove = owned & (w.abs() <= _kth_smallest(w.abs(), owned, rank))
+    w.masked_fill_(remove, 0)
+    own.masked_fill_(remove, FREE)
 
 
-def prune_layer_by_ratio(w, own, task_id, ratio):
+def prune_layer_by_ratio_(w, own, task_id, ratio) -> None:
     """One-shot prune: release round(ratio * n_owned_now) smallest entries."""
     n_owned = owned_mask(own, task_id).sum(dtype=torch.int32)
     r = torch.tensor(ratio, dtype=torch.float32, device=w.device)
-    rank = torch.round(r * n_owned.to(torch.float32)).to(torch.int32)
-    return prune_layer_by_count(w, own, task_id, rank)
+    _release_(w, own, task_id,
+              torch.round(r * n_owned.to(torch.float32)).to(torch.int32))
+
+
+def prune_layer_to_total_(w, own, task_id, target_sparsity, n0) -> None:
+    """Gradual-prune step: release entries until `target_sparsity` of the
+    snapshot count `n0` (the layer's owned count at prune-phase start) are
+    released; the shortfall is clamped at 0."""
+    n_now = owned_mask(own, task_id).sum(dtype=torch.int32)
+    n0 = torch.as_tensor(n0, device=own.device)
+    pruned_so_far = n0.to(torch.int32) - n_now
+    want_total = torch.round(
+        torch.as_tensor(target_sparsity, dtype=torch.float32).to(own.device)
+        * n0.to(torch.float32)).to(torch.int32)
+    _release_(w, own, task_id, torch.clamp(want_total - pruned_so_far, min=0))
+
+
+# ---------------------------------------------------------------------------
+# Tree-level wrappers (one call per prune event, applied to every layer).
+# ---------------------------------------------------------------------------
+
+
+def snapshot_owned_counts(ownership: Dict, task_id) -> Dict:
+    """{layer: int32 0-d tensor} owned by `task_id`."""
+    return {k: owned_mask(m, task_id).sum(dtype=torch.int32)
+            for k, m in ownership.items()}
+
+
+def one_shot_prune_(shared: Dict, ownership: Dict, task_id, ratio) -> None:
+    for k, w in shared.items():
+        prune_layer_by_ratio_(w, ownership[k], task_id, ratio)
 
 
 def one_shot_prune(shared: Dict, ownership: Dict, task_id,
                    ratio) -> Tuple[Dict, Dict]:
-    out = {k: prune_layer_by_ratio(w, ownership[k], task_id, ratio)
-           for k, w in shared.items()}
-    return ({k: v[0] for k, v in out.items()},
-            {k: v[1] for k, v in out.items()})
+    """`one_shot_prune_` on copies; the given trees are left as they were."""
+    shared = {k: w.clone() for k, w in shared.items()}
+    ownership = {k: m.clone() for k, m in ownership.items()}
+    one_shot_prune_(shared, ownership, task_id, ratio)
+    return shared, ownership
+
+
+def gradual_prune_(shared, ownership, task_id, target_sparsity,
+                   n0_counts) -> None:
+    """One gradual-prune event over every layer of the tree."""
+    for k, w in shared.items():
+        prune_layer_to_total_(w, ownership[k], task_id, target_sparsity,
+                              n0_counts[k])
+
+
+def task_sparsity(ownership, task_id, n0_counts) -> torch.Tensor:
+    """Achieved sparsity vs the snapshot counts (for logging and records),
+    f32, summed over the layers in sorted-key order (the JAX tree order)."""
+    keys = sorted(ownership)
+    n_now = sum(owned_mask(ownership[k], task_id).sum(dtype=torch.int32).cpu()
+                for k in keys)
+    n_tot = sum(torch.as_tensor(n0_counts[k], dtype=torch.float32).cpu()
+                for k in keys)
+    return 1.0 - n_now / torch.clamp(n_tot, min=1.0)
