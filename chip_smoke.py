@@ -83,11 +83,32 @@ Needs one CUDA card; exits non-zero without one. It
      audit against its bound, a second `run_sequence` over the checkpoints
      (every task resumed, the same state bit for bit), ms per prune event
      at width 1.0 and seconds for `grow_state`;
- 11. checks that each phase reached its kernels (the serve and eval phases
-     their forwards, the train phases their backwards, the cycle K1-K6),
+ 11. deploy phase, the serving side from a checkpoint through the CLI:
+     VGG16-BN at width 1.0 (step 3's state, tasks named as CIFAR-100
+     superclass tasks) saved with utils/checkpoint; `check` (clean) and
+     `stats`; `export` bf16 and `export --int8 --calibrate` (64 synthetic
+     images a task); `serve` offline on both artifacts at bucket 256 (bf16
+     with --fused-chain launches K4 8 times; int8 launches no fused chain
+     and 13 int8 products); every int8 product of a forward at bucket 256
+     (VGG16-BN's 13 convs; vit_cifar's patch conv and 36 dense layers) on
+     the card's `torch._int_mm` route, bit for bit against the exact plain
+     product on the same patches, with its device ms, the patch gather's
+     alone, the bf16 library call on the same shapes (cuDNN, cuBLAS) and
+     the bound at the int8 peak; int8 against bf16 at `cpg_tpu`'s bound
+     (rtol 0.2, atol 0.5); calibrated int8 bit-equal alone and co-batched
+     with saturated rows; `serve_http` in-process on 127.0.0.1:0, 256
+     single-image requests from 32 client threads at batch windows 0 and
+     3 ms (bf16 against in-process predict at the bf16 tolerance, bit
+     equality reported; calibrated int8 bit-equal at 3 ms), with p50/p99,
+     img/s and predict calls per request; `export-torch` ->
+     `import-torch` bit for bit; `inference` on the synthetic test split;
+     then an int8 vit_cifar server at full width against its f32 server;
+ 12. checks that each phase reached its kernels (the serve and eval phases
+     their forwards, the train phases their backwards, the cycle K1-K6,
+     the deploy phase K4),
      prints the kernels' JSON line (launch counts from the serve, eval,
-     train and cycle phases, errors, times, bounds), the card line, and
-     last the result line.
+     train, cycle and deploy phases, errors, times, bounds), the card
+     line, and last the result line.
 Each phase raises on failure. Per-shape results also go to
 chiprun_out/chip_smoke.json.
 """
@@ -108,6 +129,7 @@ SEED = 0
 BATCH = 256
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM published peaks
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor cores
+              "int8": 1979e12,     # dense tensor cores, int8 operations
               "float32": 67e12}    # f32 outside the tensor cores
 BF16_TOL = 2e-2                    # max|diff| <= BF16_TOL * max|ref|
 F32_TOL = 1e-4                     # rtol and atol
@@ -1324,6 +1346,422 @@ def cycle_phase(torch, dev, counts):
         grow_state_s=grow_s), launched
 
 
+# -------------------------------------------------------------- deploy ----
+
+# the deploy phase's two tasks, named as CIFAR-100 superclass tasks so that
+# `inference` finds their synthetic test splits
+DEPLOY_NAMES = ("aquatic_mammals", "fish")
+CALIB_PER_TASK = 64
+HTTP_REQUESTS, HTTP_CLIENTS = 256, 32
+HTTP_WINDOWS_MS = (0.0, 3.0)
+INT8_RTOL, INT8_ATOL = 0.2, 0.5  # cpg_tpu's int8-vs-bf16 bound
+                                 # (tests/test_serve.py, calibrated int8)
+
+
+def _cli(argv):
+    """(exit code, printed JSON) of `python -m cpg_tpu_torch <argv>`."""
+    import contextlib
+    import io
+
+    from cpg_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, json.loads(buf.getvalue())
+
+
+def _serve_latency(srv, x, reps=20):
+    """p50 ms and img/s of srv.predict(2, x), host clock (predict returns
+    host arrays, so every call ends synchronised)."""
+    srv.predict(2, x)
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        srv.predict(2, x)
+        ts.append(time.perf_counter() - t0)
+    p50 = float(np.median(ts))
+    return {"p50_ms": p50 * 1e3, "img_per_s": len(x) / p50}
+
+
+class _Int8Calls:
+    """Records the operands of every int8 conv and matmul of ops/int8.py
+    while active (the model layers import them at call time)."""
+
+    def __init__(self):
+        from cpg_tpu_torch.ops import int8
+
+        self.mod, self.calls = int8, []
+        self.orig = (int8.conv2d_int8, int8.matmul_int8)
+
+    def __enter__(self):
+        conv, mm = self.orig
+
+        def rec_conv(xq, wq, stride, pads):
+            self.calls.append(("conv", xq, wq, stride, tuple(pads)))
+            return conv(xq, wq, stride, pads)
+
+        def rec_mm(xq, wq):
+            self.calls.append(("dense", xq, wq, 1, (0, 0, 0, 0)))
+            return mm(xq, wq)
+
+        self.mod.conv2d_int8, self.mod.matmul_int8 = rec_conv, rec_mm
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.conv2d_int8, self.mod.matmul_int8 = self.orig
+
+
+def int8_route_rows(torch, calls, arch):
+    """Each distinct int8 product of a forward at bucket 256: the route
+    (patch gather + `torch._int_mm`) held bit for bit against the plain
+    exact product on the same patches, its device ms, the gather's alone,
+    the bf16 library call on the same shapes (cuDNN conv, cuBLAS matmul),
+    and the bound at int8 operand bytes and the card's int8 peak."""
+    from cpg_tpu_torch.ops import int8
+    from cpg_tpu_torch.ops.conv import conv2d_nhwc
+
+    groups = {}
+    for kind, xq, wq, stride, pads in calls:
+        key = (kind, tuple(xq.shape), tuple(wq.shape), stride, pads)
+        groups.setdefault(key, [kind, xq, wq, stride, pads, 0])[5] += 1
+    rows = []
+    for (kind, xs, ws, stride, pads), (_, xq, wq, _, _, count) in \
+            groups.items():
+        k2, n = int(np.prod(ws[:-1])), ws[-1]
+        if kind == "conv":
+            kh, kw = ws[0], ws[1]
+            xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)
+
+            def gather(xq=xq, kh=kh, kw=kw, stride=stride, pads=pads):
+                return int8.patches(xq, kh, kw, stride, pads)
+
+            def route(xq=xq, wq=wq, stride=stride, pads=pads):
+                return int8.conv2d_int8(xq, wq, stride, pads)
+
+            def library(xb=xb, wb=wb, stride=stride, pads=pads):
+                return conv2d_nhwc(xb, wb, stride, pads)
+        else:
+            xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)
+            gather = None
+
+            def route(xq=xq, wq=wq):
+                return int8.matmul_int8(xq, wq)
+
+            def library(xb=xb, wb=wb):
+                return xb @ wb
+        a = gather() if gather else xq.reshape(-1, k2)
+        m = a.shape[0]
+        want = int8.int_mm_plain(a, wq.reshape(k2, n))
+        got = twice(torch, route, f"int8 {arch} {kind} {xs}").reshape(m, n)
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"int8 route {arch} {kind} {xs} x {ws}: "
+                                 f"{bad} entries differ from the plain "
+                                 "product")
+        b_ms, b_by = bound(xq.numel() + wq.numel() + m * n * 4,
+                           2.0 * m * n * k2, "int8")
+        row = dict(arch=arch, kind=kind, x=list(xs), w=list(ws),
+                   stride=stride, pads=list(pads), count=count, m=m, k=k2,
+                   n=n, bit_equal=True, route_ms=time_ms(route),
+                   route_device_ms=device_ms(route),
+                   library_bf16_device_ms=device_ms(library),
+                   bound_ms=b_ms, bound_by=b_by)
+        if gather:
+            row["gather_device_ms"] = device_ms(gather)
+        rows.append(row)
+    return rows
+
+
+def _route_totals(rows):
+    """Per-forward sums over the products (each distinct one times its
+    count) and the patch gather's share of the route's device time."""
+    out = {"products": sum(r["count"] for r in rows)}
+    for key in ("route_device_ms", "library_bf16_device_ms", "bound_ms",
+                "gather_device_ms"):
+        vals = [(r[key], r["count"]) for r in rows if key in r]
+        out[key] = (None if not vals or any(v is None for v, _ in vals)
+                    else sum(v * c for v, c in vals))
+    if out["route_device_ms"] and out["gather_device_ms"] is not None:
+        out["gather_share"] = out["gather_device_ms"] / out["route_device_ms"]
+    return out
+
+
+def _post(port, payload):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/predict",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def http_run(srv, x, window_ms):
+    """HTTP_REQUESTS single-image POSTs to /v1/predict (task 2) from
+    HTTP_CLIENTS client threads against serve_http(srv) on 127.0.0.1:0:
+    the logits (f32, row i for x[i]), client latency p50/p99, img/s over
+    the wall time, and predict calls per request."""
+    import concurrent.futures
+
+    from cpg_tpu_torch.server_http import serve_http
+
+    calls = []
+    real = srv.predict
+    srv.predict = lambda tid, xs: (calls.append(len(xs)), real(tid, xs))[1]
+    httpd = serve_http(srv, port=0, batch_window_ms=window_ms)
+    port = httpd.server_address[1]
+    try:
+        for i in range(4):  # warm the handler threads and the batcher
+            _post(port, {"task_id": 2, "inputs": x[i].tolist()})
+        calls.clear()
+        lat = [0.0] * len(x)
+
+        def one(i):
+            t0 = time.perf_counter()
+            out = _post(port, {"task_id": 2, "inputs": x[i].tolist()})
+            lat[i] = time.perf_counter() - t0
+            return np.asarray(out["logits"], np.float32)[0]
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(HTTP_CLIENTS) as ex:
+            logits = np.stack(list(ex.map(one, range(len(x)))))
+        wall = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        del srv.predict
+    ms = np.asarray(lat) * 1e3
+    return logits, {"window_ms": window_ms, "requests": len(x),
+                    "clients": HTTP_CLIENTS,
+                    "p50_ms": float(np.percentile(ms, 50)),
+                    "p99_ms": float(np.percentile(ms, 99)),
+                    "img_per_s": len(x) / wall,
+                    "predict_calls_per_request": len(calls) / len(x),
+                    "rows_per_predict": float(np.mean(calls))}
+
+
+def _alone(srv, x):
+    """srv.predict of each row of x on its own."""
+    return np.concatenate([srv.predict(2, x[i:i + 1]) for i in range(len(x))])
+
+
+def _int8_bound(torch, got, ref, what):
+    """cpg_tpu's int8 bound against the float server: |int8 - ref| <= atol
+    + rtol |ref| everywhere. Returns (max|diff|, argmax agreement)."""
+    g, r = torch.from_numpy(got), torch.from_numpy(ref)
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: non-finite int8 logits")
+    if not bool(((g - r).abs() <= INT8_ATOL + INT8_RTOL * r.abs()).all()):
+        raise AssertionError(f"{what}: int8 logits outside rtol {INT8_RTOL} "
+                             f"atol {INT8_ATOL} of the float server")
+    return (float((g - r).abs().max()),
+            float((g.argmax(1) == r.argmax(1)).float().mean()))
+
+
+def deploy_phase(torch, dev, counts, card):
+    """The serving side of the main path from a checkpoint, through the
+    CLI on the card: VGG16-BN at width 1.0 (build_state's two tasks) saved
+    with utils/checkpoint; `check` (must be clean) and `stats`; `export`
+    bf16 and `export --int8 --calibrate` (CALIB_PER_TASK synthetic images
+    a task); `serve` offline on both artifacts at bucket 256 (bf16 with
+    --fused-chain: K4 launches; int8: no fused-chain launch, the int8
+    counter rises); the int8 route at each product against its plain
+    version, bit for bit; int8 against bf16 at cpg_tpu's bound; calibrated
+    int8 bit-equal alone and co-batched with saturated rows; serve_http
+    in-process at windows 0 and 3 ms (bf16 against in-process predict at
+    the bf16 tolerance, calibrated int8 bit-equal at 3 ms); `export-torch`
+    -> `import-torch` bit for bit; `inference` on the synthetic test
+    split. Then an int8 vit_cifar server at full width against its f32
+    server. Returns the results and the launches of the bf16 serve."""
+    from cpg_tpu_torch.data.augment import cifar_eval_preprocess as prep
+    from cpg_tpu_torch.ops import int8
+    from cpg_tpu_torch.serve import TaskServer
+    from cpg_tpu_torch.utils.checkpoint import load_state, save_state
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="deploy_")
+    try:
+        state = build_state(torch, dev)
+        for tid, name in zip((1, 2), DEPLOY_NAMES):
+            state.tasks[tid].name = name
+        ck = save_state(state, os.path.join(tmp, "ck"))
+        del state
+        rc, chk = _cli(["check", "--checkpoint", ck])
+        if rc != 0 or not chk["clean"]:
+            raise AssertionError(f"deploy: check {rc} {chk['violations']}")
+        rc, stats = _cli(["stats", "--checkpoint", ck])
+        if rc != 0 or abs(sum(t["owned_ratio"] for t in stats["tasks"]
+                              .values()) + stats["free_ratio"] - 1) > 1e-9:
+            raise AssertionError(f"deploy: stats {rc} {stats}")
+        out["stats"] = stats
+
+        rng = np.random.RandomState(SEED + 11)
+        calib = {tid: rng.randint(0, 256, (CALIB_PER_TASK, 32, 32, 3))
+                 .astype(np.uint8) for tid in (1, 2)}
+        cal = os.path.join(tmp, "calib.npz")
+        np.savez(cal, **{f"task{tid}": v for tid, v in calib.items()})
+        art = {q: os.path.join(tmp, f"art_{q}") for q in ("bf16", "int8")}
+        t0 = time.perf_counter()
+        rc, rep = _cli(["export", "--checkpoint", ck, "--out", art["bf16"]])
+        out["export_bf16_s"] = time.perf_counter() - t0
+        if rc != 0 or rep["quantize"] is not None:
+            raise AssertionError(f"deploy: export {rc} {rep}")
+        t0 = time.perf_counter()
+        rc, rep = _cli(["export", "--checkpoint", ck, "--out", art["int8"],
+                        "--int8", "--calibrate", cal])
+        out["export_int8_calibrated_s"] = time.perf_counter() - t0
+        if rc != 0 or rep["quantize"] != "int8" or \
+                rep["calibrated_tasks"] != 2:
+            raise AssertionError(f"deploy: export --int8 {rc} {rep}")
+
+        # offline `serve` through the CLI at bucket 256
+        x = rng.randint(0, 256, (BATCH, 32, 32, 3)).astype(np.uint8)
+        req = os.path.join(tmp, "req.npz")
+        np.savez(req, x=x)
+        served, launched = {}, {}
+        for q, flags in (("bf16", ["--fused-chain"]), ("int8", [])):
+            res = os.path.join(tmp, f"out_{q}.npz")
+            torch.cuda.synchronize()
+            counts.reset()
+            int8.LAUNCHES = 0
+            rc, rep = _cli(["serve", "--artifact", art[q], "--requests", req,
+                            "--task-id", "2", "--out", res, *flags])
+            torch.cuda.synchronize()
+            launched[q] = {**counts.read(), "int8_mm": int8.LAUNCHES}
+            if rc != 0 or rep["n"] != BATCH:
+                raise AssertionError(f"deploy: serve {q} {rc} {rep}")
+            with np.load(res) as z:
+                served[q] = z["logits"]
+        if launched["bf16"]["fused_chain_fwd"] != 8 or \
+                launched["bf16"]["int8_mm"] != 0:
+            raise AssertionError(f"deploy: bf16 serve launches "
+                                 f"{launched['bf16']}")
+        if launched["int8"]["fused_chain_fwd"] != 0 or \
+                launched["int8"]["int8_mm"] != 13:
+            raise AssertionError(f"deploy: int8 serve launches "
+                                 f"{launched['int8']}")
+        out["serve_launches"] = launched
+
+        bf = TaskServer.load(art["bf16"], prep, fused_chain=True, device=dev)
+        q8 = TaskServer.load(art["int8"], prep, device=dev)
+        if not q8._act_scales[2]:
+            raise AssertionError("deploy: the int8 artifact lost its "
+                                 "activation scales")
+        if not np.array_equal(q8.predict(2, x), served["int8"]):
+            raise AssertionError("deploy: int8 CLI serve != predict")
+        compare(torch.from_numpy(served["bf16"]),
+                torch.from_numpy(bf.predict(2, x)), "bfloat16",
+                "deploy: bf16 CLI serve vs predict")
+        out["bucket256"] = {"bf16_fused_chain": _serve_latency(bf, x),
+                            "int8": _serve_latency(q8, x)}
+        print(f"deploy vgg16_bn_cifar: serve at bucket 256 "
+              f"{json.dumps(out['bucket256'])} on {card}", flush=True)
+
+        # the int8 route at every product of one forward at bucket 256
+        with _Int8Calls() as rec:
+            q8.predict(2, x)
+        vgg_rows = int8_route_rows(torch, rec.calls, "vgg16_bn_cifar")
+        del rec
+        if sum(r["count"] for r in vgg_rows) != 13:
+            raise AssertionError("deploy: int8 forward ran "
+                                 f"{sum(r['count'] for r in vgg_rows)} "
+                                 "products, want 13")
+        out["int8_route"] = {"vgg16_bn_cifar": _route_totals(vgg_rows)}
+
+        # int8 against bf16; calibrated int8 alone and co-batched
+        err, agree = _int8_bound(torch, served["int8"], served["bf16"],
+                                 "deploy: int8 vs bf16")
+        probe = x[:1]
+        sat = np.full((3, 32, 32, 3), 255, np.uint8)
+        alone = q8.predict(2, probe)
+        co = q8.predict(2, np.concatenate([probe, sat]))[:1]
+        co256 = q8.predict(2, np.concatenate(
+            [probe, np.repeat(sat[:1], BATCH - 1, 0)]))[:1]
+        if not np.array_equal(alone, co):
+            raise AssertionError("deploy: calibrated int8 logits moved when "
+                                 "co-batched with saturated rows")
+        if np.argmax(alone) != np.argmax(bf.predict(2, probe)):
+            raise AssertionError("deploy: int8 and bf16 top-1 differ on the "
+                                 "probe")
+        out["int8_vs_bf16"] = {"max_abs_diff": err, "argmax_agree": agree,
+                               "co_batched_bucket8_bit_equal": True,
+                               "co_batched_bucket256_bit_equal":
+                                   bool(np.array_equal(alone, co256))}
+
+        # HTTP front end, in-process, windows 0 and 3 ms
+        want = {"bf16": _alone(bf, x), "int8": _alone(q8, x)}
+        http = {}
+        for q, srv in (("bf16", bf), ("int8", q8)):
+            for w in HTTP_WINDOWS_MS:
+                got, stat = http_run(srv, x, w)
+                if q == "bf16":
+                    stat["max_abs_err"] = compare(
+                        torch.from_numpy(got), torch.from_numpy(want[q]),
+                        "bfloat16", f"deploy: bf16 over HTTP, window {w}")
+                stat["bit_equal_to_predict"] = bool(np.array_equal(
+                    got, want[q]))
+                if q == "int8" and w > 0 and not stat["bit_equal_to_predict"]:
+                    raise AssertionError(
+                        f"deploy: calibrated int8 over HTTP (window {w} ms) "
+                        "differs from predict")
+                http[f"{q}_window_{w:g}ms"] = stat
+        out["http"] = http
+        print(f"deploy http: {json.dumps(http)} on {card}", flush=True)
+
+        # export-torch -> import-torch, then inference
+        pth = os.path.join(tmp, "ref.pth")
+        rc, rep = _cli(["export-torch", "--ckpt", ck, "--out", pth])
+        if rc != 0:
+            raise AssertionError(f"deploy: export-torch {rc} {rep}")
+        ck2 = os.path.join(tmp, "ck2")
+        rc, rep = _cli(["import-torch", "--ckpt", pth, "--out", ck2])
+        if rc != 0:
+            raise AssertionError(f"deploy: import-torch {rc} {rep}")
+        a, b = load_state(ck, device=dev), load_state(ck2, device=dev)
+        b.tasks[1].meta, b.tasks[2].meta = a.tasks[1].meta, a.tasks[2].meta
+        if not _same_state(torch, a, b):
+            raise AssertionError("deploy: export-torch -> import-torch "
+                                 "changed the state")
+        del a, b
+        out["torch_round_trip_bit_equal"] = True
+        rc, inf = _cli(["inference", "--checkpoint", ck, "--task-id", "2",
+                        "--synthetic-train-per-class", "1"])
+        if rc != 0 or inf["n"] != 100 or not 0.0 <= inf["top1"] <= 1.0:
+            raise AssertionError(f"deploy: inference {rc} {inf}")
+        out["inference"] = inf
+        del bf, q8
+        torch.cuda.empty_cache()
+
+        # vit_cifar at full width: an int8 server against its f32 server
+        vstate = build_state(torch, dev, "vit_cifar")
+        vx = rng.randint(0, 256, (BATCH, 32, 32, 3)).astype(np.uint8)
+        f32 = TaskServer(vstate, prep, compute_dtype=torch.float32,
+                         device=dev)
+        v8 = TaskServer(vstate, prep, quantize="int8", device=dev)
+        v8.calibrate({tid: v for tid, v in calib.items()})
+        ref, got = f32.predict(2, vx), v8.predict(2, vx)
+        err, agree = _int8_bound(torch, got, ref, "deploy: vit int8 vs f32")
+        with _Int8Calls() as rec:
+            v8.predict(2, vx)
+        vit_rows = int8_route_rows(torch, rec.calls, "vit_cifar")
+        del rec
+        out["int8_route"]["vit_cifar"] = _route_totals(vit_rows)
+        out["vit_cifar"] = {"int8_vs_f32": {"max_abs_diff": err,
+                                            "max_abs_ref":
+                                                float(np.abs(ref).max()),
+                                            "argmax_agree": agree},
+                            "bucket256": {"f32": _serve_latency(f32, vx),
+                                          "int8": _serve_latency(v8, vx)}}
+        out["int8_route_rows"] = vgg_rows + vit_rows
+        print(f"deploy int8 route: {json.dumps(out['int8_route'])}; vit "
+              f"{json.dumps(out['vit_cifar'])} on {card}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, launched["bf16"]
+
+
 def _per_step(row) -> int:
     """Launches of a phase row's shape in one train step at batch 256: the
     ViT rows say so; a VGG16-BN row's layer runs once a step in bf16 binary
@@ -1472,6 +1910,10 @@ def main() -> int:
     results["vgg16_bn_cifar"]["cycle"] = cycle
     print(f"cycle vgg16_bn_cifar: {json.dumps(cycle)} on {card}", flush=True)
     torch.cuda.empty_cache()
+    deploy, launched["vgg16_bn_cifar/deploy"] = deploy_phase(torch, dev,
+                                                             counts, card)
+    results["vgg16_bn_cifar"]["deploy"] = deploy
+    torch.cuda.empty_cache()
     # every phase that should reach a kernel did
     need = {"vgg16_bn_cifar/serve": ["fused_chain_fwd"],
             "vgg16_bn_cifar/eval": ["masked_conv_fwd", "masked_conv_select",
@@ -1485,6 +1927,7 @@ def main() -> int:
                                "masked_matmul_select"],
             "vit_cifar/train": ["flash_bwd", "masked_matmul_bwd_dx",
                                 "masked_matmul_bwd_dw"],
+            "vgg16_bn_cifar/deploy": ["fused_chain_fwd"],
             "vgg16_bn_cifar/cycle": ["masked_conv_fwd", "masked_conv_bwd_dx",
                                      "masked_conv_bwd_dw", "fused_chain_fwd",
                                      "fused_chain_bwd_dx",

@@ -9,10 +9,11 @@ under `csrc/`, built with nvcc at first use (`ops/_build.py`).
 Entry points (`serve.TaskServer`, `inference.predict`,
 `train.step.make_train_step`, `train.step.make_eval_step`,
 `train.manager.Manager`, `train.sequence.run_sequence` and its
-`init_state`/`grow_state`, `python -m cpg_tpu_torch serve|sequence|
-baseline|packnet|pae`) run on the card by default and raise when CUDA is
-missing; pass `device="cpu"` to run on the CPU, where every kernel wrapper
-uses its plain PyTorch version.
+`init_state`/`grow_state`, `train.pretrained.convert_torch_cpg_checkpoint`,
+`python -m cpg_tpu_torch sequence|baseline|packnet|pae|check|stats|
+inference|export|export-torch|import-torch|serve`) run on the card by
+default and raise when CUDA is missing; pass `device="cpu"` to run on the
+CPU, where every kernel wrapper uses its plain PyTorch version.
 """
 
 from .core.state import CPGState, TaskEntry

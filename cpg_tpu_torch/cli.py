@@ -1,4 +1,4 @@
-"""Command line: the CPG cycle and offline serving.
+"""Command line: the CPG cycle, checkpoint tools and serving.
 
     python -m cpg_tpu_torch sequence --experiment cifar100 ...  (the cycle)
     python -m cpg_tpu_torch baseline --experiment cifar100 ...  (goal accs)
@@ -6,21 +6,32 @@
         row; --max_allowed_network_width_multiplier 1.0 for fixed capacity)
     python -m cpg_tpu_torch pae      --experiment cifar100 ...  (PackNet +
         the growth ladder)
-    python -m cpg_tpu_torch serve --artifact A --requests R.npz \
-        [--task-id T] [--fused-chain] [--out O.npz] [--device cuda]
+    python -m cpg_tpu_torch check     --checkpoint CK [--allow-transient]
+    python -m cpg_tpu_torch stats     --checkpoint CK [--per-layer]
+    python -m cpg_tpu_torch inference --checkpoint CK --task-id K
+    python -m cpg_tpu_torch export    --checkpoint CK --out ART \
+        [--int8 [--calibrate NPZ]]
+    python -m cpg_tpu_torch export-torch --ckpt CK --out F.pth
+    python -m cpg_tpu_torch import-torch --ckpt F.pth --out CK
+    python -m cpg_tpu_torch serve --artifact ART (--requests R.npz \
+        [--task-id T] [--out O.npz] | --http-port P [--batch-window-ms W]) \
+        [--fused-chain]
 
-The cycle subcommands take `cpg_tpu`'s flags with the same defaults and
-presets (`--arch vit_cifar` swaps the architecture) and print one JSON
-summary line. Everything runs on the card unless `--device cpu` is given.
+The subcommands take `cpg_tpu`'s flags with the same defaults and presets
+(`--arch vit_cifar` swaps the cycle's architecture) and print `cpg_tpu`'s
+JSON. Everything runs on the card unless `--device cpu` is given.
 Options whose modules are not ported yet (the other experiments,
 `--parallel*`, `--shard-activations`, `--memmap-dir`, `--pretrained-npz`,
 `--native-loader`, the finegrained and textcls flags) and the XLA-only
-`--remat`, `--remat-policy` and `--scan-blocks` stop with an error naming
-them. `--init-from` reads this
-package's checkpoints (utils/checkpoint.py).
+`--remat`, `--remat-policy`, `--scan-blocks` and `--scoped-vmem-kib` stop
+with an error naming them. Checkpoints are this package's
+(utils/checkpoint.py).
 
 `serve`: R.npz holds `x` (uint8 NHWC) and, without --task-id, a per-row
-`task_ids` array for mixed routing.
+`task_ids` array for mixed routing; with --http-port the JSON endpoint of
+server_http.py answers instead (blocking). `export --calibrate`: NPZ holds
+`x` (one batch for every task) or `task<K>` batches per task id.
+`check` exits 1 when the checkpoint breaks an invariant.
 """
 
 from __future__ import annotations
@@ -85,11 +96,15 @@ UNPORTED = [
 ]
 
 
-def _refuse_unported(args):
+def _refuse_experiment(args):
     if args.experiment != "cifar100":
         raise SystemExit(
             f"--experiment {args.experiment} is not ported to cpg_tpu_torch "
             "yet (ROADMAP Queue 1, items 7-9); this package runs cifar100")
+
+
+def _refuse_unported(args):
+    _refuse_experiment(args)
     for attr, is_set, what in UNPORTED:
         if is_set(getattr(args, attr)):
             flag = "--" + attr.replace("_", "-")
@@ -265,36 +280,140 @@ def _add_common(p):
                    help="torch device (default: the card)")
 
 
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: the card)")
+
+
+def _add_experiment(p, help):
+    p.add_argument("--experiment", default="cifar100", choices=EXPERIMENTS,
+                   help=help + "; only cifar100 is ported")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="cpg_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     for cmd in ("sequence", "baseline", "packnet", "pae"):
         _add_common(sub.add_parser(cmd))
+    pi = sub.add_parser("inference",
+                        help="top-1 of one task of a checkpoint on its test "
+                             "split")
+    pi.add_argument("--checkpoint", required=True)
+    pi.add_argument("--task-id", type=int, required=True)
+    _add_experiment(pi, "the task data and eval preprocess")
+    pi.add_argument("--num-tasks", type=int, default=0)
+    pi.add_argument("--batch-size", type=int, default=128)
+    pi.add_argument("--synthetic-train-per-class", type=int, default=100)
+    pi.add_argument("--synthetic-test-per-class", type=int, default=20)
+    pi.add_argument("--max-classes", type=int, default=None,
+                    help="finegrained only (not ported; stops with an error)")
+    _add_device(pi)
+    ps = sub.add_parser("stats",
+                        help="ownership/capacity report for a checkpoint")
+    ps.add_argument("--checkpoint", required=True)
+    ps.add_argument("--per-layer", action="store_true",
+                    help="include the per-layer ownership breakdown")
+    _add_device(ps)
+    pc = sub.add_parser("check",
+                        help="audit a checkpoint against the CPG invariants "
+                             "(core/invariants.py I1-I5); exit 1 if dirty")
+    pc.add_argument("--checkpoint", required=True)
+    pc.add_argument("--allow-transient", action="store_true",
+                    help="skip I2 (zero free weights): for states saved "
+                         "between grow_state and the next start_task")
+    _add_device(pc)
+    pe = sub.add_parser("export",
+                        help="write a standalone serving artifact "
+                             "(TaskServer.export)")
+    pe.add_argument("--checkpoint", required=True)
+    pe.add_argument("--out", required=True)
+    pe.add_argument("--int8", action="store_true",
+                    help="post-training-quantize the effective weights")
+    pe.add_argument("--calibrate", default=None, metavar="NPZ",
+                    help="int8 activation calibration set: npz with "
+                         "{x: uint8 NHWC} (one batch for every task) or "
+                         "{task<K>: batch} per task id; fixes static "
+                         "per-layer activation scales so int8 logits are "
+                         "batching-invariant (TaskServer.calibrate)")
+    _add_experiment(pe, "eval preprocess applied during --calibrate")
+    _add_device(pe)
+    pt = sub.add_parser("import-torch",
+                        help="convert a reference CPG .pth/.pth.tar "
+                             "checkpoint (state_dict + masks + "
+                             "shared_layer_info) into a checkpoint of this "
+                             "package")
+    pt.add_argument("--ckpt", required=True,
+                    help="the torch.save file released by the reference")
+    pt.add_argument("--arch", default="vgg16_bn_cifar")
+    pt.add_argument("--out", required=True,
+                    help="checkpoint directory to write")
+    _add_device(pt)
+    px = sub.add_parser("export-torch",
+                        help="convert a checkpoint of this package into the "
+                             "reference's torch.save layout (state_dict + "
+                             "masks + shared_layer_info)")
+    px.add_argument("--ckpt", required=True, help="checkpoint directory")
+    px.add_argument("--arch", default=None,
+                    help="override arch recorded in the checkpoint")
+    px.add_argument("--out", required=True,
+                    help=".pth/.pth.tar file to write via torch.save")
+    _add_device(px)
     pv = sub.add_parser("serve",
                         help="batch inference from a serving artifact "
-                             "(TaskServer.load), offline request-file mode")
+                             "(TaskServer.load): offline request-file mode, "
+                             "or --http-port for the JSON endpoint")
     pv.add_argument("--artifact", required=True,
-                    help="directory written by TaskServer.export")
-    pv.add_argument("--requests", required=True,
+                    help="directory written by `export` / TaskServer.export")
+    pv.add_argument("--requests", default=None,
                     help="npz with {x: uint8 NHWC} + either --task-id or a "
                          "per-row {task_ids: int32 (N,)} for mixed routing")
+    pv.add_argument("--http-port", type=int, default=None,
+                    help="serve the HTTP JSON API (server_http.py) on this "
+                         "port instead of scoring a request file; blocks")
+    pv.add_argument("--batch-window-ms", type=float, default=0.0,
+                    help="coalesce concurrent same-task HTTP requests that "
+                         "arrive within this window into one predict call "
+                         "(serve.DynamicBatcher); 0 = per-request dispatch")
     pv.add_argument("--task-id", type=int, default=None)
     pv.add_argument("--out", default=None,
                     help="write logits (+ per-row argmax) to this npz")
+    _add_experiment(pv, "selects the eval preprocess for the artifact")
     pv.add_argument("--fused-chain", action="store_true",
                     help="run the BN+ReLU+conv3x3 seams through the fused "
-                         "CUDA kernel")
-    pv.add_argument("--device", default="cuda",
-                    help="torch device (default: the card)")
+                         "CUDA kernel (bf16 artifacts; off under int8)")
+    pv.add_argument("--scoped-vmem-kib", type=int, default=None,
+                    help="XLA's scoped-VMEM option: no port (stops with an "
+                         "error)")
+    _add_device(pv)
     return parser
 
 
-def _serve(args) -> int:
+def _prep(args):
+    """The experiment's eval preprocess (cifar100's; others refused)."""
     from .data.augment import cifar_eval_preprocess
+
+    _refuse_experiment(args)
+    return cifar_eval_preprocess
+
+
+def _serve(args) -> int:
     from .serve import TaskServer
 
-    srv = TaskServer.load(args.artifact, preprocess_fn=cifar_eval_preprocess,
+    if args.scoped_vmem_kib is not None:
+        raise SystemExit("--scoped-vmem-kib: XLA compiler options (TPU/XLA "
+                         "only; no port)")
+    srv = TaskServer.load(args.artifact, preprocess_fn=_prep(args),
                           fused_chain=args.fused_chain, device=args.device)
+    if args.http_port is not None:
+        from .server_http import serve_http
+
+        print(json.dumps({"serving": f"http://127.0.0.1:{args.http_port}",
+                          "tasks": len(srv.state.tasks)}), flush=True)
+        serve_http(srv, port=args.http_port, block=True,
+                   batch_window_ms=args.batch_window_ms)
+        return 0
+    if args.requests is None:
+        raise SystemExit("--requests or --http-port is required")
     with np.load(args.requests) as z:
         z = dict(z)
     x = z["x"]
@@ -316,6 +435,162 @@ def _serve(args) -> int:
     print(json.dumps({"n": int(len(x)), "tasks": sorted(set(tids.tolist())),
                       "pred_head": pred[:16].tolist(), "out": args.out}))
     return 0
+
+
+def _export(args) -> int:
+    from .serve import TaskServer
+    from .utils.checkpoint import load_state
+
+    prep = _prep(args)
+    state = load_state(args.checkpoint, device=args.device)
+    srv = TaskServer(state, preprocess_fn=prep,
+                     quantize="int8" if args.int8 else None,
+                     device=args.device)
+    calibrated = 0
+    if args.calibrate:
+        with np.load(args.calibrate) as z:
+            z = dict(z)
+        calib = ({int(k[4:]): v for k, v in z.items()
+                  if k.startswith("task")} or z["x"])
+        calibrated = len(srv.calibrate(calib))
+    p = srv.export(args.out)
+    print(json.dumps({"artifact": p, "tasks": state.num_tasks,
+                      "quantize": srv.quantize,
+                      "calibrated_tasks": calibrated}))
+    return 0
+
+
+def _import_torch(args) -> int:
+    import torch
+
+    from .core.state import resolve_device
+    from .train.pretrained import convert_torch_cpg_checkpoint
+    from .utils.checkpoint import save_state
+
+    resolve_device(args.device)
+    ckpt = torch.load(args.ckpt, map_location="cpu", weights_only=False)
+    state = convert_torch_cpg_checkpoint(ckpt, arch=args.arch,
+                                         device=args.device)
+    save_state(state, args.out)
+    print(json.dumps({
+        "out": args.out, "arch": state.arch,
+        "tasks": {tid: {"name": t.name, "num_classes": t.num_classes}
+                  for tid, t in state.tasks.items()},
+        "width_mult": state.width_mult,
+    }))
+    return 0
+
+
+def _export_torch(args) -> int:
+    import torch
+
+    from .train.export_torch import export_torch_cpg_checkpoint
+    from .utils.checkpoint import load_state
+
+    state = load_state(args.ckpt, device=args.device)
+    if args.arch:
+        state.arch = args.arch
+    ckpt = export_torch_cpg_checkpoint(state)
+    torch.save(ckpt, args.out)
+    print(json.dumps({
+        "out": args.out, "arch": state.arch,
+        "tasks": ckpt["dataset_history"],
+        "width_mult": ckpt["network_width_multiplier"],
+        "state_dict_keys": len(ckpt["state_dict"]),
+    }))
+    return 0
+
+
+def _check(args) -> int:
+    from .core.invariants import check_state
+    from .utils.checkpoint import load_state
+
+    state = load_state(args.checkpoint, device=args.device)
+    violations = check_state(
+        state, strict=False,
+        expect_zero_free=False if args.allow_transient else None)
+    print(json.dumps({"checkpoint": args.checkpoint,
+                      "arch": state.arch, "num_tasks": state.num_tasks,
+                      "clean": not violations,
+                      "violations": violations}, indent=1))
+    return 1 if violations else 0
+
+
+def _stats(args) -> int:
+    from .utils.checkpoint import load_state
+
+    state = load_state(args.checkpoint, device=args.device)
+    own = {k: v.cpu().numpy() for k, v in state.ownership.items()}
+    total = sum(v.size for v in own.values())
+    out = {
+        "arch": state.arch,
+        "width_mult": state.width_mult,
+        "num_tasks": state.num_tasks,
+        "total_weights": int(total),
+        "free_ratio": float(sum((v == 0).sum() for v in own.values())
+                            / total),
+        "tasks": {},
+    }
+    for tid, t in sorted(state.tasks.items()):
+        owned = int(sum((v == tid).sum() for v in own.values()))
+        out["tasks"][str(tid)] = {
+            "name": t.name, "num_classes": t.num_classes,
+            "owned_ratio": owned / total,
+            "final_acc": t.meta.get("final_acc"),
+            "chosen_ratio": t.meta.get("chosen_ratio"),
+            "grew": t.meta.get("grew", 0),
+        }
+    if args.per_layer:
+        out["layers"] = {
+            k: {"shape": list(v.shape),
+                "free": float((v == 0).mean()),
+                **{f"task{t}": float((v == t).mean())
+                   for t in sorted(state.tasks)}}
+            for k, v in own.items()
+        }
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+def _inference(args) -> int:
+    import torch
+
+    from .inference import make_predict_fn
+    from .utils.checkpoint import load_state
+
+    if args.max_classes is not None:
+        raise SystemExit("--max-classes: the finegrained experiment "
+                         "(ROADMAP Queue 1, item 7) is not ported to "
+                         "cpg_tpu_torch")
+    prep = _prep(args)
+    _, tasks, _, _ = _experiment_tasks(args)
+    state = load_state(args.checkpoint, device=args.device)
+    task = state.tasks[args.task_id]
+    data = tasks[task.name]
+    fn = make_predict_fn(state, args.task_id, preprocess_fn=prep,
+                         device=args.device)
+    x, y = data["test_x"], data["test_y"]
+    bs = args.batch_size
+    correct = total = 0
+    # pad the tail to the batch shape and count only the valid prefix: the
+    # whole test split is scored
+    for s in range(0, len(x), bs):
+        bx, nvalid = x[s:s + bs], len(x[s:s + bs])
+        if nvalid < bs:
+            bx = np.concatenate([bx, np.repeat(bx[-1:], bs - nvalid, 0)])
+        logits = fn(torch.from_numpy(np.ascontiguousarray(bx)))
+        logits = logits[0] if isinstance(logits, tuple) else logits
+        pred = logits.argmax(1).cpu().numpy()[:nvalid]
+        correct += int((pred == y[s:s + nvalid]).sum())
+        total += nvalid
+    print(json.dumps({"task_id": args.task_id, "task": task.name,
+                      "top1": correct / max(total, 1), "n": total}))
+    return 0
+
+
+_TOOLS = {"serve": _serve, "export": _export, "import-torch": _import_torch,
+          "export-torch": _export_torch, "check": _check, "stats": _stats,
+          "inference": _inference}
 
 
 def _cycle(args) -> int:
@@ -373,8 +648,8 @@ def _cycle(args) -> int:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.cmd == "serve":
-        return _serve(args)
+    if args.cmd in _TOOLS:
+        return _TOOLS[args.cmd](args)
     if args.preset:
         _apply_preset(args)
 

@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_cap.cuh"
+
 namespace cpg {
 
 __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],

@@ -170,8 +170,7 @@ template <typename... KA, typename... A>
 int launch(void (*kernel)(KA...), dim3 grid, int threads, size_t smem,
            void* stream, A&&... args) {
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e = cpg::allow_smem((const void*)kernel, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(std::forward<A>(args)...);

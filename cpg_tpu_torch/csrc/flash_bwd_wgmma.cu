@@ -522,9 +522,8 @@ int launch(const CUtensorMap (&maps)[8], const BwdArgs& p, int grid,
   const int smem = bwd_smem_bytes(PAIR, p.n_kb, p.n_qt, p.stages);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   // per call: the attribute belongs to the current device
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_wgmma_kernel<PAIR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t err = cpg::allow_smem(
+      (const void*)flash_bwd_wgmma_kernel<PAIR>, smem);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_wgmma_kernel<PAIR><<<grid, THREADS, smem, st>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7],

@@ -308,8 +308,8 @@ int fused_chain_bwd_dw_bf16(const void* x, const void* g, const void* a,
   s.chunks = (int)(((long long)n * h + rows - 1) / rows);
   s.per_split = (s.chunks + splits - 1) / splits;
   const size_t smem = k6::smem_bytes(s);
-  cudaError_t err = cudaFuncSetAttribute(
-      k6::dw_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cpg::allow_smem((const void*)k6::dw_bf16_kernel, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(((cin + k6::CB - 1) / k6::CB) * ((cout + k6::OB - 1) / k6::OB)),
                   (unsigned)splits);

@@ -360,8 +360,7 @@ int launch(K kernel, size_t smem, const void* x, const void* a, const void* b,
            const void* w, void* y, int n, int h, int wd, int cin, int cout,
            void* stream) {
   const int rows = BM / wd;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cpg::allow_smem((const void*)kernel, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long G = (long long)n * h;
   const dim3 grid((unsigned)((G + rows - 1) / rows), (unsigned)((cout + BN - 1) / BN));
@@ -686,9 +685,8 @@ int launch_fwd(const CUtensorMap& mx, const CUtensorMap& mw,
                const CUtensorMap& my, const float* a, const float* b,
                const Geo& geo, int stages, int grid, cudaStream_t st) {
   const int smem = fwd_smem_bytes(BN, stages, geo.halo_bytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t err =
+      cpg::allow_smem((const void*)fwd_wgmma_kernel<BN>, smem);
   if (err != cudaSuccess) return (int)err;
   fwd_wgmma_kernel<BN><<<grid, THREADS, smem, st>>>(mx, mw, my, a, b, geo,
                                                     stages);

@@ -336,9 +336,8 @@ int launch_bn(const CUtensorMap& mx, const CUtensorMap& mg,
               cudaStream_t st) {
   const int smem = wgrad_smem_bytes(BN, step_rows(WALK), stages);
   // per call: the attribute belongs to the current device
-  cudaError_t err = cudaFuncSetAttribute(
-      wgrad_wgmma_kernel<BN, WALK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t err =
+      cpg::allow_smem((const void*)wgrad_wgmma_kernel<BN, WALK>, smem);
   if (err != cudaSuccess) return (int)err;
   wgrad_wgmma_kernel<BN, WALK><<<grid, THREADS, smem, st>>>(mx, mg, p, cw,
                                                             stages);

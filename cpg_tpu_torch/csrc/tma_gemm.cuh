@@ -368,9 +368,8 @@ int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb,
                 const FusedDx& fd, cudaStream_t stream) {
   const int smem = gemm_smem_bytes(BN, stages, EPI);
   // per call: the attribute belongs to the current device
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_tn_bf16_kernel<BN, WALK, EPI>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cpg::allow_smem(
+      (const void*)gemm_tn_bf16_kernel<BN, WALK, EPI>, smem);
   if (err != cudaSuccess) return (int)err;
   gemm_tn_bf16_kernel<BN, WALK, EPI><<<grid, THREADS, smem, stream>>>(
       ma, mb, mc, mx, m, r, nout, stages, cw, fd);

@@ -14,6 +14,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_cap.cuh"
+
 namespace cpg {
 namespace hopper {
 
@@ -385,22 +387,42 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
+inline EncodeTiled query_encode_tiled() {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q;
 #if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+  cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
 #else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
+  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
 #endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
+  return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+             ? reinterpret_cast<EncodeTiled>(p)
+             : nullptr;
+}
+
+// queried once, by whichever host thread comes first (a function-local
+// static: the others wait for it)
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = query_encode_tiled();
   return fn;
+}
+
+// cuTensorMapEncodeTiled is a driver call: it fails unless a context is
+// current in the calling host thread, and a serving thread can reach it
+// before any runtime call has made one current there. So each host thread
+// binds the current device's primary context once (cudaSetDevice, then a
+// no-op cudaFree that makes it current).
+inline bool bind_context() {
+  thread_local bool bound = false;
+  if (!bound) {
+    int dev = 0;
+    bound = cudaGetDevice(&dev) == cudaSuccess &&
+            cudaSetDevice(dev) == cudaSuccess &&
+            cudaFree(nullptr) == cudaSuccess;
+  }
+  return bound;
 }
 
 // a dense row-major bf16 tensor of `rank` dims (dims[0] innermost), in
@@ -409,7 +431,7 @@ inline EncodeTiled encode_tiled() {
 inline bool make_map_nd(CUtensorMap* map, const void* ptr, int rank,
                         const long long* dims, const int* box) {
   EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || !bind_context()) return false;
   cuuint64_t d[5], strides[4];
   cuuint32_t b[5];
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};

@@ -93,10 +93,21 @@ class Ctx:
     masking: Optional[Masking] = None
     # route BN+ReLU+conv3x3 chains through the fused kernel
     # (ops/fused_chain.py); honoured by fused_bn_relu_sconv outside init
+    # and int8
     fused_chain: bool = False
     # route transformer attention through the flash kernels (ops/flash.py);
-    # honoured by models/vit.py attention() outside init
+    # honoured by models/vit.py attention() outside init and int8
     flash_attention: bool = False
+    # int8 serving (serve.py), eval only: {kernel key -> per-output-channel
+    # f32 weight scale}; when set, `shared` holds int8 kernels and
+    # sconv/sdense run the int8 products (ops/int8.py)
+    quant_scales: Optional[Dict[str, torch.Tensor]] = None
+    # static per-layer activation scales (TaskServer.calibrate); a key
+    # missing here quantizes with the batch's own max |x|
+    act_scales: Optional[Dict[str, torch.Tensor]] = None
+    # calibration collector: the int8 path records each layer's observed
+    # activation scale (the max over calls) into this dict
+    act_stats: Optional[Dict[str, float]] = None
 
     def shared_param(self, name, shape, init_fn):
         if self.mode == "init":
@@ -137,6 +148,38 @@ class Ctx:
                                 mk.mask_mode)
 
 
+def _quantize_activation(x: torch.Tensor, scale=None):
+    """Per-tensor symmetric int8: s = max(max|x|, 1e-8) / 127 in f32 (or
+    the static `scale`), q = clip(round(x / s), -127, 127), rounding half
+    to even (ops/int8.py `scale_of`, `quantize`). Returns (q, s)."""
+    from ..ops.int8 import quantize, scale_of
+
+    s = (scale_of(x.float().abs().amax()) if scale is None
+         else torch.as_tensor(scale, dtype=torch.float32, device=x.device))
+    return quantize(x, s), s
+
+
+def _act_scale_in(ctx: Ctx, key: str):
+    """The static activation scale for a layer, if calibrated."""
+    if ctx.act_scales is not None:
+        return ctx.act_scales.get(key)
+    return None
+
+
+def _record_act(ctx: Ctx, key: str, s) -> None:
+    """Calibration collection (eager): keep the max observed scale."""
+    if ctx.act_stats is not None:
+        ctx.act_stats[key] = max(float(s), ctx.act_stats.get(key, 0.0))
+
+
+def _int8_product(ctx: Ctx, key: str, x: torch.Tensor, product):
+    """Quantize x, run `product(xq)` (int32), rescale by s_x * s_w (the
+    scale product formed first) in f32."""
+    xq, s_x = _quantize_activation(x, _act_scale_in(ctx, key))
+    _record_act(ctx, key, s_x)
+    return product(xq).float() * (s_x * ctx.quant_scales[key])
+
+
 def _patchify_dot(x: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
     """kernel == stride == k VALID conv as space-to-depth + one product. The
     patch flatten order (kh, kw, cin) is HWIO's row-major flatten, so
@@ -153,7 +196,9 @@ def sconv(ctx: Ctx, name: str, x: torch.Tensor, features: int,
           kernel_init=he_normal_fan_out) -> torch.Tensor:
     """Sharable 2D conv (ref:models/layers.py SharableConv2d). NHWC/HWIO,
     output in the compute dtype. With a Masking whose `pallas_conv` is set
-    and a piggymask present, the masked-conv kernel selects the weight. A
+    and a piggymask present, the masked-conv kernel selects the weight.
+    Under int8 (`ctx.quant_scales` holds the key) the int8 conv of
+    ops/int8.py runs and the output is f32. A
     non-overlapping patch embedding (kernel == stride, VALID, as in the ViT
     stems) runs as space-to-depth + one matmul, as `cpg_tpu` computes it."""
     cin = x.shape[-1]
@@ -170,6 +215,13 @@ def sconv(ctx: Ctx, name: str, x: torch.Tensor, features: int,
                                  padding=padding, threshold=mk.threshold,
                                  mask_mode=mk.mask_mode)
         w = ctx.masked_weight(key, w)
+    if ctx.quant_scales is not None and key in ctx.quant_scales:
+        from ..ops.int8 import conv2d_int8
+
+        pads = resolve_padding(padding, x.shape[1], x.shape[2], kernel,
+                               kernel, stride)
+        return _int8_product(ctx, key, x,
+                             lambda xq: conv2d_int8(xq, w, stride, pads))
     if (kernel == stride and kernel > 1 and padding == "VALID"
             and x.shape[1] % kernel == 0 and x.shape[2] % kernel == 0):
         return _patchify_dot(x.to(ctx.compute_dtype),
@@ -186,7 +238,8 @@ def sdense(ctx: Ctx, name: str, x: torch.Tensor, features: int,
     """Sharable dense layer (ref:models/layers.py SharableLinear) over any
     leading shape, output and bias add in the compute dtype. With a Masking
     whose `pallas_dense` is set and a piggymask present, the leading dims
-    flatten to (M, K) and the masked-matmul kernels select the weight."""
+    flatten to (M, K) and the masked-matmul kernels select the weight.
+    Under int8 the int8 matmul runs and the output is f32."""
     key = f"{name}/kernel"
     w = ctx.shared_param(key, (x.shape[-1], features), kernel_init)
     mk = ctx.masking
@@ -200,6 +253,11 @@ def sdense(ctx: Ctx, name: str, x: torch.Tensor, features: int,
                               mk.mask_mode).reshape(*x.shape[:-1], features)
             return _dense_bias(ctx, name, y, features, use_bias)
         w = ctx.masked_weight(key, w)
+    if ctx.quant_scales is not None and key in ctx.quant_scales:
+        from ..ops.int8 import matmul_int8
+
+        y = _int8_product(ctx, key, x, lambda xq: matmul_int8(xq, w))
+        return _dense_bias(ctx, name, y, features, use_bias)
     y = x.to(ctx.compute_dtype) @ w.to(ctx.compute_dtype)
     return _dense_bias(ctx, name, y, features, use_bias)
 
@@ -260,9 +318,10 @@ def fused_bn_relu_sconv(ctx: Ctx, bn_name: str, conv_name: str,
                         x: torch.Tensor, features: int) -> torch.Tensor:
     """conv3x3(relu(BN(x))). Under `ctx.fused_chain` (outside init) this runs
     the fused kernel, the normalised activation never leaving shared memory;
-    otherwise it is exactly the unfused composition. Same param names and
-    registration order either way."""
-    if not (ctx.fused_chain and ctx.mode != "init"):
+    otherwise (and under int8) it is exactly the unfused composition. Same
+    param names and registration order either way."""
+    if not (ctx.fused_chain and ctx.mode != "init"
+            and ctx.quant_scales is None):
         return sconv(ctx, conv_name, relu(batchnorm(ctx, bn_name, x)),
                      features, kernel=3, stride=1, padding="SAME")
     from ..ops.fused_chain import fused_affine_relu_conv
@@ -299,12 +358,26 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+HEAD_ROWS = 256
+
+
 def head(ctx: Ctx, name: str, x: torch.Tensor, num_classes: int) -> torch.Tensor:
-    """Task-private classifier head, f32, initialised N(0, 0.01^2)."""
+    """Task-private classifier head, f32, initialised N(0, 0.01^2).
+
+    Under int8 the product runs on blocks of HEAD_ROWS rows (the last one
+    zero-padded): calibrated int8 logits must not depend on what shares a
+    request's bucket, every product before the head is exact, and a
+    library GEMM picks its algorithm, and with it the summation order, by
+    shape."""
     w = ctx.private_param(f"{name}/kernel", (x.shape[-1], num_classes),
                           normal_init(0.01))
     b = ctx.private_param(f"{name}/bias", (num_classes,), _zeros)
-    return x.float() @ w + b
+    xf = x.float()
+    if ctx.quant_scales is None:
+        return xf @ w + b
+    n = xf.shape[0]
+    blocks = F.pad(xf, (0, 0, 0, -n % HEAD_ROWS)).split(HEAD_ROWS)
+    return torch.cat([blk @ w for blk in blocks])[:n] + b
 
 
 def maxpool(x: torch.Tensor) -> torch.Tensor:
@@ -328,12 +401,17 @@ def init(generator: torch.Generator, model_fn: Callable, sample_x,
 def apply(model_fn: Callable, shared: Dict, private: Dict, bn_state: Dict, x,
           train: bool, compute_dtype=torch.float32,
           masking: Optional[Masking] = None, fused_chain: bool = False,
-          flash_attention: bool = False, **kwargs):
+          flash_attention: bool = False, quant_scales=None, act_scales=None,
+          act_stats=None, **kwargs):
     """Run the model. With `masking=None`, `shared` holds pre-masked
-    effective params; with a Masking, `shared` holds RAW weights."""
+    effective params; with a Masking, `shared` holds RAW weights. With
+    `quant_scales` (eval only), `shared` holds int8 kernels."""
+    if quant_scales is not None and train:
+        raise ValueError("int8 (quant_scales) is eval-only")
     ctx = Ctx(mode="apply", train=train, shared=shared, private=private,
               bn_state=bn_state, compute_dtype=compute_dtype,
               masking=masking, fused_chain=fused_chain,
-              flash_attention=flash_attention)
+              flash_attention=flash_attention, quant_scales=quant_scales,
+              act_scales=act_scales, act_stats=act_stats)
     out = model_fn(ctx, x, **kwargs)
     return out, ctx.new_bn_state

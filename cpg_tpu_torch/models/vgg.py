@@ -20,6 +20,11 @@ def scale_channels(c: int, mult: float) -> int:
     return max(1, int(c * mult))
 
 
+def conv_channels(mult: float):
+    """The channel counts of the 13 convs' outputs at `mult`."""
+    return [scale_channels(v, mult) for v in CFG_VGG16 if v != "M"]
+
+
 def vgg16_bn_cifar(ctx: Ctx, x, num_classes: int, mult: float = 1.0):
     """Forward. x: (N, 32, 32, 3) NHWC. Returns logits (N, num_classes)."""
     i = 0

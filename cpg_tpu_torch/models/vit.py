@@ -11,7 +11,7 @@ Attention runs one of two ways, the same math:
     cast to f32 first, so a bf16 product is exact, as JAX's einsum with
     preferred_element_type=f32 gives it), softmax in f32, probabilities
     cast to the compute dtype before P.V;
-  * `ctx.flash_attention` (outside init): the flash kernels of
+  * `ctx.flash_attention` (outside init and int8): the flash kernels of
     ops/flash.py, where the scores never reach device memory.
 
 Left out from `cpg_tpu`: `qkv_fused`, `scan_blocks`/`scan_vit_blocks`, the
@@ -39,7 +39,8 @@ def attention(ctx: Ctx, name: str, x, heads_n: int, head_dim: int,
     inner = heads_n * head_dim
     q, k, v = (sdense(ctx, f"{name}/{p}", x, inner, kernel_init=xavier_normal)
                .reshape(n, t, heads_n, head_dim) for p in "qkv")
-    if ctx.flash_attention and ctx.mode != "init":
+    if (ctx.flash_attention and ctx.mode != "init"
+            and ctx.quant_scales is None):
         from ..ops.flash import flash_mha
 
         out = flash_mha(q, k, v, causal=causal)
@@ -50,7 +51,9 @@ def attention(ctx: Ctx, name: str, x, heads_n: int, head_dim: int,
             tri = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
             scores = torch.where(tri, scores, -1e30)
         att = torch.softmax(scores, dim=-1).to(ctx.compute_dtype)
-        out = torch.einsum("nhts,nshd->nthd", att, v)
+        # under int8, v arrives in f32: XLA's mixed product rounds it to
+        # the probabilities' dtype first
+        out = torch.einsum("nhts,nshd->nthd", att, v.to(att.dtype))
     return sdense(ctx, f"{name}/proj", out.reshape(n, t, inner), d,
                   kernel_init=xavier_normal)
 

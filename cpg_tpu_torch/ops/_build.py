@@ -4,7 +4,7 @@ Each `csrc/<name>.cu` has a plain C interface (device pointers, ints and the
 stream in; `cudaGetLastError()` out), so it compiles with nvcc alone, without
 PyTorch's headers, into `build/cuda/lib<name>-<hash>.so` at the repository
 root, and loads with ctypes. The hash covers the source and the shared
-header, so an edited kernel is rebuilt and a built one is reused. All missing
+headers, so an edited kernel is rebuilt and a built one is reused. All missing
 libraries compile in parallel, one nvcc process each. Nothing here runs at
 import: the first kernel launch (or `build_all()`) builds.
 """
@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -30,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -80,11 +82,15 @@ def build_all() -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library `name`, built first if needed."""
+    """The loaded kernel library `name`, built first if needed (one
+    builder at a time: serving threads may reach a kernel together)."""
     lib = _libs.get(name)
     if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build_all()
-        lib = _libs[name] = ctypes.CDLL(str(path))
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                path = _lib_path(name)
+                if not path.exists():
+                    build_all()
+                lib = _libs[name] = ctypes.CDLL(str(path))
     return lib

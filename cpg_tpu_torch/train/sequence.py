@@ -9,9 +9,12 @@ ratio -> accuracy record.
 
 Random inits (`init_state`, `start_task`, `grow_state`, `reinit_free`)
 draw from CPU `torch.Generator`s seeded as `cpg_tpu` seeds its keys
-(`seq.seed` for the state, `seq.seed + tasks so far + 1` for a task, a
-fresh generator for each use, as `cpg_tpu` reuses its key), so a state is
-the same for a seed whatever device it then lives on. Two seams let a
+(`seq.seed` for the state, `seq.seed + tasks so far + 1` for a task), so a
+state is the same for a seed whatever device it then lives on. A call that
+draws more than once (`start_task` with `reinit_free`, `grow_state`) gives
+each `init` a fresh generator seeded with the caller's seed
+(`rng.initial_seed()`), as `cpg_tpu` reuses its key, so no draw depends on
+the draws before it. Two seams let a
 caller hand in other values: `init_fn`, called as `fw.init` is
 (`init_fn(generator, model_fn, sample_x, **kwargs) -> (shared, private,
 bn_state)`), and `draws`, the Manager's augmentation draws
@@ -22,7 +25,8 @@ Snapshots are host copies (`clone`d even when the state is on the CPU, so
 an in-place step cannot change them), and every restore copies them back
 to the device. With the conv kernels on (`use_pallas_conv`,
 `use_fused_chain`), widths the kernels would refuse mid-cycle are refused
-up front (`refuse_kernel_widths`).
+up front (`refuse_kernel_widths`), each check keyed to the flag and dtype
+that need it.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from ..core.pruner import snapshot_owned_counts
 from ..core.state import CPGState, TaskEntry, resolve_device
 from ..models import framework as fw
 from ..models import get_flatten_dims, get_model
+from ..models.vgg import conv_channels as vgg_conv_channels
 from ..ops.binarize import init_piggymask
 from ..utils import LOGGER
 from ..utils.checkpoint import (load_state, remove_after_save, save_state,
@@ -77,24 +82,43 @@ def _to(tree, dev):
     return {k: v.to(dev) for k, v in tree.items()}
 
 
-def refuse_kernel_widths(cfg: Optional[TrainConfig], mults,
+def _fresh(rng: torch.Generator) -> torch.Generator:
+    """A new generator at the caller's seed: one for each draw of a call."""
+    return _generator(rng.initial_seed())
+
+
+# archs whose sharable convs scale with the width and reach the conv
+# kernels (VGG16-BN's 13 convs and 8 fused seams); the ViTs' one conv, the
+# patch embedding, keeps its embed dim at every width
+_CONV_CHANNELS = {"vgg16_bn_cifar": vgg_conv_channels}
+
+
+def refuse_kernel_widths(cfg: Optional[TrainConfig], arch: str, mults,
                          in_shape) -> None:
-    """With the conv kernels on, raise ValueError for an input wider than
-    128 (the fused chain's W limit) or a width multiplier off the 1/8 grid
-    (bf16 channel counts must be multiples of 8 for the fused chain and of
-    4 for the masked conv), which the kernels would refuse mid-cycle."""
-    if cfg is None or not (cfg.use_pallas_conv or cfg.use_fused_chain):
+    """Raise ValueError for widths the kernels that `cfg` turns on would
+    refuse mid-cycle, each check keyed to the flag and dtype that need it:
+    under `use_fused_chain` an input wider than 128 (the fused chain's W
+    limit, any dtype) or, in bf16, a channel count off a multiple of 8;
+    under `use_pallas_conv` in bf16, a Cout off a multiple of 4. f32 steps
+    have no channel limit, and the masked conv no width limit."""
+    channels = _CONV_CHANNELS.get(arch)
+    if cfg is None or channels is None:
         return
-    if len(in_shape) == 3 and in_shape[1] > 128:
+    if cfg.use_fused_chain and len(in_shape) == 3 and in_shape[1] > 128:
         raise ValueError(
             f"input width {in_shape[1]} > 128: the fused BN+ReLU+conv "
-            "kernel takes W <= 128 (use_fused_chain / use_pallas_conv)")
-    for m in mults:
-        if abs(m * 8 - round(m * 8)) > 1e-6:
+            "kernel takes W <= 128 (use_fused_chain)")
+    if cfg.compute_dtype != torch.bfloat16:
+        return
+    need, flag = ((8, "use_fused_chain") if cfg.use_fused_chain else
+                  (4, "use_pallas_conv") if cfg.use_pallas_conv else
+                  (None, None))
+    for m in mults if need else ():
+        bad = sorted({c for c in channels(m) if c % need})
+        if bad:
             raise ValueError(
-                f"width multiplier {m} is off the 1/8 grid: the conv "
-                "kernels need bf16 channel counts that are multiples of 8 "
-                "(use_fused_chain / use_pallas_conv)")
+                f"width multiplier {m} gives bf16 channel counts {bad}: "
+                f"{flag} needs multiples of {need}")
 
 
 def growth_ladder(width_mult: float, seq: "SequenceConfig") -> List[float]:
@@ -123,7 +147,7 @@ def init_state(arch: str, rng: torch.Generator, width_mult: float = 1.0,
     dev = resolve_device(device)
     model_fn, in_shape = get_model(arch)
     shape = tuple(batch_hw or in_shape)
-    refuse_kernel_widths(cfg, [width_mult], shape)
+    refuse_kernel_widths(cfg, arch, [width_mult], shape)
     shared, _, _ = (init_fn or fw.init)(
         rng, model_fn, torch.zeros((1, *shape)), num_classes=2,
         mult=width_mult, **(model_kwargs or {}))
@@ -141,7 +165,8 @@ def start_task(state: CPGState, name: str, num_classes: int,
     """Add task k: claim free capacity, create the piggymask over prior-task
     weights (k > 1, not in packnet mode), fresh task-private params.
     `reinit_free` puts fresh init values on the claimed entries that are
-    zero (released by pruning)."""
+    zero (released by pruning); its two draws each take a fresh generator
+    at `rng`'s seed."""
     init = init_fn or fw.init
     model_fn, in_shape = get_model(state.arch)
     x = torch.zeros((1, *(state.in_shape or in_shape)))
@@ -150,7 +175,7 @@ def start_task(state: CPGState, name: str, num_classes: int,
     state.ownership = assign_free_to_task(state.ownership, task_id)
     merged_kwargs = state.forward_kwargs(override=model_kwargs or {})
     if reinit_free:
-        fresh, _, _ = init(rng, model_fn, x, num_classes=num_classes,
+        fresh, _, _ = init(_fresh(rng), model_fn, x, num_classes=num_classes,
                            mult=state.width_mult, **merged_kwargs)
         state.shared = {
             k: torch.where((state.ownership[k] == task_id) & (w == 0),
@@ -159,7 +184,8 @@ def start_task(state: CPGState, name: str, num_classes: int,
     piggymask = ({k: init_piggymask(w.shape, device=dev)
                   for k, w in state.shared.items()}
                  if task_id > 1 and state.mask_mode != "packnet" else None)
-    _, private, bn_state = init(rng, model_fn, x, num_classes=num_classes,
+    _, private, bn_state = init(_fresh(rng) if reinit_free else rng,
+                                model_fn, x, num_classes=num_classes,
                                 mult=state.width_mult, **merged_kwargs)
     state.tasks[task_id] = TaskEntry(
         name=name, num_classes=num_classes, piggymask=piggymask,
@@ -177,18 +203,20 @@ def grow_state(state: CPGState, new_mult: float, rng: torch.Generator,
 
     flatten_dims: "auto" resolves the arch's registered flatten-permutation
     layers (models.FLATTEN_DIMS); pass a dict or None to override. With
-    `cfg`'s conv kernels on, refuses a width they would reject."""
+    `cfg`'s conv kernels on, refuses a width they would reject. Each draw
+    (the shared weights, then each task's private params) takes a fresh
+    generator at `rng`'s seed."""
     init = init_fn or fw.init
     if flatten_dims == "auto":
         flatten_dims = get_flatten_dims(state.arch)
     model_fn, in_shape = get_model(state.arch)
     shape = tuple(state.in_shape or in_shape)
-    refuse_kernel_widths(cfg, [new_mult], shape)
+    refuse_kernel_widths(cfg, state.arch, [new_mult], shape)
     dev = resolve_device(device)
     on_device(state, dev)
     x = torch.zeros((1, *shape))
-    fresh_shared, _, _ = init(rng, model_fn, x, num_classes=2, mult=new_mult,
-                              **state.forward_kwargs())
+    fresh_shared, _, _ = init(_fresh(rng), model_fn, x, num_classes=2,
+                              mult=new_mult, **state.forward_kwargs())
     pms = {tid: t.piggymask for tid, t in state.tasks.items()}
     shared, ownership, new_pms = grow_mod.grow_shared(
         state.shared, state.ownership, _to(fresh_shared, dev), pms,
@@ -197,7 +225,7 @@ def grow_state(state: CPGState, new_mult: float, rng: torch.Generator,
     for tid, t in state.tasks.items():
         t.piggymask = new_pms[tid]
         _, fresh_priv, fresh_bn = init(
-            rng, model_fn, x, num_classes=t.num_classes, mult=new_mult,
+            _fresh(rng), model_fn, x, num_classes=t.num_classes, mult=new_mult,
             **state.forward_kwargs(tid))
         t.private = grow_mod.grow_private(t.private, fresh_priv)
         t.bn_state = grow_mod.grow_private(t.bn_state, fresh_bn)
@@ -512,7 +540,8 @@ def run_sequence(arch: str, tasks: Dict[str, Dict],
     start_mult = state.width_mult if state is not None else width_mult
     shape = ((state.in_shape if state is not None else batch_hw)
              or get_model(arch)[1])
-    refuse_kernel_widths(cfg, [start_mult, *growth_ladder(start_mult, seq)],
+    refuse_kernel_widths(cfg, arch,
+                         [start_mult, *growth_ladder(start_mult, seq)],
                          tuple(shape))
     rng = _generator(seq.seed) if rng is None else rng
     if state is None:

@@ -398,10 +398,12 @@ def test_manager_one_shot_prune_writes_into_the_live_tensors():
 @pytest.mark.parametrize("case", ["wide_input", "growth_step", "start_width",
                                   "init_state", "grow_state"])
 def test_kernel_widths_refused_up_front(case):
-    """With the conv kernels on, widths they would reject mid-cycle are
-    refused before any training: an input wider than 128 and width
-    multipliers off the 1/8 grid. Without the kernels they are taken."""
-    cfg = TrainConfig(compute_dtype=torch.float32, **KERNELS)
+    """With the conv kernels on in bf16, widths they would reject
+    mid-cycle are refused before any training: an input wider than 128 and
+    width multipliers whose channel counts are off a multiple of 8. Without
+    the kernels they are taken (every flag and dtype combination:
+    tests/test_torch_cycle_ops.py::test_refuse_kernel_widths)."""
+    cfg = TrainConfig(compute_dtype=torch.bfloat16, **KERNELS)
     seq = SequenceConfig(**SEQ)
     g = torch.Generator().manual_seed(0)
     calls = {
@@ -422,7 +424,7 @@ def test_kernel_widths_refused_up_front(case):
     trained = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(Manager, "train", lambda *a, **k: trained.append(1))
-        with pytest.raises(ValueError, match="128|1/8 grid"):
+        with pytest.raises(ValueError, match="128|multiples of 8"):
             calls[case](cfg)
     assert not trained
     if case in ("init_state", "grow_state"):

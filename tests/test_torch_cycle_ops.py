@@ -599,3 +599,105 @@ def test_on_device_leaves_a_state_in_place():
     on_device(ts, torch.device("meta"))
     assert ts.shared is not shared
     assert all(v.device.type == "meta" for v in ts.shared.values())
+
+
+# ------------------------------------------------ the two cycle repairs ----
+
+# (arch, dtype, fused chain, masked conv, width mult, input width, refused)
+WIDTH_CASES = {
+    "fused_bf16_wide": ("vgg16_bn_cifar", "bf16", True, False, 0.125, 160,
+                        "128"),
+    "fused_f32_wide": ("vgg16_bn_cifar", "f32", True, False, 0.125, 160,
+                       "128"),
+    "conv_bf16_wide": ("vgg16_bn_cifar", "bf16", False, True, 0.125, 160,
+                       None),
+    "vit_b16_224_conv": ("vit_b16", "bf16", False, True, 1.0, 224, None),
+    "vit_b16_224_both": ("vit_b16", "bf16", True, True, 0.3, 224, None),
+    "fused_bf16_off_8": ("vgg16_bn_cifar", "bf16", True, True, 0.1875, 32,
+                         "multiples of 8"),
+    "conv_bf16_on_4": ("vgg16_bn_cifar", "bf16", False, True, 0.1875, 32,
+                       None),
+    "conv_bf16_off_4": ("vgg16_bn_cifar", "bf16", False, True, 0.3, 32,
+                        "multiples of 4"),
+    "kernels_f32_off_grid": ("vgg16_bn_cifar", "f32", True, True, 0.3, 32,
+                             None),
+    "no_kernels_bf16": ("vgg16_bn_cifar", "bf16", False, False, 0.3, 32,
+                        None),
+    "fused_bf16_on_grid": ("vgg16_bn_cifar", "bf16", True, True, 1.5, 32,
+                           None),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDTH_CASES))
+def test_refuse_kernel_widths(case):
+    """Each refusal is keyed to the flag and dtype that need it: W <= 128
+    to the fused chain (any dtype), channel multiples of 8 to the fused
+    chain in bf16 and a Cout multiple of 4 to the masked conv in bf16; f32
+    steps and the ViTs' fixed-width patch conv are never refused."""
+    from cpg_tpu_torch.train.sequence import refuse_kernel_widths
+    from cpg_tpu_torch.train.step import TrainConfig
+
+    arch, dt, fused, conv, mult, wd, refused = WIDTH_CASES[case]
+    cfg = TrainConfig(compute_dtype={"bf16": torch.bfloat16,
+                                     "f32": torch.float32}[dt],
+                      use_fused_chain=fused, use_pallas_conv=conv)
+
+    def call():
+        refuse_kernel_widths(cfg, arch, [mult], (wd, wd, 3))
+
+    if refused is None:
+        call()
+    else:
+        with pytest.raises(ValueError, match=refused):
+            call()
+
+
+def test_multi_draw_inits_take_a_fresh_generator_each():
+    """`start_task(reinit_free=True)` and `grow_state` draw more than once;
+    every draw equals a standalone `fw.init` (the port's own) from a fresh
+    generator at the caller's seed, whatever was drawn before it."""
+    from cpg_tpu_torch.models import framework as t_fw
+    from cpg_tpu_torch.models import get_model as t_get_model
+    from cpg_tpu_torch.train.sequence import (grow_state, init_state,
+                                              start_task)
+
+    arch, seed = "vgg16_bn_cifar", 11
+    model_fn = t_get_model(arch)[0]
+    x = torch.zeros((1, 32, 32, 3))
+
+    def alone(nc, mult):
+        return t_fw.init(torch.Generator().manual_seed(seed), model_fn, x,
+                         num_classes=nc, mult=mult)
+
+    state = init_state(arch, torch.Generator().manual_seed(0), 0.125,
+                       device="cpu")
+    start_task(state, "t1", 5, torch.Generator().manual_seed(1))
+    state.shared, state.ownership = t_pruner.one_shot_prune(
+        state.shared, state.ownership, 1, 0.5)
+    g = torch.Generator().manual_seed(seed)
+    torch.randn(7, generator=g)  # a used generator: its seed still rules
+    start_task(state, "t2", 3, g, reinit_free=True)
+    shared0, private0, _ = alone(3, 0.125)
+    for k, v in private0.items():  # the call's second draw
+        assert torch.equal(state.tasks[2].private[k], v), k
+    for k, w in state.shared.items():
+        fresh = (state.ownership[k] == 2) & (w != 0)
+        assert torch.equal(w[fresh], shared0[k][fresh]), k
+
+    draws = []
+
+    def spy(gen, model_fn, sample_x, **kw):
+        out = t_fw.init(gen, model_fn, sample_x, **kw)
+        draws.append((kw["num_classes"], out))
+        return out
+
+    grown = grow_state(state, 0.25, g, device="cpu", init_fn=spy)
+    assert [nc for nc, _ in draws] == [2, 5, 3]  # shared, then each task
+    for nc, out in draws:
+        for got, want in zip(out, alone(nc, 0.25)):
+            for k in want:
+                assert torch.equal(got[k], want[k]), (nc, k)
+    shared1 = alone(2, 0.25)[0]
+    for k, w in grown.shared.items():
+        free = grown.ownership[k] == 0
+        assert torch.equal(w[free], shared1[k][free]), k

@@ -1016,3 +1016,68 @@ def test_wgrad_refuses_a_misaligned_operand(cuda):
                      dtype=torch.bfloat16)[4:].view(2, 8, 8, 64)
     with pytest.raises(ValueError, match="16-byte"):
         mc.masked_conv2d_bwd_dw(g4, x4, wt, own4, 2)
+
+
+# ------------------------------------------------------- int8 route ----
+
+@pytest.mark.parametrize("m,k,n", [(1, 27, 5), (8, 64, 64), (17, 40, 24),
+                                   (300, 576, 64), (1024, 4608, 512)])
+def test_int8_route_matches_the_exact_product(cuda, m, k, n):
+    """`torch._int_mm` through the wrapper's padding (M to >= 32, K and N
+    to multiples of 8) equals the exact product bit for bit, and counts
+    one launch."""
+    from cpg_tpu_torch.ops import int8
+
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=cuda,
+                      generator=g)
+    b = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=cuda,
+                      generator=g)
+    before = int8.LAUNCHES
+    got = int8.int_mm(a, b)
+    assert int8.LAUNCHES == before + 1
+    assert torch.equal(got, int8.int_mm_plain(a, b))
+
+
+@pytest.mark.parametrize("hw,cin,cout,k,stride,pads", [
+    (32, 3, 64, 3, 1, (1, 1, 1, 1)), (16, 64, 128, 3, 1, (1, 1, 1, 1)),
+    (9, 12, 16, 3, 2, (0, 1, 0, 1)), (32, 3, 256, 4, 4, (0, 0, 0, 0))])
+def test_int8_conv_matches_the_exact_product(cuda, hw, cin, cout, k, stride,
+                                             pads):
+    from cpg_tpu_torch.ops import int8
+
+    g = torch.Generator(device=cuda).manual_seed(hw + cin)
+    x = torch.randint(-127, 128, (4, hw, hw, cin), dtype=torch.int8,
+                      device=cuda, generator=g)
+    w = torch.randint(-127, 128, (k, k, cin, cout), dtype=torch.int8,
+                      device=cuda, generator=g)
+    got = int8.conv2d_int8(x, w, stride, pads)
+    p = int8.patches(x, k, k, stride, pads)
+    want = int8.int_mm_plain(p, w.reshape(-1, cout)).reshape(got.shape)
+    assert torch.equal(got, want)
+
+
+def test_fused_chain_launches_from_many_threads(cuda):
+    """Serving threads launch K4 at several seam sizes at once (each size
+    its own shared memory): no launch fails, each answer is its plain
+    version's."""
+    import concurrent.futures
+
+    cases = [_conv_case(n, hw, hw, c, c, 3, cuda, torch.bfloat16, seed=i)
+             for i, (n, hw, c) in enumerate([(8, 32, 64), (8, 16, 128),
+                                             (8, 8, 256), (8, 4, 512),
+                                             (8, 2, 512), (256, 2, 512)])]
+    args = [(x, torch.rand(x.shape[-1], device=cuda) + 0.5,
+             torch.rand(x.shape[-1], device=cuda) - 0.5, w.to(torch.bfloat16))
+            for x, w, _, _ in cases]
+    want = [fc.fused_oracle(*a, dot_dtype=torch.bfloat16) for a in args]
+
+    def one(i):
+        a = args[i % len(args)]
+        y = fc.fused_affine_relu_conv(*a, torch.bfloat16)
+        torch.cuda.current_stream().synchronize()
+        return i % len(args), y
+
+    with concurrent.futures.ThreadPoolExecutor(16) as ex:
+        for i, y in ex.map(one, range(192)):
+            _check(y, want[i], torch.bfloat16)

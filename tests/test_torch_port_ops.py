@@ -272,7 +272,9 @@ def test_port_never_imports_jax_or_cpg_tpu():
         (ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
     names = {f.name for f in files}
     assert {"gating.py", "step.py", "augment.py", "torch_train_profile.py",
-            "vit.py", "flash.py", "masked_matmul.py"} <= names
+            "vit.py", "flash.py", "masked_matmul.py", "int8.py",
+            "server_http.py", "export_torch.py", "pretrained.py",
+            "serve.py", "cli.py"} <= names
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):

@@ -4,7 +4,8 @@ Behaviour that `cpg_tpu`'s own serving tests check (bucket padding, mixed
 routing, LRU eviction, artifact round trip, the offline CLI), here for
 `cpg_tpu_torch`, plus: state building mirrors `cpg_tpu`'s parameter keys and
 shapes, every entry point defaults to the card and raises without one, and
-the unported serving options are refused.
+the unported serving options (`mesh`, XLA's compiler options) are
+refused.
 """
 
 import json
@@ -147,28 +148,38 @@ def test_export_load_and_cli(state, images, tmp_path):
 
 
 def test_unported_options_are_refused(state, tmp_path):
-    with pytest.raises(NotImplementedError, match="int8"):
-        TaskServer(state, quantize="int8", device="cpu")
+    """`mesh` serving (ROADMAP Queue 1, item 12) and XLA's compiler options
+    are refused; int8 is ported (tests/test_torch_port_int8.py)."""
     with pytest.raises(NotImplementedError, match="mesh"):
         TaskServer(state, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="XLA"):
+        TaskServer(state, compiler_options={}, device="cpu")
     with pytest.raises(ValueError):
         TaskServer(state, quantize="fp4", device="cpu")
     with pytest.raises(ValueError):
         TaskServer(state, cache="fifo", device="cpu")
-    art = tmp_path / "q"
-    art.mkdir()
-    (art / "serving_meta.json").write_text(json.dumps(
-        {"arch": "vgg16_bn_cifar", "quantize": "int8", "tasks": {}}))
-    with pytest.raises(NotImplementedError, match="int8"):
-        TaskServer.load(str(art), device="cpu")
+    art = str(tmp_path / "art")
+    TaskServer(state, prep, compute_dtype=torch.float32, device="cpu").export(art)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        TaskServer.load(art, mesh=object(), device="cpu")
+    with pytest.raises(SystemExit, match="XLA"):
+        cli.main(["serve", "--artifact", art, "--scoped-vmem-kib", "1024",
+                  "--device", "cpu"])
+    for argv in (["serve", "--artifact", art], ["export", "--checkpoint",
+                                                art, "--out", art]):
+        with pytest.raises(SystemExit, match="face"):
+            cli.main([*argv, "--experiment", "face", "--device", "cpu"])
 
 
 def test_entry_points_default_to_the_card(state, images, tmp_path,
                                           monkeypatch):
     """Without a usable card every entry point raises unless the caller
     passes device='cpu'; none falls back to the CPU on its own."""
+    from cpg_tpu_torch.utils.checkpoint import save_state
+
     art = str(tmp_path / "art")
     TaskServer(state, prep, compute_dtype=torch.float32, device="cpu").export(art)
+    ck = save_state(state, str(tmp_path / "ck"))
     req = str(tmp_path / "req.npz")
     np.savez(req, x=images[:2])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -186,6 +197,19 @@ def test_entry_points_default_to_the_card(state, images, tmp_path,
         lambda: init_state("vgg16_bn_cifar", torch.Generator(), MULT),
         lambda: cli.main(["serve", "--artifact", art, "--requests", req,
                           "--task-id", "2"]),
+        lambda: cli.main(["serve", "--artifact", art, "--http-port", "0"]),
+        lambda: TaskServer(state, prep, quantize="int8"),
+        lambda: cli.main(["export", "--checkpoint", ck, "--out",
+                          str(tmp_path / "a2")]),
+        lambda: cli.main(["export", "--checkpoint", ck, "--int8", "--out",
+                          str(tmp_path / "a3")]),
+        lambda: cli.main(["inference", "--checkpoint", ck, "--task-id", "2"]),
+        lambda: cli.main(["stats", "--checkpoint", ck]),
+        lambda: cli.main(["check", "--checkpoint", ck]),
+        lambda: cli.main(["export-torch", "--ckpt", ck, "--out",
+                          str(tmp_path / "x.pth")]),
+        lambda: cli.main(["import-torch", "--ckpt", str(tmp_path / "x.pth"),
+                          "--out", str(tmp_path / "ck2")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -196,3 +220,6 @@ def test_entry_points_default_to_the_card(state, images, tmp_path,
     logits, _ = step(state.shared, t2.piggymask, t2.private, t2.bn_state,
                      state.ownership, 2, images[:2], np.zeros(2, np.int64))
     assert logits.shape == (2, 6) and logits.device.type == "cpu"
+    q8 = TaskServer(state, prep, quantize="int8", device="cpu")
+    assert q8.predict(2, images[:2]).shape == (2, 6)
+    assert cli.main(["check", "--checkpoint", ck, "--device", "cpu"]) == 0
