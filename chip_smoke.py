@@ -381,7 +381,7 @@ def masked_conv_phase(torch, dev, name, hw, cin, cout, dtype_name, mode,
 
 
 def fused_chain_phase(torch, dev, name, hw, cin, cout, dtype_name,
-                      want_route, per_step=None):
+                      want_route, per_step=None, batch=BATCH):
     """K4 at one seam (the GEMM route or the earlier kernel, as
     `fused_chain.fwd_route` decides; fails unless it is `want_route`), two
     launches equal bits; on the route its plan and the kernel's own device
@@ -392,7 +392,7 @@ def fused_chain_phase(torch, dev, name, hw, cin, cout, dtype_name,
 
     dt = getattr(torch, dtype_name)
     g = torch.Generator().manual_seed(SEED + 1)
-    x = torch.randn((BATCH, hw, hw, cin), generator=g).to(dev, dt)
+    x = torch.randn((batch, hw, hw, cin), generator=g).to(dev, dt)
     a = (torch.rand((cin,), generator=g) + 0.5).to(dev)
     b = (torch.randn((cin,), generator=g) * 0.3).to(dev)
     w = (torch.randn((3, 3, cin, cout), generator=g)
@@ -406,13 +406,13 @@ def fused_chain_phase(torch, dev, name, hw, cin, cout, dtype_name,
                   dtype_name, f"fused_chain {name}")
     elt = x.element_size()
     nbytes = (x.numel() * elt + 8 * cin + wd.numel() * elt
-              + BATCH * hw * hw * cout * elt)
-    flops = 2.0 * BATCH * hw * hw * 9 * cin * cout
+              + batch * hw * hw * cout * elt)
+    flops = 2.0 * batch * hw * hw * 9 * cin * cout
     b_ms, b_by = bound(nbytes, flops, dtype_name)
     act = torch.relu(x * ad + bd)
     extra = dict(route="k4")
     if fc.fwd_route(x, wd, dt):
-        plan = mm.fused_fwd_plan(BATCH, hw, hw, cin, cout, mm._sms(0))
+        plan = mm.fused_fwd_plan(batch, hw, hw, cin, cout, mm._sms(0))
         extra = dict(route="gemm", plan=[list(p) if isinstance(p, tuple)
                                          else p for p in plan],
                      gemm_kernel_device_ms=kernel_device_ms(
@@ -425,17 +425,19 @@ def fused_chain_phase(torch, dev, name, hw, cin, cout, dtype_name,
     extra["cudnn_device_ms"] = device_ms(
         lambda: conv2d_nhwc(act, wd, 1, (1, 1, 1, 1)))
     return dict(kernel="fused_chain_fwd", layer=name, dtype=dtype_name,
-                shape=[BATCH, hw, hw, cin, cout], max_abs_err=err,
+                shape=[batch, hw, hw, cin, cout], max_abs_err=err,
                 **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by,
                 **extra, **({} if per_step is None else {"per_step": per_step}))
 
 
-def _conv_inputs(torch, dev, hw, cin, cout, dt, seed):
+def _conv_inputs(torch, dev, hw, cin, cout, dt, seed, batch=BATCH, k=3,
+                 hwo=None):
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn((BATCH, hw, hw, cin), generator=g).to(dev, dt)
-    w = (torch.randn((3, 3, cin, cout), generator=g)
-         * (2.0 / (9 * cout)) ** 0.5).to(dev)
-    gy = (torch.randn((BATCH, hw, hw, cout), generator=g) * 0.1).to(dev, dt)
+    x = torch.randn((batch, hw, hw, cin), generator=g).to(dev, dt)
+    w = (torch.randn((k, k, cin, cout), generator=g)
+         * (2.0 / (k * k * cout)) ** 0.5).to(dev)
+    hwo = hw if hwo is None else hwo
+    gy = (torch.randn((batch, hwo, hwo, cout), generator=g) * 0.1).to(dev, dt)
     return g, x, w, gy
 
 
@@ -522,13 +524,13 @@ def masked_conv_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name, mode,
     return rows
 
 
-def im2col_row(torch, x, kp, common):
-    """conv0's im2col kernel alone against its plain version, bit for bit;
+def im2col_row(torch, x, kp, common, k=3, stride=1, pads=(1, 1, 1, 1)):
+    """A conv's im2col kernel alone against its plain version, bit for bit;
     bound by its bytes (x read once, the patches written once)."""
     from cpg_tpu_torch.ops import masked_matmul as mm
 
-    kern = lambda: mm.launch_im2col(x, 3, 3, 1, (1, 1, 1, 1), kp)
-    plain = lambda: mm.im2col_plain(x, 3, 3, 1, (1, 1, 1, 1), kp)
+    kern = lambda: mm.launch_im2col(x, k, k, stride, pads, kp)
+    plain = lambda: mm.im2col_plain(x, k, k, stride, pads, kp)
     got = kern()
     if not torch.equal(got.view(torch.int16), plain().view(torch.int16)):
         raise AssertionError(f"masked_conv_im2col {common['layer']}: bits "
@@ -542,7 +544,7 @@ def im2col_row(torch, x, kp, common):
 
 
 def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name,
-                           want_route, per_step=None):
+                           want_route, per_step=None, batch=BATCH):
     """K5 (the GEMM route or the earlier kernel, as `fused_chain.gemm_route`
     decides; fails unless it is `want_route`; two launches equal bits, with
     its plan, kernels' device times and cuDNN's dgrad alone on the route)
@@ -551,14 +553,15 @@ def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name,
     from cpg_tpu_torch.ops import masked_matmul as mm
 
     dt = getattr(torch, dtype_name)
-    gen, x, w, gy = _conv_inputs(torch, dev, hw, cin, cout, dt, SEED + 5)
+    gen, x, w, gy = _conv_inputs(torch, dev, hw, cin, cout, dt, SEED + 5,
+                                  batch)
     a = (torch.rand((cin,), generator=gen) + 0.5).to(dev)
     b = (torch.randn((cin,), generator=gen) * 0.3).to(dev)
     wd = w.to(dt)
     elt = x.element_size()
-    flops = 2.0 * BATCH * hw * hw * 9 * cin * cout
+    flops = 2.0 * batch * hw * hw * 9 * cin * cout
     gt, xt = gy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
-    common = dict(layer=name, dtype=dtype_name, shape=[BATCH, hw, hw, cin, cout],
+    common = dict(layer=name, dtype=dtype_name, shape=[batch, hw, hw, cin, cout],
                   **({} if per_step is None else {"per_step": per_step}))
 
     kern = lambda: fc.fused_bwd_dx(x, a, b, wd, gy, dt)
@@ -582,7 +585,7 @@ def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name,
                        flops, dtype_name)
     extra = dict(route="k5")
     if fc.gemm_route(x, wd, dt):
-        plan = mm.fused_dx_plan(BATCH, hw, hw, cin, cout, mm._sms(0))
+        plan = mm.fused_dx_plan(batch, hw, hw, cin, cout, mm._sms(0))
         parts = kernel_device_ms(kern, ("gemm_tn_bf16_kernel",
                                         "colsum_kernel"))
         extra = dict(route="gemm", plan=[list(p) if isinstance(p, tuple)
@@ -613,8 +616,159 @@ def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name,
         raise AssertionError(f"fused_chain_bwd_dw {name}: two launches differ")
     b_ms, b_by = bound((x.numel() + gy.numel()) * elt + 4 * w.numel(), flops,
                        dtype_name)
+    act = torch.relu(x.float() * a + b).to(dt).permute(0, 3, 1, 2)
     rows.append(dict(kernel="fused_chain_bwd_dw", **common, max_abs_err=err,
-                     **timed(kern, plain, library), bound_ms=b_ms, bound_by=b_by))
+                     **timed(kern, plain, library), bound_ms=b_ms,
+                     bound_by=b_by, cudnn_device_ms=device_ms(
+                         lambda: torch.nn.grad.conv2d_weight(
+                             act, (cout, cin, 3, 3), gt, 1, 1))))
+    return rows
+
+
+# ResNet-50 at width 1.0, 224 px, batch 32 (the finegrained preset): every
+# distinct masked-conv geometry of a train step (name, input H=W, kernel,
+# stride, Cin, Cout, convs of that geometry in one forward: 40 in all)
+RESNET_BATCH = 32
+RESNET_CONV_SHAPES = [
+    ("stem_7x7s2", 224, 7, 2, 3, 64, 1),
+    ("l1b0_conv1", 56, 1, 1, 64, 64, 1),
+    ("l1_conv1", 56, 1, 1, 256, 64, 2),
+    ("l1_conv3_ds", 56, 1, 1, 64, 256, 4),
+    ("l2b0_conv1", 56, 1, 1, 256, 128, 1),
+    ("l2_conv2_s2", 56, 3, 2, 128, 128, 1),
+    ("l2_conv3", 28, 1, 1, 128, 512, 4),
+    ("l2_ds_s2", 56, 1, 2, 256, 512, 1),
+    ("l2_conv1", 28, 1, 1, 512, 128, 3),
+    ("l3b0_conv1", 28, 1, 1, 512, 256, 1),
+    ("l3_conv2_s2", 28, 3, 2, 256, 256, 1),
+    ("l3_conv3", 14, 1, 1, 256, 1024, 6),
+    ("l3_ds_s2", 28, 1, 2, 512, 1024, 1),
+    ("l3_conv1", 14, 1, 1, 1024, 256, 5),
+    ("l4b0_conv1", 14, 1, 1, 1024, 512, 1),
+    ("l4_conv2_s2", 14, 3, 2, 512, 512, 1),
+    ("l4_conv3", 7, 1, 1, 512, 2048, 3),
+    ("l4_ds_s2", 14, 1, 2, 1024, 2048, 1),
+    ("l4_conv1", 7, 1, 1, 2048, 512, 2),
+]
+# the 13 stride-1 bottleneck seams: (name, H=W, channels, seams a forward)
+RESNET_SEAMS = [("l1_seam", 56, 64, 3), ("l2_seam", 28, 128, 3),
+                ("l3_seam", 14, 256, 5), ("l4_seam", 7, 512, 2)]
+
+
+def _resnet_pads(k, stride):
+    """ResNet-50's padding of a conv: the stem's 3, the 3x3s' 1, none for
+    the 1x1s."""
+    return {7: ((3, 3), (3, 3)), 3: 1, 1: "SAME"}[k]
+
+
+def resnet_conv_rows(torch, dev, name, hw, k, stride, cin, cout, per_step):
+    """K1, K2 (not at the stem, whose input is the image) and K3 at one
+    ResNet-50 geometry, bf16 binary at batch 32, each against its plain
+    version with two launches giving the same bits. No ResNet-50 geometry
+    is on the conv GEMM route (128 % W != 0, or stride 2), so K1 and K2
+    must take the earlier kernels; K3 takes the im2col route where
+    kh*kw*Cin <= 64 (the 1x1 convs over 64 channels: its im2col kernel
+    alone in a `masked_conv_im2col` row) and the earlier kernel elsewhere
+    (the stem's K = 147 among them). Besides the CUDA-event and profiler
+    times, cuDNN's product alone on the pre-selected weight
+    (`cudnn_device_ms`)."""
+    from cpg_tpu_torch.ops import masked_conv as mc
+    from cpg_tpu_torch.ops import masked_matmul as mm
+    from cpg_tpu_torch.ops.conv import conv2d_nhwc, out_size, resolve_padding
+    from cpg_tpu_torch.ops.masked import effective_kernel
+
+    dt, n = torch.bfloat16, RESNET_BATCH
+    pad = _resnet_pads(k, stride)
+    pt, pb, pl, pr = resolve_padding(pad, hw, hw, k, k, stride)
+    ho = out_size(hw, k, stride, pt, pb)
+    gen, x, w, gy = _conv_inputs(torch, dev, hw, cin, cout, dt, SEED + 9,
+                                 n, k, ho)
+    own = torch.randint(0, 4, w.shape, generator=gen, dtype=torch.int8).to(dev)
+    pm = (torch.randn(w.shape, generator=gen) * 1e-2).to(dev)
+    if mc.conv_route(x, w, stride, pad):
+        raise AssertionError(f"resnet50 {name}: on the conv GEMM route")
+    w_sel = effective_kernel(w, own, pm, 2).to(dt)
+    xt, gt = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+    elt, n_w = 2, w.numel()
+    flops = 2.0 * n * ho * ho * k * k * cin * cout
+    common = dict(layer=name, dtype="bfloat16", mode="binary", arch="resnet50",
+                  shape=[n, hw, hw, cin, cout], kernel_size=k, stride=stride,
+                  per_step=per_step)
+
+    def pad_x():
+        return torch.nn.functional.pad(xt, (pl, pr, pt, pb))
+
+    rows = []
+    kern = lambda: mc.masked_conv2d(x, w, own, pm, 2, stride=stride,
+                                    padding=pad)
+    plain = lambda: mc.masked_conv2d_plain(x, w, own, pm, 2, stride, pad)
+    cudnn = lambda: conv2d_nhwc(x, w_sel, stride, (pt, pb, pl, pr))
+    library = lambda: conv2d_nhwc(
+        x, effective_kernel(w, own, pm, 2).to(dt), stride, (pt, pb, pl, pr))
+    err = compare(twice(torch, kern, f"resnet50 masked_conv {name}"), plain(),
+                  "bfloat16", f"resnet50 masked_conv {name}")
+    b_ms, b_by = bound(x.numel() * elt + 9 * n_w + gy.numel() * elt, flops,
+                       "bfloat16")
+    rows.append(dict(kernel="masked_conv_fwd", **common, route="k1",
+                     max_abs_err=err, **timed(kern, plain, library),
+                     cudnn_device_ms=device_ms(cudnn), bound_ms=b_ms,
+                     bound_by=b_by))
+    if name != "stem_7x7s2":
+        kern = lambda: mc.masked_conv2d_bwd_dx(gy, x, w, own, pm, 2, stride,
+                                               pad)
+        plain = lambda: mc.masked_conv2d_bwd_dx_plain(gy, x, w, own, pm, 2,
+                                                      stride, pad)
+
+        def cudnn():
+            dxp = torch.nn.grad.conv2d_input(
+                (n, cin, hw + pt + pb, hw + pl + pr),
+                w_sel.permute(3, 2, 0, 1), gt, stride)
+            return dxp[:, :, pt:pt + hw, pl:pl + hw]
+
+        def library():
+            dxp = torch.nn.grad.conv2d_input(
+                (n, cin, hw + pt + pb, hw + pl + pr),
+                effective_kernel(w, own, pm, 2).to(dt).permute(3, 2, 0, 1),
+                gt, stride)
+            return dxp[:, :, pt:pt + hw, pl:pl + hw]
+
+        err = compare(twice(torch, kern, f"resnet50 masked_conv_bwd_dx {name}"),
+                      plain(), "bfloat16", f"resnet50 masked_conv_bwd_dx {name}")
+        rows.append(dict(kernel="masked_conv_bwd_dx", **common, route="k2",
+                         max_abs_err=err, **timed(kern, plain, library),
+                         cudnn_device_ms=device_ms(cudnn), bound_ms=b_ms,
+                         bound_by=b_by))
+    kern = lambda: mc.masked_conv2d_bwd_dw(gy, x, w, own, 2, stride, pad)
+    plain = lambda: mc.masked_conv2d_bwd_dw_plain(gy, x, w, own, 2, stride, pad)
+    cudnn = lambda: torch.nn.grad.conv2d_weight(pad_x(), (cout, cin, k, k),
+                                                gt, stride)
+
+    def library():
+        G = cudnn().permute(2, 3, 1, 0).float()
+        return (torch.where(own == 2, G, 0.0),
+                torch.where((own > 0) & (own < 2), G * w, 0.0))
+
+    got = twice(torch, kern, f"resnet50 masked_conv_bwd_dw {name}")
+    want = plain()
+    err = max(compare(got[0], want[0], "float32",
+                      f"resnet50 masked_conv_bwd_dw dw {name}", rel=SUM_TOL),
+              compare(got[1], want[1], "float32",
+                      f"resnet50 masked_conv_bwd_dw dpm {name}", rel=SUM_TOL))
+    b_ms, b_by = bound(x.numel() * elt + gy.numel() * elt + 13 * n_w, flops,
+                       "bfloat16")
+    extra, route = {}, "k3"
+    if mc.im2col_route(x, w):
+        route, kk = "im2col+wgmma", k * k * cin
+        plan = mm.wgrad_plan(n * ho * ho, kk, cout, mm._sms(0))
+        extra = wgrad_cols(kern, plan, kk, cout)
+        im2col = im2col_row(torch, x, -(-kk // 8) * 8, common, k, stride,
+                            (pt, pb, pl, pr))
+    rows.append(dict(kernel="masked_conv_bwd_dw", **common, route=route,
+                     max_abs_err=err, **timed(kern, plain, library),
+                     cudnn_device_ms=device_ms(cudnn), bound_ms=b_ms,
+                     bound_by=b_by, **extra))
+    if extra:
+        rows.append(im2col)
     return rows
 
 
@@ -839,12 +993,78 @@ def build_state(torch, dev, arch="vgg16_bn_cifar"):
     pm = state.tasks[2].piggymask
     for k in pm:  # some entries now fall below the 5e-3 threshold
         pm[k] = pm[k] + (torch.randn(pm[k].shape, generator=g) * 1e-2).to(dev)
+    if arch == "resnet50":
+        # damped residual branches (each block's last BN scale U(0.1, 0.3)),
+        # as the CPU parity tests' state: at scale 1 the random 16-block
+        # net is chaotic, and bf16 rounding alone moves the default step's
+        # one-step update further than the update's own size
+        for t in state.tasks.values():
+            for k, v in t.private.items():
+                if k.endswith("/bn3/scale"):
+                    t.private[k] = (torch.rand(v.shape, generator=g) * 0.2
+                                    + 0.1).to(dev)
     below = sum(int((v <= state.threshold).sum()) for v in pm.values())
     total = sum(v.numel() for v in pm.values())
     n_shared = sum(v.numel() for v in state.shared.values())
     print(f"state: {arch} width 1.0, {n_shared} sharable weights, task-2 "
           f"piggymask {below / total:.3f} below threshold", flush=True)
     return state
+
+
+def _arch_io(arch):
+    """(input H=W, eval preprocess, train augment, crop pad, batch) of an
+    architecture's serve, eval and train phases."""
+    from cpg_tpu_torch.data import augment as A
+
+    if arch == "resnet50":
+        return (224, A.imagenet_eval_preprocess, A.imagenet_train_augment, 16,
+                RESNET_BATCH)
+    return 32, A.cifar_eval_preprocess, A.cifar_train_augment, 4, BATCH
+
+
+def resnet_serve_phase(torch, dev, state, counts):
+    """bf16 ResNet-50 `TaskServer(fused_chain=True)` through export -> load
+    against the unfused server: requests of 1, 8, 37 and 64 rows and one
+    mixed-task list, at the bf16 tolerance; the fused seams' launches in
+    one forward (13); p50 and img/s at buckets 64 and 256, fused and
+    unfused."""
+    from cpg_tpu_torch.data.augment import imagenet_eval_preprocess as prep
+    from cpg_tpu_torch.serve import TaskServer
+
+    rng = np.random.RandomState(SEED + 12)
+    ref = TaskServer(state, prep, compute_dtype=torch.bfloat16, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        TaskServer(state, prep, compute_dtype=torch.bfloat16,
+                   fused_chain=True, device=dev).export(tmp)
+        srv = TaskServer.load(tmp, prep, fused_chain=True, device=dev)
+    srv.warmup()
+    errs = []
+    for n in (1, 8, 37, 64):
+        x = rng.randint(0, 256, (n, 224, 224, 3)).astype(np.uint8)
+        got = torch.from_numpy(srv.predict(2, x))
+        want = torch.from_numpy(ref.predict(2, x))
+        if got.shape != (n, 5):
+            raise AssertionError(f"resnet50 serve: shape {tuple(got.shape)}")
+        errs.append(compare(got, want, "bfloat16",
+                            f"resnet50 serve {n} rows"))
+    reqs = [(1 + i % 2, rng.randint(0, 256, (224, 224, 3)).astype(np.uint8))
+            for i in range(12)]
+    for i, (got, want) in enumerate(zip(srv.predict_mixed(reqs),
+                                        ref.predict_mixed(reqs))):
+        errs.append(compare(torch.from_numpy(got), torch.from_numpy(want),
+                            "bfloat16", f"resnet50 predict_mixed {i}"))
+    x = rng.randint(0, 256, (8, 224, 224, 3)).astype(np.uint8)
+    before = counts.read()
+    srv.predict(2, x)
+    one = {k: v - before[k] for k, v in counts.read().items()}
+    if one["fused_chain_fwd"] != 13 or one["masked_conv_fwd"] != 0:
+        raise AssertionError(f"resnet50 serve: one forward launched {one}")
+    lat = {}
+    for n in (64, 256):
+        x = rng.randint(0, 256, (n, 224, 224, 3)).astype(np.uint8)
+        for label, s in (("fused", srv), ("unfused", ref)):
+            lat[f"{label}_b{n}"] = _serve_latency(s, x, reps=10)
+    return max(errs), lat, one
 
 
 def serve_phase(torch, dev, state):
@@ -928,20 +1148,24 @@ def vit_serve_phase(torch, dev, state):
 # the kernel flags of each architecture's eval and train phases
 KERNEL_FLAGS = {"vgg16_bn_cifar": dict(use_pallas_conv=True,
                                        use_fused_chain=True),
+                "resnet50": dict(use_pallas_conv=True, use_fused_chain=True),
                 "vit_cifar": dict(use_pallas=True, flash_attention=True)}
+# launches of one masked eval step with the kernel flags (ResNet-50: its 40
+# masked convs and 13 fused seams, no other kernel)
+EVAL_LAUNCHES = {"resnet50": {"masked_conv_fwd": 40, "fused_chain_fwd": 13}}
 
 
 def eval_phase(torch, dev, state, counts):
-    from cpg_tpu_torch.data.augment import cifar_eval_preprocess as prep
     from cpg_tpu_torch.models import get_model
     from cpg_tpu_torch.train.step import TrainConfig, make_eval_step
 
     model_fn, _ = get_model(state.arch)
-    kw = dict(num_classes=5, mult=1.0, has_piggymask=True,
+    hw, prep, _, _, n = _arch_io(state.arch)
+    kw = dict(num_classes=5, mult=state.width_mult, has_piggymask=True,
               preprocess_fn=prep, device=dev)
     rng = np.random.RandomState(SEED + 2)
-    x = rng.randint(0, 256, (BATCH, 32, 32, 3)).astype(np.uint8)
-    y = rng.randint(0, 5, (BATCH,))
+    x = rng.randint(0, 256, (n, hw, hw, 3)).astype(np.uint8)
+    y = rng.randint(0, 5, (n,))
     t = state.tasks[2]
     args = (state.shared, t.piggymask, t.private, t.bn_state, state.ownership,
             2, x, y)
@@ -952,6 +1176,11 @@ def eval_phase(torch, dev, state, counts):
         **KERNEL_FLAGS[state.arch]), **kw)(*args)[0]
     torch.cuda.synchronize()
     launched = counts.read()
+    want = EVAL_LAUNCHES.get(state.arch)
+    if want is not None and any(v != want.get(k, 0)
+                                for k, v in launched.items()):
+        raise AssertionError(f"eval {state.arch}: launches {launched}, "
+                             f"expected {want}")
     return compare(got, ref, "bfloat16", f"{state.arch} masked eval step"), launched
 
 
@@ -970,9 +1199,21 @@ TRAIN_LAUNCHES = {
     "vit_cifar": {"flash_fwd": 6, "flash_bwd": 6,
                   "masked_matmul_fwd": 36, "masked_matmul_bwd_dx": 36,
                   "masked_matmul_bwd_dw": 36, "masked_matmul_select": 72},
+    # ResNet-50: 40 masked convs (no dx for the stem, whose input is the
+    # image; y and dx of every geometry off the conv GEMM route; K3 of the
+    # five 1x1 convs over 64 channels on the im2col route, one im2col
+    # each) and 13 fused seams
+    "resnet50": {"masked_conv_fwd": 40, "masked_conv_bwd_dx": 39,
+                 "masked_conv_bwd_dw": 40, "masked_conv_im2col": 5,
+                 "fused_chain_fwd": 13, "fused_chain_bwd_dx": 13,
+                 "fused_chain_bwd_dw": 13},
 }
 TRAIN_STEPS = 3
-TRAIN_TIMING_BATCHES = (BATCH, 1024)  # bench.py's batch is 1024
+# (batch sizes timed, steps a timed round): the first batch is also the
+# compared steps'; bench.py's VGG16-BN batch is 1024, the finegrained
+# preset's 32
+TRAIN_TIMING = {"resnet50": ((RESNET_BATCH, 128), 5)}
+TRAIN_TIMING_DEFAULT = ((BATCH, 1024), 10)
 # Tolerances of the kernel step (bf16) against the default step (bf16). The
 # two round at different points: the default step's cuDNN convolutions
 # round every output, dgrad and wgrad to bf16; the kernel step keeps dact,
@@ -983,9 +1224,20 @@ TRAIN_TIMING_BATCHES = (BATCH, 1024)  # bench.py's batch is 1024
 # the default step in f32 (TF32 off): per group of tensors (shared,
 # private, piggymask), the kernel step's update may be at most
 # UPDATE_RATIO times as far from the f32 update as the default bf16
-# step's is; the losses agree within LOSS_RTOL.
+# step's is; the losses agree within LOSS_RTOL. ResNet-50 trains at the
+# finegrained preset's learning rate (1e-3; the others at TrainConfig's
+# 0.01), from the damped state of `build_state`. bf16 noise leaves that
+# rule little power (a ResNet-50 K2 that drops the first row of every
+# stride-2 dx passes it), so the kernel step also runs in f32 against the
+# default f32 step, where only summation order and the fused seams' ReLU
+# gradient at exact zeros differ: its shared and private one-step updates
+# within F32_UPDATE_RTOL of the f32 update's norm (the piggymask's is left
+# out: Adam turns near-zero gradients' rounding into lr-sized steps of
+# either sign). Its losses are reported, not held: a sound ResNet-50's
+# third loss moves by 1.2e-3 in f32, more than some faults move it.
 LOSS_RTOL = 2e-2
 UPDATE_RATIO = 2.0
+F32_UPDATE_RTOL = 1e-2
 
 
 def _train_tensors(st, fn):
@@ -999,12 +1251,17 @@ def _train_tensors(st, fn):
 
 def train_phase(torch, dev, state, counts):
     """Task 2's bf16 train step with the six kernels against the default
-    step. Returns the comparison, the per-step launches and the timings."""
-    from cpg_tpu_torch.data.augment import cifar_train_augment, crop_flip_draws
+    step, and the kernel step in f32 against the f32 default step. Returns
+    the comparison, the per-step launches and the timings."""
+    from cpg_tpu_torch.cli import EXPERIMENT_PRESETS
+    from cpg_tpu_torch.data.augment import crop_flip_draws
     from cpg_tpu_torch.models import get_model
     from cpg_tpu_torch.train.step import TrainConfig, make_train_step
 
     model_fn, _ = get_model(state.arch)
+    hw, _, augment, pad, _ = _arch_io(state.arch)
+    timing_batches, round_steps = TRAIN_TIMING.get(state.arch,
+                                                   TRAIN_TIMING_DEFAULT)
     gen = torch.Generator().manual_seed(SEED + 3)
     base = state.map_arrays(lambda t: t.clone())
     # release 2% of task 2's entries so the free-entry invariant has entries
@@ -1015,21 +1272,24 @@ def train_phase(torch, dev, state, counts):
     n_free = sum(int((o == 0).sum()) for o in base.ownership.values())
 
     def batch(n):
-        x = torch.randint(0, 256, (n, 32, 32, 3), generator=gen,
+        x = torch.randint(0, 256, (n, hw, hw, 3), generator=gen,
                           dtype=torch.uint8).to(dev)
         y = torch.randint(0, 5, (n,), generator=gen).to(dev)
-        return x, y, crop_flip_draws(n, gen, 4)
+        return x, y, crop_flip_draws(n, gen, pad)
 
-    batches = [batch(TRAIN_TIMING_BATCHES[0]) for _ in range(TRAIN_STEPS)]
+    batches = [batch(timing_batches[0]) for _ in range(TRAIN_STEPS)]
+
+    hyper = ({"lr": EXPERIMENT_PRESETS["finegrained"]["lr"]}
+             if state.arch == "resnet50" else {})
 
     def stepper(kernels, dtype=torch.bfloat16):
         st = base.map_arrays(lambda t: t.clone())
         task = st.tasks[2]
-        cfg = TrainConfig(compute_dtype=dtype,
+        cfg = TrainConfig(compute_dtype=dtype, **hyper,
                           **(KERNEL_FLAGS[state.arch] if kernels else {}))
         step, (opt_w, opt_pm) = make_train_step(
             model_fn, num_classes=5, mult=base.width_mult, has_piggymask=True,
-            cfg=cfg, augment_fn=cifar_train_augment, device=dev)
+            cfg=cfg, augment_fn=augment, device=dev)
         carry = [st.shared, task.piggymask, task.private, task.bn_state,
                  opt_w.init({"shared": st.shared, "private": task.private}),
                  opt_pm.init(task.piggymask)]
@@ -1044,16 +1304,17 @@ def train_phase(torch, dev, state, counts):
     launched = None
     for label, kernels, dtype in (("f32", False, torch.float32),
                                   ("default", False, torch.bfloat16),
-                                  ("kernels", True, torch.bfloat16)):
+                                  ("kernels", True, torch.bfloat16),
+                                  ("kernels_f32", True, torch.float32)):
         st, run = stepper(kernels, dtype)
         losses, first = [], None
         for i, (x, y, draws) in enumerate(batches):
-            if kernels and i == 0:
+            if label == "kernels" and i == 0:
                 torch.cuda.synchronize()
                 counts.reset()
             m = run(x, y, draws, i)
             losses.append(float(m["loss"]))
-            if kernels and i == 0:
+            if label == "kernels" and i == 0:
                 torch.cuda.synchronize()
                 launched = counts.read()
             if i == 0:
@@ -1067,18 +1328,22 @@ def train_phase(torch, dev, state, counts):
         keys = [k for k in init if k.startswith(group + "/")]
         u32 = torch.cat([(runs["f32"][2][k] - init[k]).ravel() for k in keys])
         ref_norm[group] = u32.norm().item()
-        for label in ("default", "kernels"):
+        for label in ("default", "kernels", "kernels_f32"):
             u = torch.cat([(runs[label][2][k] - init[k]).ravel() for k in keys])
             if not torch.isfinite(u).all():
                 raise AssertionError(f"train {label}: non-finite {group} update")
             dist.setdefault(label, {})[group] = (u - u32).norm().item()
-    ld, lk, l32 = (runs[k][1] for k in ("default", "kernels", "f32"))
+    ld, lk, l32, lk32 = (runs[k][1] for k in ("default", "kernels", "f32",
+                                              "kernels_f32"))
     loss_rel = max(abs(a - b) / abs(a) for a, b in zip(ld, lk))
+    f32_loss_rel = max(abs(a - b) / abs(a) for a, b in zip(l32, lk32))
     stats = dict(losses_f32=l32, losses_default=ld, losses_kernels=lk,
-                 loss_max_rel=loss_rel, update_dist_to_f32=dist,
+                 losses_kernels_f32=lk32, loss_max_rel=loss_rel,
+                 f32_loss_max_rel=f32_loss_rel, update_dist_to_f32=dist,
                  f32_update_norm=ref_norm, free_entries=n_free)
-    if not all(np.isfinite(ld + lk + l32)):
-        raise AssertionError(f"train: non-finite losses {ld} {lk} {l32}")
+    if not all(np.isfinite(ld + lk + l32 + lk32)):
+        raise AssertionError(f"train: non-finite losses {ld} {lk} {l32} "
+                             f"{lk32}")
     if loss_rel > LOSS_RTOL:
         raise AssertionError(f"train: losses {lk} vs default {ld}")
     for group, d in dist["kernels"].items():
@@ -1086,6 +1351,12 @@ def train_phase(torch, dev, state, counts):
             raise AssertionError(
                 f"train: the kernel step's {group} update is {d} from the f32 "
                 f"step's, the default step's {dist['default'][group]}")
+    for group in ("shared", "private"):
+        d = dist["kernels_f32"][group]
+        if d > F32_UPDATE_RTOL * ref_norm[group]:
+            raise AssertionError(
+                f"train: the f32 kernel step's {group} update is {d} from "
+                f"the f32 default step's, of norm {ref_norm[group]}")
     # no forgetting: prior-task entries bit-unchanged, free entries zero,
     # piggymask entries outside the prior domain unchanged
     t0 = base.tasks[2]
@@ -1107,9 +1378,11 @@ def train_phase(torch, dev, state, counts):
                                  f"in one step, expected {expected.get(k, 0)}")
 
     # ms/step by host clock around steps that end in a synchronize; the two
-    # steps in turns (default, kernels, kernels, default), 10 steps a round
+    # steps in turns (default, kernels, kernels, default), round_steps a
+    # round
     timing = {}
-    for n in TRAIN_TIMING_BATCHES:
+    for n in timing_batches:
+        torch.cuda.reset_peak_memory_stats()
         x, y, draws = batch(n)
         steppers = {"default": stepper(False)[1], "kernels": stepper(True)[1]}
         rounds = {"default": [], "kernels": []}
@@ -1119,15 +1392,17 @@ def train_phase(torch, dev, state, counts):
                 run(x, y, draws, i)
             torch.cuda.synchronize()
             t = time.perf_counter()
-            for i in range(10):
+            for i in range(round_steps):
                 run(x, y, draws, i)
             torch.cuda.synchronize()
-            rounds[label].append((time.perf_counter() - t) / 10 * 1e3)
+            rounds[label].append((time.perf_counter() - t) / round_steps
+                                 * 1e3)
         for label, ms in rounds.items():
             mean = sum(ms) / len(ms)
             timing[f"{label}_b{n}"] = {"ms_per_step": mean,
                                        "img_per_s": n / mean * 1e3,
                                        "rounds_ms": ms}
+        timing[f"peak_gib_b{n}"] = torch.cuda.max_memory_allocated() / 2**30
     return dict(stats, timing=timing), launched
 
 
@@ -1344,6 +1619,231 @@ def cycle_phase(torch, dev, counts):
         prune_event_ms=dict(median=float(np.median(prune_ms)),
                             all=prune_ms, layers=len(n0)),
         grow_state_s=grow_s), launched
+
+
+# --------------------------------------------------------- finegrained ----
+
+# The fine-grained cycle from the CLI: two synthetic fine-grained tasks of 5
+# classes (8 training images a class) on top of an adopted ResNet-50 task 1,
+# at width 1.0 and 224 px, one epoch a phase, the second task grown once to
+# 1.5 under an unreachable goal; its checkpoints inside the checkout
+FG_DIR = os.path.join("build", "smoke_finegrained")
+FG_TASKS = ("cubs_cropped", "stanford_cars_cropped")
+FG_MULT = 1.0
+
+
+def finegrained_phase(torch, dev, counts, card):
+    """`python -m cpg_tpu_torch sequence --experiment finegrained` through
+    cli.main with --pretrained-npz (a torchvision-keyed npz written from a
+    seeded ResNet-50), --max-classes 5, --num-tasks 2 and both kernel
+    flags, then: check_state at every task boundary; task 1's logits right
+    after adoption equal to the converted weights' forward, bit for bit;
+    the growth audit within its bound; a second run that resumes every
+    task and gives the same state bit for bit; `export` bf16 and int8
+    (calibrated), `serve` on both at bucket 64 (p50, img/s), every int8
+    product of a forward bit-equal to `int8.int_mm_plain`; `export-torch`
+    -> `import-torch` bit for bit. Returns the results and the launches of
+    the first run."""
+    from cpg_tpu_torch.core.invariants import check_state
+    from cpg_tpu_torch.data.augment import imagenet_eval_preprocess as prep
+    from cpg_tpu_torch.inference import predict
+    from cpg_tpu_torch.models import framework as fw
+    from cpg_tpu_torch.models import get_model
+    from cpg_tpu_torch.ops import int8
+    from cpg_tpu_torch.serve import TaskServer
+    from cpg_tpu_torch.train import pretrained
+    from cpg_tpu_torch.train import sequence as seq_mod
+    from cpg_tpu_torch.train.export_torch import torch_resnet50_state_dict
+    from cpg_tpu_torch.train.manager import Manager
+    from cpg_tpu_torch.utils.checkpoint import load_state
+
+    shutil.rmtree(FG_DIR, ignore_errors=True)
+    os.makedirs(FG_DIR)
+    out = {}
+    try:
+        model_fn, _ = get_model("resnet50")
+        sd = torch_resnet50_state_dict(*fw.init(
+            torch.Generator().manual_seed(SEED + 13), model_fn,
+            torch.zeros((1, 224, 224, 3)), num_classes=1000, mult=FG_MULT))
+        npz = os.path.join(FG_DIR, "pretrained.npz")
+        np.savez(npz, **sd)
+        goals = os.path.join(FG_DIR, "goals.json")
+        with open(goals, "w") as f:
+            json.dump({FG_TASKS[1]: 1.01}, f)
+        ck = os.path.join(FG_DIR, "ck")
+        argv = ["sequence", "--experiment", "finegrained", "--num-tasks", "2",
+                "--max-classes", "5", "--use-pallas-conv", "--fused-chain",
+                "--finetune-epochs", "1", "--prune-epochs", "1",
+                "--retrain-epochs", "1", "--prune-ratios", "0.5",
+                "--batch-size", str(RESNET_BATCH), "--pretrained-npz", npz,
+                "--goals-file", goals, "--growth-step", str(FG_MULT / 2),
+                "--network_width_multiplier", str(FG_MULT),
+                "--max_allowed_network_width_multiplier", str(FG_MULT * 1.5),
+                "--checkpoint-dir", ck,
+                "--jsonl", os.path.join(FG_DIR, "phases.jsonl")]
+        runs = []
+        orig_run = seq_mod.run_sequence
+
+        def recorded(*a, **k):
+            runs.append(orig_run(*a, **k))
+            return runs[-1]
+
+        keep = seq_mod.remove_after_save
+        seq_mod.run_sequence = recorded
+        seq_mod.remove_after_save = lambda path: None
+        spent = {}
+        undo = [_timed(torch, spent, owner, attr, label)
+                for owner, attr, label in (
+                    (Manager, "eval", "eval"),
+                    (Manager, "__init__", "manager_setup"),
+                    (seq_mod, "snapshot", "snapshot"),
+                    (seq_mod, "_restore", "restore"),
+                    (seq_mod, "save_state", "checkpoint_save"),
+                    (seq_mod, "start_task", "start_task"),
+                    (seq_mod, "_growth_audit", "growth_and_audit"))]
+        try:
+            torch.cuda.synchronize()
+            counts.reset()
+            t0 = time.perf_counter()
+            rc, summary = _cli(argv)
+            torch.cuda.synchronize()
+            out["wall_s"] = time.perf_counter() - t0
+            launched = counts.read()
+            for u in undo:
+                u()
+            undo = []
+            trained = []
+            orig_train = Manager.train
+            Manager.train = lambda *a, **k: trained.append(1)
+            try:
+                rc2, _ = _cli(argv)
+            finally:
+                Manager.train = orig_train
+        finally:
+            seq_mod.run_sequence = orig_run
+            seq_mod.remove_after_save = keep
+            for u in undo:
+                u()
+        state, reports = runs[0]
+        if rc != 0 or rc2 != 0 or [t["grew"] for t in summary["tasks"]] \
+                != [0, 1] or summary["final_width_mult"] != FG_MULT * 1.5:
+            raise AssertionError(f"finegrained: sequence {rc} {summary}")
+        if trained or not _same_state(torch, runs[1][0], state):
+            raise AssertionError("finegrained: resume did not reproduce the "
+                                 "state")
+        out["summary"] = summary
+        with open(os.path.join(FG_DIR, "phases.jsonl")) as f:
+            out["phases"] = [json.loads(line) for line in f]
+        for ph in out["phases"]:
+            ph["ms_per_step"] = ph["seconds"] / max(ph["steps"], 1) * 1e3
+        loops = sum(ph["seconds"] for ph in out["phases"])
+        out["wall_split_s"] = dict(
+            train_loops_s=loops, **spent,
+            other_s=out["wall_s"] - loops - sum(spent.values()))
+
+        def ckpt(tid, suffix=""):
+            return load_state(os.path.join(
+                ck, f"task{tid:02d}_{FG_TASKS[tid - 2]}{suffix}"), device=dev)
+
+        audits = {}
+        for label, st in (("task2.pick", ckpt(2, ".pick")),
+                          ("task2", ckpt(2)), ("task3.pick", ckpt(3, ".pick")),
+                          ("task3", ckpt(3)), ("final", state)):
+            audits[label] = check_state(st)  # raises on a violation
+        out["check_state"] = audits
+        audit = reports[1].growth_audit
+        if not audit or any(a["max_abs_diff"] > a["bound"] for a in audit):
+            raise AssertionError(f"finegrained: growth audit {audit}")
+        out["growth_audit"] = audit
+
+        # task 1 right after adoption (task 2's pick checkpoint, before any
+        # growth) against the converted weights' forward
+        shared, private, bn = pretrained.convert_torch_resnet50(sd)
+        px = prep(torch.from_numpy(np.random.RandomState(SEED + 14).randint(
+            0, 256, (16, 224, 224, 3)).astype(np.uint8)).to(dev))
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            want, _ = fw.apply(
+                model_fn, *({k: torch.from_numpy(np.ascontiguousarray(v))
+                             .to(dev) for k, v in tree.items()}
+                            for tree in (shared, private, bn)),
+                px, train=False, num_classes=1000, mult=FG_MULT)
+            got = predict(ckpt(2, ".pick"), 1, px, device=dev)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        out["adopted_task1_max_abs_diff"] = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError("finegrained: adopted task 1's logits differ "
+                                 "from the converted weights' forward by "
+                                 f"{out['adopted_task1_max_abs_diff']}")
+
+        # export bf16 and calibrated int8, serve both at bucket 64
+        final = os.path.join(ck, f"task03_{FG_TASKS[1]}")
+        rng = np.random.RandomState(SEED + 15)
+        cal = os.path.join(FG_DIR, "calib.npz")
+        np.savez(cal, x=rng.randint(0, 256, (32, 224, 224, 3))
+                 .astype(np.uint8))
+        x = rng.randint(0, 256, (64, 224, 224, 3)).astype(np.uint8)
+        req = os.path.join(FG_DIR, "req.npz")
+        np.savez(req, x=x)
+        served = {}
+        for q, flags in (("bf16", []), ("int8", ["--int8", "--calibrate",
+                                                 cal])):
+            art = os.path.join(FG_DIR, f"art_{q}")
+            rc, rep = _cli(["export", "--checkpoint", final, "--out", art,
+                            "--experiment", "finegrained", *flags])
+            if rc != 0 or rep["calibrated_tasks"] != (3 if q == "int8"
+                                                      else 0):
+                raise AssertionError(f"finegrained: export {q} {rc} {rep}")
+            res = os.path.join(FG_DIR, f"out_{q}.npz")
+            rc, rep = _cli(["serve", "--artifact", art, "--requests", req,
+                            "--task-id", "3", "--out", res, "--experiment",
+                            "finegrained"]
+                           + (["--fused-chain"] if q == "bf16" else []))
+            if rc != 0 or rep["n"] != 64:
+                raise AssertionError(f"finegrained: serve {q} {rc} {rep}")
+            with np.load(res) as z:
+                served[q] = z["logits"]
+            srv = TaskServer.load(art, prep, fused_chain=q == "bf16",
+                                  device=dev)
+            out[f"serve_{q}_b64"] = _serve_latency(srv, x, reps=10)
+            if q == "int8":
+                with _Int8Calls() as rec:
+                    srv.predict(3, x)
+                rows = int8_route_rows(torch, rec.calls, "resnet50")
+                del rec
+                if sum(r["count"] for r in rows) != 53:
+                    raise AssertionError("finegrained: an int8 forward ran "
+                                         f"{sum(r['count'] for r in rows)} "
+                                         "products, want 53")
+                out["int8_route"] = _route_totals(rows)
+                out["int8_route_rows"] = rows
+            del srv
+        out["int8_vs_bf16"] = dict(zip(("max_abs_diff", "argmax_agree"),
+                                       _int8_bound(torch, served["int8"],
+                                                   served["bf16"],
+                                                   "finegrained: int8 vs bf16")))
+
+        # export-torch -> import-torch
+        pth = os.path.join(FG_DIR, "ref.pth")
+        back = os.path.join(FG_DIR, "back")
+        rc, rep = _cli(["export-torch", "--ckpt", final, "--out", pth])
+        rc2, rep2 = _cli(["import-torch", "--ckpt", pth, "--arch", "resnet50",
+                          "--out", back])
+        a, b = load_state(final, device=dev), load_state(back, device=dev)
+        for tid in b.tasks:
+            b.tasks[tid].meta = a.tasks[tid].meta
+        if rc or rc2 or not _same_state(torch, a, b):
+            raise AssertionError("finegrained: export-torch -> import-torch "
+                                 "changed the state")
+        out["torch_round_trip_bit_equal"] = True
+        print("finegrained resnet50: " + json.dumps(
+            {k: v for k, v in out.items() if k != "int8_route_rows"})
+            + f" on {card}", flush=True)
+    finally:
+        shutil.rmtree(FG_DIR, ignore_errors=True)
+    return out, launched
 
 
 # -------------------------------------------------------------- deploy ----
@@ -1765,7 +2265,10 @@ def deploy_phase(torch, dev, counts, card):
 def _per_step(row) -> int:
     """Launches of a phase row's shape in one train step at batch 256: the
     ViT rows say so; a VGG16-BN row's layer runs once a step in bf16 binary
-    (its ternary and f32 rows are extra checks)."""
+    (its ternary and f32 rows are extra checks); ResNet-50's rows count in
+    their own step (the kernels line's `resnet50_step`)."""
+    if row.get("arch") == "resnet50":
+        return 0
     if "per_step" in row:
         return row["per_step"]
     return int(row["dtype"] == "bfloat16"
@@ -1775,7 +2278,7 @@ def _per_step(row) -> int:
 def _step_sum(step, key):
     """Sum of a per-shape time over one train step's launches; None when a
     shape's time was not measured."""
-    vals = [(r[key], k) for r, k in step]
+    vals = [(r.get(key), k) for r, k in step]
     if any(v is None for v, _ in vals):
         return None
     return sum(k * v for v, k in vals)
@@ -1815,129 +2318,12 @@ class Counts:
         return {k: getattr(mod, attr) for k, (mod, attr) in self.where.items()}
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this check needs the card",
-              file=sys.stderr)
-        return 1
-    from cpg_tpu_torch.ops import _build
-
-    dev = torch.device("cuda")
-    card = card_line()
-    print(f"card: {card}", flush=True)
-    print(f"build: {_build.build_all():.1f} s (nvcc, parallel)", flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-
-    t_start = time.perf_counter()
-    rows = []
-    for name, hw, cin, cout in MASKED_CONV_SHAPES:
-        rows += masked_conv_phase(torch, dev, name, hw, cin, cout,
-                                  "bfloat16", "binary")
-        rows += masked_conv_bwd_phases(torch, dev, name, hw, cin, cout,
-                                       "bfloat16", "binary",
-                                       with_dx=name != "conv0")
-    for name, hw, cin, cout in MASKED_CONV_SHAPES[1:]:
-        rows += masked_conv_phase(torch, dev, name, hw, cin, cout,
-                                  "bfloat16", "ternary")
-        rows += masked_conv_bwd_phases(torch, dev, name, hw, cin, cout,
-                                       "bfloat16", "ternary")
-    # conv2 at width 0.125 holds the old bf16 K1 and K2 (off the route)
-    rows += masked_conv_phase(torch, dev, "conv2_w0.125", 16, 8, 16,
-                              "bfloat16", "binary", per_step=0)
-    rows += masked_conv_bwd_phases(torch, dev, "conv2_w0.125", 16, 8, 16,
-                                   "bfloat16", "binary", per_step=0)
-    rows += masked_conv_phase(torch, dev, "conv7", 4, 256, 512, "float32",
-                              "binary")
-    rows += masked_conv_bwd_phases(torch, dev, "conv7", 4, 256, 512,
-                                   "float32", "binary")
-    for name, hw, cin, cout in CHAIN_SHAPES:
-        rows.append(fused_chain_phase(torch, dev, name, hw, cin, cout,
-                                      "bfloat16", "gemm"))
-        rows += fused_chain_bwd_phases(torch, dev, name, hw, cin, cout,
-                                       "bfloat16", "gemm")
-    # conv3 at width 0.125 holds the earlier bf16 K4 and K5 (off the route:
-    # 16 channels), which width-0.125 seams conv1-6 run
-    rows.append(fused_chain_phase(torch, dev, "conv3_w0.125", 16, 16, 16,
-                                  "bfloat16", "k4", per_step=0))
-    rows += fused_chain_bwd_phases(torch, dev, "conv3_w0.125", 16, 16, 16,
-                                   "bfloat16", "k5", per_step=0)
-    rows.append(fused_chain_phase(torch, dev, "conv3", 16, 128, 128,
-                                  "float32", "k4"))
-    rows += fused_chain_bwd_phases(torch, dev, "conv3", 16, 128, 128,
-                                   "float32", "k5")
-    for name, n, t, h, hd, causal, dname, per_step in FLASH_SHAPES:
-        rows += flash_phases(torch, dev, name, n, t, h, hd, causal, dname,
-                             per_step)
-    for name, m, kd, nd, dname, mode, per_step in DENSE_SHAPES:
-        rows += dense_phases(torch, dev, name, m, kd, nd, dname, mode,
-                             per_step)
-    for r in rows:
-        print("phase " + json.dumps(r), flush=True)
-    t_kernels = time.perf_counter() - t_start
-
-    counts = Counts()
-    launched = {}  # phase -> kernel -> launches
-    results = {}
-    for arch in ("vgg16_bn_cifar", "vit_cifar"):
-        state = build_state(torch, dev, arch)
-        torch.cuda.synchronize()
-        counts.reset()
-        if arch == "vit_cifar":
-            serve_err, lat = vit_serve_phase(torch, dev, state)
-            what = "the f32 server"
-        else:
-            serve_err, lat = serve_phase(torch, dev, state)
-            what = "the unfused server"
-        torch.cuda.synchronize()
-        launched[f"{arch}/serve"] = counts.read()
-        print(f"serve {arch}: max|diff| vs {what} {serve_err}; bucket 256 "
-              f"{json.dumps(lat)} on {card}", flush=True)
-        eval_err, launched[f"{arch}/eval"] = eval_phase(torch, dev, state,
-                                                        counts)
-        print(f"eval {arch}: max|diff| vs effective-params step {eval_err}",
-              flush=True)
-        train, launched[f"{arch}/train"] = train_phase(torch, dev, state,
-                                                       counts)
-        print(f"train {arch}: {json.dumps(train)} on {card}", flush=True)
-        results[arch] = dict(serve_max_abs_err=serve_err, serve_latency=lat,
-                             eval_max_abs_err=eval_err, train=train)
-        del state
-        torch.cuda.empty_cache()
-    cycle, launched["vgg16_bn_cifar/cycle"] = cycle_phase(torch, dev, counts)
-    results["vgg16_bn_cifar"]["cycle"] = cycle
-    print(f"cycle vgg16_bn_cifar: {json.dumps(cycle)} on {card}", flush=True)
-    torch.cuda.empty_cache()
-    deploy, launched["vgg16_bn_cifar/deploy"] = deploy_phase(torch, dev,
-                                                             counts, card)
-    results["vgg16_bn_cifar"]["deploy"] = deploy
-    torch.cuda.empty_cache()
-    # every phase that should reach a kernel did
-    need = {"vgg16_bn_cifar/serve": ["fused_chain_fwd"],
-            "vgg16_bn_cifar/eval": ["masked_conv_fwd", "masked_conv_select",
-                                    "fused_chain_fwd"],
-            "vgg16_bn_cifar/train": ["masked_conv_bwd_dx",
-                                     "masked_conv_bwd_dw",
-                                     "masked_conv_im2col",
-                                     "fused_chain_bwd_dx",
-                                     "fused_chain_bwd_dw"],
-            "vit_cifar/eval": ["flash_fwd", "masked_matmul_fwd",
-                               "masked_matmul_select"],
-            "vit_cifar/train": ["flash_bwd", "masked_matmul_bwd_dx",
-                                "masked_matmul_bwd_dw"],
-            "vgg16_bn_cifar/deploy": ["fused_chain_fwd"],
-            "vgg16_bn_cifar/cycle": ["masked_conv_fwd", "masked_conv_bwd_dx",
-                                     "masked_conv_bwd_dw", "fused_chain_fwd",
-                                     "fused_chain_bwd_dx",
-                                     "fused_chain_bwd_dw"]}
-    for phase, names in need.items():
-        for k in names:
-            if launched[phase][k] == 0:
-                raise AssertionError(f"{phase} phase launched no {k} kernel")
-    print(f"launches: {json.dumps(launched)}", flush=True)
-
+def kernels_line(rows, launched):
+    """The kernels JSON line: each kernel's source, the TPU function it
+    replaces, its launches over the phases, its largest error and its
+    times and bound summed over one train step's shapes (VGG16-BN for
+    the conv kernels, vit_cifar for the rest; ResNet-50's step apart
+    in `resnet50_step`)."""
     # conv K1 and K2: the GEMM route's file (conv2/4/7/10), then the old
     # kernel's (conv0, narrow widths, f32) under "sources"; K3 likewise:
     # the wgrad GEMM's file (conv0 by im2col, conv2/4/7/10, dense bf16),
@@ -1996,6 +2382,7 @@ def main() -> int:
         for r, k in step:
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + k * r["bound_ms"]
         sources = (source,) if isinstance(source, str) else source
+        rn = [(r, r["per_step"]) for r in mine if r.get("arch") == "resnet50"]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[0],
             **({"sources": list(sources)} if len(sources) > 1 else {}),
@@ -2009,10 +2396,170 @@ def main() -> int:
             "bound_by": max(by, key=by.get),
             "library_ms": _step_sum(step, "library_ms"),
             "library_device_ms": _step_sum(step, "library_device_ms"),
+            **({"resnet50_step": {
+                key: _step_sum(rn, key) for key in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                    "library_device_ms", "cudnn_device_ms")}} if rn else {}),
         })
+    return kernels
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this check needs the card",
+              file=sys.stderr)
+        return 1
+    from cpg_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"build: {_build.build_all():.1f} s (nvcc, parallel)", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+    t_start = time.perf_counter()
+    rows = []
+    for name, hw, cin, cout in MASKED_CONV_SHAPES:
+        rows += masked_conv_phase(torch, dev, name, hw, cin, cout,
+                                  "bfloat16", "binary")
+        rows += masked_conv_bwd_phases(torch, dev, name, hw, cin, cout,
+                                       "bfloat16", "binary",
+                                       with_dx=name != "conv0")
+    for name, hw, cin, cout in MASKED_CONV_SHAPES[1:]:
+        rows += masked_conv_phase(torch, dev, name, hw, cin, cout,
+                                  "bfloat16", "ternary")
+        rows += masked_conv_bwd_phases(torch, dev, name, hw, cin, cout,
+                                       "bfloat16", "ternary")
+    # conv2 at width 0.125 holds the old bf16 K1 and K2 (off the route)
+    rows += masked_conv_phase(torch, dev, "conv2_w0.125", 16, 8, 16,
+                              "bfloat16", "binary", per_step=0)
+    rows += masked_conv_bwd_phases(torch, dev, "conv2_w0.125", 16, 8, 16,
+                                   "bfloat16", "binary", per_step=0)
+    rows += masked_conv_phase(torch, dev, "conv7", 4, 256, 512, "float32",
+                              "binary")
+    rows += masked_conv_bwd_phases(torch, dev, "conv7", 4, 256, 512,
+                                   "float32", "binary")
+    for name, hw, cin, cout in CHAIN_SHAPES:
+        rows.append(fused_chain_phase(torch, dev, name, hw, cin, cout,
+                                      "bfloat16", "gemm"))
+        rows += fused_chain_bwd_phases(torch, dev, name, hw, cin, cout,
+                                       "bfloat16", "gemm")
+    # conv3 at width 0.125 holds the earlier bf16 K4 and K5 (off the route:
+    # 16 channels), which width-0.125 seams conv1-6 run
+    rows.append(fused_chain_phase(torch, dev, "conv3_w0.125", 16, 16, 16,
+                                  "bfloat16", "k4", per_step=0))
+    rows += fused_chain_bwd_phases(torch, dev, "conv3_w0.125", 16, 16, 16,
+                                   "bfloat16", "k5", per_step=0)
+    rows.append(fused_chain_phase(torch, dev, "conv3", 16, 128, 128,
+                                  "float32", "k4"))
+    rows += fused_chain_bwd_phases(torch, dev, "conv3", 16, 128, 128,
+                                   "float32", "k5")
+    t_resnet = time.perf_counter()
+    for name, hw, k, stride, cin, cout, per_step in RESNET_CONV_SHAPES:
+        rows += resnet_conv_rows(torch, dev, name, hw, k, stride, cin, cout,
+                                 per_step)
+    for name, hw, c, per_step in RESNET_SEAMS:
+        seam = [fused_chain_phase(torch, dev, name, hw, c, c, "bfloat16",
+                                  "k4", per_step, RESNET_BATCH)]
+        seam += fused_chain_bwd_phases(torch, dev, name, hw, c, c, "bfloat16",
+                                       "k5", per_step, RESNET_BATCH)
+        rows += [dict(r, arch="resnet50") for r in seam]
+    t_resnet = time.perf_counter() - t_resnet
+    for name, n, t, h, hd, causal, dname, per_step in FLASH_SHAPES:
+        rows += flash_phases(torch, dev, name, n, t, h, hd, causal, dname,
+                             per_step)
+    for name, m, kd, nd, dname, mode, per_step in DENSE_SHAPES:
+        rows += dense_phases(torch, dev, name, m, kd, nd, dname, mode,
+                             per_step)
+    for r in rows:
+        print("phase " + json.dumps(r), flush=True)
+    t_kernels = time.perf_counter() - t_start
+
+    counts = Counts()
+    launched = {}  # phase -> kernel -> launches
+    results = {}
+    one_forward = {}
+    for arch in ("vgg16_bn_cifar", "vit_cifar", "resnet50"):
+        state = build_state(torch, dev, arch)
+        torch.cuda.synchronize()
+        counts.reset()
+        what = "the unfused server"
+        if arch == "vit_cifar":
+            serve_err, lat = vit_serve_phase(torch, dev, state)
+            what = "the f32 server"
+        elif arch == "resnet50":
+            serve_err, lat, one_forward = resnet_serve_phase(torch, dev,
+                                                             state, counts)
+        else:
+            serve_err, lat = serve_phase(torch, dev, state)
+        torch.cuda.synchronize()
+        launched[f"{arch}/serve"] = counts.read()
+        print(f"serve {arch}: max|diff| vs {what} {serve_err}; bucket 256 "
+              f"{json.dumps(lat)} on {card}", flush=True)
+        eval_err, launched[f"{arch}/eval"] = eval_phase(torch, dev, state,
+                                                        counts)
+        print(f"eval {arch}: max|diff| vs effective-params step {eval_err}",
+              flush=True)
+        train, launched[f"{arch}/train"] = train_phase(torch, dev, state,
+                                                       counts)
+        print(f"train {arch}: {json.dumps(train)} on {card}", flush=True)
+        results[arch] = dict(serve_max_abs_err=serve_err, serve_latency=lat,
+                             eval_max_abs_err=eval_err, train=train)
+        if arch == "resnet50":
+            results[arch]["serve_one_forward_launches"] = one_forward
+        del state
+        torch.cuda.empty_cache()
+    cycle, launched["vgg16_bn_cifar/cycle"] = cycle_phase(torch, dev, counts)
+    results["vgg16_bn_cifar"]["cycle"] = cycle
+    print(f"cycle vgg16_bn_cifar: {json.dumps(cycle)} on {card}", flush=True)
+    torch.cuda.empty_cache()
+    deploy, launched["vgg16_bn_cifar/deploy"] = deploy_phase(torch, dev,
+                                                             counts, card)
+    results["vgg16_bn_cifar"]["deploy"] = deploy
+    torch.cuda.empty_cache()
+    fg, launched["resnet50/finegrained"] = finegrained_phase(torch, dev,
+                                                             counts, card)
+    results["resnet50"]["finegrained"] = fg
+    torch.cuda.empty_cache()
+    # every phase that should reach a kernel did
+    need = {"vgg16_bn_cifar/serve": ["fused_chain_fwd"],
+            "vgg16_bn_cifar/eval": ["masked_conv_fwd", "masked_conv_select",
+                                    "fused_chain_fwd"],
+            "vgg16_bn_cifar/train": ["masked_conv_bwd_dx",
+                                     "masked_conv_bwd_dw",
+                                     "masked_conv_im2col",
+                                     "fused_chain_bwd_dx",
+                                     "fused_chain_bwd_dw"],
+            "vit_cifar/eval": ["flash_fwd", "masked_matmul_fwd",
+                               "masked_matmul_select"],
+            "vit_cifar/train": ["flash_bwd", "masked_matmul_bwd_dx",
+                                "masked_matmul_bwd_dw"],
+            "vgg16_bn_cifar/deploy": ["fused_chain_fwd"],
+            "resnet50/serve": ["fused_chain_fwd"],
+            "resnet50/eval": ["masked_conv_fwd", "fused_chain_fwd"],
+            "resnet50/train": ["masked_conv_bwd_dx", "masked_conv_bwd_dw",
+                               "fused_chain_bwd_dx", "fused_chain_bwd_dw"],
+            "resnet50/finegrained": ["masked_conv_fwd", "masked_conv_bwd_dx",
+                                     "masked_conv_bwd_dw", "fused_chain_fwd",
+                                     "fused_chain_bwd_dx",
+                                     "fused_chain_bwd_dw"],
+            "vgg16_bn_cifar/cycle": ["masked_conv_fwd", "masked_conv_bwd_dx",
+                                     "masked_conv_bwd_dw", "fused_chain_fwd",
+                                     "fused_chain_bwd_dx",
+                                     "fused_chain_bwd_dw"]}
+    for phase, names in need.items():
+        for k in names:
+            if launched[phase][k] == 0:
+                raise AssertionError(f"{phase} phase launched no {k} kernel")
+    print(f"launches: {json.dumps(launched)}", flush=True)
+
+    kernels = kernels_line(rows, launched)
     wall = time.perf_counter() - t_start
     print(f"wall: {wall:.1f} s after the build ({t_kernels:.1f} s kernel "
-          f"phases)", flush=True)
+          f"phases, {t_resnet:.1f} s of them ResNet-50's)", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "phases": rows, "results": results,

@@ -19,13 +19,16 @@
 
 The subcommands take `cpg_tpu`'s flags with the same defaults and presets
 (`--arch vit_cifar` swaps the cycle's architecture) and print `cpg_tpu`'s
-JSON. Everything runs on the card unless `--device cpu` is given.
-Options whose modules are not ported yet (the other experiments,
-`--parallel*`, `--shard-activations`, `--memmap-dir`, `--pretrained-npz`,
-`--native-loader`, the finegrained and textcls flags) and the XLA-only
-`--remat`, `--remat-policy`, `--scan-blocks` and `--scoped-vmem-kib` stop
-with an error naming them. Checkpoints are this package's
-(utils/checkpoint.py).
+JSON. Everything runs on the card unless `--device cpu` is given. Two
+experiments run: cifar100 (VGG16-BN, 20 CIFAR-100 superclass tasks) and
+finegrained (ResNet-50 at 224 px over CUBS, Cars, Flowers, WikiArt and
+Sketch; `--max-classes` caps the synthetic stand-ins' classes and
+`--pretrained-npz` installs pretrained weights as task 1). Options whose
+modules are not ported yet (the face and textcls experiments,
+`--parallel*`, `--shard-activations`, `--memmap-dir`, `--native-loader`,
+the textcls flags) and the XLA-only `--remat`, `--remat-policy`,
+`--scan-blocks` and `--scoped-vmem-kib` stop with an error naming them.
+Checkpoints are this package's (utils/checkpoint.py).
 
 `serve`: R.npz holds `x` (uint8 NHWC) and, without --task-id, a per-row
 `task_ids` array for mixed routing; with --http-port the JSON endpoint of
@@ -45,8 +48,8 @@ EXPERIMENTS = ["cifar100", "finegrained", "face", "textcls"]
 
 # Per-experiment hyperparameter presets (the reference's shell-loop
 # settings, as `cpg_tpu.cli` records them). Applied by --preset; explicit
-# flags win. Only cifar100's applies until the other experiments are
-# ported; theirs are kept so the table stays the reference's.
+# flags win. face's is kept so the table stays the reference's; that
+# experiment is not ported yet.
 EXPERIMENT_PRESETS = {
     "cifar100": {        # VGG16-BN, 20 superclass tasks
         "lr": 0.01, "lr_mask": 1e-4, "weight_decay": 4e-5,
@@ -75,15 +78,11 @@ UNPORTED = [
      "activation sharding (ROADMAP Queue 1, items 10 and 12)"),
     ("memmap_dir", bool, "memmapped datasets, data/stream.py (ROADMAP Queue "
                          "1, item 12)"),
-    ("pretrained_npz", bool,
-     "pretrained converters, train/pretrained.py (ROADMAP Queue 1, item 7)"),
     ("native_loader", bool,
      "the native prefetch loader (ROADMAP Queue 1, item 12)"),
     ("remat", bool, "XLA rematerialisation (TPU/XLA only; no port)"),
     ("remat_policy", bool, "XLA rematerialisation (TPU/XLA only; no port)"),
     ("scan_blocks", bool, "lax.scan over blocks (TPU/XLA only; no port)"),
-    ("max_classes", lambda v: v is not None,
-     "the finegrained experiment (ROADMAP Queue 1, item 7)"),
     ("text_causal", bool, "the textcls experiment (ROADMAP Queue 1, item 9)"),
     ("text_vocab", lambda v: v != 256,
      "the textcls experiment (ROADMAP Queue 1, item 9)"),
@@ -96,11 +95,17 @@ UNPORTED = [
 ]
 
 
+# experiments whose modules are not ported yet -> the ROADMAP item
+_LATER_EXPERIMENTS = {"face": "ROADMAP Queue 1, item 8",
+                      "textcls": "ROADMAP Queue 1, item 9"}
+
+
 def _refuse_experiment(args):
-    if args.experiment != "cifar100":
+    if args.experiment in _LATER_EXPERIMENTS:
         raise SystemExit(
             f"--experiment {args.experiment} is not ported to cpg_tpu_torch "
-            "yet (ROADMAP Queue 1, items 7-9); this package runs cifar100")
+            f"yet ({_LATER_EXPERIMENTS[args.experiment]}); this package runs "
+            "cifar100 and finegrained")
 
 
 def _refuse_unported(args):
@@ -109,26 +114,38 @@ def _refuse_unported(args):
         if is_set(getattr(args, attr)):
             flag = "--" + attr.replace("_", "-")
             raise SystemExit(f"{flag}: {what} is not ported to cpg_tpu_torch")
+    if args.init_from and args.pretrained_npz:
+        raise SystemExit("--init-from and --pretrained-npz are mutually "
+                         "exclusive")
 
 
 def _experiment_tasks(args):
     """Resolve the experiment to (arch, ordered task dict, aug, prep)."""
     from .data import augment as A
-    from .data.cifar import task_splits
     from .models import REGISTRY
 
-    tasks = task_splits(synthetic_kwargs={
-        "n_train_per_class": args.synthetic_train_per_class,
-        "n_test_per_class": args.synthetic_test_per_class})
-    if args.num_tasks:
-        tasks = dict(list(tasks.items())[: args.num_tasks])
-    arch = "vgg16_bn_cifar"
+    if args.experiment == "finegrained":
+        from .data.finegrained import FINEGRAINED_SPECS, finegrained_task
+
+        names = list(FINEGRAINED_SPECS)[: args.num_tasks or None]
+        tasks = {n: finegrained_task(n, max_classes=args.max_classes, seed=i)
+                 for i, n in enumerate(names)}
+        arch, aug = "resnet50", A.imagenet_train_augment
+    else:
+        from .data.cifar import task_splits
+
+        tasks = task_splits(synthetic_kwargs={
+            "n_train_per_class": args.synthetic_train_per_class,
+            "n_test_per_class": args.synthetic_test_per_class})
+        if args.num_tasks:
+            tasks = dict(list(tasks.items())[: args.num_tasks])
+        arch, aug = "vgg16_bn_cifar", A.cifar_train_augment
     if getattr(args, "arch", None):
         if args.arch not in REGISTRY:
             raise SystemExit(
                 f"unknown --arch {args.arch!r}; have {sorted(REGISTRY)}")
         arch = args.arch
-    return arch, tasks, A.cifar_train_augment, A.cifar_eval_preprocess
+    return arch, tasks, aug, _prep(args)
 
 
 def _common_defaults():
@@ -180,8 +197,8 @@ def _seq_cfg(args):
 
 def _add_common(p):
     p.add_argument("--experiment", default="cifar100", choices=EXPERIMENTS,
-                   help="only cifar100 is ported; the others stop with an "
-                        "error")
+                   help="cifar100 (VGG16-BN) or finegrained (ResNet-50); "
+                        "face and textcls stop with an error")
     p.add_argument("--arch", default=None,
                    help="override the experiment's default architecture "
                         "(a models.REGISTRY name, e.g. vit_cifar)")
@@ -209,8 +226,8 @@ def _add_common(p):
                    help="masked-conv kernels in the sharable convs "
                         "(ops/masked_conv.py)")
     p.add_argument("--fused-chain", action="store_true",
-                   help="fused BN+ReLU+conv3x3 kernels at the VGG seams "
-                        "(ops/fused_chain.py)")
+                   help="fused BN+ReLU+conv3x3 kernels at the stride-1 "
+                        "seams (ops/fused_chain.py)")
     p.add_argument("--remat", action="store_true",
                    help="XLA rematerialisation: no port (stops with an error)")
     p.add_argument("--remat-policy", default=None, choices=["convs"],
@@ -257,13 +274,14 @@ def _add_common(p):
     p.add_argument("--synthetic-train-per-class", type=int, default=100)
     p.add_argument("--synthetic-test-per-class", type=int, default=20)
     p.add_argument("--max-classes", type=int, default=None,
-                   help="finegrained only (not ported; stops with an error)")
+                   help="cap synthetic fine-grained class counts")
     p.add_argument("--init-from", default=None, metavar="CKPT",
                    help="continue a sequence from a checkpoint directory of "
                         "this package: its tasks are kept frozen and "
                         "skipped, the rest of the task list trains on top")
     p.add_argument("--pretrained-npz", default=None,
-                   help="not ported (stops with an error)")
+                   help="ImageNet-pretrained task-1 weights npz (torch "
+                        "state_dict keys or this package's keys)")
     p.add_argument("--parallel", type=int, default=0, metavar="N",
                    help="not ported (stops with an error unless 0)")
     p.add_argument("--parallel-model", type=int, default=1, metavar="M",
@@ -287,7 +305,7 @@ def _add_device(p):
 
 def _add_experiment(p, help):
     p.add_argument("--experiment", default="cifar100", choices=EXPERIMENTS,
-                   help=help + "; only cifar100 is ported")
+                   help=help + "; cifar100 and finegrained are ported")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -306,7 +324,7 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--synthetic-train-per-class", type=int, default=100)
     pi.add_argument("--synthetic-test-per-class", type=int, default=20)
     pi.add_argument("--max-classes", type=int, default=None,
-                    help="finegrained only (not ported; stops with an error)")
+                    help="cap synthetic fine-grained class counts")
     _add_device(pi)
     ps = sub.add_parser("stats",
                         help="ownership/capacity report for a checkpoint")
@@ -389,11 +407,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _prep(args):
-    """The experiment's eval preprocess (cifar100's; others refused)."""
-    from .data.augment import cifar_eval_preprocess
+    """The experiment's eval preprocess (face and textcls refused)."""
+    from .data import augment as A
 
     _refuse_experiment(args)
-    return cifar_eval_preprocess
+    return {"cifar100": A.cifar_eval_preprocess,
+            "finegrained": A.imagenet_eval_preprocess}[args.experiment]
 
 
 def _serve(args) -> int:
@@ -558,13 +577,8 @@ def _inference(args) -> int:
     from .inference import make_predict_fn
     from .utils.checkpoint import load_state
 
-    if args.max_classes is not None:
-        raise SystemExit("--max-classes: the finegrained experiment "
-                         "(ROADMAP Queue 1, item 7) is not ported to "
-                         "cpg_tpu_torch")
-    prep = _prep(args)
-    _, tasks, _, _ = _experiment_tasks(args)
     state = load_state(args.checkpoint, device=args.device)
+    _, tasks, _, prep = _experiment_tasks(args)
     task = state.tasks[args.task_id]
     data = tasks[task.name]
     fn = make_predict_fn(state, args.task_id, preprocess_fn=prep,
@@ -591,6 +605,37 @@ def _inference(args) -> int:
 _TOOLS = {"serve": _serve, "export": _export, "import-torch": _import_torch,
           "export-torch": _export_torch, "check": _check, "stats": _stats,
           "inference": _inference}
+
+
+def _pretrained_state(args, arch):
+    """A fresh state whose task 1 ("imagenet", 1000 classes) holds the
+    weights of --pretrained-npz: torch state_dict keys go through the
+    arch's converter, all three trees kept (dropping the private one would
+    adopt unit BN affines, not the pretrained net); keys of this package
+    are shared kernels."""
+    import torch
+
+    from .train import pretrained as P
+    from .train.sequence import init_state
+
+    with np.load(args.pretrained_npz) as z:
+        z = dict(z)
+    st = init_state(arch, torch.Generator().manual_seed(args.seed),
+                    width_mult=args.network_width_multiplier,
+                    device=args.device)
+    private = None
+    if any("." in k for k in z):
+        conv = {"resnet50": P.convert_torch_resnet50,
+                "vgg16_bn_cifar": P.convert_torch_vgg16_bn}.get(arch)
+        if conv is None:
+            raise SystemExit(f"--pretrained-npz with torch keys: no "
+                             f"converter for arch {arch!r}")
+        shared, private, bn = conv(z)
+    else:
+        shared, bn = z, None
+    P.adopt_pretrained_task1(st, "imagenet", 1000, shared, private=private,
+                             bn_state=bn)
+    return st
 
 
 def _cycle(args) -> int:
@@ -631,6 +676,8 @@ def _cycle(args) -> int:
         done = {t.name for t in st.tasks.values()}
         tasks = {k: v for k, v in tasks.items() if k not in done}
         init_kw["state"] = st
+    if args.pretrained_npz:
+        init_kw["state"] = _pretrained_state(args, arch)
 
     state, reports = runner(
         arch, tasks, _train_cfg(args), _seq_cfg(args), goals=goals,

@@ -106,7 +106,7 @@ def state_from_numpy(src, device) -> CPGState:
         model_kwargs=dict(getattr(src, "model_kwargs", None) or {}),
         in_shape=getattr(src, "in_shape", None))
     return shell.map_arrays(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev))
+        lambda a: torch.from_numpy(np.array(a, copy=True, order="C")).to(dev))
 
 
 def state_to_numpy(state: CPGState) -> CPGState:

@@ -2,8 +2,9 @@
 
 Same math as `cpg_tpu.data.augment`: eval is x / 255, then per-channel
 (x - mean) / std; CIFAR training first takes a zero-pad-4 random crop and a
-random horizontal flip per sample. The crop indexes the raw 0..255 values,
-so it is exact.
+random horizontal flip per sample (the fine-grained 224-px images a pad-16
+one, with ImageNet statistics). The crop indexes the raw 0..255 values, so
+it is exact.
 
 The random draws come from an explicit `torch.Generator`, or are handed in
 as arrays: `rng` may be a `(offsets, flips)` pair, offsets (N, 2) integers
@@ -18,6 +19,8 @@ import torch
 # CIFAR-100 channel statistics (torchvision convention)
 CIFAR100_MEAN = (0.5071, 0.4865, 0.4409)
 CIFAR100_STD = (0.2673, 0.2564, 0.2762)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def normalize(x_f32: torch.Tensor, mean, std) -> torch.Tensor:
@@ -59,3 +62,16 @@ def cifar_train_augment(x_uint8: torch.Tensor, rng) -> torch.Tensor:
 def cifar_eval_preprocess(x_uint8: torch.Tensor) -> torch.Tensor:
     return normalize(x_uint8.to(torch.float32) / 255.0, CIFAR100_MEAN,
                      CIFAR100_STD)
+
+
+def imagenet_train_augment(x_uint8: torch.Tensor, rng,
+                           pad: int = 16) -> torch.Tensor:
+    """The fine-grained 224-px path: pad-crop, horizontal flip, then
+    ImageNet normalisation."""
+    x = random_crop_flip(x_uint8.to(torch.float32), rng, pad=pad) / 255.0
+    return normalize(x, IMAGENET_MEAN, IMAGENET_STD)
+
+
+def imagenet_eval_preprocess(x_uint8: torch.Tensor) -> torch.Tensor:
+    return normalize(x_uint8.to(torch.float32) / 255.0, IMAGENET_MEAN,
+                     IMAGENET_STD)

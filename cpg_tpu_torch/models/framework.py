@@ -1,4 +1,4 @@
-"""Functional layer framework for CPG models (VGG and ViT subset).
+"""Functional layer framework for CPG models (VGG, ResNet and ViT subset).
 
 The counterpart of `cpg_tpu.models.framework`: a flat parameter dict keyed by
 layer name, split into *shared* sharable kernels (governed by ownership) and
@@ -385,8 +385,18 @@ def maxpool(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
 
 
+def avgpool_global(x: torch.Tensor) -> torch.Tensor:
+    """NHWC mean over H and W in f32, rounded once to x's dtype (as
+    `cpg_tpu`'s jnp.mean on bf16)."""
+    return x.float().mean((1, 2)).to(x.dtype)
+
+
 def relu(x: torch.Tensor) -> torch.Tensor:
-    return torch.relu(x)
+    """max(x, 0) as `cpg_tpu`'s jnp.maximum: where x == 0 the gradient is
+    split in half (torch.relu passes none). Such ties are common: a fresh
+    task's zero BN bias over an all-zero (pruned) channel gives exact
+    zeros, and a residual sum over them stays 0 where the identity is."""
+    return torch.maximum(x, x.new_zeros(()))
 
 
 def init(generator: torch.Generator, model_fn: Callable, sample_x,

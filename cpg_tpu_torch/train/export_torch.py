@@ -1,15 +1,16 @@
 """Export a CPGState into the reference's torch checkpoint layout.
 
-The counterpart of `cpg_tpu.train.export_torch` for `vgg16_bn_cifar`, and
-the inverse of train/pretrained.convert_torch_cpg_checkpoint: the dict the
-reference Managers `torch.save` (backbone `state_dict` + pruner `masks` +
-per-dataset `shared_layer_info` + dataset history + width multiplier), so
-a state can be evaluated by the original PyTorch code or archived in the
-format its released checkpoints use. Module names are torchvision
+The counterpart of `cpg_tpu.train.export_torch` for `vgg16_bn_cifar` and
+`resnet50`, and the inverse of train/pretrained.convert_torch_cpg_checkpoint:
+the dict the reference Managers `torch.save` (backbone `state_dict` +
+pruner `masks` + per-dataset `shared_layer_info` + dataset history + width
+multiplier), so a state can be evaluated by the original PyTorch code or
+archived in the format its released checkpoints use. Module names are torchvision
 vgg16_bn's `features.N` Sequential indices (conv, bn, relu triplets and
-maxpool singletons from the cfg list); conv tensors go HWIO -> OIHW, heads
-to torch Linear's (out, in). ResNet-50 and SphereNet-20 come with their
-models (ROADMAP Queue 1, items 7 and 8).
+maxpool singletons from the cfg list) and torchvision resnet50's
+(`layerL.B.convN`, `layerL.B.downsample.0/.1`); conv tensors go HWIO ->
+OIHW, heads to torch Linear's (out, in). SphereNet-20 comes with its model
+(ROADMAP Queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -19,10 +20,10 @@ from typing import Dict
 import numpy as np
 
 from ..core.state import CPGState
+from ..models.resnet import TORCH_MODULES
 from ..models.vgg import CFG_VGG16
 
-_LATER = {"resnet50": "ROADMAP Queue 1, item 7",
-          "spherenet20": "ROADMAP Queue 1, item 8"}
+_LATER = {"spherenet20": "ROADMAP Queue 1, item 8"}
 
 
 def _np(t) -> np.ndarray:
@@ -47,6 +48,48 @@ def _vgg_mods():
     return conv_mods, bn_mods
 
 
+def _rn_conv_mod(key: str) -> str:
+    """ResNet-50 shared key -> torchvision module name."""
+    return TORCH_MODULES[key.rsplit("/", 1)[0]]
+
+
+def _module_maps(arch: str):
+    """(shared key -> conv module, BN layer -> BN module) for the arch."""
+    if arch == "resnet50":
+        return _rn_conv_mod, TORCH_MODULES.__getitem__
+    conv_mods, bn_mods = _vgg_mods()
+
+    def conv_mod(key):
+        return conv_mods[int(key.split("/")[1][len("conv"):])]
+
+    def bn_mod(base):
+        return bn_mods[int(base.split("/")[1][len("bn"):])]
+
+    return conv_mod, bn_mod
+
+
+def torch_resnet50_state_dict(shared: Dict, private: Dict,
+                              bn_state: Dict) -> Dict[str, np.ndarray]:
+    """One ResNet-50 net's (shared, private, bn_state) in this package's
+    naming -> a torchvision `resnet50` state_dict of numpy arrays (the
+    inverse of pretrained.convert_torch_resnet50; the head becomes `fc`)."""
+    sd: Dict[str, np.ndarray] = {}
+    for key, w in shared.items():
+        sd[f"{_rn_conv_mod(key)}.weight"] = _inv_conv(w)
+    for key, v in private.items():
+        if key.startswith("classifier/"):
+            leaf = "weight" if key.endswith("/kernel") else "bias"
+            sd[f"fc.{leaf}"] = _np(v).T if leaf == "weight" else _np(v)
+        else:
+            base, leaf = key.rsplit("/", 1)
+            sd[f"{TORCH_MODULES[base]}.{'weight' if leaf == 'scale' else leaf}"] \
+                = _np(v)
+    for key, v in bn_state.items():
+        base, leaf = key.rsplit("/", 1)
+        sd[f"{TORCH_MODULES[base]}.running_{leaf}"] = _np(v)
+    return sd
+
+
 def export_torch_cpg_checkpoint(state: CPGState) -> Dict:
     """CPGState -> reference torch.save dict of numpy arrays (feed it to
     torch.save, or straight back to convert_torch_cpg_checkpoint).
@@ -59,16 +102,11 @@ def export_torch_cpg_checkpoint(state: CPGState) -> Dict:
         raise NotImplementedError(
             f"torch export of {state.arch} is not ported to cpg_tpu_torch "
             f"yet ({_LATER[state.arch]})")
-    if state.arch != "vgg16_bn_cifar":
+    if state.arch not in ("vgg16_bn_cifar", "resnet50"):
         raise NotImplementedError(
-            f"torch export supports vgg16_bn_cifar; got {state.arch!r}")
-    conv_mods, bn_mods = _vgg_mods()
-
-    def conv_mod(key):
-        return conv_mods[int(key.split("/")[1][len("conv"):])]
-
-    def bn_mod(base):
-        return bn_mods[int(base.split("/")[1][len("bn"):])]
+            f"torch export supports vgg16_bn_cifar and resnet50; got "
+            f"{state.arch!r}")
+    conv_mod, bn_mod = _module_maps(state.arch)
 
     sd: Dict[str, np.ndarray] = {}
     masks: Dict[str, np.ndarray] = {}

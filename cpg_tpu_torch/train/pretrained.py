@@ -1,30 +1,82 @@
-"""Reference torch checkpoints into CPG states (VGG16-BN).
+"""Reference torch checkpoints and pretrained weights into CPG states
+(VGG16-BN and ResNet-50).
 
 The counterpart of part of `cpg_tpu.train.pretrained`: `load_torch_checkpoint`
-(a .pth/.pth.tar file as {key: ndarray}), `convert_torch_vgg16_bn` (a
-VGG16-BN state_dict in this package's naming) and
+(a .pth/.pth.tar file as {key: ndarray}), `convert_torch_vgg16_bn` and
+`convert_torch_resnet50` (a VGG16-BN or torchvision ResNet-50 state_dict in
+this package's naming), `adopt_pretrained_task1` (pretrained weights as a
+fresh state's task 1: the fine-grained sequence's ImageNet task) and
 `convert_torch_cpg_checkpoint` (the reference's whole CPG checkpoint:
 backbone state_dict + pruner `masks` + per-dataset `shared_layer_info` +
 dataset history + width multiplier -> a multi-task CPGState). Conv tensors
-go torch OIHW -> HWIO, dense ones (out, in) -> (in, out). The ResNet-50
-and SphereNet-20 converters, `adopt_pretrained_task1` and
-`--pretrained-npz` come with their models (ROADMAP Queue 1, items 7 and 8).
+go torch OIHW -> HWIO, dense ones (out, in) -> (in, out). The SphereNet-20
+converter comes with its model (ROADMAP Queue 1, item 8).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..core.ownership import assign_free_to_task
 from ..core.state import CPGState, TaskEntry, resolve_device
 from ..models import framework as fw
 from ..models import get_model
+from ..models.resnet import TORCH_MODULES
 from ..ops.binarize import PIGGYMASK_INIT
 
-_LATER = {"resnet50": "ROADMAP Queue 1, item 7",
-          "spherenet20": "ROADMAP Queue 1, item 8"}
+_LATER = {"spherenet20": "ROADMAP Queue 1, item 8"}
+
+
+def adopt_pretrained_task1(state: CPGState, name: str, num_classes: int,
+                           shared: Dict[str, np.ndarray],
+                           private: Optional[Dict[str, np.ndarray]] = None,
+                           bn_state: Optional[Dict[str, np.ndarray]] = None
+                           ) -> int:
+    """Install pretrained weights as task 1 of a fresh state: every shared
+    entry becomes owned by task 1 (the whole pretrained net belongs to the
+    first task). Private and BN entries come from `private` and
+    `bn_state` where given, a private entry whose shape differs from the
+    model's (a head of another class count) is skipped, and the rest are
+    this package's fresh init at generator seed 0."""
+    if state.num_tasks != 0:
+        raise ValueError("pretrained adoption requires a fresh state")
+    dev = next(iter(state.shared.values())).device
+    for k, w in shared.items():
+        if k not in state.shared:
+            raise KeyError(f"pretrained key {k} not in model: "
+                           f"{sorted(state.shared)[:3]}...")
+        if tuple(w.shape) != tuple(state.shared[k].shape):
+            raise ValueError(f"{k}: {tuple(w.shape)} != "
+                             f"{tuple(state.shared[k].shape)}")
+        state.shared[k] = _tensor(w, torch.float32).to(dev)
+    state.ownership = assign_free_to_task(state.ownership, 1)
+    model_fn, in_shape = get_model(state.arch)
+    _, priv0, bn0 = fw.init(torch.Generator().manual_seed(0), model_fn,
+                            torch.zeros((1, *(state.in_shape or in_shape))),
+                            num_classes=num_classes, mult=state.width_mult,
+                            **state.forward_kwargs())
+    for k, v in (private or {}).items():
+        if k in priv0 and tuple(v.shape) != tuple(priv0[k].shape):
+            continue
+        priv0[k] = _tensor(v)
+    for k, v in (bn_state or {}).items():
+        bn0[k] = _tensor(v)
+    state.tasks[1] = TaskEntry(
+        name=name, num_classes=num_classes, piggymask=None,
+        private={k: v.to(dev) for k, v in priv0.items()},
+        bn_state={k: v.to(dev) for k, v in bn0.items()})
+    return 1
+
+
+def _tensor(v, dtype=None) -> torch.Tensor:
+    """A contiguous CPU tensor copy of an array or tensor (its dtype unless
+    given): the converters hand over transposed views, and the kernels
+    take contiguous weights only."""
+    t = torch.from_numpy(np.array(_as_np(v), copy=True, order="C"))
+    return t if dtype is None else t.to(dtype)
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
@@ -79,6 +131,41 @@ def convert_torch_vgg16_bn(state_dict: Dict[str, np.ndarray]):
         bkey = k.rsplit(".", 1)[0] + ".bias"
         if bkey in state_dict:
             private["classifier/bias"] = np.asarray(state_dict[bkey])
+    return shared, private, bn
+
+
+_RN_BASE = {mod: base for base, mod in TORCH_MODULES.items()}
+
+
+def convert_torch_resnet50(state_dict: Dict[str, np.ndarray]):
+    """torchvision ResNet-50 state_dict -> (shared, private, bn_state) in
+    this package's naming (models/resnet.py): `layerL.B.convN` ->
+    `layerL/blockB/convN`, `layerL.B.downsample.0/.1` -> `.../downsample`
+    and `.../downsample_bn`, `fc` -> the classifier head; keys of other
+    modules are ignored."""
+    shared, private, bn = {}, {}, {}
+    for k, v in state_dict.items():
+        v = np.asarray(v)
+        if k.startswith("fc."):
+            if k.endswith("weight"):
+                private["classifier/kernel"] = v.T
+            else:
+                private["classifier/bias"] = v
+            continue
+        mod, _, leaf = k.rpartition(".")
+        base = _RN_BASE.get(mod)
+        if base is None:
+            continue
+        if leaf == "weight" and v.ndim == 4:
+            shared[f"{base}/kernel"] = _t_conv(v)
+        elif leaf == "weight":
+            private[f"{base}/scale"] = v
+        elif leaf == "bias":
+            private[f"{base}/bias"] = v
+        elif leaf == "running_mean":
+            bn[f"{base}/mean"] = v
+        elif leaf == "running_var":
+            bn[f"{base}/var"] = v
     return shared, private, bn
 
 
@@ -142,6 +229,25 @@ def _vgg16_adapter(sd):
     }
 
 
+def _resnet50_adapter(sd):
+    """torchvision module names of ResNet-50's sharable convs and BNs."""
+    sharable, bn_map = [], {}
+    for k, v in sd.items():
+        mod = k.rpartition(".")[0]
+        base = _RN_BASE.get(mod)
+        if base is None:
+            continue
+        if k.endswith(".weight") and np.asarray(v).ndim == 4:
+            sharable.append((mod, f"{base}/kernel", _t_conv))
+        elif k.endswith(".running_mean"):
+            bn_map[mod] = base
+    return {"backbone": convert_torch_resnet50(sd), "sharable": sharable,
+            "bn_map": bn_map, "head": "classifier"}
+
+
+_ADAPTERS = {"vgg16_bn_cifar": _vgg16_adapter, "resnet50": _resnet50_adapter}
+
+
 def convert_torch_cpg_checkpoint(ckpt: Dict, arch: str = "vgg16_bn_cifar",
                                  threshold: float = 5e-3,
                                  device="cuda") -> CPGState:
@@ -162,9 +268,10 @@ def convert_torch_cpg_checkpoint(ckpt: Dict, arch: str = "vgg16_bn_cifar",
         raise NotImplementedError(
             f"CPG-checkpoint import of {arch} is not ported to cpg_tpu_torch "
             f"yet ({_LATER[arch]})")
-    if arch != "vgg16_bn_cifar":
+    if arch not in _ADAPTERS:
         raise NotImplementedError(
-            f"CPG-checkpoint import supports vgg16_bn_cifar; got {arch!r}")
+            f"CPG-checkpoint import supports {sorted(_ADAPTERS)}; got "
+            f"{arch!r}")
     dev = resolve_device(device)
     sd = _lookup(ckpt, "state_dict", "model_state_dict", "model",
                  default=ckpt)
@@ -182,13 +289,12 @@ def convert_torch_cpg_checkpoint(ckpt: Dict, arch: str = "vgg16_bn_cifar",
     wm = float(_lookup(ckpt, "network_width_multiplier", "width_mult",
                        default=1.0))
 
-    ad = _vgg16_adapter(sd)
+    ad = _ADAPTERS[arch](sd)
     shared, last_private, last_bn = ad["backbone"]
     head = ad["head"]
 
     def t(a, dtype=None):
-        out = torch.from_numpy(np.array(a, copy=True))
-        return (out if dtype is None else out.to(dtype)).to(dev)
+        return _tensor(a, dtype).to(dev)
 
     ownership = {}
     for mod, key, tr in ad["sharable"]:
@@ -228,23 +334,21 @@ def convert_torch_cpg_checkpoint(ckpt: Dict, arch: str = "vgg16_bn_cifar",
             for mod, ours in ad["bn_map"].items():
                 v = _mod_key(_lookup(info, src, default={}) or {}, mod)
                 if v is not None:
-                    into[f"{ours}/{dst}"] = torch.from_numpy(_as_np(v).copy())
+                    into[f"{ours}/{dst}"] = _tensor(v)
         if tid == len(history):  # backbone private entries: the active task's
             for k, v in last_private.items():
                 if not k.startswith(head):
-                    priv[k] = torch.from_numpy(np.array(v, copy=True))
+                    priv[k] = _tensor(v)
             for k, v in last_bn.items():
-                bnst[k] = torch.from_numpy(np.array(v, copy=True))
+                bnst[k] = _tensor(v)
         if hw is not None:
-            priv[f"{head}/kernel"] = torch.from_numpy(np.array(hw, copy=True))
+            priv[f"{head}/kernel"] = _tensor(hw)
             if hb is not None:
-                priv[f"{head}/bias"] = torch.from_numpy(_as_np(hb).copy())
+                priv[f"{head}/bias"] = _tensor(hb)
         elif tid == len(history) and f"{head}/kernel" in last_private:
-            priv[f"{head}/kernel"] = torch.from_numpy(
-                np.array(last_private[f"{head}/kernel"], copy=True))
+            priv[f"{head}/kernel"] = _tensor(last_private[f"{head}/kernel"])
             if f"{head}/bias" in last_private:
-                priv[f"{head}/bias"] = torch.from_numpy(
-                    np.array(last_private[f"{head}/bias"], copy=True))
+                priv[f"{head}/bias"] = _tensor(last_private[f"{head}/bias"])
 
         pm = None
         if tid > 1:  # missing -> the reference init (pick everything)

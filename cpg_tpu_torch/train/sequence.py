@@ -47,6 +47,8 @@ from ..core.pruner import snapshot_owned_counts
 from ..core.state import CPGState, TaskEntry, resolve_device
 from ..models import framework as fw
 from ..models import get_flatten_dims, get_model
+from ..models.resnet import conv_channels as resnet_conv_channels
+from ..models.resnet import widest_seam as resnet_widest_seam
 from ..models.vgg import conv_channels as vgg_conv_channels
 from ..ops.binarize import init_piggymask
 from ..utils import LOGGER
@@ -88,26 +90,34 @@ def _fresh(rng: torch.Generator) -> torch.Generator:
 
 
 # archs whose sharable convs scale with the width and reach the conv
-# kernels (VGG16-BN's 13 convs and 8 fused seams); the ViTs' one conv, the
-# patch embedding, keeps its embed dim at every width
-_CONV_CHANNELS = {"vgg16_bn_cifar": vgg_conv_channels}
+# kernels: (the channel counts of the convs' outputs at a width, the width
+# of the widest fused seam for an (H, W, C) input). VGG16-BN's 13 convs and
+# 8 fused seams, the first at the input's width; ResNet-50's 53 convs and
+# 13 fused seams, the widest after the stride-2 stem and max pool. The
+# ViTs' one conv, the patch embedding, keeps its embed dim at every width.
+_CONV_CHANNELS = {
+    "vgg16_bn_cifar": (vgg_conv_channels, lambda in_shape: in_shape[1]),
+    "resnet50": (resnet_conv_channels, resnet_widest_seam),
+}
 
 
 def refuse_kernel_widths(cfg: Optional[TrainConfig], arch: str, mults,
                          in_shape) -> None:
     """Raise ValueError for widths the kernels that `cfg` turns on would
     refuse mid-cycle, each check keyed to the flag and dtype that need it:
-    under `use_fused_chain` an input wider than 128 (the fused chain's W
-    limit, any dtype) or, in bf16, a channel count off a multiple of 8;
+    under `use_fused_chain` a fused seam wider than 128 (the fused chain's
+    W limit, any dtype) or, in bf16, a channel count off a multiple of 8;
     under `use_pallas_conv` in bf16, a Cout off a multiple of 4. f32 steps
     have no channel limit, and the masked conv no width limit."""
-    channels = _CONV_CHANNELS.get(arch)
-    if cfg is None or channels is None:
+    if cfg is None or arch not in _CONV_CHANNELS:
         return
-    if cfg.use_fused_chain and len(in_shape) == 3 and in_shape[1] > 128:
+    channels, widest_seam = _CONV_CHANNELS[arch]
+    if cfg.use_fused_chain and len(in_shape) == 3 \
+            and widest_seam(in_shape) > 128:
         raise ValueError(
-            f"input width {in_shape[1]} > 128: the fused BN+ReLU+conv "
-            "kernel takes W <= 128 (use_fused_chain)")
+            f"input width {in_shape[1]} gives a fused seam "
+            f"{widest_seam(in_shape)} wide, over 128: the fused "
+            "BN+ReLU+conv kernel takes W <= 128 (use_fused_chain)")
     if cfg.compute_dtype != torch.bfloat16:
         return
     need, flag = ((8, "use_fused_chain") if cfg.use_fused_chain else

@@ -474,12 +474,12 @@ def test_cli_shared_flags_defaults_and_presets_match_jax(cmd):
     (["--parallel-model", "2"], "--parallel-model: model-axis"),
     (["--shard-activations"], "--shard-activations"),
     (["--memmap-dir", "/nowhere"], "--memmap-dir"),
-    (["--pretrained-npz", "w.npz"], "--pretrained-npz"),
+    (["--pretrained-npz", "w.npz", "--init-from", "ck"], "--pretrained-npz"),
     (["--native-loader"], "--native-loader"),
     (["--remat"], "--remat: XLA"),
     (["--remat-policy", "convs"], "--remat-policy: XLA"),
     (["--scan-blocks"], "--scan-blocks: lax.scan"),
-    (["--max-classes", "10"], "--max-classes: the finegrained"),
+    (["--experiment", "finegrained", "--remat"], "--remat: XLA"),
     (["--text-causal"], "--text-causal: the textcls"),
     (["--text-vocab", "512"], "--text-vocab: the textcls"),
     (["--text-seq-len", "32"], "--text-seq-len: the textcls"),
@@ -492,14 +492,16 @@ def test_cli_refuses_unported_options(argv, match):
 
 
 def test_cycle_entry_points_default_to_the_card():
-    """run_sequence, Manager, predict, init_state, grow_state, load_state
-    and the CLI run on the card unless told otherwise, and raise without
-    one (this test runs where CUDA is absent)."""
+    """run_sequence, Manager, predict, init_state, grow_state, load_state,
+    the ResNet-50 converters and the CLI (the finegrained experiment too)
+    run on the card unless told otherwise, and raise without one (this
+    test runs where CUDA is absent)."""
     from cpg_tpu_torch.inference import predict
     from cpg_tpu_torch.models import get_model
     from cpg_tpu_torch.train.manager import Manager
     from cpg_tpu_torch.train.sequence import (grow_state, init_state,
                                               run_sequence, start_task)
+    from cpg_tpu_torch.train.pretrained import convert_torch_cpg_checkpoint
     from cpg_tpu_torch.train.step import TrainConfig
 
     g = torch.Generator().manual_seed(0)
@@ -514,6 +516,14 @@ def test_cycle_entry_points_default_to_the_card():
         lambda: init_state("vgg16_bn_cifar", g, 0.125),
         lambda: grow_state(state, 0.25, g),
         lambda: t_cli.main(["sequence", "--num-tasks", "1"]),
+        lambda: init_state("resnet50", g, 0.125),
+        lambda: t_cli.main(["sequence", "--experiment", "finegrained",
+                            "--num-tasks", "1", "--max-classes", "2"]),
+        lambda: t_cli.main(["inference", "--checkpoint", "ck", "--task-id",
+                            "1", "--experiment", "finegrained",
+                            "--num-tasks", "1", "--max-classes", "2"]),
+        lambda: convert_torch_cpg_checkpoint(
+            {"state_dict": {}, "dataset_history": ["a"]}, arch="resnet50"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -625,15 +635,22 @@ WIDTH_CASES = {
                         None),
     "fused_bf16_on_grid": ("vgg16_bn_cifar", "bf16", True, True, 1.5, 32,
                            None),
+    "resnet50_224_both": ("resnet50", "bf16", True, True, 1.0, 224, None),
+    "resnet50_224_grown": ("resnet50", "bf16", True, True, 1.5, 224, None),
+    "resnet50_off_8": ("resnet50", "bf16", True, True, 0.3, 224,
+                       "multiples of 8"),
+    "resnet50_seam_wide": ("resnet50", "bf16", True, True, 1.0, 576, "128"),
 }
 
 
 @pytest.mark.parametrize("case", list(WIDTH_CASES))
 def test_refuse_kernel_widths(case):
-    """Each refusal is keyed to the flag and dtype that need it: W <= 128
-    to the fused chain (any dtype), channel multiples of 8 to the fused
-    chain in bf16 and a Cout multiple of 4 to the masked conv in bf16; f32
-    steps and the ViTs' fixed-width patch conv are never refused."""
+    """Each refusal is keyed to the flag and dtype that need it: a fused
+    seam W <= 128 to the fused chain (any dtype; VGG16-BN's widest seam is
+    the input's width, ResNet-50's a quarter of it: 56 at 224 px, 144 at
+    576), channel multiples of 8 to the fused chain in bf16 and a Cout
+    multiple of 4 to the masked conv in bf16; f32 steps and the ViTs'
+    fixed-width patch conv are never refused."""
     from cpg_tpu_torch.train.sequence import refuse_kernel_widths
     from cpg_tpu_torch.train.step import TrainConfig
 

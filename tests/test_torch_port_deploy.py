@@ -114,9 +114,9 @@ def test_export_torch_matches_jax(np_state, tmp_path):
     assert cli.main(["export-torch", "--ckpt", ck, "--out", out,
                      "--device", "cpu"]) == 0
     _ckpt_eq(torch.load(out, weights_only=False), want)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         export_torch_cpg_checkpoint(dataclasses.replace(
-            state_from_numpy(np_state, "cpu"), arch="resnet50"))
+            state_from_numpy(np_state, "cpu"), arch="spherenet20"))
 
 
 @pytest.mark.parametrize("piggymask", [True, False],

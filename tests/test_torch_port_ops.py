@@ -274,7 +274,8 @@ def test_port_never_imports_jax_or_cpg_tpu():
     assert {"gating.py", "step.py", "augment.py", "torch_train_profile.py",
             "vit.py", "flash.py", "masked_matmul.py", "int8.py",
             "server_http.py", "export_torch.py", "pretrained.py",
-            "serve.py", "cli.py"} <= names
+            "serve.py", "cli.py", "resnet.py", "finegrained.py",
+            "imagefolder.py"} <= names
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):
