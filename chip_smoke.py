@@ -103,12 +103,25 @@ Needs one CUDA card; exits non-zero without one. It
      img/s and predict calls per request; `export-torch` ->
      `import-torch` bit for bit; `inference` on the synthetic test split;
      then an int8 vit_cifar server at full width against its f32 server;
- 12. checks that each phase reached its kernels (the serve and eval phases
-     their forwards, the train phases their backwards, the cycle K1-K6,
-     the deploy phase K4),
-     prints the kernels' JSON line (launch counts from the serve, eval,
-     train, cycle and deploy phases, errors, times, bounds), the card
-     line, and last the result line.
+ 12. ResNet-50 (224 px, batch 32): K1-K3 at its 19 conv geometries and
+     K4-K6 at its 4 seams, serving, the eval and train steps, and the
+     finegrained CLI cycle (`finegrained_phase`); SphereNet-20 (112x96,
+     batch 256): K1, K2 and K3 at its 8 conv geometries
+     (`SPHERE_CONV_SHAPES`; K3 held against the plain version summed in
+     f64) and fc5 on the dense route, a bf16 server against the f32
+     server, the eval step, the train step with task 2 under the A-Softmax
+     loss (exact launches: K1 20, K2 19, K3 20, im2col 1, dense 1 + 1 + 1,
+     select 2), and the face CLI cycle (`face_phase`: `sequence
+     --experiment face`, growth to 1.5, LFW verification, task 1 across
+     compaction and growth, resume, export/serve bf16 and calibrated
+     int8, export-torch/import-torch);
+ 13. checks that each phase reached its kernels (the serve and eval phases
+     their forwards, the train phases their backwards, the cycles K1-K6,
+     the deploy phase K4, the SphereNet phases K1-K3 and the dense route),
+     prints the kernels' JSON line (launch counts from every phase,
+     errors, times, bounds; ResNet-50's and SphereNet-20's train steps in
+     `resnet50_step` and `spherenet20_step`), the card line, and last the
+     result line.
 Each phase raises on failure. Per-shape results also go to
 chiprun_out/chip_smoke.json.
 """
@@ -432,12 +445,15 @@ def fused_chain_phase(torch, dev, name, hw, cin, cout, dtype_name,
 
 def _conv_inputs(torch, dev, hw, cin, cout, dt, seed, batch=BATCH, k=3,
                  hwo=None):
+    """(generator, x, w, g) of a conv; hw and hwo (the output grid, hw by
+    default) are a side or an (H, W) pair."""
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn((batch, hw, hw, cin), generator=g).to(dev, dt)
+    hw = (hw, hw) if isinstance(hw, int) else tuple(hw)
+    x = torch.randn((batch, *hw, cin), generator=g).to(dev, dt)
     w = (torch.randn((k, k, cin, cout), generator=g)
          * (2.0 / (k * k * cout)) ** 0.5).to(dev)
-    hwo = hw if hwo is None else hwo
-    gy = (torch.randn((batch, hwo, hwo, cout), generator=g) * 0.1).to(dev, dt)
+    hwo = hw if hwo is None else (hwo, hwo) if isinstance(hwo, int) else hwo
+    gy = (torch.randn((batch, *hwo, cout), generator=g) * 0.1).to(dev, dt)
     return g, x, w, gy
 
 
@@ -661,38 +677,42 @@ def _resnet_pads(k, stride):
     return {7: ((3, 3), (3, 3)), 3: 1, 1: "SAME"}[k]
 
 
-def resnet_conv_rows(torch, dev, name, hw, k, stride, cin, cout, per_step):
-    """K1, K2 (not at the stem, whose input is the image) and K3 at one
-    ResNet-50 geometry, bf16 binary at batch 32, each against its plain
-    version with two launches giving the same bits. No ResNet-50 geometry
-    is on the conv GEMM route (128 % W != 0, or stride 2), so K1 and K2
-    must take the earlier kernels; K3 takes the im2col route where
-    kh*kw*Cin <= 64 (the 1x1 convs over 64 channels: its im2col kernel
-    alone in a `masked_conv_im2col` row) and the earlier kernel elsewhere
-    (the stem's K = 147 among them). Besides the CUDA-event and profiler
-    times, cuDNN's product alone on the pre-selected weight
-    (`cudnn_device_ms`)."""
+def conv_geometry_rows(torch, dev, arch, batch, name, hw, k, stride, pad,
+                       cin, cout, per_step, with_dx=True):
+    """K1, K2 (with_dx: not at a stem, whose input is the image) and K3 at
+    one conv geometry of a model (input (H, W), kernel k, stride, padding
+    `pad` as the model gives it), bf16 binary, each against its plain
+    version with two launches giving the same bits. Used for the ResNet-50
+    and SphereNet-20 geometries, none of which is on the conv GEMM route
+    (128 % W != 0, or stride 2), so K1 and K2 must take the earlier
+    kernels; K3 takes the im2col route where kh*kw*Cin <= 64 (the 1x1 convs
+    over 64 channels, SphereNet's 3x3 stem: its im2col kernel alone in a
+    `masked_conv_im2col` row) and the earlier kernel elsewhere; K3 is held
+    against its plain version summed in f64 (`f32_plain_max_abs_err`: the
+    kernel against the f32 plain version, reported). Besides the
+    CUDA-event and profiler times, cuDNN's product alone on the
+    pre-selected weight (`cudnn_device_ms`)."""
     from cpg_tpu_torch.ops import masked_conv as mc
     from cpg_tpu_torch.ops import masked_matmul as mm
     from cpg_tpu_torch.ops.conv import conv2d_nhwc, out_size, resolve_padding
     from cpg_tpu_torch.ops.masked import effective_kernel
 
-    dt, n = torch.bfloat16, RESNET_BATCH
-    pad = _resnet_pads(k, stride)
-    pt, pb, pl, pr = resolve_padding(pad, hw, hw, k, k, stride)
-    ho = out_size(hw, k, stride, pt, pb)
+    dt, n = torch.bfloat16, batch
+    h, wd = hw
+    pt, pb, pl, pr = resolve_padding(pad, h, wd, k, k, stride)
+    ho, wo = out_size(h, k, stride, pt, pb), out_size(wd, k, stride, pl, pr)
     gen, x, w, gy = _conv_inputs(torch, dev, hw, cin, cout, dt, SEED + 9,
-                                 n, k, ho)
+                                 n, k, (ho, wo))
     own = torch.randint(0, 4, w.shape, generator=gen, dtype=torch.int8).to(dev)
     pm = (torch.randn(w.shape, generator=gen) * 1e-2).to(dev)
     if mc.conv_route(x, w, stride, pad):
-        raise AssertionError(f"resnet50 {name}: on the conv GEMM route")
+        raise AssertionError(f"{arch} {name}: on the conv GEMM route")
     w_sel = effective_kernel(w, own, pm, 2).to(dt)
     xt, gt = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
     elt, n_w = 2, w.numel()
-    flops = 2.0 * n * ho * ho * k * k * cin * cout
-    common = dict(layer=name, dtype="bfloat16", mode="binary", arch="resnet50",
-                  shape=[n, hw, hw, cin, cout], kernel_size=k, stride=stride,
+    flops = 2.0 * n * ho * wo * k * k * cin * cout
+    common = dict(layer=name, dtype="bfloat16", mode="binary", arch=arch,
+                  shape=[n, h, wd, cin, cout], kernel_size=k, stride=stride,
                   per_step=per_step)
 
     def pad_x():
@@ -705,15 +725,15 @@ def resnet_conv_rows(torch, dev, name, hw, k, stride, cin, cout, per_step):
     cudnn = lambda: conv2d_nhwc(x, w_sel, stride, (pt, pb, pl, pr))
     library = lambda: conv2d_nhwc(
         x, effective_kernel(w, own, pm, 2).to(dt), stride, (pt, pb, pl, pr))
-    err = compare(twice(torch, kern, f"resnet50 masked_conv {name}"), plain(),
-                  "bfloat16", f"resnet50 masked_conv {name}")
+    err = compare(twice(torch, kern, f"{arch} masked_conv {name}"), plain(),
+                  "bfloat16", f"{arch} masked_conv {name}")
     b_ms, b_by = bound(x.numel() * elt + 9 * n_w + gy.numel() * elt, flops,
                        "bfloat16")
     rows.append(dict(kernel="masked_conv_fwd", **common, route="k1",
                      max_abs_err=err, **timed(kern, plain, library),
                      cudnn_device_ms=device_ms(cudnn), bound_ms=b_ms,
                      bound_by=b_by))
-    if name != "stem_7x7s2":
+    if with_dx:
         kern = lambda: mc.masked_conv2d_bwd_dx(gy, x, w, own, pm, 2, stride,
                                                pad)
         plain = lambda: mc.masked_conv2d_bwd_dx_plain(gy, x, w, own, pm, 2,
@@ -721,19 +741,20 @@ def resnet_conv_rows(torch, dev, name, hw, k, stride, cin, cout, per_step):
 
         def cudnn():
             dxp = torch.nn.grad.conv2d_input(
-                (n, cin, hw + pt + pb, hw + pl + pr),
+                (n, cin, h + pt + pb, wd + pl + pr),
                 w_sel.permute(3, 2, 0, 1), gt, stride)
-            return dxp[:, :, pt:pt + hw, pl:pl + hw]
+            return dxp[:, :, pt:pt + h, pl:pl + wd]
 
         def library():
             dxp = torch.nn.grad.conv2d_input(
-                (n, cin, hw + pt + pb, hw + pl + pr),
+                (n, cin, h + pt + pb, wd + pl + pr),
                 effective_kernel(w, own, pm, 2).to(dt).permute(3, 2, 0, 1),
                 gt, stride)
-            return dxp[:, :, pt:pt + hw, pl:pl + hw]
+            return dxp[:, :, pt:pt + h, pl:pl + wd]
 
-        err = compare(twice(torch, kern, f"resnet50 masked_conv_bwd_dx {name}"),
-                      plain(), "bfloat16", f"resnet50 masked_conv_bwd_dx {name}")
+        err = compare(twice(torch, kern, f"{arch} masked_conv_bwd_dx {name}"),
+                      plain(), "bfloat16",
+                      f"{arch} masked_conv_bwd_dx {name}")
         rows.append(dict(kernel="masked_conv_bwd_dx", **common, route="k2",
                          max_abs_err=err, **timed(kern, plain, library),
                          cudnn_device_ms=device_ms(cudnn), bound_ms=b_ms,
@@ -748,28 +769,54 @@ def resnet_conv_rows(torch, dev, name, hw, k, stride, cin, cout, per_step):
         return (torch.where(own == 2, G, 0.0),
                 torch.where((own > 0) & (own < 2), G * w, 0.0))
 
-    got = twice(torch, kern, f"resnet50 masked_conv_bwd_dw {name}")
-    want = plain()
+    # held against the plain version summed in f64: at SphereNet's
+    # 688,128-pixel reductions the f32 plain version is itself 1.1e-4 of
+    # max|G| off (`f32_plain_max_abs_err`), the kernel 1.4e-5 (my chip
+    # run, PR 13)
+    got = twice(torch, kern, f"{arch} masked_conv_bwd_dw {name}")
+    want = mc.masked_conv2d_bwd_dw_plain(gy, x, w, own, 2, stride, pad,
+                                         acc_dtype=torch.float64)
     err = max(compare(got[0], want[0], "float32",
-                      f"resnet50 masked_conv_bwd_dw dw {name}", rel=SUM_TOL),
+                      f"{arch} masked_conv_bwd_dw dw {name}", rel=SUM_TOL),
               compare(got[1], want[1], "float32",
-                      f"resnet50 masked_conv_bwd_dw dpm {name}", rel=SUM_TOL))
+                      f"{arch} masked_conv_bwd_dw dpm {name}", rel=SUM_TOL))
+    f32 = plain()
+    f32_err = max(float((u - v).abs().max()) for u, v in zip(got, f32))
     b_ms, b_by = bound(x.numel() * elt + gy.numel() * elt + 13 * n_w, flops,
                        "bfloat16")
     extra, route = {}, "k3"
     if mc.im2col_route(x, w):
         route, kk = "im2col+wgmma", k * k * cin
-        plan = mm.wgrad_plan(n * ho * ho, kk, cout, mm._sms(0))
+        plan = mm.wgrad_plan(n * ho * wo, kk, cout, mm._sms(0))
         extra = wgrad_cols(kern, plan, kk, cout)
         im2col = im2col_row(torch, x, -(-kk // 8) * 8, common, k, stride,
                             (pt, pb, pl, pr))
     rows.append(dict(kernel="masked_conv_bwd_dw", **common, route=route,
-                     max_abs_err=err, **timed(kern, plain, library),
+                     max_abs_err=err, f32_plain_max_abs_err=f32_err,
+                     **timed(kern, plain, library),
                      cudnn_device_ms=device_ms(cudnn), bound_ms=b_ms,
                      bound_by=b_by, **extra))
     if extra:
         rows.append(im2col)
     return rows
+
+
+# SphereNet-20 at width 1.0, 112x96, batch 256 (the face preset): every
+# distinct masked-conv geometry of a train step (name, input (H, W),
+# stride, Cin, Cout, convs of that geometry in one forward: 20 in all;
+# every conv 3x3 with padding 1), and fc5 (M, K, N)
+SPHERE_BATCH = 256
+SPHERE_CONV_SHAPES = [
+    ("stem_s2", (112, 96), 2, 3, 64, 1),
+    ("down2_s2", (56, 48), 2, 64, 128, 1),
+    ("down3_s2", (28, 24), 2, 128, 256, 1),
+    ("down4_s2", (14, 12), 2, 256, 512, 1),
+    ("unit1", (56, 48), 1, 64, 64, 2),
+    ("unit2", (28, 24), 1, 128, 128, 4),
+    ("unit3", (14, 12), 1, 256, 256, 8),
+    ("unit4", (7, 6), 1, 512, 512, 2),
+]
+SPHERE_FC5 = ("sphere_fc5", SPHERE_BATCH, 7 * 6 * 512, 512)
 
 
 def flash_phases(torch, dev, name, n, t, h, hd, causal, dtype_name, per_step):
@@ -980,16 +1027,24 @@ def dense_phases(torch, dev, name, m, kd, nd, dtype_name, mode, per_step):
     return rows
 
 
+# the forward kwargs of build_state's two tasks: SphereNet-20's as the face
+# experiment gives them (task 1 the CASIA task's AngleLinear head, task 2
+# an expression task's linear head)
+TASK_KWARGS = {"spherenet20": ({"head_type": "angle"},
+                               {"head_type": "linear"})}
+
+
 def build_state(torch, dev, arch="vgg16_bn_cifar"):
     from cpg_tpu_torch.core.pruner import one_shot_prune
     from cpg_tpu_torch.train.sequence import init_state, start_task
 
+    kw1, kw2 = TASK_KWARGS.get(arch, (None, None))
     g = torch.Generator().manual_seed(SEED)
     state = init_state(arch, g, width_mult=1.0, device=dev)
-    start_task(state, "task1", 5, g)
+    start_task(state, "task1", 5, g, model_kwargs=kw1)
     state.shared, state.ownership = one_shot_prune(state.shared,
                                                    state.ownership, 1, 0.5)
-    start_task(state, "task2", 5, g)
+    start_task(state, "task2", 5, g, model_kwargs=kw2)
     pm = state.tasks[2].piggymask
     for k in pm:  # some entries now fall below the 5e-3 threshold
         pm[k] = pm[k] + (torch.randn(pm[k].shape, generator=g) * 1e-2).to(dev)
@@ -1012,14 +1067,24 @@ def build_state(torch, dev, arch="vgg16_bn_cifar"):
 
 
 def _arch_io(arch):
-    """(input H=W, eval preprocess, train augment, crop pad, batch) of an
-    architecture's serve, eval and train phases."""
+    """((H, W) input, eval preprocess, train augment, its draws(n,
+    generator), batch) of an architecture's serve, eval and train phases:
+    pad-crop and flip draws for CIFAR and ImageNet images, flips alone for
+    the 112x96 face crops."""
+    import torch
+
     from cpg_tpu_torch.data import augment as A
 
     if arch == "resnet50":
-        return (224, A.imagenet_eval_preprocess, A.imagenet_train_augment, 16,
-                RESNET_BATCH)
-    return 32, A.cifar_eval_preprocess, A.cifar_train_augment, 4, BATCH
+        return ((224, 224), A.imagenet_eval_preprocess,
+                A.imagenet_train_augment,
+                lambda n, g: A.crop_flip_draws(n, g, 16), RESNET_BATCH)
+    if arch == "spherenet20":
+        return ((112, 96), A.face_eval_preprocess, A.face_train_augment,
+                lambda n, g: torch.randint(0, 2, (n,), generator=g).bool(),
+                SPHERE_BATCH)
+    return ((32, 32), A.cifar_eval_preprocess, A.cifar_train_augment,
+            lambda n, g: A.crop_flip_draws(n, g, 4), BATCH)
 
 
 def resnet_serve_phase(torch, dev, state, counts):
@@ -1145,14 +1210,67 @@ def vit_serve_phase(torch, dev, state):
     return max(errs), {"bf16": {"p50_ms": p50 * 1e3, "img_per_s": 256 / p50}}
 
 
+def sphere_serve_phase(torch, dev, state, counts):
+    """bf16 SphereNet-20 server through export -> load against the f32
+    server (both serve precomputed effective weights, as `cpg_tpu`'s, so a
+    forward launches no port kernel): requests of 1, 8, 37, 64 and 256
+    rows of both tasks (task 1 answers its AngleLinear head's cos part,
+    task 2 its linear head) and one mixed list, at the bf16 tolerance; p50
+    and img/s at buckets 64 and 256."""
+    from cpg_tpu_torch.data.augment import face_eval_preprocess as prep
+    from cpg_tpu_torch.serve import TaskServer
+
+    rng = np.random.RandomState(SEED + 16)
+    ref = TaskServer(state, prep, compute_dtype=torch.float32, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        TaskServer(state, prep, compute_dtype=torch.bfloat16,
+                   device=dev).export(tmp)
+        srv = TaskServer.load(tmp, prep, device=dev)
+    srv.warmup()
+    errs = []
+    for n in (1, 8, 37, 64, 256):
+        x = rng.randint(0, 256, (n, 112, 96, 3)).astype(np.uint8)
+        for tid in (1, 2):
+            got = torch.from_numpy(srv.predict(tid, x))
+            want = torch.from_numpy(ref.predict(tid, x))
+            if got.shape != (n, 5):
+                raise AssertionError(f"spherenet20 serve: shape "
+                                     f"{tuple(got.shape)}")
+            errs.append(compare(got, want, "bfloat16",
+                                f"spherenet20 serve task {tid} {n} rows"))
+    reqs = [(1 + i % 2, rng.randint(0, 256, (112, 96, 3)).astype(np.uint8))
+            for i in range(12)]
+    for i, (got, want) in enumerate(zip(srv.predict_mixed(reqs),
+                                        ref.predict_mixed(reqs))):
+        errs.append(compare(torch.from_numpy(got), torch.from_numpy(want),
+                            "bfloat16", f"spherenet20 predict_mixed {i}"))
+    before = counts.read()
+    srv.predict(2, rng.randint(0, 256, (8, 112, 96, 3)).astype(np.uint8))
+    one = {k: v - before[k] for k, v in counts.read().items()}
+    if any(one.values()):
+        raise AssertionError(f"spherenet20 serve: one forward launched {one}")
+    lat = {}
+    for n in (64, 256):
+        x = rng.randint(0, 256, (n, 112, 96, 3)).astype(np.uint8)
+        lat[f"bf16_b{n}"] = _serve_latency(srv, x, reps=10)
+        lat[f"f32_b{n}"] = _serve_latency(ref, x, reps=10)
+    return max(errs), lat
+
+
 # the kernel flags of each architecture's eval and train phases
 KERNEL_FLAGS = {"vgg16_bn_cifar": dict(use_pallas_conv=True,
                                        use_fused_chain=True),
                 "resnet50": dict(use_pallas_conv=True, use_fused_chain=True),
-                "vit_cifar": dict(use_pallas=True, flash_attention=True)}
+                "vit_cifar": dict(use_pallas=True, flash_attention=True),
+                "spherenet20": dict(use_pallas_conv=True, use_pallas=True)}
 # launches of one masked eval step with the kernel flags (ResNet-50: its 40
-# masked convs and 13 fused seams, no other kernel)
-EVAL_LAUNCHES = {"resnet50": {"masked_conv_fwd": 40, "fused_chain_fwd": 13}}
+# masked convs and 13 fused seams; SphereNet-20: its 20 masked convs, all
+# off the conv GEMM route, and fc5 on the dense route, a select pass and
+# the TN GEMM; no other kernel)
+EVAL_LAUNCHES = {"resnet50": {"masked_conv_fwd": 40, "fused_chain_fwd": 13},
+                 "spherenet20": {"masked_conv_fwd": 20,
+                                 "masked_matmul_fwd": 1,
+                                 "masked_matmul_select": 1}}
 
 
 def eval_phase(torch, dev, state, counts):
@@ -1162,9 +1280,10 @@ def eval_phase(torch, dev, state, counts):
     model_fn, _ = get_model(state.arch)
     hw, prep, _, _, n = _arch_io(state.arch)
     kw = dict(num_classes=5, mult=state.width_mult, has_piggymask=True,
-              preprocess_fn=prep, device=dev)
+              preprocess_fn=prep, model_kwargs=state.forward_kwargs(2),
+              device=dev)
     rng = np.random.RandomState(SEED + 2)
-    x = rng.randint(0, 256, (n, hw, hw, 3)).astype(np.uint8)
+    x = rng.randint(0, 256, (n, *hw, 3)).astype(np.uint8)
     y = rng.randint(0, 5, (n,))
     t = state.tasks[2]
     args = (state.shared, t.piggymask, t.private, t.bn_state, state.ownership,
@@ -1207,12 +1326,20 @@ TRAIN_LAUNCHES = {
                  "masked_conv_bwd_dw": 40, "masked_conv_im2col": 5,
                  "fused_chain_fwd": 13, "fused_chain_bwd_dx": 13,
                  "fused_chain_bwd_dw": 13},
+    # SphereNet-20: 20 masked convs (no dx for the stem; its K3 over im2col
+    # patches, K = 27) and fc5 on the dense route (a select pass before the
+    # forward and dx GEMMs, K3 on the wgrad GEMM)
+    "spherenet20": {"masked_conv_fwd": 20, "masked_conv_bwd_dx": 19,
+                    "masked_conv_bwd_dw": 20, "masked_conv_im2col": 1,
+                    "masked_matmul_fwd": 1, "masked_matmul_bwd_dx": 1,
+                    "masked_matmul_bwd_dw": 1, "masked_matmul_select": 2},
 }
 TRAIN_STEPS = 3
 # (batch sizes timed, steps a timed round): the first batch is also the
 # compared steps'; bench.py's VGG16-BN batch is 1024, the finegrained
 # preset's 32
-TRAIN_TIMING = {"resnet50": ((RESNET_BATCH, 128), 5)}
+TRAIN_TIMING = {"resnet50": ((RESNET_BATCH, 128), 5),
+                "spherenet20": ((SPHERE_BATCH,), 5)}
 TRAIN_TIMING_DEFAULT = ((BATCH, 1024), 10)
 # Tolerances of the kernel step (bf16) against the default step (bf16). The
 # two round at different points: the default step's cuDNN convolutions
@@ -1254,12 +1381,12 @@ def train_phase(torch, dev, state, counts):
     step, and the kernel step in f32 against the f32 default step. Returns
     the comparison, the per-step launches and the timings."""
     from cpg_tpu_torch.cli import EXPERIMENT_PRESETS
-    from cpg_tpu_torch.data.augment import crop_flip_draws
     from cpg_tpu_torch.models import get_model
+    from cpg_tpu_torch.train.losses import make_angle_loss
     from cpg_tpu_torch.train.step import TrainConfig, make_train_step
 
     model_fn, _ = get_model(state.arch)
-    hw, _, augment, pad, _ = _arch_io(state.arch)
+    hw, _, augment, draw_fn, _ = _arch_io(state.arch)
     timing_batches, round_steps = TRAIN_TIMING.get(state.arch,
                                                    TRAIN_TIMING_DEFAULT)
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -1270,12 +1397,27 @@ def train_phase(torch, dev, state, counts):
         base.ownership[k] = own.masked_fill(sel, 0)
         base.shared[k] = base.shared[k].masked_fill(sel, 0.0)
     n_free = sum(int((o == 0).sum()) for o in base.ownership.values())
+    step_kw = {}
+    if state.arch == "spherenet20":
+        # task 2 trains an AngleLinear head under the annealed A-Softmax
+        # loss, so that the loss's backward runs over the kernels (the face
+        # phase trains the linear head of the expression task)
+        t2 = base.tasks[2]
+        emb = base.shared["fc5/kernel"].shape[1]
+        t2.private = {k: v for k, v in t2.private.items()
+                      if not k.startswith("classifier/")}
+        t2.private["classifier_angle/kernel"] = (
+            torch.randn((emb, 5), generator=gen) * (2.0 / (emb + 5)) ** 0.5
+        ).to(dev)
+        t2.meta = {"model_kwargs": {"head_type": "angle"}}
+        step_kw = dict(loss_fn=make_angle_loss(),
+                       model_kwargs={"head_type": "angle"})
 
     def batch(n):
-        x = torch.randint(0, 256, (n, hw, hw, 3), generator=gen,
+        x = torch.randint(0, 256, (n, *hw, 3), generator=gen,
                           dtype=torch.uint8).to(dev)
         y = torch.randint(0, 5, (n,), generator=gen).to(dev)
-        return x, y, crop_flip_draws(n, gen, pad)
+        return x, y, draw_fn(n, gen)
 
     batches = [batch(timing_batches[0]) for _ in range(TRAIN_STEPS)]
 
@@ -1289,7 +1431,7 @@ def train_phase(torch, dev, state, counts):
                           **(KERNEL_FLAGS[state.arch] if kernels else {}))
         step, (opt_w, opt_pm) = make_train_step(
             model_fn, num_classes=5, mult=base.width_mult, has_piggymask=True,
-            cfg=cfg, augment_fn=augment, device=dev)
+            cfg=cfg, augment_fn=augment, device=dev, **step_kw)
         carry = [st.shared, task.piggymask, task.private, task.bn_state,
                  opt_w.init({"shared": st.shared, "private": task.private}),
                  opt_pm.init(task.piggymask)]
@@ -1846,6 +1988,240 @@ def finegrained_phase(torch, dev, counts, card):
     return out, launched
 
 
+FACE_DIR = os.path.join("build", "smoke_face")
+FACE_BATCH = 128
+FACE_MULT = 1.0
+
+
+def _embeddings(torch, st, x, dev):
+    """Task 1's embedding (head_type 'none') and AngleLinear outputs of a
+    state on x, with cuDNN deterministic."""
+    from cpg_tpu_torch.data.augment import face_eval_preprocess as prep
+    from cpg_tpu_torch.inference import predict
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        emb = predict(st, 1, x, prep, device=dev,
+                      model_kwargs={"head_type": "none"})
+        return [emb, *predict(st, 1, x, prep, device=dev)]
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def face_phase(torch, dev, counts, card):
+    """`python -m cpg_tpu_torch sequence --experiment face` through cli.main
+    at full width (the synthetic CASIA identities under the A-Softmax loss,
+    then the expression task with its linear head, which misses the
+    unreachable goal 1.01 and grows once to 1.5) with both kernel flags
+    (`--use-pallas-conv --use-pallas`), then: the summary's LFW
+    verification present and finite; check_state at every task boundary;
+    task 1's embedding and AngleLinear outputs bit-equal across task 2's
+    compaction (its `.pick` checkpoint against the final one), and across
+    the growth within the growth audit's bound (max|diff| and bit equality
+    reported); the growth audit; a second run that resumes every task and
+    gives the same state bit for bit; `export` bf16 and int8 (calibrated),
+    `serve` on both at bucket 64 (p50, img/s), every int8 product of a
+    forward bit-equal to `int8.int_mm_plain`; `export-torch` ->
+    `import-torch --arch spherenet20` bit for bit. Returns the results and
+    the launches of the first run."""
+    from cpg_tpu_torch.core.invariants import check_state
+    from cpg_tpu_torch.data.augment import face_eval_preprocess as prep
+    from cpg_tpu_torch.serve import TaskServer
+    from cpg_tpu_torch.train import sequence as seq_mod
+    from cpg_tpu_torch.train.manager import Manager
+    from cpg_tpu_torch.utils.checkpoint import load_state
+
+    shutil.rmtree(FACE_DIR, ignore_errors=True)
+    os.makedirs(FACE_DIR)
+    out = {}
+    try:
+        goals = os.path.join(FACE_DIR, "goals.json")
+        with open(goals, "w") as f:
+            json.dump({"expressions": 1.01}, f)
+        ck = os.path.join(FACE_DIR, "ck")
+        argv = ["sequence", "--experiment", "face", "--num-tasks", "2",
+                "--use-pallas-conv", "--use-pallas",
+                "--finetune-epochs", "1", "--prune-epochs", "1",
+                "--retrain-epochs", "1", "--prune-ratios", "0.5",
+                "--batch-size", str(FACE_BATCH), "--goals-file", goals,
+                "--network_width_multiplier", str(FACE_MULT),
+                "--growth-step", str(FACE_MULT / 2),
+                "--max_allowed_network_width_multiplier", str(FACE_MULT * 1.5),
+                "--checkpoint-dir", ck,
+                "--jsonl", os.path.join(FACE_DIR, "phases.jsonl")]
+        runs = []
+        orig_run = seq_mod.run_sequence
+
+        def recorded(*a, **k):
+            runs.append(orig_run(*a, **k))
+            return runs[-1]
+
+        keep = seq_mod.remove_after_save
+        seq_mod.run_sequence = recorded
+        seq_mod.remove_after_save = lambda path: None
+        spent = {}
+        undo = [_timed(torch, spent, owner, attr, label)
+                for owner, attr, label in (
+                    (Manager, "eval", "eval"),
+                    (Manager, "__init__", "manager_setup"),
+                    (seq_mod, "snapshot", "snapshot"),
+                    (seq_mod, "_restore", "restore"),
+                    (seq_mod, "save_state", "checkpoint_save"),
+                    (seq_mod, "start_task", "start_task"),
+                    (seq_mod, "_growth_audit", "growth_and_audit"))]
+        try:
+            torch.cuda.synchronize()
+            counts.reset()
+            t0 = time.perf_counter()
+            rc, summary = _cli(argv)
+            torch.cuda.synchronize()
+            out["wall_s"] = time.perf_counter() - t0
+            launched = counts.read()
+            for u in undo:
+                u()
+            undo = []
+            trained = []
+            orig_train = Manager.train
+            Manager.train = lambda *a, **k: trained.append(1)
+            try:
+                rc2, summary2 = _cli(argv)
+            finally:
+                Manager.train = orig_train
+        finally:
+            seq_mod.run_sequence = orig_run
+            seq_mod.remove_after_save = keep
+            for u in undo:
+                u()
+        state, reports = runs[0]
+        if rc != 0 or rc2 != 0 or [t["grew"] for t in summary["tasks"]] \
+                != [0, 1] or summary["final_width_mult"] != FACE_MULT * 1.5:
+            raise AssertionError(f"face: sequence {rc} {summary}")
+        lfw = summary.get("lfw_verification") or {}
+        if not (np.isfinite(lfw.get("acc", np.nan))
+                and np.isfinite(lfw.get("std", np.nan))
+                and lfw.get("n_pairs") == 200):
+            raise AssertionError(f"face: lfw_verification {lfw}")
+        if trained or not _same_state(torch, runs[1][0], state):
+            raise AssertionError("face: resume did not reproduce the state")
+        out["summary"] = summary
+        out["resumed_summary_equal"] = summary2 == summary
+        with open(os.path.join(FACE_DIR, "phases.jsonl")) as f:
+            out["phases"] = [json.loads(line) for line in f]
+        for ph in out["phases"]:
+            ph["ms_per_step"] = ph["seconds"] / max(ph["steps"], 1) * 1e3
+        loops = sum(ph["seconds"] for ph in out["phases"])
+        out["wall_split_s"] = dict(
+            train_loops_s=loops, **spent,
+            other_s=out["wall_s"] - loops - sum(spent.values()))
+
+        names = {1: "task01_casia", 2: "task02_expressions"}
+
+        def ckpt(tid, suffix=""):
+            return load_state(os.path.join(ck, names[tid] + suffix),
+                              device=dev)
+
+        audits = {}
+        for label, st in (("task1.pick", ckpt(1, ".pick")),
+                          ("task1", ckpt(1)), ("task2.pick", ckpt(2, ".pick")),
+                          ("task2", ckpt(2)), ("final", state)):
+            audits[label] = check_state(st)  # raises on a violation
+        out["check_state"] = audits
+        audit = reports[1].growth_audit
+        if not audit or any(a["max_abs_diff"] > a["bound"] for a in audit):
+            raise AssertionError(f"face: growth audit {audit}")
+        out["growth_audit"] = audit
+
+        # task 1 across task 2's compaction (bit for bit) and its growth
+        x = torch.from_numpy(np.random.RandomState(SEED + 17).randint(
+            0, 256, (16, 112, 96, 3)).astype(np.uint8)).to(dev)
+        before, picked, final_st = (_embeddings(torch, st, x, dev) for st in
+                                    (ckpt(1), ckpt(2, ".pick"), ckpt(2)))
+        for u, v in zip(picked, final_st):
+            if not torch.equal(u, v):
+                raise AssertionError("face: task 1's outputs moved across "
+                                     "task 2's compaction")
+        n = before[0].shape[-1]
+        grow_diff = max(float((v[..., :n] - u).abs().max())
+                        for u, v in zip(before, picked))
+        bound = max(a["bound"] for a in audit)
+        if grow_diff > bound or bool(picked[0][..., n:].any()):
+            raise AssertionError(f"face: task 1's outputs moved by "
+                                 f"{grow_diff} across the growth")
+        out["task1_across_growth"] = {
+            "max_abs_diff": grow_diff, "bound": bound,
+            "bit_equal": all(torch.equal(v[..., :n], u)
+                             for u, v in zip(before, picked))}
+
+        # export bf16 and calibrated int8, serve both at bucket 64
+        final = os.path.join(ck, names[2])
+        rng = np.random.RandomState(SEED + 18)
+        cal = os.path.join(FACE_DIR, "calib.npz")
+        np.savez(cal, x=rng.randint(0, 256, (64, 112, 96, 3))
+                 .astype(np.uint8))
+        xq = rng.randint(0, 256, (64, 112, 96, 3)).astype(np.uint8)
+        req = os.path.join(FACE_DIR, "req.npz")
+        np.savez(req, x=xq)
+        served = {}
+        for q, flags in (("bf16", []), ("int8", ["--int8", "--calibrate",
+                                                 cal])):
+            art = os.path.join(FACE_DIR, f"art_{q}")
+            rc, rep = _cli(["export", "--checkpoint", final, "--out", art,
+                            "--experiment", "face", *flags])
+            if rc != 0 or rep["calibrated_tasks"] != (2 if q == "int8"
+                                                      else 0):
+                raise AssertionError(f"face: export {q} {rc} {rep}")
+            res = os.path.join(FACE_DIR, f"out_{q}.npz")
+            rc, rep = _cli(["serve", "--artifact", art, "--requests", req,
+                            "--task-id", "2", "--out", res, "--experiment",
+                            "face"])
+            if rc != 0 or rep["n"] != 64:
+                raise AssertionError(f"face: serve {q} {rc} {rep}")
+            with np.load(res) as z:
+                served[q] = z["logits"]
+            srv = TaskServer.load(art, prep, device=dev)
+            out[f"serve_{q}_b64"] = _serve_latency(srv, xq, reps=10)
+            if q == "int8":
+                with _Int8Calls() as rec:
+                    srv.predict(2, xq)
+                rows = int8_route_rows(torch, rec.calls, "spherenet20")
+                del rec
+                if sum(r["count"] for r in rows) != 21:
+                    raise AssertionError("face: an int8 forward ran "
+                                         f"{sum(r['count'] for r in rows)} "
+                                         "products, want 21")
+                out["int8_route"] = _route_totals(rows)
+                out["int8_route_rows"] = rows
+            del srv
+        out["int8_vs_bf16"] = dict(zip(("max_abs_diff", "argmax_agree"),
+                                       _int8_bound(torch, served["int8"],
+                                                   served["bf16"],
+                                                   "face: int8 vs bf16")))
+
+        # export-torch -> import-torch
+        pth = os.path.join(FACE_DIR, "ref.pth")
+        back = os.path.join(FACE_DIR, "back")
+        rc, rep = _cli(["export-torch", "--ckpt", final, "--out", pth])
+        rc2, rep2 = _cli(["import-torch", "--ckpt", pth, "--arch",
+                          "spherenet20", "--out", back])
+        a, b = load_state(final, device=dev), load_state(back, device=dev)
+        if b.forward_kwargs(2) != {"head_type": "linear"}:
+            raise AssertionError("face: import-torch lost task 2's linear "
+                                 "head")
+        for tid in b.tasks:
+            b.tasks[tid].meta = a.tasks[tid].meta
+        if rc or rc2 or not _same_state(torch, a, b):
+            raise AssertionError("face: export-torch -> import-torch "
+                                 "changed the state")
+        out["torch_round_trip_bit_equal"] = True
+        print("face spherenet20: " + json.dumps(
+            {k: v for k, v in out.items() if k != "int8_route_rows"})
+            + f" on {card}", flush=True)
+    finally:
+        shutil.rmtree(FACE_DIR, ignore_errors=True)
+    return out, launched
+
+
 # -------------------------------------------------------------- deploy ----
 
 # the deploy phase's two tasks, named as CIFAR-100 superclass tasks so that
@@ -2262,12 +2638,24 @@ def deploy_phase(torch, dev, counts, card):
     return out, launched["bf16"]
 
 
+# the kernels SphereNet-20's eval and train phases must reach
+SPHERE_EVAL_KERNELS = ["masked_conv_fwd", "masked_matmul_fwd",
+                       "masked_matmul_select"]
+SPHERE_TRAIN_KERNELS = ["masked_conv_bwd_dx", "masked_conv_bwd_dw",
+                        "masked_conv_im2col", "masked_matmul_bwd_dx",
+                        "masked_matmul_bwd_dw"]
+# the archs whose kernel rows count in their own train step (the kernels
+# line's `<arch>_step`)
+OWN_STEPS = ("resnet50", "spherenet20")
+
+
 def _per_step(row) -> int:
     """Launches of a phase row's shape in one train step at batch 256: the
     ViT rows say so; a VGG16-BN row's layer runs once a step in bf16 binary
-    (its ternary and f32 rows are extra checks); ResNet-50's rows count in
-    their own step (the kernels line's `resnet50_step`)."""
-    if row.get("arch") == "resnet50":
+    (its ternary and f32 rows are extra checks); ResNet-50's and
+    SphereNet-20's rows count in their own steps (the kernels line's
+    `resnet50_step`, `spherenet20_step`)."""
+    if row.get("arch") in OWN_STEPS:
         return 0
     if "per_step" in row:
         return row["per_step"]
@@ -2322,8 +2710,10 @@ def kernels_line(rows, launched):
     """The kernels JSON line: each kernel's source, the TPU function it
     replaces, its launches over the phases, its largest error and its
     times and bound summed over one train step's shapes (VGG16-BN for
-    the conv kernels, vit_cifar for the rest; ResNet-50's step apart
-    in `resnet50_step`)."""
+    the conv kernels, vit_cifar for the rest; ResNet-50's and
+    SphereNet-20's steps apart in `resnet50_step` and `spherenet20_step`,
+    with the library's product alone: `cudnn_device_ms` for the convs,
+    `gemm_device_ms` for fc5)."""
     # conv K1 and K2: the GEMM route's file (conv2/4/7/10), then the old
     # kernel's (conv0, narrow widths, f32) under "sources"; K3 likewise:
     # the wgrad GEMM's file (conv0 by im2col, conv2/4/7/10, dense bf16),
@@ -2382,7 +2772,13 @@ def kernels_line(rows, launched):
         for r, k in step:
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + k * r["bound_ms"]
         sources = (source,) if isinstance(source, str) else source
-        rn = [(r, r["per_step"]) for r in mine if r.get("arch") == "resnet50"]
+        own_steps = {}
+        for arch in OWN_STEPS:
+            rn = [(r, r["per_step"]) for r in mine if r.get("arch") == arch]
+            if rn:
+                own_steps[f"{arch}_step"] = {key: _step_sum(rn, key) for key in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                    "library_device_ms", "cudnn_device_ms", "gemm_device_ms")}
         kernels.append({
             "name": name, "route": "cuda", "source": sources[0],
             **({"sources": list(sources)} if len(sources) > 1 else {}),
@@ -2396,10 +2792,7 @@ def kernels_line(rows, launched):
             "bound_by": max(by, key=by.get),
             "library_ms": _step_sum(step, "library_ms"),
             "library_device_ms": _step_sum(step, "library_device_ms"),
-            **({"resnet50_step": {
-                key: _step_sum(rn, key) for key in (
-                    "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
-                    "library_device_ms", "cudnn_device_ms")}} if rn else {}),
+            **own_steps,
         })
     return kernels
 
@@ -2459,8 +2852,10 @@ def main() -> int:
                                    "float32", "k5")
     t_resnet = time.perf_counter()
     for name, hw, k, stride, cin, cout, per_step in RESNET_CONV_SHAPES:
-        rows += resnet_conv_rows(torch, dev, name, hw, k, stride, cin, cout,
-                                 per_step)
+        rows += conv_geometry_rows(torch, dev, "resnet50", RESNET_BATCH, name,
+                                   (hw, hw), k, stride, _resnet_pads(k, stride),
+                                   cin, cout, per_step,
+                                   with_dx=name != "stem_7x7s2")
     for name, hw, c, per_step in RESNET_SEAMS:
         seam = [fused_chain_phase(torch, dev, name, hw, c, c, "bfloat16",
                                   "k4", per_step, RESNET_BATCH)]
@@ -2468,6 +2863,16 @@ def main() -> int:
                                        "k5", per_step, RESNET_BATCH)
         rows += [dict(r, arch="resnet50") for r in seam]
     t_resnet = time.perf_counter() - t_resnet
+    t_sphere = time.perf_counter()
+    for name, hw, stride, cin, cout, per_step in SPHERE_CONV_SHAPES:
+        rows += conv_geometry_rows(torch, dev, "spherenet20", SPHERE_BATCH,
+                                   name, hw, 3, stride,
+                                   1 if stride == 2 else "SAME", cin, cout,
+                                   per_step, with_dx=name != "stem_s2")
+    name, m, kd, nd = SPHERE_FC5
+    rows += [dict(r, arch="spherenet20") for r in dense_phases(
+        torch, dev, name, m, kd, nd, "bfloat16", "binary", 1)]
+    t_sphere = time.perf_counter() - t_sphere
     for name, n, t, h, hd, causal, dname, per_step in FLASH_SHAPES:
         rows += flash_phases(torch, dev, name, n, t, h, hd, causal, dname,
                              per_step)
@@ -2482,13 +2887,16 @@ def main() -> int:
     launched = {}  # phase -> kernel -> launches
     results = {}
     one_forward = {}
-    for arch in ("vgg16_bn_cifar", "vit_cifar", "resnet50"):
+    for arch in ("vgg16_bn_cifar", "vit_cifar", "resnet50", "spherenet20"):
         state = build_state(torch, dev, arch)
         torch.cuda.synchronize()
         counts.reset()
         what = "the unfused server"
         if arch == "vit_cifar":
             serve_err, lat = vit_serve_phase(torch, dev, state)
+            what = "the f32 server"
+        elif arch == "spherenet20":
+            serve_err, lat = sphere_serve_phase(torch, dev, state, counts)
             what = "the f32 server"
         elif arch == "resnet50":
             serve_err, lat, one_forward = resnet_serve_phase(torch, dev,
@@ -2524,6 +2932,9 @@ def main() -> int:
                                                              counts, card)
     results["resnet50"]["finegrained"] = fg
     torch.cuda.empty_cache()
+    face, launched["spherenet20/face"] = face_phase(torch, dev, counts, card)
+    results["spherenet20"]["face"] = face
+    torch.cuda.empty_cache()
     # every phase that should reach a kernel did
     need = {"vgg16_bn_cifar/serve": ["fused_chain_fwd"],
             "vgg16_bn_cifar/eval": ["masked_conv_fwd", "masked_conv_select",
@@ -2549,7 +2960,10 @@ def main() -> int:
             "vgg16_bn_cifar/cycle": ["masked_conv_fwd", "masked_conv_bwd_dx",
                                      "masked_conv_bwd_dw", "fused_chain_fwd",
                                      "fused_chain_bwd_dx",
-                                     "fused_chain_bwd_dw"]}
+                                     "fused_chain_bwd_dw"],
+            "spherenet20/eval": SPHERE_EVAL_KERNELS,
+            "spherenet20/train": SPHERE_TRAIN_KERNELS,
+            "spherenet20/face": SPHERE_EVAL_KERNELS + SPHERE_TRAIN_KERNELS}
     for phase, names in need.items():
         for k in names:
             if launched[phase][k] == 0:
@@ -2559,7 +2973,8 @@ def main() -> int:
     kernels = kernels_line(rows, launched)
     wall = time.perf_counter() - t_start
     print(f"wall: {wall:.1f} s after the build ({t_kernels:.1f} s kernel "
-          f"phases, {t_resnet:.1f} s of them ResNet-50's)", flush=True)
+          f"phases, {t_resnet:.1f} s of them ResNet-50's, {t_sphere:.1f} s "
+          f"SphereNet-20's)", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "phases": rows, "results": results,

@@ -19,15 +19,19 @@
 
 The subcommands take `cpg_tpu`'s flags with the same defaults and presets
 (`--arch vit_cifar` swaps the cycle's architecture) and print `cpg_tpu`'s
-JSON. Everything runs on the card unless `--device cpu` is given. Two
-experiments run: cifar100 (VGG16-BN, 20 CIFAR-100 superclass tasks) and
+JSON. Everything runs on the card unless `--device cpu` is given. Three
+experiments run: cifar100 (VGG16-BN, 20 CIFAR-100 superclass tasks),
 finegrained (ResNet-50 at 224 px over CUBS, Cars, Flowers, WikiArt and
 Sketch; `--max-classes` caps the synthetic stand-ins' classes and
-`--pretrained-npz` installs pretrained weights as task 1). Options whose
-modules are not ported yet (the face and textcls experiments,
-`--parallel*`, `--shard-activations`, `--memmap-dir`, `--native-loader`,
-the textcls flags) and the XLA-only `--remat`, `--remat-policy`,
-`--scan-blocks` and `--scoped-vmem-kib` stop with an error naming them.
+`--pretrained-npz` installs pretrained weights as task 1) and face
+(SphereNet-20: CASIA-WebFace identities with the A-Softmax head, then
+expression, gender and age tasks with linear heads on the same trunk; the
+`sequence` summary adds LFW verification through task 1's embedding,
+`lfw_verification`). Options whose modules are not ported yet (the
+textcls experiment, `--parallel*`, `--shard-activations`, `--memmap-dir`,
+`--native-loader`, the textcls flags) and the XLA-only `--remat`,
+`--remat-policy`, `--scan-blocks` and `--scoped-vmem-kib` stop with an
+error naming them.
 Checkpoints are this package's (utils/checkpoint.py).
 
 `serve`: R.npz holds `x` (uint8 NHWC) and, without --task-id, a per-row
@@ -48,8 +52,7 @@ EXPERIMENTS = ["cifar100", "finegrained", "face", "textcls"]
 
 # Per-experiment hyperparameter presets (the reference's shell-loop
 # settings, as `cpg_tpu.cli` records them). Applied by --preset; explicit
-# flags win. face's is kept so the table stays the reference's; that
-# experiment is not ported yet.
+# flags win.
 EXPERIMENT_PRESETS = {
     "cifar100": {        # VGG16-BN, 20 superclass tasks
         "lr": 0.01, "lr_mask": 1e-4, "weight_decay": 4e-5,
@@ -96,8 +99,7 @@ UNPORTED = [
 
 
 # experiments whose modules are not ported yet -> the ROADMAP item
-_LATER_EXPERIMENTS = {"face": "ROADMAP Queue 1, item 8",
-                      "textcls": "ROADMAP Queue 1, item 9"}
+_LATER_EXPERIMENTS = {"textcls": "ROADMAP Queue 1, item 9"}
 
 
 def _refuse_experiment(args):
@@ -105,7 +107,7 @@ def _refuse_experiment(args):
         raise SystemExit(
             f"--experiment {args.experiment} is not ported to cpg_tpu_torch "
             f"yet ({_LATER_EXPERIMENTS[args.experiment]}); this package runs "
-            "cifar100 and finegrained")
+            "cifar100, finegrained and face")
 
 
 def _refuse_unported(args):
@@ -131,6 +133,11 @@ def _experiment_tasks(args):
         tasks = {n: finegrained_task(n, max_classes=args.max_classes, seed=i)
                  for i, n in enumerate(names)}
         arch, aug = "resnet50", A.imagenet_train_augment
+    elif args.experiment == "face":
+        tasks = _face_tasks()
+        if args.num_tasks:
+            tasks = dict(list(tasks.items())[: args.num_tasks])
+        arch, aug = "spherenet20", A.face_train_augment
     else:
         from .data.cifar import task_splits
 
@@ -146,6 +153,27 @@ def _experiment_tasks(args):
                 f"unknown --arch {args.arch!r}; have {sorted(REGISTRY)}")
         arch = args.arch
     return arch, tasks, aug, _prep(args)
+
+
+def _face_tasks():
+    """The face sequence (`cpg_tpu.cli`'s): CASIA-WebFace identities under
+    the A-Softmax loss, then expression (7 classes), gender (2) and age
+    group (5) tasks with linear heads on the compacted face trunk."""
+    from .data.face import casia_task, synthetic_faces
+    from .train.losses import make_angle_loss
+
+    t = casia_task(seed=0)
+    t["loss_fn"] = make_angle_loss()
+
+    def facial_task(nc, seed):
+        fx, fy = synthetic_faces(num_ids=nc, per_id=24, seed=seed)
+        cut = int(len(fx) * 0.85)
+        return {"train_x": fx[:cut], "train_y": fy[:cut] % nc,
+                "test_x": fx[cut:], "test_y": fy[cut:] % nc,
+                "num_classes": nc, "model_kwargs": {"head_type": "linear"}}
+
+    return {"casia": t, "expressions": facial_task(7, 11),
+            "gender": facial_task(2, 12), "age": facial_task(5, 13)}
 
 
 def _common_defaults():
@@ -197,8 +225,8 @@ def _seq_cfg(args):
 
 def _add_common(p):
     p.add_argument("--experiment", default="cifar100", choices=EXPERIMENTS,
-                   help="cifar100 (VGG16-BN) or finegrained (ResNet-50); "
-                        "face and textcls stop with an error")
+                   help="cifar100 (VGG16-BN), finegrained (ResNet-50) or "
+                        "face (SphereNet-20); textcls stops with an error")
     p.add_argument("--arch", default=None,
                    help="override the experiment's default architecture "
                         "(a models.REGISTRY name, e.g. vit_cifar)")
@@ -305,7 +333,8 @@ def _add_device(p):
 
 def _add_experiment(p, help):
     p.add_argument("--experiment", default="cifar100", choices=EXPERIMENTS,
-                   help=help + "; cifar100 and finegrained are ported")
+                   help=help + "; cifar100, finegrained and face are "
+                               "ported")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -407,12 +436,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _prep(args):
-    """The experiment's eval preprocess (face and textcls refused)."""
+    """The experiment's eval preprocess (textcls refused)."""
     from .data import augment as A
 
     _refuse_experiment(args)
     return {"cifar100": A.cifar_eval_preprocess,
-            "finegrained": A.imagenet_eval_preprocess}[args.experiment]
+            "finegrained": A.imagenet_eval_preprocess,
+            "face": A.face_eval_preprocess}[args.experiment]
 
 
 def _serve(args) -> int:
@@ -626,7 +656,8 @@ def _pretrained_state(args, arch):
     private = None
     if any("." in k for k in z):
         conv = {"resnet50": P.convert_torch_resnet50,
-                "vgg16_bn_cifar": P.convert_torch_vgg16_bn}.get(arch)
+                "vgg16_bn_cifar": P.convert_torch_vgg16_bn,
+                "spherenet20": P.convert_torch_spherenet20}.get(arch)
         if conv is None:
             raise SystemExit(f"--pretrained-npz with torch keys: no "
                              f"converter for arch {arch!r}")
@@ -684,13 +715,48 @@ def _cycle(args) -> int:
         augment_fn=aug, preprocess_fn=prep,
         width_mult=args.network_width_multiplier,
         record_dir=args.record_dir, device=args.device, **init_kw)
-    print(json.dumps({
+    summary = {
         "avg_top1": sum(r.final_acc for r in reports) / max(len(reports), 1),
         "final_width_mult": state.width_mult,
         "tasks": [{"name": r.name, "top1": r.final_acc,
                    "ratio": r.chosen_ratio, "grew": r.grew}
-                  for r in reports]}))
+                  for r in reports]}
+    if args.experiment == "face" and state.num_tasks >= 1:
+        summary["lfw_verification"] = _lfw_verification(state, prep,
+                                                        args.device)
+    print(json.dumps(summary))
     return 0
+
+
+def _lfw_verification(state, prep, device):
+    """LFW-protocol verification through task 1's embedding (head_type
+    'none'): the official pairs when `$CPG_DATA_DIR/lfw/pairs.txt` exists
+    (its header's fold count), else `cpg_tpu`'s synthetic stand-in (200
+    pairs of 10 identities). {acc, std, source, n_pairs}."""
+    import os
+
+    from .data.face import (eval_pairs, load_lfw_pairs, make_pairs,
+                            synthetic_faces)
+    from .inference import make_predict_fn
+
+    lfw_root = os.path.join(os.environ.get("CPG_DATA_DIR", ""), "lfw")
+    pairs_txt = os.path.join(lfw_root, "pairs.txt")
+    n_folds = 10
+    if os.path.exists(pairs_txt):
+        x, i1, i2, same = load_lfw_pairs(lfw_root)
+        with open(pairs_txt) as f:
+            head = f.readline().split()
+        n_folds = int(head[0]) if len(head) == 2 else 10
+        source = "lfw"
+    else:
+        x, yid = synthetic_faces(num_ids=10, per_id=8, seed=5)
+        i1, i2, same = make_pairs(x, yid, n_pairs=200, seed=2)
+        source = "synthetic"
+    embed = make_predict_fn(state, 1, preprocess_fn=prep, device=device,
+                            model_kwargs={"head_type": "none"})
+    acc, std = eval_pairs(embed, x, i1, i2, same, n_folds=n_folds)
+    return {"acc": acc, "std": std, "source": source,
+            "n_pairs": int(len(same))}
 
 
 def main(argv=None):

@@ -4,12 +4,13 @@ Same math as `cpg_tpu.data.augment`: eval is x / 255, then per-channel
 (x - mean) / std; CIFAR training first takes a zero-pad-4 random crop and a
 random horizontal flip per sample (the fine-grained 224-px images a pad-16
 one, with ImageNet statistics). The crop indexes the raw 0..255 values, so
-it is exact.
+it is exact. Face crops (112x96) are scaled (x - 127.5) / 128, and in
+training flipped at random, uncropped.
 
 The random draws come from an explicit `torch.Generator`, or are handed in
 as arrays: `rng` may be a `(offsets, flips)` pair, offsets (N, 2) integers
-in [0, 2*pad] (row, column) and flips (N,) booleans, so a test can give the
-port `cpg_tpu`'s own draws.
+in [0, 2*pad] (row, column) and flips (N,) booleans (the face augment:
+the flips alone), so a test can give the port `cpg_tpu`'s own draws.
 """
 
 from __future__ import annotations
@@ -75,3 +76,26 @@ def imagenet_train_augment(x_uint8: torch.Tensor, rng,
 def imagenet_eval_preprocess(x_uint8: torch.Tensor) -> torch.Tensor:
     return normalize(x_uint8.to(torch.float32) / 255.0, IMAGENET_MEAN,
                      IMAGENET_STD)
+
+
+def face_train_augment(x_uint8: torch.Tensor, rng) -> torch.Tensor:
+    """Face crops: (x - 127.5) / 128 and a random horizontal flip per
+    sample (`rng`: a torch.Generator, or the (N,) flips)."""
+    x = (x_uint8.to(torch.float32) - 127.5) / 128.0
+    n = x.shape[0]
+    flips = (torch.randint(0, 2, (n,), generator=rng,
+                           device=rng.device).bool()
+             if isinstance(rng, torch.Generator) else rng)
+    flips = torch.as_tensor(flips, device=x.device).bool().reshape(n, 1, 1, 1)
+    return torch.where(flips, x.flip(2), x)
+
+
+def face_eval_preprocess(x_uint8: torch.Tensor) -> torch.Tensor:
+    return (x_uint8.to(torch.float32) - 127.5) / 128.0
+
+
+AUGMENTS = {
+    "cifar": (cifar_train_augment, cifar_eval_preprocess),
+    "imagenet": (imagenet_train_augment, imagenet_eval_preprocess),
+    "face": (face_train_augment, face_eval_preprocess),
+}

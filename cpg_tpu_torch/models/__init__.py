@@ -1,7 +1,8 @@
 """Model registry (arch name -> (model_fn, default input shape HWC)).
 
-The port carries VGG16-BN, ResNet-50 and the ViT family (`vit_cifar`,
-`vit_b16`); the other `cpg_tpu` architectures come in later slices.
+The port carries VGG16-BN, ResNet-50, SphereNet-20 and the ViT family
+(`vit_cifar`, `vit_b16`); `cpg_tpu`'s `vit_moe_cifar` and `textcls` come in
+a later slice (ROADMAP Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -9,12 +10,14 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 from .resnet import resnet50
+from .spherenet import spherenet20, spherenet_flatten_dims
 from .vgg import vgg16_bn_cifar
 from .vit import vit_b16, vit_cifar
 
 REGISTRY: Dict[str, tuple] = {
     "vgg16_bn_cifar": (vgg16_bn_cifar, (32, 32, 3)),
     "resnet50": (resnet50, (224, 224, 3)),
+    "spherenet20": (spherenet20, (112, 96, 3)),
     "vit_cifar": (vit_cifar, (32, 32, 3)),
     "vit_b16": (vit_b16, (224, 224, 3)),
 }
@@ -23,8 +26,10 @@ REGISTRY: Dict[str, tuple] = {
 # Growth must block-permute those kernels' input axes (core/grow.py), or
 # old-task activations land on the wrong rows. VGG (1x1 after five pools),
 # ResNet-50 (global average pool) and the ViTs flatten trivially;
-# SphereNet's fc5 arrives with its model.
-FLATTEN_DIMS: Dict[str, Dict[str, Tuple[int, int]]] = {}
+# SphereNet-20's fc5 takes the (7, 6, C) flatten of its last stage.
+FLATTEN_DIMS: Dict[str, Dict[str, Tuple[int, int]]] = {
+    "spherenet20": spherenet_flatten_dims(),
+}
 
 
 def register(name: str, fn: Callable, input_shape, flatten_dims=None):

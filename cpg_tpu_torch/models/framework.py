@@ -1,4 +1,5 @@
-"""Functional layer framework for CPG models (VGG, ResNet and ViT subset).
+"""Functional layer framework for CPG models (VGG, ResNet, SphereNet and the
+ViT subset).
 
 The counterpart of `cpg_tpu.models.framework`: a flat parameter dict keyed by
 layer name, split into *shared* sharable kernels (governed by ownership) and
@@ -372,12 +373,27 @@ def head(ctx: Ctx, name: str, x: torch.Tensor, num_classes: int) -> torch.Tensor
     w = ctx.private_param(f"{name}/kernel", (x.shape[-1], num_classes),
                           normal_init(0.01))
     b = ctx.private_param(f"{name}/bias", (num_classes,), _zeros)
-    xf = x.float()
+    return head_product(ctx, x.float(), w) + b
+
+
+def head_product(ctx: Ctx, xf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """xf @ w for a task-private head; under int8 on blocks of HEAD_ROWS
+    rows (see `head`)."""
     if ctx.quant_scales is None:
-        return xf @ w + b
+        return xf @ w
     n = xf.shape[0]
     blocks = F.pad(xf, (0, 0, 0, -n % HEAD_ROWS)).split(HEAD_ROWS)
-    return torch.cat([blk @ w for blk in blocks])[:n] + b
+    return torch.cat([blk @ w for blk in blocks])[:n]
+
+
+def prelu(ctx: Ctx, name: str, x: torch.Tensor) -> torch.Tensor:
+    """PReLU with a task-private slope (initialised to 0.25), computed and
+    returned in f32 as `cpg_tpu`'s; the next sharable layer casts it to
+    the compute dtype."""
+    a = ctx.private_param(f"{name}/slope", (x.shape[-1],),
+                          lambda gen, shape: torch.full(tuple(shape), 0.25))
+    xf = x.float()
+    return torch.where(xf >= 0, xf, a * xf)
 
 
 def maxpool(x: torch.Tensor) -> torch.Tensor:

@@ -101,21 +101,24 @@ def masked_conv2d_bwd_dx_plain(g, x, w, own, pm, task_id, stride: int = 1,
 
 
 def masked_conv2d_bwd_dw_plain(g, x, w, own, task_id, stride: int = 1,
-                               padding="SAME"):
+                               padding="SAME", acc_dtype=torch.float32):
     """Plain version of K3: G = the conv's weight gradient (x and g in x's
-    dtype, f32 sums), then dw = G on own == task, dpm = G * w on
-    0 < own < task, both f32 HWIO."""
+    dtype, sums in `acc_dtype`), then dw = G on own == task, dpm = G * w on
+    0 < own < task, both f32 HWIO. `acc_dtype=torch.float64` gives the
+    exact reference of a long reduction: summed in f32 (cuDNN, TF32 off)
+    over SphereNet's 688,128 pixels a weight, G is 1.1e-4 of max|G| off."""
     kh, kw, cin, cout = w.shape
     pt, pb, pl, pr = resolve_padding(padding, x.shape[1], x.shape[2], kh, kw,
                                      stride)
-    gt = g.to(x.dtype).float().permute(0, 3, 1, 2)
-    xp = F.pad(x.float().permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    gt = g.to(x.dtype).to(acc_dtype).permute(0, 3, 1, 2)
+    xp = F.pad(x.to(acc_dtype).permute(0, 3, 1, 2), (pl, pr, pt, pb))
     G = torch.nn.grad.conv2d_weight(xp, (cout, cin, kh, kw), gt, stride)
     G = G.permute(2, 3, 1, 0)  # OIHW -> HWIO
     tid = int(task_id)
-    zero = torch.zeros((), dtype=torch.float32, device=G.device)
-    dw = torch.where(own == tid, G, zero).contiguous()
-    dpm = torch.where((own > 0) & (own < tid), G * w.float(), zero).contiguous()
+    zero = torch.zeros((), dtype=acc_dtype, device=G.device)
+    dw = torch.where(own == tid, G, zero).float().contiguous()
+    dpm = torch.where((own > 0) & (own < tid), G * w.to(acc_dtype),
+                      zero).float().contiguous()
     return dw, dpm
 
 

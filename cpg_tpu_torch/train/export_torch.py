@@ -8,9 +8,13 @@ multiplier), so a state can be evaluated by the original PyTorch code or
 archived in the format its released checkpoints use. Module names are torchvision
 vgg16_bn's `features.N` Sequential indices (conv, bn, relu triplets and
 maxpool singletons from the cfg list) and torchvision resnet50's
-(`layerL.B.convN`, `layerL.B.downsample.0/.1`); conv tensors go HWIO ->
-OIHW, heads to torch Linear's (out, in). SphereNet-20 comes with its model
-(ROADMAP Queue 1, item 8).
+(`layerL.B.convN`, `layerL.B.downsample.0/.1`) and sphere20a's
+(`conv{s}_{j}`, `relu{s}_{j}`, fc5, fc6); conv tensors go HWIO -> OIHW,
+SphereNet's fc5 rows from the (H, W, C) flatten back to torch's (C, H, W),
+heads to torch Linear's (out, in) except AngleLinear's, which the
+reference keeps (in, out). A SphereNet task with a linear head (the face
+sequence's later tasks; `cpg_tpu`'s export takes only AngleLinear heads)
+is written as a torch Linear, weight and bias.
 """
 
 from __future__ import annotations
@@ -21,9 +25,12 @@ import numpy as np
 
 from ..core.state import CPGState
 from ..models.resnet import TORCH_MODULES
+from ..models.spherenet import _FLAT_HW, TORCH_CONVS, TORCH_PRELUS
 from ..models.vgg import CFG_VGG16
 
-_LATER = {"spherenet20": "ROADMAP Queue 1, item 8"}
+_SPH_CONV_MOD = {f"{base}/kernel": mod for mod, base in TORCH_CONVS.items()}
+_SPH_SLOPE_MOD = {f"{base}/slope": mod for mod, base in TORCH_PRELUS.items()}
+_ARCHS = ("vgg16_bn_cifar", "resnet50", "spherenet20")
 
 
 def _np(t) -> np.ndarray:
@@ -33,6 +40,23 @@ def _np(t) -> np.ndarray:
 def _inv_conv(t) -> np.ndarray:
     """HWIO -> torch OIHW (kernels, ownership masks, piggymasks alike)."""
     return np.transpose(_np(t), (3, 2, 0, 1))
+
+
+def _inv_fc5(t) -> np.ndarray:
+    """(h*w*c, out), flattened NHWC -> torch (out, c*h*w), flattened NCHW
+    (the kernel, its ownership and its piggymasks)."""
+    t = _np(t)
+    h, w = _FLAT_HW
+    c = t.shape[0] // (h * w)
+    return (t.reshape(h, w, c, t.shape[1]).transpose(2, 0, 1, 3)
+            .reshape(c * h * w, t.shape[1]).T)
+
+
+def _sph_conv_mod(key: str):
+    """SphereNet-20 shared key -> (sphere20a module, inverse transform)."""
+    if key == "fc5/kernel":
+        return "fc5", _inv_fc5
+    return _SPH_CONV_MOD[key], _inv_conv
 
 
 def _vgg_mods():
@@ -54,13 +78,17 @@ def _rn_conv_mod(key: str) -> str:
 
 
 def _module_maps(arch: str):
-    """(shared key -> conv module, BN layer -> BN module) for the arch."""
+    """(shared key -> (module, inverse transform), BN layer -> BN module)
+    for the arch."""
     if arch == "resnet50":
-        return _rn_conv_mod, TORCH_MODULES.__getitem__
+        return (lambda key: (_rn_conv_mod(key), _inv_conv),
+                TORCH_MODULES.__getitem__)
+    if arch == "spherenet20":
+        return _sph_conv_mod, None
     conv_mods, bn_mods = _vgg_mods()
 
     def conv_mod(key):
-        return conv_mods[int(key.split("/")[1][len("conv"):])]
+        return conv_mods[int(key.split("/")[1][len("conv"):])], _inv_conv
 
     def bn_mod(base):
         return bn_mods[int(base.split("/")[1][len("bn"):])]
@@ -98,21 +126,18 @@ def export_torch_cpg_checkpoint(state: CPGState) -> Dict:
     the reference Manager leaves them after training the newest task;
     every task's copies, piggymasks and heads ride `shared_layer_info` and
     `classifiers.{i}`, as the reference's save_checkpoint writes them."""
-    if state.arch in _LATER:
+    if state.arch not in _ARCHS:
         raise NotImplementedError(
-            f"torch export of {state.arch} is not ported to cpg_tpu_torch "
-            f"yet ({_LATER[state.arch]})")
-    if state.arch not in ("vgg16_bn_cifar", "resnet50"):
-        raise NotImplementedError(
-            f"torch export supports vgg16_bn_cifar and resnet50; got "
+            f"torch export supports {', '.join(_ARCHS)}; got "
             f"{state.arch!r}")
     conv_mod, bn_mod = _module_maps(state.arch)
 
     sd: Dict[str, np.ndarray] = {}
     masks: Dict[str, np.ndarray] = {}
     for key in sorted(state.shared):
-        sd[f"{conv_mod(key)}.weight"] = _inv_conv(state.shared[key])
-        masks[conv_mod(key)] = _inv_conv(state.ownership[key])
+        mod, inv = conv_mod(key)
+        sd[f"{mod}.weight"] = inv(state.shared[key])
+        masks[mod] = inv(state.ownership[key])
 
     task_ids = sorted(state.tasks)
     sli: Dict[str, Dict] = {}
@@ -131,15 +156,28 @@ def export_torch_cpg_checkpoint(state: CPGState) -> Dict:
                     t.bn_state[f"{base}/mean"])
                 info.setdefault("bn_layer_running_var", {})[mod] = _np(
                     t.bn_state[f"{base}/var"])
+            elif key.endswith("/slope"):
+                info.setdefault("prelu_layer_weight", {})[
+                    _SPH_SLOPE_MOD[key]] = _np(t.private[key])
+            elif key == "fc5/bias":
+                info.setdefault("bias", {})["fc5"] = _np(t.private[key])
         if t.piggymask is not None:
-            info["piggymask"] = {conv_mod(key): _inv_conv(t.piggymask[key])
-                                 for key in sorted(t.piggymask)}
+            pm = {}
+            for key in sorted(t.piggymask):
+                mod, inv = conv_mod(key)
+                pm[mod] = inv(t.piggymask[key])
+            info["piggymask"] = pm
         sli[t.name] = info
-        sd[f"classifiers.{tid - 1}.weight"] = _np(
-            t.private["classifier/kernel"]).T
-        if "classifier/bias" in t.private:
-            sd[f"classifiers.{tid - 1}.bias"] = _np(
-                t.private["classifier/bias"])
+        # per-dataset head: torch Linear (out, in); AngleLinear (in, out)
+        if "classifier_angle/kernel" in t.private:
+            sd[f"classifiers.{tid - 1}.weight"] = _np(
+                t.private["classifier_angle/kernel"])
+        else:
+            sd[f"classifiers.{tid - 1}.weight"] = _np(
+                t.private["classifier/kernel"]).T
+            if "classifier/bias" in t.private:
+                sd[f"classifiers.{tid - 1}.bias"] = _np(
+                    t.private["classifier/bias"])
 
     last = state.tasks[task_ids[-1]]
     for key in sorted(last.private):
@@ -150,6 +188,12 @@ def export_torch_cpg_checkpoint(state: CPGState) -> Dict:
             sd[f"{mod}.bias"] = _np(last.private[f"{base}/bias"])
             sd[f"{mod}.running_mean"] = _np(last.bn_state[f"{base}/mean"])
             sd[f"{mod}.running_var"] = _np(last.bn_state[f"{base}/var"])
+        elif key.endswith("/slope"):
+            sd[f"{_SPH_SLOPE_MOD[key]}.weight"] = _np(last.private[key])
+        elif key == "fc5/bias":
+            sd["fc5.bias"] = _np(last.private[key])
+    if "classifier_angle/kernel" in last.private:
+        sd["fc6.weight"] = _np(last.private["classifier_angle/kernel"])
 
     return {
         "state_dict": sd,

@@ -1,4 +1,6 @@
-"""Classification losses and accuracy (same math as `cpg_tpu.train.losses`)."""
+"""Losses and accuracy (same math as `cpg_tpu.train.losses`): cross-entropy
+for the classification tasks and the annealed A-Softmax loss of the face
+task (SphereFace's AngleLoss, m = 4)."""
 
 from __future__ import annotations
 
@@ -41,3 +43,25 @@ def make_cross_entropy(label_smoothing: float = 0.0):
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logits.argmax(-1) == labels).float().mean()
+
+
+def make_angle_loss(lambda_min=5.0, lambda_base=1500.0, gamma=0.12,
+                    power=1.0):
+    """SphereFace's annealed A-Softmax loss over the AngleLinear head's
+    (cos_theta, phi_theta), both scaled by |x|, the labels and the global
+    step `it`; the margin term anneals in as
+        lambda(it) = max(lambda_min, lambda_base / (1 + gamma*it)^power)
+        f_y = (lambda * cos_y + phi_y) / (1 + lambda)."""
+
+    def loss(out, labels, it):
+        cos_theta, phi_theta = out
+        lamb = max(lambda_min, lambda_base / (1.0 + gamma * float(it)) ** power)
+        onehot = torch.nn.functional.one_hot(
+            labels.long(), cos_theta.shape[-1]).to(cos_theta.dtype)
+        blended = (cos_theta - onehot * cos_theta / (1.0 + lamb)
+                   + onehot * phi_theta / (1.0 + lamb))
+        logp = torch.log_softmax(blended.float(), dim=-1)
+        return -logp.gather(1, labels.long()[:, None]).mean()
+
+    loss.wants_step = True
+    return loss

@@ -1,16 +1,17 @@
 """Reference torch checkpoints and pretrained weights into CPG states
-(VGG16-BN and ResNet-50).
+(VGG16-BN, ResNet-50 and SphereNet-20).
 
 The counterpart of part of `cpg_tpu.train.pretrained`: `load_torch_checkpoint`
-(a .pth/.pth.tar file as {key: ndarray}), `convert_torch_vgg16_bn` and
-`convert_torch_resnet50` (a VGG16-BN or torchvision ResNet-50 state_dict in
-this package's naming), `adopt_pretrained_task1` (pretrained weights as a
-fresh state's task 1: the fine-grained sequence's ImageNet task) and
-`convert_torch_cpg_checkpoint` (the reference's whole CPG checkpoint:
-backbone state_dict + pruner `masks` + per-dataset `shared_layer_info` +
-dataset history + width multiplier -> a multi-task CPGState). Conv tensors
-go torch OIHW -> HWIO, dense ones (out, in) -> (in, out). The SphereNet-20
-converter comes with its model (ROADMAP Queue 1, item 8).
+(a .pth/.pth.tar file as {key: ndarray}), `convert_torch_vgg16_bn`,
+`convert_torch_resnet50` and `convert_torch_spherenet20` (a VGG16-BN,
+torchvision ResNet-50 or sphere20a state_dict in this package's naming),
+`adopt_pretrained_task1` (pretrained weights as a fresh state's task 1: the
+fine-grained sequence's ImageNet task) and `convert_torch_cpg_checkpoint`
+(the reference's whole CPG checkpoint: backbone state_dict + pruner `masks`
++ per-dataset `shared_layer_info` + dataset history + width multiplier ->
+a multi-task CPGState). Conv tensors go torch OIHW -> HWIO, dense ones
+(out, in) -> (in, out); SphereNet's fc5 also has its rows permuted from
+torch's (C, H, W) flatten to this package's (H, W, C).
 """
 
 from __future__ import annotations
@@ -25,9 +26,8 @@ from ..core.state import CPGState, TaskEntry, resolve_device
 from ..models import framework as fw
 from ..models import get_model
 from ..models.resnet import TORCH_MODULES
+from ..models.spherenet import _FLAT_HW, TORCH_CONVS, TORCH_PRELUS
 from ..ops.binarize import PIGGYMASK_INIT
-
-_LATER = {"spherenet20": "ROADMAP Queue 1, item 8"}
 
 
 def adopt_pretrained_task1(state: CPGState, name: str, num_classes: int,
@@ -169,6 +169,39 @@ def convert_torch_resnet50(state_dict: Dict[str, np.ndarray]):
     return shared, private, bn
 
 
+def _t_fc5(t) -> np.ndarray:
+    """SphereNet fc5 (its weight and masks): torch (out, c*h*w), flattened
+    NCHW -> (h*w*c, out), flattened NHWC."""
+    t = np.asarray(t)
+    h, w = _FLAT_HW
+    c = t.shape[1] // (h * w)
+    return (t.T.reshape(c, h, w, t.shape[0]).transpose(1, 2, 0, 3)
+            .reshape(h * w * c, t.shape[0]))
+
+
+def convert_torch_spherenet20(state_dict: Dict[str, np.ndarray]):
+    """sphere20a state_dict (`conv{s}_{j}`, `relu{s}_{j}`, fc5, fc6) ->
+    (shared, private, bn_state={}) in this package's naming
+    (models/spherenet.py): the 20 convs and fc5 shared, the PReLU slopes,
+    fc5's bias and the AngleLinear head (fc6, kept (in, out) as the
+    reference stores it) private. fc5's rows are permuted, not only
+    transposed: torch flattens (c, h, w), this package (h, w, c)."""
+    shared, private = {}, {}
+    for mod, base in TORCH_CONVS.items():
+        shared[f"{base}/kernel"] = _t_conv(state_dict[f"{mod}.weight"])
+    for mod, base in TORCH_PRELUS.items():
+        private[f"{base}/slope"] = np.asarray(state_dict[f"{mod}.weight"])
+    fc5 = np.asarray(state_dict["fc5.weight"])
+    shared["fc5/kernel"] = _t_fc5(fc5)
+    if "fc5.bias" in state_dict:
+        private["fc5/bias"] = np.asarray(state_dict["fc5.bias"])
+    if "fc6.weight" in state_dict:
+        w6 = np.asarray(state_dict["fc6.weight"])
+        private["classifier_angle/kernel"] = (
+            w6 if w6.shape[0] == fc5.shape[0] else w6.T)
+    return shared, private, {}
+
+
 def _vgg16_module_maps(state_dict: Dict[str, np.ndarray]):
     """torch module name -> layer base for the VGG16-BN trunk:
     ({'features.0': 'features/conv0', ...}, {'features.1':
@@ -225,7 +258,8 @@ def _vgg16_adapter(sd):
         "backbone": convert_torch_vgg16_bn(sd),
         "sharable": [(mod, f"{base}/kernel", _t_conv)
                      for mod, base in conv_map.items()],
-        "bn_map": bn_map, "head": "classifier",
+        "bn_map": bn_map, "prelu_map": {}, "bias_map": {},
+        "head": "classifier",
     }
 
 
@@ -242,10 +276,25 @@ def _resnet50_adapter(sd):
         elif k.endswith(".running_mean"):
             bn_map[mod] = base
     return {"backbone": convert_torch_resnet50(sd), "sharable": sharable,
-            "bn_map": bn_map, "head": "classifier"}
+            "bn_map": bn_map, "prelu_map": {}, "bias_map": {},
+            "head": "classifier"}
 
 
-_ADAPTERS = {"vgg16_bn_cifar": _vgg16_adapter, "resnet50": _resnet50_adapter}
+def _sphere20_adapter(sd):
+    """sphere20a's sharable modules (the 20 convs and fc5), PReLUs and
+    fc5's bias; the heads are AngleLinear (`classifier_angle`)."""
+    sharable = [(mod, f"{base}/kernel", _t_conv)
+                for mod, base in TORCH_CONVS.items()]
+    sharable.append(("fc5", "fc5/kernel", _t_fc5))
+    return {"backbone": convert_torch_spherenet20(sd), "sharable": sharable,
+            "bn_map": {},
+            "prelu_map": {mod: f"{base}/slope"
+                          for mod, base in TORCH_PRELUS.items()},
+            "bias_map": {"fc5": "fc5/bias"}, "head": "classifier_angle"}
+
+
+_ADAPTERS = {"vgg16_bn_cifar": _vgg16_adapter, "resnet50": _resnet50_adapter,
+             "spherenet20": _sphere20_adapter}
 
 
 def convert_torch_cpg_checkpoint(ckpt: Dict, arch: str = "vgg16_bn_cifar",
@@ -263,11 +312,14 @@ def convert_torch_cpg_checkpoint(ckpt: Dict, arch: str = "vgg16_bn_cifar",
     'classifiers.{i}.weight/bias' in the state_dict (else the backbone's
     head for the last task). Tasks are numbered 1.. in history order. A
     task (> 1) with no saved piggymask gets the reference init (1e-2 on
-    every entry: it picks every prior weight)."""
-    if arch in _LATER:
-        raise NotImplementedError(
-            f"CPG-checkpoint import of {arch} is not ported to cpg_tpu_torch "
-            f"yet ({_LATER[arch]})")
+    every entry: it picks every prior weight).
+
+    SphereNet-20 (`cpg_tpu`'s adapter): PReLU slopes from
+    `prelu_layer_weight`, fc5's bias from `bias`, and AngleLinear heads
+    stored (in, out). A head with a `classifiers.{i}.bias` is a plain
+    torch Linear (the face sequence's later tasks): it becomes the task's
+    linear `classifier` head, the task's forward kwargs head_type
+    'linear'; `cpg_tpu` reads every SphereNet head as AngleLinear."""
     if arch not in _ADAPTERS:
         raise NotImplementedError(
             f"CPG-checkpoint import supports {sorted(_ADAPTERS)}; got "
@@ -307,14 +359,20 @@ def convert_torch_cpg_checkpoint(ckpt: Dict, arch: str = "vgg16_bn_cifar",
                      ownership=ownership, threshold=threshold)
 
     model_fn, in_shape = get_model(arch)
+    emb = shared["fc5/kernel"].shape[1] if "fc5/kernel" in shared else None
     for i, ds in enumerate(history):
         tid = i + 1
         info = sli.get(ds, {})
         nc = int(_lookup(d2nc, ds, default=0) or 0)
         hw = _lookup(sd, f"classifiers.{i}.weight")
         hb = _lookup(sd, f"classifiers.{i}.bias")
-        if hw is not None:  # torch Linear is (out, in)
-            hw = _as_np(hw).T
+        thead, mkw = head, {}
+        if head == "classifier_angle" and hb is not None:
+            thead, mkw = "classifier", {"head_type": "linear"}
+        if hw is not None:  # torch Linear is (out, in); AngleLinear may be
+            hw = _as_np(hw)  # (in, out) already
+            hw = hw if (thead == "classifier_angle"
+                        and hw.shape[0] == emb) else hw.T
         if nc == 0 and hw is not None:
             nc = hw.shape[1]
         if nc == 0 and tid == len(history) \
@@ -325,7 +383,7 @@ def convert_torch_cpg_checkpoint(ckpt: Dict, arch: str = "vgg16_bn_cifar",
 
         _, priv, bnst = fw.init(torch.Generator().manual_seed(tid), model_fn,
                                 torch.zeros((1, *in_shape)), num_classes=nc,
-                                mult=wm)
+                                mult=wm, **mkw)
         for src, dst, into in (
                 ("bn_layer_weight", "scale", priv),
                 ("bn_layer_bias", "bias", priv),
@@ -335,6 +393,13 @@ def convert_torch_cpg_checkpoint(ckpt: Dict, arch: str = "vgg16_bn_cifar",
                 v = _mod_key(_lookup(info, src, default={}) or {}, mod)
                 if v is not None:
                     into[f"{ours}/{dst}"] = _tensor(v)
+        for src, names in ((("prelu_layer_weight", "prelu"), ad["prelu_map"]),
+                           (("bias", "biases"), ad["bias_map"])):
+            vals = _lookup(info, *src, default={}) or {}
+            for mod, ours in names.items():
+                v = _mod_key(vals, mod)
+                if v is not None:
+                    priv[ours] = _tensor(v)
         if tid == len(history):  # backbone private entries: the active task's
             for k, v in last_private.items():
                 if not k.startswith(head):
@@ -342,9 +407,9 @@ def convert_torch_cpg_checkpoint(ckpt: Dict, arch: str = "vgg16_bn_cifar",
             for k, v in last_bn.items():
                 bnst[k] = _tensor(v)
         if hw is not None:
-            priv[f"{head}/kernel"] = _tensor(hw)
-            if hb is not None:
-                priv[f"{head}/bias"] = _tensor(hb)
+            priv[f"{thead}/kernel"] = _tensor(hw)
+            if hb is not None and thead == "classifier":
+                priv[f"{thead}/bias"] = _tensor(hb)
         elif tid == len(history) and f"{head}/kernel" in last_private:
             priv[f"{head}/kernel"] = _tensor(last_private[f"{head}/kernel"])
             if f"{head}/bias" in last_private:
@@ -363,5 +428,6 @@ def convert_torch_cpg_checkpoint(ckpt: Dict, arch: str = "vgg16_bn_cifar",
             name=str(ds), num_classes=nc, piggymask=pm,
             private={k: v.to(dev) for k, v in priv.items()},
             bn_state={k: v.to(dev) for k, v in bnst.items()},
-            meta={"imported": "torch_cpg_checkpoint"})
+            meta={"imported": "torch_cpg_checkpoint",
+                  **({"model_kwargs": mkw} if mkw else {})})
     return state

@@ -49,6 +49,8 @@ from ..models import framework as fw
 from ..models import get_flatten_dims, get_model
 from ..models.resnet import conv_channels as resnet_conv_channels
 from ..models.resnet import widest_seam as resnet_widest_seam
+from ..models.spherenet import conv_channels as sphere_conv_channels
+from ..models.spherenet import embed_dim as sphere_embed_dim
 from ..models.vgg import conv_channels as vgg_conv_channels
 from ..ops.binarize import init_piggymask
 from ..utils import LOGGER
@@ -91,14 +93,20 @@ def _fresh(rng: torch.Generator) -> torch.Generator:
 
 # archs whose sharable convs scale with the width and reach the conv
 # kernels: (the channel counts of the convs' outputs at a width, the width
-# of the widest fused seam for an (H, W, C) input). VGG16-BN's 13 convs and
-# 8 fused seams, the first at the input's width; ResNet-50's 53 convs and
-# 13 fused seams, the widest after the stride-2 stem and max pool. The
-# ViTs' one conv, the patch embedding, keeps its embed dim at every width.
+# of the widest fused seam for an (H, W, C) input, or None for an arch
+# without seams). VGG16-BN's 13 convs and 8 fused seams, the first at the
+# input's width; ResNet-50's 53 convs and 13 fused seams, the widest after
+# the stride-2 stem and max pool; SphereNet-20's 20 convs (no BatchNorm,
+# so no seam). The ViTs' one conv, the patch embedding, keeps its embed
+# dim at every width.
 _CONV_CHANNELS = {
     "vgg16_bn_cifar": (vgg_conv_channels, lambda in_shape: in_shape[1]),
     "resnet50": (resnet_conv_channels, resnet_widest_seam),
+    "spherenet20": (sphere_conv_channels, None),
 }
+# archs whose sharable dense layers' outputs scale with the width: the
+# output widths at a width (SphereNet-20's fc5)
+_DENSE_OUTPUTS = {"spherenet20": lambda m: [sphere_embed_dim(m)]}
 
 
 def refuse_kernel_widths(cfg: Optional[TrainConfig], arch: str, mults,
@@ -107,28 +115,36 @@ def refuse_kernel_widths(cfg: Optional[TrainConfig], arch: str, mults,
     refuse mid-cycle, each check keyed to the flag and dtype that need it:
     under `use_fused_chain` a fused seam wider than 128 (the fused chain's
     W limit, any dtype) or, in bf16, a channel count off a multiple of 8;
-    under `use_pallas_conv` in bf16, a Cout off a multiple of 4. f32 steps
+    under `use_pallas_conv` in bf16, a Cout off a multiple of 4; under
+    `use_pallas` in bf16, a dense output off a multiple of 4 (off a
+    multiple of 8 the dense route runs the masked conv at 1x1). f32 steps
     have no channel limit, and the masked conv no width limit."""
-    if cfg is None or arch not in _CONV_CHANNELS:
+    if cfg is None:
         return
-    channels, widest_seam = _CONV_CHANNELS[arch]
-    if cfg.use_fused_chain and len(in_shape) == 3 \
-            and widest_seam(in_shape) > 128:
-        raise ValueError(
-            f"input width {in_shape[1]} gives a fused seam "
-            f"{widest_seam(in_shape)} wide, over 128: the fused "
-            "BN+ReLU+conv kernel takes W <= 128 (use_fused_chain)")
+    checks = []  # (flag, needed multiple, channel counts at a width)
+    if arch in _CONV_CHANNELS:
+        channels, widest_seam = _CONV_CHANNELS[arch]
+        fused = cfg.use_fused_chain and widest_seam is not None
+        if fused and len(in_shape) == 3 and widest_seam(in_shape) > 128:
+            raise ValueError(
+                f"input width {in_shape[1]} gives a fused seam "
+                f"{widest_seam(in_shape)} wide, over 128: the fused "
+                "BN+ReLU+conv kernel takes W <= 128 (use_fused_chain)")
+        if fused:
+            checks.append(("use_fused_chain", 8, channels))
+        elif cfg.use_pallas_conv:
+            checks.append(("use_pallas_conv", 4, channels))
+    if cfg.use_pallas and arch in _DENSE_OUTPUTS:
+        checks.append(("use_pallas", 4, _DENSE_OUTPUTS[arch]))
     if cfg.compute_dtype != torch.bfloat16:
         return
-    need, flag = ((8, "use_fused_chain") if cfg.use_fused_chain else
-                  (4, "use_pallas_conv") if cfg.use_pallas_conv else
-                  (None, None))
-    for m in mults if need else ():
-        bad = sorted({c for c in channels(m) if c % need})
-        if bad:
-            raise ValueError(
-                f"width multiplier {m} gives bf16 channel counts {bad}: "
-                f"{flag} needs multiples of {need}")
+    for flag, need, channels in checks:
+        for m in mults:
+            bad = sorted({c for c in channels(m) if c % need})
+            if bad:
+                raise ValueError(
+                    f"width multiplier {m} gives bf16 channel counts {bad}: "
+                    f"{flag} needs multiples of {need}")
 
 
 def growth_ladder(width_mult: float, seq: "SequenceConfig") -> List[float]:
@@ -313,12 +329,15 @@ def _growth_audit(state, data, preprocess_fn, dev, seq, new_mult, grow):
     px = torch.as_tensor(np.asarray(data["test_x"][:8])).to(dev)
     if preprocess_fn is not None:
         px = preprocess_fn(px)
-    before = {tid: predict(state, tid, px, device=dev).cpu()
-              for tid in state.tasks}
+    def probe(tid):  # an angle head's (cos, phi) pair, stacked
+        out = predict(state, tid, px, device=dev)
+        return (torch.stack(out) if isinstance(out, tuple) else out).cpu()
+
+    before = {tid: probe(tid) for tid in state.tasks}
     grow()
     rows = []
     for tid, b in before.items():
-        after = predict(state, tid, px, device=dev).cpu()
+        after = probe(tid)
         maxd = float((b - after).abs().max())
         scale = max(1.0, float(b.abs().max()))
         bound = seq.verify_growth_atol + seq.verify_growth_rtol * scale

@@ -2,13 +2,14 @@
 """Where the port's serving time goes on the card.
 
     python scripts/torch_serve_profile.py
-        [--arch vgg16_bn_cifar|vit_cifar|resnet50]
+        [--arch vgg16_bn_cifar|vit_cifar|resnet50|spherenet20]
         [--bucket 256] [--calls 10]
 
 Builds the seeded two-task state of the architecture at width 1.0 with
 chip_smoke.py's `build_state`, then for the bf16 `TaskServer` (VGG16-BN
-and ResNet-50 at 224 px: without and with the fused chain; vit_cifar: the
-effective-params path, which runs no port kernel): times `predict` on one bucket (host clock, p50
+and ResNet-50 at 224 px: without and with the fused chain; vit_cifar and
+SphereNet-20 at 112x96: the effective-params path, which runs no port
+kernel): times `predict` on one bucket (host clock, p50
 of the calls), and profiles the same calls with torch.profiler: device
 time by kernel and the device's busy share (summed kernel time over wall
 time). Needs one CUDA card. Prints one JSON line and writes it to
@@ -66,7 +67,8 @@ def profile(torch, srv, x, calls):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="vgg16_bn_cifar",
-                    choices=("vgg16_bn_cifar", "vit_cifar", "resnet50"))
+                    choices=("vgg16_bn_cifar", "vit_cifar", "resnet50",
+                             "spherenet20"))
     ap.add_argument("--bucket", type=int, default=256)
     ap.add_argument("--calls", type=int, default=10)
     args = ap.parse_args(argv)
@@ -83,10 +85,11 @@ def main(argv=None) -> int:
     state = build_state(torch, dev, args.arch)
     hw, prep, _, _, _ = _arch_io(args.arch)
     x = np.random.RandomState(1).randint(
-        0, 256, (args.bucket, hw, hw, 3)).astype(np.uint8)
+        0, 256, (args.bucket, *hw, 3)).astype(np.uint8)
     out = {"card": card, "arch": args.arch, "bucket": args.bucket,
            "calls": args.calls}
-    for fused in (False, True) if args.arch != "vit_cifar" else (False,):
+    seams = args.arch not in ("vit_cifar", "spherenet20")
+    for fused in (False, True) if seams else (False,):
         srv = TaskServer(state, prep,
                          compute_dtype=torch.bfloat16, fused_chain=fused,
                          min_bucket=args.bucket, device=dev)

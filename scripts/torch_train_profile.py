@@ -2,15 +2,17 @@
 """Where the port's train-step time goes on the card.
 
     python scripts/torch_train_profile.py
-        [--arch vgg16_bn_cifar|vit_cifar|resnet50] [--batch 256] [--steps 10]
+        [--arch vgg16_bn_cifar|vit_cifar|resnet50|spherenet20] [--batch 256]
+        [--steps 10]
 
 Builds the seeded two-task state of the architecture at width 1.0 with
-chip_smoke.py's `build_state` (its input size, augmentation and crop pad
-from `_arch_io`: 224 px for ResNet-50), then for the bf16 train step of
-task 2 without the kernels (the default step: effective weights,
-cuDNN/cuBLAS, autograd) and with them (chip_smoke.py's `KERNEL_FLAGS`:
-VGG16-BN and ResNet-50 `use_pallas_conv`, `use_fused_chain`; vit_cifar
-`use_pallas`, `flash_attention`): times the step (host clock around steps that end in a
+chip_smoke.py's `build_state` (its input size, augmentation and draws
+from `_arch_io`: 224 px for ResNet-50, 112x96 with flips for SphereNet-20),
+then for the bf16 train step of task 2 without the kernels (the default
+step: effective weights, cuDNN/cuBLAS, autograd) and with them
+(chip_smoke.py's `KERNEL_FLAGS`: VGG16-BN and ResNet-50
+`use_pallas_conv`, `use_fused_chain`; vit_cifar `use_pallas`,
+`flash_attention`; SphereNet-20 `use_pallas_conv`, `use_pallas`): times the step (host clock around steps that end in a
 synchronize), and profiles the same steps with torch.profiler: device time
 by kernel, grouped (the port's kernels, cuDNN/cuBLAS, elementwise and
 reductions, optimizer), the device's busy share (summed kernel time over
@@ -110,7 +112,8 @@ def profile(torch, run, steps):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="vgg16_bn_cifar",
-                    choices=("vgg16_bn_cifar", "vit_cifar", "resnet50"))
+                    choices=("vgg16_bn_cifar", "vit_cifar", "resnet50",
+                             "spherenet20"))
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args(argv)
@@ -120,7 +123,6 @@ def main(argv=None) -> int:
         print("torch_train_profile: needs a CUDA card", file=sys.stderr)
         return 1
     from chip_smoke import KERNEL_FLAGS, _arch_io, build_state, card_line
-    from cpg_tpu_torch.data.augment import crop_flip_draws
     from cpg_tpu_torch.models import get_model
     from cpg_tpu_torch.train.step import TrainConfig, make_train_step
 
@@ -129,11 +131,11 @@ def main(argv=None) -> int:
     state = build_state(torch, dev, args.arch)
     model_fn, _ = get_model(args.arch)
     gen = torch.Generator().manual_seed(1)
-    hw, _, augment, pad, _ = _arch_io(args.arch)
-    x = torch.randint(0, 256, (args.batch, hw, hw, 3), generator=gen,
+    hw, _, augment, draw_fn, _ = _arch_io(args.arch)
+    x = torch.randint(0, 256, (args.batch, *hw, 3), generator=gen,
                       dtype=torch.uint8).to(dev)
     y = torch.randint(0, 5, (args.batch,), generator=gen).to(dev)
-    draws = crop_flip_draws(args.batch, gen, pad)
+    draws = draw_fn(args.batch, gen)
     out = {"card": card, "arch": args.arch, "batch": args.batch,
            "steps": args.steps}
     for label, kernels in (("default", False), ("kernels", True)):
@@ -142,7 +144,8 @@ def main(argv=None) -> int:
         step, (opt_w, opt_pm) = make_train_step(
             model_fn, num_classes=5, mult=st.width_mult, has_piggymask=True,
             cfg=TrainConfig(**(KERNEL_FLAGS[args.arch] if kernels else {})),
-            augment_fn=augment, device=dev)
+            augment_fn=augment, model_kwargs=st.forward_kwargs(2),
+            device=dev)
         carry = [st.shared, task.piggymask, task.private, task.bn_state,
                  opt_w.init({"shared": st.shared, "private": task.private}),
                  opt_pm.init(task.piggymask)]

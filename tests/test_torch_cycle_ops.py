@@ -468,7 +468,7 @@ def test_cli_shared_flags_defaults_and_presets_match_jax(cmd):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--experiment", "face"], "--experiment face is not ported"),
+    (["--experiment", "face", "--memmap-dir", "/nowhere"], "--memmap-dir"),
     (["--experiment", "textcls"], "--experiment textcls is not ported"),
     (["--parallel", "2"], "--parallel: multi-device"),
     (["--parallel-model", "2"], "--parallel-model: model-axis"),
@@ -493,9 +493,9 @@ def test_cli_refuses_unported_options(argv, match):
 
 def test_cycle_entry_points_default_to_the_card():
     """run_sequence, Manager, predict, init_state, grow_state, load_state,
-    the ResNet-50 converters and the CLI (the finegrained experiment too)
-    run on the card unless told otherwise, and raise without one (this
-    test runs where CUDA is absent)."""
+    the ResNet-50 and SphereNet-20 converters and the CLI (the finegrained
+    and face experiments too) run on the card unless told otherwise, and
+    raise without one (this test runs where CUDA is absent)."""
     from cpg_tpu_torch.inference import predict
     from cpg_tpu_torch.models import get_model
     from cpg_tpu_torch.train.manager import Manager
@@ -524,6 +524,15 @@ def test_cycle_entry_points_default_to_the_card():
                             "--num-tasks", "1", "--max-classes", "2"]),
         lambda: convert_torch_cpg_checkpoint(
             {"state_dict": {}, "dataset_history": ["a"]}, arch="resnet50"),
+        lambda: init_state("spherenet20", g, 0.125),
+        lambda: t_cli.main(["sequence", "--experiment", "face",
+                            "--num-tasks", "1"]),
+        lambda: t_cli.main(["inference", "--checkpoint", "ck", "--task-id",
+                            "1", "--experiment", "face", "--num-tasks",
+                            "1"]),
+        lambda: convert_torch_cpg_checkpoint(
+            {"state_dict": {}, "dataset_history": ["a"]},
+            arch="spherenet20"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -34,6 +34,8 @@ from cpg_tpu_torch.train.sequence import init_state, start_task
 from cpg_tpu_torch.utils.checkpoint import load_state, save_state
 
 from .test_import_cpg import _torch_fixture
+from .test_torch_port_face import _np_state as _sphere_np_state
+from .test_torch_port_face import _to_jax as _sphere_to_jax
 
 torch.set_num_threads(1)
 NAMES = ("aquatic_mammals", "fish")  # CIFAR-100 superclass tasks 1 and 2
@@ -114,9 +116,13 @@ def test_export_torch_matches_jax(np_state, tmp_path):
     assert cli.main(["export-torch", "--ckpt", ck, "--out", out,
                      "--device", "cpu"]) == 0
     _ckpt_eq(torch.load(out, weights_only=False), want)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="supports"):
         export_torch_cpg_checkpoint(dataclasses.replace(
-            state_from_numpy(np_state, "cpu"), arch="spherenet20"))
+            state_from_numpy(np_state, "cpu"), arch="vit_cifar"))
+    # SphereNet-20 is ported: `cpg_tpu`'s dict for an AngleLinear state
+    sphere = _sphere_np_state(seed=1, heads={1: "angle", 2: "angle"})
+    _ckpt_eq(export_torch_cpg_checkpoint(state_from_numpy(sphere, "cpu")),
+             j_export_torch(_sphere_to_jax(sphere)))
 
 
 @pytest.mark.parametrize("piggymask", [True, False],
@@ -143,8 +149,14 @@ def test_import_torch_matches_jax(np_state, tmp_path, piggymask):
         for v in got.tasks[2].piggymask.values():
             assert (v == np.float32(1e-2)).all()
     assert sorted(load_torch_checkpoint(path)) == sorted(ckpt["state_dict"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        convert_torch_cpg_checkpoint(ckpt, arch="spherenet20", device="cpu")
+    with pytest.raises(NotImplementedError, match="supports"):
+        convert_torch_cpg_checkpoint(ckpt, arch="vit_cifar", device="cpu")
+    # SphereNet-20 is ported: a reference checkpoint of it comes back whole
+    sphere = _sphere_np_state(seed=1)
+    back = convert_torch_cpg_checkpoint(
+        export_torch_cpg_checkpoint(state_from_numpy(sphere, "cpu")),
+        arch="spherenet20", device="cpu")
+    _states_eq(state_to_numpy(back), sphere)
 
 
 def test_export_import_round_trip(np_state):

@@ -493,9 +493,9 @@ def test_cycle_matches_jax(cycles):
 # ---------------------------------------------------------------- cli ----
 
 def test_cli_experiment_tasks_match_jax():
-    """`--experiment finegrained` resolves to `cpg_tpu`'s arch, task names
-    and bytes, with --max-classes and --num-tasks; face and textcls stop
-    naming their ROADMAP items."""
+    """`--experiment finegrained` and `--experiment face` resolve to
+    `cpg_tpu`'s arch, task names and bytes, with --max-classes and
+    --num-tasks; textcls stops naming its ROADMAP item."""
     argv = ["sequence", "--experiment", "finegrained", "--num-tasks", "2",
             "--max-classes", "3"]
     ta, ja = cli.build_parser().parse_args(argv), j_cli.build_parser(
@@ -508,9 +508,23 @@ def test_cli_experiment_tasks_match_jax():
             _eq(ttasks[name][k], jtasks[name][k], f"{name} {k}")
     assert (taug, tprep) == (t_aug.imagenet_train_augment,
                              t_aug.imagenet_eval_preprocess)
-    for exp, item in (("face", "item 8"), ("textcls", "item 9")):
-        with pytest.raises(SystemExit, match=item):
-            cli.main(["sequence", "--experiment", exp, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="item 9"):
+        cli.main(["sequence", "--experiment", "textcls", "--device", "cpu"])
+    # the face experiment is ported: `cpg_tpu`'s arch, tasks and bytes
+    argv = ["sequence", "--experiment", "face", "--num-tasks", "2"]
+    ta, ja = cli.build_parser().parse_args(argv), j_cli.build_parser(
+    ).parse_args(argv)
+    tarch, ttasks, taug, tprep = cli._experiment_tasks(ta)
+    jarch, jtasks, _, _ = j_cli._experiment_tasks(ja)
+    assert tarch == jarch == "spherenet20"
+    assert list(ttasks) == list(jtasks) == ["casia", "expressions"]
+    for name in jtasks:
+        for k in ("train_x", "train_y", "test_x", "test_y", "num_classes",
+                  "model_kwargs"):
+            _eq(ttasks[name][k], jtasks[name][k], f"{name} {k}")
+    assert ttasks["casia"]["loss_fn"].wants_step
+    assert (taug, tprep) == (t_aug.face_train_augment,
+                             t_aug.face_eval_preprocess)
 
 
 def test_cli_finegrained_sequence_end_to_end(tmp_path, capsys):

@@ -22,6 +22,7 @@ from cpg_tpu_torch import cli
 from cpg_tpu_torch import inference as t_inference
 from cpg_tpu_torch.core.pruner import one_shot_prune
 from cpg_tpu_torch.data.augment import cifar_eval_preprocess as prep
+from cpg_tpu_torch.data.augment import face_eval_preprocess
 from cpg_tpu_torch.models import get_model
 from cpg_tpu_torch.serve import TaskServer, _next_bucket
 from cpg_tpu_torch.train.sequence import init_state, start_task
@@ -148,8 +149,10 @@ def test_export_load_and_cli(state, images, tmp_path):
 
 
 def test_unported_options_are_refused(state, tmp_path):
-    """`mesh` serving (ROADMAP Queue 1, item 12) and XLA's compiler options
-    are refused; int8 is ported (tests/test_torch_port_int8.py)."""
+    """`mesh` serving (ROADMAP Queue 1, item 12), XLA's compiler options
+    and the textcls experiment (item 9) are refused; int8 is ported
+    (tests/test_torch_port_int8.py), and so is the face experiment's
+    preprocess."""
     with pytest.raises(NotImplementedError, match="mesh"):
         TaskServer(state, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="XLA"):
@@ -167,8 +170,17 @@ def test_unported_options_are_refused(state, tmp_path):
                   "--device", "cpu"])
     for argv in (["serve", "--artifact", art], ["export", "--checkpoint",
                                                 art, "--out", art]):
-        with pytest.raises(SystemExit, match="face"):
-            cli.main([*argv, "--experiment", "face", "--device", "cpu"])
+        with pytest.raises(SystemExit, match="item 9"):
+            cli.main([*argv, "--experiment", "textcls", "--device", "cpu"])
+    # the face experiment is ported: its eval preprocess serves and exports
+    req = str(tmp_path / "req.npz")
+    np.savez(req, x=np.zeros((2, 32, 32, 3), np.uint8))
+    assert cli.main(["serve", "--artifact", art, "--requests", req,
+                     "--task-id", "2", "--experiment", "face",
+                     "--device", "cpu"]) == 0
+    args = cli.build_parser().parse_args(
+        ["export", "--checkpoint", art, "--out", art, "--experiment", "face"])
+    assert cli._prep(args) is face_eval_preprocess
 
 
 def test_entry_points_default_to_the_card(state, images, tmp_path,
@@ -210,6 +222,9 @@ def test_entry_points_default_to_the_card(state, images, tmp_path,
                           str(tmp_path / "x.pth")]),
         lambda: cli.main(["import-torch", "--ckpt", str(tmp_path / "x.pth"),
                           "--out", str(tmp_path / "ck2")]),
+        lambda: cli.main(["import-torch", "--ckpt", str(tmp_path / "x.pth"),
+                          "--arch", "spherenet20", "--out",
+                          str(tmp_path / "ck3")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
