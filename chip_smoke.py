@@ -103,16 +103,20 @@ Needs one CUDA card; exits non-zero without one. It
      img/s and predict calls per request; `export-torch` ->
      `import-torch` bit for bit; `inference` on the synthetic test split;
      then an int8 vit_cifar server at full width against its f32 server;
- 12. ResNet-50 (224 px, batch 32): K1-K3 at its 19 conv geometries and
-     K4-K6 at its 4 seams, serving, the eval and train steps, and the
+ 12. ResNet-50 (224 px, batch 32): K1-K3 at its 19 conv geometries (K1
+     and K2 past the stem on `masked_conv.fwd_dx_route`'s select pass and
+     dense GEMM or im2col walk, each row with its `route` and the two
+     launches' own device ms) and K4-K6 at its 4 seams, serving, the eval
+     and train steps (conv selects 39 and 78), and the
      finegrained CLI cycle (`finegrained_phase`); SphereNet-20 (112x96,
      batch 256): K1, K2 and K3 at its 8 conv geometries
-     (`SPHERE_CONV_SHAPES`; K3 held against the plain version summed in
+     (`SPHERE_CONV_SHAPES`; K1 and K2 past the stem on the im2col walk;
+     K3 held against the plain version summed in
      f64) and fc5 on the dense route, a bf16 server against the f32
      server, the eval step, the train step with task 2 under the A-Softmax
-     loss (exact launches: K1 20, K2 19, K3 20, im2col 1, dense 1 + 1 + 1,
-     select 2), and the face CLI cycle (`face_phase`: `sequence
-     --experiment face`, growth to 1.5, LFW verification, task 1 across
+     loss (exact launches: K1 20, K2 19, K3 20, conv selects 38, im2col
+     1, dense 1 + 1 + 1, select 2), and the face CLI cycle (`face_phase`:
+     `sequence --experiment face`, growth to 1.5, LFW verification, task 1 across
      compaction and growth, resume, export/serve bf16 and calibrated
      int8, export-torch/import-torch);
  13. checks that each phase reached its kernels (the serve and eval phases
@@ -120,8 +124,9 @@ Needs one CUDA card; exits non-zero without one. It
      the deploy phase K4, the SphereNet phases K1-K3 and the dense route),
      prints the kernels' JSON line (launch counts from every phase,
      errors, times, bounds; ResNet-50's and SphereNet-20's train steps in
-     `resnet50_step` and `spherenet20_step`), the card line, and last the
-     result line.
+     `resnet50_step` and `spherenet20_step`; K1's and K2's VGG16-BN rows on
+     the conv boxes beside cuDNN alone in `boxes_step`), the card line,
+     and last the result line.
 Each phase raises on failure. Per-shape results also go to
 chiprun_out/chip_smoke.json.
 """
@@ -683,13 +688,18 @@ def conv_geometry_rows(torch, dev, arch, batch, name, hw, k, stride, pad,
     one conv geometry of a model (input (H, W), kernel k, stride, padding
     `pad` as the model gives it), bf16 binary, each against its plain
     version with two launches giving the same bits. Used for the ResNet-50
-    and SphereNet-20 geometries, none of which is on the conv GEMM route
-    (128 % W != 0, or stride 2), so K1 and K2 must take the earlier
-    kernels; K3 takes the im2col route where kh*kw*Cin <= 64 (the 1x1 convs
-    over 64 channels, SphereNet's 3x3 stem: its im2col kernel alone in a
-    `masked_conv_im2col` row) and the earlier kernel elsewhere; K3 is held
-    against its plain version summed in f64 (`f32_plain_max_abs_err`: the
-    kernel against the f32 plain version, reported). Besides the
+    and SphereNet-20 geometries, none of which is on the conv boxes (128 %
+    W != 0, or stride 2): K1 and K2 must take `masked_conv.fwd_dx_route`'s
+    select pass and GEMM ("select+dense" at the 1x1 convs at stride 1,
+    "select+im2col" elsewhere) at every geometry but the stems, which stay
+    on the earlier kernels ("k1"; the row fails on another route); their
+    rows add the select's and the GEMM's own device ms
+    (`select_device_ms`, `gemm_kernel_device_ms`; the op's `device_ms`
+    holds both). K3 takes the im2col route where kh*kw*Cin <= 64 (the 1x1
+    convs over 64 channels, SphereNet's 3x3 stem: its im2col kernel alone
+    in a `masked_conv_im2col` row) and the earlier kernel elsewhere; K3 is
+    held against its plain version summed in f64 (`f32_plain_max_abs_err`:
+    the kernel against the f32 plain version, reported). Besides the
     CUDA-event and profiler times, cuDNN's product alone on the
     pre-selected weight (`cudnn_device_ms`)."""
     from cpg_tpu_torch.ops import masked_conv as mc
@@ -705,8 +715,22 @@ def conv_geometry_rows(torch, dev, arch, batch, name, hw, k, stride, pad,
                                  n, k, (ho, wo))
     own = torch.randint(0, 4, w.shape, generator=gen, dtype=torch.int8).to(dev)
     pm = (torch.randn(w.shape, generator=gen) * 1e-2).to(dev)
-    if mc.conv_route(x, w, stride, pad):
-        raise AssertionError(f"{arch} {name}: on the conv GEMM route")
+    route = mc.fwd_dx_route(x, w, stride, pad)
+    if route != (None if cin == 3 else "dense" if (k, stride) == (1, 1)
+                 else "im2col"):
+        raise AssertionError(f"{arch} {name}: y and dx on route {route}")
+    gemm_name = {"dense": "gemm_tn_bf16_kernel",
+                 "im2col": "conv_im2col_kernel"}.get(route)
+
+    def route_cols(kern):
+        """The route's `route` and its two launches' own device ms."""
+        if route is None:
+            return {}
+        parts = kernel_device_ms(kern, ("select_bf16_kernel", gemm_name))
+        return dict(route=f"select+{route}",
+                    select_device_ms=parts["select_bf16_kernel"],
+                    gemm_kernel_device_ms=parts[gemm_name])
+
     w_sel = effective_kernel(w, own, pm, 2).to(dt)
     xt, gt = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
     elt, n_w = 2, w.numel()
@@ -729,7 +753,8 @@ def conv_geometry_rows(torch, dev, arch, batch, name, hw, k, stride, pad,
                   "bfloat16", f"{arch} masked_conv {name}")
     b_ms, b_by = bound(x.numel() * elt + 9 * n_w + gy.numel() * elt, flops,
                        "bfloat16")
-    rows.append(dict(kernel="masked_conv_fwd", **common, route="k1",
+    rows.append(dict(kernel="masked_conv_fwd", **common,
+                     **{"route": "k1", **route_cols(kern)},
                      max_abs_err=err, **timed(kern, plain, library),
                      cudnn_device_ms=device_ms(cudnn), bound_ms=b_ms,
                      bound_by=b_by))
@@ -755,7 +780,8 @@ def conv_geometry_rows(torch, dev, arch, batch, name, hw, k, stride, pad,
         err = compare(twice(torch, kern, f"{arch} masked_conv_bwd_dx {name}"),
                       plain(), "bfloat16",
                       f"{arch} masked_conv_bwd_dx {name}")
-        rows.append(dict(kernel="masked_conv_bwd_dx", **common, route="k2",
+        rows.append(dict(kernel="masked_conv_bwd_dx", **common,
+                         **{"route": "k2", **route_cols(kern)},
                          max_abs_err=err, **timed(kern, plain, library),
                          cudnn_device_ms=device_ms(cudnn), bound_ms=b_ms,
                          bound_by=b_by))
@@ -1264,11 +1290,14 @@ KERNEL_FLAGS = {"vgg16_bn_cifar": dict(use_pallas_conv=True,
                 "vit_cifar": dict(use_pallas=True, flash_attention=True),
                 "spherenet20": dict(use_pallas_conv=True, use_pallas=True)}
 # launches of one masked eval step with the kernel flags (ResNet-50: its 40
-# masked convs and 13 fused seams; SphereNet-20: its 20 masked convs, all
-# off the conv GEMM route, and fc5 on the dense route, a select pass and
-# the TN GEMM; no other kernel)
-EVAL_LAUNCHES = {"resnet50": {"masked_conv_fwd": 40, "fused_chain_fwd": 13},
+# masked convs, a select pass before each but the stem's, and 13 fused
+# seams; SphereNet-20: its 20 masked convs, a select pass before each but
+# the stem's, and fc5 on the dense route, a select pass and the TN GEMM;
+# no other kernel)
+EVAL_LAUNCHES = {"resnet50": {"masked_conv_fwd": 40, "masked_conv_select": 39,
+                              "fused_chain_fwd": 13},
                  "spherenet20": {"masked_conv_fwd": 20,
+                                 "masked_conv_select": 19,
                                  "masked_matmul_fwd": 1,
                                  "masked_matmul_select": 1}}
 
@@ -1319,18 +1348,21 @@ TRAIN_LAUNCHES = {
                   "masked_matmul_fwd": 36, "masked_matmul_bwd_dx": 36,
                   "masked_matmul_bwd_dw": 36, "masked_matmul_select": 72},
     # ResNet-50: 40 masked convs (no dx for the stem, whose input is the
-    # image; y and dx of every geometry off the conv GEMM route; K3 of the
-    # five 1x1 convs over 64 channels on the im2col route, one im2col
-    # each) and 13 fused seams
+    # image; y and dx of the other 39 on the dense or im2col route, a
+    # select pass each; K3 of the five 1x1 convs over 64 channels on the
+    # im2col route, one im2col each) and 13 fused seams
     "resnet50": {"masked_conv_fwd": 40, "masked_conv_bwd_dx": 39,
-                 "masked_conv_bwd_dw": 40, "masked_conv_im2col": 5,
+                 "masked_conv_bwd_dw": 40, "masked_conv_select": 78,
+                 "masked_conv_im2col": 5,
                  "fused_chain_fwd": 13, "fused_chain_bwd_dx": 13,
                  "fused_chain_bwd_dw": 13},
-    # SphereNet-20: 20 masked convs (no dx for the stem; its K3 over im2col
-    # patches, K = 27) and fc5 on the dense route (a select pass before the
-    # forward and dx GEMMs, K3 on the wgrad GEMM)
+    # SphereNet-20: 20 masked convs (no dx for the stem; y and dx of the
+    # other 19 on the im2col route, a select pass each; the stem's K3 over
+    # im2col patches, K = 27) and fc5 on the dense route (a select pass
+    # before the forward and dx GEMMs, K3 on the wgrad GEMM)
     "spherenet20": {"masked_conv_fwd": 20, "masked_conv_bwd_dx": 19,
-                    "masked_conv_bwd_dw": 20, "masked_conv_im2col": 1,
+                    "masked_conv_bwd_dw": 20, "masked_conv_select": 38,
+                    "masked_conv_im2col": 1,
                     "masked_matmul_fwd": 1, "masked_matmul_bwd_dx": 1,
                     "masked_matmul_bwd_dw": 1, "masked_matmul_select": 2},
 }
@@ -2639,8 +2671,8 @@ def deploy_phase(torch, dev, counts, card):
 
 
 # the kernels SphereNet-20's eval and train phases must reach
-SPHERE_EVAL_KERNELS = ["masked_conv_fwd", "masked_matmul_fwd",
-                       "masked_matmul_select"]
+SPHERE_EVAL_KERNELS = ["masked_conv_fwd", "masked_conv_select",
+                       "masked_matmul_fwd", "masked_matmul_select"]
 SPHERE_TRAIN_KERNELS = ["masked_conv_bwd_dx", "masked_conv_bwd_dw",
                         "masked_conv_im2col", "masked_matmul_bwd_dx",
                         "masked_matmul_bwd_dw"]
@@ -2714,16 +2746,21 @@ def kernels_line(rows, launched):
     SphereNet-20's steps apart in `resnet50_step` and `spherenet20_step`,
     with the library's product alone: `cudnn_device_ms` for the convs,
     `gemm_device_ms` for fc5)."""
-    # conv K1 and K2: the GEMM route's file (conv2/4/7/10), then the old
-    # kernel's (conv0, narrow widths, f32) under "sources"; K3 likewise:
+    # conv K1 and K2: the GEMM routes' file (conv2/4/7/10 on the boxes;
+    # ResNet-50's and SphereNet-20's convs past the stems on the dense GEMM
+    # or the im2col walk), its header that holds the walk's kernel, then
+    # the old kernel's (the stems, conv0, narrow widths, f32) under
+    # "sources"; K3 likewise:
     # the wgrad GEMM's file (conv0 by im2col, conv2/4/7/10, dense bf16),
     # then the old kernel's (narrow widths, f32); K5: its file, then the
     # GEMM's header that holds its route's kernel
     meta = {
         "masked_conv_fwd": (("cpg_tpu_torch/csrc/masked_matmul.cu",
+                             "cpg_tpu_torch/csrc/tma_gemm.cuh",
                              "cpg_tpu_torch/csrc/masked_conv_fwd.cu"),
                             "cpg_tpu/ops/pallas/masked_matmul.py:97"),
         "masked_conv_bwd_dx": (("cpg_tpu_torch/csrc/masked_matmul.cu",
+                                "cpg_tpu_torch/csrc/tma_gemm.cuh",
                                 "cpg_tpu_torch/csrc/masked_conv_bwd_dx.cu"),
                                "cpg_tpu/ops/pallas/masked_matmul.py:173"),
         "masked_conv_select": ("cpg_tpu_torch/csrc/masked_matmul.cu",
@@ -2775,10 +2812,21 @@ def kernels_line(rows, launched):
         own_steps = {}
         for arch in OWN_STEPS:
             rn = [(r, r["per_step"]) for r in mine if r.get("arch") == arch]
-            if rn:
-                own_steps[f"{arch}_step"] = {key: _step_sum(rn, key) for key in (
-                    "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
-                    "library_device_ms", "cudnn_device_ms", "gemm_device_ms")}
+            # the launches of the arch's train step, as its train phase
+            # counted them
+            n = launched.get(f"{arch}/train", {}).get(name, 0)
+            if rn or n:
+                own_steps[f"{arch}_step"] = {
+                    "launches": n, **{key: _step_sum(rn, key) for key in (
+                        "ms", "device_ms", "plain_ms", "bound_ms",
+                        "library_ms", "library_device_ms",
+                        "cudnn_device_ms", "gemm_device_ms") if rn}}
+        # the VGG16-BN step's rows on the conv boxes (conv2/4/7/10) alone,
+        # beside cuDNN's product on their pre-selected weights
+        boxes = [(r, k) for r, k in step if r.get("route") == "select+gemm"]
+        if boxes:
+            own_steps["boxes_step"] = {key: _step_sum(boxes, key) for key in (
+                "device_ms", "cudnn_device_ms")}
         kernels.append({
             "name": name, "route": "cuda", "source": sources[0],
             **({"sources": list(sources)} if len(sources) > 1 else {}),
@@ -2950,11 +2998,14 @@ def main() -> int:
                                 "masked_matmul_bwd_dw"],
             "vgg16_bn_cifar/deploy": ["fused_chain_fwd"],
             "resnet50/serve": ["fused_chain_fwd"],
-            "resnet50/eval": ["masked_conv_fwd", "fused_chain_fwd"],
+            "resnet50/eval": ["masked_conv_fwd", "masked_conv_select",
+                              "fused_chain_fwd"],
             "resnet50/train": ["masked_conv_bwd_dx", "masked_conv_bwd_dw",
-                               "fused_chain_bwd_dx", "fused_chain_bwd_dw"],
+                               "masked_conv_select", "fused_chain_bwd_dx",
+                               "fused_chain_bwd_dw"],
             "resnet50/finegrained": ["masked_conv_fwd", "masked_conv_bwd_dx",
-                                     "masked_conv_bwd_dw", "fused_chain_fwd",
+                                     "masked_conv_bwd_dw",
+                                     "masked_conv_select", "fused_chain_fwd",
                                      "fused_chain_bwd_dx",
                                      "fused_chain_bwd_dw"],
             "vgg16_bn_cifar/cycle": ["masked_conv_fwd", "masked_conv_bwd_dx",

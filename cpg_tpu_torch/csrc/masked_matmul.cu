@@ -71,6 +71,36 @@
 // Bound on the H100 at batch 256: by operations (4.8-9.7 GFLOP a layer
 // against 1-17 MB of activations), so the activation boxes and the selected
 // weight come from L2 after their first read.
+//
+// The same select pass and ring, with A from TMA's im2col mode
+// (`masked_conv_im2col_gemm_bf16`, tma_gemm.cuh `conv_im2col_kernel`), are
+// the conv's y and dx where no box of whole rows makes 128 pixels or the
+// stride is 2: every ResNet-50 and SphereNet-20 conv past the stem (bf16,
+// Cin and Cout multiples of 64, 1x1 or 3x3; the 1x1 convs at stride 1 take
+// the dense GEMM above). The earlier kernels (masked_conv_fwd.cu,
+// conv_bwd.cuh) selected the weight inside every output tile's B load,
+// re-reading 9 B a weight entry per 128-pixel tile, and ran one mma.sync
+// stage at a time; at SphereNet's 14x12 unit, 336 row tiles moved ~1.8 GB
+// of weight a launch for 0.051 ms of products. Here a tile is 128
+// consecutive output pixels of the flattened (N, Ho, Wo) grid, across row
+// and image boundaries: one im2col load per k-step brings them, each read
+// at the tap's offset (off_w, off_h) from its base coordinate; the map's
+// bounding box (lower corner -pad, the upper one set so the traversal walks
+// exactly Wo columns and Ho rows) and its traversal stride (the conv's)
+// make the grid, TMA's zero fill the padding, so the output tile is 128
+// rows of (N*Ho*Wo, Cout), stored by TMA as the dense one. The stride-1
+// input gradient is the same walk over g with the taps mirrored (offset k
+// - 1 - d, lower corner -(k - 1 - pad)). At stride 2 it runs by phases: dx
+// splits into its four parity phases (ih % 2, iw % 2), each a stride-1
+// product of g with only the taps that reach it (3x3: 1, 2, 2 and 4 taps;
+// 1x1: one phase of one tap, the other three zeros), no zero row
+// multiplied; the phases share one launch (a tile index runs over them,
+// the most taps first) and each stores its rows to dx's strided positions
+// from the staging tile (a strided row set is no TMA box). Bound on the
+// H100: by operations at the bound's count (a SphereNet unit conv is 50.7
+// GFLOP against ~40 MB), in practice by the L2 rate of the A loads, which
+// read each input pixel once per tap: at 64 output channels a k-step
+// moves 24 KB for 1 MFLOP.
 #include "common.cuh"
 #include "tma_gemm.cuh"
 
@@ -163,6 +193,24 @@ int launch_walk(const CUtensorMap& ma, const CUtensorMap& mb,
   }
 }
 
+template <bool DGRAD>
+int launch_im2col_walk(const Im2colMaps& ma, const CUtensorMap& mb,
+                       const CUtensorMap& mc, int nout, int bn, int stages,
+                       int grid, const Im2colWalk& iw, cudaStream_t st) {
+  switch (bn) {
+    case 64:
+      return launch_conv_im2col<64, DGRAD>(ma, mb, mc, nout, stages, grid, iw,
+                                           st);
+    case 128:
+      return launch_conv_im2col<128, DGRAD>(ma, mb, mc, nout, stages, grid,
+                                            iw, st);
+    case 192:
+      return launch_conv_im2col<192, DGRAD>(ma, mb, mc, nout, stages, grid,
+                                            iw, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -240,6 +288,98 @@ int masked_conv_gemm_bf16(const void* a, const void* bt, void* c, int n,
                                          stages, grid, cw, st)
                : launch_walk<CONV_FWD>(ma, mb, mc, m, taps * ch, nout, bn,
                                        stages, grid, cw, st);
+}
+
+// The masked conv's y or dx over the selected weight at any output grid,
+// stride 1 or 2, as an implicit GEMM over im2col loads (see the top). a is
+// x (n, ah, aw, ch = Cin) for the forward, g (n, ah = Ho, aw = Wo, ch =
+// Cout) for the input gradient (dgrad); bt is w_eff^T (nout = Cout, taps *
+// ch) or w_eff (taps * nout, ch) with nout = Cin; c is y (n, oh, ow, nout)
+// or dx (n, oh = H, ow = W, nout). phases holds nphases rows of PHASE_INTS
+// ints {rows, columns, lower_w, lower_h, row0, col0, ntaps, taps[9]}, from
+// ops/masked_matmul.py `im2col_plan`: the forward's one phase walks (oh,
+// ow) at traversal `stride`; the input gradient walks g at stride 1, in
+// one phase at stride 1 (stored as y is) or in stride^2 = 4 parity phases
+// at stride 2, each stored to dx's rows (row0 + 2 i, col0 + 2 j). ch % 64
+// == 0, nout % 8 == 0, bases 16-byte aligned; bn, stages, grid from
+// `im2col_plan`.
+constexpr int PHASE_INTS = 7 + MAX_TAPS;
+
+int masked_conv_im2col_gemm_bf16(const void* a, const void* bt, void* c,
+                                 int n, int ah, int aw, int ch, int oh,
+                                 int ow, int nout, int taps, int stride,
+                                 int dgrad, const int* phases, int nphases,
+                                 int bn, int stages, int grid, void* stream) {
+  if (n <= 0 || ch <= 0 || ch % BK || nout <= 0 || nout % 8 || taps <= 0 ||
+      taps > MAX_TAPS || stride < 1 || stride > 2 || nphases < 1 ||
+      nphases > MAX_PHASES || (dgrad && nphases != stride * stride) ||
+      (!dgrad && nphases != 1) || bad_plan(bn, stages, grid))
+    return (int)cudaErrorInvalidValue;
+  const int tstep = dgrad ? 1 : stride;  // the traversal stride over a
+  Im2colWalk iw{};
+  Im2colMaps ma{};
+  iw.nphases = nphases;
+  iw.cblocks = ch / BK;
+  iw.step = tstep;
+  iw.scatter = nphases > 1;
+  const int tiles_n = (nout + bn - 1) / bn;
+  iw.out_h = oh;
+  iw.out_w = ow;
+  iw.out_step = stride;
+  iw.out = (__nv_bfloat16*)c;
+  const long long adims[4] = {ch, aw, ah, n};
+  for (int p = 0; p < nphases; ++p) {
+    const int* r = phases + p * PHASE_INTS;
+    Phase& P = iw.ph[p];
+    P.hw = r[0] * r[1];
+    P.w = r[1];
+    P.m = n * P.hw;
+    P.tiles_m = (P.m + BM - 1) / BM;
+    P.lower_w = r[2];
+    P.lower_h = r[3];
+    P.row0 = r[4];
+    P.col0 = r[5];
+    P.ntaps = r[6];
+    if (r[0] < 0 || r[1] < 0 || P.ntaps < 0 || P.ntaps > taps)
+      return (int)cudaErrorInvalidValue;
+    for (int j = 0; j < P.ntaps; ++j) {
+      const int t = r[7 + j], id = t & 255;
+      if (id >= taps || ((t >> 8) & 255) > 15 || (t >> 16) > 15)
+        return (int)cudaErrorInvalidValue;
+      P.taps[j] = t;
+    }
+    iw.tile0[p] = iw.tiles;
+    iw.tiles += P.tiles_m * tiles_n;
+    if (P.m == 0 || P.ntaps == 0) continue;  // no load reads its map
+    // the bounding box holds exactly the phase's columns and rows: the
+    // last base coordinate is lower + (extent - 1) * tstep
+    const int lower[2] = {P.lower_w, P.lower_h};
+    const int upper[2] = {P.lower_w + (r[1] - 1) * tstep - (aw - 1),
+                          P.lower_h + (r[0] - 1) * tstep - (ah - 1)};
+    for (int i = 0; i < 2; ++i)
+      if (lower[i] < -128 || lower[i] > 127 || upper[i] < -128 ||
+          upper[i] > 127)
+        return (int)cudaErrorInvalidValue;
+    if (!make_im2col_map(&ma.a[p], a, adims, lower, upper, tstep, BM))
+      return (int)cudaErrorInvalidValue;
+  }
+  if (iw.tiles == 0) return (int)cudaSuccess;
+  CUtensorMap mb{}, mc{};
+  bool ok = true;
+  if (dgrad) {  // w_eff (taps, Cin, Cout) in boxes of 64 Cout x bn Cin
+    const long long bdims[3] = {ch, nout, taps};
+    const int bbox[3] = {BK, bn, 1};
+    ok = make_map_nd(&mb, bt, 3, bdims, bbox);
+  } else {
+    ok = make_map(&mb, bt, nout, taps * ch, bn);
+  }
+  if (!iw.scatter) ok = ok && make_map(&mc, c, n * oh * ow, nout, 64);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return dgrad ? launch_im2col_walk<true>(ma, mb, mc, nout, bn, stages, grid,
+                                          iw, st)
+               : launch_im2col_walk<false>(ma, mb, mc, nout, bn, stages, grid,
+                                           iw, st);
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
 // The persistent TMA + wgmma TN GEMM of the port's Hopper kernels, with
 // its producer walks and its epilogues (csrc/masked_matmul.cu describes the
-// design). Two sources instantiate it: masked_matmul.cu (the dense and conv
+// design), and its sibling over im2col loads (`conv_im2col_kernel`: the
+// masked conv's y and dx at any grid, stride 1 or 2). Two sources
+// instantiate the GEMM: masked_matmul.cu (the dense and conv
 // K1/K2 products, EPI_STORE) and fused_chain_bwd_dx.cu (K5, EPI_FUSED_DX:
 // the CONV_DGRAD walk over g and the seam's weight, whose epilogue applies
 // the ReLU mask of a*x + b, writes dx = dm * a and the tile's column sums
@@ -351,6 +353,197 @@ gemm_tn_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
     }
   }
   if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ------------------------------------------------ im2col conv walk ----
+// The masked conv's y and dx at any output grid, stride 1 or 2, 1x1 or 3x3
+// (masked_matmul.cu `masked_conv_im2col_gemm_bf16` describes the design):
+// the output is cut into phases (one for the forward and the stride-1
+// input gradient; the stride-2 input gradient's four parity phases of dx),
+// each a grid of output pixels walked in 128-pixel tiles of consecutive
+// pixels, whose A tile a k-step is one im2col TMA load of the activation
+// at one tap's offsets. A phase with no tap stores zeros.
+constexpr int MAX_PHASES = 4, MAX_TAPS = 9;
+
+struct Phase {
+  int m, hw, w;          // output pixels, pixels an image, columns
+  int tiles_m;           // its 128-pixel tiles
+  int lower_w, lower_h;  // the A map's bounding box starts here
+  int row0, col0;        // scatter: dx's first row and column of the phase
+  int ntaps;             // taps a tile reduces, each cblocks k-steps
+  int taps[MAX_TAPS];    // tap | offset_w << 8 | offset_h << 16
+};
+
+struct Im2colWalk {
+  int nphases, cblocks;  // phases; 64-channel blocks of the reduction
+  int step;              // the A maps' traversal stride
+  int tiles;             // all tiles, each phase's m tiles by the n tiles
+  int tile0[MAX_PHASES]; // the phases' first tiles
+  int scatter;           // 1: store rows to dx's strided positions
+  int out_h, out_w, out_step;  // scatter: dx's rows, columns, the stride
+  __nv_bfloat16* out;    // scatter: dx (N, out_h, out_w, Nout)
+  Phase ph[MAX_PHASES];
+};
+
+struct Im2colMaps {
+  CUtensorMap a[MAX_PHASES];  // the activation, one im2col map a phase
+};
+
+__device__ __forceinline__ int phase_of(const Im2colWalk& iw, int t) {
+  int p = 0;
+#pragma unroll
+  for (int q = 1; q < MAX_PHASES; ++q)
+    if (q < iw.nphases && t >= iw.tile0[q]) p = q;
+  return p;
+}
+
+// The scatter store of a staged tile: the warpgroup's rows r0 .. r0 + 63
+// of phase P, in the staging tile as `staging_put` lays them out, copied in
+// 16-byte chunks (8 threads a row) to dx row (img, row0 + step i, col0 +
+// step j); rows past the phase and columns past Nout are not written.
+template <int BN>
+__device__ __forceinline__ void scatter_rows(uint32_t mine,
+                                             const Im2colWalk& iw,
+                                             const Phase& P, int r0, int n0,
+                                             int nout, int wg) {
+  named_sync(1 + wg, 128);
+  const int lt = threadIdx.x % 128;
+  for (int r = lt / 8; r < 64; r += 16) {
+    const int q = r0 + r;
+    if (q >= P.m) break;
+    const int img = q / P.hw, rem = q - img * P.hw;
+    const int i = rem / P.w, j = rem - i * P.w;
+    const long long pix =
+        ((long long)img * iw.out_h + P.row0 + iw.out_step * i) * iw.out_w +
+        P.col0 + iw.out_step * j;
+    __nv_bfloat16* dst = iw.out + pix * nout;
+    for (int c = lt % 8; c < BN / 8; c += 8) {
+      const int col = n0 + 8 * c;
+      if (col >= nout) break;
+      const uint32_t at = mine + r * 128 + (c / 8) * 8192 +
+                          (((c % 8) ^ (r % 8)) << 4);
+      uint4 v;
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                   : "r"(at));
+      *reinterpret_cast<uint4*>(dst + col) = v;
+    }
+  }
+}
+
+// C = the conv's output as (M, Nout) rows (or, with iw.scatter, dx's rows
+// at their strided positions): A = the activation through im2col maps, B =
+// w_eff^T (Nout, taps * C) for the forward, w_eff as (taps, Nout, C) for
+// the input gradient (DGRAD). The ring, the consumers and the TMA store are
+// gemm_tn_bf16_kernel's.
+template <int BN, bool DGRAD>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_im2col_kernel(const __grid_constant__ Im2colMaps maps,
+                   const __grid_constant__ CUtensorMap tma_b,
+                   const __grid_constant__ CUtensorMap tma_c, int Nout,
+                   int stages, const __grid_constant__ Im2colWalk iw) {
+  constexpr int STAGE = stage_bytes(BN);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t staging = ring + stages * STAGE;
+  const uint32_t bars = staging + CONSUMERS * BN * 128;
+  const Ring pipe{bars, stages};
+
+  if (threadIdx.x == 0) {
+    pipe.init(CONSUMERS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    if (threadIdx.x != CONSUMERS * 128) return;
+    RingPos pos;
+    for (int t = blockIdx.x; t < iw.tiles; t += gridDim.x) {
+      const int p = phase_of(iw, t);
+      const Phase& P = iw.ph[p];
+      const int local = t - iw.tile0[p];
+      const int m0 = (local % P.tiles_m) * BM, n0 = (local / P.tiles_m) * BN;
+      // the tile's first output pixel and its base coordinate in the map
+      const int img = m0 / P.hw, rem = m0 - img * P.hw;
+      const int i0 = rem / P.w, j0 = rem - i0 * P.w;
+      const int w0 = P.lower_w + j0 * iw.step, h0 = P.lower_h + i0 * iw.step;
+      const int KT = P.ntaps * iw.cblocks;
+      for (int kt = 0; kt < KT; ++kt) {
+        const int j = kt / iw.cblocks, c0 = (kt - j * iw.cblocks) * BK;
+        const int tap = P.taps[j] & 255;
+        const uint16_t ow = (P.taps[j] >> 8) & 255, oh = P.taps[j] >> 16;
+        const uint32_t full = pipe.acquire(pos, STAGE);
+        const uint32_t a = ring + pos.s * STAGE, b = a + A_TILE;
+        tma_load_im2col_4d(a, &maps.a[p], c0, w0, h0, img, ow, oh, full);
+        if constexpr (DGRAD)
+          tma_load_3d(b, &tma_b, c0, n0, tap, full);
+        else
+          tma_load_2d(b, &tma_b, tap * iw.cblocks * BK + c0, n0, full);
+        pos.advance(stages);
+      }
+    }
+    return;
+  }
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  const bool leader = threadIdx.x % 128 == 0;
+  RingPos pos;
+  for (int t = blockIdx.x; t < iw.tiles; t += gridDim.x) {
+    const int p = phase_of(iw, t);
+    const Phase& P = iw.ph[p];
+    const int local = t - iw.tile0[p];
+    const int m0 = (local % P.tiles_m) * BM, n0 = (local / P.tiles_m) * BN;
+    const int KT = P.ntaps * iw.cblocks;
+    int prev = 0;
+    for (int kt = 0; kt < KT; ++kt) {
+      pipe.wait(pos);
+      const uint32_t a = ring + pos.s * STAGE + wg * 64 * BK * 2;
+      const uint64_t da = smem_desc(a);
+      const uint64_t db = smem_desc(ring + pos.s * STAGE + A_TILE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_bf16<BN>(acc, da + 2 * kk, db + 2 * kk, (kt | kk) != 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (kt > 0 && leader) pipe.release(prev);
+      prev = pos.s;
+      pos.advance(stages);
+    }
+    wgmma_wait<0>();
+    if (KT > 0 && leader) pipe.release(prev);
+    // the accumulators are read on one path only (a branch around them
+    // serialises every wgmma); a phase no tap reaches stores zeros
+    const bool live = KT > 0;
+    const uint32_t mine = staging + wg * BN * 128;
+    staging_wait(wg);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      staging_put(mine, j, live ? acc[4 * j] : 0.f,
+                  live ? acc[4 * j + 1] : 0.f, live ? acc[4 * j + 2] : 0.f,
+                  live ? acc[4 * j + 3] : 0.f);
+    if (iw.scatter)
+      scatter_rows<BN>(mine, iw, P, m0 + 64 * wg, n0, Nout, wg);
+    else
+      staging_store<BN>(mine, &tma_c, n0, m0 + 64 * wg, wg);
+  }
+  if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+template <int BN, bool DGRAD>
+int launch_conv_im2col(const Im2colMaps& ma, const CUtensorMap& mb,
+                       const CUtensorMap& mc, int nout, int stages, int grid,
+                       const Im2colWalk& iw, cudaStream_t stream) {
+  const int smem = gemm_smem_bytes(BN, stages);
+  cudaError_t err =
+      cpg::allow_smem((const void*)conv_im2col_kernel<BN, DGRAD>, smem);
+  if (err != cudaSuccess) return (int)err;
+  conv_im2col_kernel<BN, DGRAD><<<grid, THREADS, smem, stream>>>(
+      ma, mb, mc, nout, stages, iw);
+  return (int)cudaGetLastError();
 }
 
 // a (rows, cols) row-major bf16 matrix, in boxes of box_rows x BK

@@ -3,10 +3,12 @@
 // masked_matmul_wgrad.cu: the weight-gradient GEMM; fused_chain_fwd.cu:
 // K4). Device side: shared-memory addresses, mbarriers with a trapping
 // wait, the producer/consumer ring of stages, TMA loads and stores of
-// 2-4-D boxes (stores: 2-D and 4-D), named barriers, wgmma descriptors of 128-byte-swizzled
+// 2-4-D boxes (stores: 2-D and 4-D) and im2col-mode loads, named barriers, wgmma descriptors of 128-byte-swizzled
 // tiles (K-major and MN-major), the wgmma m64nNk16 bf16 instruction with
-// both transpose flags and its form with A from registers. Host side: cuTensorMapEncodeTiled through the runtime's
-// entry-point query (no -lcuda) and a bf16 tensor map of any rank.
+// both transpose flags and its form with A from registers. Host side:
+// cuTensorMapEncodeTiled and cuTensorMapEncodeIm2col through the runtime's
+// entry-point query (no -lcuda), a tiled bf16 tensor map of any rank and
+// an im2col map of an NHWC tensor.
 #pragma once
 
 #include <cuda.h>
@@ -144,6 +146,23 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// im2col-mode TMA load of a 4-D (C, W, H, N) map made by `make_im2col_map`:
+// the map's pixelsPerColumn pixels, each its channelsPerPixel channels from
+// c0 on, as consecutive shared-memory rows. The pixels are the traversal of
+// the map's bounding box from (w, h, n) on (W fastest, then H, then the
+// image, each step the map's traversal stride), each read at (w + off_w,
+// h + off_h): zeros where that leaves the tensor, and past the last image.
+__device__ __forceinline__ void tma_load_im2col_4d(
+    uint32_t dst, const CUtensorMap* map, int c0, int w, int h, int n,
+    uint16_t off_w, uint16_t off_h, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6], {%7, %8};\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(w),
+      "r"(h), "r"(n), "r"(bar), "h"(off_w), "h"(off_h)
       : "memory");
 }
 
@@ -387,25 +406,37 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-inline EncodeTiled query_encode_tiled() {
+using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const int*, const int*,
+                                  cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline void* query_entry_point(const char* name) {
   void* p = nullptr;
   cudaDriverEntryPointQueryResult q;
 #if CUDART_VERSION >= 12050
-  cudaError_t err = cudaGetDriverEntryPointByVersion(
-      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+  cudaError_t err = cudaGetDriverEntryPointByVersion(name, &p, 12000,
+                                                     cudaEnableDefault, &q);
 #else
-  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
+  cudaError_t err = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
 #endif
-  return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-             ? reinterpret_cast<EncodeTiled>(p)
-             : nullptr;
+  return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? p : nullptr;
 }
 
 // queried once, by whichever host thread comes first (a function-local
 // static: the others wait for it)
 inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = query_encode_tiled();
+  static const EncodeTiled fn = reinterpret_cast<EncodeTiled>(
+      query_entry_point("cuTensorMapEncodeTiled"));
+  return fn;
+}
+
+inline EncodeIm2col encode_im2col() {
+  static const EncodeIm2col fn = reinterpret_cast<EncodeIm2col>(
+      query_entry_point("cuTensorMapEncodeIm2col"));
   return fn;
 }
 
@@ -444,6 +475,31 @@ inline bool make_map_nd(CUtensorMap* map, const void* ptr, int rank,
   }
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
             const_cast<void*>(ptr), d, strides, b, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// an NHWC bf16 tensor, dims (C, W, H, N) innermost first, as an im2col map
+// for `tma_load_im2col_4d`: `pixels` pixels of 64 channels a load, in the
+// 128-byte swizzle (one 128-B row a pixel). The bounding box runs from
+// `lower` to the last column or row plus `upper` ({W, H}: the encoder's
+// DHW offsets, innermost first), walked at traversal `stride` in W and H.
+inline bool make_im2col_map(CUtensorMap* map, const void* ptr,
+                            const long long* dims, const int* lower,
+                            const int* upper, int stride, int pixels) {
+  EncodeIm2col fn = encode_im2col();
+  if (fn == nullptr || !bind_context()) return false;
+  cuuint64_t d[4], strides[3];
+  cuuint64_t s = sizeof(__nv_bfloat16);
+  for (int i = 0; i < 4; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    s *= d[i];
+    if (i < 3) strides[i] = s;
+  }
+  const cuuint32_t elem[4] = {1, (cuuint32_t)stride, (cuuint32_t)stride, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            d, strides, lower, upper, 64, (cuuint32_t)pixels, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -16,18 +16,25 @@ task id, the threshold and the mode get no gradient, and `dx` is computed
 only when x needs it (conv0's input is the image).
 
 On CUDA tensors the three products are hand-written implicit-GEMM kernels.
-y and dx take one of two routes, chosen by `conv_route` (a shape predicate)
-before any launch:
+y and dx take one of four routes, chosen by `fwd_dx_route` (a shape
+predicate) before any launch. The first three run the select pass of
+`csrc/masked_matmul.cu` (w, own and pm read once; the bf16 effective weight
+of the (kh*kw*Cin, Cout) view written to a per-call scratch, transposed for
+the forward, counted in `LAUNCHES_SELECT`; the scratch is not saved for the
+backward), then one TMA + wgmma GEMM over it:
 
-* bf16, stride 1, Cin and Cout multiples of 64, and output and input grids
-  whose 128-pixel tiles are each one TMA box (`conv_box`; VGG16-BN's conv2,
-  4, 7 and 10 at width 1.0): the select pass of `csrc/masked_matmul.cu`
-  (w, own and pm read once; the bf16 effective weight of the (kh*kw*Cin,
-  Cout) view written to a per-call scratch, transposed for the forward,
-  counted in `LAUNCHES_SELECT`), then that file's TMA + wgmma GEMM walking
-  the taps as an implicit GEMM (`masked_matmul.launch_conv_gemm`). The
-  scratch is not saved for the backward.
-* otherwise (conv0's Cin = 3, narrow widths, f32, stride 2):
+* "gemm" (`conv_route`: bf16, stride 1, Cin and Cout multiples of 64,
+  output and input grids whose 128-pixel tiles are each one TMA box,
+  `conv_box`; VGG16-BN's conv2, 4, 7 and 10 at width 1.0): the GEMM
+  walking the taps over 4-D boxes (`masked_matmul.launch_conv_gemm`);
+* "dense" (bf16 1x1 at stride 1, Cin and Cout multiples of 64: 33 of
+  ResNet-50's convs): the dense TN GEMM over x as (N*H*W, Cin)
+  (`masked_matmul.launch_gemm_tn`);
+* "im2col" (bf16, Cin and Cout multiples of 64, 1x1 or 3x3, stride 1 or
+  2, any grid: ResNet-50's stride-2 convs, SphereNet-20's units and
+  downs): the GEMM over TMA im2col loads, dx at stride 2 in four parity
+  phases (`masked_matmul.launch_conv_im2col`);
+* otherwise (the stems and conv0, Cin = 3; narrow widths; f32):
   `csrc/masked_conv_fwd.cu` (K1) and `csrc/masked_conv_bwd_dx.cu` (K2),
   the select in the (transposed) weight-tile load.
 
@@ -147,9 +154,10 @@ class _MaskedConv2d(torch.autograd.Function):
             return masked_conv2d_plain(x, w, own, pm, task_id, stride,
                                        padding, threshold, mask_mode)
         global LAUNCHES
-        if conv_route(x, w, stride, padding):
-            y = _select_then_gemm(x, x, w, own, pm, task_id, padding,
-                                  threshold, mask_mode, dgrad=False)
+        route = fwd_dx_route(x, w, stride, padding)
+        if route:
+            y = _select_then_gemm(x, x, w, own, pm, task_id, stride, padding,
+                                  threshold, mask_mode, False, route)
         else:
             y = launch_fwd(x, w, own, pm, task_id, stride, padding,
                            threshold, mask_mode)
@@ -186,15 +194,16 @@ def masked_conv2d(x, w, own, pm, task_id, stride: int = 1, padding="SAME",
 def masked_conv2d_bwd_dx(g, x, w, own, pm, task_id, stride: int = 1,
                          padding="SAME", threshold: float = DEFAULT_THRESHOLD,
                          mask_mode: str = "binary"):
-    """dx for output gradient g: on CUDA tensors the select pass and the
-    implicit GEMM (`conv_route`) or K2, on CPU tensors the plain version."""
+    """dx for output gradient g: on CUDA tensors the select pass and a GEMM
+    (`fwd_dx_route`) or K2, on CPU tensors the plain version."""
     if x.device.type == "cpu":
         return masked_conv2d_bwd_dx_plain(g, x, w, own, pm, task_id, stride,
                                           padding, threshold, mask_mode)
     global LAUNCHES_BWD_DX
-    if conv_route(x, w, stride, padding):
-        dx = _select_then_gemm(g, x, w, own, pm, int(task_id), padding,
-                               threshold, mask_mode, dgrad=True)
+    route = fwd_dx_route(x, w, stride, padding)
+    if route:
+        dx = _select_then_gemm(g, x, w, own, pm, int(task_id), stride,
+                               padding, threshold, mask_mode, True, route)
     else:
         dx = launch_bwd_dx(g, x, w, own, pm, int(task_id), stride, padding,
                            threshold, mask_mode)
@@ -242,12 +251,13 @@ def conv_box(ho: int, wo: int):
 
 
 def conv_route(x, w, stride, padding) -> bool:
-    """Whether a conv's y and dx on the card take the select pass + TMA/wgmma
-    implicit GEMM: bf16, stride 1, Cin and Cout multiples of 64 (a k-step is
-    one tap's 64 channels of the reduction: Cin for y, Cout for dx), output
-    and input grids tiled by `conv_box`, x and w 16-byte aligned. The launch
-    checks the rest (contiguity, g and pm alignment) and raises; every other
-    shape takes K1 and K2."""
+    """Whether a conv takes the TMA/wgmma implicit GEMM over 4-D boxes (y
+    and dx after the select pass, `fwd_dx_route`'s "gemm"; K3's wgrad GEMM;
+    K4's and K5's seams): bf16, stride 1, Cin and Cout multiples of 64 (a
+    k-step is one tap's 64 channels of the reduction: Cin for y, Cout for
+    dx), output and input grids tiled by `conv_box`, x and w 16-byte
+    aligned. The launch checks the rest (contiguity, g and pm alignment)
+    and raises."""
     if (x.dtype != torch.bfloat16 or stride != 1 or x.dim() != 4
             or w.dim() != 4):
         return False
@@ -256,6 +266,35 @@ def conv_route(x, w, stride, padding) -> bool:
     return (w.shape[2] % 64 == 0 and w.shape[3] % 64 == 0
             and conv_box(ho, wo) is not None and conv_box(h, wd) is not None
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def fwd_dx_route(x, w, stride, padding):
+    """Which route a conv's y and dx take on the card (module docstring):
+    "gemm" where `conv_route` holds; else, for bf16 NHWC x and HWIO w with
+    Cin and Cout multiples of 64 (a k-step is one tap's 64 channels of the
+    reduction), a square 1x1 or 3x3 kernel, stride 1 or 2, every pad within
+    0 .. k - 1 (the im2col maps' corners and offsets), a non-empty output
+    and x and w 16-byte aligned: "dense" for 1x1 at stride 1 (no padding),
+    "im2col" for the rest; otherwise None (K1 and K2). Decided from shapes
+    alone: the launches raise on what they cannot take (contiguity, g and
+    pm alignment), and nothing falls back."""
+    if conv_route(x, w, stride, padding):
+        return "gemm"
+    if x.dtype != torch.bfloat16 or x.dim() != 4 or w.dim() != 4:
+        return None
+    kh, kw, cin, cout = w.shape
+    n, h, wd, c = x.shape
+    if (kh != kw or kh not in (1, 3) or stride not in (1, 2) or c != cin
+            or cin % 64 or cout % 64 or x.data_ptr() % 16
+            or w.data_ptr() % 16):
+        return None
+    pads = resolve_padding(padding, h, wd, kh, kw, stride)
+    if any(p < 0 or p > kh - 1 for p in pads):
+        return None
+    if min(n, out_size(h, kh, stride, pads[0], pads[1]),
+           out_size(wd, kw, stride, pads[2], pads[3])) <= 0:
+        return None
+    return "dense" if kh == 1 and stride == 1 else "im2col"
 
 
 def im2col_route(x, w) -> bool:
@@ -297,25 +336,35 @@ def _stride1_grid(x, w, padding):
     return pt, pl, out_size(h, kh, 1, pt, pb), out_size(wd, kw, 1, pl, pr)
 
 
-def _select_then_gemm(a, x, w, own, pm, task_id, padding, threshold,
-                      mask_mode, dgrad):
-    """The `conv_route` path: the select pass over w viewed as (kh*kw*Cin,
-    Cout), transposed for the forward, then the implicit GEMM over it; a is
+def _select_then_gemm(a, x, w, own, pm, task_id, stride, padding,
+                      threshold, mask_mode, dgrad, route):
+    """A `fwd_dx_route` route: the select pass over w viewed as (kh*kw*Cin,
+    Cout), transposed for the forward, then the route's GEMM over it; a is
     x (forward) or g (dgrad)."""
     from . import masked_matmul as mm  # imports this module: not at the top
 
     global LAUNCHES_SELECT
-    kh, kw, _, cout = w.shape
+    kh, kw, cin, cout = w.shape
     n, h, wd, _ = x.shape
-    pt, pl, ho, wo = _stride1_grid(x, w, padding)
+    pads = resolve_padding(padding, h, wd, kh, kw, stride)
+    ho = out_size(h, kh, stride, pads[0], pads[1])
+    wo = out_size(wd, kw, stride, pads[2], pads[3])
     if dgrad:
         _check(a.shape == (n, ho, wo, cout) and a.dtype == x.dtype,
                f"g must be {(n, ho, wo, cout)} in x's dtype")
     weff = mm.launch_select(*(t.reshape(-1, cout) for t in (w, own, pm)),
                             task_id, threshold, mask_mode, not dgrad)
     LAUNCHES_SELECT += 1
-    return mm.launch_conv_gemm(a, weff, (h, wd) if dgrad else (ho, wo), kh,
-                               kw, pt, pl, dgrad)
+    grid_hw = (h, wd) if dgrad else (ho, wo)
+    if route == "gemm":
+        return mm.launch_conv_gemm(a, weff, grid_hw, kh, kw, pads[0],
+                                   pads[2], dgrad)
+    if route == "dense":
+        _check(a.is_contiguous(), "a must be contiguous")
+        out = mm.launch_gemm_tn(a.view(-1, a.shape[-1]), weff)
+        return out.view(n, *grid_hw, cin if dgrad else cout)
+    return mm.launch_conv_im2col(a, weff, grid_hw, kh, kw, stride, pads,
+                                 dgrad)
 
 
 # ------------------------------------------------------------- kernels ----

@@ -40,8 +40,10 @@ the plain versions run. This module keeps its own launch counters.
 The masked conv's GEMM route (`masked_conv.conv_route`) launches the same
 select pass and the same GEMM, whose producer walks the conv's taps
 (`launch_conv_gemm`, planned by `conv_plan`), and the same weight-gradient
-GEMM over per-tap boxes of x (`launch_wgrad_conv`); it counts in
-`masked_conv`.
+GEMM over per-tap boxes of x (`launch_wgrad_conv`); its im2col route
+(`masked_conv.fwd_dx_route`) the same select pass and the GEMM's sibling
+over TMA im2col loads (`launch_conv_im2col`, planned by `im2col_plan`); it
+counts in `masked_conv`.
 """
 
 from __future__ import annotations
@@ -205,6 +207,61 @@ def conv_plan(n: int, ho: int, wo: int, c: int, nout: int, taps: int,
     box = _mc.conv_box(ho, wo)
     _check(box is not None, f"no 128-pixel TMA box tiles a {ho}x{wo} grid")
     return (box, *gemm_plan(n * ho * wo, taps * c, nout, sms))
+
+
+@functools.lru_cache(maxsize=None)
+def im2col_plan(n: int, ah: int, aw: int, oh: int, ow: int, kh: int,
+                kw: int, stride: int, pads: tuple, c: int, nout: int,
+                dgrad: bool, sms: int):
+    """(phases, bn, stages, grid) of the masked conv's implicit GEMM over
+    im2col loads (`launch_conv_im2col`): the activation (n, ah, aw, c), the
+    output grid (oh, ow) with nout channels, the forward's `pads` (top,
+    bottom, left, right).
+
+    A phase is (rows, columns, lower_w, lower_h, row0, col0, taps), each tap
+    (id = dh * kw + dw, offset_w, offset_h): its output pixel (img, i, j)
+    reads the activation at (lower_h + i * t + offset_h, lower_w + j * t +
+    offset_w), t the traversal stride (the conv's for the forward, 1 for
+    dx). The forward is one phase over (oh, ow) with lower corner (-pad_left,
+    -pad_top) and the taps in order. dx at stride 1 is one phase over (oh,
+    ow) = (H, W) reading g with the taps mirrored: offsets (kw - 1 - dw,
+    kh - 1 - dh), lower corner (pad_left - kw + 1, pad_top - kh + 1). dx at
+    stride 2 is four phases (a, b) = (ih % 2, iw % 2), most taps first, each
+    (ceil((H - a) / 2), ceil((W - b) / 2)) pixels stored at dx's (a + 2 i,
+    b + 2 j), reduced over the taps with (a + pad_top - dh) and (b +
+    pad_left - dw) even: g row (a + pad_top - dh) / 2 + i, so the lower
+    corner is the least of those offsets and each tap's offset the rest; a
+    phase no tap reaches (1x1 at 2: three of four) is zeros. bn, stages and
+    grid are `gemm_plan`'s over every phase's 128-pixel tiles and R =
+    kh * kw * c."""
+    pt, _, pl, _ = pads
+    if not dgrad:
+        phases = [(oh, ow, -pl, -pt, 0, 0,
+                   tuple((dh * kw + dw, dw, dh) for dh in range(kh)
+                         for dw in range(kw)))]
+    elif stride == 1:
+        phases = [(oh, ow, pl - kw + 1, pt - kh + 1, 0, 0,
+                   tuple((dh * kw + dw, kw - 1 - dw, kh - 1 - dh)
+                         for dh in range(kh) for dw in range(kw)))]
+    else:
+        phases = []
+        for a in range(stride):
+            for b in range(stride):
+                dhs = [(dh, (a + pt - dh) // stride) for dh in range(kh)
+                       if (a + pt - dh) % stride == 0]
+                dws = [(dw, (b + pl - dw) // stride) for dw in range(kw)
+                       if (b + pl - dw) % stride == 0]
+                lh = min((e for _, e in dhs), default=0)
+                lw = min((e for _, e in dws), default=0)
+                phases.append((-(-(oh - a) // stride), -(-(ow - b) // stride),
+                               lw, lh, a, b,
+                               tuple((dh * kw + dw, ew - lw, eh - lh)
+                                     for dh, eh in dhs for dw, ew in dws)))
+        # the most taps first: the persistent blocks end on the light tiles
+        phases.sort(key=lambda ph: -len(ph[-1]))
+    tiles_m = sum(-(-n * r * q // GEMM_BM) for r, q, *_ in phases)
+    return (tuple(phases),
+            *gemm_plan(max(tiles_m, 1) * GEMM_BM, kh * kw * c, nout, sms))
 
 
 def fused_dx_smem_bytes(bn: int, stages: int) -> int:
@@ -491,6 +548,9 @@ def _lib():
         lib.masked_matmul_gemm_tn_bf16.restype = ctypes.c_int
         lib.masked_conv_gemm_bf16.argtypes = [_P] * 3 + [_I] * 17 + [_P]
         lib.masked_conv_gemm_bf16.restype = ctypes.c_int
+        lib.masked_conv_im2col_gemm_bf16.argtypes = (
+            [_P] * 3 + [_I] * 10 + [ctypes.POINTER(_I)] + [_I] * 4 + [_P])
+        lib.masked_conv_im2col_gemm_bf16.restype = ctypes.c_int
     return lib
 
 
@@ -598,6 +658,58 @@ def launch_conv_gemm(a, bt, grid_hw, kh, kw, pad_top, pad_left, dgrad):
         stages, grid, _stream(a))
     if err:
         raise RuntimeError(f"masked_conv_gemm launch failed: CUDA error {err}")
+    return out
+
+
+# a phase's row in csrc/masked_matmul.cu's table: rows, columns, the lower
+# corner (w, h), dx's first row and column, the tap count, then nine taps
+_MAX_TAPS = 9
+
+
+def launch_conv_im2col(a, bt, grid_hw, kh, kw, stride, pads, dgrad):
+    """The masked conv's implicit GEMM over im2col loads, any output grid,
+    stride 1 or 2, planned by `im2col_plan`. Forward: y (N, Ho, Wo, Cout)
+    from a = x (N, H, W, Cin) and bt = w_eff^T (Cout, kh*kw*Cin). dgrad: dx
+    (N, H, W, Cin) from a = g (N, Ho, Wo, Cout) and bt = w_eff (kh*kw*Cin,
+    Cout). grid_hw is the output's (rows, columns); pads and stride are the
+    forward's."""
+    _check(a.is_cuda and bt.device == a.device,
+           f"a and bt must be on one CUDA device, got {a.device}, {bt.device}")
+    _check(a.dtype == bt.dtype == torch.bfloat16, "a and bt must be bf16")
+    _check(a.dim() == 4 and bt.dim() == 2, "a must be NHWC and bt 2-D")
+    _check(a.is_contiguous() and bt.is_contiguous(), "a and bt must be contiguous")
+    _check(stride in (1, 2) and kh * kw <= _MAX_TAPS,
+           f"stride {stride} and {kh}x{kw} taps: the walk takes stride 1 or "
+           f"2 and at most {_MAX_TAPS} taps")
+    n, ah, aw, ch = a.shape
+    taps = kh * kw
+    nout = bt.shape[0] // taps if dgrad else bt.shape[0]
+    want = (taps * nout, ch) if dgrad else (nout, taps * ch)
+    _check(tuple(bt.shape) == want, f"bt {tuple(bt.shape)} is not {want}")
+    _check(ch % 64 == 0 and nout % 8 == 0,
+           f"reduction channels must be a multiple of 64 and output channels "
+           f"of 8, got {(ch, nout)}")
+    _check(a.data_ptr() % 16 == 0 and bt.data_ptr() % 16 == 0,
+           "a and bt must be 16-byte aligned")
+    oh, ow = grid_hw
+    out = torch.empty((n, oh, ow, nout), dtype=torch.bfloat16, device=a.device)
+    if out.numel() == 0:
+        return out
+    phases, bn, stages, grid = im2col_plan(
+        n, ah, aw, oh, ow, kh, kw, stride, tuple(pads), ch, nout, bool(dgrad),
+        _sms(a.device.index or 0))
+    flat = []
+    for rows, cols, lw, lh, r0, c0, tp in phases:
+        flat += [rows, cols, lw, lh, r0, c0, len(tp)]
+        flat += [i | o_w << 8 | o_h << 16 for i, o_w, o_h in tp]
+        flat += [0] * (_MAX_TAPS - len(tp))
+    table = (_I * len(flat))(*flat)
+    err = _lib().masked_conv_im2col_gemm_bf16(
+        a.data_ptr(), bt.data_ptr(), out.data_ptr(), n, ah, aw, ch, oh, ow,
+        nout, taps, stride, int(dgrad), table, len(phases), bn, stages, grid,
+        _stream(a))
+    if err:
+        raise RuntimeError(f"masked_conv_im2col_gemm launch failed: CUDA error {err}")
     return out
 
 

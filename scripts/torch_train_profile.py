@@ -39,7 +39,8 @@ GROUPS = (
                       "namespace)::gate_kernel", "namespace)::sum_kernel",
                       "namespace)::colsum_kernel",
                       "namespace)::gemm_tn_bf16_kernel",
-                      "cpg::gemm::gemm_tn_bf16_kernel", "k4::fwd_wgmma_kernel",
+                      "cpg::gemm::gemm_tn_bf16_kernel",
+                      "cpg::gemm::conv_im2col_kernel", "k4::fwd_wgmma_kernel",
                       "namespace)::select_bf16_kernel",
                       "namespace)::wgrad_wgmma_kernel",
                       "namespace)::wgrad_gate_kernel",

@@ -466,6 +466,47 @@ def test_conv_off_the_route_takes_k1_and_k2(cuda, case):
     _check(dx, mc.masked_conv2d_bwd_dx_plain(g, x, wt, own, pm, 2), dtype)
 
 
+@pytest.mark.parametrize("mode", ["binary", "ternary"])
+@pytest.mark.parametrize("case", [
+    # (n, H, W, k, stride, padding, Cin, Cout, route)
+    (4, 28, 24, 3, 2, 1, 128, 128, "im2col"),      # 3x3/2, pad 1
+    (3, 7, 6, 3, 1, "SAME", 64, 128, "im2col"),    # 3x3 at wo = 6
+    (4, 14, 14, 1, 2, "SAME", 64, 128, "im2col"),  # 1x1/2
+    (2, 9, 8, 3, 2, "SAME", 64, 64, "im2col"),     # pads (1, 1) and (0, 1)
+    (2, 13, 11, 3, 2, "SAME", 128, 192, "im2col"),  # odd sides, 192 wide
+    (4, 14, 14, 1, 1, "SAME", 128, 64, "dense"),   # 1x1 at stride 1
+    (256, 14, 12, 3, 1, "SAME", 256, 256, "im2col"),  # SphereNet's unit3
+], ids=["3x3s2", "wo6", "1x1s2", "3x3s2_mixed_pads", "3x3s2_odd",
+        "1x1_dense", "sphere_unit3"])
+def test_im2col_and_dense_routes_match_plain(cuda, case, mode):
+    """bf16 convs off the boxes with Cin and Cout multiples of 64 take the
+    select pass and the im2col walk (or, 1x1 at stride 1, the dense GEMM)
+    for y and dx (one select each, no K1/K2 launch): within 2e-2 * max|ref|
+    of the plain versions, two launches equal bits."""
+    n, h, w, k, s, pad, cin, cout, route = case
+    x, wt, own, pm = _conv_case(n, h, w, cin, cout, k, cuda, torch.bfloat16,
+                                seed=h + w)
+    y = mc.masked_conv2d_plain(x, wt, own, pm, 2, s, pad, mask_mode=mode)
+    g = torch.from_numpy(np.random.RandomState(h).randn(
+        *y.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    assert mc.fwd_dx_route(x, wt, s, pad) == route
+    before = (mc.LAUNCHES, mc.LAUNCHES_BWD_DX, mc.LAUNCHES_SELECT)
+    got_y = mc.masked_conv2d(x, wt, own, pm, 2, s, pad, mask_mode=mode)
+    got_dx = mc.masked_conv2d_bwd_dx(g, x, wt, own, pm, 2, s, pad,
+                                     mask_mode=mode)
+    torch.cuda.synchronize()
+    assert (mc.LAUNCHES, mc.LAUNCHES_BWD_DX, mc.LAUNCHES_SELECT) == (
+        before[0] + 1, before[1] + 1, before[2] + 2)
+    _check(got_y, y, torch.bfloat16)
+    _check(got_dx, mc.masked_conv2d_bwd_dx_plain(g, x, wt, own, pm, 2, s, pad,
+                                                 mask_mode=mode),
+           torch.bfloat16)
+    assert torch.equal(got_y, mc.masked_conv2d(x, wt, own, pm, 2, s, pad,
+                                               mask_mode=mode))
+    assert torch.equal(got_dx, mc.masked_conv2d_bwd_dx(
+        g, x, wt, own, pm, 2, s, pad, mask_mode=mode))
+
+
 def test_conv_gemm_route_refuses_a_misaligned_tensor(cuda):
     """On the route, a g (or pm) off a 16-byte boundary raises; nothing
     falls back to K2."""
