@@ -29,7 +29,8 @@ Needs one CUDA card; exits non-zero without one. It
      the old K1 and K2. K3 takes csrc/masked_matmul_wgrad.cu's split-M
      wgmma wgrad GEMM at conv2/4/7/10 (`route` "wgmma") and over conv0's
      im2col patches ("im2col+wgmma"; the im2col kernel also alone, bit for
-     bit, in a `masked_conv_im2col` row), with the device ms of the GEMM,
+     bit, in a `masked_conv_im2col` row, beside `F.unfold` as its library
+     call), each row failing on another route, with the device ms of the GEMM,
      the gate pass and the im2col, cuDNN's weight gradient alone
      (`cudnn_device_ms`), the plan and its partials' bytes; the
      width-0.125 conv2 and the f32 conv7 hold the old K3. Every K1, K2 and
@@ -108,9 +109,11 @@ Needs one CUDA card; exits non-zero without one. It
      dense GEMM or im2col walk, each row with its `route` and the two
      launches' own device ms) and K4-K6 at its 4 seams, serving, the eval
      and train steps (conv selects 39 and 78), and the
-     finegrained CLI cycle (`finegrained_phase`); SphereNet-20 (112x96,
+     finegrained CLI cycle (`finegrained_phase`); K3 of every conv on
+     the wgrad GEMM (1x1/1 x and g as matrices, the rest TMA im2col loads,
+     the stem its patches: im2col 1 a train step); SphereNet-20 (112x96,
      batch 256): K1, K2 and K3 at its 8 conv geometries
-     (`SPHERE_CONV_SHAPES`; K1 and K2 past the stem on the im2col walk;
+     (`SPHERE_CONV_SHAPES`; K1, K2 and K3 past the stem on the im2col walk;
      K3 held against the plain version summed in
      f64) and fc5 on the dense route, a bf16 server against the f32
      server, the eval step, the train step with task 2 under the A-Softmax
@@ -322,6 +325,32 @@ def wgrad_cols(kern, plan, k, n):
                               if splits > 1 else 0)}
 
 
+# K3's route labels in the rows, by `masked_conv.wgrad_conv_route`: the
+# wgrad GEMM over the conv boxes, over x and g as matrices (1x1 at stride
+# 1), over TMA im2col loads (any grid, stride 1 or 2), over the im2col
+# kernel's patches (the stems, conv0); the old K3
+K3_LABELS = {"gemm": "wgmma", "dense": "dense+wgmma",
+             "im2col": "tma_im2col+wgmma", "patches": "im2col+wgmma",
+             None: "k3"}
+
+
+def k3_plan(route, n, ho, wo, k, cin, cout):
+    """The wgrad GEMM's plan on K3's route at a k x k conv of an n x ho x
+    wo output grid (None off the GEMM): the boxes' `wgrad_conv_plan`, or
+    `wgrad_plan` in 128-pixel steps (im2col loads) or 64-row steps (x as a
+    matrix, the patches)."""
+    from cpg_tpu_torch.ops import masked_matmul as mm
+
+    sms, m = mm._sms(0), n * ho * wo
+    if route == "gemm":
+        return mm.wgrad_conv_plan(n, ho, wo, cin, cout, k * k, sms)
+    if route == "im2col":
+        return mm.wgrad_plan(m, k * k * cin, cout, sms, mm.WGRAD_CONV_ROWS)
+    if route in ("dense", "patches"):
+        return mm.wgrad_plan(m, k * k * cin, cout, sms)
+    return None
+
+
 def conv_route_rows(torch, w, own, pm, mode, gemm, cudnn, dgrad, common):
     """On the masked conv's GEMM route: the select pass alone against its
     plain version (bit for bit; a `masked_conv_select` row), and for the
@@ -527,27 +556,36 @@ def masked_conv_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name, mode,
                       rel=SUM_TOL))
     b_ms, b_by = bound(x.numel() * elt + gy.numel() * elt + 5 * n_w + 8 * n_w,
                        flops, dtype_name)
-    extra, route = {}, "k3"
-    if mc.conv_route(x, w, 1, "SAME"):
-        route = "wgmma"
-        plan = mm.wgrad_conv_plan(BATCH, hw, hw, cin, cout, 9, mm._sms(0))
-        extra = wgrad_cols(kern, plan, 9 * cin, cout)
-    elif mc.im2col_route(x, w):
-        route = "im2col+wgmma"
-        plan = mm.wgrad_plan(BATCH * hw * hw, 9 * cin, cout, mm._sms(0))
-        extra = wgrad_cols(kern, plan, 9 * cin, cout)
-        rows.append(im2col_row(torch, x, -(-9 * cin // 8) * 8, common))
-    if extra:  # cuDNN's weight gradient alone: the GEMM's yardstick
+    # VGG16-BN's K3 routes: conv0 its patches, the convs with Cin and Cout
+    # multiples of 64 the boxes, the rest (narrow, f32) the old K3
+    route = mc.wgrad_conv_route(x, w, 1, "SAME")
+    bf16 = dtype_name == "bfloat16"
+    want = ("patches" if bf16 and cin == 3 else "gemm" if bf16
+            and cin % 64 == 0 and cout % 64 == 0 else None)
+    if route != want:
+        raise AssertionError(f"masked_conv_bwd_dw {name}: route {route}, "
+                             f"expected {want}")
+    extra = {}
+    if route:
+        extra = wgrad_cols(kern, k3_plan(route, BATCH, hw, hw, 3, cin, cout),
+                           9 * cin, cout)
+        # cuDNN's weight gradient alone: the GEMM's yardstick
         extra["cudnn_device_ms"] = device_ms(cudnn)
-    rows.append(dict(kernel="masked_conv_bwd_dw", **common, route=route,
-                     max_abs_err=err, **timed(kern, plain, library),
-                     bound_ms=b_ms, bound_by=b_by, **extra))
+    if route == "patches":
+        rows.append(im2col_row(torch, x, -(-9 * cin // 8) * 8, common))
+    rows.append(dict(kernel="masked_conv_bwd_dw", **common,
+                     route=K3_LABELS[route], max_abs_err=err,
+                     **timed(kern, plain, library), bound_ms=b_ms,
+                     bound_by=b_by, **extra))
     return rows
 
 
 def im2col_row(torch, x, kp, common, k=3, stride=1, pads=(1, 1, 1, 1)):
     """A conv's im2col kernel alone against its plain version, bit for bit;
-    bound by its bytes (x read once, the patches written once)."""
+    bound by its bytes (x read once, the patches written once). Library:
+    `F.unfold` on x's NCHW view, the one call that forms the same patches,
+    as (N, C*kh*kw, L) in (c, dh, dw) column order (timed, not compared;
+    symmetric padding only, as every conv here has)."""
     from cpg_tpu_torch.ops import masked_matmul as mm
 
     kern = lambda: mm.launch_im2col(x, k, k, stride, pads, kp)
@@ -558,10 +596,18 @@ def im2col_row(torch, x, kp, common, k=3, stride=1, pads=(1, 1, 1, 1)):
                              "differ from the plain version")
     b_ms, b_by = bound((x.numel() + got.numel()) * x.element_size(), 0.0,
                        "bfloat16")
+    lib = {"library_ms": None, "library_device_ms": None}
+    pt, pb, pl, pr = pads
+    if (pt, pl) == (pb, pr):
+        xt = x.permute(0, 3, 1, 2)
+        unfold = lambda: torch.nn.functional.unfold(
+            xt, k, padding=(pt, pl), stride=stride)
+        lib = {"library_ms": time_ms(unfold),
+               "library_device_ms": device_ms(unfold),
+               "library": "F.unfold, NCHW view, (c, dh, dw) columns"}
     return dict(kernel="masked_conv_im2col", **common, max_abs_err=0.0,
                 ms=time_ms(kern), device_ms=device_ms(kern),
-                plain_ms=time_ms(plain), library_ms=None,
-                library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
+                plain_ms=time_ms(plain), **lib, bound_ms=b_ms, bound_by=b_by)
 
 
 def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name,
@@ -695,13 +741,17 @@ def conv_geometry_rows(torch, dev, arch, batch, name, hw, k, stride, pad,
     on the earlier kernels ("k1"; the row fails on another route); their
     rows add the select's and the GEMM's own device ms
     (`select_device_ms`, `gemm_kernel_device_ms`; the op's `device_ms`
-    holds both). K3 takes the im2col route where kh*kw*Cin <= 64 (the 1x1
-    convs over 64 channels, SphereNet's 3x3 stem: its im2col kernel alone
-    in a `masked_conv_im2col` row) and the earlier kernel elsewhere; K3 is
-    held against its plain version summed in f64 (`f32_plain_max_abs_err`:
-    the kernel against the f32 plain version, reported). Besides the
-    CUDA-event and profiler times, cuDNN's product alone on the
-    pre-selected weight (`cudnn_device_ms`)."""
+    holds both). K3 must take the wgrad GEMM on `masked_conv.
+    wgrad_conv_route`'s route: "dense+wgmma" (x and g as matrices) at the
+    1x1 convs at stride 1, "tma_im2col+wgmma" (TMA im2col loads) at the
+    rest past the stems, "im2col+wgmma" (the patches; the im2col kernel
+    alone in a `masked_conv_im2col` row) at the stems; the row fails on
+    another route. Its row adds the GEMM's, the gate pass's and the
+    im2col's own device ms, the plan and the partials' bytes
+    (`wgrad_cols`); K3 is held against its plain version summed in f64
+    (`f32_plain_max_abs_err`: the kernel against the f32 plain version,
+    reported). Besides the CUDA-event and profiler times, cuDNN's product
+    alone on the pre-selected weight (`cudnn_device_ms`)."""
     from cpg_tpu_torch.ops import masked_conv as mc
     from cpg_tpu_torch.ops import masked_matmul as mm
     from cpg_tpu_torch.ops.conv import conv2d_nhwc, out_size, resolve_padding
@@ -810,20 +860,24 @@ def conv_geometry_rows(torch, dev, arch, batch, name, hw, k, stride, pad,
     f32_err = max(float((u - v).abs().max()) for u, v in zip(got, f32))
     b_ms, b_by = bound(x.numel() * elt + gy.numel() * elt + 13 * n_w, flops,
                        "bfloat16")
-    extra, route = {}, "k3"
-    if mc.im2col_route(x, w):
-        route, kk = "im2col+wgmma", k * k * cin
-        plan = mm.wgrad_plan(n * ho * wo, kk, cout, mm._sms(0))
-        extra = wgrad_cols(kern, plan, kk, cout)
-        im2col = im2col_row(torch, x, -(-kk // 8) * 8, common, k, stride,
-                            (pt, pb, pl, pr))
-    rows.append(dict(kernel="masked_conv_bwd_dw", **common, route=route,
-                     max_abs_err=err, f32_plain_max_abs_err=f32_err,
+    route = mc.wgrad_conv_route(x, w, stride, pad)
+    want = ("patches" if cin == 3 else "dense" if (k, stride) == (1, 1)
+            else "im2col")
+    if route != want:
+        raise AssertionError(f"{arch} {name}: K3 on route {route}, expected "
+                             f"{want}")
+    kk = k * k * cin
+    extra = wgrad_cols(kern, k3_plan(route, n, ho, wo, k, cin, cout), kk,
+                       cout)
+    rows.append(dict(kernel="masked_conv_bwd_dw", **common,
+                     route=K3_LABELS[route], max_abs_err=err,
+                     f32_plain_max_abs_err=f32_err,
                      **timed(kern, plain, library),
                      cudnn_device_ms=device_ms(cudnn), bound_ms=b_ms,
                      bound_by=b_by, **extra))
-    if extra:
-        rows.append(im2col)
+    if route == "patches":
+        rows.append(im2col_row(torch, x, -(-kk // 8) * 8, common, k, stride,
+                               (pt, pb, pl, pr)))
     return rows
 
 
@@ -1348,12 +1402,12 @@ TRAIN_LAUNCHES = {
                   "masked_matmul_fwd": 36, "masked_matmul_bwd_dx": 36,
                   "masked_matmul_bwd_dw": 36, "masked_matmul_select": 72},
     # ResNet-50: 40 masked convs (no dx for the stem, whose input is the
-    # image; y and dx of the other 39 on the dense or im2col route, a
-    # select pass each; K3 of the five 1x1 convs over 64 channels on the
-    # im2col route, one im2col each) and 13 fused seams
+    # image; y, dx and K3 of the other 39 on the dense or im2col route, a
+    # select pass before y and dx; the stem's K3 over its patches, one
+    # im2col) and 13 fused seams
     "resnet50": {"masked_conv_fwd": 40, "masked_conv_bwd_dx": 39,
                  "masked_conv_bwd_dw": 40, "masked_conv_select": 78,
-                 "masked_conv_im2col": 5,
+                 "masked_conv_im2col": 1,
                  "fused_chain_fwd": 13, "fused_chain_bwd_dx": 13,
                  "fused_chain_bwd_dw": 13},
     # SphereNet-20: 20 masked convs (no dx for the stem; y and dx of the
@@ -2820,7 +2874,9 @@ def kernels_line(rows, launched):
                     "launches": n, **{key: _step_sum(rn, key) for key in (
                         "ms", "device_ms", "plain_ms", "bound_ms",
                         "library_ms", "library_device_ms",
-                        "cudnn_device_ms", "gemm_device_ms") if rn}}
+                        "cudnn_device_ms", "gemm_device_ms",
+                        "gemm_kernel_device_ms", "gate_device_ms",
+                        "im2col_device_ms") if rn}}
         # the VGG16-BN step's rows on the conv boxes (conv2/4/7/10) alone,
         # beside cuDNN's product on their pre-selected weights
         boxes = [(r, k) for r, k in step if r.get("route") == "select+gemm"]

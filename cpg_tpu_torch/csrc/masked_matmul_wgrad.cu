@@ -16,7 +16,10 @@
 // K, N in {256, 1024}) move about as many bytes as they do products (x and
 // g cross HBM once); the VGG16-BN convs at batch 256 do 4.8-9.7 GFLOP a
 // layer against 2-34 MB of activations and are bound by operations; conv0
-// (Cin = 3, K = 27) by reading g. The earlier kernel (conv_bwd.cuh
+// (Cin = 3, K = 27) by reading g; ResNet-50's convs at batch 32 (0.8-7.6
+// GFLOP against 20-79 MB of x and g) are bound by their bytes but one, and
+// SphereNet-20's at batch 256 (2.4-51 GFLOP, 48-177 MB) sit near the
+// balance of the two, 0.026-0.053 ms a layer. The earlier kernel (conv_bwd.cuh
 // `wgrad_bf16_kernel`) staged x and g through registers with mma.sync and
 // two __syncthreads a 32-pixel step, and wrote one f32 partial of the whole
 // (K, N) gradient per split for a second pass: 9 splits at fc1 moved 38 MB
@@ -39,8 +42,15 @@
 //     input at the tap's offset (ow0 + dw - pad_left, oh0 + dh - pad_top):
 //     TMA's zero fill is the padding, nothing is materialised; with Cin =
 //     64 the two halves are two taps. g's box is the (M, Cout) rows of the
-//     unshifted output pixels. Boxes that start past Kx or N are not
-//     loaded, and the stage's byte count says so.
+//     unshifted output pixels. WGRAD_IM2COL, any output grid at stride 1
+//     or 2, loads per 64-row half one TMA im2col load instead: 128
+//     consecutive output pixels of the flattened (N, Ho, Wo) grid, across
+//     rows and images, from the map's lower corner (-pad_left, -pad_top)
+//     plus (ow0, oh0) times the stride, each read at the tap's offsets
+//     (dw, dh) (the forward's map, tma_gemm.cuh `conv_im2col_kernel`):
+//     TMA's zero fill is the padding and the pixels past the last image.
+//     Boxes that start past Kx or N are not loaded, and the stage's byte
+//     count says so.
 //   * The reduction is split over M in whole steps (ops/masked_matmul.py
 //     `wgrad_plan` picks BN, the split count, the ring depth and the
 //     persistent grid): items (tile, split) are walked split-major by one
@@ -55,13 +65,19 @@
 //     slower at every measured shape: that sum runs on one SM per tile,
 //     bound by the latency of its loads, where the gate pass spreads it
 //     over the card.)
-//   * conv0 (kh * kw * Cin <= 64) is reduced as a dense product over its
+//   * A 1x1 conv at stride 1 is the dense walk over x and g as (N*H*W,
+//     Cin) and (N*H*W, Cout) matrices: nothing is copied.
+//   * The stems and conv0 (Cin = 3: a pixel's channels are narrower than
+//     TMA's 16-byte rows) are reduced as a dense product over their
 //     patches: `im2col_bf16_kernel` writes them as bf16 (M, Kp), Kp = K
-//     rounded up to 8 (27 -> 32: 64-byte rows TMA can stride), zeros past
-//     K; WGRAD_DENSE reads Kx = Kp columns and stores the first K rows.
+//     rounded up to 8 (27 -> 32, ResNet-50's 7x7 stem 147 -> 152: rows TMA
+//     can stride), zeros past K; WGRAD_DENSE reads Kx = Kp columns (the
+//     last 64-column box zero-filled past Kx) and stores the first K rows.
 // x and g need 16-byte aligned bases and Kx, N multiples of 8 (TMA's row
 // strides); w 8-byte and own 2-byte aligned. The wrapper keeps conv_bwd.cuh's
 // kernels for f32 and every other width.
+#include <algorithm>
+
 #include "tma_wgmma.cuh"
 
 using bf16 = __nv_bfloat16;
@@ -76,9 +92,9 @@ constexpr int THREADS = CTHREADS + 32;  // + one producer warp
 constexpr int SMEM_PER_BLOCK = 232448;
 
 // What the producer loads (see the top).
-enum WgradWalk { WGRAD_DENSE = 0, WGRAD_CONV = 1 };
+enum WgradWalk { WGRAD_DENSE = 0, WGRAD_CONV = 1, WGRAD_IM2COL = 2 };
 
-// pixels a stage: 64 dense rows, or one 128-pixel conv box
+// pixels a stage: 64 dense rows, or one 128-pixel conv box or im2col load
 __host__ __device__ constexpr int step_rows(int walk) {
   return walk == WGRAD_DENSE ? 64 : 128;
 }
@@ -97,9 +113,9 @@ __host__ __device__ constexpr int wgrad_smem_bytes(int bn, int rows,
 
 // The conv's walk (unused by WGRAD_DENSE): Cin / 64 channel blocks a tap,
 // kw taps a kernel row, the output grid's hw = Ho * Wo and wo, the padding
-// before the first row and column.
+// before the first row and column, the stride (WGRAD_IM2COL's traversal).
 struct ConvWalk {
-  int cblocks, kw, hw, wo, pad_top, pad_left;
+  int cblocks, kw, hw, wo, pad_top, pad_left, stride;
 };
 
 struct WgradArgs {
@@ -185,9 +201,16 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
             const int kb = k0 / 64 + h;
             if (kb * 64 >= p.kx) continue;
             const int tap = kb / cw.cblocks, c0 = (kb % cw.cblocks) * 64;
-            tma_load_4d(a + h * BOX, &tma_x, c0,
-                        ow0 + tap % cw.kw - cw.pad_left,
-                        oh0 + tap / cw.kw - cw.pad_top, img, full);
+            if constexpr (WALK == WGRAD_CONV)
+              tma_load_4d(a + h * BOX, &tma_x, c0,
+                          ow0 + tap % cw.kw - cw.pad_left,
+                          oh0 + tap / cw.kw - cw.pad_top, img, full);
+            else
+              tma_load_im2col_4d(a + h * BOX, &tma_x, c0,
+                                 ow0 * cw.stride - cw.pad_left,
+                                 oh0 * cw.stride - cw.pad_top, img,
+                                 (uint16_t)(tap % cw.kw),
+                                 (uint16_t)(tap / cw.kw), full);
           }
         }
         for (int q = 0; q < BN / 64; ++q)
@@ -294,39 +317,57 @@ __global__ void wgrad_gate_kernel(WgradArgs p, int bn) {
 // x (n, h, w, c) bf16 -> patches (n * ho * wo, kp) bf16: column k = (dh *
 // kw + dw) * c + ch of pixel (img, oh, ow) is x[img, oh * stride - pad_top
 // + dh, ow * stride - pad_left + dw, ch], zero in the padding and for k >=
-// kh * kw * c; kp % 8 == 0. One thread a pixel, 16-byte stores; the
-// column's (dh, dw, ch) advance by counting, not by division.
-__global__ void im2col_bf16_kernel(const bf16* __restrict__ x,
-                                   bf16* __restrict__ out, int n, int h,
-                                   int w, int c, int ho, int wo, int kh,
-                                   int kw, int stride, int pad_top,
-                                   int pad_left, int kp) {
-  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= (long long)n * ho * wo) return;
-  const int img = (int)(m / (ho * wo)), rem = (int)(m % (ho * wo));
-  const int ih0 = (rem / wo) * stride - pad_top;
-  const int iw0 = (rem % wo) * stride - pad_left;
-  const int K = kh * kw * c;
-  const bf16* img_x = x + (long long)img * h * w * c;
-  int dh = 0, dw = 0, ch = 0;
-  for (int k0 = 0; k0 < kp; k0 += 8) {
-    __align__(16) bf16 v[8];
+// kh * kw * c; kp % 8 == 0. A thread a pixel walks its row, the column's
+// (dh, dw, ch) advancing by counting (a warp's gathers read neighbouring
+// pixels), into a shared-memory tile of the block's `pix` rows (an odd
+// pitch of 16-byte chunks: a quarter-warp's stores hit distinct banks);
+// the block then stores the rows as one contiguous run, so a warp's global
+// stores are 512 contiguous bytes whatever kp is (a thread storing its own
+// row writes half sectors kp * 2 B apart).
+constexpr int IM2COL_PIX = 128;       // pixels, and threads, a block
+constexpr int IM2COL_SMEM = 49152;    // the tile's most bytes
+
+__global__ void __launch_bounds__(IM2COL_PIX)
+im2col_bf16_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, int n,
+                   int h, int w, int c, int ho, int wo, int kh, int kw,
+                   int stride, int pad_top, int pad_left, int kp, int pix) {
+  extern __shared__ uint4 rows[];
+  const int chunks = kp / 8, pitch = chunks | 1;
+  const int hw = ho * wo, m0 = blockIdx.x * pix;
+  const int np = min(pix, n * hw - m0);
+  if ((int)threadIdx.x < np) {
+    const int q = m0 + threadIdx.x;
+    const int img = q / hw, rem = q - img * hw;
+    const int ih0 = (rem / wo) * stride - pad_top;
+    const int iw0 = (rem % wo) * stride - pad_left;
+    const int K = kh * kw * c;
+    const bf16* img_x = x + (long long)img * h * w * c;
+    uint4* row = rows + threadIdx.x * pitch;
+    int dh = 0, dw = 0, ch = 0;
+    for (int j = 0; j < chunks; ++j) {
+      __align__(16) bf16 v[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int ih = ih0 + dh, iw = iw0 + dw;
-      v[e] = k0 + e < K && ih >= 0 && ih < h && iw >= 0 && iw < w
-                 ? img_x[((long long)ih * w + iw) * c + ch]
-                 : __float2bfloat16_rn(0.f);
-      if (++ch == c) {
-        ch = 0;
-        if (++dw == kw) {
-          dw = 0;
-          ++dh;
+      for (int e = 0; e < 8; ++e) {
+        const int ih = ih0 + dh, iw = iw0 + dw;
+        v[e] = 8 * j + e < K && ih >= 0 && ih < h && iw >= 0 && iw < w
+                   ? img_x[((long long)ih * w + iw) * c + ch]
+                   : __float2bfloat16_rn(0.f);
+        if (++ch == c) {
+          ch = 0;
+          if (++dw == kw) {
+            dw = 0;
+            ++dh;
+          }
         }
       }
+      row[j] = *reinterpret_cast<const uint4*>(v);
     }
-    *reinterpret_cast<uint4*>(out + m * kp + k0) =
-        *reinterpret_cast<const uint4*>(v);
+  }
+  __syncthreads();
+  uint4* dst = reinterpret_cast<uint4*>(out) + (long long)m0 * chunks;
+  for (int t = threadIdx.x; t < np * chunks; t += blockDim.x) {
+    const int p = t / chunks;
+    dst[t] = rows[p * pitch + t - p * chunks];
   }
 }
 
@@ -437,23 +478,63 @@ int masked_conv_wgrad_bf16(const void* x, const void* g, const void* w,
   if (!make_map_nd(&mx, x, 4, xdims, xbox) ||
       !make_map(&mg, g, m, cout, step_rows(WGRAD_CONV)))
     return (int)cudaErrorInvalidValue;
-  const ConvWalk cw{cin / 64, kw, ho * wo, wo, pad_top, pad_left};
+  const ConvWalk cw{cin / 64, kw, ho * wo, wo, pad_top, pad_left, 1};
   return launch_walk<WGRAD_CONV>(
       mx, mg, args(w, own, ws, dw, dpm, m, k, k, cout, task, splits), cw, bn,
       stages, grid, (cudaStream_t)stream);
 }
 
+// Conv K3 at any output grid, stride 1 or 2, 1x1 to 16x16 kernels: x
+// (nimg, h, wd, cin) and g (nimg, ho, wo, cout) bf16 as the stride-1 entry,
+// x read by TMA im2col loads (WGRAD_IM2COL) through the forward's map: the
+// bounding box from (-pad_left, -pad_top) to the last output pixel's base
+// coordinate, walked at the stride. cin % 64 == 0, cout % 8 == 0, the
+// corners within [-128, 127].
+int masked_conv_wgrad_im2col_bf16(const void* x, const void* g,
+                                  const void* w, const void* own, void* ws,
+                                  void* dw, void* dpm, int nimg, int h,
+                                  int wd, int cin, int ho, int wo, int cout,
+                                  int kh, int kw, int stride, int pad_top,
+                                  int pad_left, int task, int bn, int splits,
+                                  int stages, int grid, void* stream) {
+  const int m = nimg * ho * wo, k = kh * kw * cin;
+  if (m <= 0 || cin <= 0 || cin % 64 || cout <= 0 || cout % 8 || kh < 1 ||
+      kh > 16 || kw < 1 || kw > 16 || stride < 1 || stride > 2)
+    return (int)cudaErrorInvalidValue;
+  const int lower[2] = {-pad_left, -pad_top};
+  const int upper[2] = {-pad_left + (wo - 1) * stride - (wd - 1),
+                        -pad_top + (ho - 1) * stride - (h - 1)};
+  for (int i = 0; i < 2; ++i)
+    if (lower[i] < -128 || lower[i] > 127 || upper[i] < -128 ||
+        upper[i] > 127)
+      return (int)cudaErrorInvalidValue;
+  const long long xdims[4] = {cin, wd, h, nimg};
+  CUtensorMap mx, mg;
+  if (!make_im2col_map(&mx, x, xdims, lower, upper, stride,
+                       step_rows(WGRAD_IM2COL)) ||
+      !make_map(&mg, g, m, cout, step_rows(WGRAD_IM2COL)))
+    return (int)cudaErrorInvalidValue;
+  const ConvWalk cw{cin / 64, kw, ho * wo, wo, pad_top, pad_left, stride};
+  return launch_walk<WGRAD_IM2COL>(
+      mx, mg, args(w, own, ws, dw, dpm, m, k, k, cout, task, splits), cw, bn,
+      stages, grid, (cudaStream_t)stream);
+}
+
 // x (n, h, w, c) bf16 -> out (n * ho * wo, kp) bf16 patches (see
-// im2col_bf16_kernel); kp % 8 == 0, out 16-byte aligned.
+// im2col_bf16_kernel); kp % 8 == 0 and at most 8,192, out 16-byte aligned,
+// fewer than 2^31 pixels.
 int masked_conv_im2col_bf16(const void* x, void* out, int n, int h, int w,
                             int c, int ho, int wo, int kh, int kw, int stride,
                             int pad_top, int pad_left, int kp, void* stream) {
-  if (kp % 8 || kp < kh * kw * c) return (int)cudaErrorInvalidValue;
   const long long m = (long long)n * ho * wo;
-  im2col_bf16_kernel<<<(unsigned)((m + 255) / 256), 256, 0,
-                       (cudaStream_t)stream>>>(
+  if (kp % 8 || kp < kh * kw * c || kp > 8192 || m <= 0 || m >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const int row_bytes = ((kp / 8) | 1) * 16;
+  const int pix = std::min(IM2COL_PIX, IM2COL_SMEM / row_bytes);
+  im2col_bf16_kernel<<<(unsigned)((m + pix - 1) / pix), IM2COL_PIX,
+                       pix * row_bytes, (cudaStream_t)stream>>>(
       (const bf16*)x, (bf16*)out, n, h, w, c, ho, wo, kh, kw, stride, pad_top,
-      pad_left, kp);
+      pad_left, kp, pix);
   return (int)cudaGetLastError();
 }
 

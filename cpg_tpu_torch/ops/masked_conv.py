@@ -38,19 +38,26 @@ backward), then one TMA + wgmma GEMM over it:
   `csrc/masked_conv_fwd.cu` (K1) and `csrc/masked_conv_bwd_dx.cu` (K2),
   the select in the (transposed) weight-tile load.
 
-dw and dpm (K3) take one of three routes, chosen by shape predicates:
+dw and dpm (K3) take one of five routes, chosen by `wgrad_conv_route` (the
+same shape predicate as y and dx, then the patches) before any launch. The
+first four run `csrc/masked_matmul_wgrad.cu`'s split-M TMA + wgmma GEMM,
+both operands MN-major, the splits summed in a fixed order and the gating
+in the epilogue; they differ in how x reaches it:
 
-* `conv_route`: `csrc/masked_matmul_wgrad.cu`'s split-M TMA + wgmma GEMM,
-  the k tile's x read as per-tap 4-D TMA boxes of the NHWC input, both
-  operands MN-major, the splits summed in a fixed order and the gating in
-  the epilogue (`masked_matmul.launch_wgrad_conv`);
-* `im2col_route` (bf16, kh*kw*Cin <= 64: VGG16-BN's conv0): that file's
-  im2col kernel writes the patches, K rounded up to 8 columns (counted in
-  `LAUNCHES_IM2COL`), and the same GEMM reduces them as a dense product
-  (`masked_matmul.launch_wgrad`);
-* otherwise (f32, narrow widths, stride 2): `csrc/masked_conv_bwd_dw.cu`
-  (split-K f32 partials summed in a fixed order by a second pass that
-  applies the gating).
+* "gemm" (`conv_route`): per-tap 4-D TMA boxes of the NHWC input
+  (`masked_matmul.launch_wgrad_conv`);
+* "dense" (1x1 at stride 1): x and g as (N*H*W, Cin) and (N*H*W, Cout)
+  matrices, nothing copied (`masked_matmul.launch_wgrad`);
+* "im2col" (the rest of `fwd_dx_route`: any grid, stride 1 or 2): TMA
+  im2col loads of 128 output pixels through the forward's map
+  (`masked_matmul.launch_wgrad_im2col`);
+* "patches" (`im2col_route`: bf16, the stems and conv0 with Cin = 3, and
+  kh*kw*Cin <= 64 off the other routes): that file's im2col kernel writes
+  the patches, K rounded up to 8 columns (counted in `LAUNCHES_IM2COL`),
+  and the dense walk reduces them (`masked_matmul.launch_wgrad`);
+* otherwise (f32, narrow widths): `csrc/masked_conv_bwd_dw.cu` (split-K
+  f32 partials summed in a fixed order by a second pass that applies the
+  gating).
 
 On CPU tensors the plain versions `masked_conv2d_plain` and
 `masked_conv2d_bwd_plain` run. Every kernel keeps its own launch counter.
@@ -73,7 +80,7 @@ LAUNCHES = 0          # K1, forward
 LAUNCHES_BWD_DX = 0   # K2
 LAUNCHES_BWD_DW = 0   # K3
 LAUNCHES_SELECT = 0   # the select pass before the GEMM route's y and dx
-LAUNCHES_IM2COL = 0   # the patches before conv0's K3
+LAUNCHES_IM2COL = 0   # the patches before K3 on the "patches" route
 
 _MODES = ("binary", "ternary")
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -213,22 +220,35 @@ def masked_conv2d_bwd_dx(g, x, w, own, pm, task_id, stride: int = 1,
 
 def masked_conv2d_bwd_dw(g, x, w, own, task_id, stride: int = 1,
                          padding="SAME"):
-    """(dw, dpm) for output gradient g: on CUDA tensors the wgrad GEMM
-    (`conv_route`, or over conv0's patches by `im2col_route`) or the old K3,
-    on CPU tensors the plain version."""
+    """(dw, dpm) for output gradient g: on CUDA tensors the wgrad GEMM on
+    the route `wgrad_conv_route` names, or the old K3; on CPU tensors the
+    plain version."""
     if x.device.type == "cpu":
         return masked_conv2d_bwd_dw_plain(g, x, w, own, task_id, stride,
                                           padding)
     from . import masked_matmul as mm  # imports this module: not at the top
 
     global LAUNCHES_BWD_DW
-    if conv_route(x, w, stride, padding):
+    route, tid = wgrad_conv_route(x, w, stride, padding), int(task_id)
+    if route == "gemm":
         pt, pl, _, _ = _stride1_grid(x, w, padding)
-        out = mm.launch_wgrad_conv(g, x, w, own, int(task_id), pt, pl)
-    elif im2col_route(x, w):
-        out = _im2col_then_wgrad(g, x, w, own, int(task_id), stride, padding)
+        out = mm.launch_wgrad_conv(g, x, w, own, tid, pt, pl)
+    elif route == "dense":
+        cin, cout = w.shape[2:]
+        _check(x.is_contiguous() and g.shape == (*x.shape[:3], cout),
+               f"x must be contiguous and g {(*x.shape[:3], cout)}")
+        dw, dpm = mm.launch_wgrad(x.view(-1, cin), g.reshape(-1, cout),
+                                  w.reshape(cin, cout),
+                                  own.reshape(cin, cout), tid)
+        out = dw.reshape(w.shape), dpm.reshape(w.shape)
+    elif route == "im2col":
+        pads = resolve_padding(padding, x.shape[1], x.shape[2], w.shape[0],
+                               w.shape[1], stride)
+        out = mm.launch_wgrad_im2col(g, x, w, own, tid, stride, pads)
+    elif route == "patches":
+        out = _im2col_then_wgrad(g, x, w, own, tid, stride, padding)
     else:
-        out = launch_bwd_dw(g, x, w, own, int(task_id), stride, padding)
+        out = launch_bwd_dw(g, x, w, own, tid, stride, padding)
     LAUNCHES_BWD_DW += 1
     return out
 
@@ -298,19 +318,36 @@ def fwd_dx_route(x, w, stride, padding):
 
 
 def im2col_route(x, w) -> bool:
-    """Whether a conv's K3 on the card reduces its patches on the wgrad
-    GEMM: bf16 with kh*kw*Cin <= 64 (the patches, rounded up to 8 columns,
-    fit one 128-byte TMA row: VGG16-BN's conv0, K = 27) and Cout a multiple
-    of 8; any stride and padding. The launch checks alignment and raises."""
-    return (x.dtype == torch.bfloat16 and x.dim() == 4 and w.dim() == 4
-            and w.shape[0] * w.shape[1] * w.shape[2] <= 64
-            and w.shape[3] % 8 == 0)
+    """Whether a conv's K3 on the card can reduce its patches on the wgrad
+    GEMM: bf16, Cout a multiple of 8, and Cin < 8 (the stems and conv0: a
+    pixel's channels are narrower than TMA's 16-byte rows, so no walk reads
+    x itself; VGG16-BN's and SphereNet-20's K = 27 -> 32 columns,
+    ResNet-50's 7x7 stem K = 147 -> 152) or kh*kw*Cin <= 64 (the patches
+    fit one 128-byte TMA row); any stride and padding. `wgrad_conv_route`
+    asks it only off the other routes. The launch checks alignment and
+    raises."""
+    if x.dtype != torch.bfloat16 or x.dim() != 4 or w.dim() != 4:
+        return False
+    kh, kw, cin, cout = w.shape
+    return cout % 8 == 0 and (cin < 8 or kh * kw * cin <= 64)
+
+
+def wgrad_conv_route(x, w, stride, padding):
+    """Which route a conv's K3 takes on the card (module docstring):
+    `fwd_dx_route`'s ("gemm", "dense" or "im2col", as y and dx), else
+    "patches" where `im2col_route` holds, else None (the old K3). Decided
+    from shapes alone: the launches raise on what they cannot take, and
+    nothing falls back."""
+    route = fwd_dx_route(x, w, stride, padding)
+    if route is None and im2col_route(x, w):
+        return "patches"
+    return route
 
 
 def _im2col_then_wgrad(g, x, w, own, task_id, stride, padding):
-    """The `im2col_route` path: conv0's patches (N*Ho*Wo, K rounded up to 8)
-    by the im2col kernel, then the dense wgrad GEMM over them against g
-    viewed as (N*Ho*Wo, Cout); dw and dpm HWIO."""
+    """The "patches" route: the patches (N*Ho*Wo, K rounded up to 8) by
+    the im2col kernel, then the dense wgrad GEMM over them against g viewed
+    as (N*Ho*Wo, Cout); dw and dpm HWIO."""
     from . import masked_matmul as mm
 
     global LAUNCHES_IM2COL

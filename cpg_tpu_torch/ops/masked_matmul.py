@@ -42,7 +42,8 @@ select pass and the same GEMM, whose producer walks the conv's taps
 (`launch_conv_gemm`, planned by `conv_plan`), and the same weight-gradient
 GEMM over per-tap boxes of x (`launch_wgrad_conv`); its im2col route
 (`masked_conv.fwd_dx_route`) the same select pass and the GEMM's sibling
-over TMA im2col loads (`launch_conv_im2col`, planned by `im2col_plan`); it
+over TMA im2col loads (`launch_conv_im2col`, planned by `im2col_plan`), and
+the weight-gradient GEMM over the same loads (`launch_wgrad_im2col`); it
 counts in `masked_conv`.
 """
 
@@ -85,7 +86,7 @@ FWD_MAX_HALO_PX = 2048
 
 # the weight-gradient GEMM's tiles: 128 k-rows (two consumer warpgroups of
 # 64) by BN output columns; a stage reduces 64 rows of a dense product or
-# one 128-pixel box of a conv
+# 128 pixels of a conv (one 4-D box, or one im2col load a 64-row half)
 WGRAD_BK = 128
 WGRAD_BNS = (128, 64)
 WGRAD_DENSE_ROWS, WGRAD_CONV_ROWS = 64, 128
@@ -725,6 +726,8 @@ def _wlib():
         lib.masked_matmul_wgrad_bf16.restype = ctypes.c_int
         lib.masked_conv_wgrad_bf16.argtypes = [_P] * 7 + [_I] * 18 + [_P]
         lib.masked_conv_wgrad_bf16.restype = ctypes.c_int
+        lib.masked_conv_wgrad_im2col_bf16.argtypes = [_P] * 7 + [_I] * 17 + [_P]
+        lib.masked_conv_wgrad_im2col_bf16.restype = ctypes.c_int
         lib.masked_conv_im2col_bf16.argtypes = [_P] * 2 + [_I] * 12 + [_P]
         lib.masked_conv_im2col_bf16.restype = ctypes.c_int
     return lib
@@ -821,6 +824,41 @@ def launch_wgrad_conv(g, x, w, own, task_id, pad_top, pad_left, plan=None):
         splits, stages, grid, _stream(x))
     if err:
         raise RuntimeError(f"masked_conv_wgrad launch failed: CUDA error {err}")
+    return dw, dpm
+
+
+def launch_wgrad_im2col(g, x, w, own, task_id, stride, pads, plan=None):
+    """Conv K3 at any output grid, stride 1 or 2, on the wgrad GEMM, each
+    k tile's x read by TMA im2col loads of 128 consecutive output pixels
+    (the forward's map; the padding and the pixels past the last image by
+    TMA's zero fill): x (N, H, W, Cin), g (N, Ho, Wo, Cout) bf16, w, own
+    HWIO, pads the forward's (top, bottom, left, right). Cin % 64 == 0, Cout
+    % 8 == 0. Returns dw, dpm HWIO f32. `plan` overrides `wgrad_plan` over M
+    = N*Ho*Wo pixels in 128-pixel steps, K = kh*kw*Cin, N = Cout."""
+    _check_wgrad(x, g, w, own)
+    _check(x.dim() == 4 and g.dim() == 4 and w.dim() == 4,
+           "x and g must be NHWC and w HWIO")
+    kh, kw, cin, cout = w.shape
+    n, h, wd, c = x.shape
+    pt, pb, pl, pr = pads
+    ho, wo = (h + pt + pb - kh) // stride + 1, (wd + pl + pr - kw) // stride + 1
+    _check(c == cin and tuple(g.shape) == (n, ho, wo, cout),
+           f"x {tuple(x.shape)}, g {tuple(g.shape)} and w {tuple(w.shape)} "
+           f"do not match at stride {stride} and pads {tuple(pads)}")
+    _check(cin % 64 == 0 and cout % 8 == 0,
+           f"Cin must be a multiple of 64 and Cout of 8, got {(cin, cout)}")
+    _check(stride in (1, 2), f"stride {stride}: the walk takes 1 or 2")
+    bn, splits, stages, grid = plan or wgrad_plan(
+        n * ho * wo, kh * kw * cin, cout, _sms(x.device.index or 0),
+        WGRAD_CONV_ROWS)
+    dw, dpm, ws = _wgrad_buffers(w, kh * kw * cin, cout, bn, splits)
+    err = _wlib().masked_conv_wgrad_im2col_bf16(
+        x.data_ptr(), g.data_ptr(), w.data_ptr(), own.data_ptr(),
+        ws.data_ptr(), dw.data_ptr(), dpm.data_ptr(), n, h, wd, cin, ho, wo,
+        cout, kh, kw, stride, pt, pl, int(task_id), bn, splits, stages, grid,
+        _stream(x))
+    if err:
+        raise RuntimeError(f"masked_conv_wgrad_im2col launch failed: CUDA error {err}")
     return dw, dpm
 
 

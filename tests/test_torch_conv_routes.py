@@ -335,6 +335,126 @@ def test_vgg16_routes_are_unchanged(layer, mult):
     assert _route(hw, 3, 1, "SAME", cin, cout) == want
 
 
+def _wgrad_route(hw, k, stride, pad, cin, cout, dtype=torch.bfloat16):
+    h, w = (hw, hw) if isinstance(hw, int) else hw
+    x = torch.zeros((1, h, w, cin), dtype=dtype)
+    return mc.wgrad_conv_route(x, torch.zeros((k, k, cin, cout)), stride, pad)
+
+
+@pytest.mark.parametrize("geo", cs.RESNET_CONV_SHAPES,
+                         ids=[g[0] for g in cs.RESNET_CONV_SHAPES])
+def test_wgrad_route_at_every_resnet50_conv(geo):
+    """K3 follows y's and dx's route: the dense walk over x as a matrix at
+    the 1x1 convs at stride 1, the im2col walk at the 3x3/2 and 1x1/2
+    convs; the 7x7/2 stem (K = 147 -> 152) reduces its patches. f32 keeps
+    the old K3 everywhere."""
+    name, hw, k, stride, cin, cout, _ = geo
+    pad = cs._resnet_pads(k, stride)
+    want = ("patches" if k == 7 else "dense" if (k, stride) == (1, 1)
+            else "im2col")
+    assert _wgrad_route(hw, k, stride, pad, cin, cout) == want
+    assert _wgrad_route(hw, k, stride, pad, cin, cout, torch.float32) is None
+
+
+def test_resnet50_wgrad_routes_count_40_convs():
+    """33 dense, 6 im2col, the stem's patches: ResNet-50's one im2col launch
+    a train step (was 5)."""
+    got = {}
+    for _, hw, k, stride, cin, cout, per in cs.RESNET_CONV_SHAPES:
+        r = _wgrad_route(hw, k, stride, cs._resnet_pads(k, stride), cin, cout)
+        got[r] = got.get(r, 0) + per
+    assert got == {"dense": 33, "im2col": 6, "patches": 1}
+
+
+@pytest.mark.parametrize("geo", cs.SPHERE_CONV_SHAPES,
+                         ids=[g[0] for g in cs.SPHERE_CONV_SHAPES])
+def test_wgrad_route_at_every_spherenet20_conv(geo):
+    """SphereNet-20's units and downs take the im2col walk (no grid has a
+    128-pixel box of whole rows; the downs have stride 2), its 3x3/2 stem
+    (K = 27 -> 32) its patches; f32 the old K3."""
+    name, hw, stride, cin, cout, _ = geo
+    pad = 1 if stride == 2 else "SAME"
+    want = "patches" if name == "stem_s2" else "im2col"
+    assert _wgrad_route(hw, 3, stride, pad, cin, cout) == want
+    assert _wgrad_route(hw, 3, stride, pad, cin, cout, torch.float32) is None
+
+
+@pytest.mark.parametrize("mult", [1.0, 0.125])
+@pytest.mark.parametrize("layer", cs.MASKED_CONV_SHAPES,
+                         ids=[c[0] for c in cs.MASKED_CONV_SHAPES])
+def test_vgg16_wgrad_routes_are_unchanged(layer, mult):
+    """VGG16-BN's K3: conv2/4/7/10 at width 1.0 and conv10 at 0.125 on the
+    boxes, conv0 on its patches at both widths, the narrow convs at 0.125
+    (Cin 8-32, K = 72-288) on the old K3."""
+    name, hw, cin, cout = layer
+    cin = cin if name == "conv0" else int(cin * mult)
+    cout = int(cout * mult)
+    want = ("patches" if name == "conv0" else
+            "gemm" if cin % 64 == 0 and cout % 64 == 0 else None)
+    assert _wgrad_route(hw, 3, 1, "SAME", cin, cout) == want
+
+
+@pytest.mark.parametrize("case", [
+    # (H, W, k, stride, pad, Cin, Cout, dtype): what keeps the old K3
+    (16, 16, 3, 1, "SAME", 8, 16, torch.bfloat16),     # VGG conv2 at 0.125
+    (8, 8, 3, 2, 1, 32, 64, torch.bfloat16),           # narrow, stride 2
+    (7, 6, 3, 1, "SAME", 64, 72, torch.bfloat16),      # Cout % 64 != 0
+    (7, 6, 5, 1, "SAME", 64, 64, torch.bfloat16),      # 5x5
+    (7, 6, 3, 1, "SAME", 512, 512, torch.float32),     # f32
+    (224, 224, 7, 2, 3, 3, 64, torch.float32),         # f32 stem
+])
+def test_wgrad_route_keeps_f32_and_narrow_widths_on_the_old_k3(case):
+    h, w, k, stride, pad, cin, cout, dtype = case
+    assert _wgrad_route((h, w), k, stride, pad, cin, cout, dtype) is None
+
+
+def _wgrad_convs():
+    """(name, n, H, W, k, stride, pads, Cin, Cout) of every ResNet-50 and
+    SphereNet-20 conv on K3's im2col walk, at the chip's batch sizes."""
+    out = []
+    for name, hw, k, stride, cin, cout, _ in cs.RESNET_CONV_SHAPES:
+        pad = cs._resnet_pads(k, stride)
+        if _wgrad_route(hw, k, stride, pad, cin, cout) == "im2col":
+            out.append((name, cs.RESNET_BATCH, hw, hw, k, stride,
+                        resolve_padding(pad, hw, hw, k, k, stride), cin, cout))
+    for name, (h, w), stride, cin, cout, _ in cs.SPHERE_CONV_SHAPES:
+        pad = 1 if stride == 2 else "SAME"
+        if _wgrad_route((h, w), 3, stride, pad, cin, cout) == "im2col":
+            out.append((name, cs.SPHERE_BATCH, h, w, 3, stride,
+                        resolve_padding(pad, h, w, 3, 3, stride), cin, cout))
+    return out
+
+
+@pytest.mark.parametrize("conv", _wgrad_convs(), ids=lambda c: c[0])
+def test_wgrad_im2col_plan_fits_the_card_at_every_model_conv(conv):
+    """K3's im2col walk at the models' convs: `wgrad_plan` over 128-pixel
+    steps fits the H100's shared memory with a ring of 2-6 stages, no
+    more blocks than items or SMs, every split within
+    WGRAD_MAX_SPLIT_ROWS pixels and none empty; the map's corners within
+    cuTensorMapEncodeIm2col's [-128, 127], the taps' offsets within the
+    entry's 16."""
+    name, n, h, w, k, stride, pads, cin, cout = conv
+    ho = out_size(h, k, stride, *pads[:2])
+    wo = out_size(w, k, stride, *pads[2:])
+    m, kk = n * ho * wo, k * k * cin
+    bn, splits, stages, grid = mm.wgrad_plan(m, kk, cout, 132,
+                                             mm.WGRAD_CONV_ROWS)
+    assert 2 <= stages <= mm.WGRAD_MAX_STAGES
+    assert mm.wgrad_smem_bytes(bn, mm.WGRAD_CONV_ROWS, stages) <= \
+        mm.SMEM_PER_BLOCK - 1024
+    steps = -(-m // mm.WGRAD_CONV_ROWS)
+    per = -(-steps // splits)
+    assert per * mm.WGRAD_CONV_ROWS <= mm.WGRAD_MAX_SPLIT_ROWS
+    assert (splits - 1) * per < steps
+    items = splits * -(-kk // mm.WGRAD_BK) * -(-cout // bn)
+    assert 0 < grid <= min(items, 132)
+    lower = (-pads[2], -pads[0])
+    upper = (lower[0] + (wo - 1) * stride - (w - 1),
+             lower[1] + (ho - 1) * stride - (h - 1))
+    assert all(-128 <= v <= 127 for v in (*lower, *upper))
+    assert k <= 16 and cin % 64 == 0 and cout % 8 == 0
+
+
 @pytest.mark.parametrize("case", [
     # (H, W, k, stride, pad, Cin, Cout): what stays off both walks
     (7, 6, 5, 1, "SAME", 64, 64),      # 5x5

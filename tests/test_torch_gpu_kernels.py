@@ -1045,6 +1045,91 @@ def test_wgrad_im2col_route_matches_plain(cuda, case):
     assert torch.equal(dw, again[0]) and torch.equal(dpm, again[1])
 
 
+@pytest.mark.parametrize("case", [
+    # (n, H, W, k, stride, padding, Cin, Cout): one 128-pixel step or less
+    # (M = 84, 60, 96), k tiles spanning two taps and one past K
+    (2, 7, 6, 3, 1, "SAME", 64, 64), (3, 9, 8, 3, 2, "SAME", 128, 128),
+    (8, 7, 5, 1, 2, "SAME", 64, 64),
+], ids=["3x3s1_7x6", "3x3s2_9x8", "1x1s2_7x5"])
+def test_wgrad_im2col_tile_of_small_integers_is_exact(cuda, case):
+    """The im2col walk over one step of small integers, exact in f32: each
+    half's TMA im2col load (the map's corner, the stride, the tap's
+    offsets, the zero fill past the grid and the last image) read MN-major
+    must give the patches' x^T g to the bit, gated."""
+    n, h, w, k, s, pad, cin, cout = case
+    x = _ints((n, h, w, cin), cuda, 11)
+    wt = torch.randn((k, k, cin, cout),
+                     generator=torch.Generator().manual_seed(12)).to(cuda)
+    own = torch.randint(0, 4, wt.shape, generator=torch.Generator().manual_seed(13),
+                        dtype=torch.int8).to(cuda)
+    pads = mc.resolve_padding(pad, h, w, k, k, s)
+    ho, wo = mc.out_size(h, k, s, *pads[:2]), mc.out_size(w, k, s, *pads[2:])
+    g = _ints((n, ho, wo, cout), cuda, 14)
+    assert mc.wgrad_conv_route(x, wt, s, pad) == "im2col"
+    dw, dpm = mm.launch_wgrad_im2col(g, x, wt, own, 2, s, pads, (64, 1, 4, 1))
+    torch.cuda.synchronize()
+    kk = k * k * cin
+    patches = mm.im2col_plain(x.float(), k, k, s, pads, kk)
+    want = mm.masked_matmul_bwd_dw_plain(g.reshape(-1, cout), patches,
+                                         wt.reshape(kk, cout),
+                                         own.reshape(kk, cout), 2)
+    assert torch.equal(dw, want[0].reshape(wt.shape))
+    assert torch.equal(dpm, want[1].reshape(wt.shape))
+
+
+@pytest.mark.parametrize("case", [
+    # (n, H, W, k, stride, padding, Cin, Cout, route, im2col launches)
+    (4, 7, 6, 3, 1, "SAME", 512, 512, "im2col", 0),   # SphereNet's unit4
+    (2, 56, 48, 3, 1, "SAME", 64, 64, "im2col", 0),   # unit1's grid
+    (8, 28, 24, 3, 2, 1, 64, 128, "im2col", 0),       # a down, pad 1
+    (3, 13, 11, 3, 2, "SAME", 128, 192, "im2col", 0),  # odd sides
+    (4, 14, 14, 1, 2, "SAME", 256, 512, "im2col", 0),  # 1x1/2
+    (4, 14, 14, 1, 1, "SAME", 128, 64, "dense", 0),   # x as a matrix
+    (2, 56, 56, 1, 1, "SAME", 64, 64, "dense", 0),    # was on the patches
+    (4, 64, 64, 7, 2, ((3, 3), (3, 3)), 3, 64, "patches", 1),  # 152 columns
+    (4, 28, 24, 3, 2, 1, 3, 64, "patches", 1),        # SphereNet's stem
+], ids=["unit4", "unit1_grid", "down_s2", "3x3s2_odd", "1x1s2", "1x1_dense",
+        "1x1_dense_64", "stem_7x7s2", "stem_3x3s2"])
+def test_wgrad_routes_off_the_boxes_match_the_f64_sum(cuda, case):
+    """K3 at the ResNet-50 and SphereNet-20 geometries on `wgrad_conv_route`
+    (one K3 launch; an im2col launch on the patches only): within 1e-4 *
+    max|ref| of the plain version summed in f64, two launches equal
+    bits."""
+    n, h, w, k, s, pad, cin, cout, route, im2cols = case
+    x, wt, own, _ = _conv_case(n, h, w, cin, cout, k, cuda, torch.bfloat16,
+                               seed=h + cin)
+    pads = mc.resolve_padding(pad, h, w, k, k, s)
+    ho, wo = mc.out_size(h, k, s, *pads[:2]), mc.out_size(w, k, s, *pads[2:])
+    g = torch.from_numpy(np.random.RandomState(w).randn(
+        n, ho, wo, cout).astype(np.float32)).to(cuda, torch.bfloat16)
+    assert mc.wgrad_conv_route(x, wt, s, pad) == route
+    before = (mc.LAUNCHES_BWD_DW, mc.LAUNCHES_IM2COL)
+    dw, dpm = mc.masked_conv2d_bwd_dw(g, x, wt, own, 2, s, pad)
+    torch.cuda.synchronize()
+    assert (mc.LAUNCHES_BWD_DW, mc.LAUNCHES_IM2COL) == (before[0] + 1,
+                                                        before[1] + im2cols)
+    want = mc.masked_conv2d_bwd_dw_plain(g, x, wt, own, 2, s, pad,
+                                         acc_dtype=torch.float64)
+    _check_sum(dw, want[0])
+    _check_sum(dpm, want[1])
+    again = mc.masked_conv2d_bwd_dw(g, x, wt, own, 2, s, pad)
+    assert torch.equal(dw, again[0]) and torch.equal(dpm, again[1])
+
+
+def test_wgrad_im2col_bits_do_not_depend_on_the_grid(cuda):
+    """One (BN, split) plan of the im2col walk under grids of 1, 7 and 132
+    blocks: equal bits."""
+    x, wt, own, _ = _conv_case(6, 14, 12, 128, 128, 3, cuda, torch.bfloat16,
+                               seed=15)
+    g = torch.from_numpy(np.random.RandomState(16).randn(
+        6, 7, 6, 128).astype(np.float32)).to(cuda, torch.bfloat16)
+    outs = [mm.launch_wgrad_im2col(g, x, wt, own, 2, 2, (1, 1, 1, 1),
+                                   (64, 2, 4, grid)) for grid in (1, 7, 132)]
+    torch.cuda.synchronize()
+    for dw, dpm in outs[1:]:
+        assert torch.equal(dw, outs[0][0]) and torch.equal(dpm, outs[0][1])
+
+
 def test_wgrad_refuses_a_misaligned_operand(cuda):
     """On the route a g off a 16-byte boundary raises; nothing falls back
     to the old K3."""

@@ -563,13 +563,14 @@ def test_wgrad_route_predicate(case):
 
 
 def test_im2col_route_predicate():
-    """kh*kw*Cin <= 64 and Cout % 8 == 0, any stride: 3x3 with Cin <= 7,
-    1x1 with Cin <= 64."""
+    """Cout % 8 == 0 and Cin < 8 or kh*kw*Cin <= 64, any stride: 3x3 with
+    Cin <= 7, 1x1 with Cin <= 64, ResNet-50's 7x7 stem (K = 147)."""
     def route(k, cin, cout):
         x = torch.zeros((1, 4, 4, cin), dtype=torch.bfloat16)
         return mc.im2col_route(x, torch.zeros((k, k, cin, cout)))
     assert route(3, 7, 8) and route(1, 64, 64) and route(3, 3, 64)
-    assert not route(3, 8, 16) and not route(3, 3, 60)
+    assert route(7, 3, 64)
+    assert not route(3, 8, 16) and not route(3, 3, 60) and not route(7, 3, 60)
 
 
 # ------------------------------------ K4 and K5 on the conv GEMM route ----

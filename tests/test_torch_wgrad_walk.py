@@ -10,8 +10,14 @@ tensor), and B, BN / 64 boxes of g's rows, and adds A^T B to the item's f32
 sums. With one split the epilogue gates the sums; with more, every split
 writes its partial tile as its block finishes, and the fix-up, a gate pass
 after the GEMM, sums each tile's partials in split order z = 0 .. S-1 and
-gates. conv0 (kh*kw*Cin <= 64) is the dense walk over its patches, written
-by an im2col kernel with K = 27 padded to 32 columns.
+gates. conv0 and the stems (Cin = 3) are the dense walk over their
+patches, written by an im2col kernel with K = 27 padded to 32 columns
+(ResNet-50's 7x7 stem: 147 to 152, three 64-column boxes over two k
+tiles); a 1x1 conv at stride 1 the dense walk over x and g as matrices.
+WGRAD_IM2COL, every other conv with Cin and Cout multiples of 64 at any
+grid and stride 1 or 2, loads each 64-row half of A by one TMA im2col
+load of 128 consecutive output pixels (`tests/test_torch_conv_routes.py`'s
+`_im2col_tile` emulates it) at the tap's offsets.
 
 `_replay` walks `masked_matmul.wgrad_plan`'s items exactly so, the blocks
 finishing in a given order. Inputs are bf16 values held in f32, so every
@@ -33,7 +39,8 @@ from cpg_tpu.ops.pallas.masked_conv import masked_conv2d as j_masked_conv2d
 from cpg_tpu.ops.pallas.masked_matmul import masked_matmul as j_masked_matmul
 from cpg_tpu_torch.ops import masked_conv as mc
 from cpg_tpu_torch.ops import masked_matmul as mm
-from cpg_tpu_torch.ops.conv import resolve_padding
+from cpg_tpu_torch.ops.conv import out_size, resolve_padding
+from tests.test_torch_conv_routes import _im2col_tile
 
 TOL = 1e-5
 BK = mm.WGRAD_BK
@@ -196,11 +203,12 @@ def _jax_dense_grads(x, w, own, pm, g):
                                                for a in (x, w, pm, g))))
 
 
-def _jax_conv_grads(x, w, own, pm, g, stride=1):
+def _jax_conv_grads(x, w, own, pm, g, stride=1, padding="SAME"):
     @jax.jit
     def run(x, w, pm, g):
         _, vjp = jax.vjp(lambda w_, pm_: j_masked_conv2d(
-            x, w_, jnp.asarray(own), pm_, 2, stride=stride), w, pm)
+            x, w_, jnp.asarray(own), pm_, 2, stride=stride, padding=padding),
+            w, pm)
         return vjp(g)
     return tuple(np.asarray(a) for a in run(*(jnp.asarray(a)
                                                for a in (x, w, pm, g))))
@@ -333,3 +341,156 @@ def test_fixup_gives_equal_bits_in_any_arrival_order():
             v = v + parts[it]
         by_arrival.append(v)
     assert any(not torch.equal(v, ref[0]) for v in by_arrival)
+
+
+def _im2col_a(x, kh, kw, stride, pads):
+    """A of a WGRAD_IM2COL step: per 64-row half of the k tile, (tap,
+    channel block) = (kb / cblocks, kb % cblocks) and one im2col load of the
+    128 output pixels from m0 on, through the forward's map: lower corner
+    (-pad_left, -pad_top), base coordinate the corner plus (ow0, oh0) times
+    the stride, offsets the tap's (dw, dh). Halves past K are not loaded."""
+    n, h, wd, cin = x.shape
+    pt, pb, pl, pr = pads
+    ho, wo = out_size(h, kh, stride, pt, pb), out_size(wd, kw, stride, pl, pr)
+    lower = (-pl, -pt)
+    upper = (-pl + (wo - 1) * stride - (wd - 1),
+             -pt + (ho - 1) * stride - (h - 1))
+    cblocks, kx = cin // 64, kh * kw * cin
+
+    def tile(m0, k0):
+        img, rem = divmod(m0, ho * wo)
+        oh0, ow0 = divmod(rem, wo)
+        base = (lower[0] + ow0 * stride, lower[1] + oh0 * stride)
+        halves = []
+        for half in range(2):
+            kb = k0 // 64 + half
+            if kb * 64 >= kx:  # not loaded: rows past K, never stored
+                halves.append(torch.zeros((128, 64)))
+                continue
+            tap, cb = divmod(kb, cblocks)
+            halves.append(_im2col_tile(x, cb * 64, base, img, lower, upper,
+                                       stride, (tap % kw, tap // kw)))
+        return torch.cat(halves, 1)
+    return tile
+
+
+def _conv_case(n, h, w, k, cin, cout, stride, pad, seed):
+    """Inputs of one conv as bf16 values in f32: x, g, w, own, pm and the
+    forward's pads."""
+    rng = np.random.RandomState(seed)
+    pads = resolve_padding(pad, h, w, k, k, stride)
+    ho, wo = out_size(h, k, stride, *pads[:2]), out_size(w, k, stride, *pads[2:])
+    x = _bf16_values(rng.randn(n, h, w, cin).astype(np.float32))
+    g = _bf16_values((rng.randn(n, ho, wo, cout) * 0.1).astype(np.float32))
+    wt, own, pm = (a.reshape(k, k, cin, cout)
+                   for a in _weights(k * k * cin, cout, rng))
+    return x, g, wt, own, pm, pads
+
+
+def _check_conv_walk(x, g, wt, own, pm, pads, stride, pad, walk, a_tile):
+    """The replay's dw and dpm against the plain version and cpg_tpu's VJP."""
+    k, cin, cout = wt.shape[0], wt.shape[2], wt.shape[3]
+    tx, tg, tw, town = (torch.from_numpy(a) for a in (x, g, wt, own))
+    dw, dpm = _replay(walk, a_tile, tg.reshape(-1, cout),
+                      tw.reshape(-1, cout), town.reshape(-1, cout), 2)
+    pdw, pdpm = mc.masked_conv2d_bwd_dw_plain(tg, tx, tw, town, 2, stride, pad)
+    jpad = pad if isinstance(pad, str) else ((pads[0], pads[1]),
+                                             (pads[2], pads[3]))
+    jdw, jdpm = _jax_conv_grads(x, wt, own, pm, g, stride, jpad)
+    _assert_close(dw.reshape(wt.shape), (pdw, jdw))
+    _assert_close(dpm.reshape(wt.shape), (pdpm, jdpm))
+    return dw, dpm
+
+
+@pytest.mark.parametrize("case", [
+    # (n, H, W, k, stride, padding, Cin, Cout, plan or None): 3x3/1 at odd
+    # grids (M = 84 and 140: one step, two with a ragged second); 3x3/2 pad
+    # 1 on even and odd inputs, SAME on mixed sides; 1x1/2; Cin and Cout 64
+    # and 128; one split and several, a grid of fewer blocks than items
+    (2, 7, 6, 3, 1, "SAME", 64, 64, None),
+    (4, 5, 7, 3, 1, "SAME", 128, 128, None),
+    (4, 5, 7, 3, 1, "SAME", 128, 128, (64, 2, 6, 3)),
+    (3, 8, 6, 3, 2, 1, 64, 128, None),
+    (5, 7, 5, 3, 2, 1, 128, 64, (128, 3, 6, 2)),
+    (2, 9, 8, 3, 2, "SAME", 64, 64, None),
+    (6, 8, 6, 1, 2, "SAME", 64, 64, None),
+    (3, 7, 5, 1, 2, "SAME", 128, 128, (64, 2, 6, 1)),
+], ids=["3x3s1_7x6", "3x3s1_5x7", "3x3s1_5x7_split", "3x3s2_even",
+        "3x3s2_odd_split", "3x3s2_same_mixed", "1x1s2_even", "1x1s2_odd_split"])
+def test_im2col_walk_is_the_masked_conv_weight_gradient(case):
+    """WGRAD_IM2COL off the boxes (`wgrad_conv_route` "im2col"), replayed
+    as the producer walks it, against the plain version and cpg_tpu's
+    VJP."""
+    n, h, w, k, stride, pad, cin, cout, plan = case
+    x, g, wt, own, pm, pads = _conv_case(n, h, w, k, cin, cout, stride, pad,
+                                         seed=n * h + w + k)
+    tx, tw = torch.from_numpy(x).bfloat16(), torch.from_numpy(wt)
+    assert mc.wgrad_conv_route(tx, tw, stride, pad) == "im2col"
+    m = g.shape[0] * g.shape[1] * g.shape[2]
+    walk = _Walk(m, k * k * cin, cout, mm.WGRAD_CONV_ROWS,
+                 plan or mm.wgrad_plan(m, k * k * cin, cout, 132,
+                                       mm.WGRAD_CONV_ROWS))
+    _check_conv_walk(x, g, wt, own, pm, pads, stride, pad, walk,
+                     _im2col_a(torch.from_numpy(x), k, k, stride, pads))
+
+
+def test_im2col_walk_gives_equal_bits_in_any_arrival_order():
+    """Several splits over a few blocks: the gate pass's split order makes
+    shuffled finish orders give equal bits."""
+    x, g, wt, own, _, pads = _conv_case(5, 7, 5, 3, 128, 64, 2, 1, seed=11)
+    tx, tg = torch.from_numpy(x), torch.from_numpy(g).reshape(-1, 64)
+    walk = _Walk(tg.shape[0], 9 * 128, 64, mm.WGRAD_CONV_ROWS, (64, 3, 6, 4))
+    tw, town = torch.from_numpy(wt).reshape(-1, 64), torch.from_numpy(own).reshape(-1, 64)
+    parts = _partials(walk, _im2col_a(tx, 3, 3, 2, pads), tg)
+    ref = _gate(walk, _fixup(walk, _write(walk, parts, walk.arrivals())),
+                tw, town, 2)
+    shuffle = np.random.RandomState(1)
+    for _ in range(3):
+        got = _gate(walk, _fixup(walk, _write(walk, parts,
+                                              walk.arrivals(shuffle))),
+                    tw, town, 2)
+        assert all(torch.equal(u, v) for u, v in zip(got, ref))
+
+
+@pytest.mark.parametrize("case", [
+    # (n, H, W, Cin, Cout, plan or None): M = 60 and 300 (ragged), Cin 64
+    # and 128, Cout 64 and 128
+    (2, 5, 6, 64, 128, None), (3, 10, 10, 128, 64, (64, 2, 6, 3)),
+])
+def test_1x1_dense_walk_over_x_as_a_matrix(case):
+    """A 1x1 conv at stride 1 (`wgrad_conv_route` "dense"): the dense walk
+    over x viewed as (N*H*W, Cin) and g as (N*H*W, Cout), nothing copied."""
+    n, h, w, cin, cout, plan = case
+    x, g, wt, own, pm, pads = _conv_case(n, h, w, 1, cin, cout, 1, "SAME",
+                                         seed=cin + h)
+    tx = torch.from_numpy(x)
+    assert mc.wgrad_conv_route(tx.bfloat16(), torch.from_numpy(wt), 1,
+                               "SAME") == "dense"
+    m = n * h * w
+    walk = _Walk(m, cin, cout, mm.WGRAD_DENSE_ROWS,
+                 plan or mm.wgrad_plan(m, cin, cout, 132))
+    _check_conv_walk(x, g, wt, own, pm, pads, 1, "SAME", walk,
+                     _dense_a(tx.reshape(m, cin), walk.rows))
+
+
+def test_7x7_stem_patches_take_152_columns_on_the_dense_walk():
+    """ResNet-50's 7x7/2 stem (pad 3, Cin 3): K = 147 patches padded to 152
+    columns; the dense walk's two k tiles load three 64-column boxes (the
+    third zero-filled past column 152; the fourth, past Kx, not loaded)."""
+    x, g, wt, own, pm, pads = _conv_case(2, 11, 9, 7, 3, 64, 2,
+                                         ((3, 3), (3, 3)), seed=147)
+    tx = torch.from_numpy(x)
+    assert mc.wgrad_conv_route(tx.bfloat16(), torch.from_numpy(wt), 2,
+                               ((3, 3), (3, 3))) == "patches"
+    patches = mm.im2col_plain(tx, 7, 7, 2, pads, 152)
+    m = patches.shape[0]
+    assert patches.shape == (m, 152) and not patches[:, 147:].any()
+    walk = _Walk(m, 147, 64, mm.WGRAD_DENSE_ROWS, mm.wgrad_plan(m, 147, 64, 132))
+    assert walk.tiles_k == 2
+
+    def a_tile(m0, k0):  # boxes that start at or past Kx are not loaded
+        return torch.cat([_block(patches, m0, k0 + 64 * h, walk.rows, 64)
+                          if k0 + 64 * h < 152 else
+                          torch.zeros((walk.rows, 64)) for h in range(2)], 1)
+    _check_conv_walk(x, g, wt, own, pm, pads, 2, ((3, 3), (3, 3)), walk,
+                     a_tile)
