@@ -55,13 +55,16 @@ Needs one CUDA card; exits non-zero without one. It
      ring in `plan` and the pair's device time beside it; the dQ + dK/dV
      pair at every shape) at vit_cifar's batch-256 shape (256, 64, 4, 64),
      vit_b16's (64, 196, 12, 64), a causal T = 70, T = 320 (off the
-     route) and in f32, and the dense route
+     route), in f32 and at textcls's causal (256, 64, 4, 32) (hd 32: the
+     pair is its backward), and the dense route
      (masked_matmul; bf16: the select pass and TN GEMM of
      csrc/masked_matmul.cu for y and dx, each also alone against its plain
      version, two launches equal bits; f32: K1-K2 at the 1x1 geometry; dw:
      the wgrad GEMM in bf16, with the columns of the conv rows and cuBLAS
      x^T g alone as `gemm_device_ms`, K3 at 1x1 in f32) at vit_cifar's
-     three projection shapes and one ragged
+     three projection shapes, textcls's three ((16384, 128, 128), (16384,
+     128, 512), (16384, 512, 128); textcls's rows sum in the kernels
+     line's `textcls_step`) and one ragged
      vit_b16 shape, each against its plain version and timed beside a
      library yardstick (`scaled_dot_product_attention`, forward and its
      autograd backward alone; `effective_kernel` + `torch.matmul`, and
@@ -75,7 +78,16 @@ Needs one CUDA card; exits non-zero without one. It
   9. ViT train phase: task 2 as for VGG16-BN, with `use_pallas` and
      `flash_attention` (exact launches per step: flash forward 6 and the
      one-launch backward 6, no dQ or dK/dV, dense
-     36 + 36 + 36 and 72 select passes);
+     36 + 36 + 36 and 72 select passes); steps 7-9 again for textcls
+     (depth 4, dim 128, 4 heads of 32, vocab 256, 64 tokens, both tasks
+     causal; token batches: a forward of the server launches nothing; the
+     eval step flash 4, dense 24, selects 24; a train step flash forward 4
+     and the dQ + dK/dV pair 4 + 4, dense 24 + 24 + 24, 48 selects) and
+     vit_moe_cifar (depth 6, dim 256, 4 heads, 4 experts at capacity
+     factor 1.25 on the odd blocks; eval flash 6, dense 30, selects 30;
+     train flash forward 6 and the one-launch backward 6, dense 30 + 30 +
+     30, 60 selects), each train phase with ms/step and device ms a step
+     at batch 256;
  10. cycle phase: `run_sequence` over three synthetic CIFAR-100 tasks of
      5 classes on the bf16 kernel step, VGG16-BN at width 1.0, task 3
      growing once to 1.5 under an unreachable goal; per phase steps,
@@ -121,10 +133,17 @@ Needs one CUDA card; exits non-zero without one. It
      1, dense 1 + 1 + 1, select 2), and the face CLI cycle (`face_phase`:
      `sequence --experiment face`, growth to 1.5, LFW verification, task 1 across
      compaction and growth, resume, export/serve bf16 and calibrated
-     int8, export-torch/import-torch);
+     int8, export-torch/import-torch); then the textcls cycle
+     (`text_phase`: `sequence --experiment textcls --text-causal` over
+     three synthetic token tasks on the kernel step, task 3 growing once to
+     1.5; check_state at every boundary, old-task logits across add-task
+     and prune bit-equal, the growth audit, resume bit-equal, export bf16
+     and calibrated int8, serve, `inference`);
  13. checks that each phase reached its kernels (the serve and eval phases
      their forwards, the train phases their backwards, the cycles K1-K6,
-     the deploy phase K4, the SphereNet phases K1-K3 and the dense route),
+     the deploy phase K4, the SphereNet phases K1-K3 and the dense route,
+     textcls's phases K7 forward, the pair and the dense route,
+     vit_moe_cifar's K7 and the dense route),
      prints the kernels' JSON line (launch counts from every phase,
      errors, times, bounds; ResNet-50's and SphereNet-20's train steps in
      `resnet50_step` and `spherenet20_step`; K1's and K2's VGG16-BN rows on
@@ -170,23 +189,35 @@ CHAIN_SHAPES = [("conv1", 32, 64, 64), ("conv3", 16, 128, 128),
                 ("conv5", 8, 256, 256), ("conv6", 8, 256, 256),
                 ("conv8", 4, 512, 512), ("conv9", 4, 512, 512),
                 ("conv11", 2, 512, 512), ("conv12", 2, 512, 512)]
-# flash attention (name, N, T, H, hd, causal, dtype, launches per vit_cifar
-# train step at batch 256; 0 = an extra shape, not on the timed step). The
-# backward takes `flash.bwd_route`'s one-launch kernel at the bf16 hd-64
-# shapes up to T = 256; T = 320 and f32 keep the dQ + dK/dV pair on the
-# path, which every shape also times beside it.
-FLASH_SHAPES = [("vit_cifar", BATCH, 64, 4, 64, False, "bfloat16", 6),
-                ("vit_b16", 64, 196, 12, 64, False, "bfloat16", 0),
-                ("causal_t70", BATCH, 70, 4, 64, True, "bfloat16", 0),
-                ("off_route_t320", 32, 320, 4, 64, False, "bfloat16", 0),
-                ("vit_cifar_f32", 32, 64, 4, 64, False, "float32", 0)]
-# dense route (name, M, K, N, dtype, mode, launches per vit_cifar step)
-DENSE_SHAPES = [("qkv_proj", BATCH * 64, 256, 256, "bfloat16", "binary", 24),
-                ("fc1", BATCH * 64, 256, 1024, "bfloat16", "binary", 6),
-                ("fc2", BATCH * 64, 1024, 256, "bfloat16", "binary", 6),
-                ("fc2_ternary", BATCH * 64, 1024, 256, "bfloat16", "ternary", 0),
-                ("vit_b16_qkv", 64 * 196, 768, 768, "bfloat16", "binary", 0),
-                ("qkv_proj_f32", 2048, 256, 256, "float32", "binary", 0)]
+# flash attention (name, N, T, H, hd, causal, dtype, launches per train
+# step at batch 256, the arch whose step that is: vit_cifar's, or textcls's,
+# counted in the kernels line's `textcls_step`; 0 launches = an extra
+# shape, not on the timed step). The backward takes `flash.bwd_route`'s
+# one-launch kernel at the bf16 hd-64 shapes up to T = 256; textcls's hd
+# 32, T = 320 and f32 keep the dQ + dK/dV pair on the path, which every
+# shape also times beside it.
+FLASH_SHAPES = [
+    ("vit_cifar", BATCH, 64, 4, 64, False, "bfloat16", 6, "vit_cifar"),
+    ("vit_b16", 64, 196, 12, 64, False, "bfloat16", 0, "vit_b16"),
+    ("causal_t70", BATCH, 70, 4, 64, True, "bfloat16", 0, None),
+    ("off_route_t320", 32, 320, 4, 64, False, "bfloat16", 0, None),
+    ("vit_cifar_f32", 32, 64, 4, 64, False, "float32", 0, "vit_cifar"),
+    ("textcls", BATCH, 64, 4, 32, True, "bfloat16", 4, "textcls")]
+# dense route (name, M, K, N, dtype, mode, launches per step, the arch whose
+# step: vit_cifar's, or textcls's 4 blocks' q/k/v/proj, fc1 and fc2)
+DENSE_SHAPES = [
+    ("qkv_proj", BATCH * 64, 256, 256, "bfloat16", "binary", 24, "vit_cifar"),
+    ("fc1", BATCH * 64, 256, 1024, "bfloat16", "binary", 6, "vit_cifar"),
+    ("fc2", BATCH * 64, 1024, 256, "bfloat16", "binary", 6, "vit_cifar"),
+    ("fc2_ternary", BATCH * 64, 1024, 256, "bfloat16", "ternary", 0,
+     "vit_cifar"),
+    ("vit_b16_qkv", 64 * 196, 768, 768, "bfloat16", "binary", 0, "vit_b16"),
+    ("qkv_proj_f32", 2048, 256, 256, "float32", "binary", 0, "vit_cifar"),
+    ("textcls_qkv_proj", BATCH * 64, 128, 128, "bfloat16", "binary", 16,
+     "textcls"),
+    ("textcls_fc1", BATCH * 64, 128, 512, "bfloat16", "binary", 4, "textcls"),
+    ("textcls_fc2", BATCH * 64, 512, 128, "bfloat16", "binary", 4,
+     "textcls")]
 
 
 def card_line() -> str:
@@ -1109,9 +1140,12 @@ def dense_phases(torch, dev, name, m, kd, nd, dtype_name, mode, per_step):
 
 # the forward kwargs of build_state's two tasks: SphereNet-20's as the face
 # experiment gives them (task 1 the CASIA task's AngleLinear head, task 2
-# an expression task's linear head)
+# an expression task's linear head); textcls's as `--text-causal` does
 TASK_KWARGS = {"spherenet20": ({"head_type": "angle"},
-                               {"head_type": "linear"})}
+                               {"head_type": "linear"}),
+               "textcls": ({"causal": True}, {"causal": True})}
+# textcls's input: 64 token ids (the registry's, `--text-seq-len`'s default)
+TEXT_SHAPE = (64,)
 
 
 def build_state(torch, dev, arch="vgg16_bn_cifar"):
@@ -1147,24 +1181,35 @@ def build_state(torch, dev, arch="vgg16_bn_cifar"):
 
 
 def _arch_io(arch):
-    """((H, W) input, eval preprocess, train augment, its draws(n,
-    generator), batch) of an architecture's serve, eval and train phases:
-    pad-crop and flip draws for CIFAR and ImageNet images, flips alone for
-    the 112x96 face crops."""
+    """(per-example input shape, eval preprocess, train augment, its
+    draws(n, generator), batch) of an architecture's serve, eval and train
+    phases: pad-crop and flip draws for CIFAR and ImageNet images, flips
+    alone for the 112x96 face crops; textcls's 64 token ids take neither
+    preprocess nor augmentation."""
     import torch
 
+    from cpg_tpu_torch.cli import _identity_augment
     from cpg_tpu_torch.data import augment as A
 
     if arch == "resnet50":
-        return ((224, 224), A.imagenet_eval_preprocess,
+        return ((224, 224, 3), A.imagenet_eval_preprocess,
                 A.imagenet_train_augment,
                 lambda n, g: A.crop_flip_draws(n, g, 16), RESNET_BATCH)
     if arch == "spherenet20":
-        return ((112, 96), A.face_eval_preprocess, A.face_train_augment,
+        return ((112, 96, 3), A.face_eval_preprocess, A.face_train_augment,
                 lambda n, g: torch.randint(0, 2, (n,), generator=g).bool(),
                 SPHERE_BATCH)
-    return ((32, 32), A.cifar_eval_preprocess, A.cifar_train_augment,
+    if arch == "textcls":
+        return (TEXT_SHAPE, None, _identity_augment, lambda n, g: None, BATCH)
+    return ((32, 32, 3), A.cifar_eval_preprocess, A.cifar_train_augment,
             lambda n, g: A.crop_flip_draws(n, g, 4), BATCH)
+
+
+def _inputs(shape, n, rng):
+    """n random examples of an input shape from a numpy RandomState:
+    uint8 images, or int32 token ids below textcls's vocab of 256."""
+    return rng.randint(0, 256, (n, *shape)).astype(
+        np.int32 if len(shape) == 1 else np.uint8)
 
 
 def resnet_serve_phase(torch, dev, state, counts):
@@ -1251,13 +1296,20 @@ def serve_phase(torch, dev, state):
     return max(errs), lat
 
 
-def vit_serve_phase(torch, dev, state):
-    """bf16 ViT server through export -> load against the f32 server (both
-    the effective-params einsum path; serving runs no port kernel, as
-    `cpg_tpu`'s server has no flash route)."""
-    from cpg_tpu_torch.data.augment import cifar_eval_preprocess as prep
+def vit_serve_phase(torch, dev, state, counts):
+    """bf16 transformer server (vit_cifar, vit_moe_cifar, textcls's token
+    batches) through export -> load against the f32 server, requests of 1,
+    37 and 256 rows of both tasks and one mixed list (both the
+    effective-params einsum path: a forward launches no port kernel, as
+    `cpg_tpu`'s server has no flash route); then a calibrated int8 server
+    (CALIB_PER_TASK inputs a task; vit_moe_cifar's experts dequantized, as
+    `cpg_tpu`'s) against the f32 server at `cpg_tpu`'s bound on both tasks
+    at bucket 256, bit-equal alone and co-batched with saturated rows in a
+    bucket of 8, each int8 product against its plain version bit for bit;
+    p50 and img/s at bucket 256, bf16 and int8."""
     from cpg_tpu_torch.serve import TaskServer
 
+    shape, prep, _, _, _ = _arch_io(state.arch)
     rng = np.random.RandomState(SEED + 8)
     ref = TaskServer(state, prep, compute_dtype=torch.float32, device=dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1267,27 +1319,59 @@ def vit_serve_phase(torch, dev, state):
     srv.warmup()
     errs = []
     for n in (1, 37, 256):
-        x = rng.randint(0, 256, (n, 32, 32, 3)).astype(np.uint8)
-        got = torch.from_numpy(srv.predict(2, x))
-        want = torch.from_numpy(ref.predict(2, x))
-        if got.shape != (n, 5):
-            raise AssertionError(f"vit serve: shape {tuple(got.shape)} for {n} rows")
-        errs.append(compare(got, want, "bfloat16", f"vit serve {n} rows"))
-    reqs = [(1 + i % 2, rng.randint(0, 256, (32, 32, 3)).astype(np.uint8))
-            for i in range(12)]
+        x = _inputs(shape, n, rng)
+        for tid in (1, 2):
+            got = torch.from_numpy(srv.predict(tid, x))
+            want = torch.from_numpy(ref.predict(tid, x))
+            if got.shape != (n, 5):
+                raise AssertionError(f"{state.arch} serve: shape "
+                                     f"{tuple(got.shape)} for {n} rows")
+            errs.append(compare(got, want, "bfloat16",
+                                f"{state.arch} serve task {tid} {n} rows"))
+    reqs = [(1 + i % 2, _inputs(shape, 1, rng)[0]) for i in range(12)]
     for i, (got, want) in enumerate(zip(srv.predict_mixed(reqs),
                                         ref.predict_mixed(reqs))):
         errs.append(compare(torch.from_numpy(got), torch.from_numpy(want),
-                            "bfloat16", f"vit predict_mixed request {i}"))
-    x = rng.randint(0, 256, (256, 32, 32, 3)).astype(np.uint8)
-    srv.predict(2, x)
-    ts = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        srv.predict(2, x)
-        ts.append(time.perf_counter() - t0)
-    p50 = float(np.median(ts))
-    return max(errs), {"bf16": {"p50_ms": p50 * 1e3, "img_per_s": 256 / p50}}
+                            "bfloat16",
+                            f"{state.arch} predict_mixed request {i}"))
+    before = counts.read()
+    srv.predict(2, _inputs(shape, 8, rng))
+    one = {k: v - before[k] for k, v in counts.read().items()}
+    if any(one.values()):
+        raise AssertionError(f"{state.arch} serve: one forward launched {one}")
+    x = _inputs(shape, BATCH, rng)
+    lat = {"bf16": _serve_latency(srv, x)}
+
+    q8 = TaskServer(state, prep, quantize="int8", device=dev)
+    q8.calibrate({tid: _inputs(shape, CALIB_PER_TASK, rng) for tid in (1, 2)})
+    for tid in (1, 2):
+        err, agree = _int8_bound(torch, q8.predict(tid, x),
+                                 ref.predict(tid, x),
+                                 f"{state.arch} int8 task {tid} vs f32")
+        lat[f"int8_vs_f32_task{tid}"] = {"max_abs_diff": err,
+                                         "argmax_agree": agree}
+    # one bucket of 8 rows alone and beside saturated rows (bit-equal: the
+    # calibrated scales do not see the batch); at bucket 256 the library's
+    # float products may take another algorithm, so that equality is
+    # reported, as the deploy phase does
+    probe = x[:1]
+    sat = np.full((BATCH - 1, *shape), 255, probe.dtype)
+    alone = q8.predict(2, probe)
+    if not np.array_equal(alone, q8.predict(
+            2, np.concatenate([probe, sat[:3]]))[:1]):
+        raise AssertionError(f"{state.arch}: calibrated int8 logits moved "
+                             "when co-batched with saturated rows")
+    lat["int8_co_batched_bucket256_bit_equal"] = bool(np.array_equal(
+        alone, q8.predict(2, np.concatenate([probe, sat]))[:1]))
+    with _Int8Calls() as rec:
+        q8.predict(2, x)
+    rows = int8_route_rows(torch, rec.calls, state.arch)
+    if not rows:
+        raise AssertionError(f"{state.arch}: an int8 forward ran no int8 "
+                             "product")
+    lat["int8"] = _serve_latency(q8, x)
+    lat["int8_route"] = _route_totals(rows)
+    return max(errs), lat
 
 
 def sphere_serve_phase(torch, dev, state, counts):
@@ -1342,14 +1426,22 @@ KERNEL_FLAGS = {"vgg16_bn_cifar": dict(use_pallas_conv=True,
                                        use_fused_chain=True),
                 "resnet50": dict(use_pallas_conv=True, use_fused_chain=True),
                 "vit_cifar": dict(use_pallas=True, flash_attention=True),
+                "textcls": dict(use_pallas=True, flash_attention=True),
+                "vit_moe_cifar": dict(use_pallas=True, flash_attention=True),
                 "spherenet20": dict(use_pallas_conv=True, use_pallas=True)}
 # launches of one masked eval step with the kernel flags (ResNet-50: its 40
 # masked convs, a select pass before each but the stem's, and 13 fused
 # seams; SphereNet-20: its 20 masked convs, a select pass before each but
 # the stem's, and fc5 on the dense route, a select pass and the TN GEMM;
-# no other kernel)
+# textcls: 4 blocks of q/k/v/proj, fc1 and fc2 and one attention;
+# vit_moe_cifar: 6 blocks of q/k/v/proj and attention, the 3 even blocks'
+# fc1 and fc2 (the odd blocks' experts are einsums); no other kernel)
 EVAL_LAUNCHES = {"resnet50": {"masked_conv_fwd": 40, "masked_conv_select": 39,
                               "fused_chain_fwd": 13},
+                 "textcls": {"flash_fwd": 4, "masked_matmul_fwd": 24,
+                             "masked_matmul_select": 24},
+                 "vit_moe_cifar": {"flash_fwd": 6, "masked_matmul_fwd": 30,
+                                   "masked_matmul_select": 30},
                  "spherenet20": {"masked_conv_fwd": 20,
                                  "masked_conv_select": 19,
                                  "masked_matmul_fwd": 1,
@@ -1361,12 +1453,12 @@ def eval_phase(torch, dev, state, counts):
     from cpg_tpu_torch.train.step import TrainConfig, make_eval_step
 
     model_fn, _ = get_model(state.arch)
-    hw, prep, _, _, n = _arch_io(state.arch)
+    shape, prep, _, _, n = _arch_io(state.arch)
     kw = dict(num_classes=5, mult=state.width_mult, has_piggymask=True,
               preprocess_fn=prep, model_kwargs=state.forward_kwargs(2),
               device=dev)
     rng = np.random.RandomState(SEED + 2)
-    x = rng.randint(0, 256, (n, *hw, 3)).astype(np.uint8)
+    x = _inputs(shape, n, rng)
     y = rng.randint(0, 5, (n,))
     t = state.tasks[2]
     args = (state.shared, t.piggymask, t.private, t.bn_state, state.ownership,
@@ -1401,6 +1493,16 @@ TRAIN_LAUNCHES = {
     "vit_cifar": {"flash_fwd": 6, "flash_bwd": 6,
                   "masked_matmul_fwd": 36, "masked_matmul_bwd_dx": 36,
                   "masked_matmul_bwd_dw": 36, "masked_matmul_select": 72},
+    # textcls: 4 blocks of six sdense layers and one causal attention at hd
+    # 32, off `flash.bwd_route`: its backward is the dQ + dK/dV pair;
+    # vit_moe_cifar: as vit_cifar without the odd blocks' MLPs
+    "textcls": {"flash_fwd": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4,
+                "masked_matmul_fwd": 24, "masked_matmul_bwd_dx": 24,
+                "masked_matmul_bwd_dw": 24, "masked_matmul_select": 48},
+    "vit_moe_cifar": {"flash_fwd": 6, "flash_bwd": 6,
+                      "masked_matmul_fwd": 30, "masked_matmul_bwd_dx": 30,
+                      "masked_matmul_bwd_dw": 30,
+                      "masked_matmul_select": 60},
     # ResNet-50: 40 masked convs (no dx for the stem, whose input is the
     # image; y, dx and K3 of the other 39 on the dense or im2col route, a
     # select pass before y and dx; the stem's K3 over its patches, one
@@ -1425,7 +1527,8 @@ TRAIN_STEPS = 3
 # compared steps'; bench.py's VGG16-BN batch is 1024, the finegrained
 # preset's 32
 TRAIN_TIMING = {"resnet50": ((RESNET_BATCH, 128), 5),
-                "spherenet20": ((SPHERE_BATCH,), 5)}
+                "spherenet20": ((SPHERE_BATCH,), 5),
+                "textcls": ((BATCH,), 5), "vit_moe_cifar": ((BATCH,), 5)}
 TRAIN_TIMING_DEFAULT = ((BATCH, 1024), 10)
 # Tolerances of the kernel step (bf16) against the default step (bf16). The
 # two round at different points: the default step's cuDNN convolutions
@@ -1472,7 +1575,7 @@ def train_phase(torch, dev, state, counts):
     from cpg_tpu_torch.train.step import TrainConfig, make_train_step
 
     model_fn, _ = get_model(state.arch)
-    hw, _, augment, draw_fn, _ = _arch_io(state.arch)
+    shape, _, augment, draw_fn, _ = _arch_io(state.arch)
     timing_batches, round_steps = TRAIN_TIMING.get(state.arch,
                                                    TRAIN_TIMING_DEFAULT)
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -1500,8 +1603,9 @@ def train_phase(torch, dev, state, counts):
                        model_kwargs={"head_type": "angle"})
 
     def batch(n):
-        x = torch.randint(0, 256, (n, *hw, 3), generator=gen,
-                          dtype=torch.uint8).to(dev)
+        x = torch.randint(0, 256, (n, *shape), generator=gen,
+                          dtype=torch.int32 if len(shape) == 1
+                          else torch.uint8).to(dev)
         y = torch.randint(0, 5, (n,), generator=gen).to(dev)
         return x, y, draw_fn(n, gen)
 
@@ -1630,6 +1734,10 @@ def train_phase(torch, dev, state, counts):
             timing[f"{label}_b{n}"] = {"ms_per_step": mean,
                                        "img_per_s": n / mean * 1e3,
                                        "rounds_ms": ms}
+            if n == timing_batches[0]:  # the profiler's device ms a step
+                timing[f"{label}_b{n}"]["device_ms"] = device_ms(
+                    lambda run=steppers[label]: run(x, y, draws, 0), iters=5,
+                    warmup=1)
         timing[f"peak_gib_b{n}"] = torch.cuda.max_memory_allocated() / 2**30
     return dict(stats, timing=timing), launched
 
@@ -2308,6 +2416,171 @@ def face_phase(torch, dev, counts, card):
     return out, launched
 
 
+# ------------------------------------------------------------- textcls ----
+
+# The text cycle from the CLI: three synthetic token tasks (512 training
+# sequences of 64 ids each, batch 128: 4 steps an epoch), causal, at width
+# 1.0 on the bf16 kernel step (`--use-pallas --flash-attention`), one epoch
+# a phase; task 3 misses the unreachable goal 1.01 and grows once to 1.5;
+# its checkpoints inside the checkout
+TEXT_DIR = os.path.join("build", "smoke_textcls")
+TEXT_BATCH = 128
+TEXT_TASKS = ("text01", "text02", "text03")
+
+
+def text_phase(torch, dev, counts, card):
+    """`python -m cpg_tpu_torch sequence --experiment textcls --text-causal`
+    through cli.main, then: check_state at every task boundary; old-task
+    logits bit-equal (max|diff| 0) across add-task and prune (task 1 across
+    task 2's, tasks 1 and 2 across task 3's prune at the grown width); the
+    growth audit; a second run that resumes every task and gives the same
+    state bit for bit; `export` bf16 and calibrated int8 and `serve` on
+    both at bucket 64 (int8 within `cpg_tpu`'s bound of bf16, p50 and
+    img/s); `inference` of every task. Returns the results and the
+    launches of the first run."""
+    from cpg_tpu_torch.core.invariants import check_state
+    from cpg_tpu_torch.inference import predict
+    from cpg_tpu_torch.serve import TaskServer
+    from cpg_tpu_torch.train import sequence as seq_mod
+    from cpg_tpu_torch.train.manager import Manager
+    from cpg_tpu_torch.utils.checkpoint import load_state
+
+    shutil.rmtree(TEXT_DIR, ignore_errors=True)
+    os.makedirs(TEXT_DIR)
+    out = {}
+    try:
+        goals = os.path.join(TEXT_DIR, "goals.json")
+        with open(goals, "w") as f:
+            json.dump({TEXT_TASKS[2]: 1.01}, f)
+        ck = os.path.join(TEXT_DIR, "ck")
+        argv = ["sequence", "--experiment", "textcls", "--text-causal",
+                "--num-tasks", "3", "--use-pallas", "--flash-attention",
+                "--finetune-epochs", "1", "--prune-epochs", "1",
+                "--retrain-epochs", "1", "--prune-ratios", "0.5",
+                "--batch-size", str(TEXT_BATCH), "--goals-file", goals,
+                "--growth-step", "0.5",
+                "--max_allowed_network_width_multiplier", "1.5",
+                "--checkpoint-dir", ck,
+                "--jsonl", os.path.join(TEXT_DIR, "phases.jsonl")]
+        runs = []
+        orig_run = seq_mod.run_sequence
+
+        def recorded(*a, **k):
+            runs.append(orig_run(*a, **k))
+            return runs[-1]
+
+        keep = seq_mod.remove_after_save
+        seq_mod.run_sequence = recorded
+        seq_mod.remove_after_save = lambda path: None
+        try:
+            torch.cuda.synchronize()
+            counts.reset()
+            t0 = time.perf_counter()
+            rc, summary = _cli(argv)
+            torch.cuda.synchronize()
+            out["wall_s"] = time.perf_counter() - t0
+            launched = counts.read()
+            trained = []
+            orig_train = Manager.train
+            Manager.train = lambda *a, **k: trained.append(1)
+            try:
+                rc2, summary2 = _cli(argv)
+            finally:
+                Manager.train = orig_train
+        finally:
+            seq_mod.run_sequence = orig_run
+            seq_mod.remove_after_save = keep
+        state, reports = runs[0]
+        if rc != 0 or rc2 != 0 or [t["grew"] for t in summary["tasks"]] \
+                != [0, 0, 1] or summary["final_width_mult"] != 1.5:
+            raise AssertionError(f"textcls: sequence {rc} {summary}")
+        if trained or not _same_state(torch, runs[1][0], state):
+            raise AssertionError("textcls: resume did not reproduce the "
+                                 "state")
+        if state.forward_kwargs(3) != {"vocab": 256, "causal": True}:
+            raise AssertionError(f"textcls: task 3 runs with "
+                                 f"{state.forward_kwargs(3)}")
+        out["summary"] = summary
+        out["resumed_summary_equal"] = summary2 == summary
+        with open(os.path.join(TEXT_DIR, "phases.jsonl")) as f:
+            out["phases"] = [json.loads(line) for line in f]
+        for ph in out["phases"]:
+            ph["ms_per_step"] = ph["seconds"] / max(ph["steps"], 1) * 1e3
+
+        def ckpt(tid, suffix=""):
+            return load_state(os.path.join(
+                ck, f"task{tid:02d}_{TEXT_TASKS[tid - 1]}{suffix}"),
+                device=dev)
+
+        by = {"task1": ckpt(1), "task2.pick": ckpt(2, ".pick"),
+              "task2": ckpt(2), "task3.pick": ckpt(3, ".pick"),
+              "task3": ckpt(3), "final": state}
+        out["check_state"] = {label: check_state(st)  # raises if dirty
+                              for label, st in by.items()}
+        x = torch.from_numpy(_inputs(TEXT_SHAPE, 64, np.random.RandomState(
+            SEED + 19))).to(dev)
+        old = {}
+        for tid, labels in ((1, ("task1", "task2.pick", "task2")),
+                            (1, ("task3.pick", "task3", "final")),
+                            (2, ("task3.pick", "task3", "final"))):
+            ref = predict(by[labels[0]], tid, x, device=dev)
+            d = max(float((predict(by[lb], tid, x, device=dev) - ref)
+                          .abs().max()) for lb in labels[1:])
+            old[f"task{tid} {' -> '.join(labels)}"] = d
+            if d != 0.0:
+                raise AssertionError(f"textcls: task {tid} logits moved by "
+                                     f"{d} across {labels}")
+        out["old_task_max_abs_diff"] = old
+        audit = reports[2].growth_audit
+        if not audit or any(a["max_abs_diff"] > a["bound"] for a in audit):
+            raise AssertionError(f"textcls: growth audit {audit}")
+        out["growth_audit"] = audit
+
+        # export bf16 and calibrated int8, serve both at bucket 64
+        final = os.path.join(ck, f"task03_{TEXT_TASKS[2]}")
+        rng = np.random.RandomState(SEED + 20)
+        cal = os.path.join(TEXT_DIR, "calib.npz")
+        np.savez(cal, x=_inputs(TEXT_SHAPE, 64, rng))
+        xq = _inputs(TEXT_SHAPE, 64, rng)
+        req = os.path.join(TEXT_DIR, "req.npz")
+        np.savez(req, x=xq)
+        served = {}
+        for q, flags in (("bf16", []), ("int8", ["--int8", "--calibrate",
+                                                 cal])):
+            art = os.path.join(TEXT_DIR, f"art_{q}")
+            rc, rep = _cli(["export", "--checkpoint", final, "--out", art,
+                            "--experiment", "textcls", *flags])
+            if rc != 0 or rep["calibrated_tasks"] != (3 if flags else 0):
+                raise AssertionError(f"textcls: export {q} {rc} {rep}")
+            res = os.path.join(TEXT_DIR, f"out_{q}.npz")
+            rc, rep = _cli(["serve", "--artifact", art, "--requests", req,
+                            "--task-id", "2", "--out", res, "--experiment",
+                            "textcls"])
+            if rc != 0 or rep["n"] != 64:
+                raise AssertionError(f"textcls: serve {q} {rc} {rep}")
+            with np.load(res) as z:
+                served[q] = z["logits"]
+            srv = TaskServer.load(art, None, device=dev)
+            out[f"serve_{q}_b64"] = _serve_latency(srv, xq, reps=10)
+            del srv
+        out["int8_vs_bf16"] = dict(zip(("max_abs_diff", "argmax_agree"),
+                                       _int8_bound(torch, served["int8"],
+                                                   served["bf16"],
+                                                   "textcls: int8 vs bf16")))
+        out["inference"] = {}
+        for tid in (1, 2, 3):
+            rc, rep = _cli(["inference", "--checkpoint", final, "--task-id",
+                            str(tid), "--experiment", "textcls",
+                            "--num-tasks", "3"])
+            if rc != 0 or rep["n"] != 128 or not 0.0 <= rep["top1"] <= 1.0:
+                raise AssertionError(f"textcls: inference {tid} {rc} {rep}")
+            out["inference"][TEXT_TASKS[tid - 1]] = rep["top1"]
+        print("text textcls: " + json.dumps(out) + f" on {card}", flush=True)
+    finally:
+        shutil.rmtree(TEXT_DIR, ignore_errors=True)
+    return out, launched
+
+
 # -------------------------------------------------------------- deploy ----
 
 # the deploy phase's two tasks, named as CIFAR-100 superclass tasks so that
@@ -2730,17 +3003,22 @@ SPHERE_EVAL_KERNELS = ["masked_conv_fwd", "masked_conv_select",
 SPHERE_TRAIN_KERNELS = ["masked_conv_bwd_dx", "masked_conv_bwd_dw",
                         "masked_conv_im2col", "masked_matmul_bwd_dx",
                         "masked_matmul_bwd_dw"]
+# the kernels textcls's and vit_moe_cifar's eval phases must reach, and
+# textcls's train phase (its hd-32 attention's backward: the pair)
+DENSE_EVAL_KERNELS = ["flash_fwd", "masked_matmul_fwd", "masked_matmul_select"]
+TEXT_TRAIN_KERNELS = ["flash_bwd_dq", "flash_bwd_dkv", "masked_matmul_bwd_dx",
+                      "masked_matmul_bwd_dw"]
 # the archs whose kernel rows count in their own train step (the kernels
 # line's `<arch>_step`)
-OWN_STEPS = ("resnet50", "spherenet20")
+OWN_STEPS = ("resnet50", "spherenet20", "textcls")
 
 
 def _per_step(row) -> int:
     """Launches of a phase row's shape in one train step at batch 256: the
     ViT rows say so; a VGG16-BN row's layer runs once a step in bf16 binary
-    (its ternary and f32 rows are extra checks); ResNet-50's and
-    SphereNet-20's rows count in their own steps (the kernels line's
-    `resnet50_step`, `spherenet20_step`)."""
+    (its ternary and f32 rows are extra checks); ResNet-50's,
+    SphereNet-20's and textcls's rows count in their own steps (the kernels
+    line's `resnet50_step`, `spherenet20_step`, `textcls_step`)."""
     if row.get("arch") in OWN_STEPS:
         return 0
     if "per_step" in row:
@@ -2858,7 +3136,8 @@ def kernels_line(rows, launched):
         # its shapes where the path takes it, once each
         step = [(r, _per_step(r)) for r in mine if _per_step(r)]
         if not step:
-            step = [(r, 1) for r in mine if r.get("on_path")]
+            step = [(r, 1) for r in mine if r.get("on_path")
+                    and r.get("arch") not in OWN_STEPS]
         by = {}
         for r, k in step:
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + k * r["bound_ms"]
@@ -2977,12 +3256,12 @@ def main() -> int:
     rows += [dict(r, arch="spherenet20") for r in dense_phases(
         torch, dev, name, m, kd, nd, "bfloat16", "binary", 1)]
     t_sphere = time.perf_counter() - t_sphere
-    for name, n, t, h, hd, causal, dname, per_step in FLASH_SHAPES:
-        rows += flash_phases(torch, dev, name, n, t, h, hd, causal, dname,
-                             per_step)
-    for name, m, kd, nd, dname, mode, per_step in DENSE_SHAPES:
-        rows += dense_phases(torch, dev, name, m, kd, nd, dname, mode,
-                             per_step)
+    for name, n, t, h, hd, causal, dname, per_step, arch in FLASH_SHAPES:
+        rows += [dict(r, arch=arch) for r in flash_phases(
+            torch, dev, name, n, t, h, hd, causal, dname, per_step)]
+    for name, m, kd, nd, dname, mode, per_step, arch in DENSE_SHAPES:
+        rows += [dict(r, arch=arch) for r in dense_phases(
+            torch, dev, name, m, kd, nd, dname, mode, per_step)]
     for r in rows:
         print("phase " + json.dumps(r), flush=True)
     t_kernels = time.perf_counter() - t_start
@@ -2991,13 +3270,21 @@ def main() -> int:
     launched = {}  # phase -> kernel -> launches
     results = {}
     one_forward = {}
-    for arch in ("vgg16_bn_cifar", "vit_cifar", "resnet50", "spherenet20"):
+    spent = {}  # phase group -> wall seconds
+
+    def lap(label, t0):
+        spent[label] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    for arch in ("vgg16_bn_cifar", "vit_cifar", "textcls", "vit_moe_cifar",
+                 "resnet50", "spherenet20"):
+        t_arch = time.perf_counter()
         state = build_state(torch, dev, arch)
         torch.cuda.synchronize()
         counts.reset()
         what = "the unfused server"
-        if arch == "vit_cifar":
-            serve_err, lat = vit_serve_phase(torch, dev, state)
+        if arch in ("vit_cifar", "textcls", "vit_moe_cifar"):
+            serve_err, lat = vit_serve_phase(torch, dev, state, counts)
             what = "the f32 server"
         elif arch == "spherenet20":
             serve_err, lat = sphere_serve_phase(torch, dev, state, counts)
@@ -3024,6 +3311,8 @@ def main() -> int:
             results[arch]["serve_one_forward_launches"] = one_forward
         del state
         torch.cuda.empty_cache()
+        lap(arch, t_arch)
+    t = time.perf_counter()
     cycle, launched["vgg16_bn_cifar/cycle"] = cycle_phase(torch, dev, counts)
     results["vgg16_bn_cifar"]["cycle"] = cycle
     print(f"cycle vgg16_bn_cifar: {json.dumps(cycle)} on {card}", flush=True)
@@ -3032,13 +3321,20 @@ def main() -> int:
                                                              counts, card)
     results["vgg16_bn_cifar"]["deploy"] = deploy
     torch.cuda.empty_cache()
+    t = lap("cycle+deploy", t)
     fg, launched["resnet50/finegrained"] = finegrained_phase(torch, dev,
                                                              counts, card)
     results["resnet50"]["finegrained"] = fg
     torch.cuda.empty_cache()
+    t = lap("finegrained", t)
     face, launched["spherenet20/face"] = face_phase(torch, dev, counts, card)
     results["spherenet20"]["face"] = face
     torch.cuda.empty_cache()
+    t = lap("face", t)
+    text, launched["textcls/cycle"] = text_phase(torch, dev, counts, card)
+    results["textcls"]["cycle"] = text
+    torch.cuda.empty_cache()
+    lap("textcls_cycle", t)
     # every phase that should reach a kernel did
     need = {"vgg16_bn_cifar/serve": ["fused_chain_fwd"],
             "vgg16_bn_cifar/eval": ["masked_conv_fwd", "masked_conv_select",
@@ -3070,7 +3366,16 @@ def main() -> int:
                                      "fused_chain_bwd_dw"],
             "spherenet20/eval": SPHERE_EVAL_KERNELS,
             "spherenet20/train": SPHERE_TRAIN_KERNELS,
-            "spherenet20/face": SPHERE_EVAL_KERNELS + SPHERE_TRAIN_KERNELS}
+            "spherenet20/face": SPHERE_EVAL_KERNELS + SPHERE_TRAIN_KERNELS,
+            # the transformers' servers run no port kernel (their serve
+            # phases hold a forward to zero launches)
+            "textcls/serve": [], "vit_moe_cifar/serve": [],
+            "textcls/eval": DENSE_EVAL_KERNELS,
+            "textcls/train": TEXT_TRAIN_KERNELS,
+            "textcls/cycle": DENSE_EVAL_KERNELS + TEXT_TRAIN_KERNELS,
+            "vit_moe_cifar/eval": DENSE_EVAL_KERNELS,
+            "vit_moe_cifar/train": ["flash_bwd", "masked_matmul_bwd_dx",
+                                    "masked_matmul_bwd_dw"]}
     for phase, names in need.items():
         for k in names:
             if launched[phase][k] == 0:
@@ -3081,11 +3386,14 @@ def main() -> int:
     wall = time.perf_counter() - t_start
     print(f"wall: {wall:.1f} s after the build ({t_kernels:.1f} s kernel "
           f"phases, {t_resnet:.1f} s of them ResNet-50's, {t_sphere:.1f} s "
-          f"SphereNet-20's)", flush=True)
+          f"SphereNet-20's; then, s: "
+          f"{json.dumps({k: round(v, 1) for k, v in spent.items()})})",
+          flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "phases": rows, "results": results,
-                   "launches": launched, "kernels": kernels, "wall_s": wall},
+                   "launches": launched, "kernels": kernels, "wall_s": wall,
+                   "phase_s": spent},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -19,7 +19,7 @@
 
 The subcommands take `cpg_tpu`'s flags with the same defaults and presets
 (`--arch vit_cifar` swaps the cycle's architecture) and print `cpg_tpu`'s
-JSON. Everything runs on the card unless `--device cpu` is given. Three
+JSON. Everything runs on the card unless `--device cpu` is given. Four
 experiments run: cifar100 (VGG16-BN, 20 CIFAR-100 superclass tasks),
 finegrained (ResNet-50 at 224 px over CUBS, Cars, Flowers, WikiArt and
 Sketch; `--max-classes` caps the synthetic stand-ins' classes and
@@ -27,14 +27,19 @@ Sketch; `--max-classes` caps the synthetic stand-ins' classes and
 (SphereNet-20: CASIA-WebFace identities with the A-Softmax head, then
 expression, gender and age tasks with linear heads on the same trunk; the
 `sequence` summary adds LFW verification through task 1's embedding,
-`lfw_verification`). Options whose modules are not ported yet (the
-textcls experiment, `--parallel*`, `--shard-activations`, `--memmap-dir`,
-`--native-loader`, the textcls flags) and the XLA-only `--remat`,
+`lfw_verification`) and textcls (the text transformer over the folders
+of `$CPG_DATA_DIR/textcls/<task>/{train,test}/<class>/*.txt`, else
+synthetic token tasks; `--text-causal` gives every task causal attention,
+and the other `--text-*` flags size and shape the tokens; `--arch
+vit_moe_cifar` runs the MoE ViT on the cifar100 tasks). Options whose
+modules are not ported yet (`--parallel*`, `--shard-activations`,
+`--memmap-dir`, `--native-loader`) and the XLA-only `--remat`,
 `--remat-policy`, `--scan-blocks` and `--scoped-vmem-kib` stop with an
 error naming them.
 Checkpoints are this package's (utils/checkpoint.py).
 
-`serve`: R.npz holds `x` (uint8 NHWC) and, without --task-id, a per-row
+`serve`: R.npz holds `x` (uint8 NHWC, or int32 (N, T) token ids for
+textcls) and, without --task-id, a per-row
 `task_ids` array for mixed routing; with --http-port the JSON endpoint of
 server_http.py answers instead (blocking). `export --calibrate`: NPZ holds
 `x` (one batch for every task) or `task<K>` batches per task id.
@@ -86,32 +91,10 @@ UNPORTED = [
     ("remat", bool, "XLA rematerialisation (TPU/XLA only; no port)"),
     ("remat_policy", bool, "XLA rematerialisation (TPU/XLA only; no port)"),
     ("scan_blocks", bool, "lax.scan over blocks (TPU/XLA only; no port)"),
-    ("text_causal", bool, "the textcls experiment (ROADMAP Queue 1, item 9)"),
-    ("text_vocab", lambda v: v != 256,
-     "the textcls experiment (ROADMAP Queue 1, item 9)"),
-    ("text_seq_len", lambda v: v != 64,
-     "the textcls experiment (ROADMAP Queue 1, item 9)"),
-    ("text_tokenizer", lambda v: v != "byte",
-     "the textcls experiment (ROADMAP Queue 1, item 9)"),
-    ("text_order_frac", lambda v: v != 0.0,
-     "the textcls experiment (ROADMAP Queue 1, item 9)"),
 ]
 
 
-# experiments whose modules are not ported yet -> the ROADMAP item
-_LATER_EXPERIMENTS = {"textcls": "ROADMAP Queue 1, item 9"}
-
-
-def _refuse_experiment(args):
-    if args.experiment in _LATER_EXPERIMENTS:
-        raise SystemExit(
-            f"--experiment {args.experiment} is not ported to cpg_tpu_torch "
-            f"yet ({_LATER_EXPERIMENTS[args.experiment]}); this package runs "
-            "cifar100, finegrained and face")
-
-
 def _refuse_unported(args):
-    _refuse_experiment(args)
     for attr, is_set, what in UNPORTED:
         if is_set(getattr(args, attr)):
             flag = "--" + attr.replace("_", "-")
@@ -138,6 +121,9 @@ def _experiment_tasks(args):
         if args.num_tasks:
             tasks = dict(list(tasks.items())[: args.num_tasks])
         arch, aug = "spherenet20", A.face_train_augment
+    elif args.experiment == "textcls":
+        tasks = _text_tasks(args)
+        arch, aug = "textcls", _identity_augment
     else:
         from .data.cifar import task_splits
 
@@ -153,6 +139,36 @@ def _experiment_tasks(args):
                 f"unknown --arch {args.arch!r}; have {sorted(REGISTRY)}")
         arch = args.arch
     return arch, tasks, aug, _prep(args)
+
+
+def _identity_augment(x, rng):
+    """Tokens take no augmentation."""
+    return x
+
+
+def _text_tasks(args):
+    """The textcls tasks (`cpg_tpu.cli`'s): every task folder under
+    `$CPG_DATA_DIR/textcls/` when there is one, tokenized to
+    --text-seq-len by --text-tokenizer, else synthetic token tasks (four
+    unless --num-tasks); each task runs causal attention under
+    --text-causal."""
+    from .data.textfolder import textfolder_task_splits
+
+    real = textfolder_task_splits(seq_len=args.text_seq_len or 64,
+                                  tokenizer=args.text_tokenizer,
+                                  vocab=args.text_vocab)
+    if real is not None:
+        tasks = {n: real[n] for n in list(real)[: args.num_tasks or None]}
+    else:
+        from .data.text import text_task_splits
+
+        tasks = text_task_splits(
+            n_tasks=args.num_tasks or 4, vocab=args.text_vocab,
+            seq_len=args.text_seq_len, order_frac=args.text_order_frac)
+    if args.text_causal:
+        for t in tasks.values():
+            t["model_kwargs"] = {"causal": True}
+    return tasks
 
 
 def _face_tasks():
@@ -225,23 +241,15 @@ def _seq_cfg(args):
 
 def _add_common(p):
     p.add_argument("--experiment", default="cifar100", choices=EXPERIMENTS,
-                   help="cifar100 (VGG16-BN), finegrained (ResNet-50) or "
-                        "face (SphereNet-20); textcls stops with an error")
+                   help="cifar100 (VGG16-BN), finegrained (ResNet-50), "
+                        "face (SphereNet-20) or textcls (the text "
+                        "transformer)")
     p.add_argument("--arch", default=None,
                    help="override the experiment's default architecture "
                         "(a models.REGISTRY name, e.g. vit_cifar)")
     p.add_argument("--num-tasks", type=int, default=0,
                    help="0 = all tasks of the experiment")
-    p.add_argument("--text-causal", action="store_true",
-                   help="textcls only (not ported; stops with an error)")
-    p.add_argument("--text-vocab", type=int, default=256,
-                   help="textcls only (not ported; stops with an error)")
-    p.add_argument("--text-seq-len", type=int, default=64,
-                   help="textcls only (not ported; stops with an error)")
-    p.add_argument("--text-tokenizer", default="byte", choices=["byte", "hash"],
-                   help="textcls only (not ported; stops with an error)")
-    p.add_argument("--text-order-frac", type=float, default=0.0,
-                   help="textcls only (not ported; stops with an error)")
+    _add_text_flags(p)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--lr", type=float, default=0.01)
     p.add_argument("--lr_mask", type=float, default=1e-4)
@@ -326,6 +334,25 @@ def _add_common(p):
                    help="torch device (default: the card)")
 
 
+def _add_text_flags(p):
+    p.add_argument("--text-causal", action="store_true",
+                   help="textcls only: causal (lower-triangular) attention")
+    p.add_argument("--text-vocab", type=int, default=256,
+                   help="textcls only: vocabulary size (sizes the sharable "
+                        "embedding table)")
+    p.add_argument("--text-seq-len", type=int, default=64,
+                   help="textcls only: sequence length (sizes the "
+                        "positional embedding)")
+    p.add_argument("--text-tokenizer", default="byte", choices=["byte", "hash"],
+                   help="textcls real-data tokenizer (data/textfolder.py): "
+                        "byte = UTF-8 bytes, vocab 258; hash = whitespace "
+                        "hashing trick into --text-vocab")
+    p.add_argument("--text-order-frac", type=float, default=0.0,
+                   help="textcls only: fraction of each sequence replaced by "
+                        "class-oriented token pairs (only their order "
+                        "carries the class; pair with --text-causal)")
+
+
 def _add_device(p):
     p.add_argument("--device", default="cuda",
                    help="torch device (default: the card)")
@@ -333,8 +360,7 @@ def _add_device(p):
 
 def _add_experiment(p, help):
     p.add_argument("--experiment", default="cifar100", choices=EXPERIMENTS,
-                   help=help + "; cifar100, finegrained and face are "
-                               "ported")
+                   help=help)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -354,6 +380,7 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--synthetic-test-per-class", type=int, default=20)
     pi.add_argument("--max-classes", type=int, default=None,
                     help="cap synthetic fine-grained class counts")
+    _add_text_flags(pi)
     _add_device(pi)
     ps = sub.add_parser("stats",
                         help="ownership/capacity report for a checkpoint")
@@ -436,13 +463,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _prep(args):
-    """The experiment's eval preprocess (textcls refused)."""
+    """The experiment's eval preprocess (tokens: none)."""
     from .data import augment as A
 
-    _refuse_experiment(args)
     return {"cifar100": A.cifar_eval_preprocess,
             "finegrained": A.imagenet_eval_preprocess,
-            "face": A.face_eval_preprocess}[args.experiment]
+            "face": A.face_eval_preprocess,
+            "textcls": None}[args.experiment]
 
 
 def _serve(args) -> int:
@@ -671,6 +698,7 @@ def _pretrained_state(args, arch):
 
 def _cycle(args) -> int:
     from .core.state import resolve_device
+    from .models import takes_tokens
 
     _refuse_unported(args)
     resolve_device(args.device)
@@ -709,6 +737,16 @@ def _cycle(args) -> int:
         init_kw["state"] = st
     if args.pretrained_npz:
         init_kw["state"] = _pretrained_state(args, arch)
+    if takes_tokens(arch) and "state" not in init_kw and tasks:
+        # a fresh text state takes its table and positions from the task
+        # data (real folders carry their tokenizer's vocab, synthetic
+        # tasks the flag's), set every time: an id past the table would
+        # be refused
+        vocab = (max(t.get("vocab", 0) for t in tasks.values())
+                 or args.text_vocab)
+        seq_len = next(iter(tasks.values()))["train_x"].shape[1]
+        init_kw["model_kwargs"] = {"vocab": int(vocab)}
+        init_kw["batch_hw"] = (int(seq_len),)
 
     state, reports = runner(
         arch, tasks, _train_cfg(args), _seq_cfg(args), goals=goals,

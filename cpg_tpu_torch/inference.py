@@ -12,7 +12,7 @@ import torch
 
 from .core.state import CPGState, resolve_device
 from .models import framework as fw
-from .models import get_model
+from .models import check_token_ids, get_model
 from .ops.masked import effective_params
 
 
@@ -31,6 +31,7 @@ def make_predict_fn(state: CPGState, task_id: int, preprocess_fn=None,
     mkw = state.forward_kwargs(task_id, override=model_kwargs)
 
     def fn(x):
+        check_token_ids(state.arch, mkw, x)
         with torch.inference_mode():
             x = torch.as_tensor(x).to(dev)
             if preprocess_fn is not None:

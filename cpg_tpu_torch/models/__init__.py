@@ -1,16 +1,22 @@
-"""Model registry (arch name -> (model_fn, default input shape HWC)).
+"""Model registry (arch name -> (model_fn, default input shape: HWC, or
+(T,) for a token sequence)).
 
-The port carries VGG16-BN, ResNet-50, SphereNet-20 and the ViT family
-(`vit_cifar`, `vit_b16`); `cpg_tpu`'s `vit_moe_cifar` and `textcls` come in
-a later slice (ROADMAP Queue 1, item 9).
+The port carries every architecture of `cpg_tpu`: VGG16-BN, ResNet-50,
+SphereNet-20, the ViT family (`vit_cifar`, `vit_b16`), the MoE ViT
+(`vit_moe_cifar`) and the text classifier (`textcls`).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
+import torch
+
+from .moe import vit_moe_cifar
 from .resnet import resnet50
 from .spherenet import spherenet20, spherenet_flatten_dims
+from .text import VOCAB, textcls
 from .vgg import vgg16_bn_cifar
 from .vit import vit_b16, vit_cifar
 
@@ -20,6 +26,8 @@ REGISTRY: Dict[str, tuple] = {
     "spherenet20": (spherenet20, (112, 96, 3)),
     "vit_cifar": (vit_cifar, (32, 32, 3)),
     "vit_b16": (vit_b16, (224, 224, 3)),
+    "vit_moe_cifar": (vit_moe_cifar, (32, 32, 3)),
+    "textcls": (textcls, (64,)),
 }
 
 # arch name -> {layer: (H, W)} for dense kernels fed by a spatial flatten.
@@ -47,3 +55,27 @@ def get_model(name: str):
 def get_flatten_dims(name: str) -> Optional[Dict[str, Tuple[int, int]]]:
     """flatten_dims for grow_state, or None for plain block embedding."""
     return FLATTEN_DIMS.get(name)
+
+
+def takes_tokens(name: str) -> bool:
+    """Whether the arch's input is a token sequence ((T,), not HWC)."""
+    return len(get_model(name)[1]) == 1
+
+
+def check_token_ids(name: str, model_kwargs, x) -> None:
+    """For a token arch, raise ValueError unless every id of `x` (an array
+    or tensor) lies in [0, vocab), vocab from `model_kwargs` or the
+    model's default. `cpg_tpu`'s gather clamps or fills an id outside it
+    without an error; torch's raises, and on the card ends the CUDA
+    context, so the entry points check on the host first."""
+    if not takes_tokens(name) or not len(x):
+        return
+    vocab = int((model_kwargs or {}).get("vocab", VOCAB))
+    if isinstance(x, torch.Tensor):
+        lo, hi = (int(v) for v in torch.aminmax(x.detach()))
+    else:
+        x = np.asarray(x)
+        lo, hi = int(x.min()), int(x.max())
+    if lo < 0 or hi >= vocab:
+        raise ValueError(f"{name}: token ids span [{lo}, {hi}], outside "
+                         f"the embedding table's [0, {vocab})")

@@ -1,5 +1,5 @@
-"""Functional layer framework for CPG models (VGG, ResNet, SphereNet and the
-ViT subset).
+"""Functional layer framework for CPG models (VGG, ResNet, SphereNet, the
+ViTs, the MoE ViT and the text classifier).
 
 The counterpart of `cpg_tpu.models.framework`: a flat parameter dict keyed by
 layer name, split into *shared* sharable kernels (governed by ownership) and
@@ -261,6 +261,33 @@ def sdense(ctx: Ctx, name: str, x: torch.Tensor, features: int,
         return _dense_bias(ctx, name, y, features, use_bias)
     y = x.to(ctx.compute_dtype) @ w.to(ctx.compute_dtype)
     return _dense_bias(ctx, name, y, features, use_bias)
+
+
+def sembed(ctx: Ctx, name: str, ids: torch.Tensor, vocab: int,
+           features: int) -> torch.Tensor:
+    """Sharable token embedding: a (vocab, features) kernel looked up by
+    row, in the compute dtype. The CPG select runs over the whole table
+    (`masked_weight`, as sdense's kernel), then the rows are gathered; ids
+    may arrive as float zeros from `init`'s sample batch and are cast.
+    Under int8 the int8 rows are gathered, then dequantized by the
+    per-feature scale (f32 out). No kernel: `cpg_tpu` has no Pallas form.
+
+    Ids must lie in [0, vocab): `jnp.take` clamps or fills an id outside
+    it, torch raises (on the card, a device-side assert), so the entry
+    points check them on the host (`models.check_token_ids`). The table
+    keeps its shape across widths."""
+    key = f"{name}/kernel"
+    w = ctx.shared_param(key, (vocab, features), normal_init(0.02))
+    if ctx.masking is not None and ctx.mode != "init":
+        w = ctx.masked_weight(key, w)
+    ids = ids.long()
+    if ctx.quant_scales is not None and key in ctx.quant_scales:
+        rows = torch.index_select(w, 0, ids.reshape(-1))
+        return (rows.float() * ctx.quant_scales[key]).reshape(
+            *ids.shape, features)
+    # the table is cast before the gather, as `cpg_tpu`'s: in bf16 the
+    # gather's backward sums each row's gradient into a bf16 row
+    return F.embedding(ids, w.to(ctx.compute_dtype))
 
 
 def _dense_bias(ctx: Ctx, name: str, y: torch.Tensor, features: int,

@@ -95,6 +95,15 @@ def vit_cifar(ctx: Ctx, x, num_classes: int, mult: float = 1.0,
     return head(ctx, "classifier", x.float().mean(1), num_classes)
 
 
+def dense_outputs(mult: float, dim: int, heads: int, mlp_ratio: int = 4):
+    """The output widths of a transformer's sharable dense layers at a
+    width (vit_cifar, vit_b16, textcls, vit_moe_cifar, whose experts run no
+    dense layer): q/k/v (the heads), proj and fc2 (dim), fc1 (the MLP's
+    hidden units)."""
+    return [_heads(heads, mult) * (dim // heads), dim,
+            max(1, int(dim * mlp_ratio * mult))]
+
+
 def vit_b16(ctx: Ctx, x, num_classes: int, mult: float = 1.0):
     """ViT-B/16 at 224x224 (depth 12, dim 768, 12 heads; T = 196)."""
     return vit_cifar(ctx, x, num_classes, mult, depth=12, dim=768, heads=12,

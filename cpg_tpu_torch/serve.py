@@ -47,7 +47,7 @@ import torch
 
 from .core.state import CPGState, TaskEntry, resolve_device
 from .models import framework as fw
-from .models import get_model
+from .models import check_token_ids, get_model
 from .ops import int8
 from .ops.masked import effective_params
 
@@ -209,6 +209,8 @@ class TaskServer:
         tasks = (calib if isinstance(calib, dict)
                  else {tid: calib for tid in self.state.tasks})
         for tid, x in tasks.items():
+            check_token_ids(self.state.arch, self.state.forward_kwargs(tid),
+                            x)
             eff, scales = self._get_eff(tid)
             stats: Dict[str, float] = {}
             xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -224,6 +226,8 @@ class TaskServer:
         """Logits for a request batch under one task's view (host in/out)."""
         eff, scales = self._get_eff(task_id)
         x = np.asarray(x)
+        check_token_ids(self.state.arch, self.state.forward_kwargs(task_id),
+                        x)
         n = len(x)
         b = _next_bucket(n, self.min_bucket, self.max_bucket)
         out: List[np.ndarray] = []

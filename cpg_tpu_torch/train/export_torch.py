@@ -128,7 +128,7 @@ def export_torch_cpg_checkpoint(state: CPGState) -> Dict:
     `classifiers.{i}`, as the reference's save_checkpoint writes them."""
     if state.arch not in _ARCHS:
         raise NotImplementedError(
-            f"torch export supports {', '.join(_ARCHS)}; got "
+            f"torch export supports {'/'.join(_ARCHS)}; got "
             f"{state.arch!r}")
     conv_mod, bn_mod = _module_maps(state.arch)
 

@@ -33,6 +33,7 @@ from ..core import pruner
 from ..core.schedule import cubic_sparsity
 from ..core.state import CPGState, resolve_device
 from ..data.cifar import iterate_batches
+from ..models import check_token_ids
 from ..utils import LOGGER, JsonlWriter
 from .losses import class_logits
 from .step import TrainConfig, make_eval_step, make_train_step, set_lr
@@ -110,13 +111,16 @@ class Manager:
         if mesh is not None:
             raise ValueError(
                 "Manager(mesh=...): multi-device training is not ported yet "
-                "(ROADMAP Queue 1, items 6 and 12: parallel/* on "
+                "(ROADMAP Queue 1, item 12: parallel/* on "
                 "torch.distributed)")
         if native_loader:
             raise ValueError(
                 "Manager(native_loader=True): the native prefetch loader is "
                 "not ported yet (ROADMAP Queue 1, item 12)")
         self.device = resolve_device(device)
+        for split in ("train_x", "test_x"):  # every batch's ids, once
+            check_token_ids(state.arch, state.forward_kwargs(task_id),
+                            data[split])
         on_device(state, self.device)
         self.state = state
         self.model_fn = model_fn

@@ -52,6 +52,7 @@ from ..models.resnet import widest_seam as resnet_widest_seam
 from ..models.spherenet import conv_channels as sphere_conv_channels
 from ..models.spherenet import embed_dim as sphere_embed_dim
 from ..models.vgg import conv_channels as vgg_conv_channels
+from ..models.vit import dense_outputs as vit_dense_outputs
 from ..ops.binarize import init_piggymask
 from ..utils import LOGGER
 from ..utils.checkpoint import (load_state, remove_after_save, save_state,
@@ -104,21 +105,42 @@ _CONV_CHANNELS = {
     "resnet50": (resnet_conv_channels, resnet_widest_seam),
     "spherenet20": (sphere_conv_channels, None),
 }
-# archs whose sharable dense layers' outputs scale with the width: the
-# output widths at a width (SphereNet-20's fc5)
-_DENSE_OUTPUTS = {"spherenet20": lambda m: [sphere_embed_dim(m)]}
+# the transformers' dim, heads and MLP ratio by default (the arch's
+# model_kwargs override them): their sharable dense layers' outputs scale
+# with the width by `vit.dense_outputs`
+_TRANSFORMER_DIMS = {
+    "vit_cifar": dict(dim=256, heads=4, mlp_ratio=4),
+    "vit_b16": dict(dim=768, heads=12, mlp_ratio=4),
+    "textcls": dict(dim=128, heads=4, mlp_ratio=4),
+    "vit_moe_cifar": dict(dim=256, heads=4, mlp_ratio=4),
+}
+
+
+def _dense_outputs(arch: str, model_kwargs: Optional[Dict]):
+    """mult -> the output widths of the arch's sharable dense layers that
+    scale with the width (SphereNet-20's fc5; the transformers' heads and
+    MLP units), or None for an arch without such layers."""
+    if arch == "spherenet20":
+        return lambda m: [sphere_embed_dim(m)]
+    if arch not in _TRANSFORMER_DIMS:
+        return None
+    dims = dict(_TRANSFORMER_DIMS[arch])
+    dims.update({k: v for k, v in (model_kwargs or {}).items() if k in dims})
+    return lambda m: vit_dense_outputs(m, **dims)
 
 
 def refuse_kernel_widths(cfg: Optional[TrainConfig], arch: str, mults,
-                         in_shape) -> None:
+                         in_shape, model_kwargs: Optional[Dict] = None
+                         ) -> None:
     """Raise ValueError for widths the kernels that `cfg` turns on would
     refuse mid-cycle, each check keyed to the flag and dtype that need it:
     under `use_fused_chain` a fused seam wider than 128 (the fused chain's
     W limit, any dtype) or, in bf16, a channel count off a multiple of 8;
     under `use_pallas_conv` in bf16, a Cout off a multiple of 4; under
     `use_pallas` in bf16, a dense output off a multiple of 4 (off a
-    multiple of 8 the dense route runs the masked conv at 1x1). f32 steps
-    have no channel limit, and the masked conv no width limit."""
+    multiple of 8 the dense route runs the masked conv at 1x1), the
+    transformers' widths sized by `model_kwargs`. f32 steps have no channel
+    limit, and the masked conv no width limit."""
     if cfg is None:
         return
     checks = []  # (flag, needed multiple, channel counts at a width)
@@ -134,8 +156,9 @@ def refuse_kernel_widths(cfg: Optional[TrainConfig], arch: str, mults,
             checks.append(("use_fused_chain", 8, channels))
         elif cfg.use_pallas_conv:
             checks.append(("use_pallas_conv", 4, channels))
-    if cfg.use_pallas and arch in _DENSE_OUTPUTS:
-        checks.append(("use_pallas", 4, _DENSE_OUTPUTS[arch]))
+    dense = _dense_outputs(arch, model_kwargs)
+    if cfg.use_pallas and dense is not None:
+        checks.append(("use_pallas", 4, dense))
     if cfg.compute_dtype != torch.bfloat16:
         return
     for flag, need, channels in checks:
@@ -173,7 +196,7 @@ def init_state(arch: str, rng: torch.Generator, width_mult: float = 1.0,
     dev = resolve_device(device)
     model_fn, in_shape = get_model(arch)
     shape = tuple(batch_hw or in_shape)
-    refuse_kernel_widths(cfg, arch, [width_mult], shape)
+    refuse_kernel_widths(cfg, arch, [width_mult], shape, model_kwargs)
     shared, _, _ = (init_fn or fw.init)(
         rng, model_fn, torch.zeros((1, *shape)), num_classes=2,
         mult=width_mult, **(model_kwargs or {}))
@@ -237,7 +260,8 @@ def grow_state(state: CPGState, new_mult: float, rng: torch.Generator,
         flatten_dims = get_flatten_dims(state.arch)
     model_fn, in_shape = get_model(state.arch)
     shape = tuple(state.in_shape or in_shape)
-    refuse_kernel_widths(cfg, state.arch, [new_mult], shape)
+    refuse_kernel_widths(cfg, state.arch, [new_mult], shape,
+                         state.model_kwargs)
     dev = resolve_device(device)
     on_device(state, dev)
     x = torch.zeros((1, *shape))
@@ -560,7 +584,7 @@ def run_sequence(arch: str, tasks: Dict[str, Dict],
     if mesh is not None:
         raise ValueError(
             "run_sequence(mesh=...): multi-device training is not ported yet "
-            "(ROADMAP Queue 1, items 6 and 12)")
+            "(ROADMAP Queue 1, item 12)")
     if seq.native_loader:
         raise ValueError("SequenceConfig.native_loader: the native prefetch "
                          "loader is not ported yet (ROADMAP Queue 1, item 12)")
@@ -569,9 +593,10 @@ def run_sequence(arch: str, tasks: Dict[str, Dict],
     start_mult = state.width_mult if state is not None else width_mult
     shape = ((state.in_shape if state is not None else batch_hw)
              or get_model(arch)[1])
+    kwargs = state.model_kwargs if state is not None else model_kwargs
     refuse_kernel_widths(cfg, arch,
                          [start_mult, *growth_ladder(start_mult, seq)],
-                         tuple(shape))
+                         tuple(shape), kwargs)
     rng = _generator(seq.seed) if rng is None else rng
     if state is None:
         state = init_state(arch, rng, width_mult=width_mult,

@@ -76,7 +76,7 @@ def main() -> int:
     # GEMM shape (m, r, nout) -> the products that run it and their
     # launches per vit_cifar train step (fc2's forward is fc1's dx)
     products = {}
-    for name, m, kd, nd, dname, mode, per_step in cs.DENSE_SHAPES:
+    for name, m, kd, nd, dname, mode, per_step, _ in cs.DENSE_SHAPES:
         if dname != "bfloat16" or mode != "binary":
             continue
         for what, shape in (("fwd", (m, kd, nd)), ("dx", (m, nd, kd))):

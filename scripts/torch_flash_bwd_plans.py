@@ -43,7 +43,7 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     kernel = fl._fn("flash_bwd_wgmma", torch.bfloat16)
     rows = []
-    for name, n, t, h, hd, causal, dname, _ in cs.FLASH_SHAPES:
+    for name, n, t, h, hd, causal, dname, *_ in cs.FLASH_SHAPES:
         gen = torch.Generator().manual_seed(cs.SEED + 6)
         q, k, v, do = (torch.randn((n, t, h, hd), generator=gen).to(
             dev, getattr(torch, dname)) for _ in range(4))

@@ -2,17 +2,17 @@
 """Where the port's serving time goes on the card.
 
     python scripts/torch_serve_profile.py
-        [--arch vgg16_bn_cifar|vit_cifar|resnet50|spherenet20]
-        [--bucket 256] [--calls 10]
+        [--arch vgg16_bn_cifar|vit_cifar|textcls|vit_moe_cifar|resnet50|
+                spherenet20] [--bucket 256] [--calls 10]
 
 Builds the seeded two-task state of the architecture at width 1.0 with
-chip_smoke.py's `build_state`, then for the bf16 `TaskServer` (VGG16-BN
-and ResNet-50 at 224 px: without and with the fused chain; vit_cifar and
-SphereNet-20 at 112x96: the effective-params path, which runs no port
-kernel): times `predict` on one bucket (host clock, p50
-of the calls), and profiles the same calls with torch.profiler: device
-time by kernel and the device's busy share (summed kernel time over wall
-time). Needs one CUDA card. Prints one JSON line and writes it to
+chip_smoke.py's `build_state`, then for the bf16 `TaskServer` on a bucket
+of `serve_batch`'s inputs (VGG16-BN, and ResNet-50 at 224 px: without and
+with the fused chain; the transformers, and SphereNet-20 at 112x96: the
+effective-params path, which runs no port kernel): times `predict` on the
+bucket (host clock, p50 of the calls), and profiles the same calls with
+torch.profiler: device time by kernel and the device's busy share (summed
+kernel time over wall time). Needs one CUDA card. Prints one JSON line and writes it to
 chiprun_out/torch_serve_profile_<arch>.json.
 """
 
@@ -28,6 +28,20 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+ARCHS = ("vgg16_bn_cifar", "vit_cifar", "textcls", "vit_moe_cifar",
+         "resnet50", "spherenet20")
+# the archs whose server has BatchNorm seams to fuse
+SEAMS = ("vgg16_bn_cifar", "resnet50")
+
+
+def serve_batch(arch, n, seed=1):
+    """n random requests of `arch` as a numpy batch: `chip_smoke._arch_io`'s
+    per-example shape as its `_inputs` makes them (uint8 images, int32
+    token ids)."""
+    from chip_smoke import _arch_io, _inputs
+
+    return _inputs(_arch_io(arch)[0], n, np.random.RandomState(seed))
 
 
 def profile(torch, srv, x, calls):
@@ -66,9 +80,7 @@ def profile(torch, srv, x, calls):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="vgg16_bn_cifar",
-                    choices=("vgg16_bn_cifar", "vit_cifar", "resnet50",
-                             "spherenet20"))
+    ap.add_argument("--arch", default="vgg16_bn_cifar", choices=ARCHS)
     ap.add_argument("--bucket", type=int, default=256)
     ap.add_argument("--calls", type=int, default=10)
     args = ap.parse_args(argv)
@@ -83,13 +95,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = card_line()
     state = build_state(torch, dev, args.arch)
-    hw, prep, _, _, _ = _arch_io(args.arch)
-    x = np.random.RandomState(1).randint(
-        0, 256, (args.bucket, *hw, 3)).astype(np.uint8)
+    prep = _arch_io(args.arch)[1]
+    x = serve_batch(args.arch, args.bucket)
     out = {"card": card, "arch": args.arch, "bucket": args.bucket,
            "calls": args.calls}
-    seams = args.arch not in ("vit_cifar", "spherenet20")
-    for fused in (False, True) if seams else (False,):
+    for fused in (False, True) if args.arch in SEAMS else (False,):
         srv = TaskServer(state, prep,
                          compute_dtype=torch.bfloat16, fused_chain=fused,
                          min_bucket=args.bucket, device=dev)

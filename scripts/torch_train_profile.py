@@ -2,21 +2,23 @@
 """Where the port's train-step time goes on the card.
 
     python scripts/torch_train_profile.py
-        [--arch vgg16_bn_cifar|vit_cifar|resnet50|spherenet20] [--batch 256]
-        [--steps 10]
+        [--arch vgg16_bn_cifar|vit_cifar|textcls|vit_moe_cifar|resnet50|
+                spherenet20] [--batch 256] [--steps 10]
 
 Builds the seeded two-task state of the architecture at width 1.0 with
-chip_smoke.py's `build_state` (its input size, augmentation and draws
-from `_arch_io`: 224 px for ResNet-50, 112x96 with flips for SphereNet-20),
+chip_smoke.py's `build_state` (its input shape, augmentation and draws
+from `_arch_io`: 224 px for ResNet-50, 112x96 with flips for SphereNet-20,
+64 token ids for textcls; `train_batch` makes the batch),
 then for the bf16 train step of task 2 without the kernels (the default
 step: effective weights, cuDNN/cuBLAS, autograd) and with them
 (chip_smoke.py's `KERNEL_FLAGS`: VGG16-BN and ResNet-50
-`use_pallas_conv`, `use_fused_chain`; vit_cifar `use_pallas`,
-`flash_attention`; SphereNet-20 `use_pallas_conv`, `use_pallas`): times the step (host clock around steps that end in a
-synchronize), and profiles the same steps with torch.profiler: device time
-by kernel, grouped (the port's kernels, cuDNN/cuBLAS, elementwise and
-reductions, optimizer), the device's busy share (summed kernel time over
-wall time) and the peak device memory.
+`use_pallas_conv`, `use_fused_chain`; vit_cifar, textcls and
+vit_moe_cifar `use_pallas`, `flash_attention`; SphereNet-20
+`use_pallas_conv`, `use_pallas`): times the step (host clock around steps
+that end in a synchronize), and profiles the same steps with
+torch.profiler: device time by kernel, grouped (the port's kernels,
+cuDNN/cuBLAS, elementwise and reductions, optimizer), the device's busy
+share (summed kernel time over wall time) and the peak device memory.
 Needs one CUDA card. Prints one JSON line and writes it beside
 chip_smoke.py's results, as torch_train_profile_<arch>_b<batch>.json.
 """
@@ -30,8 +32,12 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+ARCHS = ("vgg16_bn_cifar", "vit_cifar", "textcls", "vit_moe_cifar",
+         "resnet50", "spherenet20")
 # kernel-name fragments -> group (first match wins)
 GROUPS = (
     ("port kernels", ("masked_conv_fwd_", "fused_chain_fwd_", "cpg::bwd::",
@@ -110,11 +116,23 @@ def profile(torch, run, steps):
     }
 
 
+def train_batch(torch, arch, n, seed=1):
+    """(x, y, draws) of one host-side train batch of `arch`: n random
+    examples of `chip_smoke._arch_io`'s per-example shape as its `_inputs`
+    makes them (uint8 images, int32 token ids), labels below 5, and the
+    augmentation's draws."""
+    from chip_smoke import _arch_io, _inputs
+
+    shape, _, _, draw_fn, _ = _arch_io(arch)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.from_numpy(_inputs(shape, n, np.random.RandomState(seed)))
+    y = torch.randint(0, 5, (n,), generator=gen)
+    return x, y, draw_fn(n, gen)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="vgg16_bn_cifar",
-                    choices=("vgg16_bn_cifar", "vit_cifar", "resnet50",
-                             "spherenet20"))
+    ap.add_argument("--arch", default="vgg16_bn_cifar", choices=ARCHS)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args(argv)
@@ -131,12 +149,9 @@ def main(argv=None) -> int:
     card = card_line()
     state = build_state(torch, dev, args.arch)
     model_fn, _ = get_model(args.arch)
-    gen = torch.Generator().manual_seed(1)
-    hw, _, augment, draw_fn, _ = _arch_io(args.arch)
-    x = torch.randint(0, 256, (args.batch, *hw, 3), generator=gen,
-                      dtype=torch.uint8).to(dev)
-    y = torch.randint(0, 5, (args.batch,), generator=gen).to(dev)
-    draws = draw_fn(args.batch, gen)
+    augment = _arch_io(args.arch)[2]
+    x, y, draws = train_batch(torch, args.arch, args.batch)
+    x, y = x.to(dev), y.to(dev)
     out = {"card": card, "arch": args.arch, "batch": args.batch,
            "steps": args.steps}
     for label, kernels in (("default", False), ("kernels", True)):

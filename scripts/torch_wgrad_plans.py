@@ -80,7 +80,7 @@ def main() -> int:
     # (name, launches per train step at batch 256, m, k, n, rows, launch(plan),
     # plain(), library product alone)
     cases = []
-    for name, m, kd, nd, dname, mode, per_step in cs.DENSE_SHAPES:
+    for name, m, kd, nd, dname, mode, per_step, _ in cs.DENSE_SHAPES:
         if dname != "bfloat16" or mode != "binary":
             continue
         x = torch.randn((m, kd), generator=gen).to(dev, torch.bfloat16)

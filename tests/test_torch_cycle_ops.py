@@ -469,7 +469,6 @@ def test_cli_shared_flags_defaults_and_presets_match_jax(cmd):
 
 @pytest.mark.parametrize("argv,match", [
     (["--experiment", "face", "--memmap-dir", "/nowhere"], "--memmap-dir"),
-    (["--experiment", "textcls"], "--experiment textcls is not ported"),
     (["--parallel", "2"], "--parallel: multi-device"),
     (["--parallel-model", "2"], "--parallel-model: model-axis"),
     (["--shard-activations"], "--shard-activations"),
@@ -480,22 +479,88 @@ def test_cli_shared_flags_defaults_and_presets_match_jax(cmd):
     (["--remat-policy", "convs"], "--remat-policy: XLA"),
     (["--scan-blocks"], "--scan-blocks: lax.scan"),
     (["--experiment", "finegrained", "--remat"], "--remat: XLA"),
-    (["--text-causal"], "--text-causal: the textcls"),
-    (["--text-vocab", "512"], "--text-vocab: the textcls"),
-    (["--text-seq-len", "32"], "--text-seq-len: the textcls"),
-    (["--text-tokenizer", "hash"], "--text-tokenizer: the textcls"),
-    (["--text-order-frac", "0.5"], "--text-order-frac: the textcls"),
 ])
 def test_cli_refuses_unported_options(argv, match):
     with pytest.raises(SystemExit, match=match):
         t_cli.main(["sequence", "--device", "cpu", *argv])
 
 
+@pytest.mark.parametrize("argv", [
+    [], ["--text-causal"], ["--text-vocab", "512"], ["--text-seq-len", "32"],
+    ["--text-tokenizer", "hash"], ["--text-order-frac", "0.5"]])
+def test_cli_text_options_match_jax(argv, monkeypatch):
+    """`--experiment textcls` and its five flags (synthetic tasks: no
+    `CPG_DATA_DIR`): the port's `_experiment_tasks` gives `cpg_tpu.cli`'s
+    arch, task names, arrays and per-task model_kwargs, no eval
+    preprocess, and the identity augmentation."""
+    monkeypatch.delenv("CPG_DATA_DIR", raising=False)
+    full = ["sequence", "--experiment", "textcls", *argv]
+    t_arch, t_tasks, t_aug, t_prep = t_cli._experiment_tasks(
+        t_cli.build_parser().parse_args(full))
+    j_arch, j_tasks, j_aug, j_prep = j_cli._experiment_tasks(
+        j_cli.build_parser().parse_args(full))
+    assert t_arch == j_arch == "textcls"
+    assert list(t_tasks) == list(j_tasks) == [f"text{i:02d}"
+                                             for i in range(1, 5)]
+    for name, jt in j_tasks.items():
+        tt = t_tasks[name]
+        assert set(tt) == set(jt)
+        for k in ("train_x", "train_y", "test_x", "test_y"):
+            np.testing.assert_array_equal(tt[k], jt[k], err_msg=k)
+        assert tt["num_classes"] == jt["num_classes"]
+        assert tt.get("model_kwargs") == jt.get("model_kwargs")
+    x = t_tasks["text01"]["train_x"]
+    assert t_prep is j_prep is None and t_aug(x, None) is x
+    assert ("--text-causal" in argv) == (
+        t_tasks["text01"].get("model_kwargs") == {"causal": True})
+
+
+@pytest.mark.parametrize("cmd", ["sequence", "baseline", "packnet", "pae"])
+def test_cli_arch_vit_moe_cifar_matches_jax(cmd):
+    """`--arch vit_moe_cifar` swaps the cifar100 experiment's architecture
+    in both packages' cycle subcommands (the port stopped with "unknown
+    --arch" before it had the model)."""
+    argv = [cmd, "--arch", "vit_moe_cifar", "--num-tasks", "2",
+            "--synthetic-train-per-class", "2",
+            "--synthetic-test-per-class", "1"]
+    t_arch, t_tasks, _, _ = t_cli._experiment_tasks(
+        t_cli.build_parser().parse_args(argv))
+    j_arch, j_tasks, _, _ = j_cli._experiment_tasks(
+        j_cli.build_parser().parse_args(argv))
+    assert t_arch == j_arch == "vit_moe_cifar"
+    assert list(t_tasks) == list(j_tasks) and len(t_tasks) == 2
+    np.testing.assert_array_equal(t_tasks["aquatic_mammals"]["train_x"],
+                                  j_tasks["aquatic_mammals"]["train_x"])
+
+
+@pytest.mark.parametrize("arch", ["textcls", "vit_moe_cifar"])
+def test_export_torch_refuses_text_and_moe(arch, tmp_path):
+    """`export-torch` refuses both archs, with `cpg_tpu`'s message: the
+    reference's torch layout has no text or MoE modules."""
+    from cpg_tpu.train.export_torch import export_torch_cpg_checkpoint as j_x
+    from cpg_tpu_torch.train.sequence import init_state, start_task
+
+    g = torch.Generator().manual_seed(0)
+    kw = {"textcls": dict(depth=1, dim=32, heads=2, vocab=16),
+          "vit_moe_cifar": dict(depth=2, dim=32, heads=2, patch=8)}[arch]
+    st = init_state(arch, g, model_kwargs=kw, device="cpu")
+    start_task(st, "t1", 3, g)
+    t_ckpt.save_state(st, str(tmp_path / "ck"))
+    with pytest.raises(NotImplementedError) as got:
+        t_cli.main(["export-torch", "--ckpt", str(tmp_path / "ck"), "--out",
+                    str(tmp_path / "x.pth"), "--device", "cpu"])
+    with pytest.raises(NotImplementedError) as want:
+        j_x(state_to_numpy(st))
+    assert str(got.value) == str(want.value)
+    assert not (tmp_path / "x.pth").exists()
+
+
 def test_cycle_entry_points_default_to_the_card():
     """run_sequence, Manager, predict, init_state, grow_state, load_state,
-    the ResNet-50 and SphereNet-20 converters and the CLI (the finegrained
-    and face experiments too) run on the card unless told otherwise, and
-    raise without one (this test runs where CUDA is absent)."""
+    the ResNet-50 and SphereNet-20 converters and the CLI (the finegrained,
+    face and textcls experiments and `--arch vit_moe_cifar` too) run on the
+    card unless told otherwise, and raise without one (this test runs where
+    CUDA is absent)."""
     from cpg_tpu_torch.inference import predict
     from cpg_tpu_torch.models import get_model
     from cpg_tpu_torch.train.manager import Manager
@@ -533,6 +598,15 @@ def test_cycle_entry_points_default_to_the_card():
         lambda: convert_torch_cpg_checkpoint(
             {"state_dict": {}, "dataset_history": ["a"]},
             arch="spherenet20"),
+        lambda: init_state("textcls", g),
+        lambda: init_state("vit_moe_cifar", g, 0.5),
+        lambda: t_cli.main(["sequence", "--experiment", "textcls",
+                            "--num-tasks", "1", "--text-causal"]),
+        lambda: t_cli.main(["sequence", "--arch", "vit_moe_cifar",
+                            "--num-tasks", "1"]),
+        lambda: t_cli.main(["inference", "--checkpoint", "ck", "--task-id",
+                            "1", "--experiment", "textcls", "--num-tasks",
+                            "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -676,6 +750,48 @@ def test_refuse_kernel_widths(case):
     else:
         with pytest.raises(ValueError, match=refused):
             call()
+
+
+def _check_dense_widths(arch, mult, refused, model_kwargs=None):
+    from cpg_tpu_torch.train.sequence import refuse_kernel_widths
+    from cpg_tpu_torch.train.step import TrainConfig
+
+    shape = t_models.get_model(arch)[1]
+    refuse_kernel_widths(TrainConfig(compute_dtype=torch.float32,
+                                     use_pallas=True), arch, [mult], shape,
+                         model_kwargs)
+    cfg = TrainConfig(use_pallas=True)
+    if refused:
+        with pytest.raises(ValueError, match="use_pallas needs multiples of 4"):
+            refuse_kernel_widths(cfg, arch, [mult], shape, model_kwargs)
+    else:
+        refuse_kernel_widths(cfg, arch, [mult], shape, model_kwargs)
+
+
+@pytest.mark.parametrize("arch,mult,refused", [
+    ("textcls", 1.5, False), ("textcls", 1.01, True),
+    ("vit_moe_cifar", 1.5, False), ("vit_moe_cifar", 1.001, True),
+    ("vit_cifar", 1.5, False), ("vit_cifar", 1.001, True),
+    ("vit_b16", 1.5, False), ("vit_b16", 1.001, True)])
+def test_refuse_kernel_widths_dense_outputs(arch, mult, refused):
+    """Under `use_pallas` in bf16 the transformers' dense outputs (heads x
+    32 or 64, the MLP's hidden units: int(512 x 1.01) = 517 for textcls,
+    int(1024 x 1.001) = 1025 for vit_moe_cifar and vit_cifar, int(3072 x
+    1.001) = 3075 for vit_b16) must be multiples of 4; f32 steps are never
+    refused."""
+    _check_dense_widths(arch, mult, refused)
+
+
+@pytest.mark.parametrize("arch,model_kwargs,refused", [
+    ("vit_cifar", None, False), ("vit_cifar", {"dim": 36}, True),
+    ("textcls", {"dim": 36, "vocab": 64}, True),
+    ("vit_moe_cifar", {"dim": 36}, True),
+    ("vit_moe_cifar", {"dim": 36, "heads": 9}, False)])
+def test_refuse_kernel_widths_reads_model_kwargs(arch, model_kwargs, refused):
+    """The transformers' dense widths follow the state's model_kwargs: at
+    width 1.25 the default heads give 5 x 64 and 5 x 32 outputs, dim 36 on
+    4 heads gives 5 x 9 = 45 (refused), on 9 heads 11 x 4 = 44."""
+    _check_dense_widths(arch, 1.25, refused, model_kwargs)
 
 
 def test_multi_draw_inits_take_a_fresh_generator_each():

@@ -567,6 +567,8 @@ def _qkv(n, t, h, hd, device, dtype, seed=0):
     (2, 70, 2, 64, False, "float32"),
     (2, 70, 2, 64, True, "float32"),
     (3, 5, 2, 32, True, "bfloat16"),       # T < one tile, hd 32
+    (256, 64, 4, 32, True, "bfloat16"),    # textcls: causal, hd 32
+    (256, 64, 4, 32, False, "bfloat16"),
     (2, 130, 3, 16, False, "bfloat16"),    # three key tiles, hd 16
     (1, 40, 2, 128, True, "bfloat16"),     # hd 128
     (1, 40, 2, 128, False, "float32"),
@@ -680,7 +682,8 @@ def test_flash_bwd_matches_plain(cuda, case):
 @pytest.mark.parametrize("case", [
     # (n, t, h, hd, dtype): T past the route, f32, head dims it does not take
     (2, 320, 2, 64, "bfloat16"), (2, 70, 2, 64, "float32"),
-    (3, 5, 2, 32, "bfloat16"), (1, 40, 2, 128, "bfloat16")])
+    (3, 5, 2, 32, "bfloat16"), (1, 40, 2, 128, "bfloat16"),
+    (256, 64, 4, 32, "bfloat16")])  # textcls
 def test_flash_backward_off_the_route_takes_the_pair(cuda, case):
     """Through flash_mha's autograd, a shape off `bwd_route` launches
     flash_bwd_dq and flash_bwd_dkv once each and not the one-launch kernel,
@@ -720,6 +723,9 @@ def test_flash_kernel_refuses_unsupported(cuda):
     (2 * 196, 768, 768, "bfloat16", "binary"),  # vit_b16 q/k/v/proj, ragged M
     (2 * 196, 768, 3072, "bfloat16", "binary"),  # vit_b16 fc1
     (2 * 196, 3072, 768, "bfloat16", "binary"),  # vit_b16 fc2
+    (256 * 64, 128, 128, "bfloat16", "binary"),  # textcls q/k/v/proj
+    (256 * 64, 128, 512, "bfloat16", "binary"),  # textcls fc1
+    (256 * 64, 512, 128, "bfloat16", "binary"),  # textcls fc2
     (333, 40, 36, "bfloat16", "ternary"),      # ragged M, K, N
     (300, 70, 50, "float32", "binary"),        # f32, any width
 ])

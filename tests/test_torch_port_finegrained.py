@@ -495,7 +495,7 @@ def test_cycle_matches_jax(cycles):
 def test_cli_experiment_tasks_match_jax():
     """`--experiment finegrained` and `--experiment face` resolve to
     `cpg_tpu`'s arch, task names and bytes, with --max-classes and
-    --num-tasks; textcls stops naming its ROADMAP item."""
+    --num-tasks; textcls resolves to its own arch."""
     argv = ["sequence", "--experiment", "finegrained", "--num-tasks", "2",
             "--max-classes", "3"]
     ta, ja = cli.build_parser().parse_args(argv), j_cli.build_parser(
@@ -508,8 +508,10 @@ def test_cli_experiment_tasks_match_jax():
             _eq(ttasks[name][k], jtasks[name][k], f"{name} {k}")
     assert (taug, tprep) == (t_aug.imagenet_train_augment,
                              t_aug.imagenet_eval_preprocess)
-    with pytest.raises(SystemExit, match="item 9"):
-        cli.main(["sequence", "--experiment", "textcls", "--device", "cpu"])
+    # textcls is ported too (tests/test_torch_port_text.py): its own arch
+    args = cli.build_parser().parse_args(["sequence", "--experiment",
+                                          "textcls", "--num-tasks", "1"])
+    assert cli._experiment_tasks(args)[0] == "textcls"
     # the face experiment is ported: `cpg_tpu`'s arch, tasks and bytes
     argv = ["sequence", "--experiment", "face", "--num-tasks", "2"]
     ta, ja = cli.build_parser().parse_args(argv), j_cli.build_parser(

@@ -275,7 +275,8 @@ def test_port_never_imports_jax_or_cpg_tpu():
             "vit.py", "flash.py", "masked_matmul.py", "int8.py",
             "server_http.py", "export_torch.py", "pretrained.py",
             "serve.py", "cli.py", "resnet.py", "finegrained.py",
-            "imagefolder.py", "spherenet.py", "face.py", "losses.py"} <= names
+            "imagefolder.py", "spherenet.py", "face.py", "losses.py",
+            "text.py", "moe.py", "textfolder.py"} <= names
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):

@@ -149,10 +149,10 @@ def test_export_load_and_cli(state, images, tmp_path):
 
 
 def test_unported_options_are_refused(state, tmp_path):
-    """`mesh` serving (ROADMAP Queue 1, item 12), XLA's compiler options
-    and the textcls experiment (item 9) are refused; int8 is ported
-    (tests/test_torch_port_int8.py), and so is the face experiment's
-    preprocess."""
+    """`mesh` serving (ROADMAP Queue 1, item 12) and XLA's compiler
+    options are refused; int8 is ported (tests/test_torch_port_int8.py),
+    and so are the textcls experiment (no preprocess: tokens) and the face
+    experiment's preprocess."""
     with pytest.raises(NotImplementedError, match="mesh"):
         TaskServer(state, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="XLA"):
@@ -168,10 +168,12 @@ def test_unported_options_are_refused(state, tmp_path):
     with pytest.raises(SystemExit, match="XLA"):
         cli.main(["serve", "--artifact", art, "--scoped-vmem-kib", "1024",
                   "--device", "cpu"])
+    # the textcls experiment is ported: tokens take no eval preprocess
     for argv in (["serve", "--artifact", art], ["export", "--checkpoint",
                                                 art, "--out", art]):
-        with pytest.raises(SystemExit, match="item 9"):
-            cli.main([*argv, "--experiment", "textcls", "--device", "cpu"])
+        args = cli.build_parser().parse_args([*argv, "--experiment",
+                                              "textcls"])
+        assert cli._prep(args) is None
     # the face experiment is ported: its eval preprocess serves and exports
     req = str(tmp_path / "req.npz")
     np.savez(req, x=np.zeros((2, 32, 32, 3), np.uint8))
