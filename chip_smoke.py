@@ -49,6 +49,11 @@ Needs one CUDA card; exits non-zero without one. It
      same batches and augmentation draws: the update of every tensor after
      one step, the losses over three, the no-forgetting invariants, each
      kernel's launches in one step, and ms/step at batch 256 and 1024;
+     every train phase also prints the kernel step's roofline block at the
+     compared batch (utils/roofline.py: the FLOPs of one default step,
+     counted by FlopCounterMode, over the kernel step's ms/step:
+     `tflop_per_step`, `mfu_vs_spec`, `fraction_of_spec_floor`) beside the
+     card's name and power limit;
   6. ViT kernel phases: the flash-attention kernels (K7 forward; the
      one-launch backward `flash_bwd`, csrc/flash_bwd_wgmma.cu, where
      `bwd_route` takes the shape, two launches equal bits, its walk and
@@ -87,7 +92,12 @@ Needs one CUDA card; exits non-zero without one. It
      factor 1.25 on the odd blocks; eval flash 6, dense 30, selects 30;
      train flash forward 6 and the one-launch backward 6, dense 30 + 30 +
      30, 60 selects), each train phase with ms/step and device ms a step
-     at batch 256;
+     at batch 256; and for vit_cifar the fused q|k|v phase (`qkv_phase`):
+     three default bf16 steps with flash attention, `qkv_fused=True` and
+     not, losses within 2e-2 relative, the fused step's one-step update at
+     most 2x as far from the f32 default step's as the unfused step's,
+     exactly flash forward 6 and the one-launch backward 6 a fused step,
+     ms/step both ways at batch 256 in turns;
  10. cycle phase: `run_sequence` over three synthetic CIFAR-100 tasks of
      5 classes on the bf16 kernel step, VGG16-BN at width 1.0, task 3
      growing once to 1.5 under an unreachable goal; per phase steps,
@@ -138,10 +148,27 @@ Needs one CUDA card; exits non-zero without one. It
      three synthetic token tasks on the kernel step, task 3 growing once to
      1.5; check_state at every boundary, old-task logits across add-task
      and prune bit-equal, the growth audit, resume bit-equal, export bf16
-     and calibrated int8, serve, `inference`);
+     and calibrated int8, serve, `inference`); the stream phase
+     (`stream_phase`, after the finegrained one): two synthetic
+     finegrained tasks of 20 classes written by `save_memmap_dataset`,
+     `sequence --experiment finegrained --memmap-dir D --native-loader`
+     with the kernel flags at width 1.0, 224 px, batch 32 (5 steps an
+     epoch), check_state at every boundary, every batch the step received
+     on the card byte-equal to a fresh `NativeBatcher`'s host batch with
+     the device prefetcher's staging pairs written again (some must be),
+     the prefetcher at depths 1-3 over 12 loader batches with its copies
+     held back on the card (byte-equal; with the waits skipped, a control,
+     some batch must differ), a `--memmap-dir` run without the loader
+     bit-equal to the in-memory run, the loader's batches/s alone and the
+     loop's ms/step with the loader and prefetcher, with the NumPy gather
+     and prefetcher and with the NumPy gather and no prefetch; last, `python -m cpg_tpu_torch doctor --json` in a
+     subprocess (exit 0 with the card's name, count, capability 9.0 and
+     power limit; exit 1 with CUDA_VISIBLE_DEVICES empty);
  13. checks that each phase reached its kernels (the serve and eval phases
      their forwards, the train phases their backwards, the cycles K1-K6,
-     the deploy phase K4, the SphereNet phases K1-K3 and the dense route,
+     the deploy phase K4, the stream phase K1-K6 and the conv selects,
+     the fused q|k|v phase K7, the SphereNet phases K1-K3 and the dense
+     route,
      textcls's phases K7 forward, the pair and the dense route,
      vit_moe_cifar's K7 and the dense route),
      prints the kernels' JSON line (launch counts from every phase,
@@ -165,12 +192,16 @@ import time
 
 import numpy as np
 
+from cpg_tpu_torch.utils.roofline import SPEC
+
 SEED = 0
 BATCH = 256
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM published peaks
-PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor cores
-              "int8": 1979e12,     # dense tensor cores, int8 operations
-              "float32": 67e12}    # f32 outside the tensor cores
+# H100 SXM published peaks (utils/roofline.py SPEC): HBM bytes a second,
+# dense tensor-core bf16 and int8 operations, f32 outside the tensor cores
+HBM_BYTES_PER_S = SPEC["hbm_gbps"] * 1e9
+PEAK_FLOPS = {"bfloat16": SPEC["bf16_tflops"] * 1e12,
+              "int8": SPEC["int8_tops"] * 1e12,
+              "float32": SPEC["f32_tflops"] * 1e12}
 BF16_TOL = 2e-2                    # max|diff| <= BF16_TOL * max|ref|
 F32_TOL = 1e-4                     # rtol and atol
 SUM_TOL = 1e-4                     # f32 results of long f32 sums (dW, dpm):
@@ -1565,6 +1596,49 @@ def _train_tensors(st, fn):
     return out
 
 
+def _stepper(torch, base, model_fn, augment, dev, cfg, **step_kw):
+    """(a copy of `base`, run(x, y, draws, it) -> metrics): task 2's train
+    step under `cfg` on the copy, its parameters and optimizer states
+    carried from call to call."""
+    from cpg_tpu_torch.train.step import make_train_step
+
+    st = base.map_arrays(lambda t: t.clone())
+    task = st.tasks[2]
+    step, (opt_w, opt_pm) = make_train_step(
+        model_fn, num_classes=5, mult=base.width_mult, has_piggymask=True,
+        cfg=cfg, augment_fn=augment, device=dev, **step_kw)
+    carry = [st.shared, task.piggymask, task.private, task.bn_state,
+             opt_w.init({"shared": st.shared, "private": task.private}),
+             opt_pm.init(task.piggymask)]
+
+    def run(x, y, draws, it):
+        out = step(*carry[:6], st.ownership, 2, x, y, draws, it)
+        carry[:6] = out[:6]
+        return out[6]
+    return st, run
+
+
+def _update_dists(torch, init, firsts):
+    """{label: {group: ||update - f32 update||}} and {group: ||f32
+    update||} of the one-step updates `firsts[label]` (tensors after one
+    step, keyed as `_train_tensors`) from `init`, the yardstick being
+    firsts["f32"]."""
+    dist, ref_norm = {}, {}
+    for group in ("shared", "private", "piggymask"):
+        keys = [k for k in init if k.startswith(group + "/")]
+        u32 = torch.cat([(firsts["f32"][k] - init[k]).ravel() for k in keys])
+        ref_norm[group] = u32.norm().item()
+        for label, first in firsts.items():
+            if label == "f32":
+                continue
+            u = torch.cat([(first[k] - init[k]).ravel() for k in keys])
+            if not torch.isfinite(u).all():
+                raise AssertionError(f"train {label}: non-finite {group} "
+                                     "update")
+            dist.setdefault(label, {})[group] = (u - u32).norm().item()
+    return dist, ref_norm
+
+
 def train_phase(torch, dev, state, counts):
     """Task 2's bf16 train step with the six kernels against the default
     step, and the kernel step in f32 against the f32 default step. Returns
@@ -1572,7 +1646,8 @@ def train_phase(torch, dev, state, counts):
     from cpg_tpu_torch.cli import EXPERIMENT_PRESETS
     from cpg_tpu_torch.models import get_model
     from cpg_tpu_torch.train.losses import make_angle_loss
-    from cpg_tpu_torch.train.step import TrainConfig, make_train_step
+    from cpg_tpu_torch.train.step import TrainConfig
+    from cpg_tpu_torch.utils.roofline import cost_of, roofline
 
     model_fn, _ = get_model(state.arch)
     shape, _, augment, draw_fn, _ = _arch_io(state.arch)
@@ -1615,22 +1690,9 @@ def train_phase(torch, dev, state, counts):
              if state.arch == "resnet50" else {})
 
     def stepper(kernels, dtype=torch.bfloat16):
-        st = base.map_arrays(lambda t: t.clone())
-        task = st.tasks[2]
-        cfg = TrainConfig(compute_dtype=dtype, **hyper,
-                          **(KERNEL_FLAGS[state.arch] if kernels else {}))
-        step, (opt_w, opt_pm) = make_train_step(
-            model_fn, num_classes=5, mult=base.width_mult, has_piggymask=True,
-            cfg=cfg, augment_fn=augment, device=dev, **step_kw)
-        carry = [st.shared, task.piggymask, task.private, task.bn_state,
-                 opt_w.init({"shared": st.shared, "private": task.private}),
-                 opt_pm.init(task.piggymask)]
-
-        def run(x, y, draws, it):
-            out = step(*carry[:6], st.ownership, 2, x, y, draws, it)
-            carry[:6] = out[:6]
-            return out[6]
-        return st, run
+        return _stepper(torch, base, model_fn, augment, dev, TrainConfig(
+            compute_dtype=dtype, **hyper,
+            **(KERNEL_FLAGS[state.arch] if kernels else {})), **step_kw)
 
     runs = {}
     launched = None
@@ -1654,17 +1716,9 @@ def train_phase(torch, dev, state, counts):
         runs[label] = (st, losses, first)
 
     init = _train_tensors(base, lambda t: t)
-    dist = {}  # label -> group -> ||update - f32 update||
-    ref_norm = {}
-    for group in ("shared", "private", "piggymask"):
-        keys = [k for k in init if k.startswith(group + "/")]
-        u32 = torch.cat([(runs["f32"][2][k] - init[k]).ravel() for k in keys])
-        ref_norm[group] = u32.norm().item()
-        for label in ("default", "kernels", "kernels_f32"):
-            u = torch.cat([(runs[label][2][k] - init[k]).ravel() for k in keys])
-            if not torch.isfinite(u).all():
-                raise AssertionError(f"train {label}: non-finite {group} update")
-            dist.setdefault(label, {})[group] = (u - u32).norm().item()
+    # label -> group -> ||update - f32 update||
+    dist, ref_norm = _update_dists(torch, init, {k: v[2]
+                                                 for k, v in runs.items()})
     ld, lk, l32, lk32 = (runs[k][1] for k in ("default", "kernels", "f32",
                                               "kernels_f32"))
     loss_rel = max(abs(a - b) / abs(a) for a, b in zip(ld, lk))
@@ -1739,7 +1793,96 @@ def train_phase(torch, dev, state, counts):
                     lambda run=steppers[label]: run(x, y, draws, 0), iters=5,
                     warmup=1)
         timing[f"peak_gib_b{n}"] = torch.cuda.max_memory_allocated() / 2**30
+    # the kernel step's roofline at the compared batch: FLOPs counted on one
+    # default step (the kernels' ctypes launches are invisible to the
+    # counter; the default step does the same products)
+    n = timing_batches[0]
+    x, y, draws = batch(n)
+    cost = cost_of(stepper(False)[1], x, y, draws, 0)
+    line = roofline(timing[f"kernels_b{n}"]["ms_per_step"], cost)
+    timing[f"roofline_kernels_b{n}"] = line
     return dict(stats, timing=timing), launched
+
+
+# vit_cifar's fused q|k|v product (`TrainConfig.qkv_fused`): three default
+# steps with flash attention, fused and not, against the f32 default step
+QKV_STEPS, QKV_ROUND_STEPS = 3, 10
+QKV_LAUNCHES = {"flash_fwd": 6, "flash_bwd": 6}
+
+
+def qkv_phase(torch, dev, state, counts):
+    """Task 2's default bf16 step of vit_cifar with `flash_attention`, with
+    `qkv_fused=True` and without, three steps each from one state on the
+    same batches: losses within LOSS_RTOL, and the one-step update rule of
+    the train phases (per group, the fused step's update at most
+    UPDATE_RATIO times as far from the f32 default step's as the unfused
+    step's); the fused step launches exactly the flash kernels
+    (QKV_LAUNCHES) and no dense-route kernel; ms/step of both at batch 256
+    in turns (unfused, fused, fused, unfused)."""
+    from cpg_tpu_torch.models import get_model
+    from cpg_tpu_torch.train.step import TrainConfig
+
+    model_fn, _ = get_model(state.arch)
+    shape, _, augment, draw_fn, n = _arch_io(state.arch)
+    gen = torch.Generator().manual_seed(SEED + 17)
+    batches = [(torch.randint(0, 256, (n, *shape), generator=gen,
+                              dtype=torch.uint8).to(dev),
+                torch.randint(0, 5, (n,), generator=gen).to(dev),
+                draw_fn(n, gen)) for _ in range(QKV_STEPS)]
+    cfgs = {"f32": TrainConfig(compute_dtype=torch.float32),
+            "unfused": TrainConfig(flash_attention=True),
+            "fused": TrainConfig(flash_attention=True, qkv_fused=True)}
+    runs, firsts, launched = {}, {}, None
+    for label, cfg in cfgs.items():
+        st, run = _stepper(torch, state, model_fn, augment, dev, cfg)
+        losses = []
+        for i, (x, y, draws) in enumerate(batches):
+            if label == "fused" and i == 0:
+                torch.cuda.synchronize()
+                counts.reset()
+            losses.append(float(run(x, y, draws, i)["loss"]))
+            if label == "fused" and i == 0:
+                torch.cuda.synchronize()
+                launched = counts.read()
+            if i == 0:
+                firsts[label] = _train_tensors(st, lambda t: t.clone())
+        runs[label] = losses
+    if not all(np.isfinite(runs["fused"] + runs["unfused"])):
+        raise AssertionError(f"qkv_fused: non-finite losses {runs}")
+    loss_rel = max(abs(a - b) / abs(a)
+                   for a, b in zip(runs["unfused"], runs["fused"]))
+    if loss_rel > LOSS_RTOL:
+        raise AssertionError(f"qkv_fused: losses {runs['fused']} vs unfused "
+                             f"{runs['unfused']}")
+    dist, ref_norm = _update_dists(torch, _train_tensors(state, lambda t: t),
+                                   firsts)
+    for group, d in dist["fused"].items():
+        if d > UPDATE_RATIO * dist["unfused"][group] + 1e-6 * ref_norm[group]:
+            raise AssertionError(
+                f"qkv_fused: the fused step's {group} update is {d} from the "
+                f"f32 step's, the unfused step's {dist['unfused'][group]}")
+    if any(v != QKV_LAUNCHES.get(k, 0) for k, v in launched.items()):
+        raise AssertionError(f"qkv_fused: launches {launched}, expected "
+                             f"{QKV_LAUNCHES}")
+    x, y, draws = batches[0]
+    steppers = {k: _stepper(torch, state, model_fn, augment, dev, cfgs[k])[1]
+                for k in ("unfused", "fused")}
+    rounds = {"unfused": [], "fused": []}
+    for label in ("unfused", "fused", "fused", "unfused"):
+        run = steppers[label]
+        for i in range(2):
+            run(x, y, draws, i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(QKV_ROUND_STEPS):
+            run(x, y, draws, i)
+        torch.cuda.synchronize()
+        rounds[label].append((time.perf_counter() - t) / QKV_ROUND_STEPS
+                             * 1e3)
+    timing = {f"{k}_b{n}": {"ms_per_step": sum(v) / len(v), "rounds_ms": v}
+              for k, v in rounds.items()}
+    return dict(losses=runs, loss_max_rel=loss_rel, update_dist_to_f32=dist,
+                f32_update_norm=ref_norm, timing=timing), launched
 
 
 # The cycle phase: run_sequence over three synthetic CIFAR-100 tasks of 5
@@ -2179,6 +2322,306 @@ def finegrained_phase(torch, dev, counts, card):
             + f" on {card}", flush=True)
     finally:
         shutil.rmtree(FG_DIR, ignore_errors=True)
+    return out, launched
+
+
+# ------------------------------------------------------------ stream ----
+
+# The data path of datasets larger than RAM: the finegrained CLI cycle over
+# two memmapped synthetic tasks (STREAM_CLASSES classes, 8 training images
+# a class: 5 steps an epoch, so each epoch's prefetcher writes some staging
+# pairs again) with the C++ loader and the device prefetcher, ResNet-50 at
+# width 1.0, 224 px, batch 32 with the finegrained phase's kernel flags,
+# one epoch a phase, no growth; the prefetcher alone over STREAM_RACE_N
+# loader batches with its side stream held STREAM_RACE_CYCLES clock cycles
+# before each copy; then the loader alone and the loop's ms/step over a
+# larger memmapped task (STREAM_TIMING_N images, STREAM_TIMING_N / 32 steps
+# an epoch) in three arms, in turns
+STREAM_DIR = os.path.join("build", "smoke_stream")
+STREAM_MULT = 1.0
+STREAM_CLASSES = 20
+STREAM_RACE_N = 12
+STREAM_RACE_CYCLES = 100_000_000  # ~50 ms at the H100's clock, several
+# times the host's time to gather and stage a batch of 4.8 MB
+STREAM_TIMING_N = 384
+STREAM_LOADER_BATCHES = 200
+STREAM_ARMS = ("native_prefetch", "numpy_prefetch", "numpy_no_prefetch")
+
+
+def _stream_argv(extra):
+    return ["sequence", "--experiment", "finegrained", "--num-tasks", "2",
+            "--max-classes", str(STREAM_CLASSES), "--use-pallas-conv",
+            "--fused-chain",
+            "--finetune-epochs", "1", "--prune-epochs", "1",
+            "--retrain-epochs", "1", "--prune-ratios", "0.5",
+            "--batch-size", str(RESNET_BATCH), "--network_width_multiplier",
+            str(STREAM_MULT), "--seed", str(SEED), *extra]
+
+
+def _recorded_runs(seq_mod, argv):
+    """(exit code, summary, final state) of a CLI run, with run_sequence
+    wrapped to keep its result."""
+    runs = []
+    orig = seq_mod.run_sequence
+
+    def recorded(*a, **k):
+        runs.append(orig(*a, **k))
+        return runs[-1]
+
+    seq_mod.run_sequence = recorded
+    try:
+        rc, summary = _cli(argv)
+    finally:
+        seq_mod.run_sequence = orig
+    return rc, summary, runs[0][0]
+
+
+def _prefetched(torch, dev, x, y, seed, depth, skip_waits=False):
+    """The STREAM_RACE_N batches of a fresh `NativeBatcher` over (x, y) at
+    batch 32 as a `DevicePrefetcher` at `depth` hands them to the consuming
+    stream, cloned there, with the prefetcher's side stream held
+    STREAM_RACE_CYCLES clock cycles before each copy: a staging pair
+    written again before its copy ran would hand over another batch's
+    rows. `skip_waits` drops the pairs' events before each write, the
+    control that shows such a race is caught. Returns (the clones, the
+    prefetcher's rewrites)."""
+    from cpg_tpu_torch.data.native_loader import NativeBatcher
+    from cpg_tpu_torch.data.stream import DevicePrefetcher
+
+    nb = NativeBatcher(x, y, RESNET_BATCH, seed=seed)
+    pf = None
+
+    def held_back():
+        for xy in nb.batches(STREAM_RACE_N):
+            with torch.cuda.stream(pf._stream):
+                torch.cuda._sleep(STREAM_RACE_CYCLES)
+            if skip_waits:
+                for slot in pf._slots:
+                    slot.done = None
+            yield xy
+
+    pf = DevicePrefetcher(held_back(), dev, depth=depth)
+    got = [(bx.clone(), by.clone()) for bx, by in pf]
+    torch.cuda.synchronize()
+    nb.close()
+    return got, pf.rewrites
+
+
+def prefetch_race_check(torch, dev, x, y, seed):
+    """The prefetcher at depths 1-3 against a fresh loader's host batches:
+    byte-equal with every expected pair written again; the control (waits
+    skipped) must differ somewhere."""
+    from cpg_tpu_torch.data.native_loader import NativeBatcher
+
+    ref = NativeBatcher(x, y, RESNET_BATCH, seed=seed)
+    host = [ref.next() for _ in range(STREAM_RACE_N)]
+    ref.close()
+
+    def differing(got):
+        return [i for i, ((bx, by), (hx, hy)) in enumerate(zip(got, host))
+                if not (np.array_equal(bx.cpu().numpy(), hx)
+                        and np.array_equal(by.cpu().numpy(), hy))]
+
+    out = {}
+    for depth in (1, 2, 3):
+        got, rewrites = _prefetched(torch, dev, x, y, seed, depth)
+        bad = differing(got)
+        want = STREAM_RACE_N - (depth + 1)
+        if len(got) != STREAM_RACE_N or bad or rewrites != want:
+            raise AssertionError(
+                f"stream: prefetcher at depth {depth}: {len(got)} batches, "
+                f"{bad} differ from the loader's, {rewrites} pairs written "
+                f"again (expected {want})")
+        ctl, _ = _prefetched(torch, dev, x, y, seed, depth, skip_waits=True)
+        caught = differing(ctl)
+        if not caught:
+            raise AssertionError(
+                f"stream: prefetcher at depth {depth} with its waits skipped "
+                "gave every batch right: the check cannot see a race")
+        out[f"depth{depth}"] = {"batches_byte_equal": len(got),
+                                "pairs_written_again": rewrites,
+                                "control_batches_differing": len(caught)}
+    return out
+
+
+def stream_phase(torch, dev, counts, card):
+    """`sequence --experiment finegrained --memmap-dir D --native-loader`
+    through cli.main, the tasks written by `save_memmap_dataset`; then:
+    check_state at every task boundary (its `.pick` and final
+    checkpoints); every batch the prefetched native run handed to the step
+    on the card equal, byte for byte, to the host batch of a fresh
+    `NativeBatcher` with the same seed, with some staging pair written
+    again (a pair written before its copy read it would show here);
+    `prefetch_race_check`; a `--memmap-dir` run without the loader ending
+    in the state of the in-memory run on the same arrays and seed, bit for
+    bit; the loader's batches/s alone at batch 32, and the loop's ms/step
+    in STREAM_ARMS (recorded, no claim). Returns the results and the
+    launches of the first run."""
+    from cpg_tpu_torch.core.invariants import check_state
+    from cpg_tpu_torch.data.augment import imagenet_train_augment
+    from cpg_tpu_torch.data.finegrained import (FINEGRAINED_SPECS,
+                                                finegrained_task,
+                                                synthetic_imagefolder)
+    from cpg_tpu_torch.data.native_loader import NativeBatcher
+    from cpg_tpu_torch.data.stream import (load_memmap_dataset,
+                                           save_memmap_dataset)
+    from cpg_tpu_torch.models import get_model
+    from cpg_tpu_torch.train import manager as mgr_mod
+    from cpg_tpu_torch.train import sequence as seq_mod
+    from cpg_tpu_torch.train.manager import Manager
+    from cpg_tpu_torch.train.sequence import init_state, start_task
+    from cpg_tpu_torch.train.step import TrainConfig
+    from cpg_tpu_torch.utils.checkpoint import load_state
+
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+    mm = os.path.join(STREAM_DIR, "tasks")
+    out = {}
+    try:
+        names = list(FINEGRAINED_SPECS)[:2]
+        for i, name in enumerate(names):
+            save_memmap_dataset(os.path.join(mm, name), finegrained_task(
+                name, max_classes=STREAM_CLASSES, seed=i))
+        ck = os.path.join(STREAM_DIR, "ck")
+        # the native run, every batch its steps receive kept on the card
+        # and every prefetcher kept
+        seen, prefetchers = [], []
+        orig_init = Manager.__init__
+        prefetcher = mgr_mod.DevicePrefetcher
+
+        def recording_prefetcher(it, device):
+            prefetchers.append(prefetcher(it, device))
+            return prefetchers[-1]
+
+        def recording_init(self, *a, **k):
+            orig_init(self, *a, **k)
+            step, kept = self.train_step, []
+            seen.append((self._batcher, kept))
+
+            def step_and_keep(*args):
+                kept.append((torch.as_tensor(args[8]).clone(),
+                             torch.as_tensor(args[9]).clone()))
+                return step(*args)
+            self.train_step = step_and_keep
+
+        keep = seq_mod.remove_after_save
+        Manager.__init__ = recording_init
+        mgr_mod.DevicePrefetcher = recording_prefetcher
+        seq_mod.remove_after_save = lambda path: None
+        try:
+            torch.cuda.synchronize()
+            counts.reset()
+            t0 = time.perf_counter()
+            rc, summary, native = _recorded_runs(seq_mod, _stream_argv(
+                ["--memmap-dir", mm, "--native-loader", "--checkpoint-dir",
+                 ck]))
+            torch.cuda.synchronize()
+            out["native_wall_s"] = time.perf_counter() - t0
+            launched = counts.read()
+        finally:
+            Manager.__init__ = orig_init
+            mgr_mod.DevicePrefetcher = prefetcher
+            seq_mod.remove_after_save = keep
+        if rc != 0 or [t["name"] for t in summary["tasks"]] != names:
+            raise AssertionError(f"stream: sequence {rc} {summary}")
+        out["summary"] = summary
+        audits = {}
+        for tid, name in enumerate(names, 1):
+            for suffix in (".pick", ""):
+                label = f"task{tid}{suffix}"
+                audits[label] = check_state(load_state(os.path.join(
+                    ck, f"task{tid:02d}_{name}{suffix}"), device=dev))
+        audits["final"] = check_state(native)
+        out["check_state"] = audits
+        n_batches = 0
+        for batcher, kept in seen:
+            if batcher is None:
+                raise AssertionError("stream: a Manager of the native run "
+                                     "has no C++ loader")
+            fresh = NativeBatcher(batcher.x, batcher.y, batcher.batch_size,
+                                  seed=batcher.seed)
+            for i, (x, y) in enumerate(kept):
+                hx, hy = fresh.next()
+                if not (np.array_equal(x.cpu().numpy(), hx)
+                        and np.array_equal(y.cpu().numpy(), hy)):
+                    raise AssertionError(
+                        f"stream: batch {i} on the card differs from the "
+                        "loader's host batch")
+                n_batches += 1
+            fresh.close()
+        out["batches_byte_equal"] = n_batches
+        out["prefetchers"] = len(prefetchers)
+        out["pairs_written_again"] = sum(p.rewrites for p in prefetchers)
+        if not out["pairs_written_again"]:
+            raise AssertionError("stream: no staging pair of the native run "
+                                 "was written again, so none was checked")
+        del seen, native, prefetchers
+        torch.cuda.empty_cache()
+
+        # the memmap run without the loader against the in-memory run
+        t0 = time.perf_counter()
+        rc1, s1, from_map = _recorded_runs(seq_mod, _stream_argv(
+            ["--memmap-dir", mm]))
+        out["memmap_wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc2, s2, in_memory = _recorded_runs(seq_mod, _stream_argv([]))
+        out["in_memory_wall_s"] = time.perf_counter() - t0
+        if rc1 or rc2 or s1 != s2 or not _same_state(torch, from_map,
+                                                      in_memory):
+            raise AssertionError("stream: the --memmap-dir run differs from "
+                                 f"the in-memory run ({s1} vs {s2})")
+        out["memmap_bit_equal_to_in_memory"] = True
+        del from_map, in_memory
+        torch.cuda.empty_cache()
+
+        # the loader alone, then the loop's ms/step both ways
+        tx, ty, vx, vy = synthetic_imagefolder(
+            STREAM_TIMING_N // 8, n_train_per=8, n_test_per=1, seed=SEED + 20)
+        big = os.path.join(STREAM_DIR, "timing")
+        save_memmap_dataset(big, {"train_x": tx, "train_y": ty,
+                                  "test_x": vx, "test_y": vy,
+                                  "num_classes": STREAM_TIMING_N // 8})
+        data = load_memmap_dataset(big)
+        out["prefetch_race"] = prefetch_race_check(
+            torch, dev, data["train_x"], data["train_y"], SEED)
+        nb = NativeBatcher(data["train_x"], data["train_y"], RESNET_BATCH,
+                           seed=SEED)
+        nb.next()
+        t = time.perf_counter()
+        for _ in range(STREAM_LOADER_BATCHES):
+            nb.next()
+        out["loader_batches_per_s"] = STREAM_LOADER_BATCHES / (
+            time.perf_counter() - t)
+        nb.close()
+        gen = torch.Generator().manual_seed(SEED + 21)
+        st = init_state("resnet50", gen, width_mult=STREAM_MULT, device=dev)
+        start_task(st, "timing", data["num_classes"], gen)
+        model_fn, _ = get_model("resnet50")
+        cfg = TrainConfig(**KERNEL_FLAGS["resnet50"])
+        managers = {
+            label: Manager(st, model_fn, 1, data, cfg,
+                           batch_size=RESNET_BATCH,
+                           augment_fn=imagenet_train_augment, seed=SEED,
+                           native_loader=label.startswith("native"),
+                           device=dev)
+            for label in STREAM_ARMS}
+        rounds = {k: [] for k in managers}
+        for label in (*STREAM_ARMS, *STREAM_ARMS[::-1], *STREAM_ARMS,
+                      *STREAM_ARMS[::-1]):
+            if label == "numpy_no_prefetch":  # pageable copies in the step
+                mgr_mod.DevicePrefetcher = lambda it, device: it
+            try:
+                res = managers[label].train(1, base_lr=1e-3)
+            finally:
+                mgr_mod.DevicePrefetcher = prefetcher
+            rounds[label].append(res.seconds / res.steps * 1e3)
+        # the first round of each warms its path up
+        out["loop_ms_per_step_b32"] = {
+            k: {"ms_per_step": sum(v[1:]) / len(v[1:]), "rounds_ms": v}
+            for k, v in rounds.items()}
+        print("stream resnet50: " + json.dumps(out) + f" on {card}",
+              flush=True)
+    finally:
+        shutil.rmtree(STREAM_DIR, ignore_errors=True)
     return out, launched
 
 
@@ -3070,6 +3513,38 @@ class Counts:
         return {k: getattr(mod, attr) for k, (mod, attr) in self.where.items()}
 
 
+def doctor_phase(card):
+    """`python -m cpg_tpu_torch doctor --json` in a subprocess: exit 0 with
+    the card's name, count, capability 9.0 and power limit in the report;
+    the same command with no card visible (CUDA_VISIBLE_DEVICES empty)
+    exits 1."""
+    cmd = [sys.executable, "-m", "cpg_tpu_torch", "doctor", "--json",
+           "--timeout", "120"]
+    # both at once: each starts interpreters that take seconds to import
+    # torch and reach the card
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True,
+                              env={**os.environ, **env})
+             for env in ({}, {"CUDA_VISIBLE_DEVICES": ""})]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    (rc, rep), (rc0, rep0) = [
+        (p.returncode, json.loads(o.strip().splitlines()[-1]))
+        for p, o in zip(procs, outs)]
+    d = rep.get("device", {})
+    if (rc != 0 or d.get("count", 0) < 1 or d.get("capability") != [9, 0]
+            or not d.get("name")
+            or not any(card.split(",")[-1].strip() in line
+                       for line in d.get("nvidia_smi") or [])):
+        raise AssertionError(f"doctor: exit {rc}, {rep}")
+    if rc0 != 1 or "CUDA" not in rep0["verdict"]:
+        raise AssertionError(f"doctor without a visible card: exit {rc0}, "
+                             f"{rep0['verdict']}")
+    out = {"exit": rc, "device": d, "toolchains": rep["toolchains"],
+           "verdict": rep["verdict"], "no_card_exit": rc0,
+           "no_card_verdict": rep0["verdict"]}
+    print("doctor: " + json.dumps(out), flush=True)
+    return out
+
+
 def kernels_line(rows, launched):
     """The kernels JSON line: each kernel's source, the TPU function it
     replaces, its launches over the phases, its largest error and its
@@ -3305,10 +3780,23 @@ def main() -> int:
         train, launched[f"{arch}/train"] = train_phase(torch, dev, state,
                                                        counts)
         print(f"train {arch}: {json.dumps(train)} on {card}", flush=True)
+        for key, line in train["timing"].items():
+            if key.startswith("roofline_"):
+                print(f"roofline {arch} {key[9:]}: " + json.dumps(
+                    {k: line.get(k) for k in ("tflop_per_step",
+                                              "mfu_vs_spec",
+                                              "fraction_of_spec_floor")})
+                    + f" on {card}", flush=True)
         results[arch] = dict(serve_max_abs_err=serve_err, serve_latency=lat,
                              eval_max_abs_err=eval_err, train=train)
         if arch == "resnet50":
             results[arch]["serve_one_forward_launches"] = one_forward
+        if arch == "vit_cifar":
+            qkv, launched[f"{arch}/qkv_fused"] = qkv_phase(torch, dev, state,
+                                                           counts)
+            results[arch]["qkv_fused"] = qkv
+            print(f"qkv_fused {arch}: {json.dumps(qkv)} on {card}",
+                  flush=True)
         del state
         torch.cuda.empty_cache()
         lap(arch, t_arch)
@@ -3327,6 +3815,11 @@ def main() -> int:
     results["resnet50"]["finegrained"] = fg
     torch.cuda.empty_cache()
     t = lap("finegrained", t)
+    stream, launched["resnet50/stream"] = stream_phase(torch, dev, counts,
+                                                       card)
+    results["resnet50"]["stream"] = stream
+    torch.cuda.empty_cache()
+    t = lap("stream", t)
     face, launched["spherenet20/face"] = face_phase(torch, dev, counts, card)
     results["spherenet20"]["face"] = face
     torch.cuda.empty_cache()
@@ -3334,7 +3827,9 @@ def main() -> int:
     text, launched["textcls/cycle"] = text_phase(torch, dev, counts, card)
     results["textcls"]["cycle"] = text
     torch.cuda.empty_cache()
-    lap("textcls_cycle", t)
+    t = lap("textcls_cycle", t)
+    results["doctor"] = doctor_phase(card)
+    lap("doctor", t)
     # every phase that should reach a kernel did
     need = {"vgg16_bn_cifar/serve": ["fused_chain_fwd"],
             "vgg16_bn_cifar/eval": ["masked_conv_fwd", "masked_conv_select",
@@ -3360,6 +3855,11 @@ def main() -> int:
                                      "masked_conv_select", "fused_chain_fwd",
                                      "fused_chain_bwd_dx",
                                      "fused_chain_bwd_dw"],
+            "resnet50/stream": ["masked_conv_fwd", "masked_conv_bwd_dx",
+                                "masked_conv_bwd_dw", "masked_conv_select",
+                                "fused_chain_fwd", "fused_chain_bwd_dx",
+                                "fused_chain_bwd_dw"],
+            "vit_cifar/qkv_fused": ["flash_fwd", "flash_bwd"],
             "vgg16_bn_cifar/cycle": ["masked_conv_fwd", "masked_conv_bwd_dx",
                                      "masked_conv_bwd_dw", "fused_chain_fwd",
                                      "fused_chain_bwd_dx",

@@ -16,6 +16,7 @@
     python -m cpg_tpu_torch serve --artifact ART (--requests R.npz \
         [--task-id T] [--out O.npz] | --http-port P [--batch-window-ms W]) \
         [--fused-chain]
+    python -m cpg_tpu_torch doctor [--timeout S] [--json]
 
 The subcommands take `cpg_tpu`'s flags with the same defaults and presets
 (`--arch vit_cifar` swaps the cycle's architecture) and print `cpg_tpu`'s
@@ -31,11 +32,14 @@ expression, gender and age tasks with linear heads on the same trunk; the
 of `$CPG_DATA_DIR/textcls/<task>/{train,test}/<class>/*.txt`, else
 synthetic token tasks; `--text-causal` gives every task causal attention,
 and the other `--text-*` flags size and shape the tokens; `--arch
-vit_moe_cifar` runs the MoE ViT on the cifar100 tasks). Options whose
-modules are not ported yet (`--parallel*`, `--shard-activations`,
-`--memmap-dir`, `--native-loader`) and the XLA-only `--remat`,
-`--remat-policy`, `--scan-blocks` and `--scoped-vmem-kib` stop with an
-error naming them.
+vit_moe_cifar` runs the MoE ViT on the cifar100 tasks). `--memmap-dir D`
+replaces the experiment's task data with memory-mapped datasets (one
+`data/stream.py` directory a task under D, in name order; a `{"loss":
+"angle"}` entry reattaches the A-Softmax loss) and `--native-loader`
+gathers training batches with the C++ loader. Options whose modules are
+not ported yet (`--parallel*`, `--shard-activations`) and the XLA-only
+`--remat`, `--remat-policy`, `--scan-blocks` and `--scoped-vmem-kib` stop
+with an error naming them.
 Checkpoints are this package's (utils/checkpoint.py).
 
 `serve`: R.npz holds `x` (uint8 NHWC, or int32 (N, T) token ids for
@@ -43,7 +47,9 @@ textcls) and, without --task-id, a per-row
 `task_ids` array for mixed routing; with --http-port the JSON endpoint of
 server_http.py answers instead (blocking). `export --calibrate`: NPZ holds
 `x` (one batch for every task) or `task<K>` batches per task id.
-`check` exits 1 when the checkpoint breaks an invariant.
+`check` exits 1 when the checkpoint breaks an invariant. `doctor` checks
+torch, the card, nvcc, g++ and `build/` (utils/doctor.py) and exits 1
+without a usable card, nvcc or g++.
 """
 
 from __future__ import annotations
@@ -84,10 +90,6 @@ UNPORTED = [
      "model-axis sharding (ROADMAP Queue 1, item 12)"),
     ("shard_activations", bool,
      "activation sharding (ROADMAP Queue 1, items 10 and 12)"),
-    ("memmap_dir", bool, "memmapped datasets, data/stream.py (ROADMAP Queue "
-                         "1, item 12)"),
-    ("native_loader", bool,
-     "the native prefetch loader (ROADMAP Queue 1, item 12)"),
     ("remat", bool, "XLA rematerialisation (TPU/XLA only; no port)"),
     ("remat_policy", bool, "XLA rematerialisation (TPU/XLA only; no port)"),
     ("scan_blocks", bool, "lax.scan over blocks (TPU/XLA only; no port)"),
@@ -138,7 +140,32 @@ def _experiment_tasks(args):
             raise SystemExit(
                 f"unknown --arch {args.arch!r}; have {sorted(REGISTRY)}")
         arch = args.arch
+    if getattr(args, "memmap_dir", None):
+        tasks = _memmap_tasks(args)
     return arch, tasks, aug, _prep(args)
+
+
+def _memmap_tasks(args):
+    """--memmap-dir: one `save_memmap_dataset` directory a task under it,
+    in name order, memory-mapped; a `{"loss": "angle"}` entry gets
+    `make_angle_loss`; --num-tasks cuts the list."""
+    import os
+
+    from .data.stream import load_memmap_dataset
+    from .train.losses import make_angle_loss
+
+    d = args.memmap_dir
+    subs = sorted(s for s in os.listdir(d)
+                  if os.path.exists(os.path.join(d, s, "meta.json")))
+    if not subs:
+        raise SystemExit(f"--memmap-dir {d}: no datasets")
+    tasks = {s: load_memmap_dataset(os.path.join(d, s)) for s in subs}
+    for t in tasks.values():
+        if t.get("loss") == "angle":
+            t["loss_fn"] = make_angle_loss()
+    if args.num_tasks:
+        tasks = dict(list(tasks.items())[: args.num_tasks])
+    return tasks
 
 
 def _identity_augment(x, rng):
@@ -325,9 +352,13 @@ def _add_common(p):
     p.add_argument("--shard-activations", action="store_true",
                    help="not ported (stops with an error)")
     p.add_argument("--memmap-dir", default=None,
-                   help="not ported (stops with an error)")
+                   help="train on memory-mapped task datasets: one "
+                        "save_memmap_dataset directory a task under this "
+                        "path, in name order (data/stream.py)")
     p.add_argument("--native-loader", action="store_true",
-                   help="not ported (stops with an error)")
+                   help="gather training batches with the C++ prefetching "
+                        "loader (data/native_loader.py; built with g++ "
+                        "into build/native/ at first use)")
     p.add_argument("--jsonl", default=None,
                    help="structured per-phase JSONL metrics path")
     p.add_argument("--device", default="cuda",
@@ -459,6 +490,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="XLA's scoped-VMEM option: no port (stops with an "
                          "error)")
     _add_device(pv)
+    pd = sub.add_parser("doctor",
+                        help="diagnose the environment: torch and its CUDA, "
+                             "nvcc, g++, build/, CPG_DATA_DIR and a "
+                             "timeout-bound probe of the card; exit 1 "
+                             "without a usable card, nvcc or g++")
+    pd.add_argument("--timeout", type=float, default=90.0,
+                    help="card probe timeout in seconds")
+    pd.add_argument("--json", action="store_true",
+                    help="one-line JSON report instead of text")
     return parser
 
 
@@ -659,9 +699,15 @@ def _inference(args) -> int:
     return 0
 
 
+def _doctor(args) -> int:
+    from .utils.doctor import run_doctor
+
+    return run_doctor(timeout_s=args.timeout, as_json=args.json)
+
+
 _TOOLS = {"serve": _serve, "export": _export, "import-torch": _import_torch,
           "export-torch": _export_torch, "check": _check, "stats": _stats,
-          "inference": _inference}
+          "inference": _inference, "doctor": _doctor}
 
 
 def _pretrained_state(args, arch):

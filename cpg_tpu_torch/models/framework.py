@@ -99,6 +99,10 @@ class Ctx:
     # route transformer attention through the flash kernels (ops/flash.py);
     # honoured by models/vit.py attention() outside init and int8
     flash_attention: bool = False
+    # q|k|v as one (D, 3*inner) product in models/vit.py attention() on the
+    # effective-params path (not init, no Masking, no int8); the three
+    # kernels stay separate params. None and False: three products
+    qkv_fused: Optional[bool] = None
     # int8 serving (serve.py), eval only: {kernel key -> per-output-channel
     # f32 weight scale}; when set, `shared` holds int8 kernels and
     # sconv/sdense run the int8 products (ops/int8.py)
@@ -455,7 +459,7 @@ def apply(model_fn: Callable, shared: Dict, private: Dict, bn_state: Dict, x,
           train: bool, compute_dtype=torch.float32,
           masking: Optional[Masking] = None, fused_chain: bool = False,
           flash_attention: bool = False, quant_scales=None, act_scales=None,
-          act_stats=None, **kwargs):
+          act_stats=None, qkv_fused: Optional[bool] = None, **kwargs):
     """Run the model. With `masking=None`, `shared` holds pre-masked
     effective params; with a Masking, `shared` holds RAW weights. With
     `quant_scales` (eval only), `shared` holds int8 kernels."""
@@ -465,6 +469,7 @@ def apply(model_fn: Callable, shared: Dict, private: Dict, bn_state: Dict, x,
               bn_state=bn_state, compute_dtype=compute_dtype,
               masking=masking, fused_chain=fused_chain,
               flash_attention=flash_attention, quant_scales=quant_scales,
-              act_scales=act_scales, act_stats=act_stats)
+              act_scales=act_scales, act_stats=act_stats,
+              qkv_fused=qkv_fused)
     out = model_fn(ctx, x, **kwargs)
     return out, ctx.new_bn_state

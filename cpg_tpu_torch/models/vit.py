@@ -14,17 +14,20 @@ Attention runs one of two ways, the same math:
   * `ctx.flash_attention` (outside init and int8): the flash kernels of
     ops/flash.py, where the scores never reach device memory.
 
-Left out from `cpg_tpu`: `qkv_fused`, `scan_blocks`/`scan_vit_blocks`, the
-`pipeline` hook and `act_sharder` seams (XLA and mesh levers, all off by
-default there); the port's Ctx has no such fields.
+With `ctx.qkv_fused` (off by default, as in `cpg_tpu`), q, k and v come
+from one product on the effective-params path.
+
+Left out from `cpg_tpu`: `scan_blocks`/`scan_vit_blocks` (an XLA lever),
+and the `pipeline` hook and `act_sharder` seams, which wait for a device
+mesh (ROADMAP Queue 1, item 12).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .framework import (Ctx, gelu, head, layernorm, normal_init, sconv,
-                        sdense, xavier_normal)
+from .framework import (Ctx, _zeros, gelu, head, layernorm, normal_init,
+                        sconv, sdense, xavier_normal)
 
 
 def _heads(heads: int, mult: float) -> int:
@@ -37,8 +40,23 @@ def attention(ctx: Ctx, name: str, x, heads_n: int, head_dim: int,
     `causal=True` lets token t attend to tokens <= t only."""
     n, t, d = x.shape
     inner = heads_n * head_dim
-    q, k, v = (sdense(ctx, f"{name}/{p}", x, inner, kernel_init=xavier_normal)
-               .reshape(n, t, heads_n, head_dim) for p in "qkv")
+    if (ctx.qkv_fused and ctx.mode != "init" and ctx.masking is None
+            and ctx.quant_scales is None):
+        # one (D, 3*inner) product of the concatenated effective kernels;
+        # they stay separate params, so autograd splits the gradient back
+        ws = [ctx.shared_param(f"{name}/{p}/kernel", (d, inner),
+                               xavier_normal) for p in "qkv"]
+        bs = [ctx.private_param(f"{name}/{p}/bias", (inner,), _zeros)
+              for p in "qkv"]
+        w3 = torch.cat(ws, 1).to(ctx.compute_dtype)
+        qkv = x.to(ctx.compute_dtype) @ w3
+        qkv = qkv + torch.cat(bs).to(qkv.dtype)
+        q, k, v = (qkv[..., i * inner:(i + 1) * inner]
+                   .reshape(n, t, heads_n, head_dim) for i in range(3))
+    else:
+        q, k, v = (sdense(ctx, f"{name}/{p}", x, inner,
+                          kernel_init=xavier_normal)
+                   .reshape(n, t, heads_n, head_dim) for p in "qkv")
     if (ctx.flash_attention and ctx.mode != "init"
             and ctx.quant_scales is None):
         from ..ops.flash import flash_mha

@@ -19,7 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
@@ -34,9 +34,16 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
-def _nvcc() -> str:
+def nvcc_path() -> Optional[str]:
+    """nvcc on PATH, else the CUDA toolkit's default place; None when
+    neither exists."""
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
+    return found if os.path.exists(found) else None
+
+
+def _nvcc() -> str:
+    found = nvcc_path()
+    if found is None:
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
                            "toolkit (nvcc on PATH or /usr/local/cuda/bin)")
     return found

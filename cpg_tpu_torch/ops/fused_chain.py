@@ -50,6 +50,7 @@ import torch
 from . import _build
 from . import masked_conv as _mc
 from . import masked_matmul as _mm
+from ..utils.roofline import SPEC
 from .conv import conv2d_nhwc, wgrad_splits
 
 # kernel launches since the last reset (set to 0 to start counting)
@@ -238,7 +239,7 @@ def _fn(lib_name, dtype, gemm=False):
 _K6_CB, _K6_OB, _K6_PIX = 32, 64, 128
 _K6_SLOTS = 132
 _K6_STEP_US = 3.1
-_HBM_BYTES_PER_US = 3.35e6
+_HBM_BYTES_PER_US = SPEC["hbm_gbps"] * 1e3
 _GRID_Y_MAX = 65535
 
 

@@ -56,6 +56,7 @@ import torch
 
 from . import _build
 from . import masked_conv as _mc
+from ..utils.roofline import SPEC
 from .binarize import DEFAULT_THRESHOLD
 from .masked import effective_kernel
 
@@ -104,7 +105,7 @@ WGRAD_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128)
 # written: 13 B an entry) move
 _WG_SM_BPS = 60e9
 _WG_L2_BPS = 7e12
-_HBM_BPS = 3.35e12
+_HBM_BPS = SPEC["hbm_gbps"] * 1e9
 
 _MODES = ("binary", "ternary")
 

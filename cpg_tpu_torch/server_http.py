@@ -151,6 +151,10 @@ class _Handler(BaseHTTPRequestHandler):
 
 class _Httpd(ThreadingHTTPServer):
     daemon_threads = True
+    # the listen backlog: socketserver's 5 lets a burst of concurrent
+    # clients overflow the accept queue, and the kernel then resets some
+    # of their connections
+    request_queue_size = 1024
 
     def __init__(self, addr, task_server: TaskServer, batcher=None):
         super().__init__(addr, _Handler)

@@ -14,8 +14,12 @@ the Manager calls once a step for the `rng` of `augment_fn(x, rng)`, so a
 caller can hand in another package's draws (data/augment.py takes
 `(offsets, flips)` arrays).
 
-Multi-device training (`mesh`) and the native prefetch loader
-(`native_loader`) come with later slices and raise here.
+Training batches come from the C++ loader with `native_loader`
+(data/native_loader.py: one loader a Manager, seeded with `seed`, whose
+epochs wrap inside it), else from the NumPy gather; either way they pass
+through `DevicePrefetcher` onto the Manager's device. Both read memmapped
+datasets (data/stream.py) through the map. Multi-device training (`mesh`)
+comes with a later slice and raises here.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from ..core import pruner
 from ..core.schedule import cubic_sparsity
 from ..core.state import CPGState, resolve_device
 from ..data.cifar import iterate_batches
+from ..data.native_loader import NativeBatcher
+from ..data.stream import DevicePrefetcher
 from ..models import check_token_ids
 from ..utils import LOGGER, JsonlWriter
 from .losses import class_logits
@@ -113,10 +119,6 @@ class Manager:
                 "Manager(mesh=...): multi-device training is not ported yet "
                 "(ROADMAP Queue 1, item 12: parallel/* on "
                 "torch.distributed)")
-        if native_loader:
-            raise ValueError(
-                "Manager(native_loader=True): the native prefetch loader is "
-                "not ported yet (ROADMAP Queue 1, item 12)")
         self.device = resolve_device(device)
         for split in ("train_x", "test_x"):  # every batch's ids, once
             check_token_ids(state.arch, state.forward_kwargs(task_id),
@@ -145,7 +147,21 @@ class Manager:
             model_fn, augment_fn=augment_fn, **kwargs, **extra)
         self.eval_step = make_eval_step(model_fn, preprocess_fn=preprocess_fn,
                                         **kwargs)
+        self._batcher = (NativeBatcher(data["train_x"], data["train_y"],
+                                       batch_size, seed=seed)
+                         if native_loader else None)
         self.reset_optimizers()
+
+    def _train_batches(self, steps_per_epoch: int):
+        """One epoch of training batches on the Manager's device: the C++
+        loader's next `steps_per_epoch` batches, or a NumPy gather in the
+        order of `np_rng`, behind a DevicePrefetcher."""
+        if self._batcher is not None:
+            it = self._batcher.batches(steps_per_epoch)
+        else:
+            it = iterate_batches(self.data["train_x"], self.data["train_y"],
+                                 self.batch_size, self.np_rng, train=True)
+        return DevicePrefetcher(it, self.device)
 
     # -- optimizer state ----------------------------------------------------
     def reset_optimizers(self):
@@ -209,10 +225,7 @@ class Manager:
         for epoch in range(start_epoch, epochs):
             opt_w_state = set_lr(
                 opt_w_state, _lr_at(base_lr, epoch, epochs, self.lr_schedule))
-            for bx, by in iterate_batches(self.data["train_x"],
-                                          self.data["train_y"],
-                                          self.batch_size, self.np_rng,
-                                          train=True):
+            for bx, by in self._train_batches(steps_per_epoch):
                 if (prune_to is not None
                         and prune_begin <= step_i <= prune_end
                         and ((step_i - prune_begin) % prune_freq == 0
@@ -280,7 +293,8 @@ class Manager:
         n, bs = len(x), self.batch_size
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
         for s in range(0, n, bs):
-            bx, by = x[s:s + bs], np.asarray(y[s:s + bs], np.int64)
+            # copies: a memmapped split is read-only
+            bx, by = np.array(x[s:s + bs]), np.array(y[s:s + bs], np.int64)
             nvalid = len(by)
             if nvalid < bs:  # pad to the batch shape
                 pad = bs - nvalid

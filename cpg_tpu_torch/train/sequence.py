@@ -309,7 +309,8 @@ class SequenceConfig:
     resume: bool = True                # skip tasks with a final checkpoint
     epoch_checkpoint_freq: int = 0     # >0: `<prefix>.epoch` checkpoint
     # every N epochs of the pick phase; optimizers are rebuilt on resume
-    native_loader: bool = False        # not ported yet: raises
+    native_loader: bool = False        # C++ batch loader
+                                       # (data/native_loader.py)
     jsonl_path: Optional[str] = None   # structured per-phase JSONL metrics
     verify_growth: bool = True         # audit every growth event: old-task
     # logits on a probe batch must survive grow_state within
@@ -585,9 +586,6 @@ def run_sequence(arch: str, tasks: Dict[str, Dict],
         raise ValueError(
             "run_sequence(mesh=...): multi-device training is not ported yet "
             "(ROADMAP Queue 1, item 12)")
-    if seq.native_loader:
-        raise ValueError("SequenceConfig.native_loader: the native prefetch "
-                         "loader is not ported yet (ROADMAP Queue 1, item 12)")
     if state is not None and state.arch != arch:
         raise ValueError(f"state arch {state.arch} != {arch}")
     start_mult = state.width_mult if state is not None else width_mult

@@ -59,6 +59,9 @@ class TrainConfig:
     use_pallas_conv: bool = False   # masked-conv kernels (ops/masked_conv.py)
     use_fused_chain: bool = False   # fused BN+ReLU+conv3x3 (ops/fused_chain.py)
     flash_attention: bool = False   # flash attention kernels (ops/flash.py)
+    qkv_fused: Optional[bool] = None  # ViT q|k|v as one product on the
+                                    # default path (models/vit.py); None:
+                                    # off, as in `cpg_tpu`
 
 def _masking(cfg: TrainConfig, ownership, pm, task_id, mask_mode):
     """The raw-weight Masking of a step with masked kernels, else None."""
@@ -175,6 +178,7 @@ def build_train_step(model_fn: Callable, *, num_classes: int, mult: float,
                     compute_dtype=cfg.compute_dtype, masking=masking,
                     fused_chain=cfg.use_fused_chain,
                     flash_attention=cfg.flash_attention,
+                    qkv_fused=cfg.qkv_fused,
                     num_classes=num_classes, mult=mult, **model_kwargs)
                 loss = call_loss(loss_fn, logits, y, it)
                 loss.backward()
@@ -243,6 +247,7 @@ def build_eval_step(model_fn: Callable, *, num_classes: int, mult: float,
                              compute_dtype=cfg.compute_dtype, masking=masking,
                              fused_chain=cfg.use_fused_chain,
                              flash_attention=cfg.flash_attention,
+                             qkv_fused=cfg.qkv_fused,
                              num_classes=num_classes, mult=mult,
                              **model_kwargs)
         cl = class_logits(logits)

@@ -468,13 +468,10 @@ def test_cli_shared_flags_defaults_and_presets_match_jax(cmd):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--experiment", "face", "--memmap-dir", "/nowhere"], "--memmap-dir"),
     (["--parallel", "2"], "--parallel: multi-device"),
     (["--parallel-model", "2"], "--parallel-model: model-axis"),
     (["--shard-activations"], "--shard-activations"),
-    (["--memmap-dir", "/nowhere"], "--memmap-dir"),
     (["--pretrained-npz", "w.npz", "--init-from", "ck"], "--pretrained-npz"),
-    (["--native-loader"], "--native-loader"),
     (["--remat"], "--remat: XLA"),
     (["--remat-policy", "convs"], "--remat-policy: XLA"),
     (["--scan-blocks"], "--scan-blocks: lax.scan"),

@@ -161,6 +161,27 @@ def test_http_shutdown_closes_batcher(served):
     assert not any(t.is_alive() for t in httpd.batcher._threads.values())
 
 
+def test_http_burst_of_clients_is_answered(served):
+    """128 client threads at once, 512 requests, each predict held 20 ms:
+    every request is answered. With socketserver's default listen backlog
+    of 5 the accept queue overflows and the kernel resets connections."""
+    srv, _, x = served
+    httpd = serve_http(srv, port=0)
+    srv.predict = lambda tid, xs: (time.sleep(0.02),
+                                   np.zeros((len(xs), NC), np.float32))[1]
+    payload = {"task_id": 1, "inputs": x[0].tolist()}
+    try:
+        with concurrent.futures.ThreadPoolExecutor(max_workers=128) as ex:
+            outs = list(ex.map(
+                lambda _: _call(httpd, "/v1/predict", payload), range(512)))
+    finally:
+        del srv.predict
+        httpd.shutdown()
+        httpd.server_close()
+    assert len(outs) == 512
+    assert all(o["logits"] == [[0.0] * NC] for o in outs)
+
+
 def test_dynamic_batcher_coalesces_and_matches(served):
     """Concurrent single-image submits within the window: logits equal to
     direct predict, in fewer predict calls than requests."""

@@ -276,7 +276,9 @@ def test_port_never_imports_jax_or_cpg_tpu():
             "server_http.py", "export_torch.py", "pretrained.py",
             "serve.py", "cli.py", "resnet.py", "finegrained.py",
             "imagefolder.py", "spherenet.py", "face.py", "losses.py",
-            "text.py", "moe.py", "textfolder.py"} <= names
+            "text.py", "moe.py", "textfolder.py", "roofline.py",
+            "profiling.py", "doctor.py", "stream.py",
+            "native_loader.py"} <= names
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):

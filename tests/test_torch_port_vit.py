@@ -486,3 +486,134 @@ def test_vit_entry_points_default_to_the_card(np_state, monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+# ---------------------------------------------------------- qkv_fused ----
+
+def _fused_forward(np_state):
+    """Task 2's logits and the gradients of their sum with respect to the
+    effective shared kernels and the private params, through `cpg_tpu`'s
+    fused path and the port's fused and unfused paths."""
+    from cpg_tpu.ops.masked import effective_params as j_eff
+    from cpg_tpu_torch.ops.masked import effective_params as t_eff
+
+    x = _images(BATCH, 11).astype(np.float32) / 255.0
+    t2 = np_state.tasks[2]
+
+    def j_loss(shared, private):
+        out, _ = j_fw.apply(j_vit_cifar, shared, private, {}, jnp.asarray(x),
+                            train=False, qkv_fused=True, num_classes=NC,
+                            **VIT)
+        return out.sum(), out
+
+    (_, want), jgrads = jax.jit(jax.value_and_grad(
+        j_loss, argnums=(0, 1), has_aux=True))(
+        j_eff(np_state.shared, np_state.ownership, t2.piggymask, 2),
+        t2.private)
+    st = state_from_numpy(np_state, "cpu")
+    runs = {}
+    for fused in (True, None):
+        eff = {k: v.detach().requires_grad_(True) for k, v in t_eff(
+            st.shared, st.ownership, st.tasks[2].piggymask, 2).items()}
+        priv = {k: v.detach().clone().requires_grad_(True)
+                for k, v in st.tasks[2].private.items()}
+        out, _ = t_fw.apply(t_vit_cifar, eff, priv, {}, torch.from_numpy(x),
+                            train=False, qkv_fused=fused, num_classes=NC,
+                            **VIT)
+        out.sum().backward()
+        runs[fused] = (out.detach(), {k: v.grad for k, v in eff.items()},
+                       {k: v.grad for k, v in priv.items()})
+    return want, jgrads, runs
+
+
+def test_qkv_fused_forward_and_grads_match_jax(np_state):
+    """`qkv_fused=True` on the effective-params path: logits rtol 1e-4,
+    atol 1e-5 and gradients rtol 1e-4, atol 1e-6 against `cpg_tpu`'s fused
+    path (f32 products summed in different orders); against the port's
+    three products rtol 1e-5, atol 1e-6 (one product of the concatenated
+    kernels: each column's sum is the same as in its own product); every
+    q/k/v kernel and bias receives its own gradient."""
+    want, (jg_shared, jg_priv), runs = _fused_forward(np_state)
+    got, g_shared, g_priv = runs[True]
+    _close(got.numpy(), want, 1e-4, 1e-5, "fused logits")
+    for k in jg_shared:
+        _close(g_shared[k].numpy(), jg_shared[k], 1e-4, 1e-6, k)
+    for k in jg_priv:
+        _close(g_priv[k].numpy(), jg_priv[k], 1e-4, 1e-6, k)
+    ref, r_shared, r_priv = runs[None]
+    _close(got.numpy(), ref.numpy(), 1e-5, 1e-6, "fused vs unfused")
+    for k in r_shared:
+        _close(g_shared[k].numpy(), r_shared[k].numpy(), 1e-5, 1e-6, k)
+    for k in r_priv:
+        _close(g_priv[k].numpy(), r_priv[k].numpy(), 1e-5, 1e-6, k)
+    for p in "qkv":
+        assert g_shared[f"blocks/0/attn/{p}/kernel"].abs().max() > 0
+        assert g_priv[f"blocks/1/attn/{p}/bias"].abs().max() > 0
+
+
+@pytest.fixture(scope="module")
+def jax_fused_run(np_state):
+    """Three task-2 steps of JAX's default step with `qkv_fused=True`."""
+    from cpg_tpu.data.augment import cifar_train_augment as j_aug
+
+    st = _to_jax(np_state)
+    task = st.tasks[2]
+    step, (opt_w, opt_pm) = j_build_train_step(
+        j_vit_cifar, num_classes=NC, mult=1.0, has_piggymask=True,
+        augment_fn=j_aug, model_kwargs=VIT,
+        cfg=JConfig(compute_dtype=jnp.float32, qkv_fused=True, **BASE))
+    shared, pm, priv = st.shared, task.piggymask, task.private
+    ows = opt_w.init({"shared": shared, "private": priv})
+    opms = opt_pm.init(pm)
+    jstep = jax.jit(step)
+    losses = []
+    for i, (x, y, key) in enumerate(_batches()):
+        shared, pm, priv, _, ows, opms, m = jstep(
+            shared, pm, priv, {}, ows, opms, st.ownership, 2,
+            jnp.asarray(x), jnp.asarray(y), key, i)
+        losses.append(float(m["loss"]))
+    return losses, shared, pm, priv
+
+
+def test_qkv_fused_train_steps_match_jax(np_state, jax_fused_run):
+    """Three default task-2 steps with `qkv_fused=True`: against
+    `cpg_tpu`'s fused steps at `_assert_runs_match`'s tolerances, and
+    against the port's unfused steps at the same tolerances."""
+    fused = _run_port(np_state, {"qkv_fused": True}, 2)
+    _assert_runs_match(jax_fused_run, fused)
+    _assert_runs_match(_run_port(np_state, {}, 2), fused)
+
+
+@pytest.mark.parametrize("case", ["init", "masking", "int8", "none", "false",
+                                  "fused"])
+def test_qkv_fused_only_on_the_effective_params_path(case):
+    """The fused product runs only outside init, without a Masking and
+    without int8 scales, with `qkv_fused=True`; everywhere else q, k and v
+    are three `sdense` products, as in `cpg_tpu`."""
+    from cpg_tpu_torch.models import vit as t_vit
+
+    d, heads, hd, n, t = 16, 2, 8, 2, 5
+    g = torch.Generator().manual_seed(0)
+    ctx = t_fw.Ctx(mode="init", train=False, generator=g)
+    x = torch.randn(n, t, d, generator=g)
+    t_vit.attention(ctx, "a", x, heads, hd)
+    kw = {"init": dict(mode="init", generator=g, qkv_fused=True),
+          "masking": dict(masking=object(), qkv_fused=True),
+          "int8": dict(quant_scales={}, qkv_fused=True),
+          "none": dict(qkv_fused=None), "false": dict(qkv_fused=False),
+          "fused": dict(qkv_fused=True)}[case]
+    kw = {"mode": "apply", **kw}
+    if kw["mode"] == "apply":
+        kw.update(shared=ctx.shared, private=ctx.private)
+    names = []
+
+    def spy(c, name, inp, features, **k):
+        names.append(name)
+        return torch.zeros((*inp.shape[:-1], features))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_vit, "sdense", spy)
+        t_vit.attention(t_fw.Ctx(train=False, **kw), "a", x, heads, hd)
+    qkv = [s for s in names if s.split("/")[-1] in "qkv"]
+    assert qkv == ([] if case == "fused" else ["a/q", "a/k", "a/v"])
+    assert names[-1] == "a/proj"
