@@ -164,9 +164,34 @@ Needs one CUDA card; exits non-zero without one. It
      and prefetcher and with the NumPy gather and no prefetch; last, `python -m cpg_tpu_torch doctor --json` in a
      subprocess (exit 0 with the card's name, count, capability 9.0 and
      power limit; exit 1 with CUDA_VISIBLE_DEVICES empty);
- 13. checks that each phase reached its kernels (the serve and eval phases
+ 13. parallel phase (`parallel_phase`, after the text cycle): VGG16-BN's
+     task-2 kernel step (K1-K6) data-parallel over two ranks spawned on the
+     one card and joined over gloo (NCCL refuses two ranks on one GPU), at
+     a global batch of 256 (128 rows a rank) from `build_state`'s state
+     with 2% of task 2's entries released and its piggymask kept 1e-3 from
+     the threshold, f32 then bf16, three steps each on the same batches and
+     crop/flip draws as the one-process kernel step (run by rank 0): f32
+     losses within 1e-4 relative and shared and private one-step updates
+     within 1e-2 of the update's norm; bf16 losses within 2e-2 and each
+     group's update at most 2x as far from the f32 update as the
+     one-process bf16 step's; the replicas bit-equal after every step
+     (`check_replicas`), task-1 entries bit-unchanged and free entries 0;
+     each rank's launches a step equal to the one-process step's
+     (`TRAIN_LAUNCHES` in bf16); ms/step of the two-rank step and of the
+     one-process step (time-slicing one card: no speed result); then
+     `sequence --parallel 1` through `cli.main` (NCCL, a world of one rank)
+     over two synthetic tasks with the kernel flags, `check_state` at both
+     boundaries and both checkpoints bit-equal to the run without the
+     flag; a bf16 `TaskServer(mesh=make_mesh(devices=[cuda:0, cuda:0]),
+     fused_chain=True)` against the unmeshed server at 1, 37 and 256 rows
+     of both tasks and a mixed list (within 2e-2 x max|ref|, bit equality
+     recorded); and `sequence --parallel 2` over NCCL where two cards are
+     visible (one line saying it did not run otherwise);
+ 14. checks that each phase reached its kernels (the serve and eval phases
      their forwards, the train phases their backwards, the cycles K1-K6,
      the deploy phase K4, the stream phase K1-K6 and the conv selects,
+     each rank of the parallel phase and its `--parallel 1` run K1-K6, its
+     meshed server K4,
      the fused q|k|v phase K7, the SphereNet phases K1-K3 and the dense
      route,
      textcls's phases K7 forward, the pair and the dense route,
@@ -1179,13 +1204,13 @@ TASK_KWARGS = {"spherenet20": ({"head_type": "angle"},
 TEXT_SHAPE = (64,)
 
 
-def build_state(torch, dev, arch="vgg16_bn_cifar"):
+def build_state(torch, dev, arch="vgg16_bn_cifar", width_mult=1.0):
     from cpg_tpu_torch.core.pruner import one_shot_prune
     from cpg_tpu_torch.train.sequence import init_state, start_task
 
     kw1, kw2 = TASK_KWARGS.get(arch, (None, None))
     g = torch.Generator().manual_seed(SEED)
-    state = init_state(arch, g, width_mult=1.0, device=dev)
+    state = init_state(arch, g, width_mult=width_mult, device=dev)
     start_task(state, "task1", 5, g, model_kwargs=kw1)
     state.shared, state.ownership = one_shot_prune(state.shared,
                                                    state.ownership, 1, 0.5)
@@ -1206,7 +1231,7 @@ def build_state(torch, dev, arch="vgg16_bn_cifar"):
     below = sum(int((v <= state.threshold).sum()) for v in pm.values())
     total = sum(v.numel() for v in pm.values())
     n_shared = sum(v.numel() for v in state.shared.values())
-    print(f"state: {arch} width 1.0, {n_shared} sharable weights, task-2 "
+    print(f"state: {arch} width {width_mult}, {n_shared} sharable weights, task-2 "
           f"piggymask {below / total:.3f} below threshold", flush=True)
     return state
 
@@ -1596,10 +1621,15 @@ def _train_tensors(st, fn):
     return out
 
 
-def _stepper(torch, base, model_fn, augment, dev, cfg, **step_kw):
+def _stepper(torch, base, model_fn, augment, dev, cfg, mesh=None,
+             **step_kw):
     """(a copy of `base`, run(x, y, draws, it) -> metrics): task 2's train
     step under `cfg` on the copy, its parameters and optimizer states
-    carried from call to call."""
+    carried from call to call. With `mesh` (over the ranks) the step is
+    data-parallel: the copy broadcast from rank 0, each call given the
+    global batch and its draws, of which this rank takes its rows."""
+    from cpg_tpu_torch.parallel.mesh import (make_parallel_train_step,
+                                             place_state, shard_batch)
     from cpg_tpu_torch.train.step import make_train_step
 
     st = base.map_arrays(lambda t: t.clone())
@@ -1607,15 +1637,49 @@ def _stepper(torch, base, model_fn, augment, dev, cfg, **step_kw):
     step, (opt_w, opt_pm) = make_train_step(
         model_fn, num_classes=5, mult=base.width_mult, has_piggymask=True,
         cfg=cfg, augment_fn=augment, device=dev, **step_kw)
+    if mesh is not None:
+        for tree in (st.shared, st.ownership, task.piggymask, task.private,
+                     task.bn_state):
+            place_state(mesh, tree)
+        step = make_parallel_train_step(step, mesh)
     carry = [st.shared, task.piggymask, task.private, task.bn_state,
              opt_w.init({"shared": st.shared, "private": task.private}),
              opt_pm.init(task.piggymask)]
 
     def run(x, y, draws, it):
+        if mesh is not None:
+            x, y = shard_batch(mesh, x, y)
         out = step(*carry[:6], st.ownership, 2, x, y, draws, it)
         carry[:6] = out[:6]
         return out[6]
     return st, run
+
+
+def _no_forgetting(torch, base, st, label):
+    """Task 2's training left task 1's entries bit-unchanged, free entries
+    zero and piggymask entries outside the prior domain unchanged."""
+    t0 = base.tasks[2]
+    for k, own in base.ownership.items():
+        w, w0 = st.shared[k], base.shared[k]
+        if not torch.equal(w[own == 1], w0[own == 1]):
+            raise AssertionError(f"{label}: task-1 entries of {k} moved")
+        if (w[own == 0] != 0).any():
+            raise AssertionError(f"{label}: free entries of {k} nonzero")
+        pm, pm0 = st.tasks[2].piggymask[k], t0.piggymask[k]
+        if not torch.equal(pm[own != 1], pm0[own != 1]):
+            raise AssertionError(f"{label}: piggymask of {k} moved outside "
+                                 "the prior-task entries")
+
+
+def _train_base(torch, dev, state, gen):
+    """A copy of `state` with 2% of task 2's entries released (zero and
+    free), so the free-entry invariant has entries to hold."""
+    base = state.map_arrays(lambda t: t.clone())
+    for k, own in base.ownership.items():
+        sel = (own == 2) & (torch.rand(own.shape, generator=gen) < 0.02).to(dev)
+        base.ownership[k] = own.masked_fill(sel, 0)
+        base.shared[k] = base.shared[k].masked_fill(sel, 0.0)
+    return base
 
 
 def _update_dists(torch, init, firsts):
@@ -1654,12 +1718,7 @@ def train_phase(torch, dev, state, counts):
     timing_batches, round_steps = TRAIN_TIMING.get(state.arch,
                                                    TRAIN_TIMING_DEFAULT)
     gen = torch.Generator().manual_seed(SEED + 3)
-    base = state.map_arrays(lambda t: t.clone())
-    # release 2% of task 2's entries so the free-entry invariant has entries
-    for k, own in base.ownership.items():
-        sel = (own == 2) & (torch.rand(own.shape, generator=gen) < 0.02).to(dev)
-        base.ownership[k] = own.masked_fill(sel, 0)
-        base.shared[k] = base.shared[k].masked_fill(sel, 0.0)
+    base = _train_base(torch, dev, state, gen)
     n_free = sum(int((o == 0).sum()) for o in base.ownership.values())
     step_kw = {}
     if state.arch == "spherenet20":
@@ -1743,20 +1802,8 @@ def train_phase(torch, dev, state, counts):
             raise AssertionError(
                 f"train: the f32 kernel step's {group} update is {d} from "
                 f"the f32 default step's, of norm {ref_norm[group]}")
-    # no forgetting: prior-task entries bit-unchanged, free entries zero,
-    # piggymask entries outside the prior domain unchanged
-    t0 = base.tasks[2]
     for label, (st, _, _) in runs.items():
-        for k, own in base.ownership.items():
-            w, w0 = st.shared[k], base.shared[k]
-            if not torch.equal(w[own == 1], w0[own == 1]):
-                raise AssertionError(f"train {label}: task-1 entries of {k} moved")
-            if (w[own == 0] != 0).any():
-                raise AssertionError(f"train {label}: free entries of {k} nonzero")
-            pm, pm0 = st.tasks[2].piggymask[k], t0.piggymask[k]
-            if not torch.equal(pm[own != 1], pm0[own != 1]):
-                raise AssertionError(f"train {label}: piggymask of {k} moved "
-                                     "outside the prior-task entries")
+        _no_forgetting(torch, base, st, f"train {label}")
     expected = TRAIN_LAUNCHES[state.arch]
     for k, n in launched.items():
         if n != expected.get(k, 0):
@@ -3513,6 +3560,542 @@ class Counts:
         return {k: getattr(mod, attr) for k, (mod, attr) in self.where.items()}
 
 
+# the parallel phase (parallel/*): VGG16-BN's data-parallel kernel step on
+# two ranks sharing the card over gloo (NCCL refuses two ranks on one GPU),
+# `sequence --parallel 1` over NCCL against the run without the flag, the
+# server over the mesh [cuda:0, cuda:0], and `sequence --parallel 2` over
+# NCCL across cards where two are visible
+PAR_RANKS = 2
+PAR_MULT = 1.0
+PAR_STEPS = 3
+PAR_ROUND_STEPS = 5
+PAR_TIMEOUT_S = 300            # a collective that waits longer raises
+PAR_F32_LOSS_RTOL = 1e-4       # f32: the DP step's losses against the
+                               # one-process step's
+PAR_MASK_MARGIN = 1e-3         # task 2's piggymask this far from the
+                               # threshold (see `_parallel_rank_run`)
+PAR_MASK_OFF_SHARE = 5e-4      # f32: the piggymask entries whose update
+                               # misses the one-process kernel step's (rtol
+                               # 1e-4 / atol 1e-7; Adam turns summation
+                               # order into a sign where a gradient is near
+                               # 0): at most UPDATE_RATIO x those of the
+                               # f32 default step plus this share of the
+                               # entries moved, each within 3 lr_mask
+PAR_SERVE_ROWS = (1, 37, 256)
+PAR_CLI_PER_CLASS = 64         # 5 classes: 320 images, 2 steps an epoch
+PAR_CLI_FLOOR = {"own_flip": 1e-3, "shared": 1e-5, "bn": 1e-5}
+                               # f32 `sequence --parallel n` against one
+                               # rank (owner flips at the prune cutoff,
+                               # weights and BN statistics, relative): at
+                               # most UPDATE_RATIO x the one-rank run
+                               # without the kernel flags, or these
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _par_batches(torch, dev, n):
+    """PAR_STEPS global batches (uint8 images, labels, crop/flip draws) of
+    n rows, the same in every process."""
+    from cpg_tpu_torch.data.augment import crop_flip_draws
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    out = []
+    for _ in range(PAR_STEPS):
+        x = torch.randint(0, 256, (n, 32, 32, 3), generator=gen,
+                          dtype=torch.uint8).to(dev)
+        y = torch.randint(0, 5, (n,), generator=gen).to(dev)
+        out.append((x, y, crop_flip_draws(n, gen, 4)))
+    return out
+
+
+def _parallel_rank(rank, world, store, cfg, out_dir):
+    """One rank of `dp_ranks_check`, in a spawned process: joins the world
+    over cfg["backend"] on cfg["devices"][rank], runs `_parallel_rank_run`
+    and writes its results to <out_dir>/rank<r>.json."""
+    import torch
+
+    from cpg_tpu_torch.parallel import distributed as pd
+
+    dev = torch.device(cfg["devices"][rank])
+    torch.backends.cudnn.allow_tf32 = False  # as `main` sets them
+    torch.set_float32_matmul_precision("highest")
+    pd.initialize(store, world, rank, backend=cfg["backend"], device=dev,
+                  timeout=PAR_TIMEOUT_S)
+    try:
+        out = _parallel_rank_run(torch, dev, rank, cfg)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        pd.shutdown()
+
+
+def _parallel_rank_run(torch, dev, rank, cfg):
+    """Task 2's kernel step (VGG16-BN, `_train_base` of `build_state`) over
+    the mesh of every rank, f32 then bf16, PAR_STEPS steps each on the same
+    global batches and draws, the replicas held bit-equal after every step
+    (`check_replicas`) and the no-forgetting invariants after the last.
+    Rank 0 also runs the one-process kernel step (and in f32 the default
+    step) on the same batches and compares the one-step updates
+    (`_update_dists`, the f32 one-process step as yardstick). Then ms/step of the bf16 step: both ranks at once,
+    then rank 0's one-process step alone."""
+    from cpg_tpu_torch.data.augment import cifar_train_augment
+    from cpg_tpu_torch.models import get_model
+    from cpg_tpu_torch.parallel.collectives import barrier
+    from cpg_tpu_torch.parallel.mesh import make_mesh
+    from cpg_tpu_torch.train.sequence import check_replicas
+    from cpg_tpu_torch.train.step import TrainConfig
+
+    mesh = make_mesh()
+    counts = Counts()
+    model_fn, _ = get_model("vgg16_bn_cifar")
+    base = _train_base(torch, dev,
+                       build_state(torch, dev, width_mult=cfg["mult"]),
+                       torch.Generator().manual_seed(SEED + 3))
+    # task 2's piggymask kept PAR_MASK_MARGIN from the threshold: Adam
+    # moves an entry by about lr_mask a step whatever its gradient, so an
+    # entry nearer than PAR_STEPS * lr_mask flips its mask bit on the sign
+    # of a near-zero gradient, which summation order decides (the f32
+    # kernel and default one-process steps, two orders of the same step,
+    # part by 7.0e-4 in the third loss on `build_state`'s piggymask)
+    thr = base.threshold
+    for k, v in base.tasks[2].piggymask.items():
+        near = (v - thr).abs() < PAR_MASK_MARGIN
+        side = torch.where(v >= thr, 1.0, -1.0)
+        base.tasks[2].piggymask[k] = torch.where(
+            near, thr + side * PAR_MASK_MARGIN, v)
+    batches = _par_batches(torch, dev, cfg["batch"])
+    out = {"rank": rank, "mesh": repr(mesh), "launches_step": {},
+           "losses": {}}
+    total, firsts, steppers = None, {}, {}
+
+    def steps(run, st, label, check):
+        losses = []
+        _sync(torch, dev)
+        counts.reset()
+        for i, (x, y, draws) in enumerate(batches):
+            losses.append(float(run(x, y, draws, i)["loss"]))
+            if i == 0:
+                _sync(torch, dev)
+                out["launches_step"][label] = counts.read()
+                firsts[label] = _train_tensors(st, lambda t: t.clone())
+            if check:
+                check_replicas(st, mesh)
+        _sync(torch, dev)
+        out["losses"][label] = losses
+        _no_forgetting(torch, base, st, f"parallel {label}")
+        return counts.read()
+
+    for dname in ("float32", "bfloat16"):
+        tcfg = TrainConfig(compute_dtype=getattr(torch, dname),
+                           **KERNEL_FLAGS["vgg16_bn_cifar"])
+        st, run = _stepper(torch, base, model_fn, cifar_train_augment, dev,
+                           tcfg, mesh=mesh)
+        c = steps(run, st, f"dp_{dname}", True)
+        total = c if total is None else {k: total[k] + c[k] for k in c}
+        steppers[dname] = run
+        if rank == 0:
+            st1, run1 = _stepper(torch, base, model_fn, cifar_train_augment,
+                                 dev, tcfg)
+            steps(run1, st1, f"single_{dname}", False)
+            steppers[f"single_{dname}"] = run1
+        if rank == 0 and dname == "float32":  # the yardstick's other order
+            st1, run1 = _stepper(torch, base, model_fn, cifar_train_augment,
+                                 dev, TrainConfig(compute_dtype=torch.float32))
+            steps(run1, st1, "default_float32", False)
+        barrier(mesh.group)
+    out["launches"] = total
+    if rank == 0:
+        init = _train_tensors(base, lambda t: t)
+        dist, ref_norm = _update_dists(torch, init, {
+            "f32": firsts["single_float32"],
+            "dp_float32": firsts["dp_float32"],
+            "single_bfloat16": firsts["single_bfloat16"],
+            "dp_bfloat16": firsts["dp_bfloat16"]})
+        out.update(update_dist_to_f32=dist, f32_update_norm=ref_norm)
+        # the piggymask's one-step update: Adam moves an entry by about
+        # lr_mask whatever its gradient's size, so the update's sign shows
+        # a wrong or missing reduction of the piggymask gradient; the f32
+        # default step against the f32 kernel step (two summation orders
+        # of one process) is the yardstick
+        pm = {"moved": 0, "off": 0, "off_default": 0, "max_abs_diff": 0.0,
+              "lr_mask": tcfg.lr_mask}
+        for k, v in init.items():
+            if k.startswith("piggymask/"):
+                b = firsts["single_float32"][k]
+                pm["moved"] += int((b != v).sum())
+                for key, a in (("off", firsts["dp_float32"][k]),
+                               ("off_default", firsts["default_float32"][k])):
+                    pm[key] += int((~torch.isclose(a, b, rtol=1e-4,
+                                                   atol=1e-7)).sum())
+                pm["max_abs_diff"] = max(pm["max_abs_diff"], float(
+                    (firsts["dp_float32"][k] - b).abs().max()))
+        out["f32_piggymask"] = pm
+    firsts.clear()
+
+    def ms_per_step(run):
+        x, y, draws = batches[0]
+        for i in range(2):
+            run(x, y, draws, i)
+        _sync(torch, dev)
+        t = time.perf_counter()
+        for i in range(PAR_ROUND_STEPS):
+            run(x, y, draws, i)
+        _sync(torch, dev)
+        return (time.perf_counter() - t) / PAR_ROUND_STEPS * 1e3
+
+    barrier(mesh.group)
+    out["ms_per_step_ranks"] = ms_per_step(steppers["bfloat16"])
+    barrier(mesh.group)
+    if rank == 0:  # the other rank waits at the barrier
+        out["ms_per_step_one_process"] = ms_per_step(
+            steppers["single_bfloat16"])
+    barrier(mesh.group)
+    return out
+
+
+def dp_ranks_check(torch, cfg, card):
+    """Spawn one rank a device of cfg["devices"] (`_parallel_rank`), joined
+    over cfg["backend"], and hold their DP kernel steps against the
+    one-process step run by rank 0: f32 losses within PAR_F32_LOSS_RTOL and
+    shared and private one-step updates within F32_UPDATE_RTOL of the
+    update's norm, the piggymask's by PAR_MASK_OFF_SHARE against the f32
+    default step's; bf16 losses
+    within LOSS_RTOL and each group's update at most UPDATE_RATIO times as
+    far from the f32 update as the one-process bf16 step's; every rank's
+    losses equal, its launches a step the one-process step's
+    (TRAIN_LAUNCHES in bf16). Returns the results and
+    {"vgg16_bn_cifar/parallel_rank<r>": launches}."""
+    import torch.multiprocessing as mp
+
+    world = len(cfg["devices"])
+    launched = {}
+    tmp = tempfile.mkdtemp(prefix="par_")
+    try:
+        mp.start_processes(_parallel_rank, args=(world, f"file://{tmp}/store",
+                                                 cfg, tmp),
+                           nprocs=world, start_method="spawn")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        if r["losses"] != {k: v for k, v in r0["losses"].items()
+                           if k.startswith("dp_")}:
+            raise AssertionError(f"parallel: rank {r['rank']}'s losses "
+                                 f"{r['losses']} differ from rank 0's")
+    lo = r0["losses"]
+    f32_rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(lo["dp_float32"], lo["single_float32"]))
+    bf16_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(lo["dp_bfloat16"], lo["single_bfloat16"]))
+    if not all(np.isfinite(sum(lo.values(), []))):
+        raise AssertionError(f"parallel: non-finite losses {lo}")
+    if f32_rel > PAR_F32_LOSS_RTOL or bf16_rel > LOSS_RTOL:
+        raise AssertionError(f"parallel: losses {lo}")
+    dist, ref_norm = r0["update_dist_to_f32"], r0["f32_update_norm"]
+    for group in ("shared", "private"):
+        if dist["dp_float32"][group] > F32_UPDATE_RTOL * ref_norm[group]:
+            raise AssertionError(
+                f"parallel: the f32 DP step's {group} update is "
+                f"{dist['dp_float32'][group]} from the one-process step's, "
+                f"of norm {ref_norm[group]}")
+    pm = r0["f32_piggymask"]
+    if (not pm["moved"]
+            or pm["off"] > (UPDATE_RATIO * pm["off_default"]
+                            + PAR_MASK_OFF_SHARE * pm["moved"])
+            or pm["max_abs_diff"] > 3 * pm["lr_mask"]):
+        raise AssertionError(f"parallel: the f32 DP step's piggymask update "
+                             f"against the one-process step's: {pm}")
+    for group, d in dist["dp_bfloat16"].items():
+        if d > (UPDATE_RATIO * dist["single_bfloat16"][group]
+                + 1e-6 * ref_norm[group]):
+            raise AssertionError(
+                f"parallel: the bf16 DP step's {group} update is {d} from "
+                "the f32 one-process step's, the bf16 one-process step's "
+                f"{dist['single_bfloat16'][group]}")
+    for r in ranks:
+        steps = r["launches_step"]
+        for dname in ("float32", "bfloat16"):
+            if steps[f"dp_{dname}"] != r0["launches_step"][f"single_{dname}"]:
+                raise AssertionError(
+                    f"parallel: rank {r['rank']}'s {dname} step launched "
+                    f"{steps[f'dp_{dname}']}, the one-process step "
+                    f"{r0['launches_step'][f'single_{dname}']}")
+        want = TRAIN_LAUNCHES["vgg16_bn_cifar"]
+        if any(n != want.get(k, 0) for k, n in steps["dp_bfloat16"].items()):
+            raise AssertionError(f"parallel: rank {r['rank']}'s bf16 step "
+                                 f"launched {steps['dp_bfloat16']}")
+        launched[f"vgg16_bn_cifar/parallel_rank{r['rank']}"] = r["launches"]
+    out = dict(
+        devices=cfg["devices"], backend=cfg["backend"], losses=lo,
+        f32_loss_max_rel=f32_rel, bf16_loss_max_rel=bf16_rel,
+        update_dist_to_f32=dist, f32_update_norm=ref_norm,
+        f32_piggymask=pm,
+        ms_per_step_ranks={r["rank"]: r["ms_per_step_ranks"] for r in ranks},
+        ms_per_step_one_process=r0["ms_per_step_one_process"],
+        batch=cfg["batch"], card=card)
+    print(f"parallel ranks: {json.dumps(out)}", flush=True)
+    out["launches_step"] = r0["launches_step"]
+    return out, launched
+
+
+def _par_cli_argv(ck, extra=()):
+    return ["sequence", "--num-tasks", "2", "--use-pallas-conv",
+            "--fused-chain", "--synthetic-train-per-class",
+            str(PAR_CLI_PER_CLASS), "--synthetic-test-per-class", "20",
+            "--batch-size", str(BATCH // 2), "--finetune-epochs", "1",
+            "--prune-epochs", "1", "--retrain-epochs", "1",
+            "--prune-ratios", "0.5", "--network_width_multiplier",
+            str(PAR_MULT), "--seed", str(SEED), "--checkpoint-dir", ck,
+            *extra]
+
+
+def parallel_phase(torch, dev, counts, card):
+    """The data axes of parallel/* on the card. Returns the results and
+    {label: launches}: each rank's DP steps, the `--parallel 1` run and
+    the meshed server's requests."""
+    from cpg_tpu_torch.core.invariants import check_state
+    from cpg_tpu_torch.data.augment import cifar_eval_preprocess
+    from cpg_tpu_torch.parallel.mesh import make_mesh
+    from cpg_tpu_torch.serve import TaskServer
+    from cpg_tpu_torch.utils.checkpoint import load_state
+
+    t0 = time.perf_counter()
+    # 1. two gloo ranks sharing the card
+    rank_dev = (torch.device("cuda", torch.cuda.current_device())
+                if dev.type == "cuda" else dev)
+    two, launched = dp_ranks_check(torch, {
+        "devices": [str(rank_dev)] * PAR_RANKS, "backend": "gloo",
+        "mult": PAR_MULT, "batch": BATCH}, card)
+    res = {"two_ranks": two}
+    print(f"parallel ms/step, bf16 VGG16-BN kernel step at batch {BATCH}: "
+          f"two gloo ranks sharing the card {two['ms_per_step_ranks']}, "
+          f"one process {two['ms_per_step_one_process']:.2f} on {card}",
+          flush=True)
+    t1 = time.perf_counter()
+
+    # 2. `sequence --parallel 1` over NCCL against the run without it
+    tmp = tempfile.mkdtemp(prefix="par_cli_")
+    try:
+        _sync(torch, dev)
+        counts.reset()
+        rc1, s1 = _cli(_par_cli_argv(os.path.join(tmp, "p1"),
+                                     ["--parallel", "1"]))
+        _sync(torch, dev)
+        launched["vgg16_bn_cifar/parallel_cli"] = counts.read()
+        rc0, s0 = _cli(_par_cli_argv(os.path.join(tmp, "p0")))
+        if rc1 or rc0 or s1 != s0:
+            raise AssertionError(f"sequence --parallel 1: exit {rc1}, {s1}; "
+                                 f"without it: exit {rc0}, {s0}")
+        audits = {}
+        for i, t in enumerate(s0["tasks"]):
+            name = f"task{i + 1:02d}_{t['name']}"
+            a, b = (load_state(os.path.join(tmp, d, name), device=dev)
+                    for d in ("p1", "p0"))
+            audits[name] = check_state(a)  # raises on a violation
+            if not _same_state(torch, a, b):
+                raise AssertionError(f"sequence --parallel 1: {name} differs "
+                                     "from the run without the flag")
+        res["cli_parallel_1"] = dict(summary=s1, check_state=audits,
+                                     bit_equal=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"parallel sequence --parallel 1 (NCCL, one rank): "
+          f"{json.dumps(res['cli_parallel_1'])}", flush=True)
+    t2 = time.perf_counter()
+
+    # 3. the server over [cuda:0, cuda:0] against the unmeshed one: the
+    # unmeshed answers and launches first, then the meshed server's alone
+    state = build_state(torch, dev, width_mult=PAR_MULT)
+    ref = TaskServer(state, cifar_eval_preprocess, fused_chain=True,
+                     device=dev)
+    srv = TaskServer(state, cifar_eval_preprocess, fused_chain=True,
+                     mesh=make_mesh(devices=[rank_dev] * 2))
+    rng = np.random.RandomState(SEED + 11)
+    reqs = [(tid, _inputs((32, 32, 3), n, rng))
+            for n in PAR_SERVE_ROWS for tid in (1, 2)]
+    mixed = [(1 + i % 2, reqs[2][1][i]) for i in range(len(reqs[2][1]))]
+    serve = {"rows": {}, "bit_equal": True}
+    try:
+        for srv_ in (ref, srv):  # each task's effective weights, once
+            srv_.warmup()
+        _sync(torch, dev)
+        counts.reset()
+        wants = [ref.predict(tid, x) for tid, x in reqs]
+        want_mixed = ref.predict_mixed(mixed)
+        _sync(torch, dev)
+        ref_launched = counts.read()
+        counts.reset()
+        gots = [srv.predict(tid, x) for tid, x in reqs]
+        got_mixed = srv.predict_mixed(mixed)
+        _sync(torch, dev)
+        launched["vgg16_bn_cifar/parallel_serve"] = counts.read()
+    finally:
+        srv.close()
+    # the same buckets as the unmeshed server's, each run as a shard on
+    # each of the mesh's two devices
+    got_launched = launched["vgg16_bn_cifar/parallel_serve"]
+    if got_launched != {k: srv.mesh.size * n for k, n in ref_launched.items()}:
+        raise AssertionError(
+            f"meshed server launched {got_launched}, not {srv.mesh.size} x "
+            f"the unmeshed server's {ref_launched}")
+    for (tid, x), got, want in zip(reqs, gots, wants):
+        err = float(np.abs(got - want).max())
+        scale = float(np.abs(want).max())
+        if got.shape != want.shape or err > 2e-2 * scale:
+            raise AssertionError(f"meshed server: {len(x)} rows of "
+                                 f"task {tid}: {err} of {scale}")
+        serve["rows"][f"{len(x)}/task{tid}"] = err
+        serve["bit_equal"] &= bool(np.array_equal(got, want))
+    for got, want in zip(got_mixed, want_mixed):
+        if np.abs(got - want).max() > 2e-2 * np.abs(want).max():
+            raise AssertionError("meshed server: a mixed-task request")
+    res["serve_mesh"] = dict(serve, min_bucket=srv.min_bucket)
+    print(f"parallel server over [{rank_dev}, {rank_dev}]: "
+          f"{json.dumps(res['serve_mesh'])}", flush=True)
+    del state, ref, srv
+
+    # 4. NCCL across cards
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n_cards >= 2:
+        res["nccl_cards"], more = nccl_cards_check(
+            torch, ["cuda:0", "cuda:1"], card)
+        launched.update(more)
+    else:
+        res["nccl_cards"] = (f"not run: {n_cards} card(s) visible; NCCL "
+                             "across cards needs two")
+        print(f"parallel NCCL across cards: {res['nccl_cards']}", flush=True)
+    res["wall_s"] = {"two_ranks": t1 - t0, "cli": t2 - t1,
+                     "serve_and_nccl": time.perf_counter() - t2}
+    return res, launched
+
+
+def _cycle_of(summary):
+    """A `sequence` summary's cycle: widths, names, ratios and growths."""
+    return (summary["final_width_mult"],
+            [(t["name"], t["ratio"], t["grew"]) for t in summary["tasks"]])
+
+
+def _cli_states_agree(torch, a, b):
+    """How far two runs' final states are apart, as
+    tests/test_torch_port_parallel_cli.py measures it: the largest share
+    of a layer's entries whose owner differs (entries at the prune cutoff
+    may flip: the cutoff orders weights by magnitude), the largest
+    difference of weights where the owners agree, over the layer's largest
+    magnitude, and of BN statistics over max(1, their largest magnitude).
+    The bounds are in PAR_CLI_FLOOR."""
+    out = {"own_flip": 0.0, "shared": 0.0, "bn": 0.0}
+    for k, w in b.shared.items():
+        same = a.ownership[k] == b.ownership[k]
+        out["own_flip"] = max(out["own_flip"],
+                              1.0 - same.float().mean().item())
+        err = (a.shared[k] - w).abs()[same].max() / w.abs().max()
+        out["shared"] = max(out["shared"], err.item())
+    for tid, t in b.tasks.items():
+        for k, v in t.bn_state.items():
+            err = (a.tasks[tid].bn_state[k] - v).abs().max()
+            out["bn"] = max(out["bn"],
+                            err.item() / max(1.0, v.abs().max().item()))
+    return out
+
+
+def nccl_cards_check(torch, devices, card, backend="nccl"):
+    """Data parallelism over NCCL across the cards `devices` (cuda:0..n-1):
+    the DP kernel step on one rank a card against the one-process step
+    (`dp_ranks_check`), `sequence --parallel n` (the command spawns its
+    ranks; every boundary's `check_replicas` runs in it) against
+    `sequence --parallel 1`, both in f32: the same cycle, and final states
+    (`_cli_states_agree`) at most UPDATE_RATIO x as far apart as those of
+    the one-rank run and the same run without the kernel flags (two
+    summation orders of one process) or within PAR_CLI_FLOOR; and a
+    bf16 server over the n cards (a weight replica a card) against the
+    unmeshed one on the first at 1, 37 and 256 rows. Returns the results
+    and the ranks' launches. (`backend` "gloo" with CPU devices rehearses
+    the DP step.)"""
+    from cpg_tpu_torch.data.augment import cifar_eval_preprocess
+    from cpg_tpu_torch.parallel.mesh import make_mesh
+    from cpg_tpu_torch.serve import TaskServer
+    from cpg_tpu_torch.utils.checkpoint import load_state
+
+    n = len(devices)
+    dp, ranks = dp_ranks_check(torch, {
+        "devices": devices, "backend": backend, "mult": PAR_MULT,
+        "batch": BATCH}, card)
+    launched = {k.replace("parallel_rank", "parallel_nccl_rank"): v
+                for k, v in ranks.items()}
+    f32 = ["--dtype", "float32", "--allow_acc_diff", "1.0"]
+    tmp = tempfile.mkdtemp(prefix="par_nccl_")
+    try:
+        rc1, s1 = _cli(_par_cli_argv(os.path.join(tmp, "p1"),
+                                     ["--parallel", "1", *f32]))
+        rcd, _ = _cli([a for a in _par_cli_argv(os.path.join(tmp, "pd"),
+                                                ["--parallel", "1", *f32])
+                       if a not in ("--use-pallas-conv", "--fused-chain")])
+        if rc1 or rcd:
+            raise AssertionError(f"sequence --parallel 1: exit {rc1}, "
+                                 f"without the kernel flags {rcd}")
+        p = subprocess.run(
+            [sys.executable, "-m", "cpg_tpu_torch",
+             *_par_cli_argv(os.path.join(tmp, "pn"),
+                            ["--parallel", str(n), *f32])],
+            capture_output=True, text=True, timeout=600)
+        if p.returncode:
+            raise AssertionError(f"sequence --parallel {n} over NCCL: exit "
+                                 f"{p.returncode}\n{p.stderr[-3000:]}")
+        sn = json.loads(p.stdout.strip().splitlines()[-1])
+        if _cycle_of(sn) != _cycle_of(s1):
+            raise AssertionError(f"--parallel {n}: {sn} against {s1}")
+        apart, yard = {}, {}
+        for i, t in enumerate(s1["tasks"]):
+            name = f"task{i + 1:02d}_{t['name']}"
+            a, b, c = (load_state(os.path.join(tmp, d, name),
+                                  device=devices[0])
+                       for d in ("pn", "p1", "pd"))
+            apart[name] = _cli_states_agree(torch, a, b)
+            yard[name] = _cli_states_agree(torch, c, b)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bound = {m: max(floor, UPDATE_RATIO * max(y[m] for y in yard.values()))
+             for m, floor in PAR_CLI_FLOOR.items()}
+    if any(d[m] > bound[m] for d in apart.values() for m in bound):
+        raise AssertionError(f"sequence --parallel {n}: {apart} from "
+                             f"--parallel 1's, bound {bound} (the default "
+                             f"step's run: {yard})")
+    state = build_state(torch, torch.device(devices[0]), width_mult=PAR_MULT)
+    ref = TaskServer(state, cifar_eval_preprocess, fused_chain=True,
+                     device=devices[0])
+    srv = TaskServer(state, cifar_eval_preprocess, fused_chain=True,
+                     mesh=make_mesh(devices=devices))
+    rng = np.random.RandomState(SEED + 11)
+    serve = {}
+    try:
+        for rows in PAR_SERVE_ROWS:
+            x = _inputs((32, 32, 3), rows, rng)
+            got, want = srv.predict(2, x), ref.predict(2, x)
+            err, scale = float(np.abs(got - want).max()), float(
+                np.abs(want).max())
+            if got.shape != want.shape or err > 2e-2 * scale:
+                raise AssertionError(f"server over {devices}: {rows} rows: "
+                                     f"{err} of {scale}")
+            serve[rows] = dict(max_abs_err=err,
+                               bit_equal=bool(np.array_equal(got, want)))
+    finally:
+        srv.close()
+    out = dict(dp=dp, cli=dict(summary=sn, against_parallel_1=s1,
+                               states_apart=apart, default_step_apart=yard,
+                               bound=bound), serve=serve)
+    print(f"parallel NCCL across {n} cards: " + json.dumps(
+        {k: v for k, v in out.items() if k != "dp"}) + f" on {card}",
+        flush=True)
+    return out, launched
+
+
 def doctor_phase(card):
     """`python -m cpg_tpu_torch doctor --json` in a subprocess: exit 0 with
     the card's name, count, capability 9.0 and power limit in the report;
@@ -3828,6 +4411,11 @@ def main() -> int:
     results["textcls"]["cycle"] = text
     torch.cuda.empty_cache()
     t = lap("textcls_cycle", t)
+    par, par_launched = parallel_phase(torch, dev, counts, card)
+    launched.update(par_launched)
+    results["vgg16_bn_cifar"]["parallel"] = par
+    torch.cuda.empty_cache()
+    t = lap("parallel", t)
     results["doctor"] = doctor_phase(card)
     lap("doctor", t)
     # every phase that should reach a kernel did
@@ -3875,7 +4463,14 @@ def main() -> int:
             "textcls/cycle": DENSE_EVAL_KERNELS + TEXT_TRAIN_KERNELS,
             "vit_moe_cifar/eval": DENSE_EVAL_KERNELS,
             "vit_moe_cifar/train": ["flash_bwd", "masked_matmul_bwd_dx",
-                                    "masked_matmul_bwd_dw"]}
+                                    "masked_matmul_bwd_dw"],
+            # each rank of the two-rank step, and `--parallel 1`: K1-K6
+            **{f"vgg16_bn_cifar/parallel_{who}": [
+                "masked_conv_fwd", "masked_conv_bwd_dx", "masked_conv_bwd_dw",
+                "masked_conv_select", "masked_conv_im2col", "fused_chain_fwd",
+                "fused_chain_bwd_dx", "fused_chain_bwd_dw"]
+               for who in [f"rank{r}" for r in range(PAR_RANKS)] + ["cli"]},
+            "vgg16_bn_cifar/parallel_serve": ["fused_chain_fwd"]}
     for phase, names in need.items():
         for k in names:
             if launched[phase][k] == 0:

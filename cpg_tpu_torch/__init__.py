@@ -13,7 +13,10 @@ Entry points (`serve.TaskServer`, `inference.predict`,
 `python -m cpg_tpu_torch sequence|baseline|packnet|pae|check|stats|
 inference|export|export-torch|import-torch|serve`) run on the card by
 default and raise when CUDA is missing; pass `device="cpu"` to run on the
-CPU, where every kernel wrapper uses its plain PyTorch version.
+CPU, where every kernel wrapper uses its plain PyTorch version. Training
+runs data-parallel over torch.distributed ranks, one process a device
+(`parallel/*`: `Manager(mesh=)`, `run_sequence(mesh=)`, `sequence
+--parallel N`), and `TaskServer(mesh=)` serves over a process's devices.
 """
 
 from .core.state import CPGState, TaskEntry

@@ -36,8 +36,14 @@ vit_moe_cifar` runs the MoE ViT on the cifar100 tasks). `--memmap-dir D`
 replaces the experiment's task data with memory-mapped datasets (one
 `data/stream.py` directory a task under D, in name order; a `{"loss":
 "angle"}` entry reattaches the A-Softmax loss) and `--native-loader`
-gathers training batches with the C++ loader. Options whose modules are
-not ported yet (`--parallel*`, `--shard-activations`) and the XLA-only
+gathers training batches with the C++ loader. `--parallel N` trains
+data-parallel over N ranks, one process a device (parallel/*): under
+torchrun each process is the rank it is given; otherwise the command
+spawns the N ranks itself (torch.multiprocessing, a file store in a
+temporary directory) on cuda:0..N-1 over NCCL, or on the CPU over gloo with
+`--device cpu`, and `--parallel 1` runs as the one rank of a world in this
+process. Rank 0 prints the summary. Options whose modules are not ported
+yet (`--parallel-model` > 1, `--shard-activations`) and the XLA-only
 `--remat`, `--remat-policy`, `--scan-blocks` and `--scoped-vmem-kib` stop
 with an error naming them.
 Checkpoints are this package's (utils/checkpoint.py).
@@ -85,7 +91,6 @@ EXPERIMENT_PRESETS = {
 # options of `cpg_tpu`'s parser that this package does not run yet:
 # (attribute, is-set test, what is missing)
 UNPORTED = [
-    ("parallel", bool, "multi-device training (ROADMAP Queue 1, item 12)"),
     ("parallel_model", lambda v: v != 1,
      "model-axis sharding (ROADMAP Queue 1, item 12)"),
     ("shard_activations", bool,
@@ -346,7 +351,9 @@ def _add_common(p):
                    help="ImageNet-pretrained task-1 weights npz (torch "
                         "state_dict keys or this package's keys)")
     p.add_argument("--parallel", type=int, default=0, metavar="N",
-                   help="not ported (stops with an error unless 0)")
+                   help="train data-parallel over N ranks, one process a "
+                        "device (0 = one device without a process group); "
+                        "spawns the ranks unless run under torchrun")
     p.add_argument("--parallel-model", type=int, default=1, metavar="M",
                    help="not ported (stops with an error unless 1)")
     p.add_argument("--shard-activations", action="store_true",
@@ -742,12 +749,104 @@ def _pretrained_state(args, arch):
     return st
 
 
-def _cycle(args) -> int:
+def _spawn_ranks(args, argv) -> int:
+    """Run the command in `args.parallel` spawned ranks (see the module
+    docstring); the kernels are built here first, once."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
     from .core.state import resolve_device
-    from .models import takes_tokens
+
+    n = args.parallel
+    if resolve_device(args.device).type == "cuda":
+        have = torch.cuda.device_count()
+        if have < n:
+            raise SystemExit(f"--parallel {n} x {args.parallel_model} needs "
+                             f"{n} devices, have {have}")
+        from .ops._build import build_all
+
+        build_all()
+    with tempfile.TemporaryDirectory(prefix="cpg_ranks_") as tmp:
+        mp.start_processes(_rank_main, args=(argv, n, f"file://{tmp}/store"),
+                           nprocs=n, start_method="spawn")
+    return 0
+
+
+def _rank_main(rank: int, argv, world: int, store: str) -> None:
+    """One spawned rank: join the group, then run the command."""
+    import torch
+
+    from .parallel import distributed as pd
+
+    args = _parse(argv)
+    if args.device == "cpu":  # the ranks share this process's threads
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+        dev = "cpu"
+    else:
+        dev = f"cuda:{rank}"
+    pd.initialize(store, world, rank, device=dev)
+    try:
+        _cycle(args)
+    finally:
+        pd.shutdown()
+
+
+def _join_ranks(args, stack):
+    """This process's mesh under `--parallel`: the rank torchrun gave it,
+    or the one rank of a world in this process (`--parallel 1`), whose
+    group `stack` closes; a group already up is used as it is."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from .parallel import distributed as pd
+    from .parallel.mesh import make_mesh
+
+    if not dist.is_initialized():
+        if "RANK" in os.environ:
+            pd.initialize(device="cpu" if args.device == "cpu" else None)
+        else:
+            tmp = stack.enter_context(
+                tempfile.TemporaryDirectory(prefix="cpg_ranks_"))
+            pd.initialize(f"file://{tmp}/store", 1, 0, device=args.device)
+        stack.callback(pd.shutdown)
+    mesh = make_mesh()
+    if mesh.size != args.parallel:
+        raise SystemExit(f"--parallel {args.parallel}: the process group "
+                         f"has {mesh.size} ranks")
+    return mesh
+
+
+def _cycle(args, argv=None) -> int:
+    import contextlib
+    import os
+
+    from .core.state import resolve_device
 
     _refuse_unported(args)
     resolve_device(args.device)
+    if not args.parallel:
+        return _run_cycle(args, None)
+    if args.cmd == "baseline":
+        raise SystemExit("--parallel: the baseline command trains each task "
+                         "on one device")
+    import torch.distributed as dist
+
+    if (args.parallel > 1 and "RANK" not in os.environ
+            and not dist.is_initialized()):
+        return _spawn_ranks(args, argv)
+    with contextlib.ExitStack() as stack:
+        mesh = _join_ranks(args, stack)
+        args.device = str(mesh.device)
+        return _run_cycle(args, mesh)
+
+
+def _run_cycle(args, mesh) -> int:
+    from .models import takes_tokens
+
     arch, tasks, aug, prep = _experiment_tasks(args)
     goals = None
     if args.goals_file and args.cmd != "baseline":  # baseline WRITES it
@@ -794,6 +893,8 @@ def _cycle(args) -> int:
         init_kw["model_kwargs"] = {"vocab": int(vocab)}
         init_kw["batch_hw"] = (int(seq_len),)
 
+    if mesh is not None:
+        init_kw["mesh"] = mesh
     state, reports = runner(
         arch, tasks, _train_cfg(args), _seq_cfg(args), goals=goals,
         augment_fn=aug, preprocess_fn=prep,
@@ -805,6 +906,8 @@ def _cycle(args) -> int:
         "tasks": [{"name": r.name, "top1": r.final_acc,
                    "ratio": r.chosen_ratio, "grew": r.grew}
                   for r in reports]}
+    if mesh is not None and not mesh.is_main:
+        return 0  # rank 0 reports
     if args.experiment == "face" and state.num_tasks >= 1:
         summary["lfw_verification"] = _lfw_verification(state, prep,
                                                         args.device)
@@ -843,14 +946,22 @@ def _lfw_verification(state, prep, device):
             "n_pairs": int(len(same))}
 
 
-def main(argv=None):
+def _parse(argv):
     args = build_parser().parse_args(argv)
+    if args.cmd not in _TOOLS:
+        if args.preset:
+            _apply_preset(args)
+        from .utils import set_logger
+
+        set_logger(args.logfile)
+    return args
+
+
+def main(argv=None):
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parse(argv)
     if args.cmd in _TOOLS:
         return _TOOLS[args.cmd](args)
-    if args.preset:
-        _apply_preset(args)
-
-    from .utils import set_logger
-
-    set_logger(args.logfile)
-    return _cycle(args)
+    return _cycle(args, argv)

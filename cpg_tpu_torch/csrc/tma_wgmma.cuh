@@ -442,18 +442,20 @@ inline EncodeIm2col encode_im2col() {
 
 // cuTensorMapEncodeTiled is a driver call: it fails unless a context is
 // current in the calling host thread, and a serving thread can reach it
-// before any runtime call has made one current there. So each host thread
-// binds the current device's primary context once (cudaSetDevice, then a
-// no-op cudaFree that makes it current).
+// before any runtime call has made one current there. So a host thread
+// binds the current device's primary context (cudaSetDevice, then a no-op
+// cudaFree that makes it current) whenever its current device is not the
+// one it bound last: a thread may launch on several cards in turn.
 inline bool bind_context() {
-  thread_local bool bound = false;
-  if (!bound) {
-    int dev = 0;
-    bound = cudaGetDevice(&dev) == cudaSuccess &&
-            cudaSetDevice(dev) == cudaSuccess &&
-            cudaFree(nullptr) == cudaSuccess;
+  thread_local int bound = -1;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return false;
+  if (dev != bound) {
+    if (cudaSetDevice(dev) != cudaSuccess || cudaFree(nullptr) != cudaSuccess)
+      return false;
+    bound = dev;
   }
-  return bound;
+  return true;
 }
 
 // a dense row-major bf16 tensor of `rank` dims (dims[0] innermost), in

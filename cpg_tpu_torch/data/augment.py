@@ -10,12 +10,28 @@ training flipped at random, uncropped.
 The random draws come from an explicit `torch.Generator`, or are handed in
 as arrays: `rng` may be a `(offsets, flips)` pair, offsets (N, 2) integers
 in [0, 2*pad] (row, column) and flips (N,) booleans (the face augment:
-the flips alone), so a test can give the port `cpg_tpu`'s own draws.
+the flips alone), so a test can give the port `cpg_tpu`'s own draws. In
+data-parallel training `rng` is a `Rows`: the draws of the global batch,
+of which each rank keeps its rows, so the ranks together augment exactly
+as one process would.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Rows:
+    """`rng`'s draws for a global batch of `n` rows, of which this rank's
+    batch is `rows`."""
+
+    rng: object
+    n: int
+    rows: slice
+
 
 # CIFAR-100 channel statistics (torchvision convention)
 CIFAR100_MEAN = (0.5071, 0.4865, 0.4409)
@@ -39,11 +55,22 @@ def crop_flip_draws(n: int, generator: torch.Generator, pad: int):
     return offs, flips
 
 
+def _crop_flips(rng, n: int, pad: int):
+    """(offsets, flips) for n rows: drawn from a generator, this rank's
+    rows of the global draws from a `Rows`, else `rng` itself (injected
+    draws)."""
+    if isinstance(rng, Rows):
+        offs, flips = _crop_flips(rng.rng, rng.n, pad)
+        return offs[rng.rows], flips[rng.rows]
+    if isinstance(rng, torch.Generator):
+        return crop_flip_draws(n, rng, pad)
+    return rng
+
+
 def random_crop_flip(x: torch.Tensor, rng, pad: int) -> torch.Tensor:
     """Per-sample zero-pad random crop + horizontal flip. x: (N,H,W,C)."""
     n, h, w, _ = x.shape
-    offs, flips = (crop_flip_draws(n, rng, pad)
-                   if isinstance(rng, torch.Generator) else rng)
+    offs, flips = _crop_flips(rng, n, pad)
     offs = torch.as_tensor(offs, device=x.device).long()
     flips = torch.as_tensor(flips, device=x.device).bool().reshape(n)
     xp = torch.nn.functional.pad(x, (0, 0, pad, pad, pad, pad))
@@ -78,14 +105,21 @@ def imagenet_eval_preprocess(x_uint8: torch.Tensor) -> torch.Tensor:
                      IMAGENET_STD)
 
 
+def _face_flips(rng, n: int):
+    if isinstance(rng, Rows):
+        return _face_flips(rng.rng, rng.n)[rng.rows]
+    if isinstance(rng, torch.Generator):
+        return torch.randint(0, 2, (n,), generator=rng,
+                             device=rng.device).bool()
+    return rng
+
+
 def face_train_augment(x_uint8: torch.Tensor, rng) -> torch.Tensor:
     """Face crops: (x - 127.5) / 128 and a random horizontal flip per
     sample (`rng`: a torch.Generator, or the (N,) flips)."""
     x = (x_uint8.to(torch.float32) - 127.5) / 128.0
     n = x.shape[0]
-    flips = (torch.randint(0, 2, (n,), generator=rng,
-                           device=rng.device).bool()
-             if isinstance(rng, torch.Generator) else rng)
+    flips = _face_flips(rng, n)
     flips = torch.as_tensor(flips, device=x.device).bool().reshape(n, 1, 1, 1)
     return torch.where(flips, x.flip(2), x)
 

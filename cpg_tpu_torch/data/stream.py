@@ -20,6 +20,8 @@ from typing import Dict, Iterable, Iterator, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import require_ranks
+
 _META = "meta.json"
 
 
@@ -86,16 +88,20 @@ class DevicePrefetcher:
     is written again only after its previous copy's event has completed
     (writing it earlier would hand the step another batch's rows);
     `rewrites` counts the pairs so written again. On the CPU the batches
-    pass through unchanged. `sharding` (a device mesh) waits for
-    multi-device training and raises.
+    pass through unchanged. With `sharding` (parallel/mesh.py
+    `batch_sharding(mesh)`, the mesh over the ranks) `it` yields global
+    batches and this rank's rows of each are staged onto its device.
     """
 
-    def __init__(self, it: Iterable[Tuple[np.ndarray, np.ndarray]], device,
-                 depth: int = 2, sharding=None):
+    def __init__(self, it: Iterable[Tuple[np.ndarray, np.ndarray]],
+                 device=None, depth: int = 2, sharding=None):
         if sharding is not None:
-            raise ValueError(
-                "DevicePrefetcher(sharding=...): multi-device training is not "
-                "ported yet (ROADMAP Queue 1, item 12)")
+            require_ranks(sharding.mesh)
+            device = sharding.mesh.device
+            it = ((x[sharding.rows(len(x))], y[sharding.rows(len(y))])
+                  for x, y in it)
+        elif device is None:
+            raise ValueError("DevicePrefetcher needs a device or a sharding")
         self._it = iter(it)
         self.device = torch.device(device)
         self._depth = max(depth, 1)

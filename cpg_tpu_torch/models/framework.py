@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.conv import conv2d_nhwc, resolve_padding
+from ..parallel.collectives import all_reduce_sum, world_size
 
 
 @dataclass
@@ -113,6 +114,9 @@ class Ctx:
     # calibration collector: the int8 path records each layer's observed
     # activation scale (the max over calls) into this dict
     act_stats: Optional[Dict[str, float]] = None
+    # data-parallel training: the process group whose ranks' batches make
+    # the global batch; BatchNorm takes its statistics over all of it
+    sync_group: Optional[object] = None
 
     def shared_param(self, name, shape, init_fn):
         if self.mode == "init":
@@ -309,7 +313,9 @@ BN_EPS = 1e-5
 def _bn_moments(ctx: Ctx, name: str, x: torch.Tensor):
     """Register affine + running params; return (mean, var, scale, bias) for
     this call (batch stats in train, running stats in eval) and record the
-    running-stat updates. Batch stats use the one-pass E[x^2] - mean^2."""
+    running-stat updates. Batch stats use the one-pass E[x^2] - mean^2;
+    under `ctx.sync_group` over the global batch (the unbiased factor from
+    its count), their gradients reaching every rank's rows."""
     c = x.shape[-1]
     scale = ctx.private_param(f"{name}/scale", (c,), _ones)
     bias = ctx.private_param(f"{name}/bias", (c,), _zeros)
@@ -317,9 +323,16 @@ def _bn_moments(ctx: Ctx, name: str, x: torch.Tensor):
     if ctx.train:
         dims = tuple(range(x.dim() - 1))
         xf = x.float()
-        mean = xf.mean(dims)
-        var = torch.clamp_min(xf.square().mean(dims) - mean.square(), 0.0)
         n = math.prod(x.shape[d] for d in dims)
+        if ctx.sync_group is None:
+            mean = xf.mean(dims)
+            msq = xf.square().mean(dims)
+        else:  # [sum x, sum x^2] over the global batch, one all-reduce
+            sums = all_reduce_sum(torch.stack(
+                [xf.sum(dims), xf.square().sum(dims)]), ctx.sync_group)
+            n *= world_size(ctx.sync_group)
+            mean, msq = sums[0] / n, sums[1] / n
+        var = torch.clamp_min(msq - mean.square(), 0.0)
         unbiased = var * (n / max(n - 1, 1))
         ctx.new_bn_state[name + "/mean"] = (1 - BN_MOMENTUM) * rmean + BN_MOMENTUM * mean
         ctx.new_bn_state[name + "/var"] = (1 - BN_MOMENTUM) * rvar + BN_MOMENTUM * unbiased
@@ -459,10 +472,12 @@ def apply(model_fn: Callable, shared: Dict, private: Dict, bn_state: Dict, x,
           train: bool, compute_dtype=torch.float32,
           masking: Optional[Masking] = None, fused_chain: bool = False,
           flash_attention: bool = False, quant_scales=None, act_scales=None,
-          act_stats=None, qkv_fused: Optional[bool] = None, **kwargs):
+          act_stats=None, qkv_fused: Optional[bool] = None,
+          sync_group=None, **kwargs):
     """Run the model. With `masking=None`, `shared` holds pre-masked
     effective params; with a Masking, `shared` holds RAW weights. With
-    `quant_scales` (eval only), `shared` holds int8 kernels."""
+    `quant_scales` (eval only), `shared` holds int8 kernels. `sync_group`
+    (training) synchronises BatchNorm's statistics over its ranks."""
     if quant_scales is not None and train:
         raise ValueError("int8 (quant_scales) is eval-only")
     ctx = Ctx(mode="apply", train=train, shared=shared, private=private,
@@ -470,6 +485,6 @@ def apply(model_fn: Callable, shared: Dict, private: Dict, bn_state: Dict, x,
               masking=masking, fused_chain=fused_chain,
               flash_attention=flash_attention, quant_scales=quant_scales,
               act_scales=act_scales, act_stats=act_stats,
-              qkv_fused=qkv_fused)
+              qkv_fused=qkv_fused, sync_group=sync_group)
     out = model_fn(ctx, x, **kwargs)
     return out, ctx.new_bn_state

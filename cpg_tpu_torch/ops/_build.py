@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 KERNELS = ("masked_conv_fwd", "masked_conv_bwd_dx", "masked_conv_bwd_dw",
@@ -101,3 +103,12 @@ def load(name: str) -> ctypes.CDLL:
                     build_all()
                 lib = _libs[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def launch(fn, t: "torch.Tensor", *args) -> int:
+    """`fn(*args, stream)` with `t`'s card current in this thread and its
+    current stream last: a launcher runs on the thread's current device
+    (runtime state is per host thread), so a thread that launched on one
+    card can launch on another. Returns the launcher's CUDA error code."""
+    with torch.cuda.device(t.device):
+        return fn(*args, torch.cuda.current_stream(t.device).cuda_stream)

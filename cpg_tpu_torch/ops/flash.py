@@ -308,10 +308,6 @@ def _checked_lse(q, a):
     return a.contiguous()
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _raise_on(err, name):
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -331,10 +327,9 @@ def flash_fwd(q, k, v, causal: bool = False):
         grid = ()
         if q.dtype == torch.bfloat16:
             grid = (fwd_grid(n, tt, h, hd, _sm_count(q.device.index))[1],)
-        err = _fn("flash_fwd", q.dtype)(
+        err = _build.launch(_fn("flash_fwd", q.dtype), q,
             t["q"].data_ptr(), t["k"].data_ptr(), t["v"].data_ptr(),
-            o.data_ptr(), lse.data_ptr(), n, tt, h, hd, int(causal), *grid,
-            _stream(q))
+            o.data_ptr(), lse.data_ptr(), n, tt, h, hd, int(causal), *grid)
         _raise_on(err, "flash_fwd")
         LAUNCHES += 1
     return o, lse
@@ -352,11 +347,10 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False):
     dq = torch.empty_like(t["q"])
     d = torch.empty((n, h, tt), dtype=torch.float32, device=q.device)
     if dq.numel():
-        err = _fn("flash_bwd_dq", q.dtype)(
+        err = _build.launch(_fn("flash_bwd_dq", q.dtype), q,
             t["q"].data_ptr(), t["k"].data_ptr(), t["v"].data_ptr(),
             t["o"].data_ptr(), t["do"].data_ptr(), lse.data_ptr(),
-            dq.data_ptr(), d.data_ptr(), n, tt, h, hd, int(causal),
-            _stream(q))
+            dq.data_ptr(), d.data_ptr(), n, tt, h, hd, int(causal))
         _raise_on(err, "flash_bwd_dq")
         LAUNCHES_BWD_DQ += 1
     return dq, d
@@ -373,10 +367,10 @@ def flash_bwd_dkv(q, k, v, do, lse, d, causal: bool = False):
     n, tt, h, hd = q.shape
     dk, dv = torch.empty_like(t["k"]), torch.empty_like(t["v"])
     if dk.numel():
-        err = _fn("flash_bwd_dkv", q.dtype)(
+        err = _build.launch(_fn("flash_bwd_dkv", q.dtype), q,
             t["q"].data_ptr(), t["k"].data_ptr(), t["v"].data_ptr(),
             t["do"].data_ptr(), lse.data_ptr(), d.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), n, tt, h, hd, int(causal), _stream(q))
+            dv.data_ptr(), n, tt, h, hd, int(causal))
         _raise_on(err, "flash_bwd_dkv")
         LAUNCHES_BWD_DKV += 1
     return dk, dv
@@ -399,11 +393,11 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool = False):
     dq, dk, dv = (torch.empty_like(t[x]) for x in ("q", "k", "v"))
     if dq.numel():
         plan = bwd_plan(n, tt, h, hd, _sm_count(q.device.index))
-        err = _fn("flash_bwd_wgmma", q.dtype)(
+        err = _build.launch(_fn("flash_bwd_wgmma", q.dtype), q,
             t["q"].data_ptr(), t["k"].data_ptr(), t["v"].data_ptr(),
             t["o"].data_ptr(), t["do"].data_ptr(), lse.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), n, tt, h, hd,
-            int(causal), plan.stages, plan.grid, _stream(q))
+            int(causal), plan.stages, plan.grid)
         _raise_on(err, "flash_bwd")
         LAUNCHES_BWD += 1
     return dq, dk, dv

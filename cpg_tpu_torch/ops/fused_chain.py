@@ -315,10 +315,6 @@ def _checked(x, a, b, w_shape, dot_dtype, fwd: bool, tensors):
             raise ValueError(f"fused_chain kernel: {name} must be 16-byte aligned")
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _launch_fwd(x, a, b, w, dot_dtype):
     """K4: y, on the GEMM route (`fwd_route`) or the earlier kernel."""
     global LAUNCHES
@@ -332,12 +328,11 @@ def _launch_fwd(x, a, b, w, dot_dtype):
     if fwd_route(x, w, dot_dtype):
         (_, _, box_h, box_n), bn, stages, grid, _ = _mm.fused_fwd_plan(
             n, h, wd, cin, cout, _mm._sms(x.device.index or 0))
-        err = _fn("fused_chain_fwd", dot_dtype, gemm=True)(
-            *ptrs, n, h, wd, cin, cout, box_h, box_n, bn, stages, grid,
-            _stream(x))
+        err = _build.launch(_fn("fused_chain_fwd", dot_dtype, gemm=True), x,
+            *ptrs, n, h, wd, cin, cout, box_h, box_n, bn, stages, grid)
     else:
-        err = _fn("fused_chain_fwd", dot_dtype)(*ptrs, n, h, wd, cin, cout,
-                                                _stream(x))
+        err = _build.launch(_fn("fused_chain_fwd", dot_dtype), x, *ptrs, n,
+                            h, wd, cin, cout)
     if err:
         raise RuntimeError(f"fused_chain_fwd launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -371,12 +366,11 @@ def _launch_bwd_dx(x, a, b, w, g, dot_dtype):
                              "aligned on the GEMM route")
         (_, _, box_h, box_n), bn, stages, grid = _mm.fused_dx_plan(
             n, h, wd, cin, cout, _mm._sms(x.device.index or 0))
-        err = _fn("fused_chain_bwd_dx", dot_dtype, gemm=True)(
-            *ptrs, n, h, wd, cin, cout, box_h, box_n, bn, stages, grid,
-            _stream(x))
+        err = _build.launch(_fn("fused_chain_bwd_dx", dot_dtype, gemm=True), x,
+            *ptrs, n, h, wd, cin, cout, box_h, box_n, bn, stages, grid)
     else:
-        err = _fn("fused_chain_bwd_dx", dot_dtype)(*ptrs, n, h, wd, cin,
-                                                   cout, _stream(x))
+        err = _build.launch(_fn("fused_chain_bwd_dx", dot_dtype), x, *ptrs,
+                            n, h, wd, cin, cout)
     if err:
         raise RuntimeError(f"fused_chain_bwd_dx launch failed: CUDA error {err}")
     LAUNCHES_BWD_DX += 1
@@ -404,9 +398,9 @@ def _launch_bwd_dw(x, a, b, g, dot_dtype):
     # f32 partials of the split-K reduction; with one split K6 writes dw
     ws = (torch.empty((s, 9 * cin, cout), dtype=torch.float32, device=x.device)
           if s > 1 or dot_dtype != torch.bfloat16 else dw)
-    err = _fn("fused_chain_bwd_dw", dot_dtype)(
+    err = _build.launch(_fn("fused_chain_bwd_dw", dot_dtype), x,
         x.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(), ws.data_ptr(),
-        dw.data_ptr(), n, h, wd, cin, cout, *extra, _stream(x))
+        dw.data_ptr(), n, h, wd, cin, cout, *extra)
     if err:
         raise RuntimeError(f"fused_chain_bwd_dw launch failed: CUDA error {err}")
     LAUNCHES_BWD_DW += 1

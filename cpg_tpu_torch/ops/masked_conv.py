@@ -469,10 +469,6 @@ def _geometry(x, w, own, stride, padding, tensors):
     return (n, h, wd, cin, ho, wo, cout, kh, kw, stride, pt, pl)
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _raise_on(err, name):
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -489,10 +485,10 @@ def launch_fwd(x, w, own, pm, task_id, stride, padding, threshold,
     y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    err = _fn("masked_conv_fwd", x.dtype)(
+    err = _build.launch(_fn("masked_conv_fwd", x.dtype), x,
         x.data_ptr(), w.data_ptr(), own.data_ptr(), pm.data_ptr(),
         y.data_ptr(), *geo, task_id, float(threshold),
-        int(mask_mode == "ternary"), _stream(x))
+        int(mask_mode == "ternary"))
     _raise_on(err, "masked_conv_fwd")
     return y
 
@@ -510,10 +506,10 @@ def launch_bwd_dx(g, x, w, own, pm, task_id, stride, padding, threshold,
     dx = torch.empty_like(x)
     if dx.numel() == 0:
         return dx
-    err = _fn("masked_conv_bwd_dx", x.dtype)(
+    err = _build.launch(_fn("masked_conv_bwd_dx", x.dtype), x,
         g.data_ptr(), w.data_ptr(), own.data_ptr(), pm.data_ptr(),
         dx.data_ptr(), *geo, task_id, float(threshold),
-        int(mask_mode == "ternary"), _stream(x))
+        int(mask_mode == "ternary"))
     _raise_on(err, "masked_conv_bwd_dx")
     return dx
 
@@ -531,9 +527,8 @@ def launch_bwd_dw(g, x, w, own, task_id, stride, padding):
                      device=x.device)
     dw = torch.empty(w.shape, dtype=torch.float32, device=x.device)
     dpm = torch.empty_like(dw)
-    err = _fn("masked_conv_bwd_dw", x.dtype)(
+    err = _build.launch(_fn("masked_conv_bwd_dw", x.dtype), x,
         x.data_ptr(), g.data_ptr(), w.data_ptr(), own.data_ptr(),
-        ws.data_ptr(), dw.data_ptr(), dpm.data_ptr(), *geo, task_id, s,
-        _stream(x))
+        ws.data_ptr(), dw.data_ptr(), dpm.data_ptr(), *geo, task_id, s)
     _raise_on(err, "masked_conv_bwd_dw")
     return dw, dpm

@@ -566,10 +566,6 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def launch_select(w, own, pm, task_id, threshold, mask_mode, transpose):
     """The select pass: bf16 w_eff (K, N), or w_eff^T (N, K)."""
     _check(w.is_cuda, f"w must be a CUDA tensor, got {w.device}")
@@ -591,10 +587,10 @@ def launch_select(w, own, pm, task_id, threshold, mask_mode, transpose):
                       device=w.device)
     if out.numel() == 0:
         return out
-    err = _lib().masked_matmul_select_bf16(
+    err = _build.launch(_lib().masked_matmul_select_bf16, w,
         w.data_ptr(), own.data_ptr(), pm.data_ptr(), out.data_ptr(), k, n,
         int(task_id), float(threshold), int(mask_mode == "ternary"),
-        int(transpose), _stream(w))
+        int(transpose))
     if err:
         raise RuntimeError(f"masked_matmul_select launch failed: CUDA error {err}")
     return out
@@ -619,9 +615,9 @@ def launch_gemm_tn(a, bt):
     if c.numel() == 0 or r == 0:
         return c.zero_()
     bn, stages, grid = gemm_plan(m, r, nout, _sms(a.device.index or 0))
-    err = _lib().masked_matmul_gemm_tn_bf16(
+    err = _build.launch(_lib().masked_matmul_gemm_tn_bf16, a,
         a.data_ptr(), bt.data_ptr(), c.data_ptr(), m, r, nout, bn, stages,
-        grid, _stream(a))
+        grid)
     if err:
         raise RuntimeError(f"masked_matmul_gemm_tn launch failed: CUDA error {err}")
     return c
@@ -654,10 +650,10 @@ def launch_conv_gemm(a, bt, grid_hw, kh, kw, pad_top, pad_left, dgrad):
         return out
     (_, _, box_h, box_n), bn, stages, grid = conv_plan(
         n, oh, ow, ch, nout, taps, _sms(a.device.index or 0))
-    err = _lib().masked_conv_gemm_bf16(
+    err = _build.launch(_lib().masked_conv_gemm_bf16, a,
         a.data_ptr(), bt.data_ptr(), out.data_ptr(), n, ah, aw, ch, oh, ow,
         nout, kh, kw, pad_top, pad_left, int(dgrad), box_h, box_n, bn,
-        stages, grid, _stream(a))
+        stages, grid)
     if err:
         raise RuntimeError(f"masked_conv_gemm launch failed: CUDA error {err}")
     return out
@@ -706,10 +702,9 @@ def launch_conv_im2col(a, bt, grid_hw, kh, kw, stride, pads, dgrad):
         flat += [i | o_w << 8 | o_h << 16 for i, o_w, o_h in tp]
         flat += [0] * (_MAX_TAPS - len(tp))
     table = (_I * len(flat))(*flat)
-    err = _lib().masked_conv_im2col_gemm_bf16(
+    err = _build.launch(_lib().masked_conv_im2col_gemm_bf16, a,
         a.data_ptr(), bt.data_ptr(), out.data_ptr(), n, ah, aw, ch, oh, ow,
-        nout, taps, stride, int(dgrad), table, len(phases), bn, stages, grid,
-        _stream(a))
+        nout, taps, stride, int(dgrad), table, len(phases), bn, stages, grid)
     if err:
         raise RuntimeError(f"masked_conv_im2col_gemm launch failed: CUDA error {err}")
     return out
@@ -777,10 +772,10 @@ def launch_wgrad(x, g, w, own, task_id, plan=None):
     bn, splits, stages, grid = plan or wgrad_plan(
         m, k, n, _sms(x.device.index or 0), WGRAD_DENSE_ROWS)
     dw, dpm, ws = _wgrad_buffers(w, k, n, bn, splits)
-    err = _wlib().masked_matmul_wgrad_bf16(
+    err = _build.launch(_wlib().masked_matmul_wgrad_bf16, x,
         x.data_ptr(), g.data_ptr(), w.data_ptr(), own.data_ptr(),
         ws.data_ptr(), dw.data_ptr(), dpm.data_ptr(), m, kx, k, n,
-        int(task_id), bn, splits, stages, grid, _stream(x))
+        int(task_id), bn, splits, stages, grid)
     if err:
         raise RuntimeError(f"masked_matmul_wgrad launch failed: CUDA error {err}")
     return dw, dpm
@@ -818,11 +813,11 @@ def launch_wgrad_conv(g, x, w, own, task_id, pad_top, pad_left, plan=None):
     (_, _, box_h, box_n), bn, splits, stages, grid = plan or \
         wgrad_conv_plan(n, ho, wo, cin, cout, kh * kw, _sms(x.device.index or 0))
     dw, dpm, ws = _wgrad_buffers(w, kh * kw * cin, cout, bn, splits)
-    err = _wlib().masked_conv_wgrad_bf16(
+    err = _build.launch(_wlib().masked_conv_wgrad_bf16, x,
         x.data_ptr(), g.data_ptr(), w.data_ptr(), own.data_ptr(),
         ws.data_ptr(), dw.data_ptr(), dpm.data_ptr(), n, h, wd, cin, ho, wo,
         cout, kh, kw, pad_top, pad_left, box_h, box_n, int(task_id), bn,
-        splits, stages, grid, _stream(x))
+        splits, stages, grid)
     if err:
         raise RuntimeError(f"masked_conv_wgrad launch failed: CUDA error {err}")
     return dw, dpm
@@ -853,11 +848,10 @@ def launch_wgrad_im2col(g, x, w, own, task_id, stride, pads, plan=None):
         n * ho * wo, kh * kw * cin, cout, _sms(x.device.index or 0),
         WGRAD_CONV_ROWS)
     dw, dpm, ws = _wgrad_buffers(w, kh * kw * cin, cout, bn, splits)
-    err = _wlib().masked_conv_wgrad_im2col_bf16(
+    err = _build.launch(_wlib().masked_conv_wgrad_im2col_bf16, x,
         x.data_ptr(), g.data_ptr(), w.data_ptr(), own.data_ptr(),
         ws.data_ptr(), dw.data_ptr(), dpm.data_ptr(), n, h, wd, cin, ho, wo,
-        cout, kh, kw, stride, pt, pl, int(task_id), bn, splits, stages, grid,
-        _stream(x))
+        cout, kh, kw, stride, pt, pl, int(task_id), bn, splits, stages, grid)
     if err:
         raise RuntimeError(f"masked_conv_wgrad_im2col launch failed: CUDA error {err}")
     return dw, dpm
@@ -877,9 +871,9 @@ def launch_im2col(x, kh, kw, stride, pads, kp):
     out = torch.empty((n * ho * wo, kp), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
-    err = _wlib().masked_conv_im2col_bf16(
+    err = _build.launch(_wlib().masked_conv_im2col_bf16, x,
         x.data_ptr(), out.data_ptr(), n, h, wd, c, ho, wo, kh, kw, stride, pt,
-        pl, kp, _stream(x))
+        pl, kp)
     if err:
         raise RuntimeError(f"masked_conv_im2col launch failed: CUDA error {err}")
     return out

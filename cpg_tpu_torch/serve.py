@@ -22,9 +22,12 @@ frozen backbone answers requests for many tasks.
     `predict` call (the HTTP front end, server_http.py, uses it).
 
 With `fused_chain=True` the eight BN+ReLU+conv3x3 seams of VGG16 run the fused
-CUDA kernel (ops/fused_chain.py) on the bf16 path. `mesh` serving comes in a
-later slice (ROADMAP Queue 1, item 12) and is refused, as are XLA's
-`compiler_options`.
+CUDA kernel (ops/fused_chain.py) on the bf16 path. `mesh` (parallel/mesh.py
+`make_mesh(devices=...)`, devices of this process) serves data-parallel as
+`cpg_tpu`'s does: one replica of a task's weights a device, the bucket
+floor raised to the mesh size, each bucket split into equal shards run on
+their devices by a thread each, the answers gathered in order. XLA's
+`compiler_options` are refused.
 
 Usage:
     server = TaskServer(state, preprocess_fn=cifar_eval_preprocess)
@@ -34,12 +37,13 @@ Usage:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -77,13 +81,29 @@ def _from_numpy(a: np.ndarray, bf16: bool, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _refuse_unported(quantize, mesh, compiler_options):
+def _mesh_floor(mesh, min_bucket: int) -> int:
+    """The bucket floor over a mesh: at least its size, and a multiple of
+    it, so every padded bucket splits into equal shards."""
+    if mesh.group is not None:
+        raise ValueError(f"{mesh}: a server runs in one process over its "
+                         "own devices (make_mesh(devices=...))")
+    n = mesh.size
+    min_bucket = max(min_bucket, n)
+    if min_bucket % n:
+        raise ValueError(f"min_bucket {min_bucket} not divisible by mesh "
+                         f"size {n}")
+    return min_bucket
+
+
+def _on(dev: torch.device):
+    """Make `dev` the thread's current card, so the kernels launch there."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _refuse_unported(quantize, compiler_options):
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported quantize={quantize!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh serving is not ported to cpg_tpu_torch yet (ROADMAP Queue "
-            "1, item 12)")
     if compiler_options is not None:
         raise NotImplementedError(
             "compiler_options steer XLA only; cpg_tpu_torch has no port")
@@ -102,7 +122,8 @@ def _quantize_tree(eff: Dict[str, torch.Tensor]):
 
 
 class TaskServer:
-    """Frozen-state, multi-task inference server on one device."""
+    """Frozen-state, multi-task inference server on one device, or
+    data-parallel over a mesh's devices."""
 
     def __init__(self, state: CPGState, preprocess_fn: Optional[Callable] = None,
                  compute_dtype=torch.bfloat16, min_bucket: int = 8,
@@ -119,20 +140,26 @@ class TaskServer:
         `cache`: "precompute" (default) selects every task's effective
         weights at load; "lru" keeps shared weights and masks resident once
         and selects a task's weights on its first request, evicting the
-        least recently used beyond `max_cached`."""
-        _refuse_unported(quantize, mesh, compiler_options)
+        least recently used beyond `max_cached`.
+
+        `mesh`: data-parallel over its devices (see the module docstring);
+        the state lives on its first device, which replaces `device`."""
+        _refuse_unported(quantize, compiler_options)
         if cache not in ("precompute", "lru"):
             raise ValueError(f"unsupported cache={cache!r}")
+        if mesh is not None:
+            min_bucket = _mesh_floor(mesh, min_bucket)
+            device = mesh.devices.flat[0]
         self.device = resolve_device(device)
         self.state = state.to(self.device)
         self._setup(preprocess_fn, compute_dtype, min_bucket, max_bucket,
-                    quantize, fused_chain, cache, max_cached)
+                    quantize, fused_chain, cache, max_cached, mesh)
         if cache == "precompute":
             for tid in self.state.tasks:
                 self._materialize(tid)
 
     def _setup(self, preprocess_fn, compute_dtype, min_bucket, max_bucket,
-               quantize, fused_chain, cache, max_cached):
+               quantize, fused_chain, cache, max_cached, mesh):
         self.preprocess_fn = preprocess_fn
         self.compute_dtype = compute_dtype
         self.min_bucket, self.max_bucket = min_bucket, max_bucket
@@ -147,6 +174,11 @@ class TaskServer:
         self._scales: Dict[int, Optional[Dict[str, torch.Tensor]]] = {}
         self._act_scales: Dict[int, Optional[Dict[str, torch.Tensor]]] = {}
         self._lru: List[int] = []  # task access order, most recent last
+        self.mesh = mesh
+        # (task, device) -> (the cached tensors copied, their copies there)
+        self._copies: Dict[Tuple[int, str], Tuple] = {}
+        self._pool = (ThreadPoolExecutor(mesh.size, "mesh-shard")
+                      if mesh is not None and mesh.size > 1 else None)
 
     def _materialize(self, tid: int) -> None:
         """Select (under int8: in f32, then quantize) one task's effective
@@ -181,11 +213,54 @@ class TaskServer:
                     ev = self._lru.pop(0)
                     self._eff.pop(ev, None)
                     self._scales.pop(ev, None)
+                    for key in [k for k in self._copies if k[0] == ev]:
+                        del self._copies[key]
             return self._eff[tid], self._scales.get(tid)
 
+    def _replica(self, tid: int, dev: torch.device, eff, scales):
+        """(eff, scales, activation scales, task) of a task on `dev`: the
+        cached tensors on the server's device, copies of them elsewhere
+        (made once, and again after an eviction or a calibration)."""
+        task, acts = self.state.tasks[tid], self._act_scales.get(tid)
+        if dev == self.device:
+            return eff, scales, acts, task
+        with self._cache_lock:
+            src, rep = self._copies.get((tid, str(dev)), (None, None))
+            if src is None or src[0] is not eff or src[1] is not acts:
+                def mv(tree):
+                    return (None if tree is None
+                            else {k: v.to(dev) for k, v in tree.items()})
+
+                rep = (mv(eff), mv(scales), mv(acts), TaskEntry(
+                    name=task.name, num_classes=task.num_classes,
+                    piggymask=None, private=mv(task.private),
+                    bn_state=mv(task.bn_state), meta=task.meta))
+                self._copies[(tid, str(dev))] = ((eff, acts), rep)
+            return rep
+
+    def _forward_on(self, dev: torch.device, tid: int, eff, scales,
+                    x: np.ndarray) -> np.ndarray:
+        """f32 logits of the rows `x` on `dev` (any thread)."""
+        eff, scales, acts, task = self._replica(tid, dev, eff, scales)
+        with torch.inference_mode(), _on(dev):
+            xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            y = self._forward(tid, eff, scales, acts, xt, task=task)
+            return y.float().cpu().numpy()
+
+    def _bucket(self, tid: int, eff, scales, x: np.ndarray) -> np.ndarray:
+        """Logits of one padded bucket: on the server's device, or in equal
+        shards over the mesh's devices, gathered in order."""
+        if self._pool is None:
+            return self._forward_on(self.device, tid, eff, scales, x)
+        futs = [self._pool.submit(self._forward_on, dev, tid, eff, scales,
+                                  shard)
+                for dev, shard in zip(self.mesh.devices.flat,
+                                      np.split(x, self.mesh.size))]
+        return np.concatenate([f.result() for f in futs])
+
     def _forward(self, tid: int, eff, scales, act_scales, x: torch.Tensor,
-                 act_stats=None) -> torch.Tensor:
-        task = self.state.tasks[tid]
+                 act_stats=None, task=None) -> torch.Tensor:
+        task = task or self.state.tasks[tid]
         xx = self.preprocess_fn(x) if self.preprocess_fn is not None else x
         logits, _ = fw.apply(self.model_fn, eff, task.private, task.bn_state,
                              xx, train=False, compute_dtype=self.compute_dtype,
@@ -231,17 +306,13 @@ class TaskServer:
         n = len(x)
         b = _next_bucket(n, self.min_bucket, self.max_bucket)
         out: List[np.ndarray] = []
-        with torch.inference_mode():
-            for s in range(0, n, b):
-                chunk = x[s:s + b]
-                rows = len(chunk)
-                if rows < b:
-                    chunk = np.concatenate(
-                        [chunk, np.repeat(chunk[-1:], b - rows, 0)])
-                xt = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-                y = self._forward(task_id, eff, scales,
-                                  self._act_scales.get(task_id), xt)
-                out.append(y[:rows].float().cpu().numpy())
+        for s in range(0, n, b):
+            chunk = x[s:s + b]
+            rows = len(chunk)
+            if rows < b:
+                chunk = np.concatenate(
+                    [chunk, np.repeat(chunk[-1:], b - rows, 0)])
+            out.append(self._bucket(task_id, eff, scales, chunk)[:rows])
         return np.concatenate(out)
 
     def predict_mixed(self, requests: Sequence[Tuple[int, np.ndarray]]
@@ -266,8 +337,10 @@ class TaskServer:
         for tid in self.state.tasks:
             self.predict(tid, x)
 
-    def close(self) -> None:  # symmetry with DynamicBatcher; nothing to stop
-        pass
+    def close(self) -> None:
+        """Stop the mesh's shard threads (nothing to stop without one)."""
+        if self._pool is not None:
+            self._pool.shutdown()
 
     # -- deployment artifact -------------------------------------------------
     def export(self, path: str) -> str:
@@ -307,10 +380,13 @@ class TaskServer:
              compiler_options=None, fused_chain: bool = False,
              device="cuda") -> "TaskServer":
         """Reconstruct a server from an `export()` artifact (either
-        package's), on `device`."""
+        package's), on `device`, or data-parallel over `mesh`."""
         with open(os.path.join(path, "serving_meta.json")) as f:
             meta = json.load(f)
-        _refuse_unported(meta.get("quantize"), mesh, compiler_options)
+        _refuse_unported(meta.get("quantize"), compiler_options)
+        if mesh is not None:
+            min_bucket = _mesh_floor(mesh, min_bucket)
+            device = mesh.devices.flat[0]
         dev = resolve_device(device)
         srv = cls.__new__(cls)
         srv.device = dev
@@ -338,7 +414,7 @@ class TaskServer:
             in_shape=tuple(meta["in_shape"]) if meta.get("in_shape") else None)
         dtype = {v: k for k, v in _DTYPE_NAMES.items()}[meta["compute_dtype"]]
         srv._setup(preprocess_fn, dtype, min_bucket, max_bucket,
-                   meta.get("quantize"), fused_chain, "precompute", 0)
+                   meta.get("quantize"), fused_chain, "precompute", 0, mesh)
         srv._eff, srv._scales, srv._act_scales = effs, scales, acts
         return srv
 

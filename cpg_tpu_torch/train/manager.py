@@ -18,8 +18,15 @@ Training batches come from the C++ loader with `native_loader`
 (data/native_loader.py: one loader a Manager, seeded with `seed`, whose
 epochs wrap inside it), else from the NumPy gather; either way they pass
 through `DevicePrefetcher` onto the Manager's device. Both read memmapped
-datasets (data/stream.py) through the map. Multi-device training (`mesh`)
-comes with a later slice and raises here.
+datasets (data/stream.py) through the map.
+
+Data parallelism (`mesh`, parallel/mesh.py, built under a process group):
+every rank runs a Manager over the same data and seed on its own device.
+The state is broadcast from rank 0 at construction, every rank walks the
+same global batch order and keeps its rows (`batch_size` is the global
+batch), the step reduces over the ranks, prune events run the same on every
+rank's bit-equal weights, `eval` sums the ranks' counts and only rank 0
+writes the JSONL record.
 """
 
 from __future__ import annotations
@@ -40,6 +47,10 @@ from ..data.cifar import iterate_batches
 from ..data.native_loader import NativeBatcher
 from ..data.stream import DevicePrefetcher
 from ..models import check_token_ids
+from ..parallel.collectives import all_reduce_sum_
+from ..parallel.mesh import (batch_sharding, local_batch_slice,
+                             make_parallel_train_step, place_state,
+                             require_ranks)
 from ..utils import LOGGER, JsonlWriter
 from .losses import class_logits
 from .step import TrainConfig, make_eval_step, make_train_step, set_lr
@@ -114,16 +125,25 @@ class Manager:
                  native_loader: bool = False,
                  jsonl_path: Optional[str] = None, mesh=None, *,
                  draws: Optional[Callable] = None, device="cuda"):
+        self.mesh = mesh
         if mesh is not None:
-            raise ValueError(
-                "Manager(mesh=...): multi-device training is not ported yet "
-                "(ROADMAP Queue 1, item 12: parallel/* on "
-                "torch.distributed)")
-        self.device = resolve_device(device)
+            require_ranks(mesh)
+            if batch_size % mesh.data_size:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by data-axis "
+                    f"size {mesh.data_size}")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         for split in ("train_x", "test_x"):  # every batch's ids, once
             check_token_ids(state.arch, state.forward_kwargs(task_id),
                             data[split])
         on_device(state, self.device)
+        if mesh is not None:  # every replica starts bit-equal
+            task = state.tasks[task_id]
+            for tree in (state.shared, state.ownership, task.piggymask,
+                         task.private, task.bn_state):
+                place_state(mesh, tree)
         self.state = state
         self.model_fn = model_fn
         self.task_id = task_id
@@ -136,7 +156,8 @@ class Manager:
         self.next_rng = (draws or torch_draws)(seed)
         self.it = 0  # global step (drives annealed losses)
         self.has_piggymask = self.task.piggymask is not None
-        self.jsonl_path = jsonl_path
+        self.jsonl_path = (jsonl_path if mesh is None or mesh.is_main
+                           else None)
 
         kwargs = dict(num_classes=self.task.num_classes, mult=state.width_mult,
                       has_piggymask=self.has_piggymask, cfg=cfg,
@@ -145,6 +166,10 @@ class Manager:
         extra = {} if loss_fn is None else {"loss_fn": loss_fn}
         self.train_step, (self.opt_w, self.opt_pm) = make_train_step(
             model_fn, augment_fn=augment_fn, **kwargs, **extra)
+        if mesh is not None:
+            self.train_step = make_parallel_train_step(self.train_step, mesh)
+        # eval: each rank runs its rows through the plain eval step, and
+        # `eval` sums the counts once
         self.eval_step = make_eval_step(model_fn, preprocess_fn=preprocess_fn,
                                         **kwargs)
         self._batcher = (NativeBatcher(data["train_x"], data["train_y"],
@@ -155,12 +180,15 @@ class Manager:
     def _train_batches(self, steps_per_epoch: int):
         """One epoch of training batches on the Manager's device: the C++
         loader's next `steps_per_epoch` batches, or a NumPy gather in the
-        order of `np_rng`, behind a DevicePrefetcher."""
+        order of `np_rng`, behind a DevicePrefetcher (under a mesh, this
+        rank's rows of each global batch)."""
         if self._batcher is not None:
             it = self._batcher.batches(steps_per_epoch)
         else:
             it = iterate_batches(self.data["train_x"], self.data["train_y"],
                                  self.batch_size, self.np_rng, train=True)
+        if self.mesh is not None:
+            return DevicePrefetcher(it, sharding=batch_sharding(self.mesh))
         return DevicePrefetcher(it, self.device)
 
     # -- optimizer state ----------------------------------------------------
@@ -241,7 +269,7 @@ class Manager:
                  metrics) = self.train_step(
                     shared, pm, private, bn_state, opt_w_state, opt_pm_state,
                     ownership, self.task_id, bx, by,
-                    self.next_rng(len(bx)), self.it)
+                    self.next_rng(self.batch_size), self.it)
                 step_i += 1
                 self.it += 1
             losses.append(float(metrics["loss"]))
@@ -286,11 +314,15 @@ class Manager:
 
         The last batch is padded to the batch size (the steps see one
         shape) and only its valid rows are counted, from the logits; the
-        counts are summed on the device and read once."""
+        counts are summed on the device and read once. Under a mesh each
+        rank runs its rows of every batch and the counts are summed over
+        the ranks."""
         task_id = self.task_id if task_id is None else task_id
         task = self.state.tasks[task_id]
         x, y = self.data["test_x"], self.data["test_y"]
         n, bs = len(x), self.batch_size
+        sl = (slice(0, bs) if self.mesh is None
+              else local_batch_slice(self.mesh, bs))
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
         for s in range(0, n, bs):
             # copies: a memmapped split is read-only
@@ -300,12 +332,15 @@ class Manager:
                 pad = bs - nvalid
                 bx = np.concatenate([bx, np.repeat(bx[-1:], pad, axis=0)])
                 by = np.concatenate([by, np.zeros(pad, by.dtype)])
+            mine = max(0, min(nvalid, sl.stop) - sl.start)  # valid rows here
             logits, _ = self.eval_step(
                 self.state.shared, task.piggymask, task.private,
-                task.bn_state, self.state.ownership, task_id, bx, by)
-            pred = class_logits(logits)[:nvalid].argmax(-1)
-            correct += (pred == torch.from_numpy(by[:nvalid]).to(
-                self.device)).sum()
+                task.bn_state, self.state.ownership, task_id, bx[sl], by[sl])
+            pred = class_logits(logits)[:mine].argmax(-1)
+            correct += (pred == torch.from_numpy(
+                by[sl][:mine]).to(self.device)).sum()
+        if self.mesh is not None:
+            all_reduce_sum_(correct, self.mesh.group)
         return int(correct) / max(n, 1)
 
     # -- one-shot prune (ref --one_shot_prune_perc) --------------------------

@@ -27,6 +27,13 @@ to the device. With the conv kernels on (`use_pallas_conv`,
 `use_fused_chain`), widths the kernels would refuse mid-cycle are refused
 up front (`refuse_kernel_widths`), each check keyed to the flag and dtype
 that need it.
+
+Data parallelism (`mesh`, parallel/mesh.py, over a process group's ranks):
+every rank runs the same cycle on its own device. The inits draw from the
+same seeded generators and the step keeps the replicas bit-equal, so prune
+events, growth and rollbacks run the same everywhere; rank 0 writes the
+checkpoints and records, the ranks meet at a barrier after each write, and
+`check_replicas` holds the ranks' states bit-equal at every task boundary.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from ..models.spherenet import embed_dim as sphere_embed_dim
 from ..models.vgg import conv_channels as vgg_conv_channels
 from ..models.vit import dense_outputs as vit_dense_outputs
 from ..ops.binarize import init_piggymask
+from ..parallel.collectives import agree, barrier, checksum, rank
 from ..utils import LOGGER
 from ..utils.checkpoint import (load_state, remove_after_save, save_state,
                                 wait_for_saves)
@@ -77,6 +85,45 @@ def _restore(state: CPGState, snap: CPGState, dev: torch.device) -> None:
     """Make `state` a device copy of the snapshot `snap`."""
     state.__dict__.update(
         snap.map_arrays(lambda t: t.to(dev, copy=True)).__dict__)
+
+
+def check_replicas(state: CPGState, mesh) -> None:
+    """Raise unless every rank of `mesh` holds the same state: a checksum
+    of every shared, ownership, piggymask, private and BN tensor's bits,
+    compared over the ranks."""
+    if mesh is None or mesh.group is None:
+        return
+    tensors = {f"shared/{k}": v for k, v in state.shared.items()}
+    tensors.update({f"ownership/{k}": v for k, v in state.ownership.items()})
+    for tid, t in state.tasks.items():
+        for name, tree in (("piggymask", t.piggymask), ("private", t.private),
+                           ("bn_state", t.bn_state)):
+            tensors.update({f"task{tid}/{name}/{k}": v
+                            for k, v in (tree or {}).items()})
+    keys = sorted(tensors)
+    same = agree(torch.stack([checksum(tensors[k]) for k in keys]).view(-1),
+                 mesh.group).view(len(keys), 2).all(1)
+    if not bool(same.all()):
+        bad = [k for k, ok in zip(keys, same.tolist()) if not ok]
+        raise RuntimeError(f"replicas differ across the ranks in {len(bad)} "
+                           f"tensors: {bad[:8]}")
+
+
+def _save(state: CPGState, path: str, group) -> None:
+    """Save `state` at `path` from the group's rank 0 (or the only
+    process); the ranks meet after it, so any rank that reads the
+    checkpoint next reads a whole one."""
+    if rank(group) == 0:
+        save_state(state, path)
+    barrier(group)
+
+
+def _remove(path: str, group) -> None:
+    """Retire the transient checkpoint `path` from the group's rank 0; the
+    ranks meet after it."""
+    if rank(group) == 0:
+        remove_after_save(path)
+    barrier(group)
 
 
 def _state_device(state: CPGState) -> torch.device:
@@ -395,8 +442,10 @@ def run_task(state: CPGState, name: str, data: Dict, cfg: TrainConfig,
     (`<prefix>.epoch`). `pick_state` (a restored `.pick` checkpoint) skips
     the pick and re-enters the walk with fresh optimizers; `epoch_state` (a
     restored `.epoch` checkpoint) re-enters an interrupted pick at its
-    saved epoch."""
-    dev = resolve_device(device)
+    saved epoch. With `mesh`, this rank's part of a data-parallel run (see
+    the module docstring)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    group = mesh.group if mesh is not None else None
     on_device(state, dev)
     model_fn, _ = get_model(state.arch)
     seed = seq.seed + state.num_tasks + 1
@@ -452,7 +501,7 @@ def run_task(state: CPGState, name: str, data: Dict, cfg: TrainConfig,
                     return
                 state.tasks[_tid].meta["_epoch_resume"] = {
                     "epoch": completed, "it": _mgr.it, "grew": _grew}
-                save_state(state, checkpoint_prefix + ".epoch")
+                _save(state, checkpoint_prefix + ".epoch", group)
 
         res = mgr.train(_scaled_epochs(seq.finetune_epochs, seq, state),
                         base_lr=seq.lr, start_epoch=start_epoch,
@@ -487,9 +536,9 @@ def run_task(state: CPGState, name: str, data: Dict, cfg: TrainConfig,
         # phase-boundary checkpoint: a crash during the compact walk resumes
         # here instead of redoing pick and growth
         state.tasks[task_id].meta.update(pick_acc=pick_acc, grew=grew)
-        save_state(state, checkpoint_prefix + ".pick")
+        _save(state, checkpoint_prefix + ".pick", group)
         # any intra-pick .epoch checkpoint is superseded once .pick lands
-        remove_after_save(checkpoint_prefix + ".epoch")
+        _remove(checkpoint_prefix + ".epoch", group)
 
     return _compact(state, name, data, cfg, seq, goal_acc, mgr, mgr_kw,
                     model_fn, task_id, pick_acc, grew, record_path, dev, audit)
@@ -534,7 +583,7 @@ def _compact(state, name, data, cfg, seq, goal_acc, mgr, mgr_kw, model_fn,
         ratio_to_acc={str(k): v for k, v in ratio_to_acc.items()},
         chosen_ratio=best_ratio, pick_acc=pick_acc, final_acc=best_acc,
         grew=grew)
-    if record_path:
+    if record_path and (mgr.mesh is None or mgr.mesh.is_main):
         os.makedirs(os.path.dirname(record_path) or ".", exist_ok=True)
         with open(record_path, "w") as f:
             json.dump({str(k): v for k, v in ratio_to_acc.items()}, f)
@@ -578,14 +627,13 @@ def run_sequence(arch: str, tasks: Dict[str, Dict],
     `batch_hw` size a fresh state's shared kernels; ignored with `state`.
     With `seq.checkpoint_dir`, each task's final state is saved as
     `task<NN>_<name>` and a rerun resumes from the final, `.pick` and
-    `.epoch` checkpoints it finds."""
+    `.epoch` checkpoints it finds. With `mesh`, this rank's part of a
+    data-parallel run on the mesh's device for this rank (see the module
+    docstring); the replicas are checked bit-equal after every task."""
     cfg = cfg or TrainConfig()
     seq = seq or SequenceConfig()
-    dev = resolve_device(device)
-    if mesh is not None:
-        raise ValueError(
-            "run_sequence(mesh=...): multi-device training is not ported yet "
-            "(ROADMAP Queue 1, item 12)")
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    group = mesh.group if mesh is not None else None
     if state is not None and state.arch != arch:
         raise ValueError(f"state arch {state.arch} != {arch}")
     start_mult = state.width_mult if state is not None else width_mult
@@ -624,6 +672,7 @@ def run_sequence(arch: str, tasks: Dict[str, Dict],
                     width_mult=restored.width_mult, grew=m.get("grew", 0),
                     images_per_sec=0.0))
                 log.info("task %d/%s: resumed from %s", tid_expected, name, ck)
+                check_replicas(state, mesh)
                 continue
             # ---- phase-granular resume: pick done, compact interrupted -----
             restored = _try_load(ck + ".pick", dev)
@@ -639,15 +688,16 @@ def run_sequence(arch: str, tasks: Dict[str, Dict],
         rep = run_task(state, name, data, cfg, seq,
                        goal_acc=(goals or {}).get(name),
                        augment_fn=augment_fn, preprocess_fn=preprocess_fn,
-                       record_path=rec, checkpoint_prefix=ck,
+                       record_path=rec, mesh=mesh, checkpoint_prefix=ck,
                        pick_state=pick_state, epoch_state=epoch_state,
                        device=dev, init_fn=init_fn, draws=draws)
         reports.append(rep)
+        check_replicas(state, mesh)
         if ck:
-            save_state(state, ck)
+            _save(state, ck, group)
             # the transient phase checkpoints are superseded by the final one
-            remove_after_save(ck + ".pick")
-            remove_after_save(ck + ".epoch")
+            _remove(ck + ".pick", group)
+            _remove(ck + ".epoch", group)
         log.info("task %d/%s done: acc=%.4f ratio=%.2f mult=%.2f free=%.3f",
                  rep.task_id, name, rep.final_acc, rep.chosen_ratio,
                  rep.width_mult, float(free_ratio(state.ownership)))

@@ -19,6 +19,14 @@ PyTorch runs eagerly and has no buffer donation: the step updates the
 parameter tensors and the optimizer states IN PLACE and returns the same
 objects, in the JAX step's return order. The state tensors must live on the
 step's device; x, y and injected augmentation draws are moved there.
+
+Data parallelism (`group`, a torch.distributed process group; see
+parallel/mesh.py `make_parallel_train_step`): x and y are this rank's rows
+of the global batch, `rng` draws the global batch's augmentation and the
+rank keeps its rows, BatchNorm takes the global batch's statistics, the raw
+gradients are averaged over the ranks before the ownership gating and the
+selective decay (so the decay is added once) and before clipping, and the
+metrics are global means. Every rank then takes the same update.
 """
 
 from __future__ import annotations
@@ -31,9 +39,11 @@ import torch
 from ..core.gating import gate_and_decay, gate_piggymask_grads
 from ..core.ownership import FREE
 from ..core.state import resolve_device
+from ..data.augment import Rows
 from ..models import framework as fw
 from ..ops.binarize import DEFAULT_THRESHOLD
 from ..ops.masked import effective_params
+from ..parallel.collectives import all_reduce_mean_, rank, world_size
 from .losses import (accuracy, call_loss, class_logits, cross_entropy,
                      make_cross_entropy)
 
@@ -137,14 +147,15 @@ def build_train_step(model_fn: Callable, *, num_classes: int, mult: float,
     """The train step plus its optimizers:
 
     step(shared, piggymask, private, bn_state, opt_w_state, opt_pm_state,
-         ownership, task_id, x, y, rng, it=0)
+         ownership, task_id, x, y, rng, it=0, *, group=None)
       -> (shared, piggymask, private, new_bn_state, opt_w_state,
           opt_pm_state, {"loss", "acc"})
 
     `rng` goes to `augment_fn(x, rng)` (a torch.Generator, or injected
     draws; see data/augment.py). opt states come from
     `opt_w.init({"shared": shared, "private": private})` and
-    `opt_pm.init(piggymask)`."""
+    `opt_pm.init(piggymask)`. `group`: data-parallel over its ranks (see
+    the module docstring)."""
     dev = resolve_device(device)
     opt_w, opt_pm = make_optimizers(cfg)
     model_kwargs = model_kwargs or {}
@@ -156,10 +167,16 @@ def build_train_step(model_fn: Callable, *, num_classes: int, mult: float,
             "use the default path (use_pallas/use_pallas_conv=False)")
 
     def step(shared, piggymask, private, bn_state, opt_w_state, opt_pm_state,
-             ownership, task_id, x, y, rng, it=0):
+             ownership, task_id, x, y, rng, it=0, *, group=None):
         x = torch.as_tensor(x).to(dev)
         y = torch.as_tensor(y).to(dev)
+        ranks = world_size(group)
+        if ranks == 1:
+            group = None
         if augment_fn is not None:
+            if group is not None:  # this rank's rows of the global draws
+                n, r = len(x), rank(group)
+                rng = Rows(rng, n * ranks, slice(r * n, (r + 1) * n))
             x = augment_fn(x, rng)
         pm = piggymask if has_piggymask else None
         params = [*shared.values(), *private.values(),
@@ -178,7 +195,7 @@ def build_train_step(model_fn: Callable, *, num_classes: int, mult: float,
                     compute_dtype=cfg.compute_dtype, masking=masking,
                     fused_chain=cfg.use_fused_chain,
                     flash_attention=cfg.flash_attention,
-                    qkv_fused=cfg.qkv_fused,
+                    qkv_fused=cfg.qkv_fused, sync_group=group,
                     num_classes=num_classes, mult=mult, **model_kwargs)
                 loss = call_loss(loss_fn, logits, y, it)
                 loss.backward()
@@ -189,6 +206,7 @@ def build_train_step(model_fn: Callable, *, num_classes: int, mult: float,
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            all_reduce_mean_([p.grad for p in params], group)
             g_shared = gate_and_decay({k: w.grad for k, w in shared.items()},
                                       shared, ownership, task_id,
                                       cfg.weight_decay)
@@ -207,8 +225,10 @@ def build_train_step(model_fn: Callable, *, num_classes: int, mult: float,
                 w.masked_fill_(ownership[k] == FREE, 0)
             for p in params:
                 p.grad = None
-            metrics = {"loss": loss.detach(),
-                       "acc": accuracy(class_logits(logits).detach(), y)}
+            means = torch.stack([loss.detach().float(), accuracy(
+                class_logits(logits).detach(), y)])
+            all_reduce_mean_([means], group)
+            metrics = {"loss": means[0], "acc": means[1]}
         new_bn = {k: v.detach() for k, v in new_bn.items()}
         return (shared, piggymask, private, new_bn, opt_w_state, opt_pm_state,
                 metrics)

@@ -1,0 +1,52 @@
+"""Data parallelism over NCCL across every visible card.
+
+`chip_smoke.nccl_cards_check` at n = the visible cards (at least two): the
+VGG16-BN kernel step on one rank a card (global batch 256) against the
+one-process step, f32 and bf16, replicas bit-equal after every step, with
+ms/step of the n ranks and of one process; `sequence --parallel n`
+against `sequence --parallel 1` (in-process, over NCCL at one rank), both
+in f32: the same cycle and final states within f32 summation order; a
+bf16 server with a weight replica on each card against the
+unmeshed one. The JSON goes to `chiprun_out/parallel_cards.json`.
+
+    python3 scripts/torch_parallel_cards.py     # needs two cards or more
+"""
+
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from cpg_tpu_torch.ops import _build  # noqa: E402
+
+
+def main() -> int:
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        print(f"torch_parallel_cards: {n} card(s) visible; needs two",
+              file=sys.stderr)
+        return 1
+    card = cs.card_line()
+    print(f"card: {card} (x{n})", flush=True)
+    print(f"build: {_build.build_all():.1f} s", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    out, launched = cs.nccl_cards_check(
+        torch, [f"cuda:{i}" for i in range(n)], card)
+    out.update(launches=launched, card=card, cards=n)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "parallel_cards.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"parallel ms/step over {n} NCCL ranks, bf16 VGG16-BN kernel step "
+          f"at batch {cs.BATCH}: {out['dp']['ms_per_step_ranks']}, one "
+          f"process {out['dp']['ms_per_step_one_process']:.2f} on {card}",
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

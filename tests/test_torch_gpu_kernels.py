@@ -1213,3 +1213,83 @@ def test_fused_chain_launches_from_many_threads(cuda):
     with concurrent.futures.ThreadPoolExecutor(16) as ex:
         for i, y in ex.map(one, range(192)):
             _check(y, want[i], torch.bfloat16)
+
+
+def test_server_over_a_mesh_of_one_card_twice(cuda):
+    """`TaskServer(mesh=make_mesh(devices=[cuda:0, cuda:0]))`: each bucket
+    split in two, the halves run by two threads on the one card through
+    the fused chain (K4), the answers gathered in order: within the bf16
+    serving bound of the unmeshed server's."""
+    from cpg_tpu_torch.core.pruner import one_shot_prune
+    from cpg_tpu_torch.data.augment import cifar_eval_preprocess
+    from cpg_tpu_torch.parallel.mesh import make_mesh
+    from cpg_tpu_torch.serve import TaskServer
+    from cpg_tpu_torch.train.sequence import init_state, start_task
+
+    g = torch.Generator().manual_seed(0)
+    st = init_state("vgg16_bn_cifar", g, 0.5, device=cuda)
+    start_task(st, "t1", 5, g)
+    st.shared, st.ownership = one_shot_prune(st.shared, st.ownership, 1, 0.5)
+    start_task(st, "t2", 5, g)
+    dev0 = torch.device("cuda", torch.cuda.current_device())
+    ref = TaskServer(st, cifar_eval_preprocess, fused_chain=True, device=cuda)
+    srv = TaskServer(st, cifar_eval_preprocess, fused_chain=True,
+                     mesh=make_mesh(devices=[dev0, dev0]))
+    assert srv.min_bucket == 8
+    rng = np.random.RandomState(1)
+    reqs = [(n, tid, rng.randint(0, 256, (n, 32, 32, 3)).astype(np.uint8))
+            for n in (1, 37, 256) for tid in (1, 2)]
+    fc.LAUNCHES = 0
+    wants = [ref.predict(tid, x) for _, tid, x in reqs]
+    ref_launches = fc.LAUNCHES
+    fc.LAUNCHES = 0
+    try:
+        gots = [srv.predict(tid, x) for _, tid, x in reqs]
+    finally:
+        srv.close()
+    # the same buckets as the unmeshed server's, each run as two shards
+    assert ref_launches > 0 and fc.LAUNCHES == 2 * ref_launches, (
+        fc.LAUNCHES, ref_launches)
+    for (n, tid, _), got, want in zip(reqs, gots, wants):
+        assert got.shape == want.shape
+        err, scale = np.abs(got - want).max(), np.abs(want).max()
+        assert err <= 2e-2 * scale, (n, tid, err, scale)
+
+
+def test_launches_follow_the_tensor_to_a_second_card(cuda):
+    """A thread that launched K4 and K1 on cuda:0 launches them on cuda:1
+    next (the launch sets the tensor's card current; the TMA descriptors
+    bind that card's context): both answers are their plain versions'."""
+    import threading
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (one visible)")
+    out = {}
+
+    def run():
+        try:
+            for i in (0, 1):
+                dev = torch.device("cuda", i)
+                x, w, own, pm = _conv_case(4, 16, 16, 64, 128, 3, dev,
+                                           torch.bfloat16, seed=i)
+                a = torch.rand(64, device=dev) + 0.5
+                b = torch.rand(64, device=dev) - 0.5
+                wb = w[..., :64].contiguous().to(torch.bfloat16)
+                y4 = fc.fused_affine_relu_conv(x, a, b, wb, torch.bfloat16)
+                y1 = mc.masked_conv2d(x, w, own, pm, 2)
+                torch.cuda.synchronize(dev)
+                out[i] = (y4, fc.fused_oracle(x, a, b, wb,
+                                              dot_dtype=torch.bfloat16),
+                          y1, mc.masked_conv2d_plain(x, w, own, pm, 2))
+        except Exception as e:  # reported by the test, not the thread
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive() and "error" not in out, out.get("error")
+    for i in (0, 1):
+        y4, w4, y1, w1 = out[i]
+        assert y4.device.index == y1.device.index == i
+        _check(y4, w4, torch.bfloat16)
+        _check(y1, w1, torch.bfloat16)

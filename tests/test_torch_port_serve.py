@@ -4,8 +4,8 @@ Behaviour that `cpg_tpu`'s own serving tests check (bucket padding, mixed
 routing, LRU eviction, artifact round trip, the offline CLI), here for
 `cpg_tpu_torch`, plus: state building mirrors `cpg_tpu`'s parameter keys and
 shapes, every entry point defaults to the card and raises without one, and
-the unported serving options (`mesh`, XLA's compiler options) are
-refused.
+the options that have no port (XLA's compiler options) and meshes the
+server cannot split a bucket over are refused.
 """
 
 import json
@@ -149,12 +149,16 @@ def test_export_load_and_cli(state, images, tmp_path):
 
 
 def test_unported_options_are_refused(state, tmp_path):
-    """`mesh` serving (ROADMAP Queue 1, item 12) and XLA's compiler
-    options are refused; int8 is ported (tests/test_torch_port_int8.py),
-    and so are the textcls experiment (no preprocess: tokens) and the face
-    experiment's preprocess."""
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TaskServer(state, mesh=object(), device="cpu")
+    """XLA's compiler options are refused, and so is a mesh whose size
+    does not divide the bucket floor (mesh serving itself:
+    tests/test_torch_port_parallel_cli.py); int8 is ported
+    (tests/test_torch_port_int8.py), and so are the textcls experiment (no
+    preprocess: tokens) and the face experiment's preprocess."""
+    from cpg_tpu_torch.parallel.mesh import make_mesh
+
+    mesh3 = make_mesh(devices=["cpu"] * 3)
+    with pytest.raises(ValueError, match="mesh size 3"):
+        TaskServer(state, mesh=mesh3, device="cpu")
     with pytest.raises(NotImplementedError, match="XLA"):
         TaskServer(state, compiler_options={}, device="cpu")
     with pytest.raises(ValueError):
@@ -163,8 +167,8 @@ def test_unported_options_are_refused(state, tmp_path):
         TaskServer(state, cache="fifo", device="cpu")
     art = str(tmp_path / "art")
     TaskServer(state, prep, compute_dtype=torch.float32, device="cpu").export(art)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TaskServer.load(art, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh size 3"):
+        TaskServer.load(art, mesh=mesh3, device="cpu")
     with pytest.raises(SystemExit, match="XLA"):
         cli.main(["serve", "--artifact", art, "--scoped-vmem-kib", "1024",
                   "--device", "cpu"])

@@ -129,8 +129,21 @@ def test_device_prefetcher_on_the_cpu_keeps_order_and_content(depth, n):
 
 
 def test_device_prefetcher_refuses_a_mesh():
-    with pytest.raises(ValueError, match="item 12"):
-        t_stream.DevicePrefetcher(iter([]), "cpu", sharding=object())
+    """A sharding over a mesh of several devices in this one process is
+    refused: training runs one process a device (the prefetcher over
+    ranks: tests/test_torch_port_parallel.py's Manager check)."""
+    from cpg_tpu_torch.parallel import mesh as t_mesh
+
+    mesh = t_mesh.make_mesh(devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="one process a device"):
+        t_stream.DevicePrefetcher(iter([]), "cpu",
+                                  sharding=t_mesh.batch_sharding(mesh))
+    one = t_mesh.make_mesh(devices=["cpu"])
+    xs = [np.full((4, 2), i, np.uint8) for i in range(3)]
+    ys = [np.full((4,), i, np.int32) for i in range(3)]
+    out = list(t_stream.DevicePrefetcher(
+        zip(xs, ys), sharding=t_mesh.batch_sharding(one)))
+    assert [int(bx[0, 0]) for bx, _ in out] == [0, 1, 2]
 
 
 # ------------------------------------------------------ the loader ----

@@ -1,0 +1,228 @@
+"""One rank of a data-parallel world for tests/test_torch_port_parallel.py.
+
+    python tests/torch_dist_worker.py <rank> <world> <store> <job.pkl> <out_dir>
+
+Joins a gloo world on the CPU through the file store `<store>`, runs every
+check listed in the job (written by the test itself) with the port's
+data-parallel entry points, and writes this rank's results to
+`<out_dir>/rank<r>.pkl`. Imports torch, numpy and cpg_tpu_torch only.
+"""
+
+import os
+import pickle
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from cpg_tpu_torch.core.state import CPGState, TaskEntry, state_from_numpy  # noqa: E402
+from cpg_tpu_torch.models import REGISTRY, framework as fw, get_model  # noqa: E402
+from cpg_tpu_torch.models.framework import (batchnorm, head, maxpool, relu,  # noqa: E402
+                                            sconv)
+from cpg_tpu_torch.parallel import distributed as pd  # noqa: E402
+from cpg_tpu_torch.parallel import mesh as pm  # noqa: E402
+from cpg_tpu_torch.train import step as t_step  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+def tiny_cnn(ctx, x, num_classes, mult=1.0):
+    """`tests/helpers.py`'s tiny_cnn in the port's layers."""
+    c1, c2 = max(1, int(8 * mult)), max(1, int(16 * mult))
+    x = sconv(ctx, "features/conv0", x, c1, kernel=3)
+    x = relu(batchnorm(ctx, "features/bn0", x))
+    x = maxpool(x)
+    x = sconv(ctx, "features/conv1", x, c2, kernel=3)
+    x = relu(batchnorm(ctx, "features/bn1", x))
+    return head(ctx, "classifier", x.mean(dim=(1, 2)), num_classes)
+
+
+REGISTRY.setdefault("tiny_cnn", (tiny_cnn, (16, 16, 3)))
+
+
+def norm_augment(x, rng):
+    return x.float() / 255.0 - 0.5
+
+
+def annealed(logits, labels, it):
+    """A loss that visibly depends on the global step."""
+    return t_step.cross_entropy(logits, labels) + 1.0 * it
+
+
+annealed.wants_step = True
+
+
+def np_state(s) -> CPGState:
+    """A CPGState of numpy arrays from the job's plain dict."""
+    return CPGState(s["arch"], s["width_mult"], s["shared"], s["ownership"],
+                    {tid: TaskEntry(**t) for tid, t in s["tasks"].items()},
+                    model_kwargs=dict(s.get("model_kwargs") or {}),
+                    in_shape=s.get("in_shape"))
+
+
+def _np(tree):
+    return {k: v.detach().cpu().numpy().copy() for k, v in (tree or {}).items()}
+
+
+def _steps(mesh, state, tid, batches, cfg, augment, loss_fn=None,
+           group=True, **kw):
+    """Task `tid`'s train step over the global batches [(x, y, rng, it)],
+    data-parallel over the mesh (`group=False`: the one-process step on
+    the whole batch); returns the losses, accuracies and trained trees."""
+    st = state_from_numpy(state, "cpu")
+    task = st.tasks[tid]
+    model_fn, _ = get_model(st.arch)
+    extra = {} if loss_fn is None else {"loss_fn": loss_fn}
+    step, (opt_w, opt_pm) = t_step.build_train_step(
+        model_fn, num_classes=task.num_classes, mult=st.width_mult,
+        has_piggymask=task.piggymask is not None, cfg=cfg,
+        augment_fn=augment, device="cpu",
+        model_kwargs=st.forward_kwargs(tid) or None, **extra, **kw)
+    if group:
+        for tree in (st.shared, st.ownership, task.piggymask, task.private,
+                     task.bn_state):
+            pm.place_state(mesh, tree)
+        step = pm.make_parallel_train_step(step, mesh)
+    carry = [st.shared, task.piggymask, task.private, task.bn_state,
+             opt_w.init({"shared": st.shared, "private": task.private}),
+             opt_pm.init(task.piggymask) if task.piggymask else None]
+    losses, accs = [], []
+    for x, y, rng, it in batches:
+        if group:
+            x, y = pm.shard_batch(mesh, x, y)
+        out = step(*carry, st.ownership, tid, x, y, rng, it)
+        carry = list(out[:6])
+        losses.append(float(out[6]["loss"]))
+        accs.append(float(out[6]["acc"]))
+    return dict(losses=losses, accs=accs, shared=_np(carry[0]),
+                piggymask=_np(carry[1]), private=_np(carry[2]),
+                bn=_np(carry[3]))
+
+
+def check_step(mesh, state, tid, batches, flags=None, single=False,
+               annealed_loss=False, dtype="float32", lr=0.05, lr_mask=1e-4):
+    """The DP step (and, with `single`, the one-process step on rank 0)."""
+    cfg = t_step.TrainConfig(lr=lr, lr_mask=lr_mask,
+                             compute_dtype=getattr(torch, dtype),
+                             **(flags or {}))
+    aug = None
+    if batches[0][2] is not None:
+        from cpg_tpu_torch.data.augment import cifar_train_augment as aug
+    elif state["arch"] == "tiny_cnn":
+        aug = norm_augment
+    loss_fn = annealed if annealed_loss else None
+    out = {"dp": _steps(mesh, np_state(state), tid, batches, cfg, aug,
+                        loss_fn)}
+    if single and mesh.rank == 0:
+        out["single"] = _steps(mesh, np_state(state), tid, batches, cfg, aug,
+                               loss_fn, group=False)
+    return out
+
+
+def check_skew(mesh, state, batches):
+    """The DP step on skewed shards, then the same with BatchNorm's sync
+    removed (each rank's statistics over its own rows)."""
+    out = check_step(mesh, state, 1, batches)
+    keep = fw.all_reduce_sum, fw.world_size
+    fw.all_reduce_sum, fw.world_size = (lambda x, g: x), (lambda g: 1)
+    try:
+        out["unsynced"] = check_step(mesh, state, 1, batches)["dp"]
+    finally:
+        fw.all_reduce_sum, fw.world_size = keep
+    return out
+
+
+def check_eval(mesh, state, x, y):
+    """The parallel eval step on this rank's rows."""
+    st = state_from_numpy(np_state(state), "cpu")
+    t = st.tasks[1]
+    ev = t_step.make_eval_step(
+        tiny_cnn, num_classes=t.num_classes, mult=1.0, has_piggymask=False,
+        cfg=t_step.TrainConfig(compute_dtype=torch.float32),
+        preprocess_fn=lambda v: norm_augment(v, None), device="cpu")
+    xs, ys = pm.shard_batch(mesh, x, y)
+    _, m = pm.make_parallel_eval_step(ev, mesh)(
+        st.shared, None, t.private, t.bn_state, st.ownership, 1, xs, ys)
+    return {"acc_sum": int(m["acc_sum"]), "loss": float(m["loss"])}
+
+
+def check_manager(mesh, state, data, epochs):
+    from cpg_tpu_torch.train.manager import Manager
+
+    st = state_from_numpy(np_state(state), "cpu")
+    kw = dict(augment_fn=norm_augment, seed=5, lr_schedule="constant",
+              preprocess_fn=lambda v: norm_augment(v, None), mesh=mesh)
+    cfg = t_step.TrainConfig(lr=0.05, compute_dtype=torch.float32)
+    try:
+        Manager(st, tiny_cnn, 1, data, cfg, batch_size=33, **kw)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    res = Manager(st, tiny_cnn, 1, data, cfg, batch_size=32,
+                  **kw).train(epochs)
+    return dict(loss=res.loss, acc=res.acc, steps=res.steps, refused=refused,
+                shared=_np(st.shared), bn=_np(st.tasks[1].bn_state))
+
+
+def check_sequence(mesh, tasks, ckdir):
+    """run_sequence over two tiny_cnn tasks with pruning and one growth,
+    then again over its checkpoints (every task resumed)."""
+    from cpg_tpu_torch.train import sequence as seqm
+
+    writes = []
+    keep = seqm.save_state
+    seqm.save_state = lambda st, path: (writes.append(os.path.basename(path)),
+                                        keep(st, path))[1]
+    seq = seqm.SequenceConfig(
+        finetune_epochs=1, prune_epochs=1, retrain_epochs=1,
+        prune_ratios=(0.5,), batch_size=32, lr=0.05, growth_step=0.5,
+        max_width_mult=1.5, prune_freq=2, seed=3, lr_schedule="constant",
+        checkpoint_dir=ckdir)
+    cfg = t_step.TrainConfig(lr=0.05, compute_dtype=torch.float32)
+    kw = dict(goals={"b": 1.01}, augment_fn=norm_augment,
+              preprocess_fn=lambda v: norm_augment(v, None), mesh=mesh)
+    try:
+        state, reps = seqm.run_sequence("tiny_cnn", tasks, cfg, seq, **kw)
+        again, _ = seqm.run_sequence("tiny_cnn", tasks, cfg, seq, **kw)
+    finally:
+        seqm.save_state = keep
+    flat = {}
+    for name, st in (("first", state), ("resumed", again)):
+        flat[name] = {f"shared/{k}": v for k, v in _np(st.shared).items()}
+        flat[name].update({f"own/{k}": v
+                           for k, v in _np(st.ownership).items()})
+        for tid, t in st.tasks.items():
+            for group, tree in (("pm", t.piggymask), ("private", t.private),
+                                ("bn", t.bn_state)):
+                flat[name].update({f"{tid}/{group}/{k}": v
+                                   for k, v in _np(tree).items()})
+    return dict(writes=writes, width=state.width_mult,
+                grew=[r.grew for r in reps],
+                ratios=[r.chosen_ratio for r in reps], **flat)
+
+
+CHECKS = {"step": check_step, "skew": check_skew, "eval": check_eval,
+          "manager": check_manager, "sequence": check_sequence}
+
+
+def main(rank, world, store, job_path, out_dir):
+    pd.initialize(f"file://{store}", world, rank, device="cpu")
+    try:
+        mesh = pm.make_mesh()
+        assert mesh.size == world and mesh.rank == rank, mesh
+        with open(job_path, "rb") as f:
+            job = pickle.load(f)
+        out = {"mesh": dict(shape=mesh.shape, axes=mesh.axis_names,
+                            rows=pm.local_batch_slice(mesh, 8 * world))}
+        for name, (check, kwargs) in job.items():
+            out[name] = CHECKS[check](mesh, **kwargs)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        pd.shutdown()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+         sys.argv[5])
