@@ -178,7 +178,18 @@ Needs one CUDA card; exits non-zero without one. It
      (`check_replicas`), task-1 entries bit-unchanged and free entries 0;
      each rank's launches a step equal to the one-process step's
      (`TRAIN_LAUNCHES` in bf16); ms/step of the two-rank step and of the
-     one-process step (time-slicing one card: no speed result); then
+     one-process step (time-slicing one card: no speed result); then the
+     model axis on the same two ranks as (data=1, model=2)
+     (`dp_ranks_check` with n_model 2): VGG16-BN's and vit_cifar's kernel
+     steps at width 1.0 with each rank holding its half of every kernel
+     that divides (and of its ownership, piggymask and optimizer moments;
+     the bytes held printed), under the same rules but the f32 updates'
+     (within 1e-4 of the update's norm: no data ranks), the replicated
+     tensors bit-equal
+     across the ranks and the split ones over the data group, the
+     products (K1-K6; vit_cifar's dense K1-K3 and K7) launched a step as
+     often as in the one-process step, and the route each kernel's slice
+     takes (`tp_routes`); then
      `sequence --parallel 1` through `cli.main` (NCCL, a world of one rank)
      over two synthetic tasks with the kernel flags, `check_state` at both
      boundaries and both checkpoints bit-equal to the run without the
@@ -191,7 +202,8 @@ Needs one CUDA card; exits non-zero without one. It
      their forwards, the train phases their backwards, the cycles K1-K6,
      the deploy phase K4, the stream phase K1-K6 and the conv selects,
      each rank of the parallel phase and its `--parallel 1` run K1-K6, its
-     meshed server K4,
+     meshed server K4, each rank of the model axis's steps K1-K6 and the
+     dense K1-K3 and K7,
      the fused q|k|v phase K7, the SphereNet phases K1-K3 and the dense
      route,
      textcls's phases K7 forward, the pair and the dense route,
@@ -273,7 +285,19 @@ DENSE_SHAPES = [
      "textcls"),
     ("textcls_fc1", BATCH * 64, 128, 512, "bfloat16", "binary", 4, "textcls"),
     ("textcls_fc2", BATCH * 64, 512, 128, "bfloat16", "binary", 4,
-     "textcls")]
+     "textcls"),
+    # the model axis: one rank's slice of vit_cifar's products over two
+    ("qkv_proj_tp2", BATCH * 64, 256, 128, "bfloat16", "binary", 0,
+     "vit_cifar"),
+    ("fc1_tp2", BATCH * 64, 256, 512, "bfloat16", "binary", 0, "vit_cifar")]
+# the model axis: one rank's slice of VGG16-BN's convs over two ranks,
+# where the slice's shape leaves the GEMM routes (conv1's seam at 32
+# channels: the earlier K4 and K5) or keeps them (conv2, conv3), and conv0's
+# (the old K1, K3 over im2col patches); (name, hw, cin, cout), and the
+# seams' K4 and K5 routes
+TP_MASKED_SHAPES = [("conv0_tp2", 32, 3, 32), ("conv2_tp2", 16, 64, 64)]
+TP_CHAIN_SHAPES = [("conv1_tp2", 32, 64, 32, "k4", "k5"),
+                   ("conv3_tp2", 16, 128, 64, "gemm", "gemm")]
 
 
 def card_line() -> str:
@@ -1622,14 +1646,17 @@ def _train_tensors(st, fn):
 
 
 def _stepper(torch, base, model_fn, augment, dev, cfg, mesh=None,
-             **step_kw):
+             model_sharded=False, **step_kw):
     """(a copy of `base`, run(x, y, draws, it) -> metrics): task 2's train
     step under `cfg` on the copy, its parameters and optimizer states
     carried from call to call. With `mesh` (over the ranks) the step is
     data-parallel: the copy broadcast from rank 0, each call given the
-    global batch and its draws, of which this rank takes its rows."""
+    global batch and its draws, of which this rank takes its rows; with
+    `model_sharded` too, each rank keeps its slice of every kernel that
+    divides over the model axis (`copy.shards` records them)."""
     from cpg_tpu_torch.parallel.mesh import (make_parallel_train_step,
-                                             place_state, shard_batch)
+                                             place_state, shard_batch,
+                                             shared_shardings)
     from cpg_tpu_torch.train.step import make_train_step
 
     st = base.map_arrays(lambda t: t.clone())
@@ -1638,10 +1665,18 @@ def _stepper(torch, base, model_fn, augment, dev, cfg, mesh=None,
         model_fn, num_classes=5, mult=base.width_mult, has_piggymask=True,
         cfg=cfg, augment_fn=augment, device=dev, **step_kw)
     if mesh is not None:
-        for tree in (st.shared, st.ownership, task.piggymask, task.private,
-                     task.bn_state):
+        specs = (shared_shardings(mesh, st.shared, True) if model_sharded
+                 else None)
+        st.shared = place_state(mesh, st.shared, specs)
+        st.ownership = place_state(mesh, st.ownership, specs)
+        task.piggymask = place_state(mesh, task.piggymask, specs)
+        for tree in (task.private, task.bn_state):
             place_state(mesh, tree)
-        step = make_parallel_train_step(step, mesh)
+        if specs is not None:
+            st.shards = {k: v for k, v in specs.items() if v is not None}
+        step = make_parallel_train_step(step, mesh,
+                                        model_sharded=model_sharded,
+                                        shards=st.shards)
     carry = [st.shared, task.piggymask, task.private, task.bn_state,
              opt_w.init({"shared": st.shared, "private": task.private}),
              opt_pm.init(task.piggymask)]
@@ -3562,6 +3597,7 @@ class Counts:
 
 # the parallel phase (parallel/*): VGG16-BN's data-parallel kernel step on
 # two ranks sharing the card over gloo (NCCL refuses two ranks on one GPU),
+# the model axis's steps (VGG16-BN, vit_cifar) on the same two ranks,
 # `sequence --parallel 1` over NCCL against the run without the flag, the
 # server over the mesh [cuda:0, cuda:0], and `sequence --parallel 2` over
 # NCCL across cards where two are visible
@@ -3581,14 +3617,29 @@ PAR_MASK_OFF_SHARE = 5e-4      # f32: the piggymask entries whose update
                                # 0): at most UPDATE_RATIO x those of the
                                # f32 default step plus this share of the
                                # entries moved, each within 3 lr_mask
+TP_F32_UPDATE_RTOL = 1e-4      # f32 under a model axis alone (no data
+                               # ranks summing in another order): the
+                               # shared and private updates within this
+                               # share of the update's norm of the
+                               # one-process step's (the model group's f32
+                               # sum of partial input gradients moves them
+                               # by about 1e-6 of it on an H100; that sum
+                               # done in bf16 must miss it:
+                               # scripts/torch_tp_controls.py)
 PAR_SERVE_ROWS = (1, 37, 256)
 PAR_CLI_PER_CLASS = 64         # 5 classes: 320 images, 2 steps an epoch
 PAR_CLI_FLOOR = {"own_flip": 1e-3, "shared": 1e-5, "bn": 1e-5}
                                # f32 `sequence --parallel n` against one
                                # rank (owner flips at the prune cutoff,
                                # weights and BN statistics, relative): at
-                               # most UPDATE_RATIO x the one-rank run
-                               # without the kernel flags, or these
+                               # most UPDATE_RATIO x the largest spread of
+                               # the one-rank runs under PAR_CLI_ORDERS,
+                               # or these
+PAR_CLI_ORDERS = {"kernels": (), "masked_conv": ("--fused-chain",),
+                  "default": ("--use-pallas-conv", "--fused-chain")}
+                               # one process's summation orders: the flags
+                               # each one-rank run drops (the first is the
+                               # run the parallel runs are held against)
 
 
 def _sync(torch, dev):
@@ -3632,27 +3683,52 @@ def _parallel_rank(rank, world, store, cfg, out_dir):
         pd.shutdown()
 
 
+def _held(st):
+    """What a rank holds of a (possibly split) state's shared, ownership
+    and task-2 piggymask trees: their bytes, and whether each split kernel
+    is its 1 / parts slice along its axis."""
+    trees = (st.shared, st.ownership, st.tasks[2].piggymask)
+    nbytes = sum(v.numel() * v.element_size() for t in trees
+                 for v in t.values())
+    whole = sum(int(np.prod(st.shards[k].whole_shape(v.shape)
+                            if k in st.shards else v.shape))
+                * v.element_size() for t in trees for k, v in t.items())
+    slices = all(v.shape[s.axis] * s.parts == s.size
+                 for t in trees for k, v in t.items()
+                 for s in [st.shards.get(k)] if s is not None)
+    return dict(bytes=nbytes, whole_bytes=whole, slices=slices,
+                split=len(st.shards), kernels=len(st.shared),
+                unsplit=sorted(k for k in st.shared if k not in st.shards))
+
+
 def _parallel_rank_run(torch, dev, rank, cfg):
-    """Task 2's kernel step (VGG16-BN, `_train_base` of `build_state`) over
-    the mesh of every rank, f32 then bf16, PAR_STEPS steps each on the same
-    global batches and draws, the replicas held bit-equal after every step
-    (`check_replicas`) and the no-forgetting invariants after the last.
-    Rank 0 also runs the one-process kernel step (and in f32 the default
-    step) on the same batches and compares the one-step updates
-    (`_update_dists`, the f32 one-process step as yardstick). Then ms/step of the bf16 step: both ranks at once,
+    """Task 2's kernel step of cfg["arch"] (default VGG16-BN; `_train_base`
+    of `build_state`) over the mesh of every rank, cfg["n_model"] of them a
+    model group (default 1: data-parallel alone; more: each rank holds its
+    slice of every kernel that divides), f32 then bf16, PAR_STEPS steps
+    each on the same global batches and draws, the replicas held
+    bit-equal after every step (`check_replicas`: split tensors over the
+    data group, the rest over every rank) and the no-forgetting invariants
+    on the gathered state after the last. Rank 0 also runs the one-process
+    kernel step (and in f32 the default step) on the same batches and
+    compares the one-step updates (`_update_dists`, the f32 one-process
+    step as yardstick). Then ms/step of the bf16 step: all ranks at once,
     then rank 0's one-process step alone."""
-    from cpg_tpu_torch.data.augment import cifar_train_augment
     from cpg_tpu_torch.models import get_model
-    from cpg_tpu_torch.parallel.collectives import barrier
+    from cpg_tpu_torch.parallel.collectives import barrier, gather_state
     from cpg_tpu_torch.parallel.mesh import make_mesh
     from cpg_tpu_torch.train.sequence import check_replicas
     from cpg_tpu_torch.train.step import TrainConfig
 
-    mesh = make_mesh()
+    n_model = cfg.get("n_model", 1)
+    arch = cfg.get("arch", "vgg16_bn_cifar")
+    par = "tp" if n_model > 1 else "dp"
+    mesh = make_mesh(n_model=n_model)
     counts = Counts()
-    model_fn, _ = get_model("vgg16_bn_cifar")
+    model_fn, _ = get_model(arch)
+    _, _, augment, _, _ = _arch_io(arch)
     base = _train_base(torch, dev,
-                       build_state(torch, dev, width_mult=cfg["mult"]),
+                       build_state(torch, dev, arch, width_mult=cfg["mult"]),
                        torch.Generator().manual_seed(SEED + 3))
     # task 2's piggymask kept PAR_MASK_MARGIN from the threshold: Adam
     # moves an entry by about lr_mask a step whatever its gradient, so an
@@ -3680,30 +3756,32 @@ def _parallel_rank_run(torch, dev, rank, cfg):
             if i == 0:
                 _sync(torch, dev)
                 out["launches_step"][label] = counts.read()
-                firsts[label] = _train_tensors(st, lambda t: t.clone())
+                firsts[label] = _train_tensors(gather_state(st),
+                                               lambda t: t.clone())
             if check:
                 check_replicas(st, mesh)
         _sync(torch, dev)
         out["losses"][label] = losses
-        _no_forgetting(torch, base, st, f"parallel {label}")
+        _no_forgetting(torch, base, gather_state(st), f"parallel {label}")
         return counts.read()
 
     for dname in ("float32", "bfloat16"):
         tcfg = TrainConfig(compute_dtype=getattr(torch, dname),
-                           **KERNEL_FLAGS["vgg16_bn_cifar"])
-        st, run = _stepper(torch, base, model_fn, cifar_train_augment, dev,
-                           tcfg, mesh=mesh)
-        c = steps(run, st, f"dp_{dname}", True)
+                           **KERNEL_FLAGS[arch])
+        st, run = _stepper(torch, base, model_fn, augment, dev, tcfg,
+                           mesh=mesh, model_sharded=n_model > 1)
+        if n_model > 1:
+            out["held"] = _held(st)
+        c = steps(run, st, f"{par}_{dname}", True)
         total = c if total is None else {k: total[k] + c[k] for k in c}
         steppers[dname] = run
         if rank == 0:
-            st1, run1 = _stepper(torch, base, model_fn, cifar_train_augment,
-                                 dev, tcfg)
+            st1, run1 = _stepper(torch, base, model_fn, augment, dev, tcfg)
             steps(run1, st1, f"single_{dname}", False)
             steppers[f"single_{dname}"] = run1
         if rank == 0 and dname == "float32":  # the yardstick's other order
-            st1, run1 = _stepper(torch, base, model_fn, cifar_train_augment,
-                                 dev, TrainConfig(compute_dtype=torch.float32))
+            st1, run1 = _stepper(torch, base, model_fn, augment, dev,
+                                 TrainConfig(compute_dtype=torch.float32))
             steps(run1, st1, "default_float32", False)
         barrier(mesh.group)
     out["launches"] = total
@@ -3711,9 +3789,9 @@ def _parallel_rank_run(torch, dev, rank, cfg):
         init = _train_tensors(base, lambda t: t)
         dist, ref_norm = _update_dists(torch, init, {
             "f32": firsts["single_float32"],
-            "dp_float32": firsts["dp_float32"],
+            f"{par}_float32": firsts[f"{par}_float32"],
             "single_bfloat16": firsts["single_bfloat16"],
-            "dp_bfloat16": firsts["dp_bfloat16"]})
+            f"{par}_bfloat16": firsts[f"{par}_bfloat16"]})
         out.update(update_dist_to_f32=dist, f32_update_norm=ref_norm)
         # the piggymask's one-step update: Adam moves an entry by about
         # lr_mask whatever its gradient's size, so the update's sign shows
@@ -3726,12 +3804,12 @@ def _parallel_rank_run(torch, dev, rank, cfg):
             if k.startswith("piggymask/"):
                 b = firsts["single_float32"][k]
                 pm["moved"] += int((b != v).sum())
-                for key, a in (("off", firsts["dp_float32"][k]),
+                for key, a in (("off", firsts[f"{par}_float32"][k]),
                                ("off_default", firsts["default_float32"][k])):
                     pm[key] += int((~torch.isclose(a, b, rtol=1e-4,
                                                    atol=1e-7)).sum())
                 pm["max_abs_diff"] = max(pm["max_abs_diff"], float(
-                    (firsts["dp_float32"][k] - b).abs().max()))
+                    (firsts[f"{par}_float32"][k] - b).abs().max()))
         out["f32_piggymask"] = pm
     firsts.clear()
 
@@ -3749,28 +3827,45 @@ def _parallel_rank_run(torch, dev, rank, cfg):
     barrier(mesh.group)
     out["ms_per_step_ranks"] = ms_per_step(steppers["bfloat16"])
     barrier(mesh.group)
-    if rank == 0:  # the other rank waits at the barrier
+    if rank == 0:  # the other ranks wait at the barrier
         out["ms_per_step_one_process"] = ms_per_step(
             steppers["single_bfloat16"])
     barrier(mesh.group)
     return out
 
 
+# the launch counters of the products themselves (K1-K7); the select
+# passes and the im2col pass are a route's, which a slice's shape may
+# change (conv1's seam at 32 channels leaves the GEMM routes)
+PRODUCT_KERNELS = ("masked_conv_fwd", "masked_conv_bwd_dx",
+                   "masked_conv_bwd_dw", "fused_chain_fwd",
+                   "fused_chain_bwd_dx", "fused_chain_bwd_dw",
+                   "masked_matmul_fwd", "masked_matmul_bwd_dx",
+                   "masked_matmul_bwd_dw", "flash_fwd", "flash_bwd",
+                   "flash_bwd_dq", "flash_bwd_dkv")
+
+
 def dp_ranks_check(torch, cfg, card):
     """Spawn one rank a device of cfg["devices"] (`_parallel_rank`), joined
-    over cfg["backend"], and hold their DP kernel steps against the
+    over cfg["backend"] (cfg["n_model"] ranks a model group, default 1), and
+    hold their kernel steps (of cfg["arch"], default VGG16-BN) against the
     one-process step run by rank 0: f32 losses within PAR_F32_LOSS_RTOL and
     shared and private one-step updates within F32_UPDATE_RTOL of the
-    update's norm, the piggymask's by PAR_MASK_OFF_SHARE against the f32
-    default step's; bf16 losses
-    within LOSS_RTOL and each group's update at most UPDATE_RATIO times as
-    far from the f32 update as the one-process bf16 step's; every rank's
-    losses equal, its launches a step the one-process step's
-    (TRAIN_LAUNCHES in bf16). Returns the results and
-    {"vgg16_bn_cifar/parallel_rank<r>": launches}."""
+    update's norm (TP_F32_UPDATE_RTOL when every rank is in one model
+    group), the piggymask's by PAR_MASK_OFF_SHARE against the f32
+    default step's; bf16 losses within LOSS_RTOL and each group's update at
+    most UPDATE_RATIO times as far from the f32 update as the one-process
+    bf16 step's; every rank's losses equal, its launches a step the
+    one-process step's (all counters data-parallel, the products K1-K7
+    under a model axis; TRAIN_LAUNCHES in bf16); under a model axis each
+    rank holding the slices of the split kernels. Returns the results and
+    {"<arch>/parallel_rank<r>" (or tp_rank<r>): launches}."""
     import torch.multiprocessing as mp
 
     world = len(cfg["devices"])
+    arch = cfg.get("arch", "vgg16_bn_cifar")
+    tp = cfg.get("n_model", 1) > 1
+    par = "tp" if tp else "dp"
     launched = {}
     tmp = tempfile.mkdtemp(prefix="par_")
     try:
@@ -3784,65 +3879,139 @@ def dp_ranks_check(torch, cfg, card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     r0 = ranks[0]
+    what = f"parallel {par} {arch}"
     for r in ranks[1:]:
         if r["losses"] != {k: v for k, v in r0["losses"].items()
-                           if k.startswith("dp_")}:
-            raise AssertionError(f"parallel: rank {r['rank']}'s losses "
+                           if k.startswith(par + "_")}:
+            raise AssertionError(f"{what}: rank {r['rank']}'s losses "
                                  f"{r['losses']} differ from rank 0's")
     lo = r0["losses"]
-    f32_rel = max(abs(a - b) / abs(b) for a, b in
-                  zip(lo["dp_float32"], lo["single_float32"]))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(lo[f"{par}_float32"], lo["single_float32"]))
     bf16_rel = max(abs(a - b) / abs(b) for a, b in
-                   zip(lo["dp_bfloat16"], lo["single_bfloat16"]))
+                   zip(lo[f"{par}_bfloat16"], lo["single_bfloat16"]))
     if not all(np.isfinite(sum(lo.values(), []))):
-        raise AssertionError(f"parallel: non-finite losses {lo}")
-    if f32_rel > PAR_F32_LOSS_RTOL or bf16_rel > LOSS_RTOL:
-        raise AssertionError(f"parallel: losses {lo}")
+        raise AssertionError(f"{what}: non-finite losses {lo}")
+    if loss_rel > PAR_F32_LOSS_RTOL or bf16_rel > LOSS_RTOL:
+        raise AssertionError(f"{what}: losses {lo}")
     dist, ref_norm = r0["update_dist_to_f32"], r0["f32_update_norm"]
-    for group in ("shared", "private"):
-        if dist["dp_float32"][group] > F32_UPDATE_RTOL * ref_norm[group]:
+    # a model axis alone sums no rows in another order: its own bound
+    rtol = (TP_F32_UPDATE_RTOL if tp and world == cfg["n_model"]
+            else F32_UPDATE_RTOL)
+    f32_rel = {group: dist[f"{par}_float32"][group] / ref_norm[group]
+               for group in ("shared", "private")}
+    for group, rel in f32_rel.items():
+        if rel > rtol:
             raise AssertionError(
-                f"parallel: the f32 DP step's {group} update is "
-                f"{dist['dp_float32'][group]} from the one-process step's, "
-                f"of norm {ref_norm[group]}")
+                f"{what}: the f32 step's {group} update is "
+                f"{dist[f'{par}_float32'][group]} from the one-process "
+                f"step's, of norm {ref_norm[group]} (bound {rtol} of it)")
     pm = r0["f32_piggymask"]
     if (not pm["moved"]
             or pm["off"] > (UPDATE_RATIO * pm["off_default"]
                             + PAR_MASK_OFF_SHARE * pm["moved"])
             or pm["max_abs_diff"] > 3 * pm["lr_mask"]):
-        raise AssertionError(f"parallel: the f32 DP step's piggymask update "
+        raise AssertionError(f"{what}: the f32 step's piggymask update "
                              f"against the one-process step's: {pm}")
-    for group, d in dist["dp_bfloat16"].items():
+    for group, d in dist[f"{par}_bfloat16"].items():
         if d > (UPDATE_RATIO * dist["single_bfloat16"][group]
                 + 1e-6 * ref_norm[group]):
             raise AssertionError(
-                f"parallel: the bf16 DP step's {group} update is {d} from "
+                f"{what}: the bf16 step's {group} update is {d} from "
                 "the f32 one-process step's, the bf16 one-process step's "
                 f"{dist['single_bfloat16'][group]}")
+    keys = PRODUCT_KERNELS if tp else None
     for r in ranks:
         steps = r["launches_step"]
         for dname in ("float32", "bfloat16"):
-            if steps[f"dp_{dname}"] != r0["launches_step"][f"single_{dname}"]:
+            got, want = (
+                {k: v for k, v in c.items() if keys is None or k in keys}
+                for c in (steps[f"{par}_{dname}"],
+                          r0["launches_step"][f"single_{dname}"]))
+            if got != want:
                 raise AssertionError(
-                    f"parallel: rank {r['rank']}'s {dname} step launched "
-                    f"{steps[f'dp_{dname}']}, the one-process step "
-                    f"{r0['launches_step'][f'single_{dname}']}")
-        want = TRAIN_LAUNCHES["vgg16_bn_cifar"]
-        if any(n != want.get(k, 0) for k, n in steps["dp_bfloat16"].items()):
-            raise AssertionError(f"parallel: rank {r['rank']}'s bf16 step "
-                                 f"launched {steps['dp_bfloat16']}")
-        launched[f"vgg16_bn_cifar/parallel_rank{r['rank']}"] = r["launches"]
+                    f"{what}: rank {r['rank']}'s {dname} step launched "
+                    f"{got}, the one-process step {want}")
+        want = TRAIN_LAUNCHES[arch]
+        if any(n != want.get(k, 0) for k, n in steps[f"{par}_bfloat16"].items()
+               if keys is None or k in keys):
+            raise AssertionError(f"{what}: rank {r['rank']}'s bf16 step "
+                                 f"launched {steps[f'{par}_bfloat16']}")
+        if tp and not (r["held"]["slices"] and r["held"]["split"]):
+            raise AssertionError(f"{what}: rank {r['rank']} holds "
+                                 f"{r['held']}")
+        label = "tp_rank" if tp else "parallel_rank"
+        launched[f"{arch}/{label}{r['rank']}"] = r["launches"]
     out = dict(
-        devices=cfg["devices"], backend=cfg["backend"], losses=lo,
-        f32_loss_max_rel=f32_rel, bf16_loss_max_rel=bf16_rel,
+        devices=cfg["devices"], backend=cfg["backend"], arch=arch,
+        n_model=cfg.get("n_model", 1), losses=lo,
+        f32_loss_max_rel=loss_rel, bf16_loss_max_rel=bf16_rel,
         update_dist_to_f32=dist, f32_update_norm=ref_norm,
+        f32_update_rel=f32_rel, f32_update_rtol=rtol,
         f32_piggymask=pm,
         ms_per_step_ranks={r["rank"]: r["ms_per_step_ranks"] for r in ranks},
         ms_per_step_one_process=r0["ms_per_step_one_process"],
         batch=cfg["batch"], card=card)
+    if tp:
+        out["held"] = {r["rank"]: r["held"] for r in ranks}
+        out["launches_step_tp_bf16"] = r0["launches_step"]["tp_bfloat16"]
     print(f"parallel ranks: {json.dumps(out)}", flush=True)
     out["launches_step"] = r0["launches_step"]
     return out, launched
+
+
+def tp_routes(torch, dev, n_model=PAR_RANKS):
+    """The route each kernel takes at VGG16-BN's 13 convs (width 1.0, batch
+    BATCH) and vit_cifar's dense products, for the whole kernel and for one
+    rank's slice over `n_model` ranks (a count that does not divide stays
+    whole), as the route predicates decide from the shapes alone."""
+    from cpg_tpu_torch.models.vgg import CFG_VGG16
+    from cpg_tpu_torch.ops import fused_chain as fc
+    from cpg_tpu_torch.ops import masked_conv as mc
+    from cpg_tpu_torch.ops import masked_matmul as mm
+
+    def part(c):
+        return c // n_model if c % n_model == 0 else c
+
+    bf, f32 = torch.bfloat16, torch.float32
+    out, hw, cin, i, seam = {}, 32, 3, 0, False
+    for v in CFG_VGG16:
+        if v == "M":
+            hw, seam = hw // 2, False
+            continue
+        x = torch.zeros((BATCH, hw, hw, cin), dtype=bf, device=dev)
+        row = {}
+        for label, cout in (("whole", v), ("slice", part(v))):
+            # the weight each launch reads: the fused chain's selected bf16
+            # weight, the masked conv's raw f32 one
+            w = torch.zeros((3, 3, cin, cout), dtype=bf if seam else f32,
+                            device=dev)
+            if seam:
+                row[label] = dict(
+                    cout=cout, k4="gemm" if fc.fwd_route(x, w, bf) else "k4",
+                    k5="gemm" if fc.gemm_route(x, w, bf) else "k5", k6="k6")
+            else:
+                row[label] = dict(
+                    cout=cout, k1_k2=mc.fwd_dx_route(x, w, 1, "SAME") or "k1",
+                    k3=mc.wgrad_conv_route(x, w, 1, "SAME") or "k3")
+        out[f"vgg16_bn_cifar/conv{i}"] = row
+        cin, seam, i = v, True, i + 1
+    m = BATCH * 64
+    for name, k, n in (("q|k|v|proj", 256, 256), ("fc1", 256, 1024),
+                       ("fc2", 1024, 256)):
+        x = torch.zeros((m, k), dtype=bf, device=dev)
+        row = {}
+        for label, nn in (("whole", n), ("slice", part(n))):
+            w = torch.zeros((k, nn), dtype=f32, device=dev)
+            own = torch.zeros((k, nn), dtype=torch.int8, device=dev)
+            g = torch.zeros((m, nn), dtype=bf, device=dev)
+            row[label] = dict(
+                n=nn, k1=("select+gemm" if mm.gemm_route(x, w, own, w)
+                          else "1x1"),
+                k2="select+gemm" if mm.gemm_route(g, w, own, w) else "1x1",
+                k3="wgmma" if mm.wgrad_route(x, g, w, own) else "1x1")
+        out[f"vit_cifar/{name}"] = row
+    return out
 
 
 def _par_cli_argv(ck, extra=()):
@@ -3857,9 +4026,11 @@ def _par_cli_argv(ck, extra=()):
 
 
 def parallel_phase(torch, dev, counts, card):
-    """The data axes of parallel/* on the card. Returns the results and
-    {label: launches}: each rank's DP steps, the `--parallel 1` run and
-    the meshed server's requests."""
+    """parallel/* on the card: the data axes, and the model axis on two
+    ranks sharing the card (`dp_ranks_check` as (1, 2) for VGG16-BN and
+    vit_cifar, and the route of each kernel's slice, `tp_routes`). Returns the
+    results and {label: launches}: each rank's DP and TP steps, the
+    `--parallel 1` run and the meshed server's requests."""
     from cpg_tpu_torch.core.invariants import check_state
     from cpg_tpu_torch.data.augment import cifar_eval_preprocess
     from cpg_tpu_torch.parallel.mesh import make_mesh
@@ -3878,6 +4049,29 @@ def parallel_phase(torch, dev, counts, card):
           f"two gloo ranks sharing the card {two['ms_per_step_ranks']}, "
           f"one process {two['ms_per_step_one_process']:.2f} on {card}",
           flush=True)
+    t_tp = time.perf_counter()
+
+    # 1b. the model axis: the same two ranks as (data=1, model=2), each
+    # holding its half of every kernel that divides; VGG16-BN's K1-K6 and
+    # vit_cifar's dense K1-K3 and K7 on the slices
+    res["tp"] = {"routes": tp_routes(torch, rank_dev)}
+    for arch in ("vgg16_bn_cifar", "vit_cifar"):
+        res["tp"][arch], more = dp_ranks_check(torch, {
+            "devices": [str(rank_dev)] * PAR_RANKS, "backend": "gloo",
+            "mult": PAR_MULT, "batch": BATCH, "arch": arch,
+            "n_model": PAR_RANKS}, card)
+        launched.update(more)
+        held = res["tp"][arch]["held"][0]
+        print(f"parallel tp {arch} (data=1, model={PAR_RANKS}, gloo, one "
+              f"card): rank 0 holds {held['bytes']} of {held['whole_bytes']} "
+              f"bytes of shared, ownership and piggymask ({held['split']} "
+              f"of {held['kernels']} kernels split); ms/step, bf16 kernel "
+              f"step at batch {BATCH}: two ranks "
+              f"{res['tp'][arch]['ms_per_step_ranks']}, one process "
+              f"{res['tp'][arch]['ms_per_step_one_process']:.2f} on {card}",
+              flush=True)
+    print(f"parallel tp routes (whole kernel, one rank's slice): "
+          f"{json.dumps(res['tp']['routes'])}", flush=True)
     t1 = time.perf_counter()
 
     # 2. `sequence --parallel 1` over NCCL against the run without it
@@ -3971,7 +4165,7 @@ def parallel_phase(torch, dev, counts, card):
         res["nccl_cards"] = (f"not run: {n_cards} card(s) visible; NCCL "
                              "across cards needs two")
         print(f"parallel NCCL across cards: {res['nccl_cards']}", flush=True)
-    res["wall_s"] = {"two_ranks": t1 - t0, "cli": t2 - t1,
+    res["wall_s"] = {"two_ranks": t_tp - t0, "tp": t1 - t_tp, "cli": t2 - t1,
                      "serve_and_nccl": time.perf_counter() - t2}
     return res, launched
 
@@ -4011,13 +4205,18 @@ def nccl_cards_check(torch, devices, card, backend="nccl"):
     (`dp_ranks_check`), `sequence --parallel n` (the command spawns its
     ranks; every boundary's `check_replicas` runs in it) against
     `sequence --parallel 1`, both in f32: the same cycle, and final states
-    (`_cli_states_agree`) at most UPDATE_RATIO x as far apart as those of
-    the one-rank run and the same run without the kernel flags (two
-    summation orders of one process) or within PAR_CLI_FLOOR; and a
-    bf16 server over the n cards (a weight replica a card) against the
-    unmeshed one on the first at 1, 37 and 256 rows. Returns the results
-    and the ranks' launches. (`backend` "gloo" with CPU devices rehearses
-    the DP step.)"""
+    (`_cli_states_agree`) at most UPDATE_RATIO x as far apart as the
+    farthest two of the one-rank runs under PAR_CLI_ORDERS (three
+    summation orders of one process: a steadier yardstick than one pair,
+    each pair's distance varying from call to call) or within
+    PAR_CLI_FLOOR, and
+    `sequence --parallel n/2 --parallel-model 2` against it by the same
+    rule; the model axis's kernel step (`dp_ranks_check`: VGG16-BN as
+    (n/2, 2), and with four cards vit_moe_cifar as (1, 4), each card one
+    whole expert); and a bf16 server over the n cards (a weight replica a
+    card) against the unmeshed one on the first at 1, 37 and 256 rows.
+    Returns the results and the ranks' launches. (`backend` "gloo" with
+    CPU devices rehearses the steps.)"""
     from cpg_tpu_torch.data.augment import cifar_eval_preprocess
     from cpg_tpu_torch.parallel.mesh import make_mesh
     from cpg_tpu_torch.serve import TaskServer
@@ -4029,17 +4228,33 @@ def nccl_cards_check(torch, devices, card, backend="nccl"):
         "batch": BATCH}, card)
     launched = {k.replace("parallel_rank", "parallel_nccl_rank"): v
                 for k, v in ranks.items()}
+    # the model axis over NCCL: VGG16-BN's kernel step as (n / 2, 2), and
+    # with four cards vit_moe_cifar as (1, 4), one whole expert a card
+    tp = {}
+    tp["vgg16_bn_cifar"], ranks = dp_ranks_check(torch, {
+        "devices": devices, "backend": backend, "mult": PAR_MULT,
+        "batch": BATCH, "n_model": 2}, card)
+    launched.update({k.replace("tp_rank", "tp_nccl_rank"): v
+                     for k, v in ranks.items()})
+    if n >= 4:
+        tp["vit_moe_cifar"], ranks = dp_ranks_check(torch, {
+            "devices": devices[:4], "backend": backend, "mult": PAR_MULT,
+            "batch": BATCH, "arch": "vit_moe_cifar", "n_model": 4}, card)
+        launched.update({k.replace("tp_rank", "tp_nccl_rank"): v
+                         for k, v in ranks.items()})
     f32 = ["--dtype", "float32", "--allow_acc_diff", "1.0"]
     tmp = tempfile.mkdtemp(prefix="par_nccl_")
     try:
-        rc1, s1 = _cli(_par_cli_argv(os.path.join(tmp, "p1"),
-                                     ["--parallel", "1", *f32]))
-        rcd, _ = _cli([a for a in _par_cli_argv(os.path.join(tmp, "pd"),
-                                                ["--parallel", "1", *f32])
-                       if a not in ("--use-pallas-conv", "--fused-chain")])
-        if rc1 or rcd:
-            raise AssertionError(f"sequence --parallel 1: exit {rc1}, "
-                                 f"without the kernel flags {rcd}")
+        ones = {}
+        for order, drop in PAR_CLI_ORDERS.items():
+            rc, ones[order] = _cli([a for a in _par_cli_argv(
+                os.path.join(tmp, order), ["--parallel", "1", *f32])
+                if a not in drop])
+            if rc:
+                raise AssertionError(f"sequence --parallel 1 ({order}): "
+                                     f"exit {rc}")
+        first = next(iter(PAR_CLI_ORDERS))
+        s1 = ones[first]
         p = subprocess.run(
             [sys.executable, "-m", "cpg_tpu_torch",
              *_par_cli_argv(os.path.join(tmp, "pn"),
@@ -4051,22 +4266,42 @@ def nccl_cards_check(torch, devices, card, backend="nccl"):
         sn = json.loads(p.stdout.strip().splitlines()[-1])
         if _cycle_of(sn) != _cycle_of(s1):
             raise AssertionError(f"--parallel {n}: {sn} against {s1}")
-        apart, yard = {}, {}
+        # the model axis: n / 2 data ranks of two model ranks each
+        tp_argv = ["--parallel", str(n // 2), "--parallel-model", "2", *f32]
+        p = subprocess.run(
+            [sys.executable, "-m", "cpg_tpu_torch",
+             *_par_cli_argv(os.path.join(tmp, "pt"), tp_argv)],
+            capture_output=True, text=True, timeout=900)
+        if p.returncode:
+            raise AssertionError(f"sequence {' '.join(tp_argv[:4])} over "
+                                 f"NCCL: exit {p.returncode}\n"
+                                 f"{p.stderr[-3000:]}")
+        st_ = json.loads(p.stdout.strip().splitlines()[-1])
+        if _cycle_of(st_) != _cycle_of(s1):
+            raise AssertionError(f"{' '.join(tp_argv[:4])}: {st_} against "
+                                 f"{s1}")
+        apart, apart_tp, yard = {}, {}, {}
+        orders = list(PAR_CLI_ORDERS)
         for i, t in enumerate(s1["tasks"]):
             name = f"task{i + 1:02d}_{t['name']}"
-            a, b, c = (load_state(os.path.join(tmp, d, name),
-                                  device=devices[0])
-                       for d in ("pn", "p1", "pd"))
-            apart[name] = _cli_states_agree(torch, a, b)
-            yard[name] = _cli_states_agree(torch, c, b)
+            st = {d: load_state(os.path.join(tmp, d, name),
+                                device=devices[0])
+                  for d in ("pn", "pt", *orders)}
+            apart[name] = _cli_states_agree(torch, st["pn"], st[first])
+            apart_tp[name] = _cli_states_agree(torch, st["pt"], st[first])
+            for j, a in enumerate(orders):
+                for b in orders[j + 1:]:
+                    yard[f"{name}/{a}-{b}"] = _cli_states_agree(
+                        torch, st[a], st[b])
+            del st
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     bound = {m: max(floor, UPDATE_RATIO * max(y[m] for y in yard.values()))
              for m, floor in PAR_CLI_FLOOR.items()}
-    if any(d[m] > bound[m] for d in apart.values() for m in bound):
-        raise AssertionError(f"sequence --parallel {n}: {apart} from "
-                             f"--parallel 1's, bound {bound} (the default "
-                             f"step's run: {yard})")
+    print(f"parallel NCCL sequence, final states from --parallel 1's: "
+          f"--parallel {n} {json.dumps(apart)}, {' '.join(tp_argv[:4])} "
+          f"{json.dumps(apart_tp)}, bound {json.dumps(bound)}, one "
+          f"process's orders {json.dumps(yard)} on {card}", flush=True)
     state = build_state(torch, torch.device(devices[0]), width_mult=PAR_MULT)
     ref = TaskServer(state, cifar_eval_preprocess, fused_chain=True,
                      device=devices[0])
@@ -4087,12 +4322,21 @@ def nccl_cards_check(torch, devices, card, backend="nccl"):
                                bit_equal=bool(np.array_equal(got, want)))
     finally:
         srv.close()
-    out = dict(dp=dp, cli=dict(summary=sn, against_parallel_1=s1,
-                               states_apart=apart, default_step_apart=yard,
-                               bound=bound), serve=serve)
+    for what, got in ((f"--parallel {n}", apart),
+                      (" ".join(tp_argv[:4]), apart_tp)):
+        if any(d[m] > bound[m] for d in got.values() for m in bound):
+            raise AssertionError(f"sequence {what}: {got} from --parallel "
+                                 f"1's, bound {bound} (one process's "
+                                 f"orders: {yard})")
+    out = dict(dp=dp, tp=tp,
+               cli=dict(summary=sn, against_parallel_1=s1,
+                        states_apart=apart, one_process_orders_apart=yard,
+                        bound=bound),
+               cli_tp=dict(argv=tp_argv[:4], summary=st_,
+                           states_apart=apart_tp), serve=serve)
     print(f"parallel NCCL across {n} cards: " + json.dumps(
-        {k: v for k, v in out.items() if k != "dp"}) + f" on {card}",
-        flush=True)
+        {k: v for k, v in out.items() if k not in ("dp", "tp")})
+        + f" on {card}", flush=True)
     return out, launched
 
 
@@ -4291,6 +4535,18 @@ def main() -> int:
                                   "float32", "k4"))
     rows += fused_chain_bwd_phases(torch, dev, "conv3", 16, 128, 128,
                                    "float32", "k5")
+    for name, hw, cin, cout in TP_MASKED_SHAPES:
+        rows += masked_conv_phase(torch, dev, name, hw, cin, cout,
+                                  "bfloat16", "binary", per_step=0)
+        rows += masked_conv_bwd_phases(torch, dev, name, hw, cin, cout,
+                                       "bfloat16", "binary",
+                                       with_dx=name != "conv0_tp2",
+                                       per_step=0)
+    for name, hw, cin, cout, route4, route5 in TP_CHAIN_SHAPES:
+        rows.append(fused_chain_phase(torch, dev, name, hw, cin, cout,
+                                      "bfloat16", route4, per_step=0))
+        rows += fused_chain_bwd_phases(torch, dev, name, hw, cin, cout,
+                                       "bfloat16", route5, per_step=0)
     t_resnet = time.perf_counter()
     for name, hw, k, stride, cin, cout, per_step in RESNET_CONV_SHAPES:
         rows += conv_geometry_rows(torch, dev, "resnet50", RESNET_BATCH, name,
@@ -4470,6 +4726,16 @@ def main() -> int:
                 "masked_conv_select", "masked_conv_im2col", "fused_chain_fwd",
                 "fused_chain_bwd_dx", "fused_chain_bwd_dw"]
                for who in [f"rank{r}" for r in range(PAR_RANKS)] + ["cli"]},
+            # each rank of the model axis's steps: VGG16-BN's K1-K6 and
+            # vit_cifar's dense K1-K3 and K7, on the slices
+            **{f"vgg16_bn_cifar/tp_rank{r}": [
+                "masked_conv_fwd", "masked_conv_bwd_dx", "masked_conv_bwd_dw",
+                "fused_chain_fwd", "fused_chain_bwd_dx", "fused_chain_bwd_dw"]
+               for r in range(PAR_RANKS)},
+            **{f"vit_cifar/tp_rank{r}": [
+                "flash_fwd", "flash_bwd", "masked_matmul_fwd",
+                "masked_matmul_bwd_dx", "masked_matmul_bwd_dw"]
+               for r in range(PAR_RANKS)},
             "vgg16_bn_cifar/parallel_serve": ["fused_chain_fwd"]}
     for phase, names in need.items():
         for k in names:

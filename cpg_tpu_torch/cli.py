@@ -37,15 +37,17 @@ replaces the experiment's task data with memory-mapped datasets (one
 `data/stream.py` directory a task under D, in name order; a `{"loss":
 "angle"}` entry reattaches the A-Softmax loss) and `--native-loader`
 gathers training batches with the C++ loader. `--parallel N` trains
-data-parallel over N ranks, one process a device (parallel/*): under
+data-parallel over N ranks, one process a device (parallel/*), and
+`--parallel N --parallel-model M` over N x M ranks, each model group of M
+holding its slices of the sharable kernels (the model axis): under
 torchrun each process is the rank it is given; otherwise the command
-spawns the N ranks itself (torch.multiprocessing, a file store in a
-temporary directory) on cuda:0..N-1 over NCCL, or on the CPU over gloo with
-`--device cpu`, and `--parallel 1` runs as the one rank of a world in this
-process. Rank 0 prints the summary. Options whose modules are not ported
-yet (`--parallel-model` > 1, `--shard-activations`) and the XLA-only
-`--remat`, `--remat-policy`, `--scan-blocks` and `--scoped-vmem-kib` stop
-with an error naming them.
+spawns the ranks itself (torch.multiprocessing, a file store in a
+temporary directory) on cuda:0..N*M-1 over NCCL, or on the CPU over gloo
+with `--device cpu`, and `--parallel 1` runs as the one rank of a world in
+this process. Rank 0 prints the summary. Options whose modules are not
+ported yet (`--shard-activations`) and the XLA-only `--remat`,
+`--remat-policy`, `--scan-blocks` and `--scoped-vmem-kib` stop with an
+error naming them.
 Checkpoints are this package's (utils/checkpoint.py).
 
 `serve`: R.npz holds `x` (uint8 NHWC, or int32 (N, T) token ids for
@@ -91,10 +93,8 @@ EXPERIMENT_PRESETS = {
 # options of `cpg_tpu`'s parser that this package does not run yet:
 # (attribute, is-set test, what is missing)
 UNPORTED = [
-    ("parallel_model", lambda v: v != 1,
-     "model-axis sharding (ROADMAP Queue 1, item 12)"),
     ("shard_activations", bool,
-     "activation sharding (ROADMAP Queue 1, items 10 and 12)"),
+     "activation sharding (ROADMAP Queue 1, item 12, act_sharder)"),
     ("remat", bool, "XLA rematerialisation (TPU/XLA only; no port)"),
     ("remat_policy", bool, "XLA rematerialisation (TPU/XLA only; no port)"),
     ("scan_blocks", bool, "lax.scan over blocks (TPU/XLA only; no port)"),
@@ -106,6 +106,12 @@ def _refuse_unported(args):
         if is_set(getattr(args, attr)):
             flag = "--" + attr.replace("_", "-")
             raise SystemExit(f"{flag}: {what} is not ported to cpg_tpu_torch")
+    if args.parallel_model < 1:
+        raise SystemExit(f"--parallel-model: model-axis size "
+                         f"{args.parallel_model} < 1")
+    if args.parallel_model > 1 and not args.parallel:
+        raise SystemExit("--parallel-model: model-axis sharding runs over "
+                         "the ranks of --parallel N (N x M processes)")
     if args.init_from and args.pretrained_npz:
         raise SystemExit("--init-from and --pretrained-npz are mutually "
                          "exclusive")
@@ -355,7 +361,10 @@ def _add_common(p):
                         "device (0 = one device without a process group); "
                         "spawns the ranks unless run under torchrun")
     p.add_argument("--parallel-model", type=int, default=1, metavar="M",
-                   help="not ported (stops with an error unless 1)")
+                   help="model-axis size within --parallel: N x M ranks, "
+                        "each model group of M holding its slices of the "
+                        "sharable kernels (output channels; MoE archs "
+                        "whole experts)")
     p.add_argument("--shard-activations", action="store_true",
                    help="not ported (stops with an error)")
     p.add_argument("--memmap-dir", default=None,
@@ -750,8 +759,9 @@ def _pretrained_state(args, arch):
 
 
 def _spawn_ranks(args, argv) -> int:
-    """Run the command in `args.parallel` spawned ranks (see the module
-    docstring); the kernels are built here first, once."""
+    """Run the command in `args.parallel` x `args.parallel_model` spawned
+    ranks (see the module docstring); the kernels are built here first,
+    once."""
     import tempfile
 
     import torch
@@ -759,12 +769,13 @@ def _spawn_ranks(args, argv) -> int:
 
     from .core.state import resolve_device
 
-    n = args.parallel
+    n = args.parallel * args.parallel_model
     if resolve_device(args.device).type == "cuda":
         have = torch.cuda.device_count()
         if have < n:
-            raise SystemExit(f"--parallel {n} x {args.parallel_model} needs "
-                             f"{n} devices, have {have}")
+            raise SystemExit(f"--parallel {args.parallel} x "
+                             f"{args.parallel_model} needs {n} devices, "
+                             f"have {have}")
         from .ops._build import build_all
 
         build_all()
@@ -813,11 +824,12 @@ def _join_ranks(args, stack):
                 tempfile.TemporaryDirectory(prefix="cpg_ranks_"))
             pd.initialize(f"file://{tmp}/store", 1, 0, device=args.device)
         stack.callback(pd.shutdown)
-    mesh = make_mesh()
-    if mesh.size != args.parallel:
-        raise SystemExit(f"--parallel {args.parallel}: the process group "
-                         f"has {mesh.size} ranks")
-    return mesh
+    n = args.parallel * args.parallel_model
+    if dist.get_world_size() != n:
+        raise SystemExit(f"--parallel {args.parallel} x "
+                         f"{args.parallel_model}: the process group has "
+                         f"{dist.get_world_size()} ranks")
+    return make_mesh(n_model=args.parallel_model)
 
 
 def _cycle(args, argv=None) -> int:
@@ -835,8 +847,8 @@ def _cycle(args, argv=None) -> int:
                          "on one device")
     import torch.distributed as dist
 
-    if (args.parallel > 1 and "RANK" not in os.environ
-            and not dist.is_initialized()):
+    if (args.parallel * args.parallel_model > 1
+            and "RANK" not in os.environ and not dist.is_initialized()):
         return _spawn_ranks(args, argv)
     with contextlib.ExitStack() as stack:
         mesh = _join_ranks(args, stack)

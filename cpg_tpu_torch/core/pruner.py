@@ -16,15 +16,26 @@ Every prune writes into the live weight and ownership tensors with
 optimizers hold references to those tensors, so a prune inside a training
 phase must not replace them. `one_shot_prune` alone also returns new
 tensors, for callers that keep the state they pruned from.
+
+A layer split over a model group (`shards`, {key: ShardSpec} of
+parallel/collectives.py) takes its counts and its cutoff from the whole
+layer: |w| and the ownership are gathered over the group, and each rank
+writes only its own slice, so the result is bit-equal to one process on
+the whole layer.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .ownership import FREE, owned_mask
+
+
+def _whole(t: torch.Tensor, spec) -> torch.Tensor:
+    """The whole layer of a slice (a collective), or `t` when not split."""
+    return t if spec is None else spec.gather(t)
 
 
 def _kth_smallest(values: torch.Tensor, valid: torch.Tensor,
@@ -37,35 +48,45 @@ def _kth_smallest(values: torch.Tensor, valid: torch.Tensor,
     return torch.where(rank < 1, -inf, s[idx])
 
 
-def _release_(w, own, task_id, n_prune) -> None:
+def _release_(w, own, task_id, n_prune, whole=None) -> None:
     """Release the `n_prune` smallest-|w| entries owned by `task_id`, and
-    every entry tied with the cutoff magnitude, in place."""
-    owned = owned_mask(own, task_id)
+    every entry tied with the cutoff magnitude, in place. `whole`: the
+    whole layer's (w, own) when w and own are this rank's slice of it; the
+    cutoff comes from the whole layer."""
+    ww, ow = (w, own) if whole is None else whole
     rank = torch.as_tensor(n_prune, dtype=torch.int32, device=w.device)
-    remove = owned & (w.abs() <= _kth_smallest(w.abs(), owned, rank))
+    cutoff = _kth_smallest(ww.abs(), owned_mask(ow, task_id), rank)
+    remove = owned_mask(own, task_id) & (w.abs() <= cutoff)
     w.masked_fill_(remove, 0)
     own.masked_fill_(remove, FREE)
 
 
-def prune_layer_by_ratio_(w, own, task_id, ratio) -> None:
-    """One-shot prune: release round(ratio * n_owned_now) smallest entries."""
-    n_owned = owned_mask(own, task_id).sum(dtype=torch.int32)
+def prune_layer_by_ratio_(w, own, task_id, ratio, spec=None) -> None:
+    """One-shot prune: release round(ratio * n_owned_now) smallest entries
+    (of the whole layer under `spec`)."""
+    whole = _whole(w, spec), _whole(own, spec)
+    n_owned = owned_mask(whole[1], task_id).sum(dtype=torch.int32)
     r = torch.tensor(ratio, dtype=torch.float32, device=w.device)
     _release_(w, own, task_id,
-              torch.round(r * n_owned.to(torch.float32)).to(torch.int32))
+              torch.round(r * n_owned.to(torch.float32)).to(torch.int32),
+              whole)
 
 
-def prune_layer_to_total_(w, own, task_id, target_sparsity, n0) -> None:
+def prune_layer_to_total_(w, own, task_id, target_sparsity, n0,
+                          spec=None) -> None:
     """Gradual-prune step: release entries until `target_sparsity` of the
     snapshot count `n0` (the layer's owned count at prune-phase start) are
-    released; the shortfall is clamped at 0."""
-    n_now = owned_mask(own, task_id).sum(dtype=torch.int32)
+    released; the shortfall is clamped at 0. Under `spec` w and own are
+    this rank's slice and the counts are the whole layer's."""
+    whole = _whole(w, spec), _whole(own, spec)
+    n_now = owned_mask(whole[1], task_id).sum(dtype=torch.int32)
     n0 = torch.as_tensor(n0, device=own.device)
     pruned_so_far = n0.to(torch.int32) - n_now
     want_total = torch.round(
         torch.as_tensor(target_sparsity, dtype=torch.float32).to(own.device)
         * n0.to(torch.float32)).to(torch.int32)
-    _release_(w, own, task_id, torch.clamp(want_total - pruned_so_far, min=0))
+    _release_(w, own, task_id, torch.clamp(want_total - pruned_so_far, min=0),
+              whole)
 
 
 # ---------------------------------------------------------------------------
@@ -73,15 +94,20 @@ def prune_layer_to_total_(w, own, task_id, target_sparsity, n0) -> None:
 # ---------------------------------------------------------------------------
 
 
-def snapshot_owned_counts(ownership: Dict, task_id) -> Dict:
-    """{layer: int32 0-d tensor} owned by `task_id`."""
-    return {k: owned_mask(m, task_id).sum(dtype=torch.int32)
-            for k, m in ownership.items()}
+def snapshot_owned_counts(ownership: Dict, task_id,
+                          shards: Optional[Dict] = None) -> Dict:
+    """{layer: int32 0-d tensor} owned by `task_id` (in the whole layer of
+    a slice that `shards` names)."""
+    shards = shards or {}
+    return {k: owned_mask(_whole(m, shards.get(k)), task_id).sum(
+        dtype=torch.int32) for k, m in ownership.items()}
 
 
-def one_shot_prune_(shared: Dict, ownership: Dict, task_id, ratio) -> None:
+def one_shot_prune_(shared: Dict, ownership: Dict, task_id, ratio,
+                    shards: Optional[Dict] = None) -> None:
+    shards = shards or {}
     for k, w in shared.items():
-        prune_layer_by_ratio_(w, ownership[k], task_id, ratio)
+        prune_layer_by_ratio_(w, ownership[k], task_id, ratio, shards.get(k))
 
 
 def one_shot_prune(shared: Dict, ownership: Dict, task_id,
@@ -94,19 +120,22 @@ def one_shot_prune(shared: Dict, ownership: Dict, task_id,
 
 
 def gradual_prune_(shared, ownership, task_id, target_sparsity,
-                   n0_counts) -> None:
-    """One gradual-prune event over every layer of the tree."""
+                   n0_counts, shards: Optional[Dict] = None) -> None:
+    """One gradual-prune event over every layer of the tree (`shards`: the
+    layers held as slices, see the module docstring)."""
+    shards = shards or {}
     for k, w in shared.items():
         prune_layer_to_total_(w, ownership[k], task_id, target_sparsity,
-                              n0_counts[k])
+                              n0_counts[k], shards.get(k))
 
 
-def task_sparsity(ownership, task_id, n0_counts) -> torch.Tensor:
+def task_sparsity(ownership, task_id, n0_counts,
+                  shards: Optional[Dict] = None) -> torch.Tensor:
     """Achieved sparsity vs the snapshot counts (for logging and records),
     f32, summed over the layers in sorted-key order (the JAX tree order)."""
     keys = sorted(ownership)
-    n_now = sum(owned_mask(ownership[k], task_id).sum(dtype=torch.int32).cpu()
-                for k in keys)
+    now = snapshot_owned_counts(ownership, task_id, shards)
+    n_now = sum(now[k].cpu() for k in keys)
     n_tot = sum(torch.as_tensor(n0_counts[k], dtype=torch.float32).cpu()
                 for k in keys)
     return 1.0 - n_now / torch.clamp(n_tot, min=1.0)

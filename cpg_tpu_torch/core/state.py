@@ -7,6 +7,11 @@ Same structure and keys as `cpg_tpu.core.state`, holding torch tensors:
   tasks      {task_id: TaskEntry}  per-task piggymask + private + BN stats
   width_mult float                 current network width multiplier
 
+Under a model axis (parallel/mesh.py) a rank's state holds only its slice
+of each split kernel, and of its ownership and piggymasks; `shards` maps
+those keys to their `ShardSpec` (parallel/collectives.py) and is empty for
+a whole state, the only kind that is saved or carried across.
+
 `state_from_numpy` / `state_to_numpy` carry a state between the packages:
 every array leaf is copied by key, so a state built by `cpg_tpu` (whose
 arrays convert with `np.asarray`) loads here, and the reverse.
@@ -53,6 +58,8 @@ class CPGState:
     mask_mode: str = "binary"      # 'binary' | 'ternary' | 'packnet'
     model_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
     in_shape: Optional[tuple] = None
+    # {kernel key: ShardSpec} of the kernels this rank holds a slice of
+    shards: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def num_tasks(self) -> int:

@@ -14,6 +14,14 @@ Usage:
 
 `init` draws every parameter from the given `torch.Generator` on the CPU, in
 registration order; the caller moves the dicts to its device.
+
+Under a model axis (`apply(shards=...)`, parallel/mesh.py) `shared` holds
+this rank's slice of each kernel named in `shards`: a sharable layer takes
+its input through `to_model_group`, runs its product on the slice (the
+same kernels: K1-K3 through `masked_conv2d`/`masked_matmul`, K4-K6 through
+`fused_affine_relu_conv`) and gathers the output over the model group at
+once, so everything after it runs whole on every rank of the group. A
+layer whose kernel is not split runs whole, with no collective.
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.conv import conv2d_nhwc, resolve_padding
-from ..parallel.collectives import all_reduce_sum, world_size
+from ..parallel.collectives import (all_reduce_sum, gather_from_model_group,
+                                    to_model_group, world_size)
 
 
 @dataclass
@@ -115,18 +124,43 @@ class Ctx:
     # activation scale (the max over calls) into this dict
     act_stats: Optional[Dict[str, float]] = None
     # data-parallel training: the process group whose ranks' batches make
-    # the global batch; BatchNorm takes its statistics over all of it
+    # the global batch (the mesh's data group); BatchNorm takes its
+    # statistics over all of it
     sync_group: Optional[object] = None
+    # the model axis: {kernel key: ShardSpec} of the kernels `shared` holds
+    # this rank's slice of (parallel/collectives.py)
+    shards: Dict[str, object] = field(default_factory=dict)
 
     def shared_param(self, name, shape, init_fn):
+        """The kernel `name` of whole shape `shape` (its slice when
+        `shards` splits it)."""
         if self.mode == "init":
             if name in self.shared:
                 raise ValueError(f"duplicate shared param {name}")
             self.shared[name] = init_fn(self.generator, shape)
         w = self.shared[name]
-        if tuple(w.shape) != tuple(shape):
-            raise ValueError(f"{name}: {tuple(w.shape)} != {tuple(shape)}")
+        spec = self.shards.get(name)
+        want = tuple(shape) if spec is None else spec.shard_shape(shape)
+        if tuple(w.shape) != want:
+            raise ValueError(f"{name}: {tuple(w.shape)} != {want}")
         return w
+
+    def into_shard(self, key, *xs):
+        """The inputs of a product on kernel `key`: through
+        `to_model_group` when the kernel is split (their gradients then sum
+        the ranks' partial ones), else as they are."""
+        spec = self.shards.get(key)
+        if spec is None:
+            return xs if len(xs) > 1 else xs[0]
+        out = tuple(to_model_group(x, spec.group) for x in xs)
+        return out if len(out) > 1 else out[0]
+
+    def out_of_shard(self, key, y, axis=-1):
+        """A product's output on kernel `key` made whole: gathered along
+        `axis` over the model group when the kernel is split."""
+        spec = self.shards.get(key)
+        return y if spec is None else gather_from_model_group(
+            y, spec.group, axis)
 
     def private_param(self, name, shape, init_fn):
         if self.mode == "init":
@@ -209,10 +243,18 @@ def sconv(ctx: Ctx, name: str, x: torch.Tensor, features: int,
     Under int8 (`ctx.quant_scales` holds the key) the int8 conv of
     ops/int8.py runs and the output is f32. A
     non-overlapping patch embedding (kernel == stride, VALID, as in the ViT
-    stems) runs as space-to-depth + one matmul, as `cpg_tpu` computes it."""
+    stems) runs as space-to-depth + one matmul, as `cpg_tpu` computes it.
+    A split kernel (`ctx.shards`) gives this rank's output channels,
+    gathered over the model group."""
     cin = x.shape[-1]
     key = f"{name}/kernel"
     w = ctx.shared_param(key, (kernel, kernel, cin, features), kernel_init)
+    y = _conv_product(ctx, key, ctx.into_shard(key, x), w, kernel, stride,
+                      padding)
+    return ctx.out_of_shard(key, y)
+
+
+def _conv_product(ctx: Ctx, key: str, x, w, kernel, stride, padding):
     mk = ctx.masking
     if mk is not None and ctx.mode != "init":
         own, pm = ctx.mask_entries(key)
@@ -248,9 +290,16 @@ def sdense(ctx: Ctx, name: str, x: torch.Tensor, features: int,
     leading shape, output and bias add in the compute dtype. With a Masking
     whose `pallas_dense` is set and a piggymask present, the leading dims
     flatten to (M, K) and the masked-matmul kernels select the weight.
-    Under int8 the int8 matmul runs and the output is f32."""
+    Under int8 the int8 matmul runs and the output is f32. A split kernel
+    gives this rank's output features, gathered before the bias."""
     key = f"{name}/kernel"
     w = ctx.shared_param(key, (x.shape[-1], features), kernel_init)
+    y = ctx.out_of_shard(key, _dense_product(ctx, key, ctx.into_shard(key, x),
+                                             w))
+    return _dense_bias(ctx, name, y, features, use_bias)
+
+
+def _dense_product(ctx: Ctx, key: str, x, w):
     mk = ctx.masking
     if mk is not None and ctx.mode != "init":
         own, pm = ctx.mask_entries(key)
@@ -258,17 +307,15 @@ def sdense(ctx: Ctx, name: str, x: torch.Tensor, features: int,
             from ..ops.masked_matmul import masked_matmul
 
             x2 = x.reshape(-1, x.shape[-1]).to(ctx.compute_dtype).contiguous()
-            y = masked_matmul(x2, w, own, pm, mk.task_id, mk.threshold,
-                              mk.mask_mode).reshape(*x.shape[:-1], features)
-            return _dense_bias(ctx, name, y, features, use_bias)
+            return masked_matmul(x2, w, own, pm, mk.task_id, mk.threshold,
+                                 mk.mask_mode).reshape(*x.shape[:-1],
+                                                       w.shape[-1])
         w = ctx.masked_weight(key, w)
     if ctx.quant_scales is not None and key in ctx.quant_scales:
         from ..ops.int8 import matmul_int8
 
-        y = _int8_product(ctx, key, x, lambda xq: matmul_int8(xq, w))
-        return _dense_bias(ctx, name, y, features, use_bias)
-    y = x.to(ctx.compute_dtype) @ w.to(ctx.compute_dtype)
-    return _dense_bias(ctx, name, y, features, use_bias)
+        return _int8_product(ctx, key, x, lambda xq: matmul_int8(xq, w))
+    return x.to(ctx.compute_dtype) @ w.to(ctx.compute_dtype)
 
 
 def sembed(ctx: Ctx, name: str, ids: torch.Tensor, vocab: int,
@@ -283,7 +330,8 @@ def sembed(ctx: Ctx, name: str, ids: torch.Tensor, vocab: int,
     Ids must lie in [0, vocab): `jnp.take` clamps or fills an id outside
     it, torch raises (on the card, a device-side assert), so the entry
     points check them on the host (`models.check_token_ids`). The table
-    keeps its shape across widths."""
+    keeps its shape across widths. A split table (on its features) gives
+    this rank's features of each row, gathered over the model group."""
     key = f"{name}/kernel"
     w = ctx.shared_param(key, (vocab, features), normal_init(0.02))
     if ctx.masking is not None and ctx.mode != "init":
@@ -295,7 +343,7 @@ def sembed(ctx: Ctx, name: str, ids: torch.Tensor, vocab: int,
             *ids.shape, features)
     # the table is cast before the gather, as `cpg_tpu`'s: in bf16 the
     # gather's backward sums each row's gradient into a bf16 row
-    return F.embedding(ids, w.to(ctx.compute_dtype))
+    return ctx.out_of_shard(key, F.embedding(ids, w.to(ctx.compute_dtype)))
 
 
 def _dense_bias(ctx: Ctx, name: str, y: torch.Tensor, features: int,
@@ -315,7 +363,9 @@ def _bn_moments(ctx: Ctx, name: str, x: torch.Tensor):
     this call (batch stats in train, running stats in eval) and record the
     running-stat updates. Batch stats use the one-pass E[x^2] - mean^2;
     under `ctx.sync_group` over the global batch (the unbiased factor from
-    its count), their gradients reaching every rank's rows."""
+    its count), their gradients reaching every rank's rows. Under a model
+    axis that group is the data group: the ranks of a model group see the
+    same rows and, after the gathered product, all the channels."""
     c = x.shape[-1]
     scale = ctx.private_param(f"{name}/scale", (c,), _ones)
     bias = ctx.private_param(f"{name}/bias", (c,), _zeros)
@@ -364,7 +414,9 @@ def fused_bn_relu_sconv(ctx: Ctx, bn_name: str, conv_name: str,
     """conv3x3(relu(BN(x))). Under `ctx.fused_chain` (outside init) this runs
     the fused kernel, the normalised activation never leaving shared memory;
     otherwise (and under int8) it is exactly the unfused composition. Same
-    param names and registration order either way."""
+    param names and registration order either way. A split kernel takes
+    x, a and b through `to_model_group` (K5's partial dx, da and db sum
+    over the model group) and gathers its output channels."""
     if not (ctx.fused_chain and ctx.mode != "init"
             and ctx.quant_scales is None):
         return sconv(ctx, conv_name, relu(batchnorm(ctx, bn_name, x)),
@@ -376,8 +428,9 @@ def fused_bn_relu_sconv(ctx: Ctx, bn_name: str, conv_name: str,
     w = ctx.shared_param(key, (3, 3, x.shape[-1], features), he_normal_fan_out)
     if ctx.masking is not None:
         w = ctx.masked_weight(key, w)
-    return fused_affine_relu_conv(x.contiguous(), a.contiguous(),
-                                  b.contiguous(), w, ctx.compute_dtype)
+    x, a, b = ctx.into_shard(key, x, a, b)
+    return ctx.out_of_shard(key, fused_affine_relu_conv(
+        x.contiguous(), a.contiguous(), b.contiguous(), w, ctx.compute_dtype))
 
 
 LN_EPS = 1e-6
@@ -473,11 +526,12 @@ def apply(model_fn: Callable, shared: Dict, private: Dict, bn_state: Dict, x,
           masking: Optional[Masking] = None, fused_chain: bool = False,
           flash_attention: bool = False, quant_scales=None, act_scales=None,
           act_stats=None, qkv_fused: Optional[bool] = None,
-          sync_group=None, **kwargs):
+          sync_group=None, shards=None, **kwargs):
     """Run the model. With `masking=None`, `shared` holds pre-masked
     effective params; with a Masking, `shared` holds RAW weights. With
     `quant_scales` (eval only), `shared` holds int8 kernels. `sync_group`
-    (training) synchronises BatchNorm's statistics over its ranks."""
+    (training) synchronises BatchNorm's statistics over its ranks;
+    `shards` names the kernels `shared` holds this rank's slice of."""
     if quant_scales is not None and train:
         raise ValueError("int8 (quant_scales) is eval-only")
     ctx = Ctx(mode="apply", train=train, shared=shared, private=private,
@@ -485,6 +539,7 @@ def apply(model_fn: Callable, shared: Dict, private: Dict, bn_state: Dict, x,
               masking=masking, fused_chain=fused_chain,
               flash_attention=flash_attention, quant_scales=quant_scales,
               act_scales=act_scales, act_stats=act_stats,
-              qkv_fused=qkv_fused, sync_group=sync_group)
+              qkv_fused=qkv_fused, sync_group=sync_group,
+              shards=dict(shards or {}))
     out = model_fn(ctx, x, **kwargs)
     return out, ctx.new_bn_state

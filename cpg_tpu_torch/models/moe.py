@@ -17,7 +17,12 @@ Same layer names, shapes and math as `cpg_tpu.models.moe`:
     experts drop the same tokens at any width.
 
 The expert products are plain einsums (`cpg_tpu` leaves them to XLA; no
-Pallas kernel). Left out: the `constrain` seams (no mesh).
+Pallas kernel). Under a model axis (`ctx.shards`) stacked kernels split
+along their experts take each rank's experts' slots of the dispatched
+tokens, run both products on them and gather the experts' outputs before
+the combine; kernels split along their last axis (when the experts do not
+divide) gather each product's output, as `sdense`. Left out: the
+`constrain` seams (`act_sharder`, ROADMAP Queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -88,11 +93,20 @@ def smoe(ctx: Ctx, name: str, x, n_experts_base: int, hidden: int,
             w = w.float() * ctx.quant_scales[key]
         return w.to(ctx.compute_dtype)
 
-    w1 = kernel(f"{name}/experts/fc1/kernel")
-    w2 = kernel(f"{name}/experts/fc2/kernel")
+    k1, k2 = f"{name}/experts/fc1/kernel", f"{name}/experts/fc2/kernel"
+    w1, w2 = kernel(k1), kernel(k2)
     xe = torch.einsum("ntec,ntd->necd", disp, x.to(ctx.compute_dtype))
-    he = gelu(torch.einsum("necd,edf->necf", xe, w1))
-    ye = torch.einsum("necf,efd->necd", he, w2)
+    spec = ctx.shards.get(k1)
+    if spec is not None and spec.axis == 0:  # this rank's whole experts
+        xe = ctx.into_shard(k1, xe).narrow(1, spec.index * spec.width,
+                                           spec.width)
+        he = gelu(torch.einsum("necd,edf->necf", xe, w1))
+        ye = ctx.out_of_shard(k2, torch.einsum("necf,efd->necd", he, w2), 1)
+    else:
+        he = gelu(ctx.out_of_shard(k1, torch.einsum(
+            "necd,edf->necf", ctx.into_shard(k1, xe), w1)))
+        ye = ctx.out_of_shard(k2, torch.einsum(
+            "necf,efd->necd", ctx.into_shard(k2, he), w2))
     y = torch.einsum("ntec,necd->ntd", disp.float(), ye.float())
     return (y * gate[..., None]).to(x.dtype)
 

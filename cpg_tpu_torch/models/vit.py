@@ -15,11 +15,12 @@ Attention runs one of two ways, the same math:
     ops/flash.py, where the scores never reach device memory.
 
 With `ctx.qkv_fused` (off by default, as in `cpg_tpu`), q, k and v come
-from one product on the effective-params path.
+from one product on the effective-params path of a whole state; under a
+model axis (`ctx.shards`) the three products run, each gathered.
 
 Left out from `cpg_tpu`: `scan_blocks`/`scan_vit_blocks` (an XLA lever),
-and the `pipeline` hook and `act_sharder` seams, which wait for a device
-mesh (ROADMAP Queue 1, item 12).
+and the `pipeline` hook and `act_sharder` seams (ROADMAP Queue 1, item
+12).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def attention(ctx: Ctx, name: str, x, heads_n: int, head_dim: int,
     n, t, d = x.shape
     inner = heads_n * head_dim
     if (ctx.qkv_fused and ctx.mode != "init" and ctx.masking is None
-            and ctx.quant_scales is None):
+            and ctx.quant_scales is None and not ctx.shards):
         # one (D, 3*inner) product of the concatenated effective kernels;
         # they stay separate params, so autograd splits the gradient back
         ws = [ctx.shared_param(f"{name}/{p}/kernel", (d, inner),

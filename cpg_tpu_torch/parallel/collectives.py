@@ -1,13 +1,22 @@
-"""The collectives of data-parallel training, over a torch.distributed group.
+"""The collectives of parallel training, over a torch.distributed group.
 
 `group=None` means no group: one process, whose batch is the whole batch,
 and every function here is then the identity (as it is over a group of one
 rank).
+
+The model axis (parallel/mesh.py) splits a kernel over the ranks of a
+model group (`ShardSpec`). A layer whose kernel is split runs as
+`to_model_group(x)` -> the product on this rank's shard ->
+`gather_from_model_group(y, axis)`: the input's gradient is the sum of the
+ranks' partial gradients, and the output is whole again at once.
+`gather_state` and `shard_state` move a whole state between its shards
+and whole tensors.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+import dataclasses
+from typing import Dict, Iterable, Optional
 
 import torch
 import torch.distributed as dist
@@ -120,3 +129,157 @@ def checksum(t: torch.Tensor) -> torch.Tensor:
 def barrier(group) -> None:
     if world_size(group) > 1:
         dist.barrier(group=group)
+
+
+# ---------------------------------------------------------------------------
+# The model axis: kernels split over the ranks of a model group.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """A tensor split into `parts` equal slices along `axis` over the ranks
+    of `group`: `size` is the whole axis, `index` this rank's slice (its
+    rank in the group)."""
+
+    axis: int
+    size: int
+    parts: int
+    index: int
+    group: object = dataclasses.field(default=None, compare=False,
+                                      repr=False)
+
+    @property
+    def width(self) -> int:
+        """The length of one slice along `axis`."""
+        return self.size // self.parts
+
+    def shard_shape(self, shape) -> tuple:
+        """This rank's shape of a whole tensor of `shape`."""
+        shape = tuple(shape)
+        if shape[self.axis] != self.size:
+            raise ValueError(f"axis {self.axis} of {shape} is not {self.size}")
+        return shape[:self.axis] + (self.width,) + shape[self.axis + 1:]
+
+    def whole_shape(self, shape) -> tuple:
+        """The whole shape of a shard of `shape`."""
+        shape = tuple(shape)
+        return shape[:self.axis] + (self.size,) + shape[self.axis + 1:]
+
+    def is_whole(self, t: torch.Tensor) -> bool:
+        return t.shape[self.axis] == self.size
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a whole tensor, as a contiguous copy."""
+        return t.narrow(self.axis, self.index * self.width,
+                        self.width).contiguous()
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from every rank's slice (a collective)."""
+        return all_gather_along(t, self.group, self.axis)
+
+
+def all_gather_along(t: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """The group's tensors (equal shapes) concatenated along `axis` in rank
+    order; `t` itself at one rank. The bytes travel as they are (any
+    dtype), through `dist.all_gather`; not differentiable."""
+    n = world_size(group)
+    if n == 1:
+        return t
+    t = t.contiguous()
+    raw = t.view(-1).view(torch.uint8)
+    parts = [torch.empty_like(raw) for _ in range(n)]
+    dist.all_gather(parts, raw, group=group)
+    return torch.cat([p.view(t.dtype).view(t.shape) for p in parts], axis)
+
+
+class _ToModelGroup(torch.autograd.Function):
+    """y = x; the gradient of x is the sum of y's gradients over the group
+    (each rank's product on its shard gives a partial one), summed in f32
+    and returned in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = g.to(torch.float32, copy=True).contiguous()
+        dist.all_reduce(s, group=ctx.group)
+        return s.to(g.dtype), None
+
+
+class _GatherFromModelGroup(torch.autograd.Function):
+    """y = the group's shards concatenated along `axis`; the gradient of a
+    shard is this rank's slice of y's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.axis, ctx.width = axis, x.shape[axis]
+        ctx.start = rank(group) * ctx.width
+        return all_gather_along(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.axis, ctx.start, ctx.width).contiguous(), None, None
+
+
+def to_model_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The input of a product on a kernel shard: the identity forward; the
+    backward sums the ranks' partial gradients over the model group."""
+    if world_size(group) == 1:
+        return x
+    return _ToModelGroup.apply(x, group)
+
+
+def gather_from_model_group(y: torch.Tensor, group, axis: int
+                            ) -> torch.Tensor:
+    """The output of a product on a kernel shard made whole: the ranks'
+    slices concatenated along `axis` (the kernel's output channels or its
+    experts); the backward keeps this rank's slice of the gradient."""
+    if world_size(group) == 1:
+        return y
+    return _GatherFromModelGroup.apply(y, group, axis)
+
+
+def _tree_of(state, fn):
+    """`fn(tree, key, tensor)` over the trees of a state that a model axis
+    splits: shared, ownership and every task's piggymask; a new state."""
+    def tree(d):
+        return None if d is None else {k: fn(k, v) for k, v in d.items()}
+
+    return dataclasses.replace(
+        state, shared=tree(state.shared), ownership=tree(state.ownership),
+        tasks={tid: dataclasses.replace(t, piggymask=tree(t.piggymask))
+               for tid, t in state.tasks.items()})
+
+
+def gather_state(state):
+    """The whole state from this rank's shards (`state.shards`): every split
+    tensor of shared, ownership and the piggymasks all-gathered over its
+    model group, everything else kept (no copy); the result records no
+    shards. A collective: every rank of the model groups calls it. A state
+    without shards is returned as it is."""
+    if not state.shards:
+        return state
+    shards = state.shards
+    out = _tree_of(state, lambda k, v: shards[k].gather(v) if k in shards
+                   else v)
+    out.shards = {}
+    return out
+
+
+def shard_state(state, shards: Dict[str, Optional[ShardSpec]]):
+    """This rank's shards of a whole state (the same on every rank of the
+    model group): each tensor of shared, ownership and the piggymasks whose
+    key `shards` splits becomes its slice (a copy); the specs are recorded
+    on the result as `shards`."""
+    if state.shards:
+        raise ValueError("shard_state takes a whole state; this one is "
+                         "sharded already")
+    shards = {k: s for k, s in shards.items() if s is not None}
+    out = _tree_of(state, lambda k, v: shards[k].take(v) if k in shards
+                   else v)
+    out.shards = shards
+    return out

@@ -11,7 +11,7 @@ Usage (the same script in every rank, e.g. under torchrun):
 
     from cpg_tpu_torch.parallel import distributed as pd
     pd.initialize()                          # from torchrun's environment
-    mesh = pd.make_pod_mesh()                # ("data", "model") or dcn too
+    mesh = pd.make_pod_mesh(n_model=M)       # ("data", "model") or dcn too
     ... Manager(..., mesh=mesh) ...
 
 Each rank loads its own rows of the global batch (`local_batch_slice`) and
@@ -109,7 +109,10 @@ def local_device() -> torch.device:
 
 
 def make_pod_mesh(n_model: int = 1, n_dcn: Optional[int] = None) -> Mesh:
-    """The mesh over every rank, with a `dcn` axis over the hosts.
+    """The mesh over every rank, with a `dcn` axis over the hosts and a
+    model axis of `n_model` ranks (the ranks of one host's model group are
+    consecutive, so a model group stays on one host when n_model divides
+    the host's ranks).
 
     `n_dcn` defaults to the hosts: the ranks over torchrun's
     LOCAL_WORLD_SIZE (one host without it). With one host this is

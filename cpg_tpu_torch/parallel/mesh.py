@@ -1,27 +1,35 @@
-"""Device meshes for the CPG train step and for serving, along the data axes.
+"""Device meshes for the CPG train step and for serving.
 
 The counterpart of `cpg_tpu.parallel.mesh`. `cpg_tpu` jits one program
-over a `jax.sharding.Mesh` and XLA inserts the reductions; the port runs
-one process per device (SPMD, torch.distributed):
+over a `jax.sharding.Mesh` and XLA partitions it; the port runs one
+process per device (SPMD, torch.distributed) and places each collective
+itself:
 
-  * training: every rank holds the replicated state on its own device,
-    takes its rows of the global batch (`local_batch_slice`) and meets the
-    other ranks in collectives: the gradients are averaged over the ranks
-    before the ownership gating (train/step.py), BatchNorm takes its
-    statistics over the global batch (models/framework.py), the metrics
-    come back as global means;
+  * training: rank r is (data index, model index) = divmod(r, n_model), as
+    `cpg_tpu` reshapes its devices to (n_data, n_model). Every rank takes
+    the rows of the global batch of its data index (`local_batch_slice`).
+    The ranks of one model index form the mesh's data group: the gradients
+    are averaged over it before the ownership gating (train/step.py),
+    BatchNorm takes its statistics over it (models/framework.py), the
+    metrics come back as its means. The ranks of one data index form the
+    model group: with `model_sharded`, each holds only its slice of every
+    sharable kernel whose sharded axis divides (`shared_shardings`), with
+    the ownership, piggymasks and optimizer moments of that slice; a
+    layer gathers its output over the model group right after the product
+    (parallel/collectives.py), so everything after it runs replicated
+    within the group;
   * serving (serve.py `TaskServer(mesh=)`): one process over the mesh's
     devices, one weight replica a device, each bucket split into equal
-    shards, one a device, the answers gathered in order.
+    shards, one a device, the answers gathered in order; a model axis
+    serves data-parallel over all its devices, as `cpg_tpu`'s.
 
 A mesh built while a process group is up (and without explicit devices)
-spans the group's ranks, one device each, and carries the group: the
-training entry points take such a mesh. A mesh of explicit devices spans
-devices of this process and carries no group; a device may repeat
-(`[cuda:0, cuda:0]`), which lets a bucket split run on one card. The axes
-are ("data", "model"), or ("dcn", "data", "model") with `n_dcn > 1`; the
-batch splits over the dcn and data axes together. The model axis (output-
-channel sharded kernels, expert sharding, activation sharding) stays at 1.
+spans the group's ranks, one device each, and carries the group and its
+two kinds of subgroup: the training entry points take such a mesh. A mesh
+of explicit devices spans devices of this process and carries no group; a
+device may repeat (`[cuda:0, cuda:0]`), which lets a bucket split run on
+one card. The axes are ("data", "model"), or ("dcn", "data", "model") with
+`n_dcn > 1`; the batch splits over the dcn and data axes together.
 """
 
 from __future__ import annotations
@@ -35,12 +43,9 @@ import torch
 import torch.distributed as dist
 
 from ..core.state import resolve_device
-from .collectives import all_reduce_sum_, broadcast_, world_size
+from .collectives import ShardSpec, all_reduce_sum_, broadcast_, world_size
 from .collectives import rank as group_rank
 
-MODEL_AXIS = ("the model axis (output-channel sharded kernels, expert "
-              "sharding, activation sharding) is not ported to cpg_tpu_torch "
-              "yet (ROADMAP Queue 1, item 12)")
 DATA_AXES = ("dcn", "data")
 
 
@@ -48,15 +53,20 @@ class Mesh:
     """Devices in an array over named axes, as `jax.sharding.Mesh`:
     `devices`, `axis_names`, `shape` ({axis: size}) and `size`; with a
     process group (`group`), this process's `rank` among the mesh's ranks
-    (the flat position of its device in `devices`)."""
+    (the flat position of its device in `devices`), its `data_group` (the
+    ranks of its model index; None when that is this rank alone) and its
+    `model_group` (the ranks of its data index; None without a model
+    axis)."""
 
     def __init__(self, devices: Sequence[torch.device], axis_names,
-                 shape, group=None):
+                 shape, group=None, data_group=None, model_group=None):
         flat = np.empty(len(devices), dtype=object)
         flat[:] = [torch.device(d) for d in devices]
         self.devices = flat.reshape(shape)
         self.axis_names = tuple(axis_names)
         self.group = group
+        self.data_group = data_group
+        self.model_group = model_group
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -72,8 +82,23 @@ class Mesh:
         return int(np.prod([self.shape.get(a, 1) for a in DATA_AXES]))
 
     @property
+    def model_size(self) -> int:
+        """The ranks (or devices) a sharded kernel splits over."""
+        return self.shape.get("model", 1)
+
+    @property
     def rank(self) -> Optional[int]:
         return None if self.group is None else group_rank(self.group)
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's index along the data axes (0 without a group)."""
+        return (self.rank or 0) // self.model_size
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's index along the model axis (0 without a group)."""
+        return (self.rank or 0) % self.model_size
 
     @property
     def device(self) -> torch.device:
@@ -107,33 +132,58 @@ def _rank_devices():
     return [torch.device(d) for d in out]
 
 
+def _subgroups(n_data: int, n_model: int):
+    """(data group, model group) of this rank in a world of n_data x
+    n_model ranks, rank r at (r // n_model, r % n_model). Every rank creates
+    every subgroup, in one order (torch.distributed hangs a rank that
+    creates only its own); a subgroup of one rank is None."""
+    if n_model == 1:
+        return dist.group.WORLD, None
+    me = dist.get_rank()
+    data = model = None
+    for m in range(n_model):
+        ranks = [d * n_model + m for d in range(n_data)]
+        g = dist.new_group(ranks) if n_data > 1 else None
+        if me in ranks:
+            data = g
+    for d in range(n_data):
+        ranks = list(range(d * n_model, (d + 1) * n_model))
+        g = dist.new_group(ranks)
+        if me in ranks:
+            model = g
+    return data, model
+
+
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1, devices=None,
               n_dcn: int = 1) -> Mesh:
-    """The mesh of `n_dcn * n_data` devices: with a process group up and no
-    `devices`, one device a rank over every rank (`n_data` defaults to the
-    ranks over `n_dcn`); otherwise `devices` (default: this process's
-    cards; raises without one) in this process."""
-    if n_model != 1:
-        raise NotImplementedError(f"make_mesh(n_model={n_model}): "
-                                  f"{MODEL_AXIS}")
+    """The mesh of `n_dcn * n_data * n_model` devices: with a process group
+    up and no `devices`, one device a rank over every rank (`n_data`
+    defaults to the ranks over `n_dcn * n_model`), with its data and model
+    subgroups; otherwise `devices` (default: this process's cards; raises
+    without one) in this process."""
+    if n_model < 1 or n_dcn < 1:
+        raise ValueError(f"a mesh of {n_dcn} x {n_data} x {n_model} devices")
     spmd = devices is None and dist.is_available() and dist.is_initialized()
     if devices is None:
         devices = _rank_devices() if spmd else _local_devices()
     devices = list(devices)
-    n_total = (len(devices) // n_dcn * n_dcn if n_data is None
-               else n_dcn * n_data)
+    step = n_dcn * n_model
+    n_total = (len(devices) // step * step if n_data is None
+               else step * n_data)
     if not 0 < n_total <= len(devices):
-        raise ValueError(f"a mesh of {n_dcn} x {n_data} devices over "
-                         f"{len(devices)}")
+        raise ValueError(f"a mesh of {n_dcn} x {n_data} x {n_model} devices "
+                         f"over {len(devices)}")
     if spmd and n_total != len(devices):
         raise ValueError(f"a mesh over the process group spans all "
                          f"{len(devices)} ranks, not {n_total}")
-    n_data = n_total // n_dcn
+    n_data = n_total // step
+    groups = ((dist.group.WORLD, *_subgroups(n_dcn * n_data, n_model))
+              if spmd else (None, None, None))
     if n_dcn > 1:
         return Mesh(devices[:n_total], ("dcn", "data", "model"),
-                    (n_dcn, n_data, 1), dist.group.WORLD if spmd else None)
-    return Mesh(devices[:n_total], ("data", "model"), (n_data, 1),
-                dist.group.WORLD if spmd else None)
+                    (n_dcn, n_data, n_model), *groups)
+    return Mesh(devices[:n_total], ("data", "model"), (n_data, n_model),
+                *groups)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,7 +220,8 @@ def require_ranks(mesh: Mesh) -> None:
 
 def local_batch_slice(mesh: Mesh, global_batch: int) -> slice:
     """The [start, stop) rows of the global batch this process takes: all
-    of them in a process without a group, else its rank's equal share."""
+    of them in a process without a group, else its data index's equal
+    share (the ranks of one model group take the same rows)."""
     if mesh.group is None:
         return slice(0, global_batch)
     n = mesh.data_size
@@ -178,7 +229,7 @@ def local_batch_slice(mesh: Mesh, global_batch: int) -> slice:
         raise ValueError(f"a batch of {global_batch} does not split into "
                          f"{n} equal shards")
     per = global_batch // n
-    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+    return slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
 
 
 def put_global_batch(mesh: Mesh, x, y):
@@ -194,63 +245,123 @@ def shard_batch(mesh: Mesh, x, y):
     return put_global_batch(mesh, x[sl], y[sl])
 
 
-def _map(tree, fn):
-    """`fn` on every tensor of a nested dict (other leaves kept)."""
-    if torch.is_tensor(tree):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return tree
+def shared_shardings(mesh: Mesh, shared, model_sharded: bool = False
+                     ) -> Dict[str, Optional[ShardSpec]]:
+    """{key: ShardSpec or None (replicated)} for the shared kernels AND
+    their ownership and piggymask trees (same shapes, same split), from the
+    whole tree `shared` (tensors or shapes).
+
+    Under `model_sharded`, `cpg_tpu`'s rule: a kernel splits along its
+    output channels, one under an `/experts/` scope along its leading
+    expert axis instead when the experts divide; an axis that does not
+    divide over the model axis stays replicated. `index` is this rank's
+    model index."""
+    n = mesh.model_size
+
+    def spec(name, w) -> Optional[ShardSpec]:
+        shape = tuple(getattr(w, "shape", w))
+        if not model_sharded or n == 1:
+            return None
+        if "/experts/" in name and shape[0] % n == 0:
+            axis = 0  # cpg_tpu's _expert_spec: whole experts a rank
+        elif shape[-1] % n == 0:
+            axis = len(shape) - 1  # its _kernel_spec: HWIO or (in, out)
+        else:
+            return None
+        return ShardSpec(axis, shape[axis], n, mesh.model_rank,
+                         mesh.model_group)
+
+    return {k: spec(k, w) for k, w in shared.items()}
+
+
+def whole_shapes(shared, shards) -> Dict[str, tuple]:
+    """{key: whole shape} of a shared tree that may hold shards."""
+    return {k: (shards[k].whole_shape(w.shape) if k in shards
+                else tuple(w.shape)) for k, w in shared.items()}
 
 
 def place_state(mesh: Mesh, tree, sharding=None):
-    """Replicate a (nested dict) state tree on the mesh: every tensor on
-    this process's device (tensors already there are kept), then rank 0's
-    bytes broadcast into them in place, so every replica starts
-    bit-equal."""
-    if sharding is not None and sharding.batch:
-        raise NotImplementedError(f"place_state(sharding=...): {MODEL_AXIS}")
+    """Place a flat state tree on the mesh: every tensor on this process's
+    device (tensors already there are kept), rank 0's bytes broadcast into
+    them in place, so every replica starts bit-equal; returns the placed
+    tree.
+
+    `sharding`: None (or `replicated(mesh)`) replicates every tensor; a
+    dict of `shared_shardings` splits the tensors of its keys: a whole
+    tensor is broadcast over the ranks, then this rank keeps its slice; a
+    tensor that is a slice already is broadcast over the data group."""
+    if isinstance(sharding, Sharding) and sharding.batch:
+        raise ValueError("place_state places state; a batch goes through "
+                         "shard_batch")
     require_ranks(mesh)
-    placed = []
-
-    def put(t):
-        placed.append(t.to(mesh.device))
-        return placed[-1]
-
-    tree = _map(tree, put)
-    broadcast_(placed, mesh.group)
-    return tree
+    if tree is None:
+        return None
+    specs = sharding if isinstance(sharding, dict) else {}
+    world, data, cut = [], [], {}
+    out = {}
+    for k, t in tree.items():
+        t = out[k] = t.to(mesh.device)
+        spec = specs.get(k)
+        if spec is None or spec.is_whole(t):
+            world.append(t)
+            if spec is not None:
+                cut[k] = spec
+        else:
+            data.append(t)
+    broadcast_(world, mesh.group)
+    broadcast_(data, mesh.data_group)
+    for k, spec in cut.items():
+        out[k] = spec.take(out[k])
+    return out
 
 
 def _dp_group(mesh: Mesh):
-    """The group the step reduces over (the step treats a group of one
+    """The group the step reduces its gradients, BatchNorm statistics and
+    metrics over: the mesh's data group (the step treats a group of one
     rank as none: a mesh of one device runs the single-device step bit for
     bit)."""
     require_ranks(mesh)
-    return mesh.group
+    return mesh.data_group
 
 
-def make_parallel_train_step(step_fn, mesh: Mesh, model_sharded: bool = False):
+def _model_shards(model_sharded: bool, shards):
+    """The split kernels' specs a model-sharded step runs on ({} without)."""
+    if model_sharded and shards is None:
+        raise ValueError("model_sharded=True needs the state's shards "
+                         "(CPGState.shards, as place_state split it)")
+    return dict(shards) if model_sharded else {}
+
+
+def make_parallel_train_step(step_fn, mesh: Mesh, model_sharded: bool = False,
+                             shards=None):
     """The step of train/step.py `build_train_step` (same 12 arguments,
-    `it` carried as given) run data-parallel over the mesh: x and y are this
-    process's rows (`shard_batch`), `rng` draws the global batch's
-    augmentation and each rank keeps its rows; gradients, BatchNorm
-    statistics and metrics are reduced over the ranks."""
-    if model_sharded:
-        raise NotImplementedError(f"model_sharded=True: {MODEL_AXIS}")
-    return functools.partial(step_fn, group=_dp_group(mesh))
+    `it` carried as given) over the mesh: x and y are this process's rows
+    (`shard_batch`), `rng` draws the global batch's augmentation and each
+    rank keeps its rows; gradients, BatchNorm statistics and metrics are
+    reduced over the data group.
+
+    `model_sharded=True` (needs `shards`, the state's `CPGState.shards`:
+    the non-None `shared_shardings` that `place_state` split it by):
+    shared, ownership and piggymask hold this rank's slices, and the
+    optimizer states were built from them, so their moments have the
+    slices' shapes (`cpg_tpu`'s `opt_state_shardings`); each split layer
+    runs on its slice and gathers its output over the model group."""
+    return functools.partial(step_fn, group=_dp_group(mesh),
+                             shards=_model_shards(model_sharded, shards))
 
 
-def make_parallel_eval_step(eval_fn, mesh: Mesh, model_sharded: bool = False):
+def make_parallel_eval_step(eval_fn, mesh: Mesh, model_sharded: bool = False,
+                            shards=None):
     """The eval step of train/step.py over the mesh: this process's rows
     in, its logits out, the plain step's `acc_sum` summed and `loss`
-    averaged over the ranks."""
-    if model_sharded:
-        raise NotImplementedError(f"model_sharded=True: {MODEL_AXIS}")
+    averaged over the data group. `model_sharded`: as
+    `make_parallel_train_step`; the piggymask passed in is any task's,
+    placed under the same split."""
     group = _dp_group(mesh)
+    shards = _model_shards(model_sharded, shards)
 
     def step(*args):
-        logits, m = eval_fn(*args)
+        logits, m = eval_fn(*args, shards=shards)
         both = all_reduce_sum_(torch.stack([m["acc_sum"].double(),
                                             m["loss"].double()]), group)
         return logits, {"acc_sum": both[0].to(m["acc_sum"].dtype),

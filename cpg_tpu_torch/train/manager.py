@@ -27,11 +27,23 @@ same global batch order and keeps its rows (`batch_size` is the global
 batch), the step reduces over the ranks, prune events run the same on every
 rank's bit-equal weights, `eval` sums the ranks' counts and only rank 0
 writes the JSONL record.
+
+The model axis (a mesh with `model` > 1): the Manager places shared,
+ownership and every task's piggymask by `shared_shardings` (each rank keeps
+its slice of every kernel whose axis divides; `state.shards` records the
+split), the current task's private params and BN statistics replicated,
+and builds the optimizers from the placed slices, so the moments take the
+slices' shapes. The steps run each split layer on its slice
+(make_parallel_*_step(model_sharded=True)), the data group reduces, and
+the prune events take their cutoffs from whole layers (core/pruner.py).
+The state stays split when the Manager is done; train/sequence.py gathers
+it (`gather_state`) to snapshot or save it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import math
 import time
@@ -50,7 +62,7 @@ from ..models import check_token_ids
 from ..parallel.collectives import all_reduce_sum_
 from ..parallel.mesh import (batch_sharding, local_batch_slice,
                              make_parallel_train_step, place_state,
-                             require_ranks)
+                             require_ranks, shared_shardings, whole_shapes)
 from ..utils import LOGGER, JsonlWriter
 from .losses import class_logits
 from .step import TrainConfig, make_eval_step, make_train_step, set_lr
@@ -140,10 +152,7 @@ class Manager:
                             data[split])
         on_device(state, self.device)
         if mesh is not None:  # every replica starts bit-equal
-            task = state.tasks[task_id]
-            for tree in (state.shared, state.ownership, task.piggymask,
-                         task.private, task.bn_state):
-                place_state(mesh, tree)
+            self._place(state, mesh, task_id)
         self.state = state
         self.model_fn = model_fn
         self.task_id = task_id
@@ -166,16 +175,46 @@ class Manager:
         extra = {} if loss_fn is None else {"loss_fn": loss_fn}
         self.train_step, (self.opt_w, self.opt_pm) = make_train_step(
             model_fn, augment_fn=augment_fn, **kwargs, **extra)
+        split = bool(state.shards)
         if mesh is not None:
-            self.train_step = make_parallel_train_step(self.train_step, mesh)
-        # eval: each rank runs its rows through the plain eval step, and
-        # `eval` sums the counts once
+            self.train_step = make_parallel_train_step(
+                self.train_step, mesh, model_sharded=split,
+                shards=state.shards)
+        # eval: each rank runs its rows through the plain eval step (on its
+        # slices under a model axis), and `eval` sums the counts once
         self.eval_step = make_eval_step(model_fn, preprocess_fn=preprocess_fn,
                                         **kwargs)
+        if split:
+            self.eval_step = functools.partial(self.eval_step,
+                                               shards=state.shards)
         self._batcher = (NativeBatcher(data["train_x"], data["train_y"],
                                        batch_size, seed=seed)
                          if native_loader else None)
         self.reset_optimizers()
+
+    @staticmethod
+    def _place(state: CPGState, mesh, task_id: int):
+        """Place the state on the mesh (see the module docstring)."""
+        task = state.tasks[task_id]
+        whole = whole_shapes(state.shared, state.shards)
+        shardings = (shared_shardings(mesh, whole, True)
+                     if mesh.model_size > 1 else None)
+        state.shared = place_state(mesh, state.shared, shardings)
+        state.ownership = place_state(mesh, state.ownership, shardings)
+        for t in state.tasks.values():
+            if t is task or shardings is not None:
+                t.piggymask = place_state(mesh, t.piggymask, shardings)
+        task.private = place_state(mesh, task.private)
+        task.bn_state = place_state(mesh, task.bn_state)
+        if shardings is not None:
+            state.shards = {k: s for k, s in shardings.items()
+                            if s is not None}
+
+    def _split(self):
+        """The pruner's `shards` keyword: the kernels split over the model
+        groups, when the state holds any (a whole state's calls keep the
+        single-device form)."""
+        return {"shards": self.state.shards} if self.state.shards else {}
 
     def _train_batches(self, steps_per_epoch: int):
         """One epoch of training batches on the Manager's device: the C++
@@ -234,9 +273,9 @@ class Manager:
         if prune_to is not None:
             n0 = prune_n0 if prune_n0 is not None else {
                 k: int(v) for k, v in pruner.snapshot_owned_counts(
-                    st.ownership, self.task_id).items()}
+                    st.ownership, self.task_id, **self._split()).items()}
             init_sparsity = float(pruner.task_sparsity(
-                st.ownership, self.task_id, n0))
+                st.ownership, self.task_id, n0, **self._split()))
             prune_begin = int(prune_begin_frac * total_steps)
             prune_end = max(int(prune_end_frac * total_steps),
                             prune_begin + 1)
@@ -264,7 +303,7 @@ class Manager:
                     target = cubic_sparsity(step_i, prune_begin, prune_end,
                                             init_sparsity, prune_to)
                     pruner.gradual_prune_(shared, ownership, self.task_id,
-                                          target, n0)
+                                          target, n0, **self._split())
                 (shared, pm, private, bn_state, opt_w_state, opt_pm_state,
                  metrics) = self.train_step(
                     shared, pm, private, bn_state, opt_w_state, opt_pm_state,
@@ -291,7 +330,7 @@ class Manager:
         # (step_i stops at total_steps-1); land exactly on the target anyway
         if prune_to is not None:
             pruner.gradual_prune_(shared, ownership, self.task_id, prune_to,
-                                  n0)
+                                  n0, **self._split())
 
         task.bn_state = bn_state
         self.opt_w_state, self.opt_pm_state = opt_w_state, opt_pm_state
@@ -340,7 +379,7 @@ class Manager:
             correct += (pred == torch.from_numpy(
                 by[sl][:mine]).to(self.device)).sum()
         if self.mesh is not None:
-            all_reduce_sum_(correct, self.mesh.group)
+            all_reduce_sum_(correct, self.mesh.data_group)
         return int(correct) / max(n, 1)
 
     # -- one-shot prune (ref --one_shot_prune_perc) --------------------------
@@ -348,4 +387,4 @@ class Manager:
         """Release round(ratio * owned) smallest entries of every layer,
         written into the live tensors."""
         pruner.one_shot_prune_(self.state.shared, self.state.ownership,
-                               self.task_id, ratio)
+                               self.task_id, ratio, **self._split())

@@ -34,6 +34,16 @@ same seeded generators and the step keeps the replicas bit-equal, so prune
 events, growth and rollbacks run the same everywhere; rank 0 writes the
 checkpoints and records, the ranks meet at a barrier after each write, and
 `check_replicas` holds the ranks' states bit-equal at every task boundary.
+
+The model axis (a mesh with `model` > 1): each Manager splits the state
+over the model groups (train/manager.py); snapshots, saves and the prune
+walk's counts read the whole state (`gather_state`, every rank taking
+part), a checkpoint is the single-device format written by rank 0, and
+every restore (a snapshot, a checkpoint resumed, a rollback before growth)
+gives a whole state that the next Manager splits again, under the rule
+derived from its shapes: after growth a layer that no longer divides runs
+replicated. `refuse_kernel_widths` holds the kernels' width rules to the
+slices' widths.
 """
 
 from __future__ import annotations
@@ -61,7 +71,8 @@ from ..models.spherenet import embed_dim as sphere_embed_dim
 from ..models.vgg import conv_channels as vgg_conv_channels
 from ..models.vit import dense_outputs as vit_dense_outputs
 from ..ops.binarize import init_piggymask
-from ..parallel.collectives import agree, barrier, checksum, rank
+from ..parallel.collectives import (agree, barrier, checksum, gather_state,
+                                    rank)
 from ..utils import LOGGER
 from ..utils.checkpoint import (load_state, remove_after_save, save_state,
                                 wait_for_saves)
@@ -76,9 +87,11 @@ def _generator(seed: int) -> torch.Generator:
 
 
 def snapshot(state: CPGState) -> CPGState:
-    """A host copy of `state`: every tensor cloned to the CPU (a clone even
-    when it already lives there), the task metas copied."""
-    return state.map_arrays(lambda t: t.detach().to("cpu", copy=True))
+    """A host copy of the whole `state` (gathered over the model groups
+    when split): every tensor cloned to the CPU (a clone even when it
+    already lives there), the task metas copied."""
+    return gather_state(state).map_arrays(
+        lambda t: t.detach().to("cpu", copy=True))
 
 
 def _restore(state: CPGState, snap: CPGState, dev: torch.device) -> None:
@@ -90,29 +103,39 @@ def _restore(state: CPGState, snap: CPGState, dev: torch.device) -> None:
 def check_replicas(state: CPGState, mesh) -> None:
     """Raise unless every rank of `mesh` holds the same state: a checksum
     of every shared, ownership, piggymask, private and BN tensor's bits,
-    compared over the ranks."""
+    compared over the ranks; a slice of a split kernel (`state.shards`)
+    over the data group, whose ranks hold the same slice."""
     if mesh is None or mesh.group is None:
         return
-    tensors = {f"shared/{k}": v for k, v in state.shared.items()}
-    tensors.update({f"ownership/{k}": v for k, v in state.ownership.items()})
+    tensors = {("shared", k): v for k, v in state.shared.items()}
+    tensors.update({("ownership", k): v for k, v in state.ownership.items()})
     for tid, t in state.tasks.items():
         for name, tree in (("piggymask", t.piggymask), ("private", t.private),
                            ("bn_state", t.bn_state)):
-            tensors.update({f"task{tid}/{name}/{k}": v
+            tensors.update({(f"task{tid}/{name}", k): v
                             for k, v in (tree or {}).items()})
-    keys = sorted(tensors)
-    same = agree(torch.stack([checksum(tensors[k]) for k in keys]).view(-1),
-                 mesh.group).view(len(keys), 2).all(1)
-    if not bool(same.all()):
-        bad = [k for k, ok in zip(keys, same.tolist()) if not ok]
+    bad = []
+    for split, group in ((False, mesh.group), (True, mesh.data_group)):
+        keys = sorted(k for k in tensors
+                      if (k[1] in state.shards
+                          and not k[0].endswith(("private", "bn_state")))
+                      == split)
+        if not keys:
+            continue
+        same = agree(torch.stack([checksum(tensors[k]) for k in keys])
+                     .view(-1), group).view(len(keys), 2).all(1)
+        bad += ["/".join(k) for k, ok in zip(keys, same.tolist()) if not ok]
+    if bad:
         raise RuntimeError(f"replicas differ across the ranks in {len(bad)} "
                            f"tensors: {bad[:8]}")
 
 
 def _save(state: CPGState, path: str, group) -> None:
-    """Save `state` at `path` from the group's rank 0 (or the only
-    process); the ranks meet after it, so any rank that reads the
+    """Save the whole `state` (gathered over the model groups when split:
+    the single-device format) at `path` from the group's rank 0 (or the
+    only process); the ranks meet after it, so any rank that reads the
     checkpoint next reads a whole one."""
+    state = gather_state(state)
     if rank(group) == 0:
         save_state(state, path)
     barrier(group)
@@ -177,8 +200,8 @@ def _dense_outputs(arch: str, model_kwargs: Optional[Dict]):
 
 
 def refuse_kernel_widths(cfg: Optional[TrainConfig], arch: str, mults,
-                         in_shape, model_kwargs: Optional[Dict] = None
-                         ) -> None:
+                         in_shape, model_kwargs: Optional[Dict] = None,
+                         n_model: int = 1) -> None:
     """Raise ValueError for widths the kernels that `cfg` turns on would
     refuse mid-cycle, each check keyed to the flag and dtype that need it:
     under `use_fused_chain` a fused seam wider than 128 (the fused chain's
@@ -187,7 +210,10 @@ def refuse_kernel_widths(cfg: Optional[TrainConfig], arch: str, mults,
     `use_pallas` in bf16, a dense output off a multiple of 4 (off a
     multiple of 8 the dense route runs the masked conv at 1x1), the
     transformers' widths sized by `model_kwargs`. f32 steps have no channel
-    limit, and the masked conv no width limit."""
+    limit, and the masked conv no width limit. Over a model axis of
+    `n_model` ranks the rules hold for each rank's slice: a count that
+    divides by `n_model` is held as its share, one that does not (its layer
+    replicated) as it is."""
     if cfg is None:
         return
     checks = []  # (flag, needed multiple, channel counts at a width)
@@ -208,13 +234,19 @@ def refuse_kernel_widths(cfg: Optional[TrainConfig], arch: str, mults,
         checks.append(("use_pallas", 4, dense))
     if cfg.compute_dtype != torch.bfloat16:
         return
+    def shard(c):
+        return c // n_model if c % n_model == 0 else c
+
     for flag, need, channels in checks:
         for m in mults:
-            bad = sorted({c for c in channels(m) if c % need})
+            bad = sorted({c for c in channels(m) if shard(c) % need})
             if bad:
+                split = (f" (split over {n_model} ranks: "
+                         f"{sorted({shard(c) for c in bad})})"
+                         if n_model > 1 else "")
                 raise ValueError(
-                    f"width multiplier {m} gives bf16 channel counts {bad}: "
-                    f"{flag} needs multiples of {need}")
+                    f"width multiplier {m} gives bf16 channel counts {bad}"
+                    f"{split}: {flag} needs multiples of {need}")
 
 
 def growth_ladder(width_mult: float, seq: "SequenceConfig") -> List[float]:
@@ -556,7 +588,7 @@ def _compact(state, name, data, cfg, seq, goal_acc, mgr, mgr_kw, model_fn,
             - seq.allow_acc_diff)
     post_pick = snapshot(state)
     n0_task = {k: int(v) for k, v in snapshot_owned_counts(
-        state.ownership, task_id).items()}
+        state.ownership, task_id, state.shards).items()}
     ratio_to_acc: Dict[float, float] = {}
     best_ratio, best_state, best_acc = 0.0, post_pick, pick_acc
     res = None
@@ -642,7 +674,8 @@ def run_sequence(arch: str, tasks: Dict[str, Dict],
     kwargs = state.model_kwargs if state is not None else model_kwargs
     refuse_kernel_widths(cfg, arch,
                          [start_mult, *growth_ladder(start_mult, seq)],
-                         tuple(shape), kwargs)
+                         tuple(shape), kwargs,
+                         mesh.model_size if mesh is not None else 1)
     rng = _generator(seq.seed) if rng is None else rng
     if state is None:
         state = init_state(arch, rng, width_mult=width_mult,

@@ -27,6 +27,14 @@ rank keeps its rows, BatchNorm takes the global batch's statistics, the raw
 gradients are averaged over the ranks before the ownership gating and the
 selective decay (so the decay is added once) and before clipping, and the
 metrics are global means. Every rank then takes the same update.
+
+The model axis (`shards`, {kernel key: ShardSpec}; see parallel/mesh.py
+`make_parallel_train_step(model_sharded=True)`): shared, ownership,
+piggymask and their optimizer moments hold this rank's slices, the model
+runs each split layer on its slice (models/framework.py), and `group` is
+the mesh's data group. The gating, the decay, the optimizer steps and the
+re-zeroing of free entries act on each slice where it lies; the global
+norm of clipping sums the slices' squares over the model group.
 """
 
 from __future__ import annotations
@@ -43,7 +51,8 @@ from ..data.augment import Rows
 from ..models import framework as fw
 from ..ops.binarize import DEFAULT_THRESHOLD
 from ..ops.masked import effective_params
-from ..parallel.collectives import all_reduce_mean_, rank, world_size
+from ..parallel.collectives import (all_reduce_mean_, all_reduce_sum_, rank,
+                                    world_size)
 from .losses import (accuracy, call_loss, class_logits, cross_entropy,
                      make_cross_entropy)
 
@@ -130,10 +139,17 @@ def set_lr(opt_state: torch.optim.Optimizer, lr):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, split=(), group=None):
     """optax.clip_by_global_norm, in place: scale every gradient by
-    max_norm / norm when the global norm is at least max_norm."""
-    norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    max_norm / norm when the global norm is at least max_norm. `split`:
+    gradients of slices whose squares are summed over `group` (the model
+    group) first, so the norm is the whole tensors'."""
+    sq = sum(torch.sum(g.float() ** 2) for g in grads)
+    if split:
+        sq = sq + all_reduce_sum_(torch.stack(
+            [torch.sum(g.float() ** 2) for g in split]).sum(), group)
+    norm = torch.sqrt(sq)
+    grads = [*grads, *split]
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
 
@@ -147,15 +163,16 @@ def build_train_step(model_fn: Callable, *, num_classes: int, mult: float,
     """The train step plus its optimizers:
 
     step(shared, piggymask, private, bn_state, opt_w_state, opt_pm_state,
-         ownership, task_id, x, y, rng, it=0, *, group=None)
+         ownership, task_id, x, y, rng, it=0, *, group=None, shards=None)
       -> (shared, piggymask, private, new_bn_state, opt_w_state,
           opt_pm_state, {"loss", "acc"})
 
     `rng` goes to `augment_fn(x, rng)` (a torch.Generator, or injected
     draws; see data/augment.py). opt states come from
     `opt_w.init({"shared": shared, "private": private})` and
-    `opt_pm.init(piggymask)`. `group`: data-parallel over its ranks (see
-    the module docstring)."""
+    `opt_pm.init(piggymask)`. `group`: data-parallel over its ranks;
+    `shards`: the split kernels of a model axis (see the module
+    docstring)."""
     dev = resolve_device(device)
     opt_w, opt_pm = make_optimizers(cfg)
     model_kwargs = model_kwargs or {}
@@ -167,7 +184,9 @@ def build_train_step(model_fn: Callable, *, num_classes: int, mult: float,
             "use the default path (use_pallas/use_pallas_conv=False)")
 
     def step(shared, piggymask, private, bn_state, opt_w_state, opt_pm_state,
-             ownership, task_id, x, y, rng, it=0, *, group=None):
+             ownership, task_id, x, y, rng, it=0, *, group=None,
+             shards=None):
+        shards = shards or {}
         x = torch.as_tensor(x).to(dev)
         y = torch.as_tensor(y).to(dev)
         ranks = world_size(group)
@@ -196,7 +215,8 @@ def build_train_step(model_fn: Callable, *, num_classes: int, mult: float,
                     fused_chain=cfg.use_fused_chain,
                     flash_attention=cfg.flash_attention,
                     qkv_fused=cfg.qkv_fused, sync_group=group,
-                    num_classes=num_classes, mult=mult, **model_kwargs)
+                    shards=shards, num_classes=num_classes, mult=mult,
+                    **model_kwargs)
                 loss = call_loss(loss_fn, logits, y, it)
                 loss.backward()
         finally:
@@ -211,9 +231,12 @@ def build_train_step(model_fn: Callable, *, num_classes: int, mult: float,
                                       shared, ownership, task_id,
                                       cfg.weight_decay)
             if cfg.grad_clip_norm:
+                model_group = next((s.group for s in shards.values()), None)
                 clip_by_global_norm(
-                    [*g_shared.values(), *(p.grad for p in private.values())],
-                    cfg.grad_clip_norm)
+                    [*(g for k, g in g_shared.items() if k not in shards),
+                     *(p.grad for p in private.values())],
+                    cfg.grad_clip_norm,
+                    split=[g_shared[k] for k in shards], group=model_group)
             opt_w_state.step()
             if pm is not None and cfg.train_piggymask:
                 gate_piggymask_grads({k: m.grad for k, m in pm.items()},
@@ -245,15 +268,17 @@ def build_eval_step(model_fn: Callable, *, num_classes: int, mult: float,
                     preprocess_fn: Optional[Callable] = None,
                     model_kwargs: Optional[Dict] = None,
                     mask_mode: str = "binary", device="cuda"):
-    """step(shared, piggymask, private, bn_state, ownership, task_id, x, y)
-    -> (logits, {"acc_sum", "loss"}). Only weights with 0 < ownership <=
-    task_id are visible, prior entries gated by the task's binarized
-    piggymask; task-private BN stats and head. The state tensors must live
-    on `device`; x and y are moved there."""
+    """step(shared, piggymask, private, bn_state, ownership, task_id, x, y,
+    *, shards=None) -> (logits, {"acc_sum", "loss"}). Only weights with
+    0 < ownership <= task_id are visible, prior entries gated by the task's
+    binarized piggymask; task-private BN stats and head. The state tensors
+    must live on `device`; x and y are moved there. `shards`: the split
+    kernels of a model axis (see `build_train_step`)."""
     dev = resolve_device(device)
     model_kwargs = model_kwargs or {}
 
-    def step(shared, piggymask, private, bn_state, ownership, task_id, x, y):
+    def step(shared, piggymask, private, bn_state, ownership, task_id, x, y,
+             *, shards=None):
         x = torch.as_tensor(x).to(dev)
         y = torch.as_tensor(y).to(dev)
         if preprocess_fn is not None:
@@ -267,7 +292,7 @@ def build_eval_step(model_fn: Callable, *, num_classes: int, mult: float,
                              compute_dtype=cfg.compute_dtype, masking=masking,
                              fused_chain=cfg.use_fused_chain,
                              flash_attention=cfg.flash_attention,
-                             qkv_fused=cfg.qkv_fused,
+                             qkv_fused=cfg.qkv_fused, shards=shards,
                              num_classes=num_classes, mult=mult,
                              **model_kwargs)
         cl = class_logits(logits)
@@ -282,8 +307,8 @@ def make_eval_step(model_fn: Callable, **kwargs):
     runs eagerly). Defaults to device='cuda'."""
     step = build_eval_step(model_fn, **kwargs)
 
-    def run(*args):
+    def run(*args, **kw):
         with torch.inference_mode():
-            return step(*args)
+            return step(*args, **kw)
 
     return run

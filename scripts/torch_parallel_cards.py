@@ -1,13 +1,16 @@
-"""Data parallelism over NCCL across every visible card.
+"""Data and model parallelism over NCCL across every visible card.
 
 `chip_smoke.nccl_cards_check` at n = the visible cards (at least two): the
 VGG16-BN kernel step on one rank a card (global batch 256) against the
 one-process step, f32 and bf16, replicas bit-equal after every step, with
-ms/step of the n ranks and of one process; `sequence --parallel n`
-against `sequence --parallel 1` (in-process, over NCCL at one rank), both
-in f32: the same cycle and final states within f32 summation order; a
-bf16 server with a weight replica on each card against the
-unmeshed one. The JSON goes to `chiprun_out/parallel_cards.json`.
+ms/step of the n ranks and of one process; the same with the model axis
+as (n/2, 2) (each card half of every kernel) and, on four cards,
+vit_moe_cifar as (1, 4) (one whole expert a card); `sequence --parallel n`
+and `sequence --parallel n/2 --parallel-model 2` against
+`sequence --parallel 1` (in-process, over NCCL at one rank), all in f32:
+the same cycle and final states within twice the widest spread of one
+process's three summation orders; a bf16 server with a weight replica a card
+against the unmeshed one. The JSON goes to `chiprun_out/parallel_cards.json`.
 
     python3 scripts/torch_parallel_cards.py     # needs two cards or more
 """
@@ -45,6 +48,13 @@ def main() -> int:
           f"at batch {cs.BATCH}: {out['dp']['ms_per_step_ranks']}, one "
           f"process {out['dp']['ms_per_step_one_process']:.2f} on {card}",
           flush=True)
+    for arch, tp in out["tp"].items():
+        print(f"parallel tp {arch} over {n} NCCL ranks, model groups of "
+              f"{tp['n_model']}, bf16 kernel step at batch {cs.BATCH}: "
+              f"{tp['ms_per_step_ranks']} ms/step, one process "
+              f"{tp['ms_per_step_one_process']:.2f}; rank 0 holds "
+              f"{tp['held'][0]['bytes']} of {tp['held'][0]['whole_bytes']} "
+              f"bytes on {card}", flush=True)
     return 0
 
 

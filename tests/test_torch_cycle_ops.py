@@ -468,7 +468,7 @@ def test_cli_shared_flags_defaults_and_presets_match_jax(cmd):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--parallel", "2", "--parallel-model", "2"],
+    (["--parallel", "2", "--parallel-model", "0"],
      "--parallel-model: model-axis"),
     (["--parallel-model", "2"], "--parallel-model: model-axis"),
     (["--shard-activations"], "--shard-activations"),

@@ -23,8 +23,9 @@ are computed here. The checks:
     0 writing; vit_cifar and textcls DP steps against the one-process
     step (LayerNorm needs no sync);
   * the meshes' axes and shapes against `cpg_tpu`'s on its 8 fake devices,
-    the rows each rank takes, and the refusals (the model axis; a mesh of
-    several devices in one process for training).
+    the rows each rank takes, and the refusals (a mesh of several devices
+    in one process for training; the model axis is in
+    tests/test_torch_port_parallel_tp.py).
 """
 
 import os
@@ -164,13 +165,15 @@ def _jax_steps(state, batches, cfg, model_fn, tid=1, augment=None, loss=None):
 
     st = JState(arch=state["arch"], width_mult=state["width_mult"],
                 shared=state["shared"], ownership=state["ownership"],
-                tasks={t: JTask(**v) for t, v in state["tasks"].items()})
+                tasks={t: JTask(**v) for t, v in state["tasks"].items()},
+                model_kwargs=dict(state.get("model_kwargs") or {}))
     task = st.tasks[tid]
     has_pm = task.piggymask is not None
     extra = {} if loss is None else {"loss_fn": loss}
     step, (opt_w, opt_pm) = j_build_train_step(
         model_fn, num_classes=task.num_classes, mult=st.width_mult,
-        has_piggymask=has_pm, cfg=cfg, augment_fn=augment, **extra)
+        has_piggymask=has_pm, cfg=cfg, augment_fn=augment,
+        model_kwargs=st.forward_kwargs(tid) or None, **extra)
     carry = [st.shared, task.piggymask if has_pm else {}, task.private,
              task.bn_state,
              opt_w.init({"shared": st.shared, "private": task.private}),
@@ -474,15 +477,10 @@ def test_each_rank_takes_its_rows(worlds):
 
 
 def test_model_axis_and_one_process_training_meshes_are_refused():
+    """The one-process refusals (a mesh of several devices in one process
+    does not train); the model axis runs (tests/test_torch_port_parallel_tp.py)."""
     devs = [torch.device("cpu")] * 2
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_mesh.make_mesh(devices=devs, n_model=2)
     mesh = t_mesh.make_mesh(devices=devs)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_mesh.make_parallel_train_step(lambda *a, **k: None, mesh,
-                                        model_sharded=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_mesh.place_state(mesh, {}, t_mesh.batch_sharding(mesh))
     with pytest.raises(ValueError, match="one process a device"):
         t_mesh.make_parallel_train_step(lambda *a, **k: None, mesh)
     with pytest.raises(ValueError, match="one process a device"):

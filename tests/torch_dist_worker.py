@@ -1,10 +1,12 @@
-"""One rank of a data-parallel world for tests/test_torch_port_parallel.py.
+"""One rank of a parallel world for tests/test_torch_port_parallel.py and
+tests/test_torch_port_parallel_tp.py.
 
-    python tests/torch_dist_worker.py <rank> <world> <store> <job.pkl> <out_dir>
+    python tests/torch_dist_worker.py <rank> <world> <store> <job.pkl> <out_dir> [<n_model>]
 
-Joins a gloo world on the CPU through the file store `<store>`, runs every
-check listed in the job (written by the test itself) with the port's
-data-parallel entry points, and writes this rank's results to
+Joins a gloo world on the CPU through the file store `<store>`, builds the
+mesh of the world (`n_model` ranks a model group, default 1: data-parallel
+only), runs every check listed in the job (written by the test itself)
+with the port's parallel entry points, and writes this rank's results to
 `<out_dir>/rank<r>.pkl`. Imports torch, numpy and cpg_tpu_torch only.
 """
 
@@ -20,6 +22,7 @@ from cpg_tpu_torch.core.state import CPGState, TaskEntry, state_from_numpy  # no
 from cpg_tpu_torch.models import REGISTRY, framework as fw, get_model  # noqa: E402
 from cpg_tpu_torch.models.framework import (batchnorm, head, maxpool, relu,  # noqa: E402
                                             sconv)
+from cpg_tpu_torch.parallel import collectives as pc  # noqa: E402
 from cpg_tpu_torch.parallel import distributed as pd  # noqa: E402
 from cpg_tpu_torch.parallel import mesh as pm  # noqa: E402
 from cpg_tpu_torch.train import step as t_step  # noqa: E402
@@ -65,11 +68,28 @@ def _np(tree):
     return {k: v.detach().cpu().numpy().copy() for k, v in (tree or {}).items()}
 
 
+def _shapes(tree):
+    return {k: tuple(v.shape) for k, v in (tree or {}).items()}
+
+
+def _moments(opt):
+    """{parameter index: {moment: shape}} of an optimizer after a step (the
+    moments made so far; torch.optim makes each like its parameter)."""
+    if opt is None:
+        return {}
+    params = [p for g in opt.param_groups for p in g["params"]]
+    return {i: {name: tuple(v.shape)
+                for name, v in opt.state.get(p, {}).items()
+                if torch.is_tensor(v) and v.dim()}
+            for i, p in enumerate(params)}
+
+
 def _steps(mesh, state, tid, batches, cfg, augment, loss_fn=None,
-           group=True, **kw):
+           group=True, tp=False, **kw):
     """Task `tid`'s train step over the global batches [(x, y, rng, it)],
     data-parallel over the mesh (`group=False`: the one-process step on
-    the whole batch); returns the losses, accuracies and trained trees."""
+    the whole batch; `tp`: the kernels split over the model groups too);
+    returns the losses, accuracies and trained trees (whole)."""
     st = state_from_numpy(state, "cpu")
     task = st.tasks[tid]
     model_fn, _ = get_model(st.arch)
@@ -79,11 +99,17 @@ def _steps(mesh, state, tid, batches, cfg, augment, loss_fn=None,
         has_piggymask=task.piggymask is not None, cfg=cfg,
         augment_fn=augment, device="cpu",
         model_kwargs=st.forward_kwargs(tid) or None, **extra, **kw)
+    specs = pm.shared_shardings(mesh, st.shared, True) if tp else None
     if group:
-        for tree in (st.shared, st.ownership, task.piggymask, task.private,
-                     task.bn_state):
+        st.shared = pm.place_state(mesh, st.shared, specs)
+        st.ownership = pm.place_state(mesh, st.ownership, specs)
+        task.piggymask = pm.place_state(mesh, task.piggymask, specs)
+        for tree in (task.private, task.bn_state):
             pm.place_state(mesh, tree)
-        step = pm.make_parallel_train_step(step, mesh)
+        if tp:
+            st.shards = {k: v for k, v in specs.items() if v is not None}
+        step = pm.make_parallel_train_step(step, mesh, model_sharded=tp,
+                                           shards=st.shards)
     carry = [st.shared, task.piggymask, task.private, task.bn_state,
              opt_w.init({"shared": st.shared, "private": task.private}),
              opt_pm.init(task.piggymask) if task.piggymask else None]
@@ -95,14 +121,27 @@ def _steps(mesh, state, tid, batches, cfg, augment, loss_fn=None,
         carry = list(out[:6])
         losses.append(float(out[6]["loss"]))
         accs.append(float(out[6]["acc"]))
-    return dict(losses=losses, accs=accs, shared=_np(carry[0]),
-                piggymask=_np(carry[1]), private=_np(carry[2]),
-                bn=_np(carry[3]))
+    held = dict(shared=_shapes(carry[0]), ownership=_shapes(st.ownership),
+                piggymask=_shapes(carry[1]), moments_w=_moments(carry[4]),
+                moments_pm=_moments(carry[5]))
+    st.shared, task.piggymask = carry[0], carry[1]
+    if tp:
+        st = pc.gather_state(st)
+        task = st.tasks[tid]
+    return dict(losses=losses, accs=accs, shared=_np(st.shared),
+                piggymask=_np(task.piggymask), private=_np(carry[2]),
+                bn=_np(carry[3]), held=held,
+                split={k: (v.axis, v.size) for k, v in (specs or {}).items()
+                       if v is not None})
 
 
 def check_step(mesh, state, tid, batches, flags=None, single=False,
-               annealed_loss=False, dtype="float32", lr=0.05, lr_mask=1e-4):
-    """The DP step (and, with `single`, the one-process step on rank 0)."""
+               annealed_loss=False, dtype="float32", lr=0.05, lr_mask=1e-4,
+               tp=False, control=False):
+    """The DP step (and, with `single`, the one-process step on rank 0);
+    `tp`: the kernels split over the model groups; `control`: also the
+    same with `to_model_group`'s backward made the identity (the ranks'
+    partial input gradients then never summed)."""
     cfg = t_step.TrainConfig(lr=lr, lr_mask=lr_mask,
                              compute_dtype=getattr(torch, dtype),
                              **(flags or {}))
@@ -113,10 +152,18 @@ def check_step(mesh, state, tid, batches, flags=None, single=False,
         aug = norm_augment
     loss_fn = annealed if annealed_loss else None
     out = {"dp": _steps(mesh, np_state(state), tid, batches, cfg, aug,
-                        loss_fn)}
+                        loss_fn, tp=tp)}
     if single and mesh.rank == 0:
         out["single"] = _steps(mesh, np_state(state), tid, batches, cfg, aug,
                                loss_fn, group=False)
+    if control:
+        keep = pc._ToModelGroup.backward
+        pc._ToModelGroup.backward = staticmethod(lambda ctx, g: (g, None))
+        try:
+            out["control"] = _steps(mesh, np_state(state), tid, batches, cfg,
+                                    aug, loss_fn, tp=tp)
+        finally:
+            pc._ToModelGroup.backward = keep
     return out
 
 
@@ -202,19 +249,169 @@ def check_sequence(mesh, tasks, ckdir):
                 ratios=[r.chosen_ratio for r in reps], **flat)
 
 
+def _whole_trees(st, tid):
+    """Task `tid`'s trained trees of a (possibly split) state, whole."""
+    w = pc.gather_state(st)
+    return dict(shared=_np(w.shared), ownership=_np(w.ownership),
+                piggymask=_np(w.tasks[tid].piggymask),
+                private=_np(w.tasks[tid].private),
+                bn=_np(w.tasks[tid].bn_state))
+
+
+def _held(st):
+    """The shapes this rank holds of shared, ownership and every task's
+    piggymask."""
+    return dict(shared=_shapes(st.shared), ownership=_shapes(st.ownership),
+                **{f"piggymask{tid}": _shapes(t.piggymask)
+                   for tid, t in st.tasks.items()})
+
+
+def check_tp_manager(mesh, state, data, epochs):
+    """`Manager(mesh=)` over a mesh with a model axis, task 2 (the cpg_tpu
+    test's settings): what each rank holds before and after, the moments'
+    shapes, the phase's result and the whole trained trees."""
+    from cpg_tpu_torch.train.manager import Manager
+
+    st = state_from_numpy(np_state(state), "cpu")
+    mgr = Manager(st, tiny_cnn, 2, data,
+                  t_step.TrainConfig(lr=0.05, compute_dtype=torch.float32),
+                  batch_size=32, augment_fn=norm_augment, seed=5,
+                  lr_schedule="constant", mesh=mesh)
+    placed = _held(st)
+    res = mgr.train(epochs)
+    return dict(loss=res.loss, acc=res.acc, steps=res.steps, placed=placed,
+                held=_held(st), moments_w=_moments(mgr.opt_w_state),
+                moments_pm=_moments(mgr.opt_pm_state),
+                split={k: (v.axis, v.size) for k, v in st.shards.items()},
+                **_whole_trees(st, 2))
+
+
+def _table_init(table):
+    """The init seam from a table of another package's init trees, keyed
+    (seed, num_classes, mult) as the cycle asks for them."""
+    def init_fn(gen, model_fn, sample_x, num_classes, mult, **kw):
+        trees = table[(gen.initial_seed(), num_classes, mult)]
+        return tuple({k: torch.from_numpy(v.copy()) for k, v in t.items()}
+                     for t in trees)
+    return init_fn
+
+
+def check_tp_sequence(mesh, tasks, ckdir, seq_kw, inits):
+    """run_sequence over the mesh with checkpoints (cpg_tpu's inits through
+    the `init_fn` seam), again over its checkpoints (every task resumed),
+    and a Manager placed from the last checkpoint (re-split)."""
+    from cpg_tpu_torch.train import sequence as seqm
+    from cpg_tpu_torch.train.manager import Manager
+    from cpg_tpu_torch.utils.checkpoint import load_state
+
+    writes = []
+    keep = seqm.save_state
+    seqm.save_state = lambda st, path: (writes.append(os.path.basename(path)),
+                                        keep(st, path))[1]
+    seq = seqm.SequenceConfig(**seq_kw, checkpoint_dir=ckdir)
+    cfg = t_step.TrainConfig(lr=0.05, compute_dtype=torch.float32)
+    kw = dict(augment_fn=norm_augment, mesh=mesh, init_fn=_table_init(inits),
+              preprocess_fn=lambda v: norm_augment(v, None))
+    try:
+        state, reps = seqm.run_sequence("tiny_cnn", tasks, cfg, seq, **kw)
+        again, _ = seqm.run_sequence("tiny_cnn", tasks, cfg, seq, **kw)
+    finally:
+        seqm.save_state = keep
+    last = os.path.join(ckdir, f"task{len(tasks):02d}_{list(tasks)[-1]}")
+    whole = load_state(last, device="cpu")
+    st = load_state(last, device="cpu")
+    mgr = Manager(st, tiny_cnn, len(tasks), list(tasks.values())[-1], cfg,
+                  batch_size=32, mesh=mesh,
+                  preprocess_fn=lambda v: norm_augment(v, None))
+    want = pc.shard_state(whole, st.shards)
+    resplit = all(torch.equal(a[k], b[k])
+                  for a, b in ((st.shared, want.shared),
+                               (st.ownership, want.ownership),
+                               (st.tasks[2].piggymask,
+                                want.tasks[2].piggymask))
+                  for k in st.shards)
+    single = {}
+    if mesh.rank == 0:  # the one-process Manager on the same checkpoint,
+        # and the one-process cycle
+        single["eval"] = Manager(
+            load_state(last, device="cpu"), tiny_cnn, len(tasks),
+            list(tasks.values())[-1], cfg, batch_size=32, device="cpu",
+            preprocess_fn=lambda v: norm_augment(v, None)).eval()
+        one, reps1 = seqm.run_sequence(
+            "tiny_cnn", tasks, cfg, seqm.SequenceConfig(**seq_kw),
+            device="cpu", **{k: v for k, v in kw.items() if k != "mesh"})
+        single.update(reports=[(r.pick_acc, r.final_acc, r.chosen_ratio,
+                                r.grew) for r in reps1],
+                      shared=_np(one.shared), ownership=_np(one.ownership))
+    flat = {}
+    for name, s in (("first", state), ("resumed", again)):
+        flat[name] = {f"shared/{k}": v for k, v in _np(s.shared).items()}
+        flat[name].update({f"own/{k}": v for k, v in _np(s.ownership).items()})
+        for tid, t in s.tasks.items():
+            for group, tree in (("pm", t.piggymask), ("private", t.private),
+                                ("bn", t.bn_state)):
+                flat[name].update({f"{tid}/{group}/{k}": v
+                                   for k, v in _np(tree).items()})
+    return dict(writes=writes, reports=[
+        (r.pick_acc, r.final_acc, r.chosen_ratio, r.grew) for r in reps],
+        resplit=resplit, n_split=len(st.shards), loaded=_held(whole),
+        placed=_held(st), resumed_eval=mgr.eval(), single=single, **flat)
+
+
+def check_prune(mesh, w, own, tid, targets, n0, ratio):
+    """The pruner on layers split over the model group: gradual events at
+    `targets`, then a one-shot prune; the whole layers after each, and the
+    one-process pruner's on rank 0."""
+    from cpg_tpu_torch.core import pruner
+
+    def run(split):
+        sh = {k: torch.from_numpy(v.copy()) for k, v in w.items()}
+        ow = {k: torch.from_numpy(v.copy()) for k, v in own.items()}
+        specs = pm.shared_shardings(mesh, sh, True) if split else {}
+        specs = {k: s for k, s in specs.items() if s is not None}
+        sh = {k: specs[k].take(v) if k in specs else v for k, v in sh.items()}
+        ow = {k: specs[k].take(v) if k in specs else v for k, v in ow.items()}
+        counts = {k: int(v) for k, v in pruner.snapshot_owned_counts(
+            ow, tid, specs).items()}
+        def whole(pre, tree):
+            return {f"{pre}/{k}": (specs[k].gather(v) if k in specs
+                                   else v).numpy().copy()
+                    for k, v in tree.items()}
+
+        out = []
+        for t in targets:
+            pruner.gradual_prune_(sh, ow, tid, t, n0, specs)
+            out.append(dict(
+                sparsity=float(pruner.task_sparsity(ow, tid, n0, specs)),
+                **whole("w", sh), **whole("own", ow)))
+        pruner.one_shot_prune_(sh, ow, tid, ratio, specs)
+        out.append(whole("w", sh))
+        return dict(counts=counts, events=out,
+                    split={k: (s.axis, s.size) for k, s in specs.items()})
+
+    res = {"split": run(True)}
+    if mesh.rank == 0:
+        res["single"] = run(False)
+    return res
+
+
 CHECKS = {"step": check_step, "skew": check_skew, "eval": check_eval,
-          "manager": check_manager, "sequence": check_sequence}
+          "manager": check_manager, "sequence": check_sequence,
+          "tp_manager": check_tp_manager, "tp_sequence": check_tp_sequence,
+          "prune": check_prune}
 
 
-def main(rank, world, store, job_path, out_dir):
+def main(rank, world, store, job_path, out_dir, n_model=1):
     pd.initialize(f"file://{store}", world, rank, device="cpu")
     try:
-        mesh = pm.make_mesh()
+        mesh = pm.make_mesh(n_model=n_model)
         assert mesh.size == world and mesh.rank == rank, mesh
         with open(job_path, "rb") as f:
             job = pickle.load(f)
         out = {"mesh": dict(shape=mesh.shape, axes=mesh.axis_names,
-                            rows=pm.local_batch_slice(mesh, 8 * world))}
+                            rows=pm.local_batch_slice(mesh, 8 * world),
+                            data_rank=mesh.data_rank,
+                            model_rank=mesh.model_rank)}
         for name, (check, kwargs) in job.items():
             out[name] = CHECKS[check](mesh, **kwargs)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -225,4 +422,4 @@ def main(rank, world, store, job_path, out_dir):
 
 if __name__ == "__main__":
     main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
-         sys.argv[5])
+         sys.argv[5], *map(int, sys.argv[6:]))
