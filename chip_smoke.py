@@ -198,6 +198,25 @@ Needs one CUDA card; exits non-zero without one. It
      of both tasks and a mixed list (within 2e-2 x max|ref|, bit equality
      recorded); and `sequence --parallel 2` over NCCL where two cards are
      visible (one line saying it did not run otherwise);
+ 13b. act_shard phase (`act_shard_phase`): vit_cifar's, textcls's and
+     vit_moe_cifar's bf16 kernel steps (`use_pallas` + `flash_attention`)
+     at width 1.0 and batch 256 on the same two gloo ranks as (data=1,
+     model=2) with `act_sharder(tokens=True, experts=True)`: the kernels
+     whole on each rank, the tokens split (32 of 64 a rank between the
+     layers that mix them; the rows each rank holds at every "tokens" seam
+     printed and held to T/2) and vit_moe_cifar's experts (two a rank),
+     under the model axis's rules (`dp_ranks_check` with "act_shard"):
+     dense K1-K3 (proj, fc1 and fc2 on a rank's rows) and K7 at whole T
+     (vit_cifar's and vit_moe_cifar's one-launch backward, textcls's hd-32
+     pair) launched a step as often as in one process; then the pipeline
+     phase (`pipeline_phase`): vit_cifar's train step through
+     `TrainConfig.pipeliner`, its 6 blocks as 2 stages on two gloo ranks
+     sharing the card, 4 microbatches of 64, K7 in the blocks
+     (`_default_block_fn(flash_attention=True)`), against the one-process
+     inline step with K7 by the data-parallel rules (f32, bf16), replicas
+     bit-equal after every step, each stage launching K7 15 times a step
+     forward and backward (5 ticks of 3 blocks, dead ticks included)
+     against the one process's 6;
  14. checks that each phase reached its kernels (the serve and eval phases
      their forwards, the train phases their backwards, the cycles K1-K6,
      the deploy phase K4, the stream phase K1-K6 and the conv selects,
@@ -207,7 +226,8 @@ Needs one CUDA card; exits non-zero without one. It
      the fused q|k|v phase K7, the SphereNet phases K1-K3 and the dense
      route,
      textcls's phases K7 forward, the pair and the dense route,
-     vit_moe_cifar's K7 and the dense route),
+     vit_moe_cifar's K7 and the dense route, each rank of the act_shard
+     steps the dense K1-K3 and K7, each pipeline stage K7),
      prints the kernels' JSON line (launch counts from every phase,
      errors, times, bounds; ResNet-50's and SphereNet-20's train steps in
      `resnet50_step` and `spherenet20_step`; K1's and K2's VGG16-BN rows on
@@ -259,8 +279,8 @@ CHAIN_SHAPES = [("conv1", 32, 64, 64), ("conv3", 16, 128, 128),
                 ("conv11", 2, 512, 512), ("conv12", 2, 512, 512)]
 # flash attention (name, N, T, H, hd, causal, dtype, launches per train
 # step at batch 256, the arch whose step that is: vit_cifar's, or textcls's,
-# counted in the kernels line's `textcls_step`; 0 launches = an extra
-# shape, not on the timed step). The backward takes `flash.bwd_route`'s
+# counted in the kernels line's `textcls_step`, or one of SPLIT_STEPS; 0
+# launches = an extra shape, not on the timed step). The backward takes `flash.bwd_route`'s
 # one-launch kernel at the bf16 hd-64 shapes up to T = 256; textcls's hd
 # 32, T = 320 and f32 keep the dQ + dK/dV pair on the path, which every
 # shape also times beside it.
@@ -270,9 +290,16 @@ FLASH_SHAPES = [
     ("causal_t70", BATCH, 70, 4, 64, True, "bfloat16", 0, None),
     ("off_route_t320", 32, 320, 4, 64, False, "bfloat16", 0, None),
     ("vit_cifar_f32", 32, 64, 4, 64, False, "float32", 0, "vit_cifar"),
-    ("textcls", BATCH, 64, 4, 32, True, "bfloat16", 4, "textcls")]
+    ("textcls", BATCH, 64, 4, 32, True, "bfloat16", 4, "textcls"),
+    # the pipeline phase's stages: a microbatch of BATCH / PP_MICRO rows,
+    # 3 blocks x (PP_MICRO + PP_STAGES - 1) ticks a stage, bf16 and f32
+    ("vit_cifar_pp", BATCH // 4, 64, 4, 64, False, "bfloat16", 15,
+     "vit_cifar_pp"),
+    ("vit_cifar_pp_f32", BATCH // 4, 64, 4, 64, False, "float32", 15,
+     "vit_cifar_pp")]
 # dense route (name, M, K, N, dtype, mode, launches per step, the arch whose
-# step: vit_cifar's, or textcls's 4 blocks' q/k/v/proj, fc1 and fc2)
+# step: vit_cifar's, or textcls's 4 blocks' q/k/v/proj, fc1 and fc2, or one
+# of SPLIT_STEPS)
 DENSE_SHAPES = [
     ("qkv_proj", BATCH * 64, 256, 256, "bfloat16", "binary", 24, "vit_cifar"),
     ("fc1", BATCH * 64, 256, 1024, "bfloat16", "binary", 6, "vit_cifar"),
@@ -289,7 +316,25 @@ DENSE_SHAPES = [
     # the model axis: one rank's slice of vit_cifar's products over two
     ("qkv_proj_tp2", BATCH * 64, 256, 128, "bfloat16", "binary", 0,
      "vit_cifar"),
-    ("fc1_tp2", BATCH * 64, 256, 512, "bfloat16", "binary", 0, "vit_cifar")]
+    ("fc1_tp2", BATCH * 64, 256, 512, "bfloat16", "binary", 0, "vit_cifar"),
+    # split tokens (the act_shard phase, (data=1, model=2)): proj, fc1 and
+    # fc2 on a rank's 32 of 64 tokens (vit_moe_cifar's are vit_cifar's);
+    # q/k/v run on the gathered tokens, at the rows above
+    ("proj_sp2", BATCH * 32, 256, 256, "bfloat16", "binary", 6,
+     "vit_cifar_sp"),
+    ("fc1_sp2", BATCH * 32, 256, 1024, "bfloat16", "binary", 6,
+     "vit_cifar_sp"),
+    ("fc2_sp2", BATCH * 32, 1024, 256, "bfloat16", "binary", 6,
+     "vit_cifar_sp"),
+    ("textcls_proj_sp2", BATCH * 32, 128, 128, "bfloat16", "binary", 4,
+     "textcls_sp"),
+    ("textcls_fc1_sp2", BATCH * 32, 128, 512, "bfloat16", "binary", 4,
+     "textcls_sp"),
+    ("textcls_fc2_sp2", BATCH * 32, 512, 128, "bfloat16", "binary", 4,
+     "textcls_sp")]
+# the steps of the act_shard and pipeline phases: their rows' launches a
+# step are a rank's on that step, kept out of the one-process steps' sums
+SPLIT_STEPS = ("vit_cifar_sp", "textcls_sp", "vit_cifar_pp")
 # the model axis: one rank's slice of VGG16-BN's convs over two ranks,
 # where the slice's shape leaves the GEMM routes (conv1's seam at 32
 # channels: the earlier K4 and K5) or keeps them (conv2, conv3), and conv0's
@@ -1271,7 +1316,7 @@ def _arch_io(arch):
     from cpg_tpu_torch.cli import _identity_augment
     from cpg_tpu_torch.data import augment as A
 
-    if arch == "resnet50":
+    if arch in ("resnet50", "vit_b16"):
         return ((224, 224, 3), A.imagenet_eval_preprocess,
                 A.imagenet_train_augment,
                 lambda n, g: A.crop_flip_draws(n, g, 16), RESNET_BATCH)
@@ -3543,8 +3588,9 @@ def _per_step(row) -> int:
     ViT rows say so; a VGG16-BN row's layer runs once a step in bf16 binary
     (its ternary and f32 rows are extra checks); ResNet-50's,
     SphereNet-20's and textcls's rows count in their own steps (the kernels
-    line's `resnet50_step`, `spherenet20_step`, `textcls_step`)."""
-    if row.get("arch") in OWN_STEPS:
+    line's `resnet50_step`, `spherenet20_step`, `textcls_step`), and
+    SPLIT_STEPS' rows in none."""
+    if row.get("arch") in OWN_STEPS + SPLIT_STEPS:
         return 0
     if "per_step" in row:
         return row["per_step"]
@@ -3617,15 +3663,25 @@ PAR_MASK_OFF_SHARE = 5e-4      # f32: the piggymask entries whose update
                                # 0): at most UPDATE_RATIO x those of the
                                # f32 default step plus this share of the
                                # entries moved, each within 3 lr_mask
-TP_F32_UPDATE_RTOL = 1e-4      # f32 under a model axis alone (no data
-                               # ranks summing in another order): the
-                               # shared and private updates within this
-                               # share of the update's norm of the
-                               # one-process step's (the model group's f32
-                               # sum of partial input gradients moves them
-                               # by about 1e-6 of it on an H100; that sum
-                               # done in bf16 must miss it:
-                               # scripts/torch_tp_controls.py)
+TP_F32_UPDATE_RTOL = 1e-4      # f32 under a model axis alone or a
+                               # pipeline (no data ranks summing in another
+                               # order): the shared and private updates
+                               # within this share of the update's norm of
+                               # the one-process step's (the model group's
+                               # f32 sum of partial input gradients, or the
+                               # stages' sum of one non-zero gradient and
+                               # zeros, moves them by about 1e-6 of it on an
+                               # H100; either sum done in bf16, or the
+                               # pipeline's ring carried in bf16, must miss
+                               # it: scripts/torch_tp_controls.py)
+ACT_SHARD_ARCHS = ("vit_cifar", "textcls", "vit_moe_cifar")
+                               # the act_shard phase's kernel steps, as
+                               # (data=1, model=2) with the tokens and the
+                               # experts split over the model group
+PP_STAGES, PP_MICRO = 2, 4     # the pipeline phase: vit_cifar's 6 blocks
+                               # as 2 stages of 3, 4 microbatches of 64
+PP_FLAGS = dict(flash_attention=True)  # the pipeline's blocks take whole
+                               # (effective) weights: K7 alone in them
 PAR_SERVE_ROWS = (1, 37, 256)
 PAR_CLI_PER_CLASS = 64         # 5 classes: 320 images, 2 steps an epoch
 PAR_CLI_FLOOR = {"own_flip": 1e-3, "shared": 1e-5, "bn": 1e-5}
@@ -3647,18 +3703,19 @@ def _sync(torch, dev):
         torch.cuda.synchronize(dev)
 
 
-def _par_batches(torch, dev, n):
-    """PAR_STEPS global batches (uint8 images, labels, crop/flip draws) of
-    n rows, the same in every process."""
-    from cpg_tpu_torch.data.augment import crop_flip_draws
-
+def _par_batches(torch, dev, n, arch="vgg16_bn_cifar"):
+    """PAR_STEPS global batches (uint8 images or textcls's token ids,
+    labels, the arch's augmentation draws) of n rows, the same in every
+    process."""
+    shape, _, _, draws, _ = _arch_io(arch)
     gen = torch.Generator().manual_seed(SEED + 7)
     out = []
     for _ in range(PAR_STEPS):
-        x = torch.randint(0, 256, (n, 32, 32, 3), generator=gen,
-                          dtype=torch.uint8).to(dev)
+        x = torch.randint(0, 256, (n, *shape), generator=gen,
+                          dtype=torch.int32 if len(shape) == 1
+                          else torch.uint8).to(dev)
         y = torch.randint(0, 5, (n,), generator=gen).to(dev)
-        out.append((x, y, crop_flip_draws(n, gen, 4)))
+        out.append((x, y, draws(n, gen)))
     return out
 
 
@@ -3701,12 +3758,33 @@ def _held(st):
                 unsplit=sorted(k for k in st.shared if k not in st.shards))
 
 
+def _seam_spy():
+    """(install, seams): `install(on)` wraps `Ctx.constrain` so each seam
+    appends (tag, shape in, shape out) to `seams` (off: unwraps)."""
+    from cpg_tpu_torch.models import framework as fw
+
+    keep, seams = fw.Ctx.constrain, []
+
+    def spy(ctx, x, tag):
+        y = keep(ctx, x, tag)
+        seams.append((tag, list(x.shape), list(y.shape)))
+        return y
+
+    def install(on):
+        fw.Ctx.constrain = spy if on else keep
+    return install, seams
+
+
 def _parallel_rank_run(torch, dev, rank, cfg):
     """Task 2's kernel step of cfg["arch"] (default VGG16-BN; `_train_base`
     of `build_state`) over the mesh of every rank, cfg["n_model"] of them a
     model group (default 1: data-parallel alone; more: each rank holds its
-    slice of every kernel that divides), f32 then bf16, PAR_STEPS steps
-    each on the same global batches and draws, the replicas held
+    slice of every kernel that divides; with cfg["act_shard"] the kernels
+    stay whole and `act_sharder` splits the tokens and the experts over
+    the group instead), or with cfg["pipeline"] = (stages, n_micro) through
+    `make_pipeliner` over every rank (a stage a rank, the blocks' K7 by
+    `_default_block_fn(flash_attention=True)`), f32 then bf16, PAR_STEPS
+    steps each on the same global batches and draws, the replicas held
     bit-equal after every step (`check_replicas`: split tensors over the
     data group, the rest over every rank) and the no-forgetting invariants
     on the gathered state after the last. Rank 0 also runs the one-process
@@ -3714,16 +3792,25 @@ def _parallel_rank_run(torch, dev, rank, cfg):
     compares the one-step updates (`_update_dists`, the f32 one-process
     step as yardstick). Then ms/step of the bf16 step: all ranks at once,
     then rank 0's one-process step alone."""
+    import dataclasses
+    import functools
+
     from cpg_tpu_torch.models import get_model
     from cpg_tpu_torch.parallel.collectives import barrier, gather_state
-    from cpg_tpu_torch.parallel.mesh import make_mesh
+    from cpg_tpu_torch.parallel.mesh import act_sharder, make_mesh
+    from cpg_tpu_torch.parallel.pipeline import (_default_block_fn,
+                                                 make_pipeline_mesh,
+                                                 make_pipeliner)
     from cpg_tpu_torch.train.sequence import check_replicas
     from cpg_tpu_torch.train.step import TrainConfig
 
     n_model = cfg.get("n_model", 1)
     arch = cfg.get("arch", "vgg16_bn_cifar")
-    par = "tp" if n_model > 1 else "dp"
-    mesh = make_mesh(n_model=n_model)
+    act, pipe = cfg.get("act_shard", False), cfg.get("pipeline")
+    par = _par_label(cfg)
+    split = n_model > 1 and not act
+    mesh = (make_pipeline_mesh(pipe[0]) if pipe
+            else make_mesh(n_model=n_model))
     counts = Counts()
     model_fn, _ = get_model(arch)
     _, _, augment, _, _ = _arch_io(arch)
@@ -3742,17 +3829,22 @@ def _parallel_rank_run(torch, dev, rank, cfg):
         side = torch.where(v >= thr, 1.0, -1.0)
         base.tasks[2].piggymask[k] = torch.where(
             near, thr + side * PAR_MASK_MARGIN, v)
-    batches = _par_batches(torch, dev, cfg["batch"])
+    batches = _par_batches(torch, dev, cfg["batch"], arch)
     out = {"rank": rank, "mesh": repr(mesh), "launches_step": {},
            "losses": {}}
     total, firsts, steppers = None, {}, {}
+    spy, seams = _seam_spy()
 
     def steps(run, st, label, check):
         losses = []
         _sync(torch, dev)
         counts.reset()
         for i, (x, y, draws) in enumerate(batches):
-            losses.append(float(run(x, y, draws, i)["loss"]))
+            spy(act and i == 0 and label == f"{par}_float32")
+            try:
+                losses.append(float(run(x, y, draws, i)["loss"]))
+            finally:
+                spy(False)
             if i == 0:
                 _sync(torch, dev)
                 out["launches_step"][label] = counts.read()
@@ -3765,14 +3857,26 @@ def _parallel_rank_run(torch, dev, rank, cfg):
         _no_forgetting(torch, base, gather_state(st), f"parallel {label}")
         return counts.read()
 
+    flags = PP_FLAGS if pipe else KERNEL_FLAGS[arch]
     for dname in ("float32", "bfloat16"):
-        tcfg = TrainConfig(compute_dtype=getattr(torch, dname),
-                           **KERNEL_FLAGS[arch])
-        st, run = _stepper(torch, base, model_fn, augment, dev, tcfg,
-                           mesh=mesh, model_sharded=n_model > 1)
-        if n_model > 1:
+        tcfg = TrainConfig(compute_dtype=getattr(torch, dname), **flags)
+        pcfg = tcfg
+        if act:
+            pcfg = dataclasses.replace(tcfg, act_sharder=act_sharder(
+                mesh, tokens=True, experts=True))
+        if pipe:
+            depth = len({k.split("/")[1] for k in base.shared
+                         if k.startswith("blocks/")})
+            pcfg = dataclasses.replace(tcfg, pipeliner=make_pipeliner(
+                mesh, pipe[1], depth, block_fn=functools.partial(
+                    _default_block_fn, flash_attention=True)))
+        st, run = _stepper(torch, base, model_fn, augment, dev, pcfg,
+                           mesh=None if pipe else mesh, model_sharded=split)
+        if split:
             out["held"] = _held(st)
         c = steps(run, st, f"{par}_{dname}", True)
+        if act and dname == "float32":
+            out["seams"] = list(seams)
         total = c if total is None else {k: total[k] + c[k] for k in c}
         steppers[dname] = run
         if rank == 0:
@@ -3845,6 +3949,26 @@ PRODUCT_KERNELS = ("masked_conv_fwd", "masked_conv_bwd_dx",
                    "flash_bwd_dq", "flash_bwd_dkv")
 
 
+def _par_label(cfg):
+    """The steps' label of a `dp_ranks_check` configuration: "pp" (the
+    pipeline), "sp" (split activations), "tp" (split kernels), "dp"."""
+    if cfg.get("pipeline"):
+        return "pp"
+    if cfg.get("act_shard"):
+        return "sp"
+    return "tp" if cfg.get("n_model", 1) > 1 else "dp"
+
+
+def _pp_launches(cfg, single):
+    """The launches a pipeline step makes on each stage, from the
+    one-process step's (`single`, its blocks' K7 once a block): every tick
+    runs the stage's depth / S blocks (dead ticks too, masked), forward
+    and backward, n_micro + S - 1 ticks."""
+    stages, n_micro = cfg["pipeline"]
+    return {k: v * (n_micro + stages - 1) // stages
+            for k, v in single.items() if v}
+
+
 def dp_ranks_check(torch, cfg, card):
     """Spawn one rank a device of cfg["devices"] (`_parallel_rank`), joined
     over cfg["backend"] (cfg["n_model"] ranks a model group, default 1), and
@@ -3852,20 +3976,26 @@ def dp_ranks_check(torch, cfg, card):
     one-process step run by rank 0: f32 losses within PAR_F32_LOSS_RTOL and
     shared and private one-step updates within F32_UPDATE_RTOL of the
     update's norm (TP_F32_UPDATE_RTOL when every rank is in one model
-    group), the piggymask's by PAR_MASK_OFF_SHARE against the f32
+    group or one pipeline), the piggymask's by PAR_MASK_OFF_SHARE against the f32
     default step's; bf16 losses within LOSS_RTOL and each group's update at
     most UPDATE_RATIO times as far from the f32 update as the one-process
     bf16 step's; every rank's losses equal, its launches a step the
     one-process step's (all counters data-parallel, the products K1-K7
     under a model axis; TRAIN_LAUNCHES in bf16); under a model axis each
-    rank holding the slices of the split kernels. Returns the results and
-    {"<arch>/parallel_rank<r>" (or tp_rank<r>): launches}."""
+    rank holding the slices of the split kernels. With cfg["act_shard"]
+    (the tokens and experts split, `_parallel_rank_run`) every "tokens"
+    seam must hand on T / n_model rows; with cfg["pipeline"] the data-
+    parallel rules hold but the f32 updates' (TP_F32_UPDATE_RTOL: no data
+    axis), and each stage's launches a step must be `_pp_launches` of the
+    one-process step's. Returns the results and
+    {"<arch>/parallel_rank<r>" (tp_rank<r>, sp_rank<r>, pp_rank<r>):
+    launches}."""
     import torch.multiprocessing as mp
 
     world = len(cfg["devices"])
     arch = cfg.get("arch", "vgg16_bn_cifar")
     tp = cfg.get("n_model", 1) > 1
-    par = "tp" if tp else "dp"
+    par, pipe = _par_label(cfg), cfg.get("pipeline")
     launched = {}
     tmp = tempfile.mkdtemp(prefix="par_")
     try:
@@ -3895,8 +4025,9 @@ def dp_ranks_check(torch, cfg, card):
     if loss_rel > PAR_F32_LOSS_RTOL or bf16_rel > LOSS_RTOL:
         raise AssertionError(f"{what}: losses {lo}")
     dist, ref_norm = r0["update_dist_to_f32"], r0["f32_update_norm"]
-    # a model axis alone sums no rows in another order: its own bound
-    rtol = (TP_F32_UPDATE_RTOL if tp and world == cfg["n_model"]
+    # a model axis alone or a pipeline sums no rows in another order: its
+    # own bound
+    rtol = (TP_F32_UPDATE_RTOL if pipe or (tp and world == cfg["n_model"])
             else F32_UPDATE_RTOL)
     f32_rel = {group: dist[f"{par}_float32"][group] / ref_norm[group]
                for group in ("shared", "private")}
@@ -3921,8 +4052,29 @@ def dp_ranks_check(torch, cfg, card):
                 "the f32 one-process step's, the bf16 one-process step's "
                 f"{dist['single_bfloat16'][group]}")
     keys = PRODUCT_KERNELS if tp else None
+    rows = {}
     for r in ranks:
         steps = r["launches_step"]
+        if pipe:
+            for dname in ("float32", "bfloat16"):
+                want = _pp_launches(
+                    cfg, r0["launches_step"][f"single_{dname}"])
+                got = {k: v for k, v in steps[f"pp_{dname}"].items() if v}
+                if got != want:
+                    raise AssertionError(
+                        f"{what}: rank {r['rank']}'s {dname} step launched "
+                        f"{got}, not {want}")
+            launched[f"{arch}/pp_rank{r['rank']}"] = r["launches"]
+            continue
+        if par == "sp":
+            tokens = [sm for sm in r["seams"] if sm[0] == "tokens"]
+            t = tokens[0][1][1]
+            rows[r["rank"]] = {"T": t, "held": sorted({sm[2][1]
+                                                       for sm in tokens}),
+                               "seams": len(tokens)}
+            if rows[r["rank"]]["held"] != [t // cfg["n_model"]]:
+                raise AssertionError(f"{what}: rank {r['rank']}'s seams "
+                                     f"{tokens}")
         for dname in ("float32", "bfloat16"):
             got, want = (
                 {k: v for k, v in c.items() if keys is None or k in keys}
@@ -3937,10 +4089,10 @@ def dp_ranks_check(torch, cfg, card):
                if keys is None or k in keys):
             raise AssertionError(f"{what}: rank {r['rank']}'s bf16 step "
                                  f"launched {steps[f'{par}_bfloat16']}")
-        if tp and not (r["held"]["slices"] and r["held"]["split"]):
+        if par == "tp" and not (r["held"]["slices"] and r["held"]["split"]):
             raise AssertionError(f"{what}: rank {r['rank']} holds "
                                  f"{r['held']}")
-        label = "tp_rank" if tp else "parallel_rank"
+        label = f"{par}_rank" if tp else "parallel_rank"
         launched[f"{arch}/{label}{r['rank']}"] = r["launches"]
     out = dict(
         devices=cfg["devices"], backend=cfg["backend"], arch=arch,
@@ -3952,9 +4104,17 @@ def dp_ranks_check(torch, cfg, card):
         ms_per_step_ranks={r["rank"]: r["ms_per_step_ranks"] for r in ranks},
         ms_per_step_one_process=r0["ms_per_step_one_process"],
         batch=cfg["batch"], card=card)
-    if tp:
+    if par == "tp":
         out["held"] = {r["rank"]: r["held"] for r in ranks}
-        out["launches_step_tp_bf16"] = r0["launches_step"]["tp_bfloat16"]
+    if par in ("tp", "sp", "pp"):
+        out[f"launches_step_{par}_bf16"] = r0["launches_step"][
+            f"{par}_bfloat16"]
+    if par == "sp":
+        out["rows"] = rows
+    if pipe:
+        out.update(pipeline=list(pipe), k7_launches_step_one_process={
+            k: v for k, v in r0["launches_step"]["single_bfloat16"].items()
+            if v})
     print(f"parallel ranks: {json.dumps(out)}", flush=True)
     out["launches_step"] = r0["launches_step"]
     return out, launched
@@ -4170,6 +4330,57 @@ def parallel_phase(torch, dev, counts, card):
     return res, launched
 
 
+def act_shard_phase(torch, dev, card):
+    """`act_sharder` on the card: each of ACT_SHARD_ARCHS' bf16 kernel
+    steps (`use_pallas` + `flash_attention`: dense K1-K3 and K7) as (data=1,
+    model=2) on two gloo ranks sharing the card, the kernels whole and the
+    tokens (and vit_moe_cifar's experts, two a rank) split over the model
+    group, held to the model axis's rules (`dp_ranks_check`). Returns the
+    results and {label: launches}."""
+    rank_dev = (torch.device("cuda", torch.cuda.current_device())
+                if dev.type == "cuda" else dev)
+    res, launched = {}, {}
+    for arch in ACT_SHARD_ARCHS:
+        res[arch], more = dp_ranks_check(torch, {
+            "devices": [str(rank_dev)] * PAR_RANKS, "backend": "gloo",
+            "mult": PAR_MULT, "batch": BATCH, "arch": arch,
+            "n_model": PAR_RANKS, "act_shard": True}, card)
+        launched.update(more)
+        print(f"act_shard {arch} (data=1, model={PAR_RANKS}, gloo, one "
+              f"card): rows a rank holds at the block boundaries "
+              f"{json.dumps(res[arch]['rows'])}; ms/step, bf16 kernel step "
+              f"at batch {BATCH}: two ranks {res[arch]['ms_per_step_ranks']}"
+              f", one process {res[arch]['ms_per_step_one_process']:.2f} on "
+              f"{card}", flush=True)
+    return res, launched
+
+
+def pipeline_phase(torch, dev, card):
+    """`pipeline.py` on the card: vit_cifar's train step at width 1.0
+    through `TrainConfig.pipeliner`, its 6 blocks as PP_STAGES stages of
+    two gloo ranks sharing the card, PP_MICRO microbatches of the batch of
+    BATCH, K7 in the blocks (`_default_block_fn(flash_attention=True)`),
+    against the one-process inline step with K7, f32 (the data-parallel
+    rules, the updates by TP_F32_UPDATE_RTOL) and bf16 (the 2x rule),
+    replicas bit-equal after every step,
+    K7's launches a step counted. Returns the results and {label:
+    launches}."""
+    rank_dev = (torch.device("cuda", torch.cuda.current_device())
+                if dev.type == "cuda" else dev)
+    res, launched = dp_ranks_check(torch, {
+        "devices": [str(rank_dev)] * PP_STAGES, "backend": "gloo",
+        "mult": PAR_MULT, "batch": BATCH, "arch": "vit_cifar",
+        "pipeline": (PP_STAGES, PP_MICRO)}, card)
+    print(f"pipeline vit_cifar ({PP_STAGES} stages, {PP_MICRO} "
+          f"microbatches, gloo, one card): K7 launches a step per stage "
+          f"{json.dumps({k: v for k, v in res['launches_step_pp_bf16'].items() if v})}, one process "
+          f"{json.dumps(res['k7_launches_step_one_process'])}; ms/step, "
+          f"bf16 at batch {BATCH}: two ranks {res['ms_per_step_ranks']}, "
+          f"one process {res['ms_per_step_one_process']:.2f} on {card}",
+          flush=True)
+    return res, launched
+
+
 def _cycle_of(summary):
     """A `sequence` summary's cycle: widths, names, ratios and growths."""
     return (summary["final_width_mult"],
@@ -4199,35 +4410,131 @@ def _cli_states_agree(torch, a, b):
     return out
 
 
-def nccl_cards_check(torch, devices, card, backend="nccl"):
-    """Data parallelism over NCCL across the cards `devices` (cuda:0..n-1):
-    the DP kernel step on one rank a card against the one-process step
-    (`dp_ranks_check`), `sequence --parallel n` (the command spawns its
-    ranks; every boundary's `check_replicas` runs in it) against
-    `sequence --parallel 1`, both in f32: the same cycle, and final states
+PP_CARDS = dict(arch="vit_b16", batch=64, pipeline=(4, 8))
+                               # four cards: vit_b16's 12 blocks as 4
+                               # stages of 3, 8 microbatches of 8
+ACT_CLI_ORDERS = {"kernels": (), "dense": ("--flash-attention",),
+                  "default": ("--use-pallas", "--flash-attention")}
+                               # PAR_CLI_ORDERS for the transformers
+
+
+def _act_cli_argv(ck, extra=()):
+    return ["sequence", "--arch", "vit_moe_cifar", "--num-tasks", "2",
+            "--use-pallas", "--flash-attention",
+            "--synthetic-train-per-class", str(PAR_CLI_PER_CLASS),
+            "--synthetic-test-per-class", "20", "--batch-size",
+            str(BATCH // 2), "--finetune-epochs", "1", "--prune-epochs", "1",
+            "--retrain-epochs", "1", "--prune-ratios", "0.5",
+            "--network_width_multiplier", str(PAR_MULT), "--seed", str(SEED),
+            "--checkpoint-dir", ck, *extra]
+
+
+def _cli_against_orders(torch, devices, argv_of, orders, runs, card, what):
+    """f32 `sequence` runs against `--parallel 1`'s: each of `runs`
+    ({label: the flags beside --parallel}) spawned as a user runs it, the
+    one-process orders in this process (`orders`: {label: flags dropped};
+    the first is the run held against). The same cycle, and final states
     (`_cli_states_agree`) at most UPDATE_RATIO x as far apart as the
-    farthest two of the one-rank runs under PAR_CLI_ORDERS (three
-    summation orders of one process: a steadier yardstick than one pair,
-    each pair's distance varying from call to call) or within
-    PAR_CLI_FLOOR, and
-    `sequence --parallel n/2 --parallel-model 2` against it by the same
-    rule; the model axis's kernel step (`dp_ranks_check`: VGG16-BN as
-    (n/2, 2), and with four cards vit_moe_cifar as (1, 4), each card one
-    whole expert); and a bf16 server over the n cards (a weight replica a
-    card) against the unmeshed one on the first at 1, 37 and 256 rows.
-    Returns the results and the ranks' launches. (`backend` "gloo" with
-    CPU devices rehearses the steps.)"""
+    farthest two orders, or within PAR_CLI_FLOOR. Returns the results."""
+    from cpg_tpu_torch.utils.checkpoint import load_state
+
+    f32 = ["--dtype", "float32", "--allow_acc_diff", "1.0"]
+    tmp = tempfile.mkdtemp(prefix="par_nccl_")
+    try:
+        ones = {}
+        for order, drop in orders.items():
+            rc, ones[order] = _cli([a for a in argv_of(
+                os.path.join(tmp, order), ["--parallel", "1", *f32])
+                if a not in drop])
+            if rc:
+                raise AssertionError(f"{what} --parallel 1 ({order}): "
+                                     f"exit {rc}")
+        first = next(iter(orders))
+        s1, summaries = ones[first], {}
+        for label, flags in runs.items():
+            p = subprocess.run(
+                [sys.executable, "-m", "cpg_tpu_torch",
+                 *argv_of(os.path.join(tmp, label), [*flags, *f32])],
+                capture_output=True, text=True, timeout=900)
+            if p.returncode:
+                raise AssertionError(f"{what} {label} over NCCL: exit "
+                                     f"{p.returncode}\n{p.stderr[-3000:]}")
+            summaries[label] = json.loads(p.stdout.strip().splitlines()[-1])
+            if _cycle_of(summaries[label]) != _cycle_of(s1):
+                raise AssertionError(f"{what} {label}: {summaries[label]} "
+                                     f"against {s1}")
+        apart, yard = {label: {} for label in runs}, {}
+        for i, t in enumerate(s1["tasks"]):
+            name = f"task{i + 1:02d}_{t['name']}"
+            st = {d: load_state(os.path.join(tmp, d, name),
+                                device=devices[0])
+                  for d in (*runs, *orders)}
+            for label in runs:
+                apart[label][name] = _cli_states_agree(torch, st[label],
+                                                       st[first])
+            names = list(orders)
+            for j, a in enumerate(names):
+                for b in names[j + 1:]:
+                    yard[f"{name}/{a}-{b}"] = _cli_states_agree(
+                        torch, st[a], st[b])
+            del st
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bound = {m: max(floor, UPDATE_RATIO * max(y[m] for y in yard.values()))
+             for m, floor in PAR_CLI_FLOOR.items()}
+    print(f"parallel NCCL {what}, final states from --parallel 1's: "
+          f"{json.dumps(apart)}, bound {json.dumps(bound)}, one process's "
+          f"orders {json.dumps(yard)} on {card}", flush=True)
+    for label, got in apart.items():
+        if any(d[m] > bound[m] for d in got.values() for m in bound):
+            raise AssertionError(f"{what} {label}: {got} from --parallel "
+                                 f"1's, bound {bound} (one process's "
+                                 f"orders: {yard})")
+    return dict(summaries=summaries, against_parallel_1=s1,
+                states_apart=apart, one_process_orders_apart=yard,
+                bound=bound)
+
+
+def nccl_cards_check(torch, devices, card, backend="nccl"):
+    """Data, model and pipeline parallelism over NCCL across the cards
+    `devices` (cuda:0..n-1):
+      * "dp": the DP kernel step on one rank a card against the one-process
+        step (`dp_ranks_check`);
+      * "tp": the model axis's kernel step (`dp_ranks_check`: VGG16-BN as
+        (n/2, 2), and with four cards vit_moe_cifar as (1, 4), each card
+        one whole expert);
+      * "pp" (four cards): vit_b16's pipeline over four NCCL ranks
+        (PP_CARDS: 4 stages of 3 blocks, 8 microbatches, batch 64; K7 in
+        the blocks) against the one-process inline step (`dp_ranks_check`
+        with "pipeline");
+      * "cli": f32 `sequence --parallel n` (the command spawns its ranks;
+        every boundary's `check_replicas` runs in it) and
+        `sequence --parallel n/2 --parallel-model 2` against `sequence
+        --parallel 1`: the same cycle, and final states
+        (`_cli_states_agree`) at most UPDATE_RATIO x as far apart as the
+        farthest two of the one-rank runs under PAR_CLI_ORDERS (three
+        summation orders of one process: a steadier yardstick than one
+        pair, each pair's distance varying from call to call) or within
+        PAR_CLI_FLOOR;
+      * "act_shard_cli" (four cards): f32 `sequence --arch vit_moe_cifar
+        --parallel 2 --parallel-model 2 --shard-activations` against
+        `--parallel 1` by the "cli" rule, its orders ACT_CLI_ORDERS;
+      * "serve": a bf16 server over the n cards (a weight replica a card)
+        against the unmeshed one on the first at 1, 37 and 256 rows.
+    With fewer than four cards the four-card parts print that they did not
+    run. Returns the results and the ranks' launches. (`backend` "gloo"
+    with CPU devices rehearses the steps.)"""
     from cpg_tpu_torch.data.augment import cifar_eval_preprocess
     from cpg_tpu_torch.parallel.mesh import make_mesh
     from cpg_tpu_torch.serve import TaskServer
-    from cpg_tpu_torch.utils.checkpoint import load_state
 
     n = len(devices)
-    dp, ranks = dp_ranks_check(torch, {
+    out, launched = {}, {}
+    out["dp"], ranks = dp_ranks_check(torch, {
         "devices": devices, "backend": backend, "mult": PAR_MULT,
         "batch": BATCH}, card)
-    launched = {k.replace("parallel_rank", "parallel_nccl_rank"): v
-                for k, v in ranks.items()}
+    launched.update({k.replace("parallel_rank", "parallel_nccl_rank"): v
+                     for k, v in ranks.items()})
     # the model axis over NCCL: VGG16-BN's kernel step as (n / 2, 2), and
     # with four cards vit_moe_cifar as (1, 4), one whole expert a card
     tp = {}
@@ -4238,71 +4545,35 @@ def nccl_cards_check(torch, devices, card, backend="nccl"):
                      for k, v in ranks.items()})
     if n >= 4:
         tp["vit_moe_cifar"], ranks = dp_ranks_check(torch, {
-            "devices": devices[:4], "backend": backend, "mult": PAR_MULT,
-            "batch": BATCH, "arch": "vit_moe_cifar", "n_model": 4}, card)
+            "devices": devices[:4], "backend": backend,
+            "mult": PAR_MULT, "batch": BATCH, "arch": "vit_moe_cifar",
+            "n_model": 4}, card)
         launched.update({k.replace("tp_rank", "tp_nccl_rank"): v
                          for k, v in ranks.items()})
-    f32 = ["--dtype", "float32", "--allow_acc_diff", "1.0"]
-    tmp = tempfile.mkdtemp(prefix="par_nccl_")
-    try:
-        ones = {}
-        for order, drop in PAR_CLI_ORDERS.items():
-            rc, ones[order] = _cli([a for a in _par_cli_argv(
-                os.path.join(tmp, order), ["--parallel", "1", *f32])
-                if a not in drop])
-            if rc:
-                raise AssertionError(f"sequence --parallel 1 ({order}): "
-                                     f"exit {rc}")
-        first = next(iter(PAR_CLI_ORDERS))
-        s1 = ones[first]
-        p = subprocess.run(
-            [sys.executable, "-m", "cpg_tpu_torch",
-             *_par_cli_argv(os.path.join(tmp, "pn"),
-                            ["--parallel", str(n), *f32])],
-            capture_output=True, text=True, timeout=600)
-        if p.returncode:
-            raise AssertionError(f"sequence --parallel {n} over NCCL: exit "
-                                 f"{p.returncode}\n{p.stderr[-3000:]}")
-        sn = json.loads(p.stdout.strip().splitlines()[-1])
-        if _cycle_of(sn) != _cycle_of(s1):
-            raise AssertionError(f"--parallel {n}: {sn} against {s1}")
-        # the model axis: n / 2 data ranks of two model ranks each
-        tp_argv = ["--parallel", str(n // 2), "--parallel-model", "2", *f32]
-        p = subprocess.run(
-            [sys.executable, "-m", "cpg_tpu_torch",
-             *_par_cli_argv(os.path.join(tmp, "pt"), tp_argv)],
-            capture_output=True, text=True, timeout=900)
-        if p.returncode:
-            raise AssertionError(f"sequence {' '.join(tp_argv[:4])} over "
-                                 f"NCCL: exit {p.returncode}\n"
-                                 f"{p.stderr[-3000:]}")
-        st_ = json.loads(p.stdout.strip().splitlines()[-1])
-        if _cycle_of(st_) != _cycle_of(s1):
-            raise AssertionError(f"{' '.join(tp_argv[:4])}: {st_} against "
-                                 f"{s1}")
-        apart, apart_tp, yard = {}, {}, {}
-        orders = list(PAR_CLI_ORDERS)
-        for i, t in enumerate(s1["tasks"]):
-            name = f"task{i + 1:02d}_{t['name']}"
-            st = {d: load_state(os.path.join(tmp, d, name),
-                                device=devices[0])
-                  for d in ("pn", "pt", *orders)}
-            apart[name] = _cli_states_agree(torch, st["pn"], st[first])
-            apart_tp[name] = _cli_states_agree(torch, st["pt"], st[first])
-            for j, a in enumerate(orders):
-                for b in orders[j + 1:]:
-                    yard[f"{name}/{a}-{b}"] = _cli_states_agree(
-                        torch, st[a], st[b])
-            del st
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    bound = {m: max(floor, UPDATE_RATIO * max(y[m] for y in yard.values()))
-             for m, floor in PAR_CLI_FLOOR.items()}
-    print(f"parallel NCCL sequence, final states from --parallel 1's: "
-          f"--parallel {n} {json.dumps(apart)}, {' '.join(tp_argv[:4])} "
-          f"{json.dumps(apart_tp)}, bound {json.dumps(bound)}, one "
-          f"process's orders {json.dumps(yard)} on {card}", flush=True)
-    state = build_state(torch, torch.device(devices[0]), width_mult=PAR_MULT)
+        out["pp"], ranks = dp_ranks_check(torch, {
+            "devices": devices[:4], "backend": backend, "mult": PAR_MULT,
+            **PP_CARDS}, card)
+        launched.update({k.replace("pp_rank", "pp_nccl_rank"): v
+                         for k, v in ranks.items()})
+    else:
+        print(f"parallel NCCL: {n} cards, not four: vit_moe_cifar as "
+              "(1, 4), the vit_b16 pipeline and the --shard-activations "
+              "CLI did not run", flush=True)
+    out["tp"] = tp
+    tp_argv = ["--parallel", str(n // 2), "--parallel-model", "2"]
+    cli = _cli_against_orders(
+        torch, devices, _par_cli_argv, PAR_CLI_ORDERS,
+        {"pn": ["--parallel", str(n)], "pt": tp_argv}, card, "sequence")
+    out["cli"] = dict(cli, argv={"pn": f"--parallel {n}",
+                                 "pt": " ".join(tp_argv)})
+    if n >= 4:
+        out["act_shard_cli"] = _cli_against_orders(
+            torch, devices, _act_cli_argv, ACT_CLI_ORDERS,
+            {"pa": ["--parallel", "2", "--parallel-model", "2",
+                    "--shard-activations"]}, card,
+            "sequence --arch vit_moe_cifar")
+    state = build_state(torch, torch.device(devices[0]),
+                        width_mult=PAR_MULT)
     ref = TaskServer(state, cifar_eval_preprocess, fused_chain=True,
                      device=devices[0])
     srv = TaskServer(state, cifar_eval_preprocess, fused_chain=True,
@@ -4316,26 +4587,15 @@ def nccl_cards_check(torch, devices, card, backend="nccl"):
             err, scale = float(np.abs(got - want).max()), float(
                 np.abs(want).max())
             if got.shape != want.shape or err > 2e-2 * scale:
-                raise AssertionError(f"server over {devices}: {rows} rows: "
-                                     f"{err} of {scale}")
+                raise AssertionError(f"server over {devices}: {rows} "
+                                     f"rows: {err} of {scale}")
             serve[rows] = dict(max_abs_err=err,
                                bit_equal=bool(np.array_equal(got, want)))
     finally:
         srv.close()
-    for what, got in ((f"--parallel {n}", apart),
-                      (" ".join(tp_argv[:4]), apart_tp)):
-        if any(d[m] > bound[m] for d in got.values() for m in bound):
-            raise AssertionError(f"sequence {what}: {got} from --parallel "
-                                 f"1's, bound {bound} (one process's "
-                                 f"orders: {yard})")
-    out = dict(dp=dp, tp=tp,
-               cli=dict(summary=sn, against_parallel_1=s1,
-                        states_apart=apart, one_process_orders_apart=yard,
-                        bound=bound),
-               cli_tp=dict(argv=tp_argv[:4], summary=st_,
-                           states_apart=apart_tp), serve=serve)
+    out["serve"] = serve
     print(f"parallel NCCL across {n} cards: " + json.dumps(
-        {k: v for k, v in out.items() if k not in ("dp", "tp")})
+        {k: v for k, v in out.items() if k not in ("dp", "tp", "pp")})
         + f" on {card}", flush=True)
     return out, launched
 
@@ -4439,7 +4699,7 @@ def kernels_line(rows, launched):
         step = [(r, _per_step(r)) for r in mine if _per_step(r)]
         if not step:
             step = [(r, 1) for r in mine if r.get("on_path")
-                    and r.get("arch") not in OWN_STEPS]
+                    and r.get("arch") not in OWN_STEPS + SPLIT_STEPS]
         by = {}
         for r, k in step:
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + k * r["bound_ms"]
@@ -4672,6 +4932,14 @@ def main() -> int:
     results["vgg16_bn_cifar"]["parallel"] = par
     torch.cuda.empty_cache()
     t = lap("parallel", t)
+    act, act_launched = act_shard_phase(torch, dev, card)
+    launched.update(act_launched)
+    results["act_shard"] = act
+    t = lap("act_shard", t)
+    pipe, pipe_launched = pipeline_phase(torch, dev, card)
+    launched.update(pipe_launched)
+    results["vit_cifar"]["pipeline"] = pipe
+    t = lap("pipeline", t)
     results["doctor"] = doctor_phase(card)
     lap("doctor", t)
     # every phase that should reach a kernel did
@@ -4736,6 +5004,17 @@ def main() -> int:
                 "flash_fwd", "flash_bwd", "masked_matmul_fwd",
                 "masked_matmul_bwd_dx", "masked_matmul_bwd_dw"]
                for r in range(PAR_RANKS)},
+            # each rank of the act_shard phase's steps: the dense K1-K3
+            # (proj, fc1, fc2 on its rows) and K7 at whole T (textcls's
+            # backward the hd-32 pair); the pipeline's stages: K7
+            **{f"{arch}/sp_rank{r}": [
+                "flash_fwd", "masked_matmul_fwd", "masked_matmul_bwd_dx",
+                "masked_matmul_bwd_dw",
+                *(["flash_bwd_dq", "flash_bwd_dkv"] if arch == "textcls"
+                  else ["flash_bwd"])]
+               for arch in ACT_SHARD_ARCHS for r in range(PAR_RANKS)},
+            **{f"vit_cifar/pp_rank{r}": ["flash_fwd", "flash_bwd"]
+               for r in range(PP_STAGES)},
             "vgg16_bn_cifar/parallel_serve": ["fused_chain_fwd"]}
     for phase, names in need.items():
         for k in names:

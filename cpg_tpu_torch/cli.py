@@ -44,10 +44,11 @@ torchrun each process is the rank it is given; otherwise the command
 spawns the ranks itself (torch.multiprocessing, a file store in a
 temporary directory) on cuda:0..N*M-1 over NCCL, or on the CPU over gloo
 with `--device cpu`, and `--parallel 1` runs as the one rank of a world in
-this process. Rank 0 prints the summary. Options whose modules are not
-ported yet (`--shard-activations`) and the XLA-only `--remat`,
-`--remat-policy`, `--scan-blocks` and `--scoped-vmem-kib` stop with an
-error naming them.
+this process. Rank 0 prints the summary. `--shard-activations` splits
+the transformers' tokens and the MoE experts over each model group
+(parallel/mesh.py `act_sharder`); without `--parallel` it does nothing,
+as in `cpg_tpu`. The XLA-only `--remat`, `--remat-policy`, `--scan-blocks`
+and `--scoped-vmem-kib` stop with an error naming them.
 Checkpoints are this package's (utils/checkpoint.py).
 
 `serve`: R.npz holds `x` (uint8 NHWC, or int32 (N, T) token ids for
@@ -93,8 +94,6 @@ EXPERIMENT_PRESETS = {
 # options of `cpg_tpu`'s parser that this package does not run yet:
 # (attribute, is-set test, what is missing)
 UNPORTED = [
-    ("shard_activations", bool,
-     "activation sharding (ROADMAP Queue 1, item 12, act_sharder)"),
     ("remat", bool, "XLA rematerialisation (TPU/XLA only; no port)"),
     ("remat_policy", bool, "XLA rematerialisation (TPU/XLA only; no port)"),
     ("scan_blocks", bool, "lax.scan over blocks (TPU/XLA only; no port)"),
@@ -366,7 +365,10 @@ def _add_common(p):
                         "sharable kernels (output channels; MoE archs "
                         "whole experts)")
     p.add_argument("--shard-activations", action="store_true",
-                   help="not ported (stops with an error)")
+                   help="with --parallel: split the transformers' tokens "
+                        "(sequence parallelism) and the MoE experts (expert "
+                        "parallelism) over each model group "
+                        "(parallel/mesh.act_sharder)")
     p.add_argument("--memmap-dir", default=None,
                    help="train on memory-mapped task datasets: one "
                         "save_memmap_dataset directory a task under this "
@@ -905,10 +907,18 @@ def _run_cycle(args, mesh) -> int:
         init_kw["model_kwargs"] = {"vocab": int(vocab)}
         init_kw["batch_hw"] = (int(seq_len),)
 
+    cfg = _train_cfg(args)
     if mesh is not None:
         init_kw["mesh"] = mesh
+        if args.shard_activations:
+            import dataclasses
+
+            from .parallel.mesh import act_sharder
+
+            cfg = dataclasses.replace(cfg, act_sharder=act_sharder(
+                mesh, tokens=True, experts=True))
     state, reports = runner(
-        arch, tasks, _train_cfg(args), _seq_cfg(args), goals=goals,
+        arch, tasks, cfg, _seq_cfg(args), goals=goals,
         augment_fn=aug, preprocess_fn=prep,
         width_mult=args.network_width_multiplier,
         record_dir=args.record_dir, device=args.device, **init_kw)

@@ -22,6 +22,20 @@ same kernels: K1-K3 through `masked_conv2d`/`masked_matmul`, K4-K6 through
 `fused_affine_relu_conv`) and gathers the output over the model group at
 once, so everything after it runs whole on every rank of the group. A
 layer whose kernel is not split runs whole, with no collective.
+
+Activation sharding (`apply(act_sharder=...)`, parallel/mesh.py): the
+transformers call `Ctx.constrain` at `cpg_tpu`'s seams. The first
+`"tokens"` seam keeps this rank's T/M tokens of the stream (`Ctx.tokens`
+records the split), and the stream stays split until the mean pool.
+A layer that reads this rank's rows (`Ctx.rows`) runs on them and sums
+its parameters' gradients over the model group (`to_model_group` on each
+parameter it reads: every rank holds the whole parameter, but its rows
+give a partial gradient). A product on a kernel shard takes every token
+(`gather_tokens`, whose backward sums the ranks' partial input gradients)
+and returns this rank's rows. Attention, the MoE layer and the pool
+gather the tokens whole (`Ctx.whole_tokens`) and run whole on every rank
+of the group. The `pipeline` hook runs a transformer's block stack as a
+GPipe over stage ranks (parallel/pipeline.py).
 """
 
 from __future__ import annotations
@@ -34,8 +48,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.conv import conv2d_nhwc, resolve_padding
-from ..parallel.collectives import (all_reduce_sum, gather_from_model_group,
-                                    to_model_group, world_size)
+from ..parallel.collectives import (all_gather_along, all_reduce_sum,
+                                    gather_from_model_group, gather_tokens,
+                                    split_tokens, to_model_group, world_size)
 
 
 @dataclass
@@ -130,6 +145,63 @@ class Ctx:
     # the model axis: {kernel key: ShardSpec} of the kernels `shared` holds
     # this rank's slice of (parallel/collectives.py)
     shards: Dict[str, object] = field(default_factory=dict)
+    # activation sharding (parallel/mesh.py act_sharder): the hook the
+    # models' "tokens" and "experts" seams call; None: every seam whole
+    act_sharder: Optional[Callable] = None
+    # the ShardSpec of the token axis once a "tokens" seam split the
+    # stream (axis 1, this rank's rows of the model group)
+    tokens: Optional[object] = None
+    # pipeline hook (parallel/pipeline.py make_pipeliner): (merged params,
+    # tokens, block kwargs, compute dtype) -> tokens, run in place of a
+    # transformer's block stack; None: the blocks run inline
+    pipeline: Optional[Callable] = None
+
+    def seam(self, x, tag):
+        """The split `act_sharder` makes of x at the seam `tag` (a
+        ShardSpec of axis 1), or None where x stays whole."""
+        return None if self.act_sharder is None else self.act_sharder.spec(
+            x, tag)
+
+    def constrain(self, x, tag: str):
+        """`cpg_tpu`'s seam `tag`: "tokens" on (N, T, D), "experts" on
+        (N, E, C, D). Under `act_sharder`, where the axis divides over the
+        model group, this rank's part of it (`split_tokens`); a token
+        stream that is split already passes as it is."""
+        if tag == "tokens" and self.rows(x) is not None:
+            return x
+        spec = self.seam(x, tag)
+        if spec is None:
+            return x
+        if tag == "tokens":
+            self.tokens = spec
+        return split_tokens(x, spec.group)
+
+    def rows(self, x):
+        """The token split when x ((N, T, D), or (N, T) token ids) holds
+        this rank's rows of it, else None."""
+        spec = self.tokens
+        if (spec is None or x.dim() not in (2, 3)
+                or x.shape[1] != spec.width):
+            return None
+        return spec
+
+    def token_rows(self, table):
+        """This rank's rows of a per-position table (T, D) when the token
+        stream is split (its gradient summed over the model group), else
+        the table."""
+        spec = self.tokens
+        if spec is None or table.shape[0] != spec.size:
+            return table
+        return to_model_group(table, spec.group).narrow(
+            0, spec.index * spec.width, spec.width)
+
+    def whole_tokens(self, x):
+        """x with every token, where tokens mix: this rank's rows gathered
+        over the model group (the backward keeps this rank's rows of the
+        gradient, whole on every rank); x itself when it is whole."""
+        spec = self.rows(x)
+        return x if spec is None else gather_from_model_group(
+            x, spec.group, 1)
 
     def shared_param(self, name, shape, init_fn):
         """The kernel `name` of whole shape `shape` (its slice when
@@ -291,26 +363,49 @@ def sdense(ctx: Ctx, name: str, x: torch.Tensor, features: int,
     whose `pallas_dense` is set and a piggymask present, the leading dims
     flatten to (M, K) and the masked-matmul kernels select the weight.
     Under int8 the int8 matmul runs and the output is f32. A split kernel
-    gives this rank's output features, gathered before the bias."""
+    gives this rank's output features, gathered before the bias. On this
+    rank's rows of a split token stream (`ctx.rows`), a whole kernel runs
+    on the rows and its gradients are summed over the model group; a
+    split one takes every token and gives back this rank's rows."""
     key = f"{name}/kernel"
     w = ctx.shared_param(key, (x.shape[-1], features), kernel_init)
+    rows = ctx.rows(x)
+    if rows is not None and key in ctx.shards:
+        # the slice's product takes every token; `gather_tokens`' backward
+        # sums the ranks' partial input gradients, as `into_shard`'s does
+        y = ctx.out_of_shard(key, _dense_product(
+            ctx, key, gather_tokens(x, rows.group), w))
+        return split_tokens(_dense_bias(ctx, name, y, features, use_bias),
+                            rows.group)
     y = ctx.out_of_shard(key, _dense_product(ctx, key, ctx.into_shard(key, x),
-                                             w))
-    return _dense_bias(ctx, name, y, features, use_bias)
+                                             w, rows))
+    return _dense_bias(ctx, name, y, features, use_bias, rows)
 
 
-def _dense_product(ctx: Ctx, key: str, x, w):
+def _row_sums(rows, *ts):
+    """Parameters read on this rank's rows of a split token stream: their
+    gradients summed over the model group (`to_model_group`); as they are
+    without a split."""
+    if rows is None:
+        return ts if len(ts) > 1 else ts[0]
+    out = tuple(to_model_group(t, rows.group) for t in ts)
+    return out if len(out) > 1 else out[0]
+
+
+def _dense_product(ctx: Ctx, key: str, x, w, rows=None):
     mk = ctx.masking
     if mk is not None and ctx.mode != "init":
         own, pm = ctx.mask_entries(key)
         if mk.pallas_dense and pm is not None:
             from ..ops.masked_matmul import masked_matmul
 
+            w, pm = _row_sums(rows, w, pm)
             x2 = x.reshape(-1, x.shape[-1]).to(ctx.compute_dtype).contiguous()
             return masked_matmul(x2, w, own, pm, mk.task_id, mk.threshold,
                                  mk.mask_mode).reshape(*x.shape[:-1],
                                                        w.shape[-1])
         w = ctx.masked_weight(key, w)
+    w = _row_sums(rows, w)
     if ctx.quant_scales is not None and key in ctx.quant_scales:
         from ..ops.int8 import matmul_int8
 
@@ -331,12 +426,25 @@ def sembed(ctx: Ctx, name: str, ids: torch.Tensor, vocab: int,
     it, torch raises (on the card, a device-side assert), so the entry
     points check them on the host (`models.check_token_ids`). The table
     keeps its shape across widths. A split table (on its features) gives
-    this rank's features of each row, gathered over the model group."""
+    this rank's features of each row, gathered over the model group.
+    This rank's ids of a split token stream (`ctx.rows`) look up their
+    rows of a whole table, whose gradient is summed over the model group;
+    a split table takes every id and gives back this rank's rows."""
     key = f"{name}/kernel"
     w = ctx.shared_param(key, (vocab, features), normal_init(0.02))
     if ctx.masking is not None and ctx.mode != "init":
         w = ctx.masked_weight(key, w)
     ids = ids.long()
+    rows = ctx.rows(ids)
+    if rows is not None and key in ctx.shards:
+        y = _sembed_rows(ctx, key, all_gather_along(ids, rows.group, 1), w,
+                        features)
+        return split_tokens(y, rows.group)
+    return _sembed_rows(ctx, key, ids, _row_sums(rows, w), features)
+
+
+def _sembed_rows(ctx: Ctx, key: str, ids, w, features: int):
+    """The rows of `w` at `ids`, in the compute dtype (f32 under int8)."""
     if ctx.quant_scales is not None and key in ctx.quant_scales:
         rows = torch.index_select(w, 0, ids.reshape(-1))
         return (rows.float() * ctx.quant_scales[key]).reshape(
@@ -347,10 +455,11 @@ def sembed(ctx: Ctx, name: str, ids: torch.Tensor, vocab: int,
 
 
 def _dense_bias(ctx: Ctx, name: str, y: torch.Tensor, features: int,
-                use_bias: bool) -> torch.Tensor:
+                use_bias: bool, rows=None) -> torch.Tensor:
     if not use_bias:
         return y
-    b = ctx.private_param(f"{name}/bias", (features,), _zeros)
+    b = _row_sums(rows, ctx.private_param(f"{name}/bias", (features,),
+                                          _zeros))
     return y + b.to(y.dtype)
 
 
@@ -438,10 +547,13 @@ LN_EPS = 1e-6
 
 def layernorm(ctx: Ctx, name: str, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm over the last axis with a task-private affine; two-pass f32
-    moments, output in x's dtype."""
+    moments, output in x's dtype. Per token: on this rank's rows of a
+    split stream the affine's gradients are summed over the model
+    group."""
     c = x.shape[-1]
-    scale = ctx.private_param(f"{name}/scale", (c,), _ones)
-    bias = ctx.private_param(f"{name}/bias", (c,), _zeros)
+    scale, bias = _row_sums(
+        ctx.rows(x), ctx.private_param(f"{name}/scale", (c,), _ones),
+        ctx.private_param(f"{name}/bias", (c,), _zeros))
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = (xf - mean).square().mean(-1, keepdim=True)
@@ -526,12 +638,17 @@ def apply(model_fn: Callable, shared: Dict, private: Dict, bn_state: Dict, x,
           masking: Optional[Masking] = None, fused_chain: bool = False,
           flash_attention: bool = False, quant_scales=None, act_scales=None,
           act_stats=None, qkv_fused: Optional[bool] = None,
-          sync_group=None, shards=None, **kwargs):
+          sync_group=None, shards=None,
+          act_sharder: Optional[Callable] = None,
+          pipeline: Optional[Callable] = None, **kwargs):
     """Run the model. With `masking=None`, `shared` holds pre-masked
     effective params; with a Masking, `shared` holds RAW weights. With
     `quant_scales` (eval only), `shared` holds int8 kernels. `sync_group`
     (training) synchronises BatchNorm's statistics over its ranks;
-    `shards` names the kernels `shared` holds this rank's slice of."""
+    `shards` names the kernels `shared` holds this rank's slice of;
+    `act_sharder` splits the seams' activations over the model group
+    (parallel/mesh.py); `pipeline` runs the block stack over stage ranks
+    (parallel/pipeline.py)."""
     if quant_scales is not None and train:
         raise ValueError("int8 (quant_scales) is eval-only")
     ctx = Ctx(mode="apply", train=train, shared=shared, private=private,
@@ -540,6 +657,7 @@ def apply(model_fn: Callable, shared: Dict, private: Dict, bn_state: Dict, x,
               flash_attention=flash_attention, quant_scales=quant_scales,
               act_scales=act_scales, act_stats=act_stats,
               qkv_fused=qkv_fused, sync_group=sync_group,
-              shards=dict(shards or {}))
+              shards=dict(shards or {}), act_sharder=act_sharder,
+              pipeline=pipeline)
     out = model_fn(ctx, x, **kwargs)
     return out, ctx.new_bn_state

@@ -21,8 +21,15 @@ Pallas kernel). Under a model axis (`ctx.shards`) stacked kernels split
 along their experts take each rank's experts' slots of the dispatched
 tokens, run both products on them and gather the experts' outputs before
 the combine; kernels split along their last axis (when the experts do not
-divide) gather each product's output, as `sdense`. Left out: the
-`constrain` seams (`act_sharder`, ROADMAP Queue 1, item 12).
+divide) gather each product's output, as `sdense`.
+
+The seams sit where `cpg_tpu` has them. Under `act_sharder` the "tokens"
+seams split the stream as in models/vit.py; `smoe` gathers its input's
+tokens whole (the capacity counts an example's tokens in order), routes
+and dispatches them whole on every rank of the model group and returns
+this rank's rows. The "experts" seam on the dispatched tokens gives each
+rank its experts' slots (of replicated kernels, its experts of them) and
+the experts' outputs are gathered before the combine.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ import math
 
 import torch
 
+from ..parallel.collectives import (gather_from_model_group, split_tokens,
+                                    to_model_group)
 from .framework import (Ctx, _zeros, gelu, head, layernorm, normal_init,
                         sconv, xavier_normal)
 from .vit import _heads, attention, mlp
@@ -72,7 +81,11 @@ def smoe(ctx: Ctx, name: str, x, n_experts_base: int, hidden: int,
     """Sharable MoE FFN over (N, T, D): E = max(1, int(base * mult))
     experts, each a gelu MLP D -> hidden -> D. Router (task-private, f32):
     logits = x @ W_r + b_r. Tokens over capacity give 0. The combine sums
-    in f32, the gate multiplies in f32, then the result takes x's dtype."""
+    in f32, the gate multiplies in f32, then the result takes x's dtype.
+    On this rank's rows of a split token stream, every token on every
+    rank of the model group, and this rank's rows out."""
+    rows = ctx.rows(x)
+    x = ctx.whole_tokens(x)
     n, t, d = x.shape
     e = max(1, int(n_experts_base * mult))
     cap = capacity(t, n_experts_base, capacity_factor)
@@ -97,18 +110,27 @@ def smoe(ctx: Ctx, name: str, x, n_experts_base: int, hidden: int,
     w1, w2 = kernel(k1), kernel(k2)
     xe = torch.einsum("ntec,ntd->necd", disp, x.to(ctx.compute_dtype))
     spec = ctx.shards.get(k1)
-    if spec is not None and spec.axis == 0:  # this rank's whole experts
-        xe = ctx.into_shard(k1, xe).narrow(1, spec.index * spec.width,
-                                           spec.width)
+    part = spec if spec is not None and spec.axis == 0 else ctx.seam(
+        xe, "experts")
+    if part is not None:  # this rank's whole experts
+        # the "experts" seam; kernels split by expert hold this rank's
+        # experts, and so does the seam's split of replicated ones
+        xe = split_tokens(xe, part.group)
+        if part is not spec:
+            w1, w2 = (to_model_group(w, part.group).narrow(
+                0, part.index * part.width, part.width) for w in (w1, w2))
         he = gelu(torch.einsum("necd,edf->necf", xe, w1))
-        ye = ctx.out_of_shard(k2, torch.einsum("necf,efd->necd", he, w2), 1)
+        # `cpg_tpu`'s second "experts" seam: whole before the combine
+        ye = gather_from_model_group(torch.einsum("necf,efd->necd", he, w2),
+                                     part.group, 1)
     else:
         he = gelu(ctx.out_of_shard(k1, torch.einsum(
             "necd,edf->necf", ctx.into_shard(k1, xe), w1)))
         ye = ctx.out_of_shard(k2, torch.einsum(
             "necf,efd->necd", ctx.into_shard(k2, he), w2))
     y = torch.einsum("ntec,necd->ntd", disp.float(), ye.float())
-    return (y * gate[..., None]).to(x.dtype)
+    y = (y * gate[..., None]).to(x.dtype)
+    return y if rows is None else split_tokens(y, rows.group)
 
 
 def vit_moe_cifar(ctx: Ctx, x, num_classes: int, mult: float = 1.0,
@@ -125,7 +147,8 @@ def vit_moe_cifar(ctx: Ctx, x, num_classes: int, mult: float = 1.0,
               padding="VALID", kernel_init=xavier_normal)
     n, t = x.shape[0], x.shape[1] * x.shape[2]
     pos = ctx.private_param("patch/pos_embed", (t, dim), normal_init(0.02))
-    x = (x.reshape(n, t, dim) + pos).to(ctx.compute_dtype)
+    x = ctx.constrain((x.reshape(n, t, dim) + pos).to(ctx.compute_dtype),
+                      "tokens")
     for i in range(depth):
         x = x + attention(ctx, f"blocks/{i}/attn",
                           layernorm(ctx, f"blocks/{i}/ln1", x),
@@ -136,5 +159,7 @@ def vit_moe_cifar(ctx: Ctx, x, num_classes: int, mult: float = 1.0,
                          dim * mlp_ratio, mult, capacity_factor)
         else:
             x = x + mlp(ctx, f"blocks/{i}/mlp", xn, hidden)
+        x = ctx.constrain(x, "tokens")
     x = layernorm(ctx, "norm", x)
-    return head(ctx, "classifier", x.float().mean(1), num_classes)
+    return head(ctx, "classifier", ctx.whole_tokens(x).float().mean(1),
+                num_classes)

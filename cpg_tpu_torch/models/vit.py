@@ -18,15 +18,24 @@ With `ctx.qkv_fused` (off by default, as in `cpg_tpu`), q, k and v come
 from one product on the effective-params path of a whole state; under a
 model axis (`ctx.shards`) the three products run, each gathered.
 
-Left out from `cpg_tpu`: `scan_blocks`/`scan_vit_blocks` (an XLA lever),
-and the `pipeline` hook and `act_sharder` seams (ROADMAP Queue 1, item
-12).
+The "tokens" seams sit where `cpg_tpu` has them: after the positional
+embedding and at every block boundary. Under `act_sharder` the stream
+between them is this rank's T/M tokens; attention gathers its normalised
+input whole, forms q, k and v and runs softmax(qk^T)v (K7 under
+`flash_attention`) at whole T on every rank of the model group, and
+takes this rank's rows before `proj` (after it when `proj`'s kernel is
+split); the mean pool gathers the tokens again (models/framework.py).
+`ctx.pipeline` runs the block stack as a GPipe over stage ranks
+(parallel/pipeline.py), as `cpg_tpu`'s pipeline branch.
+
+Left out from `cpg_tpu`: `scan_blocks`/`scan_vit_blocks` (an XLA lever).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import split_tokens
 from .framework import (Ctx, _zeros, gelu, head, layernorm, normal_init,
                         sconv, sdense, xavier_normal)
 
@@ -38,7 +47,11 @@ def _heads(heads: int, mult: float) -> int:
 def attention(ctx: Ctx, name: str, x, heads_n: int, head_dim: int,
               causal: bool = False):
     """Multi-head self-attention over (N, T, D) with sharable q/k/v/proj;
-    `causal=True` lets token t attend to tokens <= t only."""
+    `causal=True` lets token t attend to tokens <= t only. On this rank's
+    rows of a split token stream, every token on every rank of the model
+    group, and this rank's rows out."""
+    rows = ctx.rows(x)
+    x = ctx.whole_tokens(x)
     n, t, d = x.shape
     inner = heads_n * head_dim
     if (ctx.qkv_fused and ctx.mode != "init" and ctx.masking is None
@@ -73,7 +86,14 @@ def attention(ctx: Ctx, name: str, x, heads_n: int, head_dim: int,
         # under int8, v arrives in f32: XLA's mixed product rounds it to
         # the probabilities' dtype first
         out = torch.einsum("nhts,nshd->nthd", att, v.to(att.dtype))
-    return sdense(ctx, f"{name}/proj", out.reshape(n, t, inner), d,
+    out = out.reshape(n, t, inner)
+    proj = f"{name}/proj"
+    if rows is None:
+        return sdense(ctx, proj, out, d, kernel_init=xavier_normal)
+    if f"{proj}/kernel" in ctx.shards:  # a split product takes every token
+        return split_tokens(sdense(ctx, proj, out, d,
+                                   kernel_init=xavier_normal), rows.group)
+    return sdense(ctx, proj, split_tokens(out, rows.group), d,
                   kernel_init=xavier_normal)
 
 
@@ -107,11 +127,26 @@ def vit_cifar(ctx: Ctx, x, num_classes: int, mult: float = 1.0,
     n, t = x.shape[0], x.shape[1] * x.shape[2]
     pos = ctx.private_param("patch/pos_embed", (t, dim), normal_init(0.02))
     x = (x.reshape(n, t, dim) + pos).to(ctx.compute_dtype)
-    for i in range(depth):
-        x = vit_block(ctx, x, heads_n, head_dim, hidden,
-                      prefix=f"blocks/{i}/")
+    x = ctx.constrain(x, "tokens")
+    if ctx.pipeline is not None and ctx.mode == "apply":
+        # the stages select no weight and hold whole kernels
+        if (ctx.masking is not None or ctx.quant_scales is not None
+                or ctx.shards):
+            raise ValueError("pipeline requires the default effective-"
+                             "params path (no Masking / int8 serving / "
+                             "split kernels)")
+        x = ctx.pipeline({**ctx.shared, **ctx.private}, ctx.whole_tokens(x),
+                         dict(heads_n=heads_n, head_dim=head_dim,
+                              hidden=hidden), ctx.compute_dtype)
+        x = ctx.constrain(x, "tokens")
+    else:
+        for i in range(depth):
+            x = vit_block(ctx, x, heads_n, head_dim, hidden,
+                          prefix=f"blocks/{i}/")
+            x = ctx.constrain(x, "tokens")
     x = layernorm(ctx, "norm", x)
-    return head(ctx, "classifier", x.float().mean(1), num_classes)
+    return head(ctx, "classifier", ctx.whole_tokens(x).float().mean(1),
+                num_classes)
 
 
 def dense_outputs(mult: float, dim: int, heads: int, mlp_ratio: int = 4):

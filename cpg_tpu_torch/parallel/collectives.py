@@ -11,6 +11,21 @@ model group (`ShardSpec`). A layer whose kernel is split runs as
 ranks' partial gradients, and the output is whole again at once.
 `gather_state` and `shard_state` move a whole state between its shards
 and whole tensors.
+
+Activation sharding (parallel/mesh.py `act_sharder`) splits a transformer's
+token axis over the model group. A tensor held whole on every rank of the
+group carries its whole gradient on each; one held as this rank's rows
+carries its rows' gradient. `split_tokens` takes this rank's rows (its
+backward all-gathers the rows' gradients), `gather_from_model_group(x,
+group, 1)` makes rows whole where tokens mix (its backward keeps this
+rank's rows), and `gather_tokens` makes rows whole for a product on a
+kernel shard: its backward sums the ranks' partial input gradients, in
+`to_model_group`'s place.
+
+The pipeline (parallel/pipeline.py) moves a stage's output to the next
+stage (`ppermute_ring`) and sums the stages' rows into every stage
+(`psum_replicated`, whose backward is the identity: every stage holds the
+whole gradient of what it holds).
 """
 
 from __future__ import annotations
@@ -283,3 +298,122 @@ def shard_state(state, shards: Dict[str, Optional[ShardSpec]]):
                    else v)
     out.shards = shards
     return out
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding and the pipeline's ring.
+# ---------------------------------------------------------------------------
+
+
+class _SplitTokens(torch.autograd.Function):
+    """y = this rank's slice of x along axis 1; the gradient of x is the
+    ranks' slices of y's gradient all-gathered (x is whole on every
+    rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        width = x.shape[1] // world_size(group)
+        return x.narrow(1, rank(group) * width, width).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_along(g, ctx.group, 1), None
+
+
+class _GatherTokens(torch.autograd.Function):
+    """y = the ranks' slices all-gathered along axis 1; the gradient of a
+    slice is the sum over the group of y's gradient (each rank's is a
+    partial one), summed in f32, narrowed to this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.width = group, x.shape[1]
+        return all_gather_along(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = g.to(torch.float32, copy=True).contiguous()
+        dist.all_reduce(s, group=ctx.group)
+        return (s.narrow(1, rank(ctx.group) * ctx.width, ctx.width)
+                .to(g.dtype).contiguous(), None)
+
+
+def split_tokens(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's 1/M of `x` along axis 1 (the tokens of (N, T, D) or
+    (N, T) ids; an MoE dispatch's experts of (N, E, C, D)), M the group's
+    ranks, which must divide it; backward: the slices' gradients
+    all-gathered. `x` itself at one rank."""
+    if world_size(group) == 1:
+        return x
+    if x.shape[1] % world_size(group):
+        raise ValueError(f"axis 1 of {tuple(x.shape)} does not split over "
+                         f"{world_size(group)} ranks")
+    return _SplitTokens.apply(x, group)
+
+
+def gather_tokens(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' slices of `x` concatenated along axis 1, for a product
+    whose ranks each give a partial input gradient (a kernel shard): the
+    backward sums the gradient over the group, then keeps this rank's
+    slice. `x` itself at one rank."""
+    if world_size(group) == 1:
+        return x
+    return _GatherTokens.apply(x, group)
+
+
+class _PpermuteRing(torch.autograd.Function):
+    """y on stage r is stage (r - 1) mod S's x; the gradient goes round
+    the other way. Built on all_gather (one route for gloo and NCCL)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _ring_take(x, group, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ring_take(g, ctx.group, 1), None
+
+
+def _ring_take(x, group, step):
+    """Stage (r + step) mod S's x, on stage r."""
+    n = world_size(group)
+    parts = all_gather_along(x.unsqueeze(0), group, 0)
+    return parts[(rank(group) + step) % n].contiguous()
+
+
+def ppermute_ring(y: torch.Tensor, group) -> torch.Tensor:
+    """`y` sent from stage r to stage (r + 1) mod S (`lax.ppermute` over
+    the ring): each stage returns its predecessor's `y`; the backward
+    sends the gradient to the predecessor. `y` itself at one stage."""
+    if world_size(group) == 1:
+        return y
+    return _PpermuteRing.apply(y, group)
+
+
+class _PsumReplicated(torch.autograd.Function):
+    """y = the sum of x over the group; the gradient of x is y's gradient
+    as it is: every rank computes the same y and the same loss from it,
+    so each holds y's whole gradient already."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def psum_replicated(y: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `y` over the group's ranks, taken where the result is
+    used alike on every rank: the backward is the identity (unlike
+    `all_reduce_sum`'s, which sums the gradient over the ranks as well).
+    `y` itself at one rank."""
+    if world_size(group) == 1:
+        return y
+    return _PsumReplicated.apply(y, group)

@@ -17,7 +17,9 @@ itself:
     the ownership, piggymasks and optimizer moments of that slice; a
     layer gathers its output over the model group right after the product
     (parallel/collectives.py), so everything after it runs replicated
-    within the group;
+    within the group; under `act_sharder` the model group splits a
+    transformer's tokens too (each rank keeps its T/M rows between the
+    layers that mix tokens) and an MoE layer's experts;
   * serving (serve.py `TaskServer(mesh=)`): one process over the mesh's
     devices, one weight replica a device, each bucket split into equal
     shards, one a device, the answers gathered in order; a model axis
@@ -272,6 +274,56 @@ def shared_shardings(mesh: Mesh, shared, model_sharded: bool = False
                          mesh.model_group)
 
     return {k: spec(k, w) for k, w in shared.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class ActSharder:
+    """The activation-sharding hook of `act_sharder` over the mesh's model
+    group (`parts` ranks, this one at `index`): `spec(x, tag)` is the
+    split the seam `tag` makes of x (axis 1), or None where it leaves x
+    whole; `Ctx.constrain` takes this rank's part (`split_tokens`)."""
+
+    group: object = dataclasses.field(compare=False, repr=False)
+    parts: int
+    index: int
+    tokens: bool
+    experts: bool
+
+    def spec(self, x, tag) -> Optional[ShardSpec]:
+        ndims = {"tokens": (2, 3), "experts": (4,)}.get(tag, ())
+        if (self.parts == 1 or not getattr(self, tag, False)
+                or x.dim() not in ndims or x.shape[1] % self.parts):
+            return None
+        return ShardSpec(1, x.shape[1], self.parts, self.index, self.group)
+
+
+def act_sharder(mesh: Mesh, tokens: bool = False, experts: bool = False
+                ) -> ActSharder:
+    """The activation-sharding hook for models (framework.Ctx.act_sharder;
+    `cpg_tpu`'s is a callable (array, tag) -> array), its seams over the
+    mesh's model group:
+
+      * tag `"tokens"` on (N, T, D) transformer activations (sequence
+        parallelism): each rank of a model group keeps its T/M tokens
+        (`split_tokens`). LayerNorm, the MLPs and the residual adds run on
+        them; attention, the MoE layer and the mean pool gather the tokens
+        whole first (models/vit.py, models/moe.py). On (N, T) token ids
+        (models/text.py) the port's embedding looks up this rank's rows
+        alone;
+      * tag `"experts"` on (N, E, C, D) MoE dispatch tensors (expert
+        parallelism): each rank runs its E/M experts' slots, the kernels'
+        experts under a model axis that splits them, else its experts of
+        the replicated kernels, and the outputs are gathered before the
+        combine.
+
+    `cpg_tpu`'s seams are layout notes that XLA turns into collectives;
+    the port's move the data. An array whose axis does not divide over
+    the model axis passes whole (e.g. an old task evaluated at a
+    pre-growth expert count), and a mesh without a model axis leaves every
+    seam whole. The batch is split over the data axes already (each rank
+    holds its rows)."""
+    return ActSharder(mesh.model_group, mesh.model_size, mesh.model_rank,
+                      tokens, experts)
 
 
 def whole_shapes(shared, shards) -> Dict[str, tuple]:

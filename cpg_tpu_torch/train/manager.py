@@ -37,7 +37,13 @@ slices' shapes. The steps run each split layer on its slice
 (make_parallel_*_step(model_sharded=True)), the data group reduces, and
 the prune events take their cutoffs from whole layers (core/pruner.py).
 The state stays split when the Manager is done; train/sequence.py gathers
-it (`gather_state`) to snapshot or save it.
+it (`gather_state`) to snapshot or save it. `cfg.act_sharder` (the seams
+over the mesh's model group) passes to both steps.
+
+A pipeline (`cfg.pipeliner`, parallel/pipeline.py) runs one Manager a
+stage process, every stage with the same state, data, seed and draws and
+no mesh: the steps keep the replicas bit-equal, and only the pipe group's
+rank 0 writes the JSONL record.
 """
 
 from __future__ import annotations
@@ -165,7 +171,9 @@ class Manager:
         self.next_rng = (draws or torch_draws)(seed)
         self.it = 0  # global step (drives annealed losses)
         self.has_piggymask = self.task.piggymask is not None
-        self.jsonl_path = (jsonl_path if mesh is None or mesh.is_main
+        pipe = getattr(cfg.pipeliner, "mesh", None)
+        self.jsonl_path = (jsonl_path if all(m is None or m.is_main
+                                             for m in (mesh, pipe))
                            else None)
 
         kwargs = dict(num_classes=self.task.num_classes, mult=state.width_mult,

@@ -130,6 +130,15 @@ def check_replicas(state: CPGState, mesh) -> None:
                            f"tensors: {bad[:8]}")
 
 
+def _write_group(mesh, cfg):
+    """The group whose rank 0 alone writes: the mesh's, else a pipeline's
+    stages' (every stage runs the cycle on the same state), else none."""
+    if mesh is not None:
+        return mesh.group
+    pipe = getattr(cfg.pipeliner, "mesh", None)
+    return None if pipe is None else pipe.group
+
+
 def _save(state: CPGState, path: str, group) -> None:
     """Save the whole `state` (gathered over the model groups when split:
     the single-device format) at `path` from the group's rank 0 (or the
@@ -477,7 +486,7 @@ def run_task(state: CPGState, name: str, data: Dict, cfg: TrainConfig,
     saved epoch. With `mesh`, this rank's part of a data-parallel run (see
     the module docstring)."""
     dev = mesh.device if mesh is not None else resolve_device(device)
-    group = mesh.group if mesh is not None else None
+    group = _write_group(mesh, cfg)
     on_device(state, dev)
     model_fn, _ = get_model(state.arch)
     seed = seq.seed + state.num_tasks + 1
@@ -665,7 +674,7 @@ def run_sequence(arch: str, tasks: Dict[str, Dict],
     cfg = cfg or TrainConfig()
     seq = seq or SequenceConfig()
     dev = mesh.device if mesh is not None else resolve_device(device)
-    group = mesh.group if mesh is not None else None
+    group = _write_group(mesh, cfg)
     if state is not None and state.arch != arch:
         raise ValueError(f"state arch {state.arch} != {arch}")
     start_mult = state.width_mult if state is not None else width_mult

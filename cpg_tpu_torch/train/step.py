@@ -35,12 +35,18 @@ runs each split layer on its slice (models/framework.py), and `group` is
 the mesh's data group. The gating, the decay, the optimizer steps and the
 re-zeroing of free entries act on each slice where it lies; the global
 norm of clipping sums the slices' squares over the model group.
+
+`cfg.act_sharder` splits the transformers' tokens (and an MoE layer's
+experts) over the model group (models/framework.py); `cfg.pipeliner` runs
+the block stack over stage ranks, one step a stage process on the same
+state and batch (parallel/pipeline.py). Both leave the step's gradients
+whole on every rank, so the rest of the step is unchanged.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -81,6 +87,13 @@ class TrainConfig:
     qkv_fused: Optional[bool] = None  # ViT q|k|v as one product on the
                                     # default path (models/vit.py); None:
                                     # off, as in `cpg_tpu`
+    act_sharder: Optional[Any] = None  # activation sharding over the
+                                    # mesh's model group (parallel/mesh.py
+                                    # act_sharder): the "tokens" and
+                                    # "experts" seams; None: whole
+    pipeliner: Optional[Any] = None  # the block stack as a GPipe over
+                                    # stage ranks (parallel/pipeline.py
+                                    # make_pipeliner); None: inline
 
 def _masking(cfg: TrainConfig, ownership, pm, task_id, mask_mode):
     """The raw-weight Masking of a step with masked kernels, else None."""
@@ -215,8 +228,9 @@ def build_train_step(model_fn: Callable, *, num_classes: int, mult: float,
                     fused_chain=cfg.use_fused_chain,
                     flash_attention=cfg.flash_attention,
                     qkv_fused=cfg.qkv_fused, sync_group=group,
-                    shards=shards, num_classes=num_classes, mult=mult,
-                    **model_kwargs)
+                    shards=shards, act_sharder=cfg.act_sharder,
+                    pipeline=cfg.pipeliner, num_classes=num_classes,
+                    mult=mult, **model_kwargs)
                 loss = call_loss(loss_fn, logits, y, it)
                 loss.backward()
         finally:
@@ -293,6 +307,8 @@ def build_eval_step(model_fn: Callable, *, num_classes: int, mult: float,
                              fused_chain=cfg.use_fused_chain,
                              flash_attention=cfg.flash_attention,
                              qkv_fused=cfg.qkv_fused, shards=shards,
+                             act_sharder=cfg.act_sharder,
+                             pipeline=cfg.pipeliner,
                              num_classes=num_classes, mult=mult,
                              **model_kwargs)
         cl = class_logits(logits)

@@ -471,7 +471,7 @@ def test_cli_shared_flags_defaults_and_presets_match_jax(cmd):
     (["--parallel", "2", "--parallel-model", "0"],
      "--parallel-model: model-axis"),
     (["--parallel-model", "2"], "--parallel-model: model-axis"),
-    (["--shard-activations"], "--shard-activations"),
+    (["--arch", "no_such_arch"], "unknown --arch"),
     (["--pretrained-npz", "w.npz", "--init-from", "ck"], "--pretrained-npz"),
     (["--remat"], "--remat: XLA"),
     (["--remat-policy", "convs"], "--remat-policy: XLA"),

@@ -279,7 +279,7 @@ def test_port_never_imports_jax_or_cpg_tpu():
             "text.py", "moe.py", "textfolder.py", "roofline.py",
             "profiling.py", "doctor.py", "stream.py",
             "native_loader.py", "distributed.py", "mesh.py",
-            "collectives.py"} <= names
+            "collectives.py", "pipeline.py"} <= names
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):

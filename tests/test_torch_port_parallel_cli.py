@@ -113,8 +113,6 @@ def test_parallel_1_is_the_one_process_run_bit_for_bit(runs):
 def test_parallel_cli_refusals():
     with pytest.raises(SystemExit, match="--parallel-model: model-axis"):
         cli.main([*ARGV, "--parallel-model", "2"])  # without --parallel
-    with pytest.raises(SystemExit, match="--shard-activations"):
-        cli.main([*ARGV, "--parallel", "2", "--shard-activations"])
     with pytest.raises(SystemExit, match="baseline"):
         cli.main(["baseline", "--device", "cpu", "--parallel", "2"])
 

@@ -778,7 +778,12 @@ def test_kernel_width_rules_hold_for_the_slices():
 
 
 def test_shard_activations_still_refuses():
-    with pytest.raises(SystemExit, match="item 12, act_sharder"):
-        cli.main([*CLI_ARGV, "--parallel", "2", "--parallel-model", "2",
-                  "--shard-activations"])
+    """`--shard-activations` was refused until its seams were ported
+    (parallel/mesh.py `act_sharder`): with a model axis it now passes the
+    refusals, and no refusal names it."""
+    args = cli._parse([*CLI_ARGV, "--parallel", "2", "--parallel-model",
+                       "2", "--shard-activations"])
+    cli._refuse_unported(args)
+    assert args.shard_activations
+    assert all(attr != "shard_activations" for attr, _, _ in cli.UNPORTED)
 

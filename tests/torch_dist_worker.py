@@ -1,5 +1,6 @@
-"""One rank of a parallel world for tests/test_torch_port_parallel.py and
-tests/test_torch_port_parallel_tp.py.
+"""One rank of a parallel world for tests/test_torch_port_parallel.py,
+tests/test_torch_port_parallel_tp.py, tests/test_torch_port_act_shard.py
+and tests/test_torch_port_pipeline.py.
 
     python tests/torch_dist_worker.py <rank> <world> <store> <job.pkl> <out_dir> [<n_model>]
 
@@ -7,9 +8,13 @@ Joins a gloo world on the CPU through the file store `<store>`, builds the
 mesh of the world (`n_model` ranks a model group, default 1: data-parallel
 only), runs every check listed in the job (written by the test itself)
 with the port's parallel entry points, and writes this rank's results to
-`<out_dir>/rank<r>.pkl`. Imports torch, numpy and cpg_tpu_torch only.
+`<out_dir>/rank<r>.pkl`. A check may build other meshes of the world
+(every rank runs the job's checks in one order, so every rank creates
+their groups alike). Imports torch, numpy and cpg_tpu_torch only.
 """
 
+import dataclasses
+import functools
 import os
 import pickle
 import sys
@@ -25,6 +30,7 @@ from cpg_tpu_torch.models.framework import (batchnorm, head, maxpool, relu,  # n
 from cpg_tpu_torch.parallel import collectives as pc  # noqa: E402
 from cpg_tpu_torch.parallel import distributed as pd  # noqa: E402
 from cpg_tpu_torch.parallel import mesh as pm  # noqa: E402
+from cpg_tpu_torch.parallel import pipeline as pp  # noqa: E402
 from cpg_tpu_torch.train import step as t_step  # noqa: E402
 
 torch.set_num_threads(1)
@@ -42,6 +48,36 @@ def tiny_cnn(ctx, x, num_classes, mult=1.0):
 
 
 REGISTRY.setdefault("tiny_cnn", (tiny_cnn, (16, 16, 3)))
+
+
+def tiny_vit(ctx, x, num_classes, mult=1.0, depth=2):
+    """`tests/helpers.py`'s tiny_vit (depth 4: tests/test_pipeline_train.py's
+    tiny_vit4) in the port's layers."""
+    from cpg_tpu_torch.models.vit import vit_cifar
+
+    return vit_cifar(ctx, x, num_classes, mult, depth=depth, dim=32,
+                     heads=2, patch=8)
+
+
+def tiny_moe(ctx, x, num_classes, mult=1.0):
+    from cpg_tpu_torch.models.moe import vit_moe_cifar
+
+    return vit_moe_cifar(ctx, x, num_classes, mult, depth=2, dim=32,
+                         heads=2, patch=8, n_experts=4)
+
+
+def tiny_textcls(ctx, x, num_classes, mult=1.0):
+    from cpg_tpu_torch.models.text import textcls
+
+    return textcls(ctx, x, num_classes, mult, depth=2, dim=32, heads=2,
+                   vocab=64, causal=True)
+
+
+REGISTRY.setdefault("tiny_vit", (tiny_vit, (16, 16, 3)))
+REGISTRY.setdefault("tiny_vit4", (functools.partial(tiny_vit, depth=4),
+                                  (16, 16, 3)))
+REGISTRY.setdefault("tiny_moe", (tiny_moe, (16, 16, 3)))
+REGISTRY.setdefault("tiny_textcls", (tiny_textcls, (16,)))
 
 
 def norm_augment(x, rng):
@@ -85,12 +121,16 @@ def _moments(opt):
 
 
 def _steps(mesh, state, tid, batches, cfg, augment, loss_fn=None,
-           group=True, tp=False, **kw):
+           group=True, tp=False, act=False, **kw):
     """Task `tid`'s train step over the global batches [(x, y, rng, it)],
     data-parallel over the mesh (`group=False`: the one-process step on
-    the whole batch; `tp`: the kernels split over the model groups too);
+    the whole batch; `tp`: the kernels split over the model groups too;
+    `act`: the tokens and experts split over them, `act_sharder`);
     returns the losses, accuracies and trained trees (whole)."""
     st = state_from_numpy(state, "cpu")
+    if act and group:
+        cfg = dataclasses.replace(cfg, act_sharder=pm.act_sharder(
+            mesh, tokens=True, experts=True))
     task = st.tasks[tid]
     model_fn, _ = get_model(st.arch)
     extra = {} if loss_fn is None else {"loss_fn": loss_fn}
@@ -137,22 +177,25 @@ def _steps(mesh, state, tid, batches, cfg, augment, loss_fn=None,
 
 def check_step(mesh, state, tid, batches, flags=None, single=False,
                annealed_loss=False, dtype="float32", lr=0.05, lr_mask=1e-4,
-               tp=False, control=False):
+               tp=False, control=False, act=False, control_gather=False):
     """The DP step (and, with `single`, the one-process step on rank 0);
-    `tp`: the kernels split over the model groups; `control`: also the
-    same with `to_model_group`'s backward made the identity (the ranks'
-    partial input gradients then never summed)."""
+    `tp`: the kernels split over the model groups; `act`: the tokens and
+    experts too (`act_sharder`); `control`: also the same with
+    `to_model_group`'s backward made the identity (the ranks' partial
+    input gradients then never summed); `control_gather`: also the same
+    with `gather_tokens`' backward made `gather_from_model_group`'s (this
+    rank's rows of the gradient, no sum over the ranks)."""
     cfg = t_step.TrainConfig(lr=lr, lr_mask=lr_mask,
                              compute_dtype=getattr(torch, dtype),
                              **(flags or {}))
     aug = None
     if batches[0][2] is not None:
         from cpg_tpu_torch.data.augment import cifar_train_augment as aug
-    elif state["arch"] == "tiny_cnn":
+    elif state["arch"] in ("tiny_cnn", "tiny_vit", "tiny_moe"):
         aug = norm_augment
     loss_fn = annealed if annealed_loss else None
     out = {"dp": _steps(mesh, np_state(state), tid, batches, cfg, aug,
-                        loss_fn, tp=tp)}
+                        loss_fn, tp=tp, act=act)}
     if single and mesh.rank == 0:
         out["single"] = _steps(mesh, np_state(state), tid, batches, cfg, aug,
                                loss_fn, group=False)
@@ -164,6 +207,17 @@ def check_step(mesh, state, tid, batches, flags=None, single=False,
                                     aug, loss_fn, tp=tp)
         finally:
             pc._ToModelGroup.backward = keep
+    if control_gather:
+        keep = pc._GatherTokens.backward
+        pc._GatherTokens.backward = staticmethod(lambda ctx, g: (
+            g.narrow(1, pc.rank(ctx.group) * ctx.width,
+                     ctx.width).contiguous(), None))
+        try:
+            out["control_gather"] = _steps(mesh, np_state(state), tid,
+                                           batches, cfg, aug, loss_fn,
+                                           tp=tp, act=act)
+        finally:
+            pc._GatherTokens.backward = keep
     return out
 
 
@@ -395,10 +449,154 @@ def check_prune(mesh, w, own, tid, targets, n0, ratio):
     return res
 
 
+def _tensors(tree):
+    return {k: torch.from_numpy(v.copy()) for k, v in tree.items()}
+
+
+def check_sp_forward(mesh, arch, trees, x, n_model, num_classes, kw=None,
+                     tokens=True, experts=False, model_sharded=False):
+    """`arch`'s eval forward over a (data, model) mesh of `n_model` model
+    ranks with `act_sharder(tokens, experts)` (and with `model_sharded`
+    each rank's slices of the kernels): this rank's rows of the logits,
+    what each seam took and gave (shapes), and on rank 0 the one-process
+    forward of the whole batch."""
+    m = pm.make_mesh(n_model=n_model)
+    fn = functools.partial(get_model(arch)[0], **(kw or {}))
+    shared, private, bn = (_tensors(t) for t in trees)
+    sl = pm.local_batch_slice(m, len(x))
+    specs = {}
+    if model_sharded:
+        specs = {k: s for k, s in pm.shared_shardings(m, shared, True).items()
+                 if s is not None}
+    mine = {k: specs[k].take(v) if k in specs else v
+            for k, v in shared.items()}
+    seams, keep = [], fw.Ctx.constrain
+
+    def spy(ctx, v, tag):
+        out = keep(ctx, v, tag)
+        seams.append((tag, tuple(v.shape), tuple(out.shape)))
+        return out
+
+    fw.Ctx.constrain = spy
+    try:
+        with torch.no_grad():
+            y, _ = fw.apply(fn, mine, private, bn, torch.from_numpy(x[sl]),
+                            train=False, shards=specs,
+                            act_sharder=pm.act_sharder(m, tokens, experts),
+                            num_classes=num_classes)
+    finally:
+        fw.Ctx.constrain = keep
+    out = dict(logits=y.numpy(), rows=sl, seams=seams, n_split=len(specs),
+               model_rank=m.model_rank)
+    if m.rank == 0:
+        with torch.no_grad():
+            out["one"] = fw.apply(fn, shared, private, bn, torch.from_numpy(x),
+                                  train=False, num_classes=num_classes
+                                  )[0].numpy()
+    return out
+
+
+def check_pipeline(mesh, stacked, tokens, bkw, n_stages, micro=(4, 2)):
+    """The blocks `stacked` (numpy, depth-first) over `tokens` as a
+    `n_stages`-stage pipeline, n_micro in `micro`: the output and the
+    gradients of mean(out^2) (stacked leaves, then tokens); bf16 tokens
+    through f32 blocks; the control (`psum_replicated`'s backward made
+    `all_reduce_sum`'s); the refusals."""
+    pmesh = pp.make_pipeline_mesh(n_stages)
+    st = {k: torch.from_numpy(v.copy()).requires_grad_(True)
+          for k, v in stacked.items()}
+    tk = torch.from_numpy(tokens.copy()).requires_grad_(True)
+
+    def run(n_micro):
+        o = pp.pipeline_blocks(pmesh, st, tk, n_micro, block_kwargs=bkw)
+        g = torch.autograd.grad(o.square().mean(), [*st.values(), tk])
+        return o.detach().numpy(), [v.numpy() for v in g]
+
+    out = {"stage": pmesh.rank, "mesh": dict(axes=pmesh.axis_names,
+                                             shape=pmesh.shape)}
+    for n_micro in micro:
+        out[n_micro] = run(n_micro)
+    with torch.no_grad():
+        bf = pp.pipeline_blocks(pmesh, st, tk.detach().bfloat16(), micro[0],
+                                block_kwargs=bkw,
+                                compute_dtype=torch.float32)
+    out["bf16"] = (str(bf.dtype), bf.float().numpy())
+    keep = pc._PsumReplicated.backward
+    pc._PsumReplicated.backward = pc._AllReduceSum.backward
+    try:
+        out["control"] = run(micro[0])
+    finally:
+        pc._PsumReplicated.backward = keep
+    refused = {}
+    try:
+        pp.make_pipeline_mesh(pc.world_size(pmesh.group) + 1)
+    except ValueError as e:
+        refused["mesh"] = str(e)
+    three = {k: v[:3] for k, v in st.items()}
+    for name, (s, m) in (("depth", (2, 2)), ("batch", (3, 3))):
+        try:
+            pp.pipeline_blocks(pp.make_pipeline_mesh(s), three,
+                               tk.detach()[:4], m, block_kwargs=bkw)
+        except ValueError as e:
+            refused[name] = str(e)
+    out["refused"] = refused
+    return out
+
+
+def _pipeliner(n_stages, n_micro, depth):
+    return pp.make_pipeliner(pp.make_pipeline_mesh(n_stages), n_micro, depth)
+
+
+def check_pipeline_step(mesh, state, batches, n_stages, n_micro, depth):
+    """Task 2's f32 train step through `TrainConfig.pipeliner` (an
+    `n_stages`-stage pipeline), over the global batches [(x, y)]:
+    losses and trained trees of this stage."""
+    cfg = t_step.TrainConfig(lr=0.05, lr_mask=1e-3,
+                             compute_dtype=torch.float32,
+                             pipeliner=_pipeliner(n_stages, n_micro, depth))
+    st = state_from_numpy(np_state(state), "cpu")
+    task = st.tasks[2]
+    step, (opt_w, opt_pm) = t_step.build_train_step(
+        get_model(st.arch)[0], num_classes=task.num_classes,
+        mult=st.width_mult, has_piggymask=True, cfg=cfg,
+        augment_fn=norm_augment, device="cpu")
+    carry = [st.shared, task.piggymask, task.private, task.bn_state,
+             opt_w.init({"shared": st.shared, "private": task.private}),
+             opt_pm.init(task.piggymask)]
+    losses = []
+    for it, (x, y) in enumerate(batches):
+        out = step(*carry, st.ownership, 2, x, y, None, it)
+        carry = list(out[:6])
+        losses.append(float(out[6]["loss"]))
+    return dict(losses=losses, shared=_np(carry[0]), piggymask=_np(carry[1]),
+                private=_np(carry[2]))
+
+
+def check_pipeline_manager(mesh, state, data, n_stages, n_micro, depth,
+                           epochs, jsonl):
+    """`Manager` over a pipeline, one a stage, every stage the same state,
+    data and seed (`tests/test_pipeline_train.py`'s settings), with a
+    JSONL record at `jsonl`: the phase's result and the trained kernels."""
+    from cpg_tpu_torch.train.manager import Manager
+
+    cfg = t_step.TrainConfig(lr=0.05, lr_mask=1e-3,
+                             compute_dtype=torch.float32,
+                             pipeliner=_pipeliner(n_stages, n_micro, depth))
+    st = state_from_numpy(np_state(state), "cpu")
+    res = Manager(st, get_model(st.arch)[0], 1, data, cfg, batch_size=32,
+                  lr_schedule="constant", augment_fn=norm_augment,
+                  preprocess_fn=lambda v: norm_augment(v, None), seed=0,
+                  jsonl_path=jsonl, device="cpu").train(epochs)
+    return dict(acc=res.acc, loss=res.loss, steps=res.steps,
+                shared=_np(st.shared))
+
+
 CHECKS = {"step": check_step, "skew": check_skew, "eval": check_eval,
           "manager": check_manager, "sequence": check_sequence,
           "tp_manager": check_tp_manager, "tp_sequence": check_tp_sequence,
-          "prune": check_prune}
+          "prune": check_prune, "sp_forward": check_sp_forward,
+          "pipeline": check_pipeline, "pipeline_step": check_pipeline_step,
+          "pipeline_manager": check_pipeline_manager}
 
 
 def main(rank, world, store, job_path, out_dir, n_model=1):
