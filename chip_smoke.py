@@ -129,7 +129,10 @@ Needs one CUDA card; exits non-zero without one. It
  12. ResNet-50 (224 px, batch 32): K1-K3 at its 19 conv geometries (K1
      and K2 past the stem on `masked_conv.fwd_dx_route`'s select pass and
      dense GEMM or im2col walk, each row with its `route` and the two
-     launches' own device ms) and K4-K6 at its 4 seams, serving, the eval
+     launches' own device ms) and K4-K6 at its 4 seams (K4 and K5 on
+     their "im2col" routes: K4's halo tiles over 128 consecutive pixels,
+     K5's im2col dgrad walk with its fused epilogue; each row with its
+     `plan`, the route kernel's device ms and cuDNN's alone), serving, the eval
      and train steps (conv selects 39 and 78), and the
      finegrained CLI cycle (`finegrained_phase`); K3 of every conv on
      the wgrad GEMM (1x1/1 x and g as matrices, the rest TMA im2col loads,
@@ -585,10 +588,11 @@ def masked_conv_phase(torch, dev, name, hw, cin, cout, dtype_name, mode,
 
 def fused_chain_phase(torch, dev, name, hw, cin, cout, dtype_name,
                       want_route, per_step=None, batch=BATCH):
-    """K4 at one seam (the GEMM route or the earlier kernel, as
-    `fused_chain.fwd_route` decides; fails unless it is `want_route`), two
-    launches equal bits; on the route its plan and the kernel's own device
-    time; cuDNN's conv alone on the materialised activation beside it."""
+    """K4 at one seam (its "gemm" or "im2col" route, or the earlier kernel
+    "k4", as `fused_chain.fwd_route` decides; fails unless it is
+    `want_route`), two launches equal bits; on a route its plan and the
+    kernel's own device time; cuDNN's conv alone on the materialised
+    activation beside it."""
     from cpg_tpu_torch.ops import fused_chain as fc
     from cpg_tpu_torch.ops import masked_matmul as mm
     from cpg_tpu_torch.ops.conv import conv2d_nhwc
@@ -613,11 +617,13 @@ def fused_chain_phase(torch, dev, name, hw, cin, cout, dtype_name,
     flops = 2.0 * batch * hw * hw * 9 * cin * cout
     b_ms, b_by = bound(nbytes, flops, dtype_name)
     act = torch.relu(x * ad + bd)
+    route = fc.fwd_route(x, wd, dt)
     extra = dict(route="k4")
-    if fc.fwd_route(x, wd, dt):
-        plan = mm.fused_fwd_plan(batch, hw, hw, cin, cout, mm._sms(0))
-        extra = dict(route="gemm", plan=[list(p) if isinstance(p, tuple)
-                                         else p for p in plan],
+    if route:
+        plan = (*mm.fused_fwd_plan(batch, hw, hw, cin, cout, mm._sms(0)),
+                mm.fused_fwd_halo(hw, hw)[1])  # + the second box's split
+        extra = dict(route=route, plan=[list(p) if isinstance(p, tuple)
+                                        else p for p in plan],
                      gemm_kernel_device_ms=kernel_device_ms(
                          kern, ("fwd_wgmma_kernel",))["fwd_wgmma_kernel"])
     if extra["route"] != want_route:
@@ -768,10 +774,10 @@ def im2col_row(torch, x, kp, common, k=3, stride=1, pads=(1, 1, 1, 1)):
 
 def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name,
                            want_route, per_step=None, batch=BATCH):
-    """K5 (the GEMM route or the earlier kernel, as `fused_chain.gemm_route`
-    decides; fails unless it is `want_route`; two launches equal bits, with
-    its plan, kernels' device times and cuDNN's dgrad alone on the route)
-    and K6 at one shape."""
+    """K5 (its "gemm" or "im2col" route, or the earlier kernel "k5", as
+    `fused_chain.dx_route` decides; fails unless it is `want_route`; two
+    launches equal bits, with its plan, kernels' device times and cuDNN's
+    dgrad alone on a route) and K6 at one shape."""
     from cpg_tpu_torch.ops import fused_chain as fc
     from cpg_tpu_torch.ops import masked_matmul as mm
 
@@ -806,14 +812,21 @@ def fused_chain_bwd_phases(torch, dev, name, hw, cin, cout, dtype_name,
                       rel=AFFINE_SUM_TOL))
     b_ms, b_by = bound((x.numel() + gy.numel() + wd.numel() + x.numel()) * elt,
                        flops, dtype_name)
+    route = fc.dx_route(x, wd, dt)
     extra = dict(route="k5")
-    if fc.gemm_route(x, wd, dt):
-        plan = mm.fused_dx_plan(batch, hw, hw, cin, cout, mm._sms(0))
-        parts = kernel_device_ms(kern, ("gemm_tn_bf16_kernel",
-                                        "colsum_kernel"))
-        extra = dict(route="gemm", plan=[list(p) if isinstance(p, tuple)
-                                         else p for p in plan],
-                     gemm_kernel_device_ms=parts["gemm_tn_bf16_kernel"],
+    if route:
+        if route == "gemm":
+            plan = mm.fused_dx_plan(batch, hw, hw, cin, cout, mm._sms(0))
+            gemm = "gemm_tn_bf16_kernel"
+        else:  # the phase's taps dropped: (rows, cols, lower_w, lower_h)
+            plan = mm.fused_dx_im2col_plan(batch, hw, hw, cin, cout,
+                                           mm._sms(0))
+            plan = (plan[0][0][:4], *plan[1:])
+            gemm = "conv_im2col_kernel"
+        parts = kernel_device_ms(kern, (gemm, "colsum_kernel"))
+        extra = dict(route=route, plan=[list(p) if isinstance(p, tuple)
+                                        else p for p in plan],
+                     gemm_kernel_device_ms=parts[gemm],
                      colsum_device_ms=parts["colsum_kernel"])
     if extra["route"] != want_route:
         raise AssertionError(f"fused_chain_bwd_dx {name}: route "
@@ -873,7 +886,9 @@ RESNET_CONV_SHAPES = [
     ("l4_ds_s2", 14, 1, 2, 1024, 2048, 1),
     ("l4_conv1", 7, 1, 1, 2048, 512, 2),
 ]
-# the 13 stride-1 bottleneck seams: (name, H=W, channels, seams a forward)
+# the 13 stride-1 bottleneck seams: (name, H=W, channels, seams a forward);
+# no 128-pixel box of whole rows or images tiles their grids, so K4 and K5
+# take the "im2col" routes
 RESNET_SEAMS = [("l1_seam", 56, 64, 3), ("l2_seam", 28, 128, 3),
                 ("l3_seam", 14, 256, 5), ("l4_seam", 7, 512, 2)]
 
@@ -4148,8 +4163,8 @@ def tp_routes(torch, dev, n_model=PAR_RANKS):
                             device=dev)
             if seam:
                 row[label] = dict(
-                    cout=cout, k4="gemm" if fc.fwd_route(x, w, bf) else "k4",
-                    k5="gemm" if fc.gemm_route(x, w, bf) else "k5", k6="k6")
+                    cout=cout, k4=fc.fwd_route(x, w, bf) or "k4",
+                    k5=fc.dx_route(x, w, bf) or "k5", k6="k6")
             else:
                 row[label] = dict(
                     cout=cout, k1_k2=mc.fwd_dx_route(x, w, 1, "SAME") or "k1",
@@ -4815,9 +4830,9 @@ def main() -> int:
                                    with_dx=name != "stem_7x7s2")
     for name, hw, c, per_step in RESNET_SEAMS:
         seam = [fused_chain_phase(torch, dev, name, hw, c, c, "bfloat16",
-                                  "k4", per_step, RESNET_BATCH)]
+                                  "im2col", per_step, RESNET_BATCH)]
         seam += fused_chain_bwd_phases(torch, dev, name, hw, c, c, "bfloat16",
-                                       "k5", per_step, RESNET_BATCH)
+                                       "im2col", per_step, RESNET_BATCH)
         rows += [dict(r, arch="resnet50") for r in seam]
     t_resnet = time.perf_counter() - t_resnet
     t_sphere = time.perf_counter()

@@ -748,7 +748,9 @@ def _pretrained_state(args, arch):
     if any("." in k for k in z):
         conv = {"resnet50": P.convert_torch_resnet50,
                 "vgg16_bn_cifar": P.convert_torch_vgg16_bn,
-                "spherenet20": P.convert_torch_spherenet20}.get(arch)
+                "spherenet20": P.convert_torch_spherenet20,
+                "vit_cifar": P.convert_torch_vit,
+                "vit_b16": P.convert_torch_vit}.get(arch)
         if conv is None:
             raise SystemExit(f"--pretrained-npz with torch keys: no "
                              f"converter for arch {arch!r}")

@@ -65,6 +65,9 @@ class CPGState:
     def num_tasks(self) -> int:
         return len(self.tasks)
 
+    def task_ids(self):
+        return sorted(self.tasks)
+
     def forward_kwargs(self, task_id: Optional[int] = None,
                        override: Optional[Dict] = None) -> Dict[str, Any]:
         """Arch-level model_kwargs merged with task `task_id`'s stored kwargs

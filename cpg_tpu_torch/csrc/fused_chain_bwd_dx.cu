@@ -11,8 +11,9 @@
 //   dx = dmasked * a  (x's dtype),  da = sum dmasked * x,  db = sum dmasked
 //
 // What bounds it on the H100: operations at every VGG16-BN seam at batch
-// 256 (4.8-19.3 GFLOP against 3-50 MB of x, g and dx). Two routes, chosen
-// by ops/fused_chain.py before the launch (`masked_conv.conv_route`):
+// 256 (4.8-19.3 GFLOP against 3-50 MB of x, g and dx) and at every
+// ResNet-50 seam at batch 32 (7.4 GFLOP against 10-19 MB). Three routes,
+// chosen by ops/fused_chain.py before the launch (`dx_route`):
 //
 // * bf16 with Cin and Cout multiples of 64 on a grid that `conv_box` tiles
 //   (every VGG16-BN seam at width 1.0): `fused_chain_bwd_dx_gemm_bf16`.
@@ -31,6 +32,16 @@
 //   lanes that share columns, the 8 warps in order through shared memory)
 //   into an f32 workspace (2, tiles, Cin). Plan (tile width, ring depth,
 //   grid): ops/masked_matmul.py `fused_dx_plan`.
+// * bf16 with Cin and Cout multiples of 64 on any other grid (ResNet-50's
+//   56, 28, 14 and 7-pixel seams, where 128 is a multiple of no row or
+//   image, and where conv_bwd.cuh's dgrad below ran 2.3x cuDNN's dgrad):
+//   `fused_chain_bwd_dx_im2col_bf16`. dact is tma_gemm.cuh's
+//   `conv_im2col_kernel` on the stride-1 dgrad walk (one phase, the taps
+//   mirrored: each k-step one TMA im2col load of 128 consecutive pixels of
+//   g, wrapping rows and images, zeros outside), with the same B map and
+//   the same epilogue (`fused_dx_epilogue`): dx's 128-row tile is 128
+//   consecutive pixels, so x's tile is again a plain 2-D box of x as (M,
+//   Cin). Plan: ops/masked_matmul.py `fused_dx_im2col_plan`.
 // * every other shape (f32, narrow widths): `fused_chain_bwd_dx_bf16` /
 //   `_f32`, the implicit-GEMM dgrad of conv_bwd.cuh (mma.sync, the A tile
 //   gathering g around each pixel, W read transposed) with the mask in its
@@ -190,6 +201,53 @@ int fused_chain_bwd_dx_gemm_bf16(const void* x, const void* g, const void* a,
     case 128:
       err = launch_route<128>(mg, mw, mdx, mx, m, cin, cout, stages, grid,
                               cw, fd, st);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  return launch_colsum(ws_da, ws_db, (m + gm::BM - 1) / gm::BM, cin, da, db,
+                       stream);
+}
+
+// The im2col route (see the top): the GEMM route's tensors and scratch at
+// any grid; phases is the stride-1 dgrad's one phase as ops/masked_matmul.py
+// `im2col_plan` writes it (tma_gemm.cuh `make_im2col_walk`); bn (64 or
+// 128), stages and grid from ops/masked_matmul.py `fused_dx_im2col_plan`.
+// Returns cudaGetLastError().
+int fused_chain_bwd_dx_im2col_bf16(const void* x, const void* g,
+                                   const void* a, const void* b,
+                                   const void* w, void* dx, void* ws_da,
+                                   void* ws_db, void* da, void* db, int n,
+                                   int h, int wd, int cin, int cout,
+                                   const int* phases, int bn, int stages,
+                                   int grid, void* stream) {
+  gm::Im2colWalk iw;
+  gm::Im2colMaps ma;
+  if (bad_shape(n, h, wd, cin, cout) || cin % gm::BK || cout % gm::BK ||
+      gm::bad_plan(bn, stages, grid, gm::EPI_FUSED_DX) ||
+      !gm::make_im2col_walk(&iw, &ma, g, n, h, wd, cout, h, wd, cin, 9, 1, 1,
+                            phases, 1, bn, dx) ||
+      iw.ph[0].ntaps != 9)
+    return (int)cudaErrorInvalidValue;
+  const int m = n * h * wd;
+  const long long wdims[3] = {cout, cin, 9};  // w as (taps, Cin, Cout)
+  const int wbox[3] = {gm::BK, bn, 1};
+  CUtensorMap mw, mdx, mx;
+  if (!cpg::hopper::make_map_nd(&mw, w, 3, wdims, wbox) ||
+      !gm::make_map(&mdx, dx, m, cin, 64) || !gm::make_map(&mx, x, m, cin, 64))
+    return (int)cudaErrorInvalidValue;
+  const gm::FusedDx fd{(const float*)a, (const float*)b, (float*)ws_da,
+                       (float*)ws_db, cin};
+  cudaStream_t st = (cudaStream_t)stream;
+  int err;
+  switch (bn) {
+    case 64:
+      err = gm::launch_conv_im2col<64, true, gm::EPI_FUSED_DX>(
+          ma, mw, mdx, mx, cin, stages, grid, iw, fd, st);
+      break;
+    case 128:
+      err = gm::launch_conv_im2col<128, true, gm::EPI_FUSED_DX>(
+          ma, mw, mdx, mx, cin, stages, grid, iw, fd, st);
       break;
     default: return (int)cudaErrorInvalidValue;
   }

@@ -10,20 +10,31 @@
 // write the normalised activation to device memory.
 //
 // What bounds it on the H100: operations at every VGG16-BN seam at batch
-// 256 (4.8-19.3 GFLOP against 3-34 MB of x and y). Two routes, chosen by
+// 256 (4.8-19.3 GFLOP against 3-34 MB of x and y) and at every ResNet-50
+// seam at batch 32 (7.4 GFLOP against 10-13 MB). Two routes, chosen by
 // ops/fused_chain.py before the launch (`fwd_route`):
 //
-// * bf16 with Cin and Cout multiples of 64 on a grid that `conv_box` tiles
-//   and whose halo tiles fit shared memory (every VGG16-BN seam at width
-//   1.0; not 1x1): `fused_chain_fwd_gemm_bf16`, an
+// * bf16 with Cin and Cout multiples of 64 on a grid whose halo tiles fit
+//   shared memory (every VGG16-BN seam at width 1.0, on `conv_box`'s tiles,
+//   and ResNet-50's 56, 28, 14 and 7-pixel seams, whose tiles start mid-row
+//   and cross images; not 1x1): `fused_chain_fwd_gemm_bf16`, an
 //   implicit GEMM on Hopper's TMA and wgmma. TMA can land only raw x, and
 //   SAME padding comes after the activation (a padded position of the
 //   activation is 0, not relu(b)), so the A operand cannot be TMA's zero-
-//   filled per-tap box fed straight to wgmma. Instead, for each (128-pixel
-//   output tile, 64-channel block), one producer thread loads one 4-D TMA box
-//   of raw x with its halo, (64, W + 2, rows + 2, images) at (c0, -1, oh0 -
-//   1, n0): images are a box dimension, so a tile of whole images gets a halo
-//   per image. The two consumer warpgroups activate it once, in place:
+//   filled per-tap box fed straight to wgmma. Instead, for each (output tile
+//   of 128 consecutive pixels, 64-channel block), the tile's halo of raw x
+//   is loaded by TMA: boxes of (64, W + 2, rows + 2, images) pixels, `rows`
+//   being the most rows of one image that a tile touches
+//   (ops/masked_matmul.py `fused_fwd_halo`). Where a tile touches whole
+//   images (rows = H) one box at (c0, -1, -1, img) holds them all, a halo
+//   per image. Otherwise the box starts at the tile's first row, (c0, -1,
+//   row0 - 1, img), and a tile that runs into the next image loads a second
+//   box of that image's first rows, (c0, -1, -1, img + 1), `split` pixels
+//   after the first (a multiple of 8, so that both land in one 128-byte
+//   swizzle phase); a tile never reads the rows of a neighbouring image
+//   through a shifted tap, because each image has halo rows of its own.
+//   Each lane computes its ldmatrix row's pixel from (image, row, column) of
+//   its output pixel at every tile. The halo is activated once, in place:
 //   relu(a*x + b) with the product and the sum rounded apart (`__fmul_rn`,
 //   `__fadd_rn`; nvcc would contract them into an FMA) and rounded once to
 //   bf16, 0 at every halo position outside its image; a 16-byte chunk of
@@ -35,16 +46,24 @@
 //   while this tap's group runs (two register sets). B is the weight (9 *
 //   Cin, Cout) read MN-major: a ring of per-tap boxes of 64 input x BN output
 //   channels (`smem_desc_mn`, the transpose flag set; tma_wgmma.cuh `Ring`,
-//   as the other GEMMs), so no transposed copy is written. The activated halo tiles are double-buffered apart from the
-//   ring and released after their nine taps. The activation runs beside the
-//   products: each step (tile, channel block) activates the next step's halo
-//   in slices, one after each of its last five taps while that tap's wgmma
-//   group runs (the producer issues that halo after the step's fifth weight
-//   box, when the buffer's previous step is done). The epilogue rounds to
-//   bf16 through the swizzled staging tile and stores by TMA (tma_gemm.cuh
-//   `stage_store`). Whole K a tile, no split, no atomics. Plan (tile width,
-//   ring depth, halo bytes, grid): ops/masked_matmul.py `fused_fwd_plan`,
-//   whose shared-memory sum is `fwd_smem_bytes` below.
+//   as the other GEMMs), so no transposed copy is written.
+//   What bounds it in practice is the activation: done by the two consumer
+//   warpgroups between their taps, it took 40% of the kernel's time at
+//   ResNet-50's seams (PERF.md), where a 128-pixel tile's halo is 1.5
+//   to 2.7 times its pixels and each 64-channel step needs its own. So the
+//   producer side has warps of its own: one loads the weights, one loads
+//   each step's halo as soon as its buffer is free, and four activation
+//   warps activate it while the consumers multiply the step before, only
+//   the pixels the tile's taps read (from its first pixel's up-left
+//   neighbour to its last pixel's down-right one), and hand it over on a
+//   barrier of its own. The halos sit in two buffers apart from the ring; a
+//   step's buffer is free once every consumer warp's last ldmatrix of it
+//   has landed (a third buffer gained under 2%: PERF.md). The epilogue
+//   rounds to bf16 through the swizzled staging tile and stores by TMA
+//   (tma_gemm.cuh `stage_store`). Whole K a tile, no split, no atomics.
+//   Plan (tile width, ring depth, halo bytes, grid):
+//   ops/masked_matmul.py `fused_fwd_plan`, whose shared-memory sum is
+//   `fwd_smem_bytes` below.
 // * every other shape (f32, narrow widths): the kernels below the route,
 //   described next.
 //
@@ -385,29 +404,66 @@ using namespace cpg::hopper;
 constexpr int BM = gm::BM;            // output pixels a tile
 constexpr int BK = gm::BK;            // input channels a halo tile and a tap
 constexpr int CONSUMERS = gm::CONSUMERS;
-constexpr int THREADS = gm::THREADS;  // two consumer WGs + a producer warp
 constexpr int HALOS = 2;              // activated halo tiles in flight
-// the taps from which a step activates the next step's halo, a slice
-// after each (the producer loads that halo after this tap's weights)
-constexpr int ACT_FIRST_TAP = 4;
+// the producer side: a warp whose lane 0 loads the weights, a warp whose
+// lane 0 loads the halos, and ACT_WARPS warps that activate them
+constexpr int ACT_WARPS = 4;
+constexpr int ACT_THREADS = 32 * ACT_WARPS;
+constexpr int THREADS = 128 * CONSUMERS + 64 + ACT_THREADS;
 
-// One seam on the route: the 128-pixel output tile is `rows` rows of w
-// pixels of `imgs` images; its halo box holds halo_px = (w + 2) * (rows +
-// 2) * imgs pixels of 128 B, in a buffer of halo_bytes (rounded up to the
-// swizzle's 1,024 B); magic_pw and magic_ph divide by w + 2 and rows + 2
-// (`div_small`).
+// One seam on the route: a halo box is (w + 2) x (rows + 2) pixels of 128 B
+// an image, `imgs` images (rows == h: whole images) or one image whose
+// tiles may run into the next (rows < h; split > 0 where they do: the
+// second box's first pixel), in a buffer of halo_bytes (its pixels rounded
+// up to the swizzle's 1,024 B); magic_pw and magic_ph divide by w + 2 and
+// rows + 2 (`div_small`).
 struct Geo {
-  int n, h, w, cin, cout, rows, imgs, halo_px, halo_bytes, magic_pw,
-      magic_ph;
+  int n, h, w, cin, cout, rows, imgs, split, halo_bytes, magic_pw, magic_ph;
 };
+
+// The halo of one tile: its first pixel's image and (rows < h) row,
+// whether it loads the second box, and the pixels lo .. hi - 1 that its
+// taps read (`halo_tile`), the only ones activated.
+struct HaloTile {
+  int img, row0, lo, hi;
+  bool two;
+};
+
+// The halo pixel of output pixel m < n h w at the centre tap: its image,
+// row and column in the tile's boxes.
+__device__ __forceinline__ int centre_pixel(const Geo& g, const HaloTile& t,
+                                            int m) {
+  const int hw = g.h * g.w, pw = g.w + 2;
+  const int img = m / hw, rem = m - img * hw, i = rem / g.w;
+  const int j = rem - i * g.w, b = img - t.img;
+  return (b > 0 && g.split ? g.split + (i + 1) * pw
+                           : (b * (g.rows + 2) + i - t.row0 + 1) * pw) +
+         j + 1;
+}
+
+// A tile's halo pixels rise with its output pixels, so its taps read the
+// pixels from its first pixel's up-left neighbour to its last pixel's
+// down-right one (rows past the last pixel read around pixel w + 3,
+// whatever is there: the store clips them).
+__device__ __forceinline__ HaloTile halo_tile(const Geo& g, int tiles_m,
+                                              int t) {
+  const int hw = g.h * g.w, m0 = (t % tiles_m) * BM, img = m0 / hw;
+  const int last = min(m0 + BM, g.n * hw) - 1, pw = g.w + 2;
+  HaloTile ht{img, g.rows == g.h ? 0 : (m0 - img * hw) / g.w, 0, 0,
+              g.split > 0 && last / hw != img};
+  ht.lo = centre_pixel(g, ht, m0) - pw - 1;
+  ht.hi = centre_pixel(g, ht, last) + pw + 2;
+  return ht;
+}
 
 // dynamic shared memory: 1 KB of slack to align to 1,024 bytes, the halo
 // tiles, the ring of bn x 64 weight stages, the output staging (as
-// tma_gemm.cuh's), a full and an empty barrier a stage and a halo tile
+// tma_gemm.cuh's), a full and an empty barrier a stage, and a full, an
+// activated and an empty barrier a halo tile
 __host__ __device__ constexpr int fwd_smem_bytes(int bn, int stages,
                                                  int halo_bytes) {
   return 1024 + HALOS * halo_bytes + stages * bn * BK * 2 +
-         CONSUMERS * bn * 128 + 16 * (stages + HALOS);
+         CONSUMERS * bn * 128 + 16 * stages + 24 * HALOS;
 }
 
 // relu(a*x + b) of the eight channels of one 16-byte chunk, the product and
@@ -437,22 +493,29 @@ __device__ __forceinline__ int div_small(int p, int magic) {
 }
 
 // One 16-byte chunk of the halo tile activated in place (0 outside the
-// image), logical chunk lc of pixel p.
+// image), logical chunk lc of pixel p: in box i of the first load (rows
+// from t.row0 - 1) or in the second box (rows from -1, the next image); a
+// pixel between the two (i == imgs) is outside too.
 __device__ __forceinline__ void activate_chunk(uint32_t buf, const Geo& g,
                                                const float (&av)[8],
                                                const float (&bv)[8], int lc,
-                                               int p, int img, int oh0) {
+                                               int p, const HaloTile& t) {
   const int pw = g.w + 2;
-  const int q = div_small(p, g.magic_pw), col = p - q * pw;
-  const int i = div_small(q, g.magic_ph), ih = oh0 - 1 + q - i * (g.rows + 2);
+  const bool second = t.two && p >= g.split;
+  const int pl = second ? p - g.split : p;
+  const int q = div_small(pl, g.magic_pw), col = pl - q * pw;
+  const int i = div_small(q, g.magic_ph);
+  const int ih = (second ? 0 : t.row0) - 1 + q - i * (g.rows + 2);
   const bool in = col >= 1 && col <= g.w && ih >= 0 && ih < g.h &&
-                  img + i < g.n;
+                  i < g.imgs && t.img + i + second < g.n;
   const uint32_t at = buf + p * 128 + ((lc ^ (p & 7)) << 4);
-  uint4 v;
-  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(at));
-  v = in ? act8(v, av, bv) : make_uint4(0u, 0u, 0u, 0u);
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (in) {
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "r"(at));
+    v = act8(v, av, bv);
+  }
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(at),
                "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
                : "memory");
@@ -470,19 +533,18 @@ __device__ __forceinline__ void load_affine(float (&av)[8], float (&bv)[8],
   }
 }
 
-// The consumers activate the halo tile at buf in place, activation rows k0
-// .. k1 - 1 of 32 pixels: consumer thread c takes logical chunk c % 8
-// (channels c0 + 8 (c % 8) ..; a and b in av, bv) of pixels 32 k + c / 8;
-// positions outside their image (columns -1 and w, rows outside 0 .. h -
-// 1, images past n) become 0.
+// The activation warps activate the pixels tile t's taps read of its
+// halo at buf, in place: activation thread i takes logical chunk i % 8
+// (channels c0 + 8 (i % 8) ..; a and b in av, bv) of pixels t.lo + i / 8,
+// + ACT_THREADS / 8, ...; positions outside their image (columns -1 and w,
+// rows outside 0 .. h - 1, images past n) become 0.
 __device__ __forceinline__ void activate(uint32_t buf, const Geo& g,
                                          const float (&av)[8],
-                                         const float (&bv)[8], int lc,
-                                         int k0, int k1, int img, int oh0) {
-  for (int k = k0; k < k1; ++k) {
-    const int p = 32 * k + (int)threadIdx.x / 8;
-    if (p < g.halo_px) activate_chunk(buf, g, av, bv, lc, p, img, oh0);
-  }
+                                         const float (&bv)[8], int i,
+                                         const HaloTile& t) {
+#pragma unroll 4
+  for (int p = t.lo + i / 8; p < t.hi; p += ACT_THREADS / 8)
+    activate_chunk(buf, g, av, bv, i % 8, p, t);
   // the next write to this buffer is TMA's (the async proxy)
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -514,20 +576,22 @@ __device__ __forceinline__ void hold(uint32_t (&fr)[4][4]) {
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(fr[kk][i])::"memory");
 }
 
-// The producer's load of step k's halo box (tile t, channel block cb) into
-// buffer k % 2, once the consumers are done with that buffer's last step
+// The loads of step k's halo (tile t, channel block cb) into buffer k % 2,
+// once the consumers are done with that buffer's last step
 __device__ __forceinline__ void load_halo(const Geo& geo,
                                           const CUtensorMap* map,
                                           uint32_t halo, uint32_t hfull,
                                           uint32_t hempty, int tiles_m, int k,
                                           int t, int cb) {
-  const int hb = k & 1, hw = geo.h * geo.w;
-  const int m0 = (t % tiles_m) * BM, img = m0 / hw;
-  const int oh0 = (m0 - img * hw) / geo.w;
+  const int hb = k & 1;
+  const HaloTile ht = halo_tile(geo, tiles_m, t);
+  const uint32_t buf = halo + hb * geo.halo_bytes, full = hfull + 8 * hb;
   mbar_wait(hempty + 8 * hb, ((k >> 1) & 1) ^ 1);
-  mbar_expect_tx(hfull + 8 * hb, geo.halo_px * 128);
-  tma_load_4d(halo + hb * geo.halo_bytes, map, cb * BK, -1, oh0 - 1, img,
-              hfull + 8 * hb);
+  mbar_expect_tx(full, (geo.imgs + ht.two) * (geo.w + 2) * (geo.rows + 2) *
+                           128);
+  tma_load_4d(buf, map, cb * BK, -1, ht.row0 - 1, ht.img, full);
+  if (ht.two)
+    tma_load_4d(buf + geo.split * 128, map, cb * BK, -1, -1, ht.img + 1, full);
 }
 
 template <int BN>
@@ -544,9 +608,11 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
   const uint32_t staging = ring + stages * STAGE;
   const uint32_t bars = staging + CONSUMERS * BN * 128;
   const Ring pipe{bars, stages};
-  const uint32_t hfull = bars + 16 * stages, hempty = hfull + 8 * HALOS;
-  const int hw = geo.h * geo.w, M = geo.n * hw;
-  const int tiles_m = (M + BM - 1) / BM;
+  // a halo buffer's barriers: landed (TMA), activated (the activation
+  // warps), read (the consumer warps' last ldmatrix of its step landed)
+  const uint32_t hfull = bars + 16 * stages, hact = hfull + 8 * HALOS;
+  const uint32_t hempty = hact + 8 * HALOS;
+  const int tiles_m = (geo.n * geo.h * geo.w + BM - 1) / BM;
   const int tiles = tiles_m * ((geo.cout + BN - 1) / BN);
   const int cblocks = geo.cin / BK;
 
@@ -554,7 +620,8 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
     pipe.init(CONSUMERS);
     for (int i = 0; i < HALOS; ++i) {
       mbar_init(hfull + 8 * i, 1);
-      mbar_init(hempty + 8 * i, CONSUMERS);
+      mbar_init(hact + 8 * i, ACT_WARPS);
+      mbar_init(hempty + 8 * i, 4 * CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -563,71 +630,77 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
   // A block's steps are (tile, channel block) pairs in order: tiles
   // blockIdx.x, + gridDim.x, ..., each over its cblocks; step k uses halo
   // buffer k % 2 for the (k / 2)-th time.
-  const int wg = threadIdx.x / 128;
-  if (wg == CONSUMERS) {
-    // producer warp: one thread issues every TMA load of the block. The
-    // next step's halo goes out after this step's fifth weight box: by
-    // then the consumers are done with the step before (its buffer), and
-    // they activate the halo during this step's last taps.
-    if (threadIdx.x != CONSUMERS * 128) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 4 * CONSUMERS) {
+    // the weight producer: its lane 0 issues every weight box
+    if (lane != 0) return;
     RingPos pos;
-    int k = 0;
-    if (blockIdx.x < tiles)
-      load_halo(geo, &tma_x, halo, hfull, hempty, tiles_m, 0, blockIdx.x, 0);
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int n0 = (t / tiles_m) * BN;
-      for (int cb = 0; cb < cblocks; ++cb, ++k) {
+      for (int cb = 0; cb < cblocks; ++cb) {
         for (int tap = 0; tap < 9; ++tap) {
           const uint32_t full = pipe.acquire(pos, STAGE);
           for (int q = 0; q < BN / 64; ++q)
             tma_load_2d(ring + pos.s * STAGE + q * 8192, &tma_w, n0 + 64 * q,
                         tap * geo.cin + cb * BK, full);
           pos.advance(stages);
-          if (tap == ACT_FIRST_TAP) {
-            const bool last = cb + 1 == cblocks;
-            const int tn = last ? t + gridDim.x : t;
-            if (tn < tiles)
-              load_halo(geo, &tma_x, halo, hfull, hempty, tiles_m, k + 1, tn,
-                        last ? 0 : cb + 1);
-          }
         }
+      }
+    }
+    return;
+  }
+  if (warp == 4 * CONSUMERS + 1) {
+    // the halo producer: its lane 0 loads each step's halo as soon as the
+    // consumers have read that buffer's last step (two steps before), so
+    // the load is not held behind the activation of the step between
+    if (lane != 0) return;
+    int k = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+      for (int cb = 0; cb < cblocks; ++cb, ++k)
+        load_halo(geo, &tma_x, halo, hfull, hempty, tiles_m, k, t, cb);
+    return;
+  }
+  if (warp > 4 * CONSUMERS + 1) {
+    // the activation warps, beside the consumers' products: for each step
+    // in order, wait for its halo, activate it in place and hand it to the
+    // consumers
+    const int i = threadIdx.x - 32 * (4 * CONSUMERS + 2);
+    float av[8], bv[8];
+    int k = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const HaloTile ht = halo_tile(geo, tiles_m, t);
+      for (int cb = 0; cb < cblocks; ++cb, ++k) {
+        const int hb = k & 1;
+        load_affine(av, bv, a, b, cb * BK, i % 8);
+        mbar_wait(hfull + 8 * hb, (k >> 1) & 1);
+        activate(halo + hb * geo.halo_bytes, geo, av, bv, i, ht);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(hact + 8 * hb);
       }
     }
     return;
   }
 
   // consumers: warpgroup wg owns output rows 64 wg .. 64 wg + 63 of a tile;
-  // this lane's ldmatrix row r and its halo pixel at the centre tap
-  const int lane = threadIdx.x % 32, lc = threadIdx.x % 8;
-  const int r = 64 * wg + 16 * ((threadIdx.x / 32) % 4) + (lane & 15);
+  // this lane's ldmatrix row r (its halo pixel at the centre tap: p0)
+  const int wg = warp / 4;
+  const int r = 64 * wg + 16 * (warp % 4) + (lane & 15);
   const int pw = geo.w + 2;
-  const int rq = r / geo.w, ri = rq / geo.rows;
-  const int p0 = (ri * (geo.rows + 2) + rq - ri * geo.rows + 1) * pw +
-                 r % geo.w + 1;
-  const int kpx = (geo.halo_px + 31) / 32;  // activation rows of 32 pixels
   const bool leader = threadIdx.x % 128 == 0;
-  float acc[BN / 2], av[8], bv[8];
-  if (blockIdx.x < tiles) {  // the first step's halo, all of it
-    const int img = ((blockIdx.x % tiles_m) * BM) / hw;
-    const int oh0 = ((blockIdx.x % tiles_m) * BM - img * hw) / geo.w;
-    mbar_wait(hfull, 0);
-    load_affine(av, bv, a, b, 0, lc);
-    activate(halo, geo, av, bv, lc, 0, kpx, img, oh0);
-    named_sync(3, 256);
-  }
+  float acc[BN / 2];
   RingPos pos;
   int k = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int m0 = (t % tiles_m) * BM, n0 = (t / tiles_m) * BN;
+    // a row past the last pixel reads around pixel w + 3 (its row is
+    // clipped)
+    const int p0 = m0 + r < geo.n * geo.h * geo.w
+                       ? centre_pixel(geo, halo_tile(geo, tiles_m, t), m0 + r)
+                       : pw + 1;
     for (int cb = 0; cb < cblocks; ++cb, ++k) {
-      const uint32_t buf = halo + (k & 1) * geo.halo_bytes;
-      const uint32_t nbuf = halo + ((k + 1) & 1) * geo.halo_bytes;
-      // the next step, whose halo this step activates during its last taps
-      const bool last = cb + 1 == cblocks;
-      const int tn = last ? t + gridDim.x : t, cbn = last ? 0 : cb + 1;
-      const bool next = tn < tiles;
-      const int mn = (tn % tiles_m) * BM, imgn = mn / hw;
-      const int ohn = (mn - imgn * hw) / geo.w;
+      const int hb = k & 1;
+      const uint32_t buf = halo + hb * geo.halo_bytes;
+      mbar_wait(hact + 8 * hb, (k >> 1) & 1);
       uint32_t fr[2][4][4];
       load_tap(fr[0], buf, p0 - pw - 1);
       int prev = 0;
@@ -641,6 +714,15 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
           wgmma_bf16_ra<BN, 1>(acc, fr[tap & 1][kk], db + 128 * kk,
                                (cb | tap | kk) != 0);
         wgmma_commit();
+        if (tap == 8) {
+          // the last tap's wgmma took its fragments as operands, so this
+          // warp's last ldmatrix of the halo has landed: the next TMA into
+          // the buffer may overwrite it (an arrival right after the
+          // ldmatrix let a TMA overtake the read)
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          __syncwarp();
+          if (lane == 0) mbar_arrive(hempty + 8 * hb);
+        }
         if (tap > 0) {
           // the previous tap's group is done: its stage and registers free
           wgmma_wait<1>();
@@ -649,17 +731,6 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
         }
         prev = pos.s;
         pos.advance(stages);
-        // while this tap's group runs, a slice of the next step's halo
-        if (next && tap >= ACT_FIRST_TAP) {
-          constexpr int SLICES = 9 - ACT_FIRST_TAP;
-          if (tap == ACT_FIRST_TAP) {
-            mbar_wait(hfull + 8 * ((k + 1) & 1), ((k + 1) >> 1) & 1);
-            load_affine(av, bv, a, b, cbn * BK, lc);
-          }
-          const int sl = tap - ACT_FIRST_TAP;
-          activate(nbuf, geo, av, bv, lc, sl * kpx / SLICES,
-                   (sl + 1) * kpx / SLICES, imgn, ohn);
-        }
         if (tap < 8) {
           const int nt = tap + 1;
           load_tap(fr[nt & 1], buf, p0 + (nt / 3 - 1) * pw + nt % 3 - 1);
@@ -667,17 +738,27 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_x,
       }
       wgmma_wait<0>();
       hold(fr[0]);
-      if (leader) {
-        // every ldmatrix of this warpgroup came before its finished groups
-        pipe.release(prev);
-        mbar_arrive(hempty + 8 * (k & 1));
-      }
-      if (next) named_sync(3, 256);  // both halves of the next halo are in
+      if (leader) pipe.release(prev);
     }
     gm::stage_store<BN>(acc, staging + wg * BN * 128, &tma_y, n0,
                         m0 + 64 * wg, wg);
   }
   if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The most rows of one image, and images, that a tile of 128 consecutive
+// pixels touches (ops/masked_matmul.py `fused_fwd_halo`): a tile starts at
+// a multiple of gcd(128, w) within its row and of gcd(128, h * w) within
+// its image.
+inline int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
+
+inline int halo_rows(int h, int w) {
+  const int rows = 1 + (w - gcd(BM, w) + BM - 1) / w;
+  return rows < h ? rows : h;
+}
+
+inline int halo_imgs(int h, int w) {
+  return 1 + (h * w - gcd(BM, h * w) + BM - 1) / (h * w);
 }
 
 template <int BN>
@@ -720,35 +801,45 @@ int fused_chain_fwd_f32(const void* x, const void* a, const void* b,
 
 // The GEMM route (see the top): x (N,H,W,Cin), w (3,3,Cin,Cout) and y
 // (N,H,W,Cout) bf16, a, b (Cin,) f32; Cin and Cout multiples of 64, bases
-// 16-byte aligned. The 128-pixel tile is the box (64, W, box_h, box_n) of
-// ops/masked_conv.py `conv_box`; bn (64 or 128), stages and grid from
-// ops/masked_matmul.py `fused_fwd_plan`. Returns a cudaError_t code.
+// 16-byte aligned. The halo's rows, imgs and split, and bn (64 or 128),
+// stages and grid are ops/masked_matmul.py `fused_fwd_halo`'s and
+// `fused_fwd_plan`'s. Returns a cudaError_t code.
 int fused_chain_fwd_gemm_bf16(const void* x, const void* a, const void* b,
                               const void* w, void* y, int n, int h, int wd,
-                              int cin, int cout, int box_h, int box_n, int bn,
-                              int stages, int grid, void* stream) {
+                              int cin, int cout, int rows, int imgs,
+                              int split, int bn, int stages, int grid,
+                              void* stream) {
   namespace gm = cpg::gemm;
-  const int halo_px = (wd + 2) * (box_h + 2) * box_n;
+  if (n < 1 || h < 1 || wd < 1 || cin < 1 || cout < 1)
+    return (int)cudaErrorInvalidValue;
+  const int box = (wd + 2) * (rows + 2);
+  // whole images: every image a tile touches; else one image's rows, and a
+  // second box where a tile can cross into the next image
+  const bool ok_halo =
+      rows == h ? imgs >= k4::halo_imgs(h, wd) && split == 0
+                : rows >= k4::halo_rows(h, wd) && imgs == 1 &&
+                      ((h * wd) % k4::BM == 0
+                           ? split == 0
+                           : split >= box && split % 8 == 0);
+  const int halo_px = split ? split + box : box * imgs;
   const k4::Geo geo{n,
                     h,
                     wd,
                     cin,
                     cout,
-                    box_h,
-                    box_n,
-                    halo_px,
+                    rows,
+                    imgs,
+                    split,
                     (halo_px * 128 + 1023) / 1024 * 1024,
                     k4::div_magic(wd + 2),
-                    k4::div_magic(box_h + 2)};
-  if (n < 1 || h < 1 || cin < 1 || cout < 1 || cin % k4::BK ||
-      cout % k4::BK || wd * box_h * box_n != k4::BM || h % box_h ||
-      (box_n > 1 && box_h != h) || wd + 2 > 256 || box_h + 2 > 256 ||
-      halo_px > 2048 ||
+                    k4::div_magic(rows + 2)};
+  if (!ok_halo || rows < 1 || rows > h || cin % k4::BK || cout % k4::BK ||
+      wd + 2 > 256 || rows + 2 > 256 || imgs > 256 || halo_px > 2048 ||
       stages < 2 || grid <= 0 || (bn != 64 && bn != 128) ||
       k4::fwd_smem_bytes(bn, stages, geo.halo_bytes) > gm::SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   const long long xdims[4] = {cin, wd, h, n};
-  const int xbox[4] = {k4::BK, wd + 2, box_h + 2, box_n};
+  const int xbox[4] = {k4::BK, wd + 2, rows + 2, imgs};
   CUtensorMap mx, mw, my;
   if (!cpg::hopper::make_map_nd(&mx, x, 4, xdims, xbox) ||
       !gm::make_map(&mw, w, 9 * cin, cout, 64) ||

@@ -197,16 +197,17 @@ template <bool DGRAD>
 int launch_im2col_walk(const Im2colMaps& ma, const CUtensorMap& mb,
                        const CUtensorMap& mc, int nout, int bn, int stages,
                        int grid, const Im2colWalk& iw, cudaStream_t st) {
+  const FusedDx none{};
   switch (bn) {
     case 64:
-      return launch_conv_im2col<64, DGRAD>(ma, mb, mc, nout, stages, grid, iw,
-                                           st);
+      return launch_conv_im2col<64, DGRAD, EPI_STORE>(
+          ma, mb, mc, mc, nout, stages, grid, iw, none, st);
     case 128:
-      return launch_conv_im2col<128, DGRAD>(ma, mb, mc, nout, stages, grid,
-                                            iw, st);
+      return launch_conv_im2col<128, DGRAD, EPI_STORE>(
+          ma, mb, mc, mc, nout, stages, grid, iw, none, st);
     case 192:
-      return launch_conv_im2col<192, DGRAD>(ma, mb, mc, nout, stages, grid,
-                                            iw, st);
+      return launch_conv_im2col<192, DGRAD, EPI_STORE>(
+          ma, mb, mc, mc, nout, stages, grid, iw, none, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -302,67 +303,18 @@ int masked_conv_gemm_bf16(const void* a, const void* bt, void* c, int n,
 // one phase at stride 1 (stored as y is) or in stride^2 = 4 parity phases
 // at stride 2, each stored to dx's rows (row0 + 2 i, col0 + 2 j). ch % 64
 // == 0, nout % 8 == 0, bases 16-byte aligned; bn, stages, grid from
-// `im2col_plan`.
-constexpr int PHASE_INTS = 7 + MAX_TAPS;
-
+// `im2col_plan` (tma_gemm.cuh `make_im2col_walk` reads the table).
 int masked_conv_im2col_gemm_bf16(const void* a, const void* bt, void* c,
                                  int n, int ah, int aw, int ch, int oh,
                                  int ow, int nout, int taps, int stride,
                                  int dgrad, const int* phases, int nphases,
                                  int bn, int stages, int grid, void* stream) {
-  if (n <= 0 || ch <= 0 || ch % BK || nout <= 0 || nout % 8 || taps <= 0 ||
-      taps > MAX_TAPS || stride < 1 || stride > 2 || nphases < 1 ||
-      nphases > MAX_PHASES || (dgrad && nphases != stride * stride) ||
-      (!dgrad && nphases != 1) || bad_plan(bn, stages, grid))
+  Im2colWalk iw;
+  Im2colMaps ma;
+  if (bad_plan(bn, stages, grid) ||
+      !make_im2col_walk(&iw, &ma, a, n, ah, aw, ch, oh, ow, nout, taps,
+                        stride, dgrad, phases, nphases, bn, c))
     return (int)cudaErrorInvalidValue;
-  const int tstep = dgrad ? 1 : stride;  // the traversal stride over a
-  Im2colWalk iw{};
-  Im2colMaps ma{};
-  iw.nphases = nphases;
-  iw.cblocks = ch / BK;
-  iw.step = tstep;
-  iw.scatter = nphases > 1;
-  const int tiles_n = (nout + bn - 1) / bn;
-  iw.out_h = oh;
-  iw.out_w = ow;
-  iw.out_step = stride;
-  iw.out = (__nv_bfloat16*)c;
-  const long long adims[4] = {ch, aw, ah, n};
-  for (int p = 0; p < nphases; ++p) {
-    const int* r = phases + p * PHASE_INTS;
-    Phase& P = iw.ph[p];
-    P.hw = r[0] * r[1];
-    P.w = r[1];
-    P.m = n * P.hw;
-    P.tiles_m = (P.m + BM - 1) / BM;
-    P.lower_w = r[2];
-    P.lower_h = r[3];
-    P.row0 = r[4];
-    P.col0 = r[5];
-    P.ntaps = r[6];
-    if (r[0] < 0 || r[1] < 0 || P.ntaps < 0 || P.ntaps > taps)
-      return (int)cudaErrorInvalidValue;
-    for (int j = 0; j < P.ntaps; ++j) {
-      const int t = r[7 + j], id = t & 255;
-      if (id >= taps || ((t >> 8) & 255) > 15 || (t >> 16) > 15)
-        return (int)cudaErrorInvalidValue;
-      P.taps[j] = t;
-    }
-    iw.tile0[p] = iw.tiles;
-    iw.tiles += P.tiles_m * tiles_n;
-    if (P.m == 0 || P.ntaps == 0) continue;  // no load reads its map
-    // the bounding box holds exactly the phase's columns and rows: the
-    // last base coordinate is lower + (extent - 1) * tstep
-    const int lower[2] = {P.lower_w, P.lower_h};
-    const int upper[2] = {P.lower_w + (r[1] - 1) * tstep - (aw - 1),
-                          P.lower_h + (r[0] - 1) * tstep - (ah - 1)};
-    for (int i = 0; i < 2; ++i)
-      if (lower[i] < -128 || lower[i] > 127 || upper[i] < -128 ||
-          upper[i] > 127)
-        return (int)cudaErrorInvalidValue;
-    if (!make_im2col_map(&ma.a[p], a, adims, lower, upper, tstep, BM))
-      return (int)cudaErrorInvalidValue;
-  }
   if (iw.tiles == 0) return (int)cudaSuccess;
   CUtensorMap mb{}, mc{};
   bool ok = true;

@@ -2,12 +2,12 @@
 // its producer walks and its epilogues (csrc/masked_matmul.cu describes the
 // design), and its sibling over im2col loads (`conv_im2col_kernel`: the
 // masked conv's y and dx at any grid, stride 1 or 2). Two sources
-// instantiate the GEMM: masked_matmul.cu (the dense and conv
-// K1/K2 products, EPI_STORE) and fused_chain_bwd_dx.cu (K5, EPI_FUSED_DX:
-// the CONV_DGRAD walk over g and the seam's weight, whose epilogue applies
-// the ReLU mask of a*x + b, writes dx = dm * a and the tile's column sums
-// of dm * x and dm). `stage_store` is also K4's epilogue
-// (fused_chain_fwd.cu).
+// instantiate both: masked_matmul.cu (the dense and conv K1/K2 products,
+// EPI_STORE) and fused_chain_bwd_dx.cu (K5, EPI_FUSED_DX: the CONV_DGRAD
+// walk over g's boxes, or the stride-1 dgrad im2col walk, over g and the
+// seam's weight, whose epilogue `fused_dx_epilogue` applies the ReLU mask
+// of a*x + b, writes dx = dm * a and the tile's column sums of dm * x and
+// dm). `stage_store` is also K4's epilogue (fused_chain_fwd.cu).
 #pragma once
 
 #include "tma_wgmma.cuh"
@@ -142,16 +142,20 @@ __device__ __forceinline__ float2 bf16x2_to_float2(uint32_t u) {
 // fixed order: the thread's two rows, a butterfly over the 8 lanes that
 // share its columns, then the 8 warps in order through shared memory (x's
 // tile, once both warpgroups have read it), written to the partials' row
-// tm. x's 128 x BN tile is at xbuf in the staging's layout. Named barrier 3
-// spans both warpgroups.
+// tm. x's 128 x BN tile lands at xbuf in the staging's layout
+// (`load_x_tile`); the epilogue waits for it on xfull and hands the buffer
+// back on xempty. Named barrier 3 spans both warpgroups.
 template <int BN>
 __device__ __forceinline__ void fused_dx_epilogue(
-    const float (&acc)[BN / 2], uint32_t xbuf, uint32_t mine,
+    const float (&acc)[BN / 2], uint32_t xbuf, uint32_t xfull,
+    uint32_t xempty, uint32_t& xphase, uint32_t mine,
     const CUtensorMap* map, const FusedDx& fd, int tm, int n0, int m0,
     int wg) {
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const uint32_t xmine = xbuf + wg * BN * 128;
   float sums[BN / 8][4];  // da (c, c + 1), db (c, c + 1)
+  mbar_wait(xfull, xphase);
+  xphase ^= 1;
   staging_wait(wg);
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
@@ -227,6 +231,26 @@ __device__ __forceinline__ void fused_dx_epilogue(
   // the partials are read: x's buffer may be loaded again
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   named_sync(3, 256);
+  if (threadIdx.x == 0) mbar_arrive(xempty);
+}
+
+// The producer's load of x's 128 x BN tile at rows m0, columns n0 into
+// xbuf for `fused_dx_epilogue`, once the epilogue before is done with it;
+// each kernel issues it once the ring holds the tile's first stages, so
+// that the wait does not stall the ring.
+template <int BN>
+__device__ __forceinline__ void load_x_tile(uint32_t xbuf,
+                                            const CUtensorMap* map,
+                                            uint32_t xfull, uint32_t xempty,
+                                            uint32_t& xphase, int n0,
+                                            int m0) {
+  mbar_wait(xempty, xphase ^ 1);
+  mbar_expect_tx(xfull, CONSUMERS * BN * 128);
+  for (int h = 0; h < CONSUMERS; ++h)
+    for (int q = 0; q < BN / 64; ++q)
+      tma_load_2d(xbuf + h * BN * 128 + q * 8192, map, n0 + 64 * q,
+                  m0 + 64 * h, xfull);
+  xphase ^= 1;
 }
 
 // C[M, Nout] = A[M, R] Bt[Nout, R]^T, bf16, f32 accumulation (see
@@ -268,10 +292,7 @@ gemm_tn_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
     if (threadIdx.x != CONSUMERS * 128) return;
     RingPos pos;
     uint32_t xphase = 0;
-    // K5 loads x's tile once the ring holds this tile's first stages: by
-    // then the consumers are past the previous tile's epilogue, so the
-    // wait for x's buffer does not stall the ring
-    const int xk = min(stages, KT - 1);
+    const int xk = min(stages, KT - 1);  // K5: x's tile after this k-step
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int m0 = (t % tiles_m) * BM, n0 = (t / tiles_m) * BN;
       // the conv tile's first output pixel: image, row, column
@@ -298,15 +319,8 @@ gemm_tn_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
             tma_load_3d(b, &tma_b, c0, n0, tap, full);
         }
         pos.advance(stages);
-        if (kDx && kt == xk) {
-          mbar_wait(xempty, xphase ^ 1);
-          mbar_expect_tx(xfull, CONSUMERS * BN * 128);
-          for (int h = 0; h < CONSUMERS; ++h)
-            for (int q = 0; q < BN / 64; ++q)
-              tma_load_2d(xbuf + h * BN * 128 + q * 8192, &tma_x,
-                          n0 + 64 * q, m0 + 64 * h, xfull);
-          xphase ^= 1;
-        }
+        if (kDx && kt == xk)
+          load_x_tile<BN>(xbuf, &tma_x, xfull, xempty, xphase, n0, m0);
       }
     }
     return;
@@ -343,11 +357,8 @@ gemm_tn_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
 
     const uint32_t mine = staging + wg * BN * 128;
     if constexpr (kDx) {
-      mbar_wait(xfull, xphase);
-      xphase ^= 1;
-      fused_dx_epilogue<BN>(acc, xbuf, mine, &tma_c, fd, t % tiles_m, n0, m0,
-                            wg);
-      if (threadIdx.x == 0) mbar_arrive(xempty);
+      fused_dx_epilogue<BN>(acc, xbuf, xfull, xempty, xphase, mine, &tma_c,
+                            fd, t % tiles_m, n0, m0, wg);
     } else {
       stage_store<BN>(acc, mine, &tma_c, n0, m0 + 64 * wg, wg);
     }
@@ -435,22 +446,36 @@ __device__ __forceinline__ void scatter_rows(uint32_t mine,
 // at their strided positions): A = the activation through im2col maps, B =
 // w_eff^T (Nout, taps * C) for the forward, w_eff as (taps, Nout, C) for
 // the input gradient (DGRAD). The ring, the consumers and the TMA store are
-// gemm_tn_bf16_kernel's.
-template <int BN, bool DGRAD>
+// gemm_tn_bf16_kernel's. With EPI_FUSED_DX (K5: the stride-1 dgrad's one
+// phase, stored as y is), gemm_tn_bf16_kernel's epilogue too: at stride 1
+// dx's 128-row tile is 128 consecutive pixels, so x's tile beside it is
+// the 2-D box of x as (M, Cin) at the tile's rows (tma_x), whichever rows
+// and images the tile wraps.
+template <int BN, bool DGRAD, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_im2col_kernel(const __grid_constant__ Im2colMaps maps,
                    const __grid_constant__ CUtensorMap tma_b,
-                   const __grid_constant__ CUtensorMap tma_c, int Nout,
-                   int stages, const __grid_constant__ Im2colWalk iw) {
+                   const __grid_constant__ CUtensorMap tma_c,
+                   const __grid_constant__ CUtensorMap tma_x, int Nout,
+                   int stages, const __grid_constant__ Im2colWalk iw,
+                   FusedDx fd) {
   constexpr int STAGE = stage_bytes(BN);
+  constexpr bool kDx = EPI == EPI_FUSED_DX;
+  static_assert(!kDx || DGRAD, "K5's epilogue follows the input gradient");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t staging = ring + stages * STAGE;
-  const uint32_t bars = staging + CONSUMERS * BN * 128;
+  const uint32_t xbuf = staging + CONSUMERS * BN * 128;  // K5: x's tile
+  const uint32_t bars = xbuf + (kDx ? CONSUMERS * BN * 128 : 0);
+  const uint32_t xfull = bars + 16 * stages, xempty = xfull + 8;  // K5
   const Ring pipe{bars, stages};
 
   if (threadIdx.x == 0) {
     pipe.init(CONSUMERS);
+    if (kDx) {
+      mbar_init(xfull, 1);
+      mbar_init(xempty, 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -459,6 +484,7 @@ conv_im2col_kernel(const __grid_constant__ Im2colMaps maps,
   if (wg == CONSUMERS) {
     if (threadIdx.x != CONSUMERS * 128) return;
     RingPos pos;
+    uint32_t xphase = 0;
     for (int t = blockIdx.x; t < iw.tiles; t += gridDim.x) {
       const int p = phase_of(iw, t);
       const Phase& P = iw.ph[p];
@@ -481,6 +507,8 @@ conv_im2col_kernel(const __grid_constant__ Im2colMaps maps,
         else
           tma_load_2d(b, &tma_b, tap * iw.cblocks * BK + c0, n0, full);
         pos.advance(stages);
+        if (kDx && kt == min(stages, KT - 1))  // K5: x's tile
+          load_x_tile<BN>(xbuf, &tma_x, xfull, xempty, xphase, n0, m0);
       }
     }
     return;
@@ -491,6 +519,7 @@ conv_im2col_kernel(const __grid_constant__ Im2colMaps maps,
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   const bool leader = threadIdx.x % 128 == 0;
   RingPos pos;
+  uint32_t xphase = 0;
   for (int t = blockIdx.x; t < iw.tiles; t += gridDim.x) {
     const int p = phase_of(iw, t);
     const Phase& P = iw.ph[p];
@@ -515,35 +544,112 @@ conv_im2col_kernel(const __grid_constant__ Im2colMaps maps,
     }
     wgmma_wait<0>();
     if (KT > 0 && leader) pipe.release(prev);
-    // the accumulators are read on one path only (a branch around them
-    // serialises every wgmma); a phase no tap reaches stores zeros
-    const bool live = KT > 0;
     const uint32_t mine = staging + wg * BN * 128;
-    staging_wait(wg);
+    if constexpr (kDx) {
+      fused_dx_epilogue<BN>(acc, xbuf, xfull, xempty, xphase, mine, &tma_c,
+                            fd, local % P.tiles_m, n0, m0, wg);
+    } else {
+      // the accumulators are read on one path only (a branch around them
+      // serialises every wgmma); a phase no tap reaches stores zeros
+      const bool live = KT > 0;
+      staging_wait(wg);
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-      staging_put(mine, j, live ? acc[4 * j] : 0.f,
-                  live ? acc[4 * j + 1] : 0.f, live ? acc[4 * j + 2] : 0.f,
-                  live ? acc[4 * j + 3] : 0.f);
-    if (iw.scatter)
-      scatter_rows<BN>(mine, iw, P, m0 + 64 * wg, n0, Nout, wg);
-    else
-      staging_store<BN>(mine, &tma_c, n0, m0 + 64 * wg, wg);
+      for (int j = 0; j < BN / 8; ++j)
+        staging_put(mine, j, live ? acc[4 * j] : 0.f,
+                    live ? acc[4 * j + 1] : 0.f, live ? acc[4 * j + 2] : 0.f,
+                    live ? acc[4 * j + 3] : 0.f);
+      if (iw.scatter)
+        scatter_rows<BN>(mine, iw, P, m0 + 64 * wg, n0, Nout, wg);
+      else
+        staging_store<BN>(mine, &tma_c, n0, m0 + 64 * wg, wg);
+    }
   }
   if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <int BN, bool DGRAD>
+// mx and fd are read only with EPI_FUSED_DX
+template <int BN, bool DGRAD, int EPI>
 int launch_conv_im2col(const Im2colMaps& ma, const CUtensorMap& mb,
-                       const CUtensorMap& mc, int nout, int stages, int grid,
-                       const Im2colWalk& iw, cudaStream_t stream) {
-  const int smem = gemm_smem_bytes(BN, stages);
-  cudaError_t err =
-      cpg::allow_smem((const void*)conv_im2col_kernel<BN, DGRAD>, smem);
+                       const CUtensorMap& mc, const CUtensorMap& mx, int nout,
+                       int stages, int grid, const Im2colWalk& iw,
+                       const FusedDx& fd, cudaStream_t stream) {
+  const int smem = gemm_smem_bytes(BN, stages, EPI);
+  cudaError_t err = cpg::allow_smem(
+      (const void*)conv_im2col_kernel<BN, DGRAD, EPI>, smem);
   if (err != cudaSuccess) return (int)err;
-  conv_im2col_kernel<BN, DGRAD><<<grid, THREADS, smem, stream>>>(
-      ma, mb, mc, nout, stages, iw);
+  conv_im2col_kernel<BN, DGRAD, EPI><<<grid, THREADS, smem, stream>>>(
+      ma, mb, mc, mx, nout, stages, iw, fd);
   return (int)cudaGetLastError();
+}
+
+// The walk of `conv_im2col_kernel` and the activation's im2col maps from
+// ops/masked_matmul.py `im2col_plan`'s phase table: nphases rows of
+// PHASE_INTS ints {rows, columns, lower_w, lower_h, row0, col0, ntaps,
+// taps[9]}, each tap id | offset_w << 8 | offset_h << 16. a is the
+// activation (n, ah, aw, ch); the output grid is (oh, ow) with nout
+// channels in tiles of bn; the forward walks one phase at traversal
+// `stride`, the input gradient (dgrad) stride^2 phases at traversal 1,
+// stored to out's strided rows when there are several. Returns false on a
+// table or map the kernel does not take.
+constexpr int PHASE_INTS = 7 + MAX_TAPS;
+
+inline bool make_im2col_walk(Im2colWalk* iw, Im2colMaps* ma, const void* a,
+                             int n, int ah, int aw, int ch, int oh, int ow,
+                             int nout, int taps, int stride, int dgrad,
+                             const int* phases, int nphases, int bn,
+                             void* out) {
+  if (n <= 0 || ch <= 0 || ch % BK || nout <= 0 || nout % 8 || taps <= 0 ||
+      taps > MAX_TAPS || stride < 1 || stride > 2 || nphases < 1 ||
+      nphases > MAX_PHASES || (dgrad && nphases != stride * stride) ||
+      (!dgrad && nphases != 1) || bn <= 0)
+    return false;
+  const int tstep = dgrad ? 1 : stride;  // the traversal stride over a
+  *iw = Im2colWalk{};
+  *ma = Im2colMaps{};
+  iw->nphases = nphases;
+  iw->cblocks = ch / BK;
+  iw->step = tstep;
+  iw->scatter = nphases > 1;
+  const int tiles_n = (nout + bn - 1) / bn;
+  iw->out_h = oh;
+  iw->out_w = ow;
+  iw->out_step = stride;
+  iw->out = (__nv_bfloat16*)out;
+  const long long adims[4] = {ch, aw, ah, n};
+  for (int p = 0; p < nphases; ++p) {
+    const int* r = phases + p * PHASE_INTS;
+    Phase& P = iw->ph[p];
+    P.hw = r[0] * r[1];
+    P.w = r[1];
+    P.m = n * P.hw;
+    P.tiles_m = (P.m + BM - 1) / BM;
+    P.lower_w = r[2];
+    P.lower_h = r[3];
+    P.row0 = r[4];
+    P.col0 = r[5];
+    P.ntaps = r[6];
+    if (r[0] < 0 || r[1] < 0 || P.ntaps < 0 || P.ntaps > taps) return false;
+    for (int j = 0; j < P.ntaps; ++j) {
+      const int t = r[7 + j], id = t & 255;
+      if (id >= taps || ((t >> 8) & 255) > 15 || (t >> 16) > 15) return false;
+      P.taps[j] = t;
+    }
+    iw->tile0[p] = iw->tiles;
+    iw->tiles += P.tiles_m * tiles_n;
+    if (P.m == 0 || P.ntaps == 0) continue;  // no load reads its map
+    // the bounding box holds exactly the phase's columns and rows: the
+    // last base coordinate is lower + (extent - 1) * tstep
+    const int lower[2] = {P.lower_w, P.lower_h};
+    const int upper[2] = {P.lower_w + (r[1] - 1) * tstep - (aw - 1),
+                          P.lower_h + (r[0] - 1) * tstep - (ah - 1)};
+    for (int i = 0; i < 2; ++i)
+      if (lower[i] < -128 || lower[i] > 127 || upper[i] < -128 ||
+          upper[i] > 127)
+        return false;
+    if (!make_im2col_map(&ma->a[p], a, adims, lower, upper, tstep, BM))
+      return false;
+  }
+  return true;
 }
 
 // a (rows, cols) row-major bf16 matrix, in boxes of box_rows x BK

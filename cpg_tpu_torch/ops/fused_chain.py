@@ -13,21 +13,27 @@ activation never reaches device memory: K4 (`csrc/fused_chain_fwd.cu`, y),
 K5 (`csrc/fused_chain_bwd_dx.cu`: dx, and da, db from per-tile partials
 summed in tile order; the ReLU mask recomputed from x in the epilogue) and
 K6 (`csrc/fused_chain_bwd_dw.cu`: dW with relu(a*x+b) recomputed in the
-operand load). K4 and K5 have two routes each, chosen by `fwd_route` and
-`gemm_route` before any launch:
+operand load). K4 and K5 each take one of three routes, named by
+`fwd_route` and `dx_route` before any launch:
 
-* bf16 seams on `masked_conv.conv_route` (Cin and Cout multiples of 64, a
-  grid that `conv_box` tiles: every VGG16-BN seam at width 1.0, and the
-  64-channel seams at width 0.125): TMA + wgmma implicit GEMMs. K4 loads a
-  halo box of raw x a 64-channel block, activates it once in shared memory
+* "gemm": bf16 seams with Cin and Cout multiples of 64 on a grid that
+  `masked_conv.conv_box` tiles (every VGG16-BN seam at width 1.0, and the
+  64-channel seams at width 0.125): TMA + wgmma implicit GEMMs. K4 loads
+  the halo of raw x a 64-channel block, activates it once in shared memory
   and runs the nine taps as wgmma with A from registers
-  (`masked_matmul.fused_fwd_plan`; also needs the halo tile to fit,
-  which a 1x1 grid's does not); K5 is the conv GEMM's CONV_DGRAD walk
-  over g and the seam's weight with K5's epilogue
-  (`masked_matmul.fused_dx_plan`).
-* every other shape (f32, narrow widths): the earlier kernels (K4 stages
-  the activation in shared memory with mma.sync; K5 is conv_bwd.cuh's
-  dgrad with the mask in its epilogue).
+  (`masked_matmul.fused_fwd_plan`; the halo tiles must fit, which a 1x1
+  grid's do not); K5 is the conv GEMM's CONV_DGRAD walk over g's boxes and
+  the seam's weight with K5's epilogue (`masked_matmul.fused_dx_plan`).
+* "im2col": the same seams on any other grid (ResNet-50's 56, 28, 14 and
+  7-pixel seams), whose 128-pixel tiles start mid-row and cross images.
+  K4 is the same kernel on such tiles: its halo is the rows of one image a
+  tile touches, and a second box where it runs into the next image, or
+  whole images (`masked_matmul.fused_fwd_halo`). K5 is the conv GEMM's
+  im2col walk (the stride-1 dgrad's one phase over g) with K5's epilogue
+  (`masked_matmul.fused_dx_im2col_plan`).
+* None, every other shape (f32, narrow widths): the earlier kernels (K4
+  stages the activation in shared memory with mma.sync; K5 is
+  conv_bwd.cuh's dgrad with the mask in its epilogue).
 
 A route kernel that fails to build or launch raises; it never gives way to
 the other route or to the plain version. On CPU tensors the plain versions
@@ -95,23 +101,27 @@ def supported(x, w, dot_dtype) -> bool:
             and _smem_bytes(wd, dot_dtype) <= _SMEM_LIMIT)
 
 
-def gemm_route(x, w, dot_dtype) -> bool:
-    """Whether K5 on the card takes its TMA + wgmma implicit GEMM: bf16 x
-    and dot dtype on `masked_conv.conv_route` at stride 1, SAME (Cin and
-    Cout multiples of 64, a 128-pixel TMA box tiles the grid, x and w
-    16-byte aligned). w is the (3, 3, Cin, Cout) weight the launch reads.
-    Every other shape takes the earlier kernel."""
-    return (dot_dtype == torch.bfloat16 and x.dtype == torch.bfloat16
-            and w.dtype == torch.bfloat16 and tuple(w.shape[:2]) == (3, 3)
-            and _mc.conv_route(x, w, 1, "SAME"))
+def dx_route(x, w, dot_dtype):
+    """K5's route on the card (module docstring) for a seam with bf16 x, w
+    and dot dtype, a 3x3 kernel over x's Cin, Cin and Cout multiples of 64
+    (a k-step is one tap's 64 channels), x and w 16-byte aligned: "gemm" on
+    a grid that `masked_conv.conv_box` tiles, "im2col" on any other; else
+    None (the earlier kernel). w is the (3, 3, Cin, Cout) weight the launch
+    reads."""
+    if (dot_dtype != torch.bfloat16 or x.dtype != torch.bfloat16
+            or w.dtype != torch.bfloat16 or x.dim() != 4 or w.dim() != 4
+            or tuple(w.shape[:3]) != (3, 3, x.shape[3]) or w.shape[2] % 64
+            or w.shape[3] % 64 or x.data_ptr() % 16 or w.data_ptr() % 16):
+        return None
+    return "gemm" if _mc.conv_box(*x.shape[1:3]) is not None else "im2col"
 
 
-def fwd_route(x, w, dot_dtype) -> bool:
-    """Whether K4 on the card takes its GEMM: `gemm_route`, and a grid
-    whose halo tile fits (`masked_matmul.fused_fwd_fits`: every VGG16-BN
-    seam grid, not 1x1). Every other shape takes the earlier kernel."""
-    return (gemm_route(x, w, dot_dtype)
-            and _mm.fused_fwd_fits(x.shape[1], x.shape[2]))
+def fwd_route(x, w, dot_dtype):
+    """K4's route on the card: `dx_route`'s where the halo tiles fit
+    (`masked_matmul.fused_fwd_fits`: every VGG16-BN and ResNet-50 seam
+    grid, not 1x1); else None (the earlier kernel)."""
+    route = dx_route(x, w, dot_dtype)
+    return route if route and _mm.fused_fwd_fits(*x.shape[1:3]) else None
 
 
 def fused_bwd_dx_plain(x, a, b, w, g, dot_dtype=torch.float32):
@@ -211,15 +221,19 @@ _ARGTYPES = {
     "fused_chain_bwd_dx": [_P] * 10 + [_I] * 5 + [_P],
     "fused_chain_bwd_dw": [_P] * 6 + [_I] * 6 + [_P],
     "fused_chain_bwd_dw_bf16": [_P] * 6 + [_I] * 7 + [_P],  # + rows
-    # the GEMM routes: + box_h, box_n, bn, stages, grid
-    "fused_chain_fwd_gemm_bf16": [_P] * 5 + [_I] * 10 + [_P],
+    # the routes: K4 + the halo's rows, imgs, split; K5 + its box's rows
+    # and images, or the im2col walk's phase table; then bn, stages, grid
+    "fused_chain_fwd_gemm_bf16": [_P] * 5 + [_I] * 11 + [_P],
     "fused_chain_bwd_dx_gemm_bf16": [_P] * 10 + [_I] * 10 + [_P],
+    "fused_chain_bwd_dx_im2col_bf16": ([_P] * 10 + [_I] * 5
+                                       + [ctypes.POINTER(_I)] + [_I] * 3
+                                       + [_P]),
 }
-_BM_BWD = 128  # pixels a tile of either dx kernel (da/db partials)
+_BM_BWD = 128  # pixels a tile of every dx kernel (da/db partials)
 
 
-def _fn(lib_name, dtype, gemm=False):
-    name = f"{lib_name}_{'gemm_' if gemm else ''}{_SUFFIX[dtype]}"
+def _fn(lib_name, dtype, route=None):
+    name = f"{lib_name}_{route + '_' if route else ''}{_SUFFIX[dtype]}"
     f = getattr(_build.load(lib_name), name)
     if f.argtypes is None:
         f.argtypes = _ARGTYPES.get(name, _ARGTYPES[lib_name])
@@ -316,7 +330,8 @@ def _checked(x, a, b, w_shape, dot_dtype, fwd: bool, tensors):
 
 
 def _launch_fwd(x, a, b, w, dot_dtype):
-    """K4: y, on the GEMM route (`fwd_route`) or the earlier kernel."""
+    """K4: y, on its route (`fwd_route`: one kernel on "gemm" and "im2col")
+    or the earlier kernel."""
     global LAUNCHES
     w = w.to(dot_dtype).contiguous()
     _checked(x, a, b, w.shape, dot_dtype, True, {"w": w})
@@ -326,10 +341,11 @@ def _launch_fwd(x, a, b, w, dot_dtype):
     ptrs = (x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
             y.data_ptr())
     if fwd_route(x, w, dot_dtype):
-        (_, _, box_h, box_n), bn, stages, grid, _ = _mm.fused_fwd_plan(
+        (_, _, rows, imgs), split = _mm.fused_fwd_halo(h, wd)
+        _, bn, stages, grid, _ = _mm.fused_fwd_plan(
             n, h, wd, cin, cout, _mm._sms(x.device.index or 0))
-        err = _build.launch(_fn("fused_chain_fwd", dot_dtype, gemm=True), x,
-            *ptrs, n, h, wd, cin, cout, box_h, box_n, bn, stages, grid)
+        err = _build.launch(_fn("fused_chain_fwd", dot_dtype, "gemm"), x,
+            *ptrs, n, h, wd, cin, cout, rows, imgs, split, bn, stages, grid)
     else:
         err = _build.launch(_fn("fused_chain_fwd", dot_dtype), x, *ptrs, n,
                             h, wd, cin, cout)
@@ -340,9 +356,8 @@ def _launch_fwd(x, a, b, w, dot_dtype):
 
 
 def _launch_bwd_dx(x, a, b, w, g, dot_dtype):
-    """K5: dx, da, db, on the GEMM route (`gemm_route`) or the earlier
-    kernel; da and db from 128-pixel tiles' partials summed in tile
-    order."""
+    """K5: dx, da, db, on its route (`dx_route`) or the earlier kernel; da
+    and db from 128-pixel tiles' partials summed in tile order."""
     global LAUNCHES_BWD_DX
     w = w.to(dot_dtype).contiguous()
     _checked(x, a, b, w.shape, dot_dtype, False, {"w": w, "g": g})
@@ -360,14 +375,22 @@ def _launch_bwd_dx(x, a, b, w, g, dot_dtype):
     ptrs = (x.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(),
             w.data_ptr(), dx.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
             da.data_ptr(), db.data_ptr())
-    if gemm_route(x, w, dot_dtype):
+    route = dx_route(x, w, dot_dtype)
+    if route:
         if a.data_ptr() % 8 or b.data_ptr() % 8:  # the epilogue's pair loads
             raise ValueError("fused_chain_bwd_dx: a and b must be 8-byte "
-                             "aligned on the GEMM route")
-        (_, _, box_h, box_n), bn, stages, grid = _mm.fused_dx_plan(
-            n, h, wd, cin, cout, _mm._sms(x.device.index or 0))
-        err = _build.launch(_fn("fused_chain_bwd_dx", dot_dtype, gemm=True), x,
-            *ptrs, n, h, wd, cin, cout, box_h, box_n, bn, stages, grid)
+                             f"aligned on the {route} route")
+        sms = _mm._sms(x.device.index or 0)
+        if route == "gemm":
+            (_, _, box_h, box_n), bn, stages, grid = _mm.fused_dx_plan(
+                n, h, wd, cin, cout, sms)
+            walk = (box_h, box_n)
+        else:
+            phases, bn, stages, grid = _mm.fused_dx_im2col_plan(
+                n, h, wd, cin, cout, sms)
+            walk = (_mm.phase_table(phases),)
+        err = _build.launch(_fn("fused_chain_bwd_dx", dot_dtype, route), x,
+            *ptrs, n, h, wd, cin, cout, *walk, bn, stages, grid)
     else:
         err = _build.launch(_fn("fused_chain_bwd_dx", dot_dtype), x, *ptrs,
                             n, h, wd, cin, cout)

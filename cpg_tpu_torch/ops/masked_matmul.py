@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -275,6 +276,24 @@ def fused_dx_smem_bytes(bn: int, stages: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+def fused_dx_im2col_plan(n: int, h: int, w: int, cin: int, cout: int,
+                         sms: int):
+    """(phases, bn, stages, grid) of K5 on its im2col route, at any grid:
+    `im2col_plan`'s stride-1 dgrad phase over g (one phase of the h x w
+    grid, the taps mirrored), Cout reduction channels a tap and Cin output
+    channels; `gemm_plan` over FUSED_BNS with up to DX_MAX_STAGES ring
+    stages beside x's tile (`fused_dx_smem_bytes`). The cost model takes BN
+    = 64 where the 128-wide tiles would leave most SMs idle: at ResNet-50's
+    7x7 seam at batch 32, 13 pixel tiles x 4 channel tiles of 128 are 52
+    blocks for 132 SMs, and 8 of 64 are 104, one wave either way, each
+    block loading 192 rather than 256 rows a stage."""
+    phases = im2col_plan(n, h, w, h, w, 3, 3, 1, (1, 1, 1, 1), cout, cin,
+                         True, sms)[0]
+    return (phases, *gemm_plan(n * h * w, 9 * cout, cin, sms, FUSED_BNS,
+                               DX_MAX_STAGES, fused_dx_smem_bytes))
+
+
+@functools.lru_cache(maxsize=None)
 def fused_dx_plan(n: int, h: int, w: int, cin: int, cout: int, sms: int):
     """(box, bn, stages, grid) of K5 on the conv GEMM route: the dgrad
     product over g's box (`masked_conv.conv_box` of the n x h x w grid),
@@ -287,54 +306,91 @@ def fused_dx_plan(n: int, h: int, w: int, cin: int, cout: int, sms: int):
                             DX_MAX_STAGES, fused_dx_smem_bytes))
 
 
-def fused_halo_bytes(box) -> int:
-    """Bytes of one K4 halo buffer for the output tile's TMA box (64, w,
-    rows, images): (w + 2) x (rows + 2) x images pixels of 128 B, rounded
-    up to the 128-byte swizzle's 1,024 B."""
+@functools.lru_cache(maxsize=None)
+def fused_fwd_halo(h: int, w: int):
+    """(box, split) of K4's halo at an h x w grid. A tile is 128 consecutive
+    output pixels, starting at a multiple of 128: within its row at a
+    multiple of gcd(128, w), within its image at one of gcd(128, h * w).
+    `rows` is the most rows of one image a tile touches; where that is all
+    h rows the box (64, w, h, imgs) holds the most images a tile touches,
+    whole, loaded from row -1 (split 0). Otherwise the box (64, w, rows, 1)
+    holds one image's rows from the tile's first row - 1, and where a tile
+    can run into the next image (h * w not a multiple of 128) a second box
+    of that image's first rows lands `split` pixels after the first one's
+    start (the first box's pixels rounded up to 8, one 1,024-byte swizzle
+    phase). On every grid `masked_conv.conv_box` tiles this is its box with
+    split 0. ResNet-50's seams: 56x56 (rows 4, split 352), 28x28 (6, 240),
+    14x14 (10, 192), 7x7 (whole images, 4 a box)."""
+    rows = min(h, 1 + (w - math.gcd(GEMM_BM, w) + GEMM_BM - 1) // w)
+    if rows == h:
+        hw = h * w
+        return (GEMM_BK, w, h, 1 + (hw - math.gcd(GEMM_BM, hw)
+                                    + GEMM_BM - 1) // hw), 0
+    split = -(-(w + 2) * (rows + 2) // 8) * 8 if (h * w) % GEMM_BM else 0
+    return (GEMM_BK, w, rows, 1), split
+
+
+def fused_halo_px(box, split: int = 0) -> int:
+    """Pixels of one K4 halo buffer: the box's (w + 2) x (rows + 2) x
+    images, or with a split the second box's after it."""
     _, w, rows, imgs = box
-    return -(-(w + 2) * (rows + 2) * imgs * 128 // 1024) * 1024
+    px = (w + 2) * (rows + 2)
+    return split + px if split else px * imgs
+
+
+def fused_halo_bytes(box, split: int = 0) -> int:
+    """Bytes of one K4 halo buffer for the output tile's TMA box (64, w,
+    rows, images) and split (`fused_fwd_halo`): `fused_halo_px` pixels of
+    128 B, rounded up to the 128-byte swizzle's 1,024 B."""
+    return -(-fused_halo_px(box, split) * 128 // 1024) * 1024
 
 
 def fused_fwd_smem_bytes(bn: int, stages: int, halo: int) -> int:
     """Dynamic shared memory of one K4 block on the route, as
     `fwd_smem_bytes` in csrc/fused_chain_fwd.cu lays it out: 1 KB of
     alignment slack, FWD_HALOS halo buffers, the ring of bn x 64 weight
-    stages, the 128 x bn bf16 output staging, two barriers a stage and a
-    halo buffer."""
+    stages, the 128 x bn bf16 output staging, two barriers a stage and
+    three a halo buffer (landed, activated, read)."""
     return (1024 + FWD_HALOS * halo + stages * bn * GEMM_BK * 2
-            + GEMM_BM * bn * 2 + 16 * (stages + FWD_HALOS))
+            + GEMM_BM * bn * 2 + 16 * stages + 24 * FWD_HALOS)
+
+
+def _fused_fwd_bns(h: int, w: int):
+    """K4's tile widths whose two-stage ring fits beside two halo buffers
+    of an h x w grid (56x56: 64 only)."""
+    halo = fused_halo_bytes(*fused_fwd_halo(h, w))
+    return tuple(bn for bn in FUSED_BNS
+                 if fused_fwd_smem_bytes(bn, 2, halo) <= SMEM_PER_BLOCK)
 
 
 def fused_fwd_fits(h: int, w: int) -> bool:
-    """Whether K4's route can run an h x w grid: `masked_conv.conv_box`
-    tiles it, the halo box is within TMA's 256 a dimension and the CUDA
-    entry's FWD_MAX_HALO_PX pixels, and two halo buffers with the widest
-    tile's two-stage ring fit shared memory, so that `fused_fwd_plan`
-    finds a plan. Every VGG16-BN seam grid (32x32 to 2x2) does; a 1x1
-    grid (128 images a box, 147,456 B a halo) does not."""
-    box = _mc.conv_box(h, w)
-    if box is None:
-        return False
+    """Whether K4's route can run an h x w grid: the halo box
+    (`fused_fwd_halo`) is within TMA's 256 a dimension and the CUDA
+    entry's FWD_MAX_HALO_PX pixels, and two halo buffers with a two-stage
+    ring of some tile width fit shared memory, so that `fused_fwd_plan`
+    finds a plan. Every VGG16-BN and ResNet-50 seam grid does; a 1x1 grid
+    (128 images a box, 147,456 B a halo) does not."""
+    box, split = fused_fwd_halo(h, w)
     _, bw, rows, imgs = box
     return (max(bw, rows) + 2 <= 256 and imgs <= 256
-            and (bw + 2) * (rows + 2) * imgs <= FWD_MAX_HALO_PX
-            and fused_fwd_smem_bytes(max(FUSED_BNS), 2,
-                                     fused_halo_bytes(box)) <= SMEM_PER_BLOCK)
+            and fused_halo_px(box, split) <= FWD_MAX_HALO_PX
+            and bool(_fused_fwd_bns(h, w)))
 
 
 @functools.lru_cache(maxsize=None)
 def fused_fwd_plan(n: int, h: int, w: int, cin: int, cout: int, sms: int):
-    """(box, bn, stages, grid, halo bytes) of K4 on the conv GEMM route
-    (`csrc/fused_chain_fwd.cu` `fused_chain_fwd_gemm_bf16`): the output
-    tile's box (`masked_conv.conv_box`), whose halo box (64, w + 2, rows +
-    2, images) each of FWD_HALOS buffers holds; `gemm_plan` over FUSED_BNS
-    with up to FWD_MAX_STAGES weight stages beside the halos
-    (`fused_fwd_smem_bytes`). Raises where `fused_fwd_fits` is false."""
+    """(box, bn, stages, grid, halo bytes) of K4 on its route
+    (`csrc/fused_chain_fwd.cu` `fused_chain_fwd_gemm_bf16`): the halo's box
+    (`fused_fwd_halo`; on the grids `masked_conv.conv_box` tiles, its box),
+    FWD_HALOS buffers of it; `gemm_plan` over the tile widths that fit
+    (FUSED_BNS, at 56x56 64 alone) with up to FWD_MAX_STAGES weight stages
+    beside the halos (`fused_fwd_smem_bytes`). Raises where
+    `fused_fwd_fits` is false."""
     _check(fused_fwd_fits(h, w), f"no K4 plan fits a {h}x{w} grid")
-    box = _mc.conv_box(h, w)
-    halo = fused_halo_bytes(box)
-    return (box, *gemm_plan(n * h * w, 9 * cin, cout, sms, FUSED_BNS,
-                            FWD_MAX_STAGES,
+    box, split = fused_fwd_halo(h, w)
+    halo = fused_halo_bytes(box, split)
+    return (box, *gemm_plan(n * h * w, 9 * cin, cout, sms,
+                            _fused_fwd_bns(h, w), FWD_MAX_STAGES,
                             lambda bn, st: fused_fwd_smem_bytes(bn, st, halo)),
             halo)
 
@@ -659,9 +715,20 @@ def launch_conv_gemm(a, bt, grid_hw, kh, kw, pad_top, pad_left, dgrad):
     return out
 
 
-# a phase's row in csrc/masked_matmul.cu's table: rows, columns, the lower
-# corner (w, h), dx's first row and column, the tap count, then nine taps
+# a phase's row in csrc/tma_gemm.cuh's table (`make_im2col_walk`): rows,
+# columns, the lower corner (w, h), dx's first row and column, the tap
+# count, then nine taps
 _MAX_TAPS = 9
+
+
+def phase_table(phases):
+    """`im2col_plan`'s phases as the C table of the im2col walks."""
+    flat = []
+    for rows, cols, lw, lh, r0, c0, tp in phases:
+        flat += [rows, cols, lw, lh, r0, c0, len(tp)]
+        flat += [i | o_w << 8 | o_h << 16 for i, o_w, o_h in tp]
+        flat += [0] * (_MAX_TAPS - len(tp))
+    return (_I * len(flat))(*flat)
 
 
 def launch_conv_im2col(a, bt, grid_hw, kh, kw, stride, pads, dgrad):
@@ -696,15 +763,10 @@ def launch_conv_im2col(a, bt, grid_hw, kh, kw, stride, pads, dgrad):
     phases, bn, stages, grid = im2col_plan(
         n, ah, aw, oh, ow, kh, kw, stride, tuple(pads), ch, nout, bool(dgrad),
         _sms(a.device.index or 0))
-    flat = []
-    for rows, cols, lw, lh, r0, c0, tp in phases:
-        flat += [rows, cols, lw, lh, r0, c0, len(tp)]
-        flat += [i | o_w << 8 | o_h << 16 for i, o_w, o_h in tp]
-        flat += [0] * (_MAX_TAPS - len(tp))
-    table = (_I * len(flat))(*flat)
     err = _build.launch(_lib().masked_conv_im2col_gemm_bf16, a,
         a.data_ptr(), bt.data_ptr(), out.data_ptr(), n, ah, aw, ch, oh, ow,
-        nout, taps, stride, int(dgrad), table, len(phases), bn, stages, grid)
+        nout, taps, stride, int(dgrad), phase_table(phases), len(phases), bn,
+        stages, grid)
     if err:
         raise RuntimeError(f"masked_conv_im2col_gemm launch failed: CUDA error {err}")
     return out

@@ -1,10 +1,11 @@
 """Reference torch checkpoints and pretrained weights into CPG states
-(VGG16-BN, ResNet-50 and SphereNet-20).
+(VGG16-BN, ResNet-50, SphereNet-20 and the ViTs).
 
 The counterpart of part of `cpg_tpu.train.pretrained`: `load_torch_checkpoint`
 (a .pth/.pth.tar file as {key: ndarray}), `convert_torch_vgg16_bn`,
-`convert_torch_resnet50` and `convert_torch_spherenet20` (a VGG16-BN,
-torchvision ResNet-50 or sphere20a state_dict in this package's naming),
+`convert_torch_resnet50`, `convert_torch_spherenet20` and
+`convert_torch_vit` (a VGG16-BN, torchvision ResNet-50, sphere20a or
+mean-pooled ViT state_dict in this package's naming),
 `adopt_pretrained_task1` (pretrained weights as a fresh state's task 1: the
 fine-grained sequence's ImageNet task) and `convert_torch_cpg_checkpoint`
 (the reference's whole CPG checkpoint: backbone state_dict + pruner `masks`
@@ -199,6 +200,78 @@ def convert_torch_spherenet20(state_dict: Dict[str, np.ndarray]):
         w6 = np.asarray(state_dict["fc6.weight"])
         private["classifier_angle/kernel"] = (
             w6 if w6.shape[0] == fc5.shape[0] else w6.T)
+    return shared, private, {}
+
+
+def convert_torch_vit(state_dict: Dict[str, np.ndarray]):
+    """A torch ViT state_dict -> (shared, private, bn_state={}) in this
+    package's naming (models/vit.py), as `cpg_tpu`'s converter gives it.
+
+    Per block i either separate projections, `blocks.{i}.{q,k,v,proj}.*`
+    (or under `attn.`), or timm's fused `blocks.{i}.attn.qkv.*`, split
+    row-wise into q | k | v; `ln1`/`norm1`, `ln2`/`norm2`, `fc1`/`fc2` (or
+    under `mlp.`); `patch` or `patch_embed.proj`, whose bias is constant
+    over the tokens and folds into the (task-private) pos_embed; a (1, T, D)
+    pos_embed is squeezed. models/vit.py mean-pools the patch tokens, so a
+    checkpoint with a CLS token (a `cls_token` key) is refused, as any key
+    the layout does not name."""
+    shared, private = {}, {}
+    fold = None
+    for k, v in state_dict.items():
+        v = np.asarray(v)
+        parts = k.split(".")
+        if parts[0] in ("pos_embed", "pos"):
+            if v.ndim == 3 and v.shape[0] == 1:
+                v = v[0]
+            if v.ndim != 2 and parts[-1] not in ("weight", "bias"):
+                raise ValueError(f"pos_embed shape {v.shape} unsupported")
+            private["patch/pos_embed"] = v
+            continue
+        if parts[-1] not in ("weight", "bias"):
+            raise ValueError(f"unrecognized ViT param {k}")
+        is_w = parts[-1] == "weight"
+        if parts[0] in ("patch", "patch_embed"):
+            if is_w:
+                shared["patch/proj/kernel"] = _t_conv(v)
+            else:
+                fold = v
+            continue
+        if parts[0] == "blocks":
+            i, name = int(parts[1]), ".".join(parts[2:-1])
+            if name in ("ln1", "norm1", "ln2", "norm2"):
+                ln = "ln1" if name in ("ln1", "norm1") else "ln2"
+                private[f"blocks/{i}/{ln}/{'scale' if is_w else 'bias'}"] = v
+            elif name == "attn.qkv":  # timm: q | k | v on the out axis
+                third = v.shape[0] // 3
+                for j, nm in enumerate(("q", "k", "v")):
+                    chunk = v[j * third:(j + 1) * third]
+                    if is_w:
+                        shared[f"blocks/{i}/attn/{nm}/kernel"] = chunk.T
+                    else:
+                        private[f"blocks/{i}/attn/{nm}/bias"] = chunk
+            elif name in ("q", "k", "v", "proj", "attn.q", "attn.k",
+                          "attn.v", "attn.proj", "fc1", "fc2", "mlp.fc1",
+                          "mlp.fc2"):
+                nm = name.split(".")[-1]
+                base = f"blocks/{i}/{'mlp' if nm in ('fc1', 'fc2') else 'attn'}/{nm}"
+                if is_w:
+                    shared[f"{base}/kernel"] = v.T
+                else:
+                    private[f"{base}/bias"] = v
+            else:
+                raise ValueError(f"unrecognized ViT block param {k}")
+            continue
+        if parts[0] == "norm":
+            private["norm/" + ("scale" if is_w else "bias")] = v
+        elif parts[0] in ("head", "classifier"):
+            private["classifier/" + ("kernel" if is_w else "bias")] = (
+                v.T if is_w else v)
+        else:
+            raise ValueError(f"unrecognized ViT param {k}")
+    if fold is not None:
+        if "patch/pos_embed" not in private:
+            raise ValueError("patch bias requires a pos_embed to fold into")
+        private["patch/pos_embed"] = private["patch/pos_embed"] + fold
     return shared, private, {}
 
 

@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""K4 and K5 on the conv GEMM route under a sweep of launch plans, on the card.
+"""K4 and K5 on their TMA + wgmma routes under a sweep of launch plans, on
+the card.
 
     python scripts/torch_fused_chain_plans.py
 
-At each of chip_smoke.py's bf16 fused seams (VGG16-BN at batch 256) times
-`csrc/fused_chain_fwd.cu`'s `fused_chain_fwd_gemm_bf16` (K4) and
-`csrc/fused_chain_bwd_dx.cu`'s `fused_chain_bwd_dx_gemm_bf16` (K5) by
-torch.profiler's device time under each tile width of
-`masked_matmul.FUSED_BNS` and a ladder of ring depths that fit shared
+At each of chip_smoke.py's bf16 fused seams (VGG16-BN at batch 256 on the
+"gemm" route; ResNet-50's four seam grids at batch 32 on the "im2col"
+route) times `csrc/fused_chain_fwd.cu`'s `fused_chain_fwd_gemm_bf16` (K4)
+and `csrc/fused_chain_bwd_dx.cu`'s `fused_chain_bwd_dx_gemm_bf16` or
+`_im2col_bf16` (K5) by torch.profiler's device time under each tile width
+of `masked_matmul.FUSED_BNS` and a ladder of ring depths that fit shared
 memory, beside the plans `masked_matmul.fused_fwd_plan` and
-`fused_dx_plan` pick. Every plan's result is held against the plain
+`fused_dx_plan` / `fused_dx_im2col_plan` pick, the earlier kernels
+(`fused_chain_fwd_bf16`, `fused_chain_bwd_dx_bf16`: the mma.sync K4 and
+conv_bwd.cuh's dgrad) and cuDNN's conv and dgrad alone on the same inputs,
+in one process. Every plan's result is held against the plain
 version first. This is what the plans' tile widths and ring depths are
 checked against. Needs one CUDA card. Prints one JSON line a seam and
 writes them to chiprun_out/torch_fused_chain_plans.json.
@@ -38,6 +43,7 @@ def main() -> int:
         return 1
     from cpg_tpu_torch.ops import fused_chain as fc
     from cpg_tpu_torch.ops import masked_matmul as mm
+    from cpg_tpu_torch.ops.conv import conv2d_nhwc
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -45,33 +51,43 @@ def main() -> int:
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
-    fwd = fc._fn("fused_chain_fwd", torch.bfloat16, gemm=True)
-    bwd = fc._fn("fused_chain_bwd_dx", torch.bfloat16, gemm=True)
+    bf = torch.bfloat16
+    fwd = fc._fn("fused_chain_fwd", bf, "gemm")
+    seams = ([(*c, cs.BATCH) for c in cs.CHAIN_SHAPES]
+             + [(name, hw, c, c, cs.RESNET_BATCH)
+                for name, hw, c, _ in cs.RESNET_SEAMS])
     rows = []
-    for name, hw, cin, cout in cs.CHAIN_SHAPES:
-        n = cs.BATCH
+    for name, hw, cin, cout, n in seams:
         gen = torch.Generator().manual_seed(cs.SEED + 1)
-        x = torch.randn((n, hw, hw, cin), generator=gen).to(dev, torch.bfloat16)
+        x = torch.randn((n, hw, hw, cin), generator=gen).to(dev, bf)
         a = (torch.rand((cin,), generator=gen) + 0.5).to(dev)
         b = (torch.randn((cin,), generator=gen) * 0.3).to(dev)
         w = (torch.randn((3, 3, cin, cout), generator=gen)
-             * (2.0 / (9 * cout)) ** 0.5).to(dev, torch.bfloat16)
-        g = (torch.randn((n, hw, hw, cout), generator=gen) * 0.1).to(
-            dev, torch.bfloat16)
-        box = mm.fused_fwd_plan(n, hw, hw, cin, cout, sms)[0]
-        _, _, box_h, box_n = box
-        halo = mm.fused_halo_bytes(box)
+             * (2.0 / (9 * cout)) ** 0.5).to(dev, bf)
+        g = (torch.randn((n, hw, hw, cout), generator=gen) * 0.1).to(dev, bf)
+        route = fc.dx_route(x, w, bf)
+        box, split = mm.fused_fwd_halo(hw, hw)
+        _, _, rows_, imgs = box
+        halo = mm.fused_halo_bytes(box, split)
         tiles_m = -(-n * hw * hw // mm.GEMM_BM)
-        y_ref = fc.fused_oracle(x, a, b, w, torch.bfloat16)
-        dx_ref = fc.fused_bwd_dx_plain(x, a, b, w, g, torch.bfloat16)
+        if route == "gemm":
+            _, _, box_h, box_n = mm.fused_dx_plan(n, hw, hw, cin, cout, sms)[0]
+            walk = (box_h, box_n)
+            dx_plan = mm.fused_dx_plan
+        else:
+            walk = (mm.phase_table(mm.fused_dx_im2col_plan(
+                n, hw, hw, cin, cout, sms)[0]),)
+            dx_plan = mm.fused_dx_im2col_plan
+        bwd = fc._fn("fused_chain_bwd_dx", bf, route)
+        y_ref = fc.fused_oracle(x, a, b, w, bf)
+        dx_ref = fc.fused_bwd_dx_plain(x, a, b, w, g, bf)
 
         def k4(bn, stages):
-            y = torch.empty((n, hw, hw, cout), dtype=torch.bfloat16,
-                            device=dev)
+            y = torch.empty((n, hw, hw, cout), dtype=bf, device=dev)
             grid = min(tiles_m * -(-cout // bn), sms)
             err = fwd(x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
-                      y.data_ptr(), n, hw, hw, cin, cout, box_h, box_n, bn,
-                      stages, grid, stream)
+                      y.data_ptr(), n, hw, hw, cin, cout, rows_, imgs, split,
+                      bn, stages, grid, stream)
             if err:
                 raise RuntimeError(f"K4 {name} {bn} {stages}: CUDA error {err}")
             return y
@@ -86,16 +102,43 @@ def main() -> int:
             err = bwd(x.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(),
                       w.data_ptr(), dx.data_ptr(), ws[0].data_ptr(),
                       ws[1].data_ptr(), da.data_ptr(), db.data_ptr(), n, hw,
-                      hw, cin, cout, box_h, box_n, bn, stages, grid, stream)
+                      hw, cin, cout, *walk, bn, stages, grid, stream)
             if err:
                 raise RuntimeError(f"K5 {name} {bn} {stages}: CUDA error {err}")
             return dx, da, db
 
-        row = dict(seam=name, shape=[n, hw, hw, cin, cout], card=card,
+        def earlier(lib, *tensors, out):
+            err = fc._fn(lib, bf)(*(t.data_ptr() for t in tensors),
+                                  *(t.data_ptr() for t in out), n, hw, hw,
+                                  cin, cout, stream)
+            if err:
+                raise RuntimeError(f"{lib} {name}: CUDA error {err}")
+            return out
+
+        y_out = torch.empty((n, hw, hw, cout), dtype=bf, device=dev)
+        dx_out = (torch.empty_like(x),
+                  torch.empty((2, tiles_m, cin), dtype=torch.float32,
+                              device=dev), torch.empty(cin, device=dev),
+                  torch.empty(cin, device=dev))
+        act = torch.relu(x * a.to(bf) + b.to(bf))
+        xt, gt = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        wt = w.permute(3, 2, 0, 1)
+        row = dict(seam=name, route=route, shape=[n, hw, hw, cin, cout],
+                   card=card, halo=[list(box), split],
                    k4_picked=list(mm.fused_fwd_plan(n, hw, hw, cin, cout,
                                                     sms)[1:3]),
-                   k5_picked=list(mm.fused_dx_plan(n, hw, hw, cin, cout,
-                                                   sms)[1:3]),
+                   k5_picked=list(dx_plan(n, hw, hw, cin, cout, sms)[1:3]),
+                   k4_earlier_us=cs.device_ms(lambda: earlier(
+                       "fused_chain_fwd", x, a, b, w, out=(y_out,))) * 1e3,
+                   k5_earlier_us=cs.device_ms(lambda: earlier(
+                       "fused_chain_bwd_dx", x, g, a, b, w,
+                       out=(dx_out[0], dx_out[1][0], dx_out[1][1],
+                            dx_out[2], dx_out[3]))) * 1e3,
+                   cudnn_conv_us=cs.device_ms(
+                       lambda: conv2d_nhwc(act, w, 1, (1, 1, 1, 1))) * 1e3,
+                   cudnn_dgrad_us=cs.device_ms(
+                       lambda: torch.nn.grad.conv2d_input(
+                           xt.shape, wt, gt, 1, 1)) * 1e3,
                    k4_us={}, k5_us={})
         for bn in mm.FUSED_BNS:
             for stages in DEPTHS:

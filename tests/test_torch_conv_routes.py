@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from cpg_tpu.ops.pallas.masked_conv import masked_conv2d as j_masked_conv2d
+from cpg_tpu_torch.ops import fused_chain as fc
 from cpg_tpu_torch.ops import masked_conv as mc
 from cpg_tpu_torch.ops import masked_matmul as mm
 from cpg_tpu_torch.ops.conv import out_size, resolve_padding
@@ -333,6 +334,63 @@ def test_vgg16_routes_are_unchanged(layer, mult):
     cout = int(cout * mult)
     want = "gemm" if cin % 64 == 0 and cout % 64 == 0 else None
     assert _route(hw, 3, 1, "SAME", cin, cout) == want
+
+
+def _seam_routes(hw, cin, cout, dtype=torch.bfloat16):
+    """(K4's route, K5's route) at a fused seam: x (1, hw, hw, Cin), the
+    (3, 3, Cin, Cout) weight in the dot dtype."""
+    x = torch.zeros((1, hw, hw, cin), dtype=dtype)
+    w = torch.zeros((3, 3, cin, cout), dtype=dtype)
+    return fc.fwd_route(x, w, dtype), fc.dx_route(x, w, dtype)
+
+
+@pytest.mark.parametrize("seam", cs.RESNET_SEAMS,
+                         ids=[s_[0] for s_ in cs.RESNET_SEAMS])
+def test_fused_routes_at_every_resnet50_seam(seam):
+    """ResNet-50's 13 stride-1 bottleneck seams (56, 28, 14, 7 px; no
+    128-pixel box of whole rows or images) take K4's halo tiles and K5's
+    im2col walk in bf16; f32 keeps the earlier kernels."""
+    name, hw, c, _ = seam
+    assert mc.conv_box(hw, hw) is None
+    assert _seam_routes(hw, c, c) == ("im2col", "im2col")
+    assert _seam_routes(hw, c, c, torch.float32) == (None, None)
+
+
+def test_resnet50_seams_count_13():
+    assert sum(s_[-1] for s_ in cs.RESNET_SEAMS) == 13
+
+
+@pytest.mark.parametrize("mult", [1.0, 0.125])
+@pytest.mark.parametrize("seam", cs.CHAIN_SHAPES,
+                         ids=[s_[0] for s_ in cs.CHAIN_SHAPES])
+def test_vgg16_fused_routes_are_unchanged(seam, mult):
+    """VGG16-BN's eight seams keep the box route ("gemm") where Cin and
+    Cout are multiples of 64; the narrow width-0.125 seams (16-32
+    channels) keep the earlier K4 and K5."""
+    name, hw, cin, cout = seam
+    cin, cout = int(cin * mult), int(cout * mult)
+    want = "gemm" if cin % 64 == 0 and cout % 64 == 0 else None
+    assert _seam_routes(hw, cin, cout) == (want, want)
+
+
+@pytest.mark.parametrize("shape", cs.TP_CHAIN_SHAPES,
+                         ids=[s_[0] for s_ in cs.TP_CHAIN_SHAPES])
+def test_tensor_parallel_seams_keep_their_routes(shape):
+    """A rank's slice of a seam over two model ranks: the routes chip_smoke
+    expects ("k4"/"k5": the earlier kernels)."""
+    name, hw, cin, cout, route4, route5 = shape
+    want = tuple(None if r in ("k4", "k5") else r for r in (route4, route5))
+    assert _seam_routes(hw, cin, cout) == want
+
+
+@pytest.mark.parametrize("case", [
+    # (H = W, Cin, Cout): 16 channels at ResNet-50's and VGG16-BN's grids,
+    # and a Cout that is no multiple of 64
+    (56, 16, 16), (7, 16, 16), (16, 16, 16), (14, 64, 96)])
+def test_narrow_seams_keep_the_earlier_kernels(case):
+    hw, cin, cout = case
+    assert _seam_routes(hw, cin, cout) == (None, None)
+    assert _seam_routes(hw, cin, cout, torch.float32) == (None, None)
 
 
 def _wgrad_route(hw, k, stride, pad, cin, cout, dtype=torch.bfloat16):

@@ -233,7 +233,7 @@ def test_fused_fwd_tiles_of_small_integers_are_exact(cuda, n, cin, cout):
         np.float32)).to(cuda)
     a = torch.ones(cin, device=cuda)
     b = torch.zeros(cin, device=cuda)
-    assert fc.fwd_route(x, wt.bfloat16(), torch.bfloat16)
+    assert fc.fwd_route(x, wt.bfloat16(), torch.bfloat16) == "gemm"
     assert mm.fused_fwd_plan(n, 8, 16, cin, cout, mm._sms(0))[1] == cout
     before = fc.LAUNCHES
     got = fc.fused_affine_relu_conv(x, a, b, wt, torch.bfloat16)
@@ -243,20 +243,27 @@ def test_fused_fwd_tiles_of_small_integers_are_exact(cuda, n, cin, cout):
     assert torch.equal(got, want), (got.float() - want.float()).abs().max()
 
 
-# (H = W, Cin, Cout) of VGG16-BN's seam grids at width 1.0
-FUSED_ROUTE_SEAMS = [(32, 64, 64), (16, 128, 128), (8, 256, 256),
-                     (4, 512, 512), (2, 512, 512)]
+# (H = W, Cin, Cout, route) of VGG16-BN's seam grids at width 1.0 (the box
+# route) and ResNet-50's (the im2col route: tiles start mid-row and cross
+# images)
+FUSED_ROUTE_SEAMS = [(32, 64, 64, "gemm"), (16, 128, 128, "gemm"),
+                     (8, 256, 256, "gemm"), (4, 512, 512, "gemm"),
+                     (2, 512, 512, "gemm"), (56, 64, 64, "im2col"),
+                     (28, 128, 128, "im2col"), (14, 256, 256, "im2col"),
+                     (7, 512, 512, "im2col")]
 
 
 @pytest.mark.parametrize("positive_b", [False, True])
 @pytest.mark.parametrize("seam", FUSED_ROUTE_SEAMS,
                          ids=[f"{s[0]}x{s[0]}" for s in FUSED_ROUTE_SEAMS])
 def test_fused_route_matches_plain(cuda, seam, positive_b):
-    """K4 and K5 on the GEMM route at each seam grid with N = 3 (at 4x4
-    and 2x2 a box of 8 and 32 images, partly past N), against the plain
-    versions; with b > 0 in every channel a padding of relu(b) would show.
-    Two launches give the same bits (K5's da and db too)."""
-    hw, cin, cout = seam
+    """K4 and K5 on their routes at each seam grid with N = 3 (at 4x4 and
+    2x2 a box of 8 and 32 images, partly past N; at 7x7 four whole images
+    a box, at 56, 28 and 14 a second box where a tile crosses into the
+    next image), against the plain versions; with b > 0 in every channel a
+    padding of relu(b) would show. Two launches give the same bits (K5's
+    da and db too)."""
+    hw, cin, cout, route = seam
     n = 3
     rng = np.random.RandomState(hw + positive_b)
     x = torch.from_numpy(rng.randn(n, hw, hw, cin).astype(np.float32)).to(
@@ -268,8 +275,8 @@ def test_fused_route_matches_plain(cuda, seam, positive_b):
         2.0 / (9 * cout))).astype(np.float32)).to(cuda).bfloat16()
     g = torch.from_numpy(rng.randn(n, hw, hw, cout).astype(np.float32)).to(
         cuda, torch.bfloat16)
-    assert fc.fwd_route(x, wt, torch.bfloat16)
-    assert fc.gemm_route(x, wt, torch.bfloat16)
+    assert fc.fwd_route(x, wt, torch.bfloat16) == route
+    assert fc.dx_route(x, wt, torch.bfloat16) == route
     before = (fc.LAUNCHES, fc.LAUNCHES_BWD_DX)
     y = fc.fused_affine_relu_conv(x, a, b, wt, torch.bfloat16)
     dx, da, db = fc.fused_bwd_dx(x, a, b, wt, g, torch.bfloat16)
@@ -285,6 +292,36 @@ def test_fused_route_matches_plain(cuda, seam, positive_b):
     for first, second in zip((dx, da, db),
                              fc.fused_bwd_dx(x, a, b, wt, g, torch.bfloat16)):
         assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("n,hw,c", [(3, 7, 64), (2, 14, 128), (2, 28, 64),
+                                    (2, 56, 64), (2, 12, 128)])
+def test_fused_im2col_tiles_of_small_integers_are_exact(cuda, n, hw, c):
+    """K4's halo tiles and K5's im2col walk where tiles start mid-row and
+    cross images, on small integers (x in -2..3, a = 1, b in {0, 1}, w and
+    g in -2..2): every product and sum is exact, so y, dx, da and db must
+    equal the plain versions bit for bit, and a wrong row address, box,
+    split or tap shows as a wrong integer."""
+    rng = np.random.RandomState(hw + c)
+    x = torch.from_numpy(rng.randint(-2, 4, (n, hw, hw, c)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    wt = torch.from_numpy(rng.randint(-2, 3, (3, 3, c, c)).astype(
+        np.float32)).to(cuda).bfloat16()
+    g = torch.from_numpy(rng.randint(-2, 3, (n, hw, hw, c)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    a = torch.ones(c, device=cuda)
+    b = torch.from_numpy(rng.randint(0, 2, c).astype(np.float32)).to(cuda)
+    assert fc.fwd_route(x, wt, torch.bfloat16) == "im2col"
+    assert fc.dx_route(x, wt, torch.bfloat16) == "im2col"
+    y = fc.fused_affine_relu_conv(x, a, b, wt, torch.bfloat16)
+    got = fc.fused_bwd_dx(x, a, b, wt, g, torch.bfloat16)
+    torch.cuda.synchronize()
+    want = fc.fused_oracle(x, a, b, wt, torch.bfloat16)
+    assert torch.equal(y, want), (y.float() - want.float()).abs().max()
+    for name, first, second in zip(
+            ("dx", "da", "db"), got,
+            fc.fused_bwd_dx_plain(x, a, b, wt, g, torch.bfloat16)):
+        assert torch.equal(first, second), name
 
 
 def test_fused_1x1_grid_takes_the_earlier_k4_and_k5s_route(cuda):
@@ -303,8 +340,8 @@ def test_fused_1x1_grid_takes_the_earlier_k4_and_k5s_route(cuda):
         2.0 / (9 * c))).astype(np.float32)).to(cuda).bfloat16()
     g = torch.from_numpy(rng.randn(n, 1, 1, c).astype(np.float32)).to(
         cuda, torch.bfloat16)
-    assert not fc.fwd_route(x, wt, torch.bfloat16)
-    assert fc.gemm_route(x, wt, torch.bfloat16)
+    assert fc.fwd_route(x, wt, torch.bfloat16) is None
+    assert fc.dx_route(x, wt, torch.bfloat16) == "gemm"
     y = fc.fused_affine_relu_conv(x, a, b, wt, torch.bfloat16)
     _check(y, fc.fused_oracle(x, a, b, wt, torch.bfloat16), torch.bfloat16)
     dx, da, db = fc.fused_bwd_dx(x, a, b, wt, g, torch.bfloat16)

@@ -590,31 +590,32 @@ def test_fused_route_at_every_vgg_seam(seam, mult):
     cin, cout = (vgg.scale_channels(c, mult) for c in (cin, cout))
     x = torch.zeros((1, hw, hw, cin), dtype=torch.bfloat16)
     w = torch.zeros((3, 3, cin, cout), dtype=torch.bfloat16)
-    want = mult == 1.0 or name in ("conv8", "conv9", "conv11", "conv12")
-    for route in (fc.gemm_route, fc.fwd_route):
-        assert route(x, w, torch.bfloat16) is want
-        assert route(x, w, torch.float32) is False
-        assert route(x.float(), w.float(), torch.float32) is False
+    want = ("gemm" if mult == 1.0 or name in ("conv8", "conv9", "conv11",
+                                              "conv12") else None)
+    for route in (fc.dx_route, fc.fwd_route):
+        assert route(x, w, torch.bfloat16) == want
+        assert route(x, w, torch.float32) is None
+        assert route(x.float(), w.float(), torch.float32) is None
 
 
 @pytest.mark.parametrize("case", [
-    # (H = W, Cin, Cout, storage offset of x, K4 takes it, K5 takes it)
-    (16, 64, 64, 0, True, True),
-    (16, 64, 64, 4, False, False),    # x not 16-byte aligned
-    (16, 64, 96, 0, False, False),    # Cout % 64 != 0
-    (16, 32, 64, 0, False, False),    # Cin % 64 != 0
-    (12, 64, 64, 0, False, False),    # no 128-pixel box tiles 12x12
+    # (H = W, Cin, Cout, storage offset of x, K4's route, K5's route)
+    (16, 64, 64, 0, "gemm", "gemm"),
+    (16, 64, 64, 4, None, None),      # x not 16-byte aligned
+    (16, 64, 96, 0, None, None),      # Cout % 64 != 0
+    (16, 32, 64, 0, None, None),      # Cin % 64 != 0
+    (12, 64, 64, 0, "im2col", "im2col"),  # no 128-pixel box tiles 12x12
     # 128 images a box: K5's dgrad box is one pixel a image, but K4's
     # two halo buffers of 3 x 3 x 128 pixels (147,456 B each) do not fit
-    (1, 64, 64, 0, False, True),
+    (1, 64, 64, 0, None, "gemm"),
 ])
 def test_fused_route_predicate(case):
     hw, cin, cout, offset, fwd, dx = case
     x = torch.zeros(hw * hw * cin + offset, dtype=torch.bfloat16)[offset:]
     x = x.view(1, hw, hw, cin)
     w = torch.zeros((3, 3, cin, cout), dtype=torch.bfloat16)
-    assert fc.fwd_route(x, w, torch.bfloat16) is fwd
-    assert fc.gemm_route(x, w, torch.bfloat16) is dx
+    assert fc.fwd_route(x, w, torch.bfloat16) == fwd
+    assert fc.dx_route(x, w, torch.bfloat16) == dx
 
 
 @pytest.mark.parametrize("hw", [1, 2, 4, 8, 16, 32, 64, 128])
@@ -716,13 +717,13 @@ def test_fused_fwd_fits_at_both_tile_widths_on_every_seam_grid(hw):
     """Two halo buffers, a ring of at least 4 weight stages, the output
     staging and the barriers fit 232,448 B at both tile widths on every
     seam grid; at 2x2 (32 images a box, 65,536 B a halo) BN = 128 leaves 4
-    stages and 1,952 B: 230,496 B in all."""
+    stages and 1,936 B: 230,512 B in all."""
     halo = mm.fused_halo_bytes(mm.conv_plan(3, hw, hw, 64, 64, 9, 7)[0])
     for bn in mm.FUSED_BNS:
         assert mm.fused_fwd_smem_bytes(bn, 4, halo) <= SMEM_PER_BLOCK
     if hw == 2:
         assert halo == 65536
-        assert mm.fused_fwd_smem_bytes(128, 4, halo) == 230496
+        assert mm.fused_fwd_smem_bytes(128, 4, halo) == 230512
         assert mm.fused_fwd_smem_bytes(128, 5, halo) > SMEM_PER_BLOCK
 
 
@@ -735,3 +736,86 @@ def test_fused_plans_at_the_vgg_seams():
     dx = {hw: mm.fused_dx_plan(256, hw, hw, cin, cout, H100_SMS)[1]
           for _, hw, cin, cout in FUSED_SEAMS}
     assert fwd == dx == {32: 64, 16: 128, 8: 128, 4: 128, 2: 64}
+
+
+# (H = W, channels) of ResNet-50's four seam grids (the 13 stride-1
+# bottleneck 3x3 convs), at the chip's batch 32 and at 128
+RESNET_SEAM_GRIDS = [(56, 64), (28, 128), (14, 256), (7, 512)]
+RESNET_PLAN_CASES = [(n, hw, c) for n in (32, 128)
+                     for hw, c in RESNET_SEAM_GRIDS]
+
+
+@pytest.mark.parametrize("case", RESNET_PLAN_CASES,
+                         ids=[f"n{n}_{hw}" for n, hw, _ in RESNET_PLAN_CASES])
+def test_fused_im2col_plans_fit_the_card(case):
+    """K4's halo plan and K5's im2col plan at ResNet-50's seams: the halo
+    boxes within TMA's 256 a dimension and the CUDA entry's
+    FWD_MAX_HALO_PX, the second box (where tiles cross images) after the
+    first on a 1,024-byte boundary, two halo buffers with the ring in the
+    H100's 232,448 B; K5's ring beside x's tile too, its one phase the
+    stride-1 dgrad's with the im2col map's corners in [-128, 127]; no more
+    blocks than tiles or SMs."""
+    n, hw, c = case
+    box, split = mm.fused_fwd_halo(hw, hw)
+    _, bw, rows, imgs = box
+    assert all(1 <= d <= 256 for d in (mm.GEMM_BK, bw + 2, rows + 2, imgs))
+    assert mm.fused_halo_px(box, split) <= mm.FWD_MAX_HALO_PX
+    assert split == 0 or (split % 8 == 0 and split >= (bw + 2) * (rows + 2))
+    plan_box, bn, stages, grid, halo = mm.fused_fwd_plan(n, hw, hw, c, c,
+                                                         H100_SMS)
+    assert plan_box == box and mc.conv_box(hw, hw) is None
+    assert bn in mm.FUSED_BNS and 2 <= stages <= mm.FWD_MAX_STAGES
+    assert mm.fused_fwd_smem_bytes(bn, stages, halo) <= SMEM_PER_BLOCK
+    tiles_m = -(-n * hw * hw // mm.GEMM_BM)
+    assert 1 <= grid <= min(tiles_m * -(-c // bn), H100_SMS)
+    phases, bn, stages, grid = mm.fused_dx_im2col_plan(n, hw, hw, c, c,
+                                                       H100_SMS)
+    assert phases == mm.im2col_plan(n, hw, hw, hw, hw, 3, 3, 1, (1, 1, 1, 1),
+                                    c, c, True, H100_SMS)[0]
+    ((h_, w_, lw, lh, row0, col0, taps),) = phases
+    assert (h_, w_, lw, lh, row0, col0, len(taps)) == (hw, hw, -1, -1, 0, 0,
+                                                       9)
+    assert bn in mm.FUSED_BNS and 2 <= stages <= mm.DX_MAX_STAGES
+    assert mm.fused_dx_smem_bytes(bn, stages) <= SMEM_PER_BLOCK
+    assert 1 <= grid <= min(tiles_m * -(-c // bn), H100_SMS)
+
+
+def test_fused_im2col_plans_at_the_resnet_seams():
+    """The halo geometry and tile widths at batch 32: 56x56 keeps 4 rows of
+    one image and a second box at 352 (64 wide: at 128 the two 90,112-B
+    halo buffers leave no room for a ring), 28x28 6 rows, 14x14 10 rows,
+    7x7 whole images, 4 a box; K4 and K5 take BN 64 at 7x7, where 13 pixel
+    tiles by 4 channel tiles of 128 would leave 80 of 132 SMs idle."""
+    halo = {hw: mm.fused_fwd_halo(hw, hw) for hw, _ in RESNET_SEAM_GRIDS}
+    assert halo == {56: ((64, 56, 4, 1), 352), 28: ((64, 28, 6, 1), 240),
+                    14: ((64, 14, 10, 1), 192), 7: ((64, 7, 7, 4), 0)}
+    assert mm._fused_fwd_bns(56, 56) == (64,)
+    fwd = {hw: mm.fused_fwd_plan(32, hw, hw, c, c, H100_SMS)[1]
+           for hw, c in RESNET_SEAM_GRIDS}
+    dx = {hw: mm.fused_dx_im2col_plan(32, hw, hw, c, c, H100_SMS)[1]
+          for hw, c in RESNET_SEAM_GRIDS}
+    assert fwd == dx == {56: 64, 28: 128, 14: 128, 7: 64}
+
+
+@pytest.mark.parametrize("hw", [1, 2, 3, 4, 5, 6, 7, 8, 12, 14, 16, 28, 32,
+                                56, 64, 112, 128])
+def test_fused_fwd_halo_holds_every_tile(hw):
+    """Walking every 128-pixel tile of 3 images of an hw x hw grid: each
+    tile touches at most `rows` rows of one image and, with whole images,
+    at most `imgs` images; a tile touches two images only where a split
+    is set; on the grids `conv_box` tiles the halo is its box."""
+    box, split = mm.fused_fwd_halo(hw, hw)
+    _, _, rows, imgs = box
+    if mc.conv_box(hw, hw) is not None:
+        assert (box, split) == (mc.conv_box(hw, hw), 0)
+    n, area = 3, hw * hw
+    for m0 in range(0, n * area, mm.GEMM_BM):
+        pix = range(m0, min(m0 + mm.GEMM_BM, n * area))
+        images = {p // area for p in pix}
+        for im in images:
+            touched = {p % area // hw for p in pix if p // area == im}
+            assert len(touched) <= rows
+        if rows == hw:
+            assert len(images) <= imgs
+        else:
+            assert imgs == 1 and len(images) <= 1 + (split > 0)
