@@ -25,8 +25,12 @@ Needs one CUDA card; exits non-zero without one. It
      plain version bit for bit in `masked_conv_select` rows, then the
      TMA/wgmma implicit GEMM of csrc/masked_matmul.cu; `select_device_ms`
      and `gemm_kernel_device_ms` are the two launches' own device times);
-     conv0, a width-0.125 conv2 (Cin 8, Cout 16) and the f32 conv7 hold
-     the old K1 and K2. K3 takes csrc/masked_matmul_wgrad.cu's split-M
+     conv0's y takes K1's stem route (csrc/masked_conv_stem.cu; a
+     `masked_conv_stem` row, route "stem", with its `plan`, cuDNN's
+     product alone on the pre-selected weight and the earlier K1 on the
+     same inputs, `earlier_ms`, `earlier_device_ms`); conv0 in f32, a
+     width-0.125 conv2 (Cin 8, Cout 16) and the f32 conv7 hold the old K1
+     and K2. K3 takes csrc/masked_matmul_wgrad.cu's split-M
      wgmma wgrad GEMM at conv2/4/7/10 (`route` "wgmma") and over conv0's
      im2col patches ("im2col+wgmma"; the im2col kernel also alone, bit for
      bit, in a `masked_conv_im2col` row, beside `F.unfold` as its library
@@ -60,8 +64,8 @@ Needs one CUDA card; exits non-zero without one. It
      ring in `plan` and the pair's device time beside it; the dQ + dK/dV
      pair at every shape) at vit_cifar's batch-256 shape (256, 64, 4, 64),
      vit_b16's (64, 196, 12, 64), a causal T = 70, T = 320 (off the
-     route), in f32 and at textcls's causal (256, 64, 4, 32) (hd 32: the
-     pair is its backward), and the dense route
+     route), in f32 and at textcls's causal (256, 64, 4, 32) (hd 32, on
+     the one-launch backward too), and the dense route
      (masked_matmul; bf16: the select pass and TN GEMM of
      csrc/masked_matmul.cu for y and dx, each also alone against its plain
      version, two launches equal bits; f32: K1-K2 at the 1x1 geometry; dw:
@@ -87,7 +91,8 @@ Needs one CUDA card; exits non-zero without one. It
      (depth 4, dim 128, 4 heads of 32, vocab 256, 64 tokens, both tasks
      causal; token batches: a forward of the server launches nothing; the
      eval step flash 4, dense 24, selects 24; a train step flash forward 4
-     and the dQ + dK/dV pair 4 + 4, dense 24 + 24 + 24, 48 selects) and
+     and the one-launch backward 4 (no dQ or dK/dV launch), dense 24 + 24
+     + 24, 48 selects) and
      vit_moe_cifar (depth 6, dim 256, 4 heads, 4 experts at capacity
      factor 1.25 on the odd blocks; eval flash 6, dense 30, selects 30;
      train flash forward 6 and the one-launch backward 6, dense 30 + 30 +
@@ -129,7 +134,8 @@ Needs one CUDA card; exits non-zero without one. It
  12. ResNet-50 (224 px, batch 32): K1-K3 at its 19 conv geometries (K1
      and K2 past the stem on `masked_conv.fwd_dx_route`'s select pass and
      dense GEMM or im2col walk, each row with its `route` and the two
-     launches' own device ms) and K4-K6 at its 4 seams (K4 and K5 on
+     launches' own device ms; the stem's y on K1's stem route, a
+     `masked_conv_stem` row as conv0's) and K4-K6 at its 4 seams (K4 and K5 on
      their "im2col" routes: K4's halo tiles over 128 consecutive pixels,
      K5's im2col dgrad walk with its fused epilogue; each row with its
      `plan`, the route kernel's device ms and cuDNN's alone), serving, the eval
@@ -138,12 +144,14 @@ Needs one CUDA card; exits non-zero without one. It
      the wgrad GEMM (1x1/1 x and g as matrices, the rest TMA im2col loads,
      the stem its patches: im2col 1 a train step); SphereNet-20 (112x96,
      batch 256): K1, K2 and K3 at its 8 conv geometries
-     (`SPHERE_CONV_SHAPES`; K1, K2 and K3 past the stem on the im2col walk;
+     (`SPHERE_CONV_SHAPES`; K1, K2 and K3 past the stem on the im2col walk,
+     the stem's y on K1's stem route;
      K3 held against the plain version summed in
      f64) and fc5 on the dense route, a bf16 server against the f32
      server, the eval step, the train step with task 2 under the A-Softmax
-     loss (exact launches: K1 20, K2 19, K3 20, conv selects 38, im2col
-     1, dense 1 + 1 + 1, select 2), and the face CLI cycle (`face_phase`:
+     loss (exact launches: K1 20 of which the stem route 1, K2 19, K3 20,
+     conv selects 38, im2col 1, dense 1 + 1 + 1, select 2), and the face
+     CLI cycle (`face_phase`:
      `sequence --experiment face`, growth to 1.5, LFW verification, task 1 across
      compaction and growth, resume, export/serve bf16 and calibrated
      int8, export-torch/import-torch); then the textcls cycle
@@ -210,8 +218,8 @@ Needs one CUDA card; exits non-zero without one. It
      printed and held to T/2) and vit_moe_cifar's experts (two a rank),
      under the model axis's rules (`dp_ranks_check` with "act_shard"):
      dense K1-K3 (proj, fc1 and fc2 on a rank's rows) and K7 at whole T
-     (vit_cifar's and vit_moe_cifar's one-launch backward, textcls's hd-32
-     pair) launched a step as often as in one process; then the pipeline
+     (the one-launch backward, textcls's hd 32 too) launched a step as
+     often as in one process; then the pipeline
      phase (`pipeline_phase`): vit_cifar's train step through
      `TrainConfig.pipeliner`, its 6 blocks as 2 stages on two gloo ranks
      sharing the card, 4 microbatches of 64, K7 in the blocks
@@ -228,7 +236,8 @@ Needs one CUDA card; exits non-zero without one. It
      dense K1-K3 and K7,
      the fused q|k|v phase K7, the SphereNet phases K1-K3 and the dense
      route,
-     textcls's phases K7 forward, the pair and the dense route,
+     textcls's phases K7 forward and its one-launch backward and the
+     dense route,
      vit_moe_cifar's K7 and the dense route, each rank of the act_shard
      steps the dense K1-K3 and K7, each pipeline stage K7),
      prints the kernels' JSON line (launch counts from every phase,
@@ -283,10 +292,10 @@ CHAIN_SHAPES = [("conv1", 32, 64, 64), ("conv3", 16, 128, 128),
 # flash attention (name, N, T, H, hd, causal, dtype, launches per train
 # step at batch 256, the arch whose step that is: vit_cifar's, or textcls's,
 # counted in the kernels line's `textcls_step`, or one of SPLIT_STEPS; 0
-# launches = an extra shape, not on the timed step). The backward takes `flash.bwd_route`'s
-# one-launch kernel at the bf16 hd-64 shapes up to T = 256; textcls's hd
-# 32, T = 320 and f32 keep the dQ + dK/dV pair on the path, which every
-# shape also times beside it.
+# launches = an extra shape, not on the timed step). The backward takes
+# `flash.bwd_route`'s one-launch kernel at the bf16 shapes up to T = 256
+# (hd 64, and textcls's hd 32); T = 320 and f32 keep the dQ + dK/dV pair on
+# the path, which every shape also times beside it.
 FLASH_SHAPES = [
     ("vit_cifar", BATCH, 64, 4, 64, False, "bfloat16", 6, "vit_cifar"),
     ("vit_b16", 64, 196, 12, 64, False, "bfloat16", 0, "vit_b16"),
@@ -540,10 +549,36 @@ def conv_route_rows(torch, w, own, pm, mode, gemm, cudnn, dgrad, common):
                      cudnn_device_ms=device_ms(lambda: cudnn(w_sel)))
 
 
+def stem_cols(torch, x, w, own, pm, stride, pad, mode, cudnn, plain):
+    """On K1's stem route (csrc/masked_conv_stem.cu): its plan, cuDNN's
+    product alone on the pre-selected weight (`cudnn`, as
+    `cudnn_device_ms`) and the earlier K1 (csrc/masked_conv_fwd.cu) on the
+    same inputs, held against the plain version too
+    (`earlier_max_abs_err`, `earlier_ms`, `earlier_device_ms`)."""
+    from cpg_tpu_torch.ops import masked_conv as mc
+    from cpg_tpu_torch.ops.conv import resolve_padding
+
+    kh, kw, cin, cout = w.shape
+    n, h, wd, _ = x.shape
+    pads = resolve_padding(pad, h, wd, kh, kw, stride)
+    plan = mc.stem_plan(n, h, wd, cin, cout, kh, kw, stride, pads,
+                        torch.cuda.get_device_properties(
+                            x.device).multi_processor_count)
+    old = lambda: mc.launch_fwd(x, w, own, pm, 2, stride, pad, THR, mode)
+    return dict(route="stem", plan=list(plan),
+                cudnn_device_ms=device_ms(cudnn),
+                earlier_max_abs_err=compare(old(), plain, "bfloat16",
+                                            "earlier masked_conv_fwd"),
+                earlier_ms=time_ms(old), earlier_device_ms=device_ms(old))
+
+
 def masked_conv_phase(torch, dev, name, hw, cin, cout, dtype_name, mode,
                       per_step=None):
-    """K1 at one shape (the GEMM route or the old kernel, as `conv_route`
-    decides), two launches equal bits; on the route also its select row."""
+    """K1 at one shape (the GEMM route, the stem route or the old kernel,
+    as `conv_route` and `stem_route` decide; a bf16 conv with Cin < 8 and
+    Cout a multiple of 64 fails off the stem route), two launches equal
+    bits; on the GEMM route also its select row, on the stem route its
+    `stem_cols`."""
     from cpg_tpu_torch.ops import masked_conv as mc
     from cpg_tpu_torch.ops import masked_matmul as mm
     from cpg_tpu_torch.ops.conv import conv2d_nhwc
@@ -571,18 +606,28 @@ def masked_conv_phase(torch, dev, name, hw, cin, cout, dtype_name, mode,
                   shape=[BATCH, hw, hw, cin, cout],
                   **({} if per_step is None else {"per_step": per_step}))
     route = mc.conv_route(x, w, 1, "SAME")
+    stem = mc.stem_route(x, w, 1, "SAME")
+    if stem != (dtype_name == "bfloat16" and cin < 8 and cout % 64 == 0):
+        raise AssertionError(f"masked_conv {name}: stem route {stem}")
     rows, extra = [], {}
-    if route:
+    if stem:
+        w_sel = effective_kernel(w, own, pm, 2, mask_mode=mode).to(dt)
+        extra = stem_cols(torch, x, w, own, pm, 1, "SAME", mode,
+                          lambda: conv2d_nhwc(x, w_sel, 1, (1, 1, 1, 1)),
+                          plain())
+    elif route:
         sel, extra = conv_route_rows(
             torch, w, own, pm, mode,
             lambda wt: mm.launch_conv_gemm(x, wt, (hw, hw), 3, 3, 1, 1, False),
             lambda w_sel: conv2d_nhwc(x, w_sel, 1, (1, 1, 1, 1)), False,
             common)
         rows.append(sel)
-    rows.insert(0, dict(kernel="masked_conv_fwd", **common,
-                        route="select+gemm" if route else "k1",
+    rows.insert(0, dict(kernel="masked_conv_stem" if stem
+                        else "masked_conv_fwd", **common,
+                        **{"route": "select+gemm" if route else "k1",
+                           **extra},
                         max_abs_err=err, **timed(kern, plain, library),
-                        bound_ms=b_ms, bound_by=b_by, **extra))
+                        bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -940,6 +985,9 @@ def conv_geometry_rows(torch, dev, arch, batch, name, hw, k, stride, pad,
     if route != (None if cin == 3 else "dense" if (k, stride) == (1, 1)
                  else "im2col"):
         raise AssertionError(f"{arch} {name}: y and dx on route {route}")
+    stem = mc.stem_route(x, w, stride, pad)
+    if stem != (cin == 3):
+        raise AssertionError(f"{arch} {name}: stem route {stem}")
     gemm_name = {"dense": "gemm_tn_bf16_kernel",
                  "im2col": "conv_im2col_kernel"}.get(route)
 
@@ -970,14 +1018,18 @@ def conv_geometry_rows(torch, dev, arch, batch, name, hw, k, stride, pad,
     cudnn = lambda: conv2d_nhwc(x, w_sel, stride, (pt, pb, pl, pr))
     library = lambda: conv2d_nhwc(
         x, effective_kernel(w, own, pm, 2).to(dt), stride, (pt, pb, pl, pr))
-    err = compare(twice(torch, kern, f"{arch} masked_conv {name}"), plain(),
+    want = plain()
+    err = compare(twice(torch, kern, f"{arch} masked_conv {name}"), want,
                   "bfloat16", f"{arch} masked_conv {name}")
     b_ms, b_by = bound(x.numel() * elt + 9 * n_w + gy.numel() * elt, flops,
                        "bfloat16")
-    rows.append(dict(kernel="masked_conv_fwd", **common,
-                     **{"route": "k1", **route_cols(kern)},
-                     max_abs_err=err, **timed(kern, plain, library),
-                     cudnn_device_ms=device_ms(cudnn), bound_ms=b_ms,
+    cols = (stem_cols(torch, x, w, own, pm, stride, pad, "binary", cudnn,
+                      want) if stem
+            else {"route": "k1", **route_cols(kern),
+                  "cudnn_device_ms": device_ms(cudnn)})
+    rows.append(dict(kernel="masked_conv_stem" if stem else "masked_conv_fwd",
+                     **common, **cols, max_abs_err=err,
+                     **timed(kern, plain, library), bound_ms=b_ms,
                      bound_by=b_by))
     if with_dx:
         kern = lambda: mc.masked_conv2d_bwd_dx(gy, x, w, own, pm, 2, stride,
@@ -1569,21 +1621,30 @@ KERNEL_FLAGS = {"vgg16_bn_cifar": dict(use_pallas_conv=True,
                 "textcls": dict(use_pallas=True, flash_attention=True),
                 "vit_moe_cifar": dict(use_pallas=True, flash_attention=True),
                 "spherenet20": dict(use_pallas_conv=True, use_pallas=True)}
-# launches of one masked eval step with the kernel flags (ResNet-50: its 40
-# masked convs, a select pass before each but the stem's, and 13 fused
-# seams; SphereNet-20: its 20 masked convs, a select pass before each but
-# the stem's, and fc5 on the dense route, a select pass and the TN GEMM;
+# launches of one masked eval step with the kernel flags (VGG16-BN: its 5
+# masked convs, conv0 on the stem route, a select pass before each of the
+# other four, and 8 fused seams; ResNet-50: its 40 masked convs, the stem
+# on the stem route, a select pass before each of the others, and 13 fused
+# seams; SphereNet-20: its 20 masked convs, the stem on the stem route, a
+# select pass before each of the others, and fc5 on the dense route, a
+# select pass and the TN GEMM; the masked convs' counter counts every
+# route's launch, `masked_conv_stem` the stem route's alone;
 # textcls: 4 blocks of q/k/v/proj, fc1 and fc2 and one attention;
 # vit_moe_cifar: 6 blocks of q/k/v/proj and attention, the 3 even blocks'
 # fc1 and fc2 (the odd blocks' experts are einsums); no other kernel)
-EVAL_LAUNCHES = {"resnet50": {"masked_conv_fwd": 40, "masked_conv_select": 39,
-                              "fused_chain_fwd": 13},
+EVAL_LAUNCHES = {"vgg16_bn_cifar": {"masked_conv_fwd": 5,
+                                    "masked_conv_select": 4,
+                                    "masked_conv_stem": 1,
+                                    "fused_chain_fwd": 8},
+                 "resnet50": {"masked_conv_fwd": 40, "masked_conv_select": 39,
+                              "masked_conv_stem": 1, "fused_chain_fwd": 13},
                  "textcls": {"flash_fwd": 4, "masked_matmul_fwd": 24,
                              "masked_matmul_select": 24},
                  "vit_moe_cifar": {"flash_fwd": 6, "masked_matmul_fwd": 30,
                                    "masked_matmul_select": 30},
                  "spherenet20": {"masked_conv_fwd": 20,
                                  "masked_conv_select": 19,
+                                 "masked_conv_stem": 1,
                                  "masked_matmul_fwd": 1,
                                  "masked_matmul_select": 1}}
 
@@ -1619,14 +1680,15 @@ def eval_phase(torch, dev, state, counts):
 
 
 # launches of each kernel in one train step of task 2 with the kernel flags:
-# VGG16-BN's five masked convs (conv0's input is the image, so no dx; a
-# select pass before the forward and dx of conv2, 4, 7 and 10, the GEMM
-# route) and eight fused seams; vit_cifar's six blocks of six sdense layers and one
+# VGG16-BN's five masked convs (conv0's input is the image, so no dx; its
+# y on the stem route; a select pass before the forward and dx of conv2,
+# 4, 7 and 10, the GEMM route) and eight fused seams; vit_cifar's six blocks of six sdense layers and one
 # attention (its patch stem is a plain product), a select pass before each
 # forward and dx GEMM; zero for every other kernel
 TRAIN_LAUNCHES = {
     "vgg16_bn_cifar": {"masked_conv_fwd": 5, "masked_conv_bwd_dx": 4,
                        "masked_conv_bwd_dw": 5, "masked_conv_select": 8,
+                       "masked_conv_stem": 1,
                        "masked_conv_im2col": 1,
                        "fused_chain_fwd": 8,
                        "fused_chain_bwd_dx": 8, "fused_chain_bwd_dw": 8},
@@ -1634,9 +1696,10 @@ TRAIN_LAUNCHES = {
                   "masked_matmul_fwd": 36, "masked_matmul_bwd_dx": 36,
                   "masked_matmul_bwd_dw": 36, "masked_matmul_select": 72},
     # textcls: 4 blocks of six sdense layers and one causal attention at hd
-    # 32, off `flash.bwd_route`: its backward is the dQ + dK/dV pair;
-    # vit_moe_cifar: as vit_cifar without the odd blocks' MLPs
-    "textcls": {"flash_fwd": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4,
+    # 32, on `flash.bwd_route`: its backward is the one-launch kernel, the
+    # dQ + dK/dV pair at 0; vit_moe_cifar: as vit_cifar without the odd
+    # blocks' MLPs
+    "textcls": {"flash_fwd": 4, "flash_bwd": 4,
                 "masked_matmul_fwd": 24, "masked_matmul_bwd_dx": 24,
                 "masked_matmul_bwd_dw": 24, "masked_matmul_select": 48},
     "vit_moe_cifar": {"flash_fwd": 6, "flash_bwd": 6,
@@ -1644,20 +1707,23 @@ TRAIN_LAUNCHES = {
                       "masked_matmul_bwd_dw": 30,
                       "masked_matmul_select": 60},
     # ResNet-50: 40 masked convs (no dx for the stem, whose input is the
-    # image; y, dx and K3 of the other 39 on the dense or im2col route, a
-    # select pass before y and dx; the stem's K3 over its patches, one
-    # im2col) and 13 fused seams
+    # image; its y on the stem route; y, dx and K3 of the other 39 on the
+    # dense or im2col route, a select pass before y and dx; the stem's K3
+    # over its patches, one im2col) and 13 fused seams
     "resnet50": {"masked_conv_fwd": 40, "masked_conv_bwd_dx": 39,
                  "masked_conv_bwd_dw": 40, "masked_conv_select": 78,
+                 "masked_conv_stem": 1,
                  "masked_conv_im2col": 1,
                  "fused_chain_fwd": 13, "fused_chain_bwd_dx": 13,
                  "fused_chain_bwd_dw": 13},
-    # SphereNet-20: 20 masked convs (no dx for the stem; y and dx of the
-    # other 19 on the im2col route, a select pass each; the stem's K3 over
-    # im2col patches, K = 27) and fc5 on the dense route (a select pass
-    # before the forward and dx GEMMs, K3 on the wgrad GEMM)
+    # SphereNet-20: 20 masked convs (no dx for the stem, its y on the stem
+    # route; y and dx of the other 19 on the im2col route, a select pass
+    # each; the stem's K3 over im2col patches, K = 27) and fc5 on the dense
+    # route (a select pass before the forward and dx GEMMs, K3 on the wgrad
+    # GEMM)
     "spherenet20": {"masked_conv_fwd": 20, "masked_conv_bwd_dx": 19,
                     "masked_conv_bwd_dw": 20, "masked_conv_select": 38,
+                    "masked_conv_stem": 1,
                     "masked_conv_im2col": 1,
                     "masked_matmul_fwd": 1, "masked_matmul_bwd_dx": 1,
                     "masked_matmul_bwd_dw": 1, "masked_matmul_select": 2},
@@ -3584,14 +3650,16 @@ def deploy_phase(torch, dev, counts, card):
 
 # the kernels SphereNet-20's eval and train phases must reach
 SPHERE_EVAL_KERNELS = ["masked_conv_fwd", "masked_conv_select",
-                       "masked_matmul_fwd", "masked_matmul_select"]
+                       "masked_conv_stem", "masked_matmul_fwd",
+                       "masked_matmul_select"]
 SPHERE_TRAIN_KERNELS = ["masked_conv_bwd_dx", "masked_conv_bwd_dw",
                         "masked_conv_im2col", "masked_matmul_bwd_dx",
                         "masked_matmul_bwd_dw"]
 # the kernels textcls's and vit_moe_cifar's eval phases must reach, and
-# textcls's train phase (its hd-32 attention's backward: the pair)
+# textcls's train phase (its hd-32 attention's backward: the one-launch
+# kernel)
 DENSE_EVAL_KERNELS = ["flash_fwd", "masked_matmul_fwd", "masked_matmul_select"]
-TEXT_TRAIN_KERNELS = ["flash_bwd_dq", "flash_bwd_dkv", "masked_matmul_bwd_dx",
+TEXT_TRAIN_KERNELS = ["flash_bwd", "masked_matmul_bwd_dx",
                       "masked_matmul_bwd_dw"]
 # the archs whose kernel rows count in their own train step (the kernels
 # line's `<arch>_step`)
@@ -3631,6 +3699,7 @@ class Counts:
 
         self.where = {
             "masked_conv_fwd": (masked_conv, "LAUNCHES"),
+            "masked_conv_stem": (masked_conv, "LAUNCHES_STEM"),
             "masked_conv_bwd_dx": (masked_conv, "LAUNCHES_BWD_DX"),
             "masked_conv_bwd_dw": (masked_conv, "LAUNCHES_BWD_DW"),
             "masked_conv_select": (masked_conv, "LAUNCHES_SELECT"),
@@ -4167,7 +4236,9 @@ def tp_routes(torch, dev, n_model=PAR_RANKS):
                     k5=fc.dx_route(x, w, bf) or "k5", k6="k6")
             else:
                 row[label] = dict(
-                    cout=cout, k1_k2=mc.fwd_dx_route(x, w, 1, "SAME") or "k1",
+                    cout=cout, k1_k2=mc.fwd_dx_route(x, w, 1, "SAME") or (
+                        "stem+k2" if mc.stem_route(x, w, 1, "SAME")
+                        else "k1"),
                     k3=mc.wgrad_conv_route(x, w, 1, "SAME") or "k3")
         out[f"vgg16_bn_cifar/conv{i}"] = row
         cin, seam, i = v, True, i + 1
@@ -4668,6 +4739,8 @@ def kernels_line(rows, launched):
                              "cpg_tpu_torch/csrc/tma_gemm.cuh",
                              "cpg_tpu_torch/csrc/masked_conv_fwd.cu"),
                             "cpg_tpu/ops/pallas/masked_matmul.py:97"),
+        "masked_conv_stem": ("cpg_tpu_torch/csrc/masked_conv_stem.cu",
+                             "cpg_tpu/ops/pallas/masked_matmul.py:97"),
         "masked_conv_bwd_dx": (("cpg_tpu_torch/csrc/masked_matmul.cu",
                                 "cpg_tpu_torch/csrc/tma_gemm.cuh",
                                 "cpg_tpu_torch/csrc/masked_conv_bwd_dx.cu"),
@@ -4786,6 +4859,9 @@ def main() -> int:
                                   "bfloat16", "ternary")
         rows += masked_conv_bwd_phases(torch, dev, name, hw, cin, cout,
                                        "bfloat16", "ternary")
+    # conv0 in f32 holds the old K1 (off the stem route)
+    rows += masked_conv_phase(torch, dev, "conv0", 32, 3, 64, "float32",
+                              "binary", per_step=0)
     # conv2 at width 0.125 holds the old bf16 K1 and K2 (off the route)
     rows += masked_conv_phase(torch, dev, "conv2_w0.125", 16, 8, 16,
                               "bfloat16", "binary", per_step=0)
@@ -4960,8 +5036,8 @@ def main() -> int:
     # every phase that should reach a kernel did
     need = {"vgg16_bn_cifar/serve": ["fused_chain_fwd"],
             "vgg16_bn_cifar/eval": ["masked_conv_fwd", "masked_conv_select",
-                                    "fused_chain_fwd"],
-            "vgg16_bn_cifar/train": ["masked_conv_bwd_dx",
+                                    "masked_conv_stem", "fused_chain_fwd"],
+            "vgg16_bn_cifar/train": ["masked_conv_stem", "masked_conv_bwd_dx",
                                      "masked_conv_bwd_dw",
                                      "masked_conv_im2col",
                                      "fused_chain_bwd_dx",
@@ -4973,21 +5049,25 @@ def main() -> int:
             "vgg16_bn_cifar/deploy": ["fused_chain_fwd"],
             "resnet50/serve": ["fused_chain_fwd"],
             "resnet50/eval": ["masked_conv_fwd", "masked_conv_select",
-                              "fused_chain_fwd"],
-            "resnet50/train": ["masked_conv_bwd_dx", "masked_conv_bwd_dw",
+                              "masked_conv_stem", "fused_chain_fwd"],
+            "resnet50/train": ["masked_conv_stem", "masked_conv_bwd_dx",
+                               "masked_conv_bwd_dw",
                                "masked_conv_select", "fused_chain_bwd_dx",
                                "fused_chain_bwd_dw"],
-            "resnet50/finegrained": ["masked_conv_fwd", "masked_conv_bwd_dx",
+            "resnet50/finegrained": ["masked_conv_fwd", "masked_conv_stem",
+                                     "masked_conv_bwd_dx",
                                      "masked_conv_bwd_dw",
                                      "masked_conv_select", "fused_chain_fwd",
                                      "fused_chain_bwd_dx",
                                      "fused_chain_bwd_dw"],
-            "resnet50/stream": ["masked_conv_fwd", "masked_conv_bwd_dx",
+            "resnet50/stream": ["masked_conv_fwd", "masked_conv_stem",
+                                "masked_conv_bwd_dx",
                                 "masked_conv_bwd_dw", "masked_conv_select",
                                 "fused_chain_fwd", "fused_chain_bwd_dx",
                                 "fused_chain_bwd_dw"],
             "vit_cifar/qkv_fused": ["flash_fwd", "flash_bwd"],
-            "vgg16_bn_cifar/cycle": ["masked_conv_fwd", "masked_conv_bwd_dx",
+            "vgg16_bn_cifar/cycle": ["masked_conv_fwd", "masked_conv_stem",
+                                     "masked_conv_bwd_dx",
                                      "masked_conv_bwd_dw", "fused_chain_fwd",
                                      "fused_chain_bwd_dx",
                                      "fused_chain_bwd_dw"],
@@ -5005,7 +5085,8 @@ def main() -> int:
                                     "masked_matmul_bwd_dw"],
             # each rank of the two-rank step, and `--parallel 1`: K1-K6
             **{f"vgg16_bn_cifar/parallel_{who}": [
-                "masked_conv_fwd", "masked_conv_bwd_dx", "masked_conv_bwd_dw",
+                "masked_conv_fwd", "masked_conv_stem", "masked_conv_bwd_dx",
+                "masked_conv_bwd_dw",
                 "masked_conv_select", "masked_conv_im2col", "fused_chain_fwd",
                 "fused_chain_bwd_dx", "fused_chain_bwd_dw"]
                for who in [f"rank{r}" for r in range(PAR_RANKS)] + ["cli"]},
@@ -5021,12 +5102,11 @@ def main() -> int:
                for r in range(PAR_RANKS)},
             # each rank of the act_shard phase's steps: the dense K1-K3
             # (proj, fc1, fc2 on its rows) and K7 at whole T (textcls's
-            # backward the hd-32 pair); the pipeline's stages: K7
+            # hd 32 too on the one-launch backward); the pipeline's
+            # stages: K7
             **{f"{arch}/sp_rank{r}": [
                 "flash_fwd", "masked_matmul_fwd", "masked_matmul_bwd_dx",
-                "masked_matmul_bwd_dw",
-                *(["flash_bwd_dq", "flash_bwd_dkv"] if arch == "textcls"
-                  else ["flash_bwd"])]
+                "masked_matmul_bwd_dw", "flash_bwd"]
                for arch in ACT_SHARD_ARCHS for r in range(PAR_RANKS)},
             **{f"vit_cifar/pp_rank{r}": ["flash_fwd", "flash_bwd"]
                for r in range(PP_STAGES)},

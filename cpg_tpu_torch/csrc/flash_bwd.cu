@@ -1,7 +1,9 @@
 // Flash attention backward (K7 backward): dQ, then dK and dV.
 //
-// Replaces: cpg_tpu/ops/flash.py `_flash_nhtd` -> the stock Pallas TPU
-// kernel's backward, `_flash_attention_bwd_dq` and
+// Replaces, off the one-launch kernel's route (ops/flash.py `bwd_route`:
+// f32, head dims 16 and 128, T > 256; csrc/flash_bwd_wgmma.cu takes bf16
+// at hd 32 and 64 up to T = 256): cpg_tpu/ops/flash.py `_flash_nhtd` ->
+// the stock Pallas TPU kernel's backward, `_flash_attention_bwd_dq` and
 // `_flash_attention_bwd_dkv` (jax.experimental.pallas.ops.tpu.
 // flash_attention), reached through its custom VJP.
 //

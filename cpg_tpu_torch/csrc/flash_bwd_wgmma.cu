@@ -1,13 +1,14 @@
-// Flash attention backward for Hopper (K7 backward; bf16, hd 64, T <= 256):
-// one TMA + wgmma kernel that forms S and dP once per tile and writes dq,
-// dk and dv, with dq summed in a fixed order.
+// Flash attention backward for Hopper (K7 backward; bf16, hd 32 or 64,
+// T <= 256): one TMA + wgmma kernel that forms S and dP once per tile and
+// writes dq, dk and dv, with dq summed in a fixed order.
 //
 // Replaces, on its route (ops/flash.py `bwd_route`): cpg_tpu/ops/flash.py
 // `_flash_nhtd` -> the stock Pallas TPU kernel's backward
 // (jax.experimental.pallas.ops.tpu.flash_attention `_flash_attention_bwd_dkv`
 // and `_flash_attention_bwd_dq`, with the `di` that `_flash_attention_bwd`
-// forms in XLA), reached through its custom VJP. Off the route (f32, other
-// head dims, T > 256) the port keeps csrc/flash_bwd.cu's pair.
+// forms in XLA), reached through its custom VJP: vit_cifar's and vit_b16's
+// hd 64, textcls's hd 32. Off the route (f32, other head dims, T > 256)
+// the port keeps csrc/flash_bwd.cu's pair.
 //
 //   p_ij  = exp(s_ij - lse_i), s = q k^T / sqrt(hd); masked (keys >= T, and
 //           j > i when causal) p = 0, as the stock kernel's -0.7 FLT_MAX
@@ -21,8 +22,9 @@
 // What bounds it on the H100: it must read q, k, v, o, dO (bf16) and lse
 // (f32) once and write dq, dk, dv once: 8 * N*T*H*hd*2 + N*H*T*4 bytes, 20.1
 // us at vit_cifar's (256, 64, 4, 64) and 46.2 us at vit_b16's (64, 196, 12,
-// 64) at 3.35 TB/s; its five products, 10 * T^2 * hd FLOPs an (image, head),
-// take 2.7 and 19.1 us at 989 TFLOP/s. Bytes bound it, but at vit_b16 the
+// 64) at 3.35 TB/s (textcls's causal (256, 64, 4, 32): 10.1 us); its five
+// products, 10 * T^2 * hd FLOPs an (image, head), take 2.7 and 19.1 us at
+// 989 TFLOP/s. Bytes bound it, but at vit_b16 the
 // products come to 41% of the byte time, so they run on wgmma. The earlier
 // pair formed S and dP twice (seven products), read every input twice,
 // computed D with scalar loads in series, and ran one load -> product ->
@@ -64,19 +66,29 @@
 //     two threads a row with 16-byte reads, once a tile and warpgroup,
 //     while the tile's first products run.
 //   * q, k, v, o and dO are read in place, (N, T, H, hd), through 4-D
-//     tensor maps (hd, H, T, N) with boxes (64, 1, 64, 1): 64 rows of 128 B
-//     in the 128-byte swizzle; rows past T arrive as zeros.
+//     tensor maps (hd, H, T, N) with boxes (hd, 1, 64, 1): 64 rows of 128 B
+//     in the 128-byte swizzle at hd 64, of 64 B in the 64-byte swizzle at
+//     hd 32; rows past T arrive as zeros.
+//   * The head dim is a template parameter. At hd 32 the two score
+//     products S^T = K Q^T and dP^T = V dO^T reduce over two k16 steps (K-
+//     major 64-byte-swizzle descriptors), the dV, dK and dQ products are
+//     m64n32 (their B tiles MN-major in the 64-byte swizzle, a k16 step
+//     1,024 B), and dK, dV and dQ take 16 f32 registers each; scores and
+//     dS^T are 64 x 64 at either head dim.
 //   * Registers: dK, dV, S^T and dP^T take 128 f32 registers a consumer
 //     thread: hence two consumer warpgroups of 64 keys and one producer
 //     warp (288 threads), one block an SM. ptxas gives the kernel 168
 //     registers a thread (it counts whole warpgroups); both walks spill a
 //     few words. (setmaxnreg, with a producer warpgroup, ran no faster.)
-//   * Shared memory (`bwd_smem_bytes`): K/V 2 x 32 KB; the ring, stages x 24
-//     KB (PAIR 48 KB: both warpgroups' tiles); dS^T 2 x 8 KB; dq staging 8
-//     KB a warpgroup that stores dq; BLOCK: the f32 hand-over 16 KB and the
-//     first key block's f32 dQ, 16 KB a query tile when T > 128; lse and D
-//     3 KB. With the plan's 2 stages: PAIR 200,768 B; T <= 128 159,808 B;
-//     T <= 192 208,960 B; T <= 256 225,344 B; all under 232,448 B.
+//   * Shared memory (`bwd_smem_bytes`), with a 64-row tile of hd (8 KB at
+//     hd 64, 4 KB at hd 32): K/V 2 x 4 tiles; the ring, stages x 3 tiles
+//     (PAIR 6: both warpgroups'); dS^T 2 x 8 KB; dq staging a tile a
+//     warpgroup that stores dq; BLOCK: the f32 hand-over 2 tiles and the
+//     first key block's f32 dQ, 2 tiles a query tile when T > 128; lse and
+//     D 3 KB. At hd 64 with the plan's 2 stages: PAIR 200,768 B; T <= 128
+//     159,808 B; T <= 192 208,960 B; T <= 256 225,344 B; at hd 32 PAIR
+//     110,656 B, T <= 128 90,176 B, T <= 256 122,944 B; all under
+//     232,448 B.
 //   * Stores: dq (per query tile) and dk, dv (per key block) are staged in
 //     the 128-byte swizzle (dk, dv in the slot's own K and V tiles, free
 //     once its products are done) and written by TMA, which clips rows past
@@ -88,36 +100,61 @@ using namespace cpg::hopper;
 
 namespace {
 
-constexpr int HD = 64;               // head dim of the route
-constexpr int TILE = 64 * 128;       // 64 rows of 128 B: one TMA box
-constexpr int KV_BYTES = 4 * TILE;   // K of both slots, then V of both
+constexpr int DS_TILE = 64 * 128;    // 64 x 64 bf16 (dS^T), 128-byte swizzle
 constexpr int CONSUMERS = 2;
 constexpr int CTHREADS = 128 * CONSUMERS;
 constexpr int THREADS = CTHREADS + 32;  // + one producer warp
 constexpr int SMEM_LIMIT = 232448;
 constexpr int MAX_T = 256;
-constexpr float SCALE = 0.125f;      // 1 / sqrt(64)
 constexpr float LOG2E = 1.4426950408889634f;
 // named barriers: 1 + wg a warpgroup's own; the BLOCK walk's dQ hand-over,
 // DQ_FULL (warpgroup 1 arrives, 0 waits) and DQ_EMPTY (0 arrives, 1 waits)
 constexpr int DQ_FULL = 3, DQ_EMPTY = 4;
 
-__host__ __device__ constexpr int stage_bytes(bool pair) {
-  return (pair ? 2 : 1) * 3 * TILE;  // Q, dO, o a slot
+// A 64-row bf16 tile of one head (one TMA box): 64 rows of 2 * hd bytes.
+__host__ __device__ constexpr int tile_bytes(int hd) { return 64 * 2 * hd; }
+
+__host__ __device__ constexpr int stage_bytes(bool pair, int hd) {
+  return (pair ? 2 : 1) * 3 * tile_bytes(hd);  // Q, dO, o a slot
 }
 
-// 1 KB of slack to align to 1,024 B; K/V x 2; the ring; dS^T of each
-// warpgroup; the dq staging tile of each warpgroup that stores dq (BLOCK:
-// warpgroup 0); BLOCK: warpgroup 1's f32 dQ tile and the earlier key
-// blocks' f32 dQ tiles (two key blocks); lse (2 x 256 f32) and D (2 x 2 x
-// 64 f32); the ring's and K/V's mbarriers
+// 1 KB of slack to align to 1,024 B; K/V x 2 (K of both slots, then V of
+// both); the ring; dS^T of each warpgroup; the dq staging tile of each
+// warpgroup that stores dq (BLOCK: warpgroup 0); BLOCK: warpgroup 1's f32
+// dQ tile and the earlier key blocks' f32 dQ tiles (two key blocks); lse
+// (2 x 256 f32) and D (2 x 2 x 64 f32); the ring's and K/V's mbarriers
 __host__ __device__ constexpr int bwd_smem_bytes(bool pair, int n_kb,
-                                                 int n_qt, int stages) {
-  return 1024 + 2 * KV_BYTES + stages * stage_bytes(pair) + 2 * TILE +
-         (pair ? 2 : 1) * TILE + (pair ? 0 : 2 * TILE) +
-         (n_kb > 1 ? n_qt * 2 * TILE : 0) + 2 * MAX_T * 4 + 2 * 2 * 64 * 4 +
-         16 * stages + 32;
+                                                 int n_qt, int stages,
+                                                 int hd) {
+  return 1024 + 2 * 4 * tile_bytes(hd) + stages * stage_bytes(pair, hd) +
+         2 * DS_TILE + (pair ? 2 : 1) * tile_bytes(hd) +
+         (pair ? 0 : 2 * tile_bytes(hd)) +
+         (n_kb > 1 ? n_qt * 2 * tile_bytes(hd) : 0) + 2 * MAX_T * 4 +
+         2 * 2 * 64 * 4 + 16 * stages + 32;
 }
+
+// The head dim's tile layout: 128-byte rows in the 128-byte swizzle at hd
+// 64, 64-byte rows in the 64-byte swizzle at hd 32. The 16-byte chunk j of
+// row r sits at chunk j ^ swz(r); `desc_k` describes a tile as a K-major
+// operand (k = hd), `desc_mn` as an MN-major one (k = rows, a k16 step
+// `MN_STEP` descriptor units on).
+template <int HD>
+struct Layout {
+  static constexpr int ROW = 2 * HD;
+  static constexpr int TILE = 64 * ROW;
+  static constexpr int MN_STEP = 16 * ROW / 16;
+  static constexpr float SCALE = HD == 64 ? 0.125f : 0.17677669529663688f;
+  static __device__ __forceinline__ int swz(int r) {
+    return HD == 64 ? (r & 7) : ((r >> 1) & 3);
+  }
+  static __device__ __forceinline__ uint64_t desc_k(uint32_t a) {
+    return HD == 64 ? smem_desc(a) : smem_desc_64b(a);
+  }
+  static __device__ __forceinline__ uint64_t desc_mn(uint32_t a) {
+    return HD == 64 ? smem_desc_mn(a, TILE, 1024)
+                    : smem_desc_mn_64b(a, TILE, 512);
+  }
+};
 
 struct BwdArgs {
   const float* lse;      // (N, H, T) f32
@@ -164,17 +201,19 @@ __device__ __forceinline__ void hold(uint32_t (&fr)[4][4]) {
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(fr[kk][i])::"memory");
 }
 
-// One 64 x 64 accumulator (the m64n64 fragment, see below) rounded to bf16
-// into a staging tile of 64 rows of 128 B in TMA's 128-byte swizzle
-// (column group j of row r lands at group j ^ (r % 8)).
+// One 64 x hd accumulator (the m64nHD fragment, see below) rounded to
+// bf16 into a staging tile of the head dim's layout (column group j of row
+// r lands at group j ^ swz(r)).
+template <int HD>
 __device__ __forceinline__ void stage_tile(uint32_t tile, int r, int t4,
-                                           const float (&a)[32]) {
+                                           const float (&a)[HD / 2]) {
+  using L = Layout<HD>;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int row = r + 8 * h2;
-      st_shared_u32(tile + row * 128 + ((j ^ (row & 7)) << 4) + 4 * t4,
+      st_shared_u32(tile + row * L::ROW + ((j ^ L::swz(row)) << 4) + 4 * t4,
                     pack_bf16(a[4 * j + 2 * h2], a[4 * j + 2 * h2 + 1]));
     }
 }
@@ -188,12 +227,12 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// The m64n64 accumulator fragment of consumer thread c of a warpgroup: warp
+// The m64nN accumulator fragment of consumer thread c of a warpgroup: warp
 // c / 32 holds rows 16 (c / 32) + lane / 4 (registers 4j + {0, 1}) and + 8
 // (4j + {2, 3}), columns 8j + 2 (lane % 4) + {0, 1}. As an A fragment of
 // k-step kk (columns 16kk ..): {a0, a1, a2, a3} = registers 8kk + {0, 1},
 // {2, 3}, {4, 5}, {6, 7}, packed in pairs.
-template <bool PAIR>
+template <bool PAIR, int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
@@ -204,7 +243,10 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_dk,
                        const __grid_constant__ CUtensorMap tm_dv,
                        BwdArgs p) {
-  constexpr int STAGE = stage_bytes(PAIR);
+  using L = Layout<HD>;
+  constexpr int TILE = L::TILE;
+  constexpr int KV_BYTES = 4 * TILE;
+  constexpr int STAGE = stage_bytes(PAIR, HD);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
   const uint32_t base = smem_u32(sm);
@@ -212,7 +254,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t kv_base = base;
   const uint32_t ring_base = kv_base + 2 * KV_BYTES;
   const uint32_t ds_base = ring_base + p.stages * STAGE;
-  const uint32_t out_base = ds_base + 2 * TILE;
+  const uint32_t out_base = ds_base + 2 * DS_TILE;
   const uint32_t xbuf_off = out_base + (PAIR ? 2 : 1) * TILE - base;
   const uint32_t part_off = xbuf_off + (PAIR ? 0 : 2 * TILE);
   const uint32_t lse_off = part_off + (p.n_kb > 1 ? p.n_qt * 2 * TILE : 0);
@@ -282,9 +324,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   float* Ls = reinterpret_cast<float*>(sm + lse_off) + wg * MAX_T;
   float* Ds = reinterpret_cast<float*>(sm + d_off) + wg * 2 * 64;
   float4* xbuf = reinterpret_cast<float4*>(sm + xbuf_off);
-  const uint32_t dsreg = ds_base + wg * TILE;      // this slot's dS^T
+  const uint32_t dsreg = ds_base + wg * DS_TILE;   // this slot's dS^T
   const uint32_t out = out_base + (PAIR ? wg : 0) * TILE;  // dq staging
-  const float sl2 = SCALE * LOG2E;
+  const float sl2 = L::SCALE * LOG2E;
   // the BLOCK walk's tiles in this block, for the dQ hand-over
   const int my_items = (p.items - (int)blockIdx.x + (int)gridDim.x - 1) /
                        (int)gridDim.x;
@@ -309,9 +351,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t kslot = kbuf + wg * TILE;
       const uint32_t vslot = kbuf + (2 + wg) * TILE;
       const int key0 = PAIR ? 0 : kb * 128 + 64 * wg;
-      float dk[32], dv[32];
+      float dk[HD / 2], dv[HD / 2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+      for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
 
       for (int qt = 0; qt < p.n_qt; ++qt, ++u) {
         ring.wait(qp);
@@ -324,27 +366,28 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         float s[32], dp[32];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_bf16<64, 0, 0>(s, smem_desc(kslot) + 2 * kk,
-                               smem_desc(qs) + 2 * kk, kk > 0);
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_bf16<64, 0, 0>(s, L::desc_k(kslot) + 2 * kk,
+                               L::desc_k(qs) + 2 * kk, kk > 0);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_bf16<64, 0, 0>(dp, smem_desc(vslot) + 2 * kk,
-                               smem_desc(dos) + 2 * kk, kk > 0);
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_bf16<64, 0, 0>(dp, L::desc_k(vslot) + 2 * kk,
+                               L::desc_k(dos) + 2 * kk, kk > 0);
         wgmma_commit();
 
         // while they run, D of the tile's 64 queries: thread c takes row
         // c / 2, half c % 2, 16-byte reads under the swizzle
         {
+          constexpr int HALF = HD / 16;  // 16-byte chunks in half a row
           const int row = c >> 1, hf = c & 1;
           const uint4* orow =
-              reinterpret_cast<const uint4*>(sm + (os - base) + row * 128);
+              reinterpret_cast<const uint4*>(sm + (os - base) + row * L::ROW);
           const uint4* drow =
-              reinterpret_cast<const uint4*>(sm + (dos - base) + row * 128);
+              reinterpret_cast<const uint4*>(sm + (dos - base) + row * L::ROW);
           float d = 0.f;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int ch = (4 * hf + i) ^ (row & 7);
+          for (int i = 0; i < HALF; ++i) {
+            const int ch = (HALF * hf + i) ^ L::swz(row);
             const uint4 a = orow[ch], g = drow[ch];
             const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
             const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
@@ -381,7 +424,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
             for (int e = 0; e < 2; ++e) {
               const int idx = 4 * j + 2 * h2 + e;
               float pv = ex2(s[idx] * sl2 - (e ? l2.y : l2.x));
-              float dsv = pv * (dp[idx] - (e ? d2.y : d2.x)) * SCALE;
+              float dsv = pv * (dp[idx] - (e ? d2.y : d2.x)) * L::SCALE;
               if (!whole) {
                 const int key = key0 + r + 8 * h2, qi = q0 + qc + e;
                 const bool ok = key < p.t && qi < p.t &&
@@ -408,10 +451,10 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_bf16_ra<64, 1>(dv, pf[kk], smem_desc_mn(dos, TILE, 1024) + 128 * kk, 1);
+          wgmma_bf16_ra<HD, 1>(dv, pf[kk], L::desc_mn(dos) + L::MN_STEP * kk, 1);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_bf16_ra<64, 1>(dk, df[kk], smem_desc_mn(qs, TILE, 1024) + 128 * kk, 1);
+          wgmma_bf16_ra<HD, 1>(dk, df[kk], L::desc_mn(qs) + L::MN_STEP * kk, 1);
         wgmma_commit();
 
         // 4. dS^T into the warpgroup's buffer: row key, 64 queries of 128 B
@@ -435,13 +478,12 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
         // 5. the slot's dQ = dS K over its 64 keys (zeros past T: dS^T, K)
         named_sync(1 + wg, 128);  // the whole dS^T is written
-        float dq[32];
+        float dq[HD / 2];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_bf16<64, 1, 1>(dq, smem_desc_mn(dsreg, TILE, 1024) + 128 * kk,
-                               smem_desc_mn(kslot, TILE, 1024) + 128 * kk,
-                               kk > 0);
+          wgmma_bf16<HD, 1, 1>(dq, smem_desc_mn(dsreg, DS_TILE, 1024) + 128 * kk,
+                               L::desc_mn(kslot) + L::MN_STEP * kk, kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
         reg_fence(dq);
@@ -450,7 +492,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           // hand the slot's f32 dQ to warpgroup 0, in fragment order
           if (u > 0) named_sync(DQ_EMPTY, CTHREADS);
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < HD / 8; ++j)
             xbuf[j * 128 + c] = make_float4(dq[4 * j], dq[4 * j + 1],
                                             dq[4 * j + 2], dq[4 * j + 3]);
           named_arrive(DQ_FULL, CTHREADS);
@@ -460,7 +502,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                          qt * (2 * TILE / 16);
           named_sync(DQ_FULL, CTHREADS);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < HD / 8; ++j) {
             const float4 x = xbuf[j * 128 + c];
             dq[4 * j] += x.x;
             dq[4 * j + 1] += x.y;
@@ -470,7 +512,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (u + 1 < total_u) named_arrive(DQ_EMPTY, CTHREADS);
           if (kb > 0) {
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
+            for (int j = 0; j < HD / 8; ++j) {
               const float4 x = part[j * 128 + c];
               dq[4 * j] = x.x + dq[4 * j];
               dq[4 * j + 1] = x.y + dq[4 * j + 1];
@@ -481,13 +523,13 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           store_dq = kb + 1 == p.n_kb;
           if (!store_dq) {
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
+            for (int j = 0; j < HD / 8; ++j)
               part[j * 128 + c] = make_float4(dq[4 * j], dq[4 * j + 1],
                                               dq[4 * j + 2], dq[4 * j + 3]);
           }
         }
         if (store_dq) {  // by TMA, clipped at T (and at N)
-          stage_tile(out, r, t4, dq);
+          stage_tile<HD>(out, r, t4, dq);
           fence_proxy_async();
           named_sync(1 + wg, 128);
           if (leader) {
@@ -499,8 +541,8 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // dK and dV through the slot's K and V tiles, once every product of
       // the warpgroup that reads them is done; then K and V are free
       named_sync(1 + wg, 128);
-      stage_tile(kslot, r, t4, dk);
-      stage_tile(vslot, r, t4, dv);
+      stage_tile<HD>(kslot, r, t4, dk);
+      stage_tile<HD>(vslot, r, t4, dv);
       fence_proxy_async();
       named_sync(1 + wg, 128);
       if (leader) {
@@ -516,16 +558,16 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <bool PAIR>
+template <bool PAIR, int HD>
 int launch(const CUtensorMap (&maps)[8], const BwdArgs& p, int grid,
            cudaStream_t st) {
-  const int smem = bwd_smem_bytes(PAIR, p.n_kb, p.n_qt, p.stages);
+  const int smem = bwd_smem_bytes(PAIR, p.n_kb, p.n_qt, p.stages, HD);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   // per call: the attribute belongs to the current device
   cudaError_t err = cpg::allow_smem(
-      (const void*)flash_bwd_wgmma_kernel<PAIR>, smem);
+      (const void*)flash_bwd_wgmma_kernel<PAIR, HD>, smem);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_wgmma_kernel<PAIR><<<grid, THREADS, smem, st>>>(
+  flash_bwd_wgmma_kernel<PAIR, HD><<<grid, THREADS, smem, st>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7],
       p);
   return (int)cudaGetLastError();
@@ -535,8 +577,9 @@ int launch(const CUtensorMap (&maps)[8], const BwdArgs& p, int grid,
 
 extern "C" {
 
-// q, k, v, o, dout, dq, dk, dv (N, T, H, 64) bf16, contiguous, 16-byte
-// aligned; lse (N, H, T) f32; 1 <= T <= 256. stages and grid from
+// q, k, v, o, dout, dq, dk, dv (N, T, H, hd) bf16 with hd 32 or 64,
+// contiguous, 16-byte aligned; lse (N, H, T) f32; 1 <= T <= 256. stages
+// and grid from
 // ops/flash.py `bwd_plan` (the PAIR walk when T <= 64). Writes dq, dk, dv.
 // Returns cudaGetLastError() (cudaErrorInvalidValue on what it does not
 // take).
@@ -545,8 +588,8 @@ int flash_bwd_wgmma_bf16(const void* q, const void* k, const void* v,
                          void* dq, void* dk, void* dv, int n, int t, int h,
                          int hd, int causal, int stages, int grid,
                          void* stream) {
-  if (hd != HD || n <= 0 || h <= 0 || t <= 0 || t > MAX_T || stages < 2 ||
-      grid <= 0)
+  if ((hd != 32 && hd != 64) || n <= 0 || h <= 0 || t <= 0 || t > MAX_T ||
+      stages < 2 || grid <= 0)
     return (int)cudaErrorInvalidValue;
   const bool pair = t <= 64;
   BwdArgs p{};
@@ -560,15 +603,21 @@ int flash_bwd_wgmma_bf16(const void* q, const void* k, const void* v,
   p.n_qt = (t + 63) / 64;
   p.stages = stages;
   if (grid > p.items) return (int)cudaErrorInvalidValue;
-  const long long dims[4] = {HD, h, t, n};
-  const int box[4] = {64, 1, 64, 1};
+  const long long dims[4] = {hd, h, t, n};
+  const int box[4] = {hd, 1, 64, 1};
+  const CUtensorMapSwizzle swz = hd == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                          : CU_TENSOR_MAP_SWIZZLE_64B;
   CUtensorMap maps[8];
   const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
   for (int i = 0; i < 8; ++i)
-    if (!make_map_nd(&maps[i], ptrs[i], 4, dims, box))
+    if (!make_map_nd(&maps[i], ptrs[i], 4, dims, box, swz))
       return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return pair ? launch<true>(maps, p, grid, st) : launch<false>(maps, p, grid, st);
+  if (hd == 32)
+    return pair ? launch<true, 32>(maps, p, grid, st)
+                : launch<false, 32>(maps, p, grid, st);
+  return pair ? launch<true, 64>(maps, p, grid, st)
+              : launch<false, 64>(maps, p, grid, st);
 }
 
 }  // extern "C"

@@ -30,7 +30,15 @@
 // accumulate) with ldmatrix fragment loads and 16-byte loads of x (Cin a
 // multiple of 8) and of w/pm (Cout a multiple of 4, which the bf16 kernel
 // requires); f32 activations run exact f32 FMA with scalar loads.
-// Not yet done (later work): cp.async/TMA multi-stage rings and wgmma.
+// Which convs it still serves (ops/masked_conv.py picks the route before
+// the launch): every f32 conv; bf16 convs off the other routes, i.e. the
+// narrow widths (Cin or Cout not multiples of 64: VGG16-BN at width 0.125,
+// a model-axis slice of conv0 at 32 channels) and a Cin < 8 conv whose
+// Cout is no multiple of 64 (conv0 and the stems at widths under 1.0). The
+// bf16 Cin = 3 convs at width 1.0 (ResNet-50's and SphereNet-20's stems,
+// VGG16-BN's conv0) run masked_conv_stem.cu; bf16 convs with Cin and Cout
+// multiples of 64 run the select pass and a TMA + wgmma GEMM
+// (masked_matmul.cu). This kernel has no multi-stage ring and no wgmma.
 #include <type_traits>
 
 #include "common.cuh"

@@ -1,11 +1,13 @@
 // TMA, mbarrier and wgmma helpers shared by the port's Hopper GEMMs
 // (tma_gemm.cuh: the dense and conv TN GEMM of masked_matmul.cu and K5;
 // masked_matmul_wgrad.cu: the weight-gradient GEMM; fused_chain_fwd.cu:
-// K4). Device side: shared-memory addresses, mbarriers with a trapping
-// wait, the producer/consumer ring of stages, TMA loads and stores of
-// 2-4-D boxes (stores: 2-D and 4-D) and im2col-mode loads, named barriers, wgmma descriptors of 128-byte-swizzled
-// tiles (K-major and MN-major), the wgmma m64nNk16 bf16 instruction with
-// both transpose flags and its form with A from registers. Host side:
+// K4; masked_conv_stem.cu: K1 at Cin < 8; flash_bwd_wgmma.cu: K7's
+// backward). Device side: shared-memory addresses, mbarriers with a
+// trapping wait, the producer/consumer ring of stages, TMA loads and
+// stores of 2-4-D boxes (stores: 2-D and 4-D) and im2col-mode loads, named
+// barriers, wgmma descriptors of 128-byte- and 64-byte-swizzled tiles
+// (K-major and MN-major), the wgmma m64nNk16 bf16 instruction with both
+// transpose flags and its form with A from registers. Host side:
 // cuTensorMapEncodeTiled and cuTensorMapEncodeIm2col through the runtime's
 // entry-point query (no -lcuda), a tiled bf16 tensor map of any rank and
 // an im2col map of an NHWC tensor.
@@ -218,6 +220,25 @@ __device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
 }
 
+// The same two in the 64-byte swizzle (layout type 2), for tiles of 64-byte
+// rows (32 bf16: a head dim of 32): K-major, 8-row groups 512 B apart, a
+// step of 16 along K adds 32 B; MN-major, each 64-byte row holds 32
+// consecutive M (or N) elements at one k, atoms of 8 rows (512 B) `sbo`
+// apart along K and 32-element blocks `lbo` apart along M (or N), a step of
+// 16 along K adds 1,024 B. Tiles start on a 512-byte boundary.
+__device__ __forceinline__ uint64_t smem_desc_64b(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+__device__ __forceinline__ uint64_t smem_desc_mn_64b(uint32_t addr,
+                                                     uint32_t lbo,
+                                                     uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)2 << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -238,6 +259,22 @@ __device__ __forceinline__ void wgmma_wait() {
 // register.
 template <int N, int TA, int TB>
 struct Wgmma;
+
+template <int TA, int TB>
+struct Wgmma<32, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
 
 template <int TA, int TB>
 struct Wgmma<64, TA, TB> {
@@ -337,6 +374,24 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
 // the wgmma that reads them.
 template <int N, int TB>
 struct WgmmaRA;
+
+template <int TB>
+struct WgmmaRA<32, TB> {
+  static __device__ __forceinline__ void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+  }
+};
 
 template <int TB>
 struct WgmmaRA<64, TB> {
@@ -460,9 +515,10 @@ inline bool bind_context() {
 
 // a dense row-major bf16 tensor of `rank` dims (dims[0] innermost), in
 // boxes of box[0] x box[1] x ... in the 128-byte swizzle (box[0] * 2 B <=
-// 128 B)
+// 128 B), or in `swizzle` (the 64-byte one: box[0] * 2 B <= 64 B)
 inline bool make_map_nd(CUtensorMap* map, const void* ptr, int rank,
-                        const long long* dims, const int* box) {
+                        const long long* dims, const int* box,
+                        CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr || !bind_context()) return false;
   cuuint64_t d[5], strides[4];
@@ -477,7 +533,7 @@ inline bool make_map_nd(CUtensorMap* map, const void* ptr, int rank,
   }
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
             const_cast<void*>(ptr), d, strides, b, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

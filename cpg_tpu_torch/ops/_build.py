@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
-KERNELS = ("masked_conv_fwd", "masked_conv_bwd_dx", "masked_conv_bwd_dw",
+KERNELS = ("masked_conv_fwd", "masked_conv_stem", "masked_conv_bwd_dx",
+           "masked_conv_bwd_dw",
            "fused_chain_fwd", "fused_chain_bwd_dx", "fused_chain_bwd_dw",
            "flash_fwd", "flash_bwd", "flash_bwd_wgmma", "masked_matmul",
            "masked_matmul_wgrad")

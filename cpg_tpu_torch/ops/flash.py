@@ -16,12 +16,13 @@ and no padding copy: keys >= T are masked inside the kernel):
   * `csrc/flash_fwd.cu` (K7 forward): online softmax over 64-key tiles,
     writes o and lse; in bf16 a persistent grid (`fwd_grid`) whose blocks
     load the next tiles under the current ones' products;
-  * `csrc/flash_bwd_wgmma.cu` (K7 backward on `bwd_route`: bf16, hd 64,
-    T <= 256): `flash_bwd`, one TMA + wgmma launch that forms S and dP once
-    a tile, D inside, and writes dq, dk and dv, dq summed over 128-key
-    blocks in their order (`bwd_plan`: the walk, ring and persistent grid);
-  * `csrc/flash_bwd.cu` (K7 backward off that route: f32, other head dims,
-    T > 256): `flash_bwd_dq` (one block per 64-row query tile, looping over
+  * `csrc/flash_bwd_wgmma.cu` (K7 backward on `bwd_route`: bf16, hd 32 or
+    64, T <= 256): `flash_bwd`, one TMA + wgmma launch that forms S and dP
+    once a tile, D inside, and writes dq, dk and dv, dq summed over
+    128-key blocks in their order (`bwd_plan`: the walk, ring and
+    persistent grid);
+  * `csrc/flash_bwd.cu` (K7 backward off that route: f32, head dims 16
+    and 128, T > 256): `flash_bwd_dq` (one block per 64-row query tile, looping over
     key tiles; it also writes D = rowsum(dO * o), which the second kernel
     reads) and `flash_bwd_dkv` (one block per 64-key tile, looping over
     query tiles).
@@ -213,31 +214,35 @@ def fwd_grid(n: int, t: int, h: int, hd: int, sms: int):
 # SM. T <= 64: the PAIR walk, an item is two (image, head)s, one a
 # warpgroup; else the BLOCK walk, an item is one (image, head) whose keys
 # are walked in 128-key blocks, each over every 64-query tile. Shared
-# memory: `bwd_smem_bytes`, the CUDA function of the same name. The ring
-# holds BWD_STAGES query tiles: scripts/torch_flash_bwd_plans.py found no
-# deeper ring faster at vit_cifar, vit_b16 or the causal T = 70 (deeper
-# rings fit only at T <= 128).
-_BWD_HD, _BWD_MAX_T, BWD_STAGES = 64, 256, 2
-_TILE = 64 * 128  # bytes of one 64-row bf16 tile of hd 64
+# memory: `bwd_smem_bytes`, the CUDA function of the same name, its tiles
+# 64 rows of the head dim (hd 64: 128-byte rows; hd 32: 64-byte rows). The
+# ring holds BWD_STAGES query tiles: scripts/torch_flash_bwd_plans.py
+# found no deeper ring faster at vit_cifar, vit_b16 or the causal T = 70
+# (deeper rings fit only at T <= 128).
+BWD_HDS, _BWD_MAX_T, BWD_STAGES = (32, 64), 256, 2
+_DS_TILE = 64 * 128  # bytes of the 64 x 64 bf16 dS^T tile
 
 
 def bwd_route(q) -> bool:
     """Whether `flash_bwd` (the one-launch kernel) takes q's backward:
-    bf16, hd 64, T <= 256 (vit_cifar's 64, vit_b16's 196), causal or not.
-    Everything else runs `flash_bwd_dq` + `flash_bwd_dkv`."""
-    return (q.dtype == torch.bfloat16 and q.shape[-1] == _BWD_HD
+    bf16, hd 32 or 64, T <= 256 (vit_cifar's 64 and vit_b16's 196 at hd
+    64, textcls's 64 at hd 32), causal or not. Everything else (f32, other
+    head dims, longer T) runs `flash_bwd_dq` + `flash_bwd_dkv`."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in BWD_HDS
             and q.shape[1] <= _BWD_MAX_T)
 
 
-def bwd_smem_bytes(pair: bool, n_kb: int, n_qt: int, stages: int) -> int:
-    """Dynamic shared memory of the one-launch backward: alignment slack,
-    K/V x 2, the ring, each warpgroup's dS^T, the dq staging tiles, BLOCK's
-    f32 dQ hand-over and first-key-block dQ tiles (two key blocks), lse
-    and D, the mbarriers."""
-    stage = (2 if pair else 1) * 3 * _TILE
-    part = n_qt * 2 * _TILE if n_kb > 1 else 0
-    return (1024 + 8 * _TILE + stages * stage + 2 * _TILE
-            + (2 if pair else 1) * _TILE + (0 if pair else 2 * _TILE) + part
+def bwd_smem_bytes(pair: bool, n_kb: int, n_qt: int, stages: int,
+                   hd: int = 64) -> int:
+    """Dynamic shared memory of the one-launch backward at head dim hd:
+    alignment slack, K/V x 2, the ring, each warpgroup's dS^T, the dq
+    staging tiles, BLOCK's f32 dQ hand-over and first-key-block dQ tiles
+    (two key blocks), lse and D, the mbarriers."""
+    tile = 64 * 2 * hd  # one 64-row bf16 tile of the head dim
+    stage = (2 if pair else 1) * 3 * tile
+    part = n_qt * 2 * tile if n_kb > 1 else 0
+    return (1024 + 8 * tile + stages * stage + 2 * _DS_TILE
+            + (2 if pair else 1) * tile + (0 if pair else 2 * tile) + part
             + 2 * _BWD_MAX_T * 4 + 2 * 2 * 64 * 4 + 16 * stages + 32)
 
 
@@ -256,7 +261,7 @@ def bwd_plan(n: int, t: int, h: int, hd: int, sms: int) -> BwdPlan:
     """The one-launch backward's walk and persistent grid on a card with
     `sms` SMs (at most one block an SM, cut so that every block takes the
     same number of items, the last ones fewer)."""
-    if hd != _BWD_HD or not 1 <= t <= _BWD_MAX_T:
+    if hd not in BWD_HDS or not 1 <= t <= _BWD_MAX_T:
         raise ValueError(f"flash_bwd: no plan for T = {t}, hd = {hd}")
     pair = t <= 64
     n_qt = -(-t // 64)
@@ -264,7 +269,7 @@ def bwd_plan(n: int, t: int, h: int, hd: int, sms: int) -> BwdPlan:
     items = -(-(n * h) // 2) if pair else n * h
     per = -(-items // sms)
     return BwdPlan(pair, n_kb, n_qt, items, BWD_STAGES, -(-items // per),
-                   bwd_smem_bytes(pair, n_kb, n_qt, BWD_STAGES))
+                   bwd_smem_bytes(pair, n_kb, n_qt, BWD_STAGES, hd))
 
 
 @functools.lru_cache(maxsize=None)
@@ -386,7 +391,7 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool = False):
     if not bwd_route(q):
         raise ValueError(f"flash_bwd: off its route ({q.dtype}, T = "
                          f"{q.shape[1]}, hd = {q.shape[-1]}): needs bf16, "
-                         f"hd {_BWD_HD}, T <= {_BWD_MAX_T}")
+                         f"hd in {BWD_HDS}, T <= {_BWD_MAX_T}")
     t = _checked(q=q, k=k, v=v, o=o, do=do)
     lse = _checked_lse(q, lse)
     n, tt, h, hd = q.shape

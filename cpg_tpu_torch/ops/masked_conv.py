@@ -34,9 +34,18 @@ backward), then one TMA + wgmma GEMM over it:
   2, any grid: ResNet-50's stride-2 convs, SphereNet-20's units and
   downs): the GEMM over TMA im2col loads, dx at stride 2 in four parity
   phases (`masked_matmul.launch_conv_im2col`);
-* otherwise (the stems and conv0, Cin = 3; narrow widths; f32):
+* otherwise (narrow widths; f32; dx of the Cin = 3 convs):
   `csrc/masked_conv_fwd.cu` (K1) and `csrc/masked_conv_bwd_dx.cu` (K2),
   the select in the (transposed) weight-tile load.
+
+y of a bf16 conv with Cin < 8 (ResNet-50's and SphereNet-20's stems and
+VGG16-BN's conv0 at width 1.0, all Cin = 3) takes K1's stem route before
+those four when `stem_route` holds: `csrc/masked_conv_stem.cu`, persistent
+blocks over 128-pixel tiles whose input rows arrive as one or two bulk
+async copies (`stem_spans`, `stem_plan`), the patches built in registers
+from them and the weight selected once a block, wgmma, no select pass
+(counted in `LAUNCHES_STEM`). Their dx, which only a caller whose x needs
+a gradient asks for, stays on K2.
 
 dw and dpm (K3) take one of five routes, chosen by `wgrad_conv_route` (the
 same shape predicate as y and dx, then the patches) before any launch. The
@@ -66,6 +75,9 @@ On CPU tensors the plain versions `masked_conv2d_plain` and
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -81,6 +93,7 @@ LAUNCHES_BWD_DX = 0   # K2
 LAUNCHES_BWD_DW = 0   # K3
 LAUNCHES_SELECT = 0   # the select pass before the GEMM route's y and dx
 LAUNCHES_IM2COL = 0   # the patches before K3 on the "patches" route
+LAUNCHES_STEM = 0     # K1 on the stem route (`stem_route`)
 
 _MODES = ("binary", "ternary")
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -160,9 +173,12 @@ class _MaskedConv2d(torch.autograd.Function):
         if x.device.type == "cpu":
             return masked_conv2d_plain(x, w, own, pm, task_id, stride,
                                        padding, threshold, mask_mode)
-        global LAUNCHES
-        route = fwd_dx_route(x, w, stride, padding)
-        if route:
+        global LAUNCHES, LAUNCHES_STEM
+        if stem_route(x, w, stride, padding):
+            y = launch_stem(x, w, own, pm, task_id, stride, padding,
+                            threshold, mask_mode)
+            LAUNCHES_STEM += 1
+        elif route := fwd_dx_route(x, w, stride, padding):
             y = _select_then_gemm(x, x, w, own, pm, task_id, stride, padding,
                                   threshold, mask_mode, False, route)
         else:
@@ -344,6 +360,106 @@ def wgrad_conv_route(x, w, stride, padding):
     return route
 
 
+# ------------------------------------------------------------ stem route ----
+# csrc/masked_conv_stem.cu: 128-pixel output tiles; a k16 step is 16
+# patch columns; at most 160 columns (ResNet-50's 7x7x3 = 147) and 256
+# output channels resident; two blocks an SM (its launch bound).
+STEM_BM, STEM_MAX_K, STEM_MAX_COUT, STEM_BLOCKS_PER_SM = 128, 160, 256, 2
+_SMEM_PER_BLOCK, _SMEM_PER_SM = 232448, 233472
+
+
+def stem_spans(m0: int, n: int, h: int, ho: int, wo: int, kh: int,
+               stride: int, pad_top: int):
+    """The input rows the output tile of pixels m0 .. m0 + 127 (clipped at
+    n * ho * wo) reads, as the kernel loads them: ((image, first row,
+    rows), None) or, for a tile that runs into the next image, a second
+    span (next image, 0, rows) of that image's first rows. Each span is a
+    contiguous run of whole NHWC rows."""
+    hwo = ho * wo
+    m1 = min(m0 + STEM_BM, n * hwo) - 1
+    img_a, img_b = m0 // hwo, m1 // hwo
+    r0, r1 = (m0 % hwo) // wo, (m1 % hwo) // wo
+    last_a = r1 if img_b == img_a else ho - 1
+    lo = max(0, r0 * stride - pad_top)
+    span_a = (img_a, lo, min(h - 1, last_a * stride - pad_top + kh - 1) - lo
+              + 1)
+    if img_b == img_a:
+        return span_a, None
+    return span_a, (img_b, 0, min(h - 1, r1 * stride - pad_top + kh - 1) + 1)
+
+
+def stem_smem_bytes(kp: int, cout: int, halo_bytes: int) -> int:
+    """Dynamic shared memory of one stem block, as `stem_smem_bytes` in
+    csrc/masked_conv_stem.cu lays it out: 1 KB of alignment slack, the
+    selected weight (kp rows x 128 B a 64-channel block), the 128 x 64
+    output staging tile, two halo buffers, the k table, two mbarriers."""
+    return (1024 + (cout // 64) * kp * 128 + STEM_BM * 128 + 2 * halo_bytes
+            + kp * 8 + 16)
+
+
+class StemPlan(NamedTuple):
+    kp: int          # patch columns, K rounded up to 16
+    tiles: int       # 128-pixel output tiles
+    halo_rows: int   # the most input rows a tile reads (both spans)
+    halo_bytes: int  # one halo buffer: halo_rows rows, rounded up to 128 B
+    smem: int
+    grid: int        # persistent blocks, each taking every grid-th tile
+
+
+@functools.lru_cache(maxsize=None)
+def stem_plan(n: int, h: int, w: int, cin: int, cout: int, kh: int,
+              kw: int, stride: int, pads, sms: int) -> StemPlan:
+    """The stem kernel's launch at an (n, h, w, cin) input: the halo
+    buffer holds the most rows any tile's spans read (tile starts repeat
+    every ho * wo / gcd(128, ho * wo) tiles, so that many and the last
+    one are checked), and the grid is at most STEM_BLOCKS_PER_SM blocks an
+    SM (fewer where shared memory holds fewer)."""
+    pt, pb, pl, pr = pads
+    ho, wo = out_size(h, kh, stride, pt, pb), out_size(w, kw, stride, pl, pr)
+    k = kh * kw * cin
+    tiles = -(-n * ho * wo // STEM_BM)
+    period = ho * wo // math.gcd(STEM_BM, ho * wo)
+    rows = 0
+    for t in [*range(min(tiles, period)), tiles - 1]:
+        a, b = stem_spans(t * STEM_BM, n, h, ho, wo, kh, stride, pt)
+        rows = max(rows, a[2] + (b[2] if b else 0))
+    halo = -(-rows * w * cin * 2 // 128) * 128
+    kp = -(-k // 16) * 16
+    smem = stem_smem_bytes(kp, cout, halo)
+    per_sm = max(1, min(STEM_BLOCKS_PER_SM, _SMEM_PER_SM // (smem + 1024)))
+    return StemPlan(kp, tiles, rows, halo, smem, min(tiles, per_sm * sms))
+
+
+def stem_route(x, w, stride, padding) -> bool:
+    """Whether a conv's y takes the stem kernel on the card: bf16 NHWC x
+    and HWIO w with Cin < 8, kh*kw*Cin <= 160 (its patches fit the
+    kernel's ten k16 steps), Cout a multiple of 64 up to 256, W * Cin * 2
+    a multiple of 16 (a row of x is whole 16-byte chunks: the bulk copies'
+    unit), every pad within 0 .. k - 1, Ho * Wo >= 128 (a tile touches at
+    most two images), x and w 16-byte aligned, and `stem_plan`'s shared
+    memory within the card's 232,448 B. ResNet-50's 7x7/2 stem, SphereNet-
+    20's 3x3/2 stem and VGG16-BN's conv0 at width 1.0 take it; f32 and
+    narrower convs stay on K1. Decided from shapes alone: the launch
+    raises on what it cannot take, and nothing falls back."""
+    if x.dtype != torch.bfloat16 or x.dim() != 4 or w.dim() != 4:
+        return False
+    kh, kw, cin, cout = w.shape
+    n, h, wd, c = x.shape
+    if (c != cin or cin >= 8 or kh * kw * cin > STEM_MAX_K or cout % 64
+            or cout > STEM_MAX_COUT or (wd * cin * 2) % 16 or stride < 1
+            or x.data_ptr() % 16 or w.data_ptr() % 16):
+        return False
+    pads = resolve_padding(padding, h, wd, kh, kw, stride)
+    if any(p < 0 for p in pads) or max(pads[:2]) >= kh or max(pads[2:]) >= kw:
+        return False
+    ho = out_size(h, kh, stride, pads[0], pads[1])
+    wo = out_size(wd, kw, stride, pads[2], pads[3])
+    if n < 1 or ho < 1 or wo < 1 or ho * wo < STEM_BM:
+        return False
+    return stem_plan(n, h, wd, cin, cout, kh, kw, stride, pads,
+                     1).smem <= _SMEM_PER_BLOCK
+
+
 def _im2col_then_wgrad(g, x, w, own, task_id, stride, padding):
     """The "patches" route: the patches (N*Ho*Wo, K rounded up to 8) by
     the im2col kernel, then the dense wgrad GEMM over them against g viewed
@@ -415,6 +531,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ints and the task id, the rest, the stream
 _ARGTYPES = {
     "masked_conv_fwd": [_P] * 5 + [_I] * 13 + [_F, _I, _P],
+    # + kp, halo bytes and the grid of `stem_plan`
+    "masked_conv_stem": [_P] * 5 + [_I] * 13 + [_F, _I] + [_I] * 3 + [_P],
     "masked_conv_bwd_dx": [_P] * 5 + [_I] * 13 + [_F, _I, _P],
     "masked_conv_bwd_dw": [_P] * 7 + [_I] * 13 + [_I, _P],
 }
@@ -490,6 +608,32 @@ def launch_fwd(x, w, own, pm, task_id, stride, padding, threshold,
         y.data_ptr(), *geo, task_id, float(threshold),
         int(mask_mode == "ternary"))
     _raise_on(err, "masked_conv_fwd")
+    return y
+
+
+def launch_stem(x, w, own, pm, task_id, stride, padding, threshold,
+                mask_mode):
+    """K1 on the stem route: y = conv(x, w_eff) by csrc/masked_conv_stem.cu
+    (`stem_plan`'s halo and grid); raises off `stem_route`."""
+    from . import masked_matmul as mm  # imports this module: not at the top
+
+    _check(pm.dtype == torch.float32 and pm.shape == w.shape,
+           "pm must be float32 with w's shape")
+    geo = _geometry(x, w, own, stride, padding,
+                    {"x": x, "w": w, "own": own, "pm": pm})
+    _check(stem_route(x, w, stride, padding),
+           f"x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}, stride "
+           f"{stride} are off the stem route")
+    n, h, wd, cin, ho, wo, cout, kh, kw = geo[:9]
+    pads = resolve_padding(padding, h, wd, kh, kw, stride)
+    plan = stem_plan(n, h, wd, cin, cout, kh, kw, stride, pads,
+                     mm._sms(x.device.index))
+    y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
+    err = _build.launch(_fn("masked_conv_stem", x.dtype), x,
+        x.data_ptr(), w.data_ptr(), own.data_ptr(), pm.data_ptr(),
+        y.data_ptr(), *geo, task_id, float(threshold),
+        int(mask_mode == "ternary"), plan.kp, plan.halo_bytes, plan.grid)
+    _raise_on(err, "masked_conv_stem")
     return y
 
 

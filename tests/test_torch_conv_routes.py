@@ -336,6 +336,32 @@ def test_vgg16_routes_are_unchanged(layer, mult):
     assert _route(hw, 3, 1, "SAME", cin, cout) == want
 
 
+# every model's first conv (Cin = 3): (name, input (H, W), k, stride,
+# padding, Cout at width 1.0)
+FIRST_CONVS = [("resnet50_stem", (224, 224), 7, 2, ((3, 3), (3, 3)), 64),
+               ("spherenet20_stem", (112, 96), 3, 2, 1, 64),
+               ("vgg16_conv0", (32, 32), 3, 1, "SAME", 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("mult", [1.0, 0.5, 0.125])
+@pytest.mark.parametrize("conv", FIRST_CONVS, ids=[c[0] for c in FIRST_CONVS])
+def test_first_conv_of_every_model_takes_the_stem_route(conv, mult, dtype):
+    """y of ResNet-50's and SphereNet-20's stems and VGG16-BN's conv0 takes
+    the stem kernel in bf16 at width 1.0; f32 and the narrower widths
+    (Cout 32, 8) stay on the earlier K1. `fwd_dx_route` stays None at all
+    of them (dx, when asked for, is K2's; K3 the patches')."""
+    name, (h, w), k, stride, pad, cout = conv
+    x = torch.zeros((2, h, w, 3), dtype=dtype)
+    wt = torch.zeros((k, k, 3, int(cout * mult)))
+    assert mc.stem_route(x, wt, stride, pad) == (
+        dtype == torch.bfloat16 and mult == 1.0)
+    assert mc.fwd_dx_route(x, wt, stride, pad) is None
+    assert mc.wgrad_conv_route(x, wt, stride, pad) == (
+        "patches" if dtype == torch.bfloat16 else None)
+
+
 def _seam_routes(hw, cin, cout, dtype=torch.bfloat16):
     """(K4's route, K5's route) at a fused seam: x (1, hw, hw, Cin), the
     (3, 3, Cin, Cout) weight in the dot dtype."""

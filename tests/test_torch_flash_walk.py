@@ -1,10 +1,12 @@
 """K7's one-launch backward, replayed in plain PyTorch on the CPU.
 
-On the card, `flash_bwd` on `bwd_route` shapes (bf16, hd 64, T <= 256) runs
+On the card, `flash_bwd` on `bwd_route` shapes (bf16, hd 32 or 64, T <=
+256) runs
 `csrc/flash_bwd_wgmma.cu`: a consumer warpgroup owns a slot of 64 keys and
 walks the 64-query tiles in order, each tile a TMA box with zeros past T.
 For each tile it forms D = rowsum(dO o), S^T = K Q^T and dP^T = V dO^T,
-then P^T = exp(S^T / 8 - lse) and dS^T = P^T (dP^T - D) / 8 with masked
+then P^T = exp(S^T / sqrt(hd) - lse) and dS^T = P^T (dP^T - D) / sqrt(hd)
+with masked
 entries (keys or queries past T, keys after the query when causal) zero,
 rounds P^T and dS^T to dO's dtype, adds P^T dO to dV and dS^T Q to dK, and
 forms its slot's part of the tile's dQ = dS K (a slot past T is TMA's
@@ -38,10 +40,10 @@ TOL = 1e-5
 SMS = 7  # a small card: several items a block
 
 
-def _inputs(n, t, h, seed, dtype=torch.float32):
-    """q, k, v, dO (N, T, H, 64): bf16 values, held in `dtype`."""
+def _inputs(n, t, h, seed, dtype=torch.float32, hd=64):
+    """q, k, v, dO (N, T, H, hd): bf16 values, held in `dtype`."""
     rng = np.random.RandomState(seed)
-    return [torch.from_numpy(rng.randn(n, t, h, 64).astype(np.float32))
+    return [torch.from_numpy(rng.randn(n, t, h, hd).astype(np.float32))
             .to(torch.bfloat16).to(dtype) for _ in range(4)]
 
 
@@ -122,12 +124,11 @@ WALK_CASES = [(3, 64, 3, False), (2, 70, 2, True), (2, 70, 2, False),
               (1, 130, 2, True), (1, 196, 2, False)]
 
 
-@pytest.mark.parametrize("case", WALK_CASES)
-def test_walk_matches_plain_and_jax(case):
+def _check_walk(n, t, h, causal, hd):
     """The replay against flash_mha_bwd_plain (same o, lse) and against
     cpg_tpu's flash_mha VJP (its own forward), f32, rtol = atol = 1e-5."""
-    n, t, h, causal = case
-    q, k, v, do = _inputs(n, t, h, seed=t)
+    q, k, v, do = _inputs(n, t, h, seed=t, hd=hd)
+    assert fl.bwd_route(q.bfloat16())
     o, lse = fl.flash_mha_plain(q, k, v, causal)
     got = _replay(q, k, v, o, lse, do, causal)
     for g, w, name in zip(got, fl.flash_mha_bwd_plain(q, k, v, o, lse, do,
@@ -146,12 +147,28 @@ def test_walk_matches_plain_and_jax(case):
                                    atol=TOL, err_msg=f"d{name} vs cpg_tpu")
 
 
-@pytest.mark.parametrize("case", [(5, 64, 3, False), (2, 196, 2, True)])
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_walk_matches_plain_and_jax(case):
+    """hd 64: vit_cifar's T = 64, the causal T = 70, one and two key
+    blocks."""
+    _check_walk(*case, hd=64)
+
+
+@pytest.mark.parametrize("case", [(3, 64, 3, True), (2, 70, 2, True),
+                                  (2, 70, 2, False), (1, 130, 2, True)])
+def test_walk_at_hd_32_matches_plain_and_jax(case):
+    """hd 32 (textcls's head dim): its causal T = 64 (the PAIR walk), T =
+    70 and two key blocks at T = 130; the scale 1/sqrt(32)."""
+    _check_walk(*case, hd=32)
+
+
+@pytest.mark.parametrize("case", [(5, 64, 3, False, 64), (2, 196, 2, True, 64),
+                                  (5, 64, 3, True, 32)])
 def test_walk_in_bf16_matches_plain(case):
     """With bf16 inputs the replay rounds P^T and dS^T where the kernel
     does; against flash_mha_bwd_plain at max|diff| <= 2e-2 * max|ref|."""
-    n, t, h, causal = case
-    q, k, v, do = _inputs(n, t, h, seed=t + 1, dtype=torch.bfloat16)
+    n, t, h, causal, hd = case
+    q, k, v, do = _inputs(n, t, h, seed=t + 1, dtype=torch.bfloat16, hd=hd)
     o, lse = fl.flash_mha_plain(q, k, v, causal)
     got = _replay(q, k, v, o, lse, do, causal)
     for g, w in zip(got, fl.flash_mha_bwd_plain(q, k, v, o, lse, do, causal)):

@@ -493,14 +493,81 @@ def test_conv_off_the_route_takes_k1_and_k2(cuda, case):
     g = torch.from_numpy(np.random.RandomState(6).randn(
         n, hw, hw, cout).astype(np.float32)).to(cuda, dtype)
     assert not mc.conv_route(x, wt, 1, "SAME")
-    before = (mc.LAUNCHES, mc.LAUNCHES_BWD_DX, mc.LAUNCHES_SELECT)
+    stem = mc.stem_route(x, wt, 1, "SAME")  # bf16 conv0's y: the stem route
+    assert stem == (cin == 3 and dtype == torch.bfloat16)
+    before = (mc.LAUNCHES, mc.LAUNCHES_BWD_DX, mc.LAUNCHES_SELECT,
+              mc.LAUNCHES_STEM)
     y = mc.masked_conv2d(x, wt, own, pm, 2)
     dx = mc.masked_conv2d_bwd_dx(g, x, wt, own, pm, 2)
     torch.cuda.synchronize()
-    assert (mc.LAUNCHES, mc.LAUNCHES_BWD_DX, mc.LAUNCHES_SELECT) == (
-        before[0] + 1, before[1] + 1, before[2])
+    assert (mc.LAUNCHES, mc.LAUNCHES_BWD_DX, mc.LAUNCHES_SELECT,
+            mc.LAUNCHES_STEM) == (before[0] + 1, before[1] + 1, before[2],
+                                  before[3] + int(stem))
     _check(y, mc.masked_conv2d_plain(x, wt, own, pm, 2), dtype)
     _check(dx, mc.masked_conv2d_bwd_dx_plain(g, x, wt, own, pm, 2), dtype)
+
+
+# (name, n, H, W, k, stride, padding): the three Cin = 3 convs at a cut
+# batch (ResNet-50's 7x7/2 stem, SphereNet-20's 3x3/2 stem at 112x96,
+# VGG16-BN's conv0), then grids whose tiles start mid-row and cross images
+STEM_GPU_CASES = [
+    ("resnet50_stem", 2, 224, 224, 7, 2, ((3, 3), (3, 3))),
+    ("spherenet20_stem", 4, 112, 96, 3, 2, 1),
+    ("vgg16_conv0", 8, 32, 32, 3, 1, "SAME"),
+    ("cross_7x7s2", 3, 24, 24, 7, 2, 3),
+    ("cross_3x3s1", 5, 12, 16, 3, 1, "SAME"),
+]
+
+
+@pytest.mark.parametrize("mode", ["binary", "ternary"])
+@pytest.mark.parametrize("case", STEM_GPU_CASES, ids=[c[0] for c in STEM_GPU_CASES])
+def test_stem_route_matches_plain(cuda, case, mode):
+    """K1 on the stem route (csrc/masked_conv_stem.cu) against
+    masked_conv2d_plain at max|diff| <= 2e-2 * max|ref| (the weight
+    rounded to bf16); one launch on its own counter and no select pass;
+    two launches give the same bits, also after the caching allocator's
+    free blocks were filled with NaN."""
+    name, n, h, w, k, stride, pad = case
+    x, wt, own, pm = _conv_case(n, h, w, 3, 64, k, cuda, torch.bfloat16,
+                                seed=9)
+    assert mc.stem_route(x, wt, stride, pad)
+    before = (mc.LAUNCHES, mc.LAUNCHES_STEM, mc.LAUNCHES_SELECT)
+    got = mc.masked_conv2d(x, wt, own, pm, 2, stride=stride, padding=pad,
+                           mask_mode=mode)
+    torch.cuda.synchronize()
+    assert (mc.LAUNCHES, mc.LAUNCHES_STEM, mc.LAUNCHES_SELECT) == (
+        before[0] + 1, before[1] + 1, before[2])
+    _check(got, mc.masked_conv2d_plain(x, wt, own, pm, 2, stride, pad,
+                                       mask_mode=mode), torch.bfloat16)
+    junk = torch.full((got.numel() * 2,), float("nan"), device=cuda)
+    del junk
+    again = mc.masked_conv2d(x, wt, own, pm, 2, stride=stride, padding=pad,
+                             mask_mode=mode)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("case", STEM_GPU_CASES, ids=[c[0] for c in STEM_GPU_CASES])
+def test_stem_route_of_small_integers_is_exact(cuda, case):
+    """Small integers in x and w (task 2 owning every entry): every product
+    and sum is exact in f32, and both sides round the same sum to bf16, so
+    the kernel equals the plain version bit for bit; any patch column, halo
+    row or weight row out of place shows."""
+    name, n, h, w, k, stride, pad = case
+    g = torch.Generator().manual_seed(11)
+    x = torch.randint(-2, 3, (n, h, w, 3), generator=g).to(cuda, torch.bfloat16)
+    wt = torch.randint(-2, 3, (k, k, 3, 128), generator=g).float().to(cuda)
+    own = torch.full(wt.shape, 2, dtype=torch.int8, device=cuda)
+    pm = torch.zeros_like(wt)
+    got = mc.masked_conv2d(x, wt, own, pm, 2, stride=stride, padding=pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mc.masked_conv2d_plain(x, wt, own, pm, 2, stride,
+                                                   pad))
+
+
+def test_stem_launch_refuses_off_the_route(cuda):
+    x, wt, own, pm = _conv_case(2, 32, 32, 3, 32, 3, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="off the stem route"):
+        mc.launch_stem(x, wt, own, pm, 2, 1, "SAME", 5e-3, "binary")
 
 
 @pytest.mark.parametrize("mode", ["binary", "ternary"])
@@ -684,6 +751,13 @@ FLASH_BWD_CASES = [(8, 64, 4, 64, False), (2, 196, 12, 64, False),
     for n, t, h in [(3, 1, 3), (3, 63, 3), (5, 64, 3), (2, 65, 3),
                     (2, 127, 2), (2, 128, 3), (2, 129, 2), (1, 196, 3),
                     (2, 255, 2), (2, 256, 3)]
+    for causal in (False, True)] + [
+    # hd 32 (64-byte rows): textcls's causal shape, then the same edges
+    (256, 64, 4, 32, True)] + [
+    (n, t, h, 32, causal)
+    for n, t, h in [(3, 1, 3), (3, 63, 3), (5, 64, 3), (2, 65, 3),
+                    (2, 70, 2), (2, 128, 3), (2, 129, 2), (1, 196, 3),
+                    (2, 256, 3)]
     for causal in (False, True)]
 
 
@@ -719,8 +793,8 @@ def test_flash_bwd_matches_plain(cuda, case):
 @pytest.mark.parametrize("case", [
     # (n, t, h, hd, dtype): T past the route, f32, head dims it does not take
     (2, 320, 2, 64, "bfloat16"), (2, 70, 2, 64, "float32"),
-    (3, 5, 2, 32, "bfloat16"), (1, 40, 2, 128, "bfloat16"),
-    (256, 64, 4, 32, "bfloat16")])  # textcls
+    (3, 5, 2, 16, "bfloat16"), (1, 40, 2, 128, "bfloat16"),
+    (8, 64, 4, 32, "float32")])  # textcls's shape in f32
 def test_flash_backward_off_the_route_takes_the_pair(cuda, case):
     """Through flash_mha's autograd, a shape off `bwd_route` launches
     flash_bwd_dq and flash_bwd_dkv once each and not the one-launch kernel,
@@ -902,14 +976,15 @@ def test_dense_kernels_refuse_unsupported(cuda):
 
 
 @pytest.mark.parametrize("flash_dtype,hd", [("float32", 32),
-                                             ("bfloat16", 64)])
+                                             ("bfloat16", 64),
+                                             ("bfloat16", 32)])
 def test_autograd_reaches_q_k_v_w_and_pm_through_dense_and_flash(
         cuda, flash_dtype, hd):
     """loss.backward() through masked_matmul and flash_mha on the card
     gives x, w, pm (and through them q, k, v) their gradients, equal to the
     plain path's on the CPU; dx is skipped when x needs no gradient. In f32
     at hd 32 flash's backward is the dQ + dK/dV pair (rtol/atol 1e-4); with
-    q, k, v cast to bf16 at hd 64 it is the one-launch kernel on
+    q, k, v cast to bf16 at hd 64 or 32 it is the one-launch kernel on
     `bwd_route` (max|diff| <= 2e-2 * max|ref|: the two sides round p and ds
     to bf16 in different tiles)."""
     rng = np.random.RandomState(8)
@@ -955,6 +1030,52 @@ def test_autograd_reaches_q_k_v_w_and_pm_through_dense_and_flash(
                      torch.tensor(pms[0], device=cuda), 2).sum().backward()
     torch.cuda.synchronize()
     assert mm.LAUNCHES_BWD_DX == before and x.grad is None
+
+
+def _dense_flash_grads(dev, hd, dtype):
+    """The gradients of x, w and pm through three masked_matmul products
+    (q, k, v) and causal flash_mha, as the autograd test above draws them."""
+    rng = np.random.RandomState(8)
+    n, t, h = 2, 70, 2
+    x0 = rng.randn(n * t, 48).astype(np.float32)
+    ws = [(rng.randn(48, h * hd) * 0.2).astype(np.float32) for _ in range(3)]
+    own = rng.choice([0, 1, 2], size=(48, h * hd)).astype(np.int8)
+    pms = [(rng.randn(48, h * hd) * 0.01 + 0.005).astype(np.float32)
+           for _ in range(3)]
+    gout = rng.randn(n, t, h, hd).astype(np.float32)
+    leaves = [torch.tensor(a, device=dev, requires_grad=True)
+              for a in (x0, *ws, *pms)]
+    town = torch.from_numpy(own).to(dev)
+    q, k, v = (mm.masked_matmul(leaves[0], leaves[1 + i], town, leaves[4 + i],
+                                2).reshape(n, t, h, hd).to(dtype)
+               for i in range(3))
+    out = fl.flash_mha(q, k, v, causal=True)
+    (out.float() * torch.from_numpy(gout).to(dev)).sum().backward()
+    return [a.grad.detach().clone() for a in leaves]
+
+
+def test_dense_and_flash_f32_gradients_repeat_bit_for_bit(cuda):
+    """The f32 hd-32 path of the autograd test (K1-K3 at 1x1 in f32, K7's
+    f32 forward and dQ + dK/dV pair) run four times, the caching
+    allocator's free blocks filled with NaN before each run: every run's
+    gradients finite and bit-equal to the first's, and within rtol/atol
+    1e-4 of the CPU's. A kernel that read memory it never wrote, or raced
+    on shared memory, would differ here."""
+    want = _dense_flash_grads("cpu", 32, torch.float32)
+    first = None
+    for _ in range(4):
+        junk = [torch.full((1 << k,), float("nan"), device=cuda)
+                for k in range(8, 24) for _ in range(2)]
+        torch.cuda.synchronize()
+        del junk
+        got = [g.cpu() for g in _dense_flash_grads(cuda, 32, torch.float32)]
+        assert all(bool(torch.isfinite(g).all()) for g in got)
+        if first is None:
+            first = got
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                           atol=1e-4)
+        assert all(torch.equal(a, b) for a, b in zip(first, got))
 
 
 # --------------------------------------------------- wgrad GEMM (K3) ----

@@ -222,19 +222,55 @@ def test_flash_bwd_plan_at_the_vit_shapes():
     (1, 64, torch.bfloat16, True), (256, 64, torch.bfloat16, True),
     (257, 64, torch.bfloat16, False), (320, 64, torch.bfloat16, False),
     (64, 64, torch.float32, False), (70, 64, torch.float32, False),
-    (64, 16, torch.bfloat16, False), (64, 32, torch.bfloat16, False),
+    (64, 16, torch.bfloat16, False), (64, 32, torch.bfloat16, True),
     (64, 128, torch.bfloat16, False)])
 def test_flash_bwd_route_predicate(case):
-    """The one-launch backward takes bf16 at hd 64 up to T = 256; f32,
-    T > 256 and the other head dims keep the dQ + dK/dV pair."""
+    """The one-launch backward takes bf16 at hd 32 and 64 up to T = 256;
+    f32, T > 256 and the other head dims keep the dQ + dK/dV pair."""
     t, hd, dtype, taken = case
     q = torch.zeros((2, t, 3, hd), dtype=dtype)
     assert fl.bwd_route(q) == taken
-    if not taken and hd == 64 and t <= 256:
+    if not taken and hd in (32, 64) and t <= 256:
         assert fl.bwd_plan(2, t, 3, hd, H100_SMS)  # f32: a plan, no route
-    if hd != 64 or t > 256:
+    if hd not in (32, 64) or t > 256:
         with pytest.raises(ValueError, match="no plan"):
             fl.bwd_plan(2, t, 3, hd, H100_SMS)
+
+
+@pytest.mark.parametrize("case", [
+    # (t, hd, dtype, taken): hd 32 as the route takes it
+    (1, 32, torch.bfloat16, True), (70, 32, torch.bfloat16, True),
+    (256, 32, torch.bfloat16, True), (257, 32, torch.bfloat16, False),
+    (64, 32, torch.float32, False)])
+def test_flash_bwd_route_at_hd_32(case):
+    """textcls's head dim: bf16 up to T = 256 on the one-launch kernel,
+    f32 (the f32 rows of the card tests) and T > 256 on the pair."""
+    t, hd, dtype, taken = case
+    assert fl.bwd_route(torch.zeros((2, t, 3, hd), dtype=dtype)) == taken
+
+
+@pytest.mark.parametrize("t", range(1, 257))
+def test_flash_bwd_plan_at_hd_32_fits_the_card(t):
+    """At hd 32 a 64-row tile is 4 KB (64-byte rows): the walk is hd 64's
+    and the plan's shared memory, each tile half hd 64's, is within a
+    block's 232,448 B at every T the route takes."""
+    p32, p64 = fl.bwd_plan(64, t, 12, 32, H100_SMS), fl.bwd_plan(64, t, 12,
+                                                                 64, H100_SMS)
+    assert p32[:6] == p64[:6]  # pair, n_kb, n_qt, items, stages, grid
+    assert p32.smem == fl.bwd_smem_bytes(p32.pair, p32.n_kb, p32.n_qt,
+                                         p32.stages, 32) <= SMEM_PER_BLOCK
+    assert p32.smem < p64.smem
+
+
+def test_flash_bwd_plan_at_textcls():
+    """textcls (batch 256, T = 64 causal, 4 heads of 32): the PAIR walk,
+    512 pairs, 128 blocks of 4, 2 stages in 110,656 B; T = 70 and 130 take
+    the BLOCK walk with one and two key blocks."""
+    p = fl.bwd_plan(256, 64, 4, 32, H100_SMS)
+    assert (p.pair, p.n_kb, p.n_qt, p.items, p.stages, p.grid,
+            p.smem) == (True, 1, 1, 512, 2, 128, 110656)
+    assert fl.bwd_plan(2, 70, 2, 32, H100_SMS)[:3] == (False, 1, 2)
+    assert fl.bwd_plan(1, 130, 2, 32, H100_SMS)[:3] == (False, 2, 3)
 
 
 # ------------------------------------------------------ dense TN GEMM ----
@@ -819,3 +855,92 @@ def test_fused_fwd_halo_holds_every_tile(hw):
             assert len(images) <= imgs
         else:
             assert imgs == 1 and len(images) <= 1 + (split > 0)
+
+
+# --------------------------------------------------- K1's stem route ----
+# (name, n, h, w, k, stride, padding, Cout, tiles, halo rows) of the three
+# Cin = 3 convs at the chip's batches: ResNet-50's 7x7/2 stem (batch 32),
+# SphereNet-20's 3x3/2 stem (256, 112x96), VGG16-BN's conv0 (256)
+STEM_CONVS = [("resnet50_stem", 32, 224, 224, 7, 2, ((3, 3), (3, 3)), 64,
+               3136, 9),
+              ("spherenet20_stem", 256, 112, 96, 3, 2, 1, 64, 5376, 9),
+              ("vgg16_conv0", 256, 32, 32, 3, 1, "SAME", 64, 2048, 6)]
+
+
+def _stem_geometry(n, h, w, k, stride, pad):
+    pads = mc.resolve_padding(pad, h, w, k, k, stride)
+    ho = mc.out_size(h, k, stride, pads[0], pads[1])
+    wo = mc.out_size(w, k, stride, pads[2], pads[3])
+    return pads, ho, wo
+
+
+@pytest.mark.parametrize("conv", STEM_CONVS, ids=[c[0] for c in STEM_CONVS])
+def test_stem_plan_at_the_three_convs(conv):
+    """The route holds in bf16 (not f32, not at width 0.125's Cout 8); the
+    tiles divide M; the halo holds the most rows any tile reads, each span
+    inside its image; shared memory within 227 KB and two blocks an SM."""
+    name, n, h, w, k, stride, pad, cout, tiles, rows = conv
+    x = torch.zeros((1, h, w, 3), dtype=torch.bfloat16)
+    wt = torch.zeros((k, k, 3, cout))
+    assert mc.stem_route(x, wt, stride, pad)
+    assert not mc.stem_route(x.float(), wt, stride, pad)
+    assert not mc.stem_route(x, torch.zeros((k, k, 3, cout // 8)), stride,
+                             pad)
+    pads, ho, wo = _stem_geometry(n, h, w, k, stride, pad)
+    plan = mc.stem_plan(n, h, w, 3, cout, k, k, stride, pads, H100_SMS)
+    assert plan.tiles == tiles and n * ho * wo == tiles * 128
+    assert plan.kp == -(-k * k * 3 // 16) * 16 and plan.halo_rows == rows
+    most = 0
+    for t in range(plan.tiles):
+        a, b = mc.stem_spans(t * 128, n, h, ho, wo, k, stride, pads[0])
+        for img, lo, r in [a] + ([b] if b else []):
+            assert 0 <= img < n and 0 <= lo and lo + r <= h and r >= 1
+        most = max(most, a[2] + (b[2] if b else 0))
+    assert most == plan.halo_rows
+    assert plan.halo_bytes >= rows * w * 3 * 2 and plan.halo_bytes % 128 == 0
+    assert plan.smem == mc.stem_smem_bytes(plan.kp, cout, plan.halo_bytes)
+    assert 2 * (plan.smem + 1024) <= SMEM_PER_SM
+    assert plan.grid == min(plan.tiles, 2 * H100_SMS)
+
+
+@pytest.mark.parametrize("case", [
+    # (n, h, w, k, stride, pad): tiles that start mid-row and cross images
+    (3, 24, 24, 7, 2, 3), (2, 26, 24, 3, 2, 1), (3, 12, 16, 3, 1, "SAME"),
+    (5, 9, 16, 3, 1, 1)])
+def test_stem_spans_hold_every_row_each_tile_reads(case):
+    """Every input row a tile's windows touch lies in one of its spans:
+    the image's own span for its pixels, the next image's first rows for
+    the pixels past it."""
+    n, h, w, k, stride, pad = case
+    pads, ho, wo = _stem_geometry(n, h, w, k, stride, pad)
+    tiles = -(-n * ho * wo // 128)
+    crossed = 0
+    for t in range(tiles):
+        a, b = mc.stem_spans(t * 128, n, h, ho, wo, k, stride, pads[0])
+        crossed += b is not None
+        for m in range(t * 128, min(t * 128 + 128, n * ho * wo)):
+            img, rem = divmod(m, ho * wo)
+            oh = rem // wo
+            need = {r for r in range(oh * stride - pads[0],
+                                     oh * stride - pads[0] + k)
+                    if 0 <= r < h}
+            span = a if img == a[0] else b
+            assert span is not None and span[0] == img
+            assert need <= set(range(span[1], span[1] + span[2]))
+    assert crossed > 0
+
+
+@pytest.mark.parametrize("case", [
+    # (dtype, n, h, w, cin, k, stride, pad, cout): off the route
+    (torch.float32, 2, 32, 32, 3, 3, 1, "SAME", 64),   # f32
+    (torch.bfloat16, 2, 32, 32, 3, 3, 1, "SAME", 32),  # Cout 32
+    (torch.bfloat16, 2, 32, 32, 8, 3, 1, "SAME", 64),  # Cin 8
+    (torch.bfloat16, 2, 32, 30, 3, 3, 1, "SAME", 64),  # rows of 180 B
+    (torch.bfloat16, 2, 8, 8, 3, 3, 1, "SAME", 64),    # 64 pixels an image
+    (torch.bfloat16, 2, 64, 64, 3, 7, 2, 7, 64),       # pad past k - 1
+    (torch.bfloat16, 2, 64, 64, 6, 7, 1, 3, 64),       # K = 294
+    (torch.bfloat16, 2, 64, 64, 3, 3, 1, 1, 320)])     # Cout past 256
+def test_stem_route_refuses_what_the_kernel_does_not_take(case):
+    dtype, n, h, w, cin, k, stride, pad, cout = case
+    assert not mc.stem_route(torch.zeros((n, h, w, cin), dtype=dtype),
+                             torch.zeros((k, k, cin, cout)), stride, pad)
